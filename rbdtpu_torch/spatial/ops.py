@@ -1,0 +1,76 @@
+"""Spatial-vector algebra (Featherstone 6-D motion/force operators) on
+``(..., 6)`` / ``(..., 6, 6)`` tensors — the parts of ``rbdtpu.spatial.ops``
+that the transforms and tree sweeps use.
+
+Conventions: motion v = [omega; v_lin], force f = [n; f_lin];
+crm(v) m == v x m, crf(v) f == v x* f, crf(v) = -crm(v)^T.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def skew(r):
+    """skew(r) @ x == r cross x.  (..., 3) -> (..., 3, 3)."""
+    x, y, z = r.unbind(-1)
+    o = torch.zeros_like(x)
+    return torch.stack(
+        [
+            torch.stack([o, -z, y], dim=-1),
+            torch.stack([z, o, -x], dim=-1),
+            torch.stack([-y, x, o], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def crm(v):
+    """Motion cross-product matrix [[wx, 0], [vx, wx]]: (..., 6) -> (..., 6, 6)."""
+    wx = skew(v[..., :3])
+    vx = skew(v[..., 3:])
+    zero = torch.zeros_like(wx)
+    top = torch.cat([wx, zero], dim=-1)
+    bot = torch.cat([vx, wx], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def crf(v):
+    """Force cross-product matrix crf(v) = -crm(v)^T."""
+    return -crm(v).transpose(-1, -2)
+
+
+def _cross3(a, b):
+    return torch.linalg.cross(*torch.broadcast_tensors(a, b), dim=-1)
+
+
+def cross_motion(v, m):
+    """v x m for motion vectors: (..., 6), (..., 6) -> (..., 6)."""
+    w, vl = v[..., :3], v[..., 3:]
+    mw, ml = m[..., :3], m[..., 3:]
+    top = _cross3(w, mw)
+    bot = _cross3(vl, mw) + _cross3(w, ml)
+    return torch.cat([top, bot], dim=-1)
+
+
+def cross_force(v, f):
+    """v x* f for a motion vector v and force vector f: -> (..., 6)."""
+    w, vl = v[..., :3], v[..., 3:]
+    fn, fl = f[..., :3], f[..., 3:]
+    top = _cross3(w, fn) + _cross3(vl, fl)
+    bot = _cross3(w, fl)
+    return torch.cat([top, bot], dim=-1)
+
+
+def mv(A, x):
+    """A @ x for (..., i, j) x (..., j) -> (..., i)."""
+    return (A @ x.unsqueeze(-1)).squeeze(-1)
+
+
+def mtv(A, x):
+    """A^T @ x for (..., j, i) x (..., j) -> (..., i)."""
+    return (A.transpose(-1, -2) @ x.unsqueeze(-1)).squeeze(-1)
+
+
+def xtax(X, A):
+    """X^T @ A @ X."""
+    return X.transpose(-1, -2) @ A @ X
