@@ -7,24 +7,36 @@ Phases, each ending the run with a nonzero exit when it fails:
 
 1. identify the card (name, power limit) and build the CUDA kernels from
    ``rbdtpu_torch/csrc``;
-2. hold every kernel against its plain PyTorch version on the card, at the
-   shapes of the arm7 end-effector DDP main path: max abs error <= 1e-9 in
-   float64, and a relative bound in float32; time both (CUDA events);
-3. drive the main path — ``ddp_solve`` on arm7 EE reaching, Bm=128, H=100,
-   10 iterations, 8 line-search steps, float32, ``fused=True`` — and check
-   that every kernel was launched, that J is finite and nonincreasing and
-   that the mean J fell;
+2. hold each kernel of the DDP path against its plain PyTorch version on
+   the card, at that path's shapes: max abs error <= 1e-9 in float64, and
+   a relative bound in float32; time both (CUDA events) and compute each
+   kernel's bound (bytes over the memory rate, or operations over the
+   float32 peak, whichever is larger; the operations each function needs
+   are counted by ``rbdtpu_torch/opcount.py``);
+3. drive the arm7 end-effector DDP path (BASELINE.json configs[2]) —
+   ``ddp_solve`` on arm7 EE reaching, Bm=128, H=100, 10 iterations, 8
+   line-search steps, float32, ``fused=True`` — and check that every kernel
+   of that path was launched, that J is finite and nonincreasing and that
+   the mean J fell;
 4. solve Bm=4 problems in float64 twice, through the kernels and through
    the plain versions on the card, at H=100 (the main path's horizon) and
    at H=20, and require max |U_kernel - U_plain| < 1e-6 (the repository's
    control-parity tolerance) at both;
-5. profile one main-path solve: per-phase wall time, torch.profiler's
-   device time per kernel, the kernels a solve launches and the device's
-   idle share.
+5. profile one DDP solve: per-phase wall time, torch.profiler's device time
+   per kernel, the kernels a solve launches and the device's idle share;
+6. the same checks for the rollout path's kernels at its shapes (after
+   the DDP phases, which therefore run as they did before these kernels);
+7. drive the forward-dynamics rollout path (BASELINE.json configs[1]) on
+   bench.py's inputs: 4096 arm7 trajectories x H=50, float32, the 10-step
+   check of the whole-horizon kernel against the scan of its step kernel
+   and against the plain route (< 1e-3), then ``rollout_fused_multi``
+   timed on the "minv" and "aba" routes (steps/s), each call one launch;
+   every kernel of the path must have been launched and the final states
+   finite.
 
-The last two lines of standard output are the kernels' JSON summary and
-the result line.  Without a CUDA device the script exits nonzero and prints
-no result.
+The last three lines of standard output are the card's name and power
+limit, the kernels' JSON summary and the result line.  Without a CUDA
+device the script exits nonzero and prints no result.
 """
 from __future__ import annotations
 
@@ -47,9 +59,15 @@ TOL64 = 1e-9
 # the plain versions: <= 5e-7 relative), so 1e-4; the feedback rollout
 # carries 100 closed-loop steps, so 1e-3.
 TOL32 = {"fd_step": 1e-4, "feedback_rollout": 1e-3, "linearize_parts": 1e-4,
-         "ee_gn": 1e-4, "ee_err": 1e-4}
+         "ee_gn": 1e-4, "ee_err": 1e-4, "rnea": 1e-4, "fd_step_minv": 1e-4,
+         "rollout_multi": 1e-3}
 U_PARITY = 1e-6
 PARITY_H = (100, 20)
+# the rollout path (BASELINE.json configs[1], bench.py:132-209, 377-416)
+B1, H1, HONEST_H, HONEST_TOL = 4096, 50, 10, 1e-3
+# H100 SXM published peaks at 700 W: HBM bytes/s, float32 and float64
+# operations/s outside the tensor cores
+PEAK_BYTES, PEAK_OPS = 3.35e12, {"float32": 67e12, "float64": 34e12}
 
 
 def require(ok: bool, msg: str):
@@ -74,6 +92,24 @@ def cuda_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(args, outs, model, ops: float, dtype: str):
+    """(bound_ms, bound_by): the larger of the bytes the function must move
+    (every input tensor, the model tables and every output once) over the
+    memory rate and its operations (``ops``, the algorithm's count from
+    ``rbdtpu_torch/opcount.py``) over the peak rate of ``dtype``."""
+    import torch
+    from rbdtpu_torch.kernels import _lib
+
+    if not isinstance(outs, tuple):
+        outs = (outs,)
+    tensors = [t for t in (*args, *outs) if isinstance(t, torch.Tensor)]
+    tab, itab = _lib.model_tables(model, model.device, model.dtype)
+    nbytes = sum(t.numel() * t.element_size() for t in (*tensors, tab, itab))
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_OPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def kernel_inputs(model64, rng):
@@ -127,8 +163,10 @@ def kernel_table():
 
     return {
         "fd_step": (
-            lambda m, x, u: fused.fd_step_fused(m, x, u, DT, GRAVITY),
-            lambda m, x, u: fused.fd_step_plain(m, x, u, DT, GRAVITY),
+            lambda m, x, u, **kw: fused.fd_step_fused(m, x, u, DT, GRAVITY,
+                                                      **kw),
+            lambda m, x, u, **kw: fused.fd_step_plain(m, x, u, DT, GRAVITY,
+                                                      **kw),
             "rbdtpu_torch/csrc/fd_step.cu", "rbdtpu/kernels/fused.py:450"),
         "feedback_rollout": (
             lambda m, *a: fused.feedback_rollout_fused(m, *a, DT, GRAVITY),
@@ -143,7 +181,59 @@ def kernel_table():
                   "rbdtpu/kernels/fk_lane.py:203"),
         "ee_err": (*ee(False), "rbdtpu_torch/csrc/ee_gn.cu",
                    "rbdtpu/kernels/fk_lane.py:203"),
+        "rnea": (
+            lambda m, *a: fused.rnea_fused(m, *a, gravity=GRAVITY),
+            lambda m, *a: fused.rnea_plain(m, *a, gravity=GRAVITY),
+            "rbdtpu_torch/csrc/rnea.cu", "rbdtpu/kernels/fused.py:358"),
+        "fd_step_minv": (
+            lambda m, x, u, **kw: fused.fd_step_minv_fused(m, x, u, DT, GRAVITY,
+                                                           **kw),
+            lambda m, x, u, **kw: fused.fd_step_minv_plain(m, x, u, DT, GRAVITY,
+                                                           **kw),
+            "rbdtpu_torch/csrc/fd_step_minv.cu",
+            "rbdtpu/kernels/fused.py:1267"),
+        "rollout_multi": (
+            lambda m, x0, U, **kw: fused.rollout_fused_multi(m, x0, U, DT,
+                                                             GRAVITY, **kw),
+            lambda m, x0, U, **kw: fused.rollout_multi_plain(m, x0, U, DT,
+                                                             GRAVITY, **kw),
+            "rbdtpu_torch/csrc/rollout_multi.cu",
+            "rbdtpu/kernels/fused.py:1029"),
     }
+
+
+def rollout_inputs(model64, rng):
+    """Float64 CUDA inputs at the rollout path's shapes (B1 trajectories):
+    bench.py's x0 = 0.1 N(0,1), U = 0.5 N(0,1) for "minv" and 0.2 N(0,1) for
+    "aba"; world-frame wrenches 0.5 N(0,1) (at 2 N(0,1) a few of the 4096
+    open-loop trajectories overflow within 50 steps).  Each entry: (label,
+    kernel name, args, keyword args, operations key, states x steps)."""
+    import torch
+
+    n, nb = model64.nv, model64.nb
+    T = lambda sc, *s: torch.tensor(sc * rng.standard_normal(s),
+                                    dtype=torch.float64, device=model64.device)
+    x0, u, qdd = T(0.1, B1, 2 * n), T(0.5, B1, n), T(0.5, B1, n)
+    q, qd = x0[:, :n].contiguous(), x0[:, n:].contiguous()
+    U_minv, U_aba = T(0.5, H1, B1, n), T(0.2, H1, B1, n)
+    F1, FB, FH = T(0.5, nb, 6), T(0.5, B1, nb, 6), T(0.5, H1, nb, 6)
+    return [
+        ("rnea bias", "rnea", (q, qd), {}, "rnea", B1),
+        ("rnea qdd", "rnea", (q, qd, qdd), {}, "rnea+qdd", B1),
+        ("fd_step_minv", "fd_step_minv", (x0, u), {}, "fd_step_minv", B1),
+        ("fd_step_minv dense", "fd_step_minv", (x0, u),
+         {"dense_minv": True}, "fd_step_minv+dense", B1),
+        ("rollout_multi minv", "rollout_multi", (x0, U_minv),
+         {"route": "minv"}, "fd_step_minv", B1 * H1),
+        ("rollout_multi aba", "rollout_multi", (x0, U_aba),
+         {"route": "aba"}, "fd_step", B1 * H1),
+        ("rollout_multi minv f_ext (H,nb,6)", "rollout_multi", (x0, U_minv),
+         {"route": "minv", "f_ext": FH}, "fd_step_minv+fext", B1 * H1),
+        ("fd_step f_ext (nb,6)", "fd_step", (x0, u), {"f_ext": F1},
+         "fd_step+fext", B1),
+        ("fd_step f_ext (B,nb,6)", "fd_step", (x0, u), {"f_ext": FB},
+         "fd_step+fext", B1),
+    ]
 
 
 def errors(outs_a, outs_b, relative: bool) -> list:
@@ -194,14 +284,18 @@ def ptxas_summary(log: str) -> list:
     out, name, frame = [], None, ""
     for line in log.splitlines():
         if "Function properties for" in line:
-            # kernels are plain templates: _Z<len><name>I<d|f>[Lb<0|1>E]...
+            # kernels are plain templates: _Z<len><name>I<d|f>(Lb<0|1>E)*...,
+            # the bools being GN, HAS_QDD, DENSE, MINV or FEXT
             m = re.search(r"for _Z(\d+)(\w+)", line)
             name = None
             if m:
                 n = int(m.group(1))
                 base, tail = m.group(2)[:n], m.group(2)[n:]
-                name = (f"{base}<{'double' if tail[1:2] == 'd' else 'float'}"
-                        f"{', GN' if tail[2:6] == 'Lb1E' else ''}>")
+                t = re.match(r"I([df])((?:Lb[01]E)*)", tail)
+                args = ["double" if t and t.group(1) == "d" else "float"]
+                flags = re.findall(r"Lb([01])E", t.group(2) if t else "")
+                args += ["true" if b == "1" else "false" for b in flags]
+                name = f"{base}<{', '.join(args)}>"
         elif name and "bytes stack frame" in line:
             frame = line.strip()
         elif name and "Used" in line:
@@ -279,6 +373,135 @@ def profile_main_path(model, x0, U0, iters: int):
     print(f"profile: host launch calls per solve {launch_calls}")
 
 
+def check_kernels(checks, m64, m32, smi: str, rows=None) -> dict:
+    """Hold each kernel against its plain version (float64 max abs error
+    <= TOL64, float32 relative error <= TOL32), time both in float32 and
+    compute the bound.  ``checks``: (label, kernel name, float64 args,
+    keyword args, operations key, states x steps).  The first check of a
+    kernel gives its row of the JSON line; the row's max_abs_err is the
+    largest over the kernel's checks.  Fails after printing every check."""
+    import torch
+    from rbdtpu_torch import opcount
+
+    flops = opcount.per_state(m32, TARGET)
+    table = kernel_table()
+    rows = {} if rows is None else rows
+    failures = []
+    for label, kname, a64, kw, ops_key, states in checks:
+        kern, plain, source, replaces = table[kname]
+        a32 = tuple(a.float() for a in a64)
+        kw32 = {k: v.float() if isinstance(v, torch.Tensor) else v
+                for k, v in kw.items()}
+        p64 = plain(m64, *a64, **kw)
+        e64 = errors(kern(m64, *a64, **kw), p64, relative=False)
+        k32, p32 = kern(m32, *a32, **kw32), plain(m32, *a32, **kw32)
+        e32 = errors(k32, p32, relative=True)
+        torch.cuda.synchronize()
+        err64, err32 = max(e64), max(e32)
+        if err64 > TOL64:
+            failures.append(f"{label}: float64 max abs error {err64:.3e} > "
+                            f"{TOL64:g}")
+        if err32 > TOL32[kname]:
+            failures.append(f"{label}: float32 relative error {err32:.3e} > "
+                            f"{TOL32[kname]:g}")
+        ms = cuda_ms(lambda: kern(m32, *a32, **kw32), reps=20)
+        plain_ms = cuda_ms(lambda: plain(m32, *a32, **kw32), reps=3)
+        ops = flops[ops_key] * states
+        bound_ms, bound_by = bound((*a32, *kw32.values()), k32, m32, ops,
+                                   "float32")
+        shapes = " ".join(str(tuple(a.shape)) for a in a64)
+        fmt = lambda es: "[" + " ".join(f"{e:.2e}" for e in es) + "]"
+        print(f"kernel {label}: inputs {shapes}  f64 max|err| {fmt(e64)}  "
+              f"f32 rel err {fmt(e32)} (kernel vs f64 plain "
+              f"{fmt(errors(k32, p64, relative=True))}, plain vs f64 plain "
+              f"{fmt(errors(p32, p64, relative=True))})  kernel {ms:.4f} ms  "
+              f"plain {plain_ms:.4f} ms  bound {bound_ms:.6f} ms by "
+              f"{bound_by} ({ops:.4g} operations) (f32, median, {smi})")
+        if kname not in rows:
+            rows[kname] = dict(name=kname, route="cuda", source=source,
+                               replaces=replaces, max_abs_err=err64, ms=ms,
+                               plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, library_ms=None)
+        rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"], err64)
+    require(not failures, "; ".join(failures))
+    return rows
+
+
+# the kernels each path launches; the JSON line reports each kernel's
+# launches from the path it belongs to (fd_step from the DDP path).  rnea
+# (K10) is the bias pass of fd_step_minv as a kernel of its own: held
+# against its plain version, launched by neither path, reported with the
+# rollout path's count (0).
+DDP_KERNELS = ("fd_step", "feedback_rollout", "linearize_parts", "ee_gn",
+               "ee_err")
+ROLLOUT_KERNELS = ("fd_step_minv", "rollout_multi")
+
+
+def rollout_path(m32, rng, smi: str) -> dict:
+    """BASELINE.json configs[1] through the port's entry points, on
+    bench.py's inputs (bench.py:132-209, 377-416): B1 arm7 trajectories of
+    H1 steps, dt=0.01, float32, x0 = 0.1 N(0,1).  The 10-step check holds
+    the whole-horizon kernel against the plain route (< 1e-3, as
+    bench.py:174) and against the scan of its step kernel
+    (``fd_step_minv_fused`` or ``rollout_fused``) on U = 0.5 N(0,1), the
+    controls of bench.py's check; then each route is timed on
+    U = 0.2 N(0,1), the controls bench.py times both routes on (median of 7
+    CUDA-event timings after a warm-up).  Returns the launch counts of the
+    run."""
+    import torch
+    from rbdtpu_torch.kernels import _lib, fused
+
+    n = m32.nv
+    T = lambda sc, *s: torch.tensor(sc * rng.standard_normal(s),
+                                    dtype=torch.float32, device=m32.device)
+    x0 = T(0.1, B1, 2 * n)
+    U_check, U = T(0.5, HONEST_H, B1, n), T(0.2, H1, B1, n)
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+
+    def minv_scan(x, Us):
+        for t in range(Us.shape[0]):
+            x = fused.fd_step_minv_fused(m32, x, Us[t], DT, GRAVITY)
+        return x
+
+    step_scans = {
+        "minv": minv_scan,
+        "aba": lambda x, Us: fused.rollout_fused(m32, x, Us, DT, GRAVITY),
+    }
+    for route, scan in step_scans.items():
+        xk = fused.rollout_fused_multi(m32, x0, U_check, DT, GRAVITY,
+                                       route=route)
+        xs = scan(x0, U_check)
+        xp = fused.rollout_multi_plain(m32, x0, U_check, DT, GRAVITY,
+                                       route=route)
+        e_plain = (xk - xp).abs().max().item()
+        e_scan = (xk - xs).abs().max().item()
+        print(f"rollout path {route}: {HONEST_H}-step whole-horizon kernel vs "
+              f"plain route max|err| {e_plain:.3e}, vs the scan of its step "
+              f"kernel {e_scan:.3e} (bound {HONEST_TOL:g})")
+        require(e_plain < HONEST_TOL and e_scan < HONEST_TOL,
+                f"the {route} rollout kernel diverges over {HONEST_H} steps")
+    for route in ("minv", "aba"):
+        before = dict(_lib.launches)
+        xf = fused.rollout_fused_multi(m32, x0, U, DT, GRAVITY, route=route)
+        torch.cuda.synchronize()
+        delta = {k: _lib.launches[k] - before[k] for k in before}
+        require(delta["rollout_multi"] == 1 and delta["fd_step"] == 0
+                and delta["fd_step_minv"] == 0,
+                f"one {route} rollout launched {delta}")
+        require(tuple(xf.shape) == (B1, 2 * n), f"final state {xf.shape}")
+        require(bool(xf.isfinite().all()), f"non-finite {route} final state")
+        ms = cuda_ms(lambda: fused.rollout_fused_multi(
+            m32, x0, U, DT, GRAVITY, route=route), reps=7)
+        print(f"rollout path {route}: B={B1} H={H1} f32: {ms:.4f} ms per "
+              f"rollout (median of 7, CUDA events) = "
+              f"{B1 * H1 / (ms / 1e3):.6g} steps/s, one launch; max|x_H| "
+              f"{xf.abs().max().item():.4g} on {smi}")
+    counts = dict(_lib.launches)
+    print(f"rollout path launches: {counts}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -311,39 +534,16 @@ def main() -> int:
         for line in ptxas_summary(f.read()):
             print(line)
 
-    # ---- 2. every kernel against its plain version ----
+    # ---- 2. the DDP path's kernels against their plain versions ----
     m64 = load_asset("arm7", device="cuda", dtype=torch.float64)
     m32 = load_asset("arm7", device="cuda", dtype=torch.float32)
     inputs64 = kernel_inputs(m64, np.random.default_rng(SEED))
-    rows, failures = {}, []
-    for kname, (kern, plain, source, replaces) in kernel_table().items():
-        a64 = inputs64[kname]
-        a32 = tuple(a.float() for a in a64)
-        p64 = plain(m64, *a64)
-        e64 = errors(kern(m64, *a64), p64, relative=False)
-        k32, p32 = kern(m32, *a32), plain(m32, *a32)
-        e32 = errors(k32, p32, relative=True)
-        torch.cuda.synchronize()
-        err64, err32 = max(e64), max(e32)
-        if err64 > TOL64:
-            failures.append(f"{kname}: float64 max abs error {err64:.3e} > "
-                            f"{TOL64:g}")
-        if err32 > TOL32[kname]:
-            failures.append(f"{kname}: float32 relative error {err32:.3e} > "
-                            f"{TOL32[kname]:g}")
-        ms = cuda_ms(lambda: kern(m32, *a32), reps=20)
-        plain_ms = cuda_ms(lambda: plain(m32, *a32), reps=3)
-        shapes = " ".join(str(tuple(a.shape)) for a in a64)
-        fmt = lambda es: "[" + " ".join(f"{e:.2e}" for e in es) + "]"
-        print(f"kernel {kname}: inputs {shapes}  f64 max|err| {fmt(e64)}  "
-              f"f32 rel err {fmt(e32)} (kernel vs f64 plain "
-              f"{fmt(errors(k32, p64, relative=True))}, plain vs f64 plain "
-              f"{fmt(errors(p32, p64, relative=True))})  kernel {ms:.4f} ms  "
-              f"plain {plain_ms:.4f} ms (f32, median, {smi})")
-        rows[kname] = dict(name=kname, route="cuda", source=source,
-                           replaces=replaces, max_abs_err=err64, ms=ms,
-                           plain_ms=plain_ms)
-    require(not failures, "; ".join(failures))
+    ddp_states = {"fd_step": 128, "feedback_rollout": 1024 * 100,
+                  "linearize_parts": 12800, "ee_gn": 12800,
+                  "ee_err": 102400}
+    rows = check_kernels(
+        [(k, k, inputs64[k], {}, k, ddp_states[k]) for k in inputs64],
+        m64, m32, smi)
 
     # ---- 3. the main path: arm7 EE reaching DDP, float32, kernels ----
     Bm, H, iters = 128, 100, 10
@@ -371,7 +571,7 @@ def main() -> int:
         times.append(start.elapsed_time(end) / 1e3)
     counts = dict(_lib.launches)
     print(f"main path launches (3 solves): {counts}")
-    for kname in rows:
+    for kname in DDP_KERNELS:
         require(counts[kname] > 0, f"{kname} was not launched on the main path")
         rows[kname]["launches"] = counts[kname]
     require(tuple(J_hist.shape) == (iters, Bm), f"J_hist shape {J_hist.shape}")
@@ -406,10 +606,25 @@ def main() -> int:
     # ---- 5. where the main path's time goes ----
     profile_main_path(m32, x0, U0, iters)
 
+    # ---- 6. the rollout path's kernels against their plain versions, after
+    # the DDP path so that its host-bound solve runs in the same process
+    # state as before they existed ----
+    check_kernels(rollout_inputs(m64, np.random.default_rng(SEED + 3)),
+                  m64, m32, smi, rows)
+
+    # ---- 7. the rollout path: 4096 x H=50 arm7 rollouts, float32 ----
+    counts = rollout_path(m32, np.random.default_rng(SEED + 4), smi)
+    for kname in ROLLOUT_KERNELS:
+        require(counts[kname] > 0,
+                f"{kname} was not launched on the rollout path")
+        rows[kname]["launches"] = counts[kname]
+    rows["rnea"]["launches"] = counts["rnea"]
+
     print(smi)
     print(json.dumps({"kernels": [
-        {k: rows[n_][k] for k in ("name", "route", "source", "replaces",
-                                  "launches", "max_abs_err", "ms", "plain_ms")}
+        {k: rows[n_][k] for k in (
+            "name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         for n_ in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

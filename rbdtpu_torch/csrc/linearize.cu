@@ -13,106 +13,6 @@
 
 namespace rbd {
 
-// RNEA forward sweep at the given qdd, then the force accumulation of the
-// backward sweep (f[parent] += X^T f[i]).
-template <typename T>
-RBD_HD void rnea_sweeps(const Model<T>& m, const Xc<T>* X, const T* qd, const T* qdd, T gravity,
-                        T (*v)[6], T (*a)[6], T (*f)[6]) {
-  T ag[6];
-  gravity_accel(gravity, ag);
-  for (int i = 0; i < m.nb; ++i) {
-    const T* b = m.body(i);
-    const T* S = b + OFF_S;
-    const int p = m.parent(i);
-    T vJ[6], vxvJ[6], Ia[6], Iv[6], vxIv[6];
-    for (int k = 0; k < 6; ++k) vJ[k] = S[k] * qd[i];
-    if (p < 0) {
-      for (int k = 0; k < 6; ++k) v[i][k] = vJ[k];
-      xc_mv(X[i], ag, a[i]);
-    } else {
-      xc_mv(X[i], v[p], v[i]);
-      for (int k = 0; k < 6; ++k) v[i][k] += vJ[k];
-      xc_mv(X[i], a[p], a[i]);
-    }
-    cross_motion(v[i], vJ, vxvJ);
-    for (int k = 0; k < 6; ++k) a[i][k] += vxvJ[k] + S[k] * qdd[i];
-    matvec6(b + OFF_I, a[i], Ia);
-    matvec6(b + OFF_I, v[i], Iv);
-    cross_force(v[i], Iv, vxIv);
-    for (int k = 0; k < 6; ++k) f[i][k] = Ia[k] + vxIv[k];
-  }
-  for (int i = m.nb - 1; i >= 0; --i) {
-    const int p = m.parent(i);
-    if (p >= 0) {
-      T t[6];
-      xc_mtv(X[i], f[i], t);
-      for (int k = 0; k < 6; ++k) f[p][k] += t[k];
-    }
-  }
-}
-
-// Analytical M^-1 (rbdtpu dynamics/minv.py): leaf->root sweep for the upper
-// rows, root->leaf sweep completing them; out (n, n) symmetric.
-// A real call, not inlined: inlined into linearize_knot, nvcc (CUDA 12.8)
-// gave the float instantiation's M^-1 locals the storage of the caller's
-// still-live RNEA accelerations and forces, corrupting dc/dq (measured on an
-// H100; double and the host build were unaffected).
-template <typename T>
-RBD_HD_CALL void minv_dense(const Model<T>& m, const Xc<T>* X, T* out) {
-  const int n = m.nb;
-  T M[NB_MAX][NB_MAX], F[NB_MAX][6][NB_MAX], IA[NB_MAX][36], U[NB_MAX][6], Dinv[NB_MAX];
-  for (int i = 0; i < n; ++i) {
-    for (int c = 0; c < n; ++c) {
-      M[i][c] = T(0);
-      for (int r = 0; r < 6; ++r) F[i][r][c] = T(0);
-    }
-    for (int k = 0; k < 36; ++k) IA[i][k] = m.body(i)[OFF_I + k];
-  }
-  for (int i = n - 1; i >= 0; --i) {
-    const T* S = m.body(i) + OFF_S;
-    const int p = m.parent(i);
-    matvec6(IA[i], S, U[i]);
-    Dinv[i] = T(1) / dot6(S, U[i]);
-    for (int c = 0; c < n; ++c) {
-      T sF = 0;
-      for (int r = 0; r < 6; ++r) sF += S[r] * F[i][r][c];
-      M[i][c] += -Dinv[i] * sF + (c == i ? Dinv[i] : T(0));
-    }
-    if (p >= 0) {
-      for (int c = 0; c < n; ++c) {
-        T col[6], t[6];
-        for (int r = 0; r < 6; ++r) {
-          F[i][r][c] += U[i][r] * M[i][c];
-          col[r] = F[i][r][c];
-        }
-        xc_mtv(X[i], col, t);
-        for (int r = 0; r < 6; ++r) F[p][r][c] += t[r];
-      }
-      T Ia[36];
-      for (int r = 0; r < 6; ++r)
-        for (int s = 0; s < 6; ++s) Ia[6 * r + s] = IA[i][6 * r + s] - Dinv[i] * U[i][r] * U[i][s];
-      xtax_add(X[i], Ia, IA[p]);
-    }
-  }
-  for (int i = 0; i < n; ++i) {
-    const T* S = m.body(i) + OFF_S;
-    const int p = m.parent(i);
-    for (int c = 0; c < n; ++c) {
-      if (p < 0) {
-        for (int r = 0; r < 6; ++r) F[i][r][c] = S[r] * M[i][c];
-      } else {
-        T col[6], XF[6];
-        for (int r = 0; r < 6; ++r) col[r] = F[p][r][c];
-        xc_mv(X[i], col, XF);
-        M[i][c] -= Dinv[i] * dot6(U[i], XF);
-        for (int r = 0; r < 6; ++r) F[i][r][c] = XF[r] + S[r] * M[i][c];
-      }
-    }
-  }
-  for (int i = 0; i < n; ++i)
-    for (int c = 0; c < n; ++c) out[i * n + c] = i <= c ? M[i][c] : M[c][i];
-}
-
 // Column j of dc/dq (wrt_q) or dc/dqd: forward derivative sweep over the
 // bodies, then the backward sweep; dc (n,) receives rows 0..n-1.
 template <typename T>

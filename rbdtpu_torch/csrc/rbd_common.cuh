@@ -1,5 +1,6 @@
 // Shared device code of the rbdtpu_torch kernels: the per-model tables,
-// compact spatial transforms and the tree sweeps (ABA, RNEA, Minv) for ONE
+// compact spatial transforms, world-frame wrenches and the tree sweeps (ABA,
+// RNEA, M^-1 dense and applied, the two forward-dynamics steps) for ONE
 // state, run by one thread.
 //
 // The model arrives as tables (kernels/_lib.py: model_tables), not as
@@ -224,11 +225,40 @@ RBD_HD void joint_transforms(const Model<T>& m, const T* q, Xc<T>* X) {
   for (int i = 0; i < m.nb; ++i) joint_xc(m, i, q[i], X[i]);
 }
 
+// World-frame wrenches into the body forces (rbdtpu dynamics/rnea.py
+// apply_external_forces): f[i] -= Xa[i]^{-T} fext[i] along the world->body
+// chain Xa[i] = X[i] Xa[parent], composed compactly as
+// plux(E1, r1) plux(E2, r2) = plux(E1 E2, r2 + E2^T r1); for Xa = plux(E, r),
+// Xa^{-T} [n; fl] = [E (n - r x fl); E fl].  fext is (nb, 6).
+template <typename T>
+RBD_HD void apply_fext(const Model<T>& m, const Xc<T>* X, const T* fext, T (*f)[6]) {
+  Xc<T> Xa[NB_MAX];
+  for (int i = 0; i < m.nb; ++i) {
+    const int p = m.parent(i);
+    if (p < 0) {
+      Xa[i] = X[i];
+    } else {
+      T t[3];
+      mm3(X[i].E, Xa[p].E, Xa[i].E);
+      mtv3(Xa[p].E, X[i].r, t);
+      for (int k = 0; k < 3; ++k) Xa[i].r[k] = Xa[p].r[k] + t[k];
+    }
+    const T* w = fext + 6 * i;
+    T rxf[3], nr[3], o[6];
+    cross3(Xa[i].r, w + 3, rxf);
+    for (int k = 0; k < 3; ++k) nr[k] = w[k] - rxf[k];
+    mv3(Xa[i].E, nr, o);
+    mv3(Xa[i].E, w + 3, o + 3);
+    for (int k = 0; k < 6; ++k) f[i][k] -= o[k];
+  }
+}
+
 // Articulated-body forward dynamics (rbdtpu dynamics/aba.py): qdd from
-// q (through X), qd and tau.
+// q (through X), qd and tau; world-frame wrenches fext (nb, 6) enter the
+// bias forces after the first sweep when not null.
 template <typename T>
 RBD_HD void aba(const Model<T>& m, const Xc<T>* X, const T* qd, const T* tau, T gravity,
-                T* qdd) {
+                T* qdd, const T* fext = nullptr) {
   T v[NB_MAX][6], c[NB_MAX][6], pA[NB_MAX][6], IA[NB_MAX][36];
   T U[NB_MAX][6], d[NB_MAX], u[NB_MAX];
   const int nb = m.nb;
@@ -252,6 +282,7 @@ RBD_HD void aba(const Model<T>& m, const Xc<T>* X, const T* qd, const T* tau, T 
     cross_force(v[i], Iv, pA[i]);
     for (int k = 0; k < 36; ++k) IA[i][k] = b[OFF_I + k];
   }
+  if (fext != nullptr) apply_fext(m, X, fext, pA);
   for (int i = nb - 1; i >= 0; --i) {
     const T* S = m.body(i) + OFF_S;
     const int p = m.parent(i);
@@ -283,20 +314,210 @@ RBD_HD void aba(const Model<T>& m, const Xc<T>* X, const T* qd, const T* tau, T 
   }
 }
 
-// One ABA + semi-implicit Euler step: qd' = qd + dt qdd, q' = q + dt qd'.
-// x and xo are [q; qd] of length 2 nb and may not alias.
+// RNEA forward sweep at the given qdd (null: zero, folded away when the
+// caller passes a literal nullptr), world-frame wrenches fext (null: none),
+// then the force accumulation of the backward sweep (f[parent] += X^T f[i]).
 template <typename T>
-RBD_HD void fd_step_state(const Model<T>& m, const T* x, const T* u, T dt, T gravity, T* xo) {
+RBD_HD void rnea_sweeps(const Model<T>& m, const Xc<T>* X, const T* qd, const T* qdd, T gravity,
+                        T (*v)[6], T (*a)[6], T (*f)[6], const T* fext = nullptr) {
+  T ag[6];
+  gravity_accel(gravity, ag);
+  for (int i = 0; i < m.nb; ++i) {
+    const T* b = m.body(i);
+    const T* S = b + OFF_S;
+    const int p = m.parent(i);
+    T vJ[6], vxvJ[6], Ia[6], Iv[6], vxIv[6];
+    for (int k = 0; k < 6; ++k) vJ[k] = S[k] * qd[i];
+    if (p < 0) {
+      for (int k = 0; k < 6; ++k) v[i][k] = vJ[k];
+      xc_mv(X[i], ag, a[i]);
+    } else {
+      xc_mv(X[i], v[p], v[i]);
+      for (int k = 0; k < 6; ++k) v[i][k] += vJ[k];
+      xc_mv(X[i], a[p], a[i]);
+    }
+    cross_motion(v[i], vJ, vxvJ);
+    if (qdd != nullptr) {
+      for (int k = 0; k < 6; ++k) a[i][k] += vxvJ[k] + S[k] * qdd[i];
+    } else {
+      for (int k = 0; k < 6; ++k) a[i][k] += vxvJ[k];
+    }
+    matvec6(b + OFF_I, a[i], Ia);
+    matvec6(b + OFF_I, v[i], Iv);
+    cross_force(v[i], Iv, vxIv);
+    for (int k = 0; k < 6; ++k) f[i][k] = Ia[k] + vxIv[k];
+  }
+  if (fext != nullptr) apply_fext(m, X, fext, f);
+  for (int i = m.nb - 1; i >= 0; --i) {
+    const int p = m.parent(i);
+    if (p >= 0) {
+      T t[6];
+      xc_mtv(X[i], f[i], t);
+      for (int k = 0; k < 6; ++k) f[p][k] += t[k];
+    }
+  }
+}
+
+// RNEA joint forces tau = S^T f (rbdtpu dynamics/rnea.py rnea(...)[0]).
+template <typename T>
+RBD_HD void rnea_tau(const Model<T>& m, const Xc<T>* X, const T* qd, const T* qdd, T gravity,
+                     const T* fext, T* tau) {
+  T v[NB_MAX][6], a[NB_MAX][6], f[NB_MAX][6];
+  rnea_sweeps(m, X, qd, qdd, gravity, v, a, f, fext);
+  for (int i = 0; i < m.nb; ++i) tau[i] = dot6(m.body(i) + OFF_S, f[i]);
+}
+
+// qdd = M^-1 rhs by the articulated-inertia factorisation: the ABA sweeps
+// with zero velocity and zero gravity, whose velocity sweep vanishes (rbdtpu
+// kernels/fused.py _step_lane, route "minv": aba_lane(qd=0, gravity=0)).
+template <typename T>
+RBD_HD void minv_apply(const Model<T>& m, const Xc<T>* X, const T* rhs, T* qdd) {
+  T pA[NB_MAX][6], IA[NB_MAX][36], U[NB_MAX][6], d[NB_MAX], u[NB_MAX];
+  const int nb = m.nb;
+  for (int i = 0; i < nb; ++i) {
+    for (int k = 0; k < 6; ++k) pA[i][k] = T(0);
+    for (int k = 0; k < 36; ++k) IA[i][k] = m.body(i)[OFF_I + k];
+  }
+  for (int i = nb - 1; i >= 0; --i) {
+    const T* S = m.body(i) + OFF_S;
+    const int p = m.parent(i);
+    matvec6(IA[i], S, U[i]);
+    d[i] = dot6(S, U[i]);
+    u[i] = rhs[i] - dot6(S, pA[i]);
+    if (p >= 0) {
+      T Ia[36], pa[6], t[6];
+      for (int r = 0; r < 6; ++r)
+        for (int s = 0; s < 6; ++s) Ia[6 * r + s] = IA[i][6 * r + s] - U[i][r] * U[i][s] / d[i];
+      const T ud = u[i] / d[i];
+      for (int k = 0; k < 6; ++k) pa[k] = pA[i][k] + U[i][k] * ud;
+      xtax_add(X[i], Ia, IA[p]);
+      xc_mtv(X[i], pa, t);
+      for (int k = 0; k < 6; ++k) pA[p][k] += t[k];
+    }
+  }
+  T a[NB_MAX][6];
+  for (int i = 0; i < nb; ++i) {
+    const T* S = m.body(i) + OFF_S;
+    const int p = m.parent(i);
+    if (p < 0) {
+      for (int k = 0; k < 6; ++k) a[i][k] = T(0);
+    } else {
+      xc_mv(X[i], a[p], a[i]);
+    }
+    qdd[i] = (u[i] - dot6(U[i], a[i])) / d[i];
+    for (int k = 0; k < 6; ++k) a[i][k] += S[k] * qdd[i];
+  }
+}
+
+// Analytical M^-1 (rbdtpu dynamics/minv.py): leaf->root sweep for the upper
+// rows, root->leaf sweep completing them; out (n, n) symmetric.
+// A real call, not inlined: inlined into linearize_knot, nvcc (CUDA 12.8)
+// gave the float instantiation's M^-1 locals the storage of the caller's
+// still-live RNEA accelerations and forces, corrupting dc/dq (measured on an
+// H100; double and the host build were unaffected).
+template <typename T>
+RBD_HD_CALL void minv_dense(const Model<T>& m, const Xc<T>* X, T* out) {
   const int n = m.nb;
-  Xc<T> X[NB_MAX];
-  T qdd[NB_MAX];
-  joint_transforms(m, x, X);
-  aba(m, X, x + n, u, gravity, qdd);
+  T M[NB_MAX][NB_MAX], F[NB_MAX][6][NB_MAX], IA[NB_MAX][36], U[NB_MAX][6], Dinv[NB_MAX];
+  for (int i = 0; i < n; ++i) {
+    for (int c = 0; c < n; ++c) {
+      M[i][c] = T(0);
+      for (int r = 0; r < 6; ++r) F[i][r][c] = T(0);
+    }
+    for (int k = 0; k < 36; ++k) IA[i][k] = m.body(i)[OFF_I + k];
+  }
+  for (int i = n - 1; i >= 0; --i) {
+    const T* S = m.body(i) + OFF_S;
+    const int p = m.parent(i);
+    matvec6(IA[i], S, U[i]);
+    Dinv[i] = T(1) / dot6(S, U[i]);
+    for (int c = 0; c < n; ++c) {
+      T sF = 0;
+      for (int r = 0; r < 6; ++r) sF += S[r] * F[i][r][c];
+      M[i][c] += -Dinv[i] * sF + (c == i ? Dinv[i] : T(0));
+    }
+    if (p >= 0) {
+      for (int c = 0; c < n; ++c) {
+        T col[6], t[6];
+        for (int r = 0; r < 6; ++r) {
+          F[i][r][c] += U[i][r] * M[i][c];
+          col[r] = F[i][r][c];
+        }
+        xc_mtv(X[i], col, t);
+        for (int r = 0; r < 6; ++r) F[p][r][c] += t[r];
+      }
+      T Ia[36];
+      for (int r = 0; r < 6; ++r)
+        for (int s = 0; s < 6; ++s) Ia[6 * r + s] = IA[i][6 * r + s] - Dinv[i] * U[i][r] * U[i][s];
+      xtax_add(X[i], Ia, IA[p]);
+    }
+  }
+  for (int i = 0; i < n; ++i) {
+    const T* S = m.body(i) + OFF_S;
+    const int p = m.parent(i);
+    for (int c = 0; c < n; ++c) {
+      if (p < 0) {
+        for (int r = 0; r < 6; ++r) F[i][r][c] = S[r] * M[i][c];
+      } else {
+        T col[6], XF[6];
+        for (int r = 0; r < 6; ++r) col[r] = F[p][r][c];
+        xc_mv(X[i], col, XF);
+        M[i][c] -= Dinv[i] * dot6(U[i], XF);
+        for (int r = 0; r < 6; ++r) F[i][r][c] = XF[r] + S[r] * M[i][c];
+      }
+    }
+  }
+  for (int i = 0; i < n; ++i)
+    for (int c = 0; c < n; ++c) out[i * n + c] = i <= c ? M[i][c] : M[c][i];
+}
+
+// Semi-implicit Euler: qd' = qd + dt qdd, q' = q + dt qd'.
+template <typename T>
+RBD_HD void euler_step(int n, const T* x, const T* qdd, T dt, T* xo) {
   for (int i = 0; i < n; ++i) {
     const T qdn = x[n + i] + dt * qdd[i];
     xo[n + i] = qdn;
     xo[i] = x[i] + dt * qdn;
   }
+}
+
+// One ABA + semi-implicit Euler step with optional world-frame wrenches
+// fext (nb, 6).  x and xo are [q; qd] of length 2 nb and may not alias.
+template <typename T>
+RBD_HD void fd_step_state(const Model<T>& m, const T* x, const T* u, T dt, T gravity, T* xo,
+                          const T* fext = nullptr) {
+  Xc<T> X[NB_MAX];
+  T qdd[NB_MAX];
+  joint_transforms(m, x, X);
+  aba(m, X, x + m.nb, u, gravity, qdd, fext);
+  euler_step(m.nb, x, qdd, dt, xo);
+}
+
+// One step on the M^-1 + RNEA route (rbdtpu kernels/fused.py _step_lane,
+// route "minv"): bias c = RNEA(q, qd, 0) with the wrenches, then
+// qdd = M^-1 (u - c) by the factorised apply, or by the dense M^-1 with
+// DENSE, then semi-implicit Euler.  x and xo may not alias.
+template <typename T, bool DENSE>
+RBD_HD void fd_step_minv_state(const Model<T>& m, const T* x, const T* u, T dt, T gravity,
+                               T* xo, const T* fext = nullptr) {
+  const int n = m.nb;
+  Xc<T> X[NB_MAX];
+  T c[NB_MAX], qdd[NB_MAX];
+  joint_transforms(m, x, X);
+  rnea_tau(m, X, x + n, static_cast<const T*>(nullptr), gravity, fext, c);
+  for (int i = 0; i < n; ++i) c[i] = u[i] - c[i];
+  if (DENSE) {
+    T Mi[NB_MAX * NB_MAX];
+    minv_dense(m, X, Mi);
+    for (int i = 0; i < n; ++i) {
+      T s = 0;
+      for (int j = 0; j < n; ++j) s += Mi[i * n + j] * c[j];
+      qdd[i] = s;
+    }
+  } else {
+    minv_apply(m, X, c, qdd);
+  }
+  euler_step(n, x, qdd, dt, xo);
 }
 
 }  // namespace rbd

@@ -1,17 +1,19 @@
 """ABA — articulated-body forward dynamics, O(NB) per state
-(``rbdtpu.dynamics.aba``, fixed-base branch; ``f_ext`` not ported yet)."""
+(``rbdtpu.dynamics.aba``, fixed-base branch), with world-frame external
+wrenches (``f_ext``) subtracted from the bias forces between sweeps 1 and 2."""
 from __future__ import annotations
 
 import torch
 
 from ..model.robot import RobotModel
 from ..spatial.ops import cross_force, cross_motion, mtv, mv, xtax
-from .rnea import gravity_accel, joint_motion
+from .rnea import apply_external_forces, gravity_accel, joint_motion
 from .xforms import joint_transforms_list
 
 
-def aba(model: RobotModel, q, qd, tau, gravity: float = -9.81):
-    """q (..., nq), qd/tau (..., nv) -> qdd (..., nv)."""
+def aba(model: RobotModel, q, qd, tau, f_ext=None, gravity: float = -9.81):
+    """q (..., nq), qd/tau (..., nv), f_ext None or (..., NB, 6) ->
+    qdd (..., nv)."""
     nb = model.nb
     Xs = joint_transforms_list(model, q)
     a_grav = gravity_accel(gravity, Xs[0].dtype, Xs[0].device)
@@ -31,6 +33,8 @@ def aba(model: RobotModel, q, qd, tau, gravity: float = -9.81):
         v_l.append(v)
         c_l.append(c)
         pA.append(cross_force(v, mv(model.I[i], v)))
+    if f_ext is not None:
+        pA = apply_external_forces(model, Xs, pA, f_ext)
 
     # sweep 2 (leaf->root): articulated inertias
     U_l, d_l, u_l = [None] * nb, [None] * nb, [None] * nb

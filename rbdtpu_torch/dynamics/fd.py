@@ -9,9 +9,11 @@ from .rnea import rnea
 from .rnea_grad import rnea_grad
 
 
-def forward_dynamics(model: RobotModel, q, qd, u, gravity: float = -9.81):
-    """qdd = M^-1 (u - C(q, qd))."""
-    c = rnea(model, q, qd, None, gravity)[0]
+def forward_dynamics(model: RobotModel, q, qd, u, gravity: float = -9.81,
+                     f_ext=None):
+    """qdd = M^-1 (u - C(q, qd)), the bias C carrying the world-frame
+    wrenches f_ext (..., NB, 6) when given."""
+    c = rnea(model, q, qd, None, gravity, f_ext)[0]
     return mv(minv(model, q), u - c)
 
 

@@ -1,7 +1,7 @@
-"""RNEA — recursive Newton-Euler inverse dynamics (``rbdtpu.dynamics.rnea``).
+"""RNEA — recursive Newton-Euler inverse dynamics (``rbdtpu.dynamics.rnea``),
+with world-frame external wrenches (``f_ext``).
 
 Batched over arbitrary leading dims; the two tree sweeps loop over bodies.
-External forces (``f_ext``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ import torch
 
 from ..model.robot import RobotModel
 from ..spatial.ops import cross_force, cross_motion, mtv, mv
+from ..spatial.transforms import x_force_inv_T
 from .xforms import joint_transforms_list
 
 
@@ -22,6 +23,20 @@ def gravity_accel(gravity: float, dtype=torch.float32, device="cpu"):
 def joint_motion(model: RobotModel, i: int, u):
     """S_i * u_i: (..., nv) -> (..., 6)."""
     return model.S[i] * u[..., i, None]
+
+
+def apply_external_forces(model: RobotModel, Xs, f_list, f_ext):
+    """Subtract world-frame wrenches from per-body forces:
+    f[i] -= Xa[i]^{-T} f_ext[i] with the world->body chain
+    Xa[i] = Xs[i] @ Xa[parent].  f_list: list of (..., 6); f_ext
+    (..., NB, 6)."""
+    Xa = [None] * model.nb
+    out = list(f_list)
+    for i in range(model.nb):
+        p = model.parent[i]
+        Xa[i] = Xs[i] if p == -1 else Xs[i] @ Xa[p]
+        out[i] = out[i] - mv(x_force_inv_T(Xa[i]), f_ext[..., i, :])
+    return out
 
 
 def rnea_fpass(model: RobotModel, Xs, qd, qdd=None, gravity: float = -9.81):
@@ -61,10 +76,14 @@ def rnea_bpass(model: RobotModel, Xs, f_list):
     return torch.stack(c_cols, dim=-1), f_l
 
 
-def rnea(model: RobotModel, q, qd, qdd=None, gravity: float = -9.81):
-    """Inverse dynamics.  Returns (c (..., nv), v, a, f (..., NB, 6))."""
+def rnea(model: RobotModel, q, qd, qdd=None, gravity: float = -9.81,
+         f_ext=None):
+    """Inverse dynamics with optional world-frame wrenches f_ext (..., NB, 6).
+    Returns (c (..., nv), v, a, f (..., NB, 6))."""
     Xs = joint_transforms_list(model, q)
     v_l, a_l, f_l = rnea_fpass(model, Xs, qd, qdd, gravity)
+    if f_ext is not None:
+        f_l = apply_external_forces(model, Xs, f_l, f_ext)
     c, f_l = rnea_bpass(model, Xs, f_l)
     stack = lambda xs: torch.stack(xs, dim=-2)
     return c, stack(v_l), stack(a_l), stack(f_l)

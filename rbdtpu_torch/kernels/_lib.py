@@ -1,7 +1,8 @@
 """Build, load and feed the CUDA kernels in ``rbdtpu_torch/csrc``.
 
-The ``.cu`` sources are compiled with ``nvcc`` for ``sm_90a`` into ONE shared
-library with a plain C interface and loaded with ctypes.  The build happens on
+Each ``.cu`` source is compiled with ``nvcc`` for ``sm_90a`` into an object,
+all of them at once in parallel, and the objects are linked into ONE shared
+library with a plain C interface, loaded with ctypes.  The build happens on
 first use, from the sources in the package only, into ``rbdtpu_torch/_build``
 (named by a hash of the sources and flags, so an edited source rebuilds).
 
@@ -23,10 +24,10 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-c")
+LINK_FLAGS = (*ARCH, "-shared")
 # compile-time bound on bodies per tree; equals rbd::NB_MAX in rbd_common.cuh
 NB_MAX = 8
 # per-body table stride; equals rbd::STRIDE (E 9, r 3, axis 3, I 36, S 6,
@@ -36,16 +37,20 @@ STRIDE = 69
 # launches per kernel since the last reset_launches(); a wrapper adds one
 # only after its kernel launched without error
 launches = {"fd_step": 0, "feedback_rollout": 0, "linearize_parts": 0,
-            "ee_gn": 0, "ee_err": 0}
+            "ee_gn": 0, "ee_err": 0, "rnea": 0, "fd_step_minv": 0,
+            "rollout_multi": 0}
 
 # C signatures after the leading (tab, itab, nb): p pointer, i int,
 # s scalar of the kernel's dtype; every function ends with the stream
 _SIGNATURES = {
-    "fd_step": "pppiss",           # x u xo B dt gravity
+    "fd_step": "pppipiss",         # x u fext fext_stride xo B dt gravity
     "feedback_rollout": "ppppppppiiss",  # x0 Xn Un kf Kf uclip Xo Uo B H dt g
     "linearize_parts": "pppppppis",  # q qd u Minv dcq dcd qdd B gravity
     "ee_gn": "pipssspppi",         # ee jid q tx ty tz e g0 H0 B
     "ee_err": "pipssspi",          # ee jid q tx ty tz e B
+    "rnea": "ppppis",              # q qd qdd tau B gravity
+    "fd_step_minv": "pppipiiss",   # x u fext fext_stride xo B dense dt g
+    "rollout_multi": "ppppiiiss",  # x0 U fext xo B H minv dt gravity
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _CTYPE = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
@@ -74,9 +79,11 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile the kernels (once per source content); returns the .so path.
-    The compiler's register/spill report is kept beside it as .ptxas.log."""
+    One nvcc per source, all started together, then one link.  The
+    compiler's register/spill report is kept beside the library as
+    .ptxas.log."""
     srcs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for p in srcs:
         h.update(os.path.basename(p).encode())
         with open(p, "rb") as f:
@@ -84,18 +91,29 @@ def build() -> str:
     so = os.path.join(BUILD_DIR, f"librbdtpu_torch_{h.hexdigest()[:16]}.so")
     if os.path.exists(so):
         return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[p for p in srcs if p.endswith(".cu")]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {res.returncode}:\n{res.stdout}\n"
-            f"{res.stderr}")
-    with open(so[:-3] + ".ptxas.log", "w") as f:
-        f.write(res.stdout + res.stderr)
-    os.replace(tmp, so)
+    nvcc, cus = _nvcc(), [p for p in srcs if p.endswith(".cu")]
+    work = f"{so}.{os.getpid()}.d"
+    os.makedirs(work, exist_ok=True)
+    run = lambda cmd: subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    try:
+        objs = [os.path.join(work, os.path.basename(p)[:-3] + ".o")
+                for p in cus]
+        lib = os.path.join(work, "lib.so")
+        procs = [run([nvcc, *COMPILE_FLAGS, "-o", o, p])
+                 for o, p in zip(objs, cus)]
+        logs = [p.communicate()[0] for p in procs]
+        if all(p.returncode == 0 for p in procs):
+            procs.append(run([nvcc, *LINK_FLAGS, "-o", lib, *objs]))
+            logs.append(procs[-1].communicate()[0])
+        if any(p.returncode for p in procs):
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                log for p, log in zip(procs, logs) if p.returncode))
+        with open(so[:-3] + ".ptxas.log", "w") as f:
+            f.write("".join(logs))
+        os.replace(lib, so)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return so
 
 

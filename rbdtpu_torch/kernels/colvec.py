@@ -20,7 +20,7 @@ def linearize_parts_plain(model: RobotModel, q, qd, u,
     """q, qd, u (B, n) -> (Minv (B, n, n) symmetric, dc/dq, dc/dqd (B, n, n)
     indexed [b, row, col], qdd (B, n)); the bias-force gradients are taken
     at the ABA acceleration."""
-    qdd = aba(model, q, qd, u, gravity)
+    qdd = aba(model, q, qd, u, gravity=gravity)
     dcq, dcd = rnea_grad(model, q, qd, qdd, gravity, split=True)
     return minv(model, q), dcq, dcd, qdd
 

@@ -1,4 +1,8 @@
-"""Robot model layer: URDF parsing -> RobotModel."""
+"""Robot model layer: URDF parsing -> RobotModel.
+
+Every entry point here builds its tensors on the card unless the caller
+passes ``device="cpu"``.
+"""
 import os
 
 import numpy as np
@@ -7,13 +11,11 @@ import torch
 from .robot import LEAVES, RobotModel, make_model
 from .urdf import parse_urdf
 
-# the bundled URDFs live in the reference package's asset folder; they are
-# read by path so that the JAX package is never imported
-_ASSETS = os.path.join(os.path.dirname(__file__), "..", "..", "rbdtpu",
-                       "assets")
+# the port's own copies of the bundled URDFs
+_ASSETS = os.path.join(os.path.dirname(os.path.dirname(__file__)), "assets")
 
 
-def load_asset(name: str, *, device="cpu", dtype=torch.float32,
+def load_asset(name: str, *, device="cuda", dtype=torch.float32,
                **kw) -> RobotModel:
     """Load a bundled model by name ('arm7', 'quadruped12', 'humanoid30')."""
     path = os.path.join(_ASSETS,
@@ -28,7 +30,7 @@ STATIC = ("parent", "joint_type", "floating_base", "joint_names",
           "root_quat", "name")
 
 
-def model_from_numpy(leaves: dict, static: dict, device="cpu",
+def model_from_numpy(leaves: dict, static: dict, device="cuda",
                      dtype=torch.float32) -> RobotModel:
     """Build the port's model from the numpy leaves (``LEAVES``) and static
     fields (``STATIC``) of an ``rbdtpu`` RobotModel, so that both packages

@@ -131,7 +131,7 @@ def make_model(
     fixed_frame_parent=(),
     T_fixed=None,
     name="robot",
-    device="cpu",
+    device="cuda",
     dtype=torch.float32,
 ) -> RobotModel:
     """Assemble a RobotModel from numpy arrays, validating topology (the

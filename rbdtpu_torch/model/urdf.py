@@ -143,7 +143,7 @@ def parse_urdf(
     *,
     floating_base: bool = False,
     root_quat: bool = False,
-    device="cpu",
+    device="cuda",
     dtype=torch.float32,
 ) -> RobotModel:
     """Parse a URDF file path or XML string into a RobotModel.

@@ -84,7 +84,7 @@ def _step_plain(model, x, u, dt, gravity, route="aba"):
     if route == "minv":
         qdd = forward_dynamics(model, q, qd, u, gravity)
     else:
-        qdd = aba(model, q, qd, u, gravity)
+        qdd = aba(model, q, qd, u, gravity=gravity)
     return euler_semi_implicit(model, x, qdd, dt)
 
 

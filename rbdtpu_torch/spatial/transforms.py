@@ -57,6 +57,14 @@ def joint_spatial_x(jtype: int, axis, Xtree, q):
     return XJ @ Xtree
 
 
+def x_force_inv_T(X):
+    """The force transform X^{-T} of a motion transform X, by block
+    rearrangement: X = [[E, 0], [-E rx, E]] -> X^{-T} = [[E, -E rx], [0, E]]
+    (``rbdtpu.dynamics.xforms.x_force_inv_T``).  (..., 6, 6) -> (..., 6, 6)."""
+    E = X[..., :3, :3]
+    return _blocks(E, X[..., 3:, :3], torch.zeros_like(E), E)
+
+
 def _hom(R, p):
     bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype, device=R.device)
     bottom[..., 0, 3] = 1.0

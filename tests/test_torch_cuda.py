@@ -10,8 +10,9 @@ import pytest
 import torch
 
 from rbdtpu_torch.kernels import (
-    _lib, colvec, ee_gn_fused, fd_step_fused, feedback_rollout_fused, fk_lane,
-    fused, linearize_parts_fused,
+    _lib, colvec, ee_gn_fused, fd_step_fused, fd_step_minv_fused,
+    feedback_rollout_fused, fk_lane, fused, linearize_parts_fused, rnea_fused,
+    rollout_fused_multi,
 )
 from rbdtpu_torch.model import load_asset, parse_urdf
 
@@ -94,6 +95,62 @@ def test_fd_step(case):
     x, u = _inputs(m, (200, m.nx), (200, m.nv))
     out = _launched("fd_step", lambda: fd_step_fused(m, x, u, DT))
     _close(out, fused.fd_step_plain(m, x, u, DT), tol)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["shared", "batched"])
+def test_fd_step_fext(case, batched):
+    """World-frame wrenches, (nb, 6) shared by the batch or (B, nb, 6)."""
+    m, _, tol = case
+    B = 37
+    x, u, fe = _inputs(m, (B, m.nx), (B, m.nv),
+                       ((B,) if batched else ()) + (m.nb, 6))
+    fe = 20.0 * fe
+    out = _launched("fd_step", lambda: fd_step_fused(m, x, u, DT, f_ext=fe))
+    _close(out, fused.fd_step_plain(m, x, u, DT, f_ext=fe), tol)
+
+
+@pytest.mark.parametrize("with_qdd", [True, False], ids=["qdd", "bias"])
+def test_rnea(case, with_qdd):
+    m, _, tol = case
+    q, qd, qdd = _inputs(m, (37, m.nq), (37, m.nv), (37, m.nv), scale=1.0)
+    a = qdd if with_qdd else None
+    out = _launched("rnea", lambda: rnea_fused(m, q, qd, a))
+    _close(out, fused.rnea_plain(m, q, qd, a), tol)
+
+
+@pytest.mark.parametrize("wrench", [False, True], ids=["free", "fext"])
+@pytest.mark.parametrize("dense", [False, True], ids=["fact", "dense"])
+def test_fd_step_minv(case, dense, wrench):
+    m, _, tol = case
+    x, u, fe = _inputs(m, (37, m.nx), (37, m.nv), (m.nb, 6))
+    fe = 20.0 * fe if wrench else None
+    out = _launched("fd_step_minv", lambda: fd_step_minv_fused(
+        m, x, u, DT, dense_minv=dense, f_ext=fe))
+    _close(out, fused.fd_step_minv_plain(m, x, u, DT, f_ext=fe), tol)
+
+
+@pytest.mark.parametrize("wrench", [False, True], ids=["free", "fext"])
+@pytest.mark.parametrize("route", ["aba", "minv"])
+def test_rollout_multi_is_one_launch(case, route, wrench):
+    """The whole horizon is one launch of rollout_multi and none of the
+    step kernels; an odd batch needs no padding."""
+    m, _, tol = case
+    B, H = 37, 8
+    x0, U, F = _inputs(m, (B, m.nx), (H, B, m.nv), (H, m.nb, 6))
+    F = 20.0 * F if wrench else None
+    before = dict(_lib.launches)
+    out = rollout_fused_multi(m, x0, U, DT, route=route, f_ext=F)
+    torch.cuda.synchronize()
+    assert _lib.launches["rollout_multi"] == before["rollout_multi"] + 1
+    for k in ("fd_step", "fd_step_minv"):
+        assert _lib.launches[k] == before[k]
+    _close(out, fused.rollout_multi_plain(m, x0, U, DT, route=route,
+                                          f_ext=F), tol)
+
+
+def test_entry_points_default_to_the_card(card):
+    assert load_asset("arm7").device.type == "cuda"
+    assert parse_urdf(mixed_tree_urdf()).device.type == "cuda"
 
 
 @pytest.mark.parametrize("clip", [False, True])

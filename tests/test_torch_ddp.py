@@ -18,7 +18,7 @@ WEIGHTS = dict(w_ee=10.0, w_ee_f=2000.0, w_u=1e-6, w_qd=1e-3, w_qd_f=0.1)
 
 @pytest.fixture(scope="module")
 def tm():
-    return load_asset("arm7", dtype=torch.float64)
+    return load_asset("arm7", device="cpu", dtype=torch.float64)
 
 
 def _problems(arm7, rng, B, H):

@@ -49,9 +49,9 @@ def models(request):
     if request.param == "mixed":
         urdf = mixed_tree_urdf()
         return (jax_parse_urdf(urdf, dtype=np.float64),
-                parse_urdf(urdf, dtype=torch.float64))
+                parse_urdf(urdf, device="cpu", dtype=torch.float64))
     return (jax_load_asset(request.param, dtype=np.float64),
-            load_asset(request.param, dtype=torch.float64))
+            load_asset(request.param, device="cpu", dtype=torch.float64))
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -84,7 +84,7 @@ def test_cross_operators_match_rbdtpu(op, rng):
 
 def test_aba_inverts_rnea(rng):
     """Cross-consistency inside the port: aba(q, qd, rnea(q, qd, qdd)) = qdd."""
-    m = load_asset("arm7", dtype=torch.float64)
+    m = load_asset("arm7", device="cpu", dtype=torch.float64)
     q, qd, qdd = (torch.tensor(rng.uniform(-1, 1, (B, m.nv))) for _ in range(3))
     tau = tdyn.rnea(m, q, qd, qdd)[0]
     torch.testing.assert_close(tdyn.aba(m, q, qd, tau), qdd, rtol=0,

@@ -26,7 +26,7 @@ TARGET = (0.3, 0.2, 0.8)
 
 @pytest.fixture(scope="module")
 def tm():
-    return load_asset("arm7", dtype=torch.float64)
+    return load_asset("arm7", device="cpu", dtype=torch.float64)
 
 
 def _close(out, ref):

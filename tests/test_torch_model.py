@@ -1,5 +1,7 @@
 """rbdtpu_torch model layer against rbdtpu: the URDF parse, the numpy
-hand-over (model_from_numpy) and the package boundary (no JAX)."""
+hand-over (model_from_numpy), the bundled URDF copies, the default device
+and the package boundary (no JAX)."""
+import inspect
 import os
 import subprocess
 import sys
@@ -9,7 +11,9 @@ import pytest
 import torch
 
 from rbdtpu.model import load_asset as jax_load_asset
-from rbdtpu_torch.model import LEAVES, STATIC, load_asset, model_from_numpy
+from rbdtpu_torch.model import (
+    LEAVES, STATIC, load_asset, make_model, model_from_numpy, parse_urdf,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODELS = [
@@ -28,7 +32,7 @@ def _ref(name, kw):
 @pytest.mark.parametrize("name,kw", MODELS)
 def test_load_asset_matches_rbdtpu(name, kw):
     ref = _ref(name, kw)
-    m = load_asset(name, dtype=torch.float64, **kw)
+    m = load_asset(name, device="cpu", dtype=torch.float64, **kw)
     for k in LEAVES:
         np.testing.assert_array_equal(getattr(m, k).numpy(),
                                       np.asarray(getattr(ref, k)), err_msg=k)
@@ -45,8 +49,8 @@ def test_model_from_numpy_matches_load_asset(name, kw):
     ref = _ref(name, kw)
     m = model_from_numpy({k: np.asarray(getattr(ref, k)) for k in LEAVES},
                          {k: getattr(ref, k) for k in STATIC},
-                         dtype=torch.float64)
-    own = load_asset(name, dtype=torch.float64, **kw)
+                         device="cpu", dtype=torch.float64)
+    own = load_asset(name, device="cpu", dtype=torch.float64, **kw)
     for k in LEAVES:
         assert torch.equal(getattr(m, k), getattr(own, k)), k
     for k, v in own.host_data.items():
@@ -60,7 +64,8 @@ def test_model_from_numpy_matches_load_asset(name, kw):
 def test_floating_base_dynamics_refuse():
     from rbdtpu_torch.dynamics import aba
 
-    m = load_asset("quadruped12", dtype=torch.float64, floating_base=True)
+    m = load_asset("quadruped12", device="cpu", dtype=torch.float64,
+                   floating_base=True)
     q = torch.zeros(2, m.nq, dtype=torch.float64)
     v = torch.zeros(2, m.nv, dtype=torch.float64)
     with pytest.raises(NotImplementedError):
@@ -74,3 +79,25 @@ def test_import_leaves_jax_out():
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+@pytest.mark.parametrize("name", ["arm7", "quadruped12", "humanoid30"])
+def test_bundled_urdfs_are_copies_of_rbdtpus(name):
+    """The port reads its own copies of the URDFs; they stay byte-identical
+    to the reference package's."""
+    def read(pkg):
+        with open(os.path.join(REPO, pkg, "assets", f"{name}.urdf"), "rb") as f:
+            return f.read()
+
+    assert read("rbdtpu_torch") == read("rbdtpu")
+
+
+@pytest.mark.parametrize("fn", [load_asset, parse_urdf, make_model,
+                                model_from_numpy])
+def test_entry_points_default_to_the_card(fn):
+    """Every model entry point builds on the card unless given a device;
+    without a card the default raises (no silent CPU fallback)."""
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available() and fn is load_asset:
+        with pytest.raises((AssertionError, RuntimeError)):
+            load_asset("arm7")
