@@ -32,7 +32,26 @@ Phases, each ending the run with a nonzero exit when it fails:
    and against the plain route (< 1e-3), then ``rollout_fused_multi``
    timed on the "minv" and "aba" routes (steps/s), each call one launch;
    every kernel of the path must have been launched and the final states
-   finite.
+   finite;
+8. hold the Riccati sweep kernel against the plain sweep at configs[3]'s
+   shape (B=1024, H=50, nx=36, nu=18, constant cost blocks), at B=4 (the
+   small-batch call site) and at the humanoid's (B=16, H=32, nx=72, nu=36,
+   per-knot cost blocks, above 48 KB of shared memory in float64): float64
+   relative error <= 1e-9, float32 <= 1e-4, each timed beside its bound;
+   and on a batch with one non-PD problem, whose NaN gains and ok must be
+   the plain sweep's;
+9. hold K1, K2 and K3 on quadruped12's rpy floating root against their
+   plain versions at configs[3]'s shapes (1024 states, 6 x 1024
+   trajectories of 50 knots, 51,200 knots), as in phase 2;
+10. drive the floating-base quadruped MPC path (BASELINE.json configs[3],
+   bench.py:482-507): ``ddp_solve`` of 1024 problems, H=50, 5 iterations,
+   6 line-search steps, float32, ``fused=True``, timed (solves/s); per
+   solve K1 50 launches, K2, K3 and the sweep kernel 5, the plain sweep
+   none; J finite, nonincreasing and falling; then its profile;
+11. solve the configs[3] problem in float64 through the kernels and
+   through the plain versions at Bm=4, H=50, 5 iterations (the sweep's
+   small-batch call site) and at Bm=130, H=10, 2 iterations (its lane
+   call site): max |U_kernel - U_plain| < 1e-6 at both.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON summary and the result line.  Without a CUDA
@@ -60,7 +79,7 @@ TOL64 = 1e-9
 # carries 100 closed-loop steps, so 1e-3.
 TOL32 = {"fd_step": 1e-4, "feedback_rollout": 1e-3, "linearize_parts": 1e-4,
          "ee_gn": 1e-4, "ee_err": 1e-4, "rnea": 1e-4, "fd_step_minv": 1e-4,
-         "rollout_multi": 1e-3}
+         "rollout_multi": 1e-3, "riccati": 1e-4}
 U_PARITY = 1e-6
 PARITY_H = (100, 20)
 # the rollout path (BASELINE.json configs[1], bench.py:132-209, 377-416)
@@ -68,6 +87,18 @@ B1, H1, HONEST_H, HONEST_TOL = 4096, 50, 10, 1e-3
 # H100 SXM published peaks at 700 W: HBM bytes/s, float32 and float64
 # operations/s outside the tensor cores
 PEAK_BYTES, PEAK_OPS = 3.35e12, {"float32": 67e12, "float64": 34e12}
+# the floating-base quadruped MPC path (BASELINE.json configs[3],
+# bench.py:482-507): Bm problems, H knots, iterations, line-search steps,
+# tracking weights; its control parity at the sweep's two call sites,
+# (Bm, H, iterations) below and above 128 problems
+B3, H3, ITERS3, ALPHAS3 = 1024, 50, 5, 6
+W3 = dict(w_q=2.0, w_qd=0.05, w_u=1e-5)
+PARITY3 = ((4, 50, 5), (130, 10, 2))
+# the Riccati sweep's checks: (label, problems, knots, nx, nu, constant cost
+# blocks): configs[3]'s shape, the small-batch call site, the humanoid's
+RICCATI_CASES = (("configs[3]", B3, H3, 36, 18, True),
+                 ("small batch", 4, H3, 36, 18, True),
+                 ("humanoid", 16, 32, 72, 36, False))
 
 
 def require(ok: bool, msg: str):
@@ -96,17 +127,19 @@ def cuda_ms(fn, reps: int) -> float:
 
 def bound(args, outs, model, ops: float, dtype: str):
     """(bound_ms, bound_by): the larger of the bytes the function must move
-    (every input tensor, the model tables and every output once) over the
-    memory rate and its operations (``ops``, the algorithm's count from
-    ``rbdtpu_torch/opcount.py``) over the peak rate of ``dtype``."""
+    (every input tensor, the model tables unless ``model`` is None, and
+    every output once) over the memory rate and its operations (``ops``,
+    the algorithm's count from ``rbdtpu_torch/opcount.py``) over the peak
+    rate of ``dtype``."""
     import torch
     from rbdtpu_torch.kernels import _lib
 
     if not isinstance(outs, tuple):
         outs = (outs,)
     tensors = [t for t in (*args, *outs) if isinstance(t, torch.Tensor)]
-    tab, itab = _lib.model_tables(model, model.device, model.dtype)
-    nbytes = sum(t.numel() * t.element_size() for t in (*tensors, tab, itab))
+    if model is not None:
+        tensors += list(_lib.model_tables(model, model.device, model.dtype))
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_OPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -278,24 +311,42 @@ def start_problems(model, Bm: int, H: int, rng):
     return x0, U0
 
 
+_TEMPLATE_ARG = re.compile(
+    r"N3rbd4DimsILi(\d+)ELb([01])EEE|Lb([01])E|([fd])")
+
+
+def template_args(tail: str) -> list:
+    """The template arguments of a mangled kernel name's tail
+    (``I...E``): the scalar type, the size class ``Dims<NB, FB>`` and the
+    bools (GN, HAS_QDD, DENSE, MINV or FEXT)."""
+    args, pos = [], 1
+    while pos < len(tail) and tail[pos] != "E":
+        m = _TEMPLATE_ARG.match(tail, pos)
+        if not m:
+            break
+        if m.group(1):
+            args.append(f"Dims<{m.group(1)}, "
+                        f"{'true' if m.group(2) == '1' else 'false'}>")
+        elif m.group(3):
+            args.append("true" if m.group(3) == "1" else "false")
+        else:
+            args.append("double" if m.group(4) == "d" else "float")
+        pos = m.end()
+    return args
+
+
 def ptxas_summary(log: str) -> list:
     """One line per compiled kernel from nvcc's ``-Xptxas -v`` report:
     registers, stack frame and spill bytes a thread."""
     out, name, frame = [], None, ""
     for line in log.splitlines():
         if "Function properties for" in line:
-            # kernels are plain templates: _Z<len><name>I<d|f>(Lb<0|1>E)*...,
-            # the bools being GN, HAS_QDD, DENSE, MINV or FEXT
             m = re.search(r"for _Z(\d+)(\w+)", line)
             name = None
             if m:
                 n = int(m.group(1))
                 base, tail = m.group(2)[:n], m.group(2)[n:]
-                t = re.match(r"I([df])((?:Lb[01]E)*)", tail)
-                args = ["double" if t and t.group(1) == "d" else "float"]
-                flags = re.findall(r"Lb([01])E", t.group(2) if t else "")
-                args += ["true" if b == "1" else "false" for b in flags]
-                name = f"{base}<{', '.join(args)}>"
+                name = f"{base}<{', '.join(template_args(tail))}>"
         elif name and "bytes stack frame" in line:
             frame = line.strip()
         elif name and "Used" in line:
@@ -305,11 +356,12 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
-def profile_main_path(model, x0, U0, iters: int):
-    """Where one main-path solve spends its time: per-phase wall time (each
-    phase synchronised, so the total exceeds an unsynchronised solve), then
-    torch.profiler's device time per kernel, the kernels launched per solve
-    and the device's idle share against an unprofiled solve."""
+def profile_main_path(solve_once):
+    """Where one solve (``solve_once()``) spends its time: per-phase wall
+    time (each phase synchronised, so the total exceeds an unsynchronised
+    solve), then torch.profiler's device time per kernel, the kernels
+    launched per solve and the device's idle share against an unprofiled
+    solve."""
     import collections
 
     import torch
@@ -317,7 +369,7 @@ def profile_main_path(model, x0, U0, iters: int):
     from rbdtpu_torch.solver import ddp
 
     def run():
-        solve(model, x0, U0, fused=True, iters=iters)
+        solve_once()
         torch.cuda.synchronize()
 
     spent, calls = collections.Counter(), collections.Counter()
@@ -335,7 +387,7 @@ def profile_main_path(model, x0, U0, iters: int):
 
     phases = {p: getattr(ddp, p) for p in (
         "fd_step_fused", "linearize_fused", "quadratize_trajectory",
-        "backward_pass", "forward_pass_fused")}
+        "backward_pass", "backward_pass_chunked", "forward_pass_fused")}
     for p, fn in phases.items():
         setattr(ddp, p, timed(p, fn))
     try:
@@ -502,6 +554,285 @@ def rollout_path(m32, rng, smi: str) -> dict:
     return counts
 
 
+def riccati_problem(rng, nx, nv, H, Bm, const, non_pd=None):
+    """A random, well-conditioned Riccati problem, built as
+    tests/test_riccati_strategy.py (and tests/riccati_problems.py) build
+    them; ``const`` gives unbatched (n, m) cost blocks, ``non_pd`` =
+    (problem, knot) a negative definite luu there."""
+    sym = lambda M: 0.5 * (M + np.swapaxes(M, -1, -2))
+    rnd = lambda *s: rng.standard_normal(s)
+    A = 0.1 * rnd(Bm, H, nx, nx) + np.eye(nx)
+    Bmat = 0.1 * rnd(Bm, H, nx, nv)
+    lx, lu = rnd(Bm, H, nx), rnd(Bm, H, nv)
+    lfx = rnd(Bm, nx)
+    lfxx = sym(np.eye(nx) + 0.1 * rnd(Bm, nx, nx))
+    lfxx = lfxx @ np.swapaxes(lfxx, -1, -2)
+    reg = rng.uniform(1e-6, 1e-2, Bm)
+    lead = () if const else (Bm, H)
+    lxx = sym(0.05 * rnd(*lead, nx, nx)) + 2.0 * np.eye(nx)
+    luu = sym(0.05 * rnd(*lead, nv, nv)) + 2.0 * np.eye(nv)
+    lux = 0.05 * rnd(*lead, nv, nx)
+    if non_pd is not None:
+        luu[non_pd] = -5.0 * np.eye(nv)
+    return (A, Bmat, lx, lu, lxx, luu, lux, lfx, lfxx, reg)
+
+
+RICCATI_REPLACES = {"riccati_chunk": "rbdtpu/kernels/riccati_chunk.py:523",
+                    "riccati_small": "rbdtpu/kernels/riccati_chunk.py:334"}
+
+
+def check_riccati(smi: str, rows: dict):
+    """The sweep kernel against the plain sweep (``solver.ddp
+    .backward_pass``) on the card: each of RICCATI_CASES in float64 (max
+    error relative to each output's scale <= TOL64) and float32 (<=
+    TOL32["riccati"]), every ok True, timed in float32 beside its bound;
+    then a configs[3]-shaped batch in float64 with one problem whose Quu
+    is not positive definite at one knot: the NaN entries and ok must be
+    the plain sweep's, the finite entries within TOL64.  Adds the rows of
+    riccati_chunk (K7, batch >= 128) and riccati_small (K8).  Fails after
+    printing every check."""
+    import torch
+    from rbdtpu_torch import opcount
+    from rbdtpu_torch.kernels.riccati_chunk import (
+        LANE_BATCH, backward_pass_chunked,
+    )
+    from rbdtpu_torch.solver.ddp import backward_pass
+
+    def cuda(args, dtype):
+        return tuple(torch.tensor(a, dtype=dtype, device="cuda")
+                     for a in args)
+
+    fmt = lambda es: "[" + " ".join(f"{e:.2e}" for e in es) + "]"
+    failures = []
+    for i, (label, B, H, nx, nu, const) in enumerate(RICCATI_CASES):
+        name = "riccati_chunk" if B >= LANE_BATCH else "riccati_small"
+        prob = riccati_problem(np.random.default_rng(SEED + 10 + i), nx, nu,
+                               H, B, const)
+        a64, a32 = cuda(prob, torch.float64), cuda(prob, torch.float32)
+        k64, p64 = backward_pass_chunked(*a64), backward_pass(*a64)
+        k32, p32 = backward_pass_chunked(*a32), backward_pass(*a32)
+        torch.cuda.synchronize()
+        e64 = errors(k64[:3], p64[:3], relative=True)
+        abs64 = errors(k64[:3], p64[:3], relative=False)
+        e32 = errors(k32[:3], p32[:3], relative=True)
+        oks = [o.tolist() for o in (k64[3], p64[3], k32[3], p32[3])]
+        if max(e64) > TOL64:
+            failures.append(f"riccati {label}: float64 relative error "
+                            f"{max(e64):.3e} > {TOL64:g}")
+        if max(e32) > TOL32["riccati"]:
+            failures.append(f"riccati {label}: float32 relative error "
+                            f"{max(e32):.3e} > {TOL32['riccati']:g}")
+        if any(ok != [True] * B for ok in oks):
+            failures.append(f"riccati {label}: a well-conditioned problem "
+                            "was reported not positive definite")
+        ms = cuda_ms(lambda: backward_pass_chunked(*a32), reps=20)
+        plain_ms = cuda_ms(lambda: backward_pass(*a32), reps=3)
+        ops = opcount.riccati_knot_ops(nx, nu) * B * H
+        bound_ms, bound_by = bound(a32, k32, None, ops, "float32")
+        print(f"kernel riccati {label} ({name}): B={B} H={H} nx={nx} nu={nu} "
+              f"{'constant' if const else 'per-knot'} cost blocks  f64 rel "
+              f"err {fmt(e64)} (abs {fmt(abs64)})  f32 rel err {fmt(e32)}  "
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+              f"{bound_ms:.6f} ms by {bound_by} ({ops:.4g} operations) "
+              f"(f32, median, {smi})")
+        if name not in rows:
+            rows[name] = dict(name=name, route="cuda",
+                              source="rbdtpu_torch/csrc/riccati_chunk.cu",
+                              replaces=RICCATI_REPLACES[name],
+                              max_abs_err=max(abs64), ms=ms,
+                              plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, library_ms=None)
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], *abs64)
+    bad = (7, H3 // 2)
+    a64 = cuda(riccati_problem(np.random.default_rng(SEED + 20), 36, 18, H3,
+                               B3, False, non_pd=bad), torch.float64)
+    out, ref = backward_pass_chunked(*a64), backward_pass(*a64)
+    same_nan = all(torch.equal(o.isnan(), r.isnan())
+                   for o, r in zip(out[:3], ref[:3]))
+    ok_rows = (~out[3]).nonzero()[:, 0].tolist()
+    good = out[3].nonzero()[:, 0]
+    e_fin = errors(tuple(o[good] for o in out[:3]),
+                   tuple(r[good] for r in ref[:3]), relative=True)
+    print(f"kernel riccati non-PD: problem {bad[0]} knot {bad[1]} of B={B3} "
+          f"H={H3}: ok False at {ok_rows} (plain "
+          f"{(~ref[3]).nonzero()[:, 0].tolist()}), NaN entries identical "
+          f"{same_nan}, gains NaN at knots <= {bad[1]}: "
+          f"{bool(out[0][bad[0], :bad[1] + 1].isnan().all())}, the other "
+          f"problems f64 rel err {fmt(e_fin)}")
+    if not (same_nan and ok_rows == [bad[0]]
+            and out[3].tolist() == ref[3].tolist()
+            and bool(out[0][bad[0], :bad[1] + 1].isnan().all())
+            and bool(out[0][bad[0], bad[1] + 1:].isfinite().all())
+            and max(e_fin) <= TOL64):
+        failures.append("riccati non-PD: NaN rows or ok differ from the "
+                        "plain sweep")
+    require(not failures, "; ".join(failures))
+
+
+def quadruped_problems(model, Bm: int, H: int, rng):
+    """configs[3]'s start (bench.py:482-507): standing at q[2] = 0.35 with
+    0.05 N(0,1) on every coordinate, at rest, gravity compensation (root
+    wrench included) at every knot."""
+    import torch
+    from rbdtpu_torch.dynamics import rnea
+
+    q0 = np.zeros((Bm, model.nq))
+    q0[:, 2] = 0.35
+    q0 = torch.tensor(q0 + 0.05 * rng.standard_normal(q0.shape),
+                      dtype=model.dtype, device=model.device)
+    z = torch.zeros(Bm, model.nv, dtype=model.dtype, device=model.device)
+    x0 = torch.cat([q0, z], -1)
+    U0 = rnea(model, q0, z, z)[0][:, None].expand(Bm, H, model.nv)
+    return x0, U0.contiguous()
+
+
+def quadruped_cost(model):
+    from rbdtpu_torch.solver import quadratic_tracking_cost
+
+    goal = np.zeros(model.nx)
+    goal[2] = 0.4
+    return quadratic_tracking_cost(model, goal, **W3)
+
+
+def quadruped_solve(model, x0, U0, iters: int, kernels: bool):
+    """configs[3]'s ``ddp_solve``; ``kernels=False`` takes every plain
+    version (the plain sweep included)."""
+    from rbdtpu_torch.solver import DDPConfig, ddp_solve
+
+    cfg = DDPConfig(iters=iters, dt=DT, gravity=GRAVITY, n_alphas=ALPHAS3,
+                    fused=kernels, fused_riccati=None if kernels else False)
+    return ddp_solve(model, quadruped_cost(model), x0, U0, cfg)
+
+
+def quadruped_kernel_inputs(m64, rng):
+    """Float64 CUDA inputs for K1-K3 on the rpy quadruped at configs[3]'s
+    shapes: K1 at B3 states (the initial rollout's step), K2 at ALPHAS3 *
+    B3 trajectories over H3 knots (the line search), K3 at B3 * H3 knots.
+    K2's gains pull each trajectory, started 0.02 N(0,1) away, back to
+    its nominal start x0: u = U + K (x - x0) with K = -M(q0) [400 I, 40 I]
+    perturbed by 10% per knot and U the gravity compensation, so the
+    50-step closed loop stays near x0."""
+    import torch
+    from rbdtpu_torch.dynamics import minv, rnea
+
+    n = m64.nv
+    T = lambda a: torch.tensor(a, dtype=torch.float64, device=m64.device)
+
+    def states(B):
+        x0, U0 = quadruped_problems(m64, B, 1, rng)
+        qd = T(0.5 * rng.standard_normal((B, n)))
+        return (x0[:, :n].contiguous(), qd,
+                (U0[:, 0] + T(rng.standard_normal((B, n)))).contiguous())
+
+    q, qd, u = states(B3)
+    fd = (torch.cat([q, qd], -1), u)
+    B = ALPHAS3 * B3
+    x0, U0 = quadruped_problems(m64, B, H3, rng)
+    Xn = x0[:, None] + T(0.01 * rng.standard_normal((B, H3, 2 * n)))
+    pd = np.concatenate([400.0 * np.eye(n), 40.0 * np.eye(n)], 1)
+    gains = T(pd * (1 + 0.1 * rng.standard_normal((B, H3, n, 2 * n))))
+    Kf = -(torch.linalg.inv(minv(m64, x0[:, :n]))[:, None] @ gains)
+    kf = -(Kf @ (x0[:, None] - Xn)[..., None])[..., 0]
+    x_start = x0 + T(0.02 * rng.standard_normal((B, 2 * n)))
+    fb = (x_start, Xn.contiguous(), U0, kf.contiguous(), Kf.contiguous())
+    return {"fd_step": fd, "feedback_rollout": fb,
+            "linearize_parts": states(B3 * H3)}
+
+
+def quadruped_path(m32, smi: str) -> dict:
+    """BASELINE.json configs[3] through the port's entry points, float32:
+    ``ddp_solve`` of B3 floating-base quadruped problems, H3 knots, ITERS3
+    iterations, ALPHAS3 line-search steps, ``DDPConfig(fused=True)``.  One
+    warm-up solve, then three timed ones (CUDA events) with the counts set
+    to 0 just before: per solve K1 H3 times (the initial rollout), K2, K3
+    and the sweep kernel once an iteration, the plain sweep never.  J must
+    be finite, nonincreasing and fall.  Returns the counts of the three
+    solves."""
+    import torch
+    from rbdtpu_torch.kernels import _lib
+    from rbdtpu_torch.kernels.fused import fd_step_fused
+    from rbdtpu_torch.solver import ddp, trajectory_cost
+
+    x0, U0 = quadruped_problems(m32, B3, H3, np.random.default_rng(SEED + 30))
+    xs = [x0]
+    for t in range(H3):
+        xs.append(fd_step_fused(m32, xs[-1], U0[:, t].contiguous(), DT,
+                                GRAVITY))
+    J0 = trajectory_cost(quadruped_cost(m32), torch.stack(xs, dim=-2), U0)
+    quadruped_solve(m32, x0, U0, ITERS3, kernels=True)  # warm-up
+    torch.cuda.synchronize()
+    plain_sweeps = []
+    plain = ddp.backward_pass
+    ddp.backward_pass = lambda *a, **kw: plain_sweeps.append(1) or plain(
+        *a, **kw)
+    _lib.reset_launches()
+    times = []
+    try:
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, J_hist = quadruped_solve(m32, x0, U0, ITERS3, kernels=True)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3)
+    finally:
+        ddp.backward_pass = plain
+    counts = dict(_lib.launches)
+    print(f"configs[3] path launches (3 solves): {counts}; plain sweeps "
+          f"{len(plain_sweeps)}")
+    per_solve = {"fd_step": H3, "feedback_rollout": ITERS3,
+                 "linearize_parts": ITERS3, "riccati_chunk": ITERS3}
+    for k, v in per_solve.items():
+        require(counts[k] == 3 * v, f"configs[3]: {k} launched {counts[k]} "
+                f"times in 3 solves, expected {3 * v}")
+    require(counts["riccati_small"] == 0 and not plain_sweeps,
+            "configs[3]: the plain sweep or the small-batch site ran")
+    require(tuple(J_hist.shape) == (ITERS3, B3), f"J_hist {J_hist.shape}")
+    require(bool(J_hist.isfinite().all()), "configs[3]: non-finite J")
+    require(bool((J_hist[1:] <= J_hist[:-1]).all()) and bool(
+        (J_hist[0] <= J0 * (1 + 1e-6)).all()), "configs[3]: J increased")
+    require(J_hist[-1].mean() < J0.mean(), "configs[3]: mean J did not fall")
+    require(tuple(state.U.shape) == (B3, H3, m32.nv), "configs[3]: U shape")
+    sec = statistics.median(times)
+    print(f"configs[3] path: quadruped12 rpy tracking, Bm={B3} H={H3} "
+          f"iters={ITERS3} alphas={ALPHAS3} f32 fused: mean J "
+          f"{J0.mean().item():.6g} -> {J_hist[-1].mean().item():.6g}; solve "
+          f"{sec * 1e3:.1f} ms (median of {len(times)}: "
+          f"{' '.join(f'{t * 1e3:.1f}' for t in times)}, CUDA events) = "
+          f"{B3 / sec:.1f} solves/s on {smi}")
+    profile_main_path(lambda: quadruped_solve(m32, x0, U0, ITERS3, True))
+    return counts
+
+
+def quadruped_parity(m64) -> dict:
+    """Kernel route against plain route on the configs[3] problem, float64,
+    at the sweep's two call sites (PARITY3): max |U_kernel - U_plain| <
+    U_PARITY at each.  Returns the counts of the small-batch kernel-route
+    solve (the run that drives the sweep's small-batch call site)."""
+    from rbdtpu_torch.kernels import _lib
+
+    counts = None
+    for Bm, H, iters in PARITY3:
+        x0, U0 = quadruped_problems(m64, Bm, H,
+                                    np.random.default_rng(SEED + 40))
+        _lib.reset_launches()
+        sk, _ = quadruped_solve(m64, x0, U0, iters, kernels=True)
+        if counts is None:
+            counts = dict(_lib.launches)
+        sp, _ = quadruped_solve(m64, x0, U0, iters, kernels=False)
+        du = (sk.U - sp.U).abs().max().item()
+        dj = ((sk.J - sp.J).abs() / sp.J.abs().clamp(min=1)).max().item()
+        print(f"configs[3] parity f64 Bm={Bm} H={H} iters={iters}: "
+              f"max|U_kernel - U_plain| {du:.3e} (bound {U_PARITY:g}); "
+              f"max rel |dJ| {dj:.3e}")
+        require(du < U_PARITY, f"configs[3] control parity at Bm={Bm}: "
+                f"{du:.3e} >= {U_PARITY:g}")
+    print(f"configs[3] parity Bm={PARITY3[0][0]} kernel-route launches: "
+          f"{counts}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -604,7 +935,7 @@ def main() -> int:
                 f"control parity at H={Hp}: {du:.3e} >= {U_PARITY:g}")
 
     # ---- 5. where the main path's time goes ----
-    profile_main_path(m32, x0, U0, iters)
+    profile_main_path(lambda: solve(m32, x0, U0, fused=True, iters=iters))
 
     # ---- 6. the rollout path's kernels against their plain versions, after
     # the DDP path so that its host-bound solve runs in the same process
@@ -619,6 +950,30 @@ def main() -> int:
                 f"{kname} was not launched on the rollout path")
         rows[kname]["launches"] = counts[kname]
     rows["rnea"]["launches"] = counts["rnea"]
+
+    # ---- 8. the Riccati sweep kernel against the plain sweep ----
+    check_riccati(smi, rows)
+
+    # ---- 9. K1-K3 on the rpy floating root, at configs[3]'s shapes ----
+    q64 = load_asset("quadruped12", device="cuda", dtype=torch.float64,
+                     floating_base=True)
+    q32 = load_asset("quadruped12", device="cuda", dtype=torch.float32,
+                     floating_base=True)
+    qin = quadruped_kernel_inputs(q64, np.random.default_rng(SEED + 5))
+    q_states = {"fd_step": B3, "feedback_rollout": ALPHAS3 * B3 * H3,
+                "linearize_parts": B3 * H3}
+    check_kernels([(f"{k} rpy", k, qin[k], {}, k, q_states[k]) for k in qin],
+                  q64, q32, smi, rows)
+
+    # ---- 10. the configs[3] path: 1024 quadruped MPC problems, float32 ----
+    counts = quadruped_path(q32, smi)
+    rows["riccati_chunk"]["launches"] = counts["riccati_chunk"]
+
+    # ---- 11. configs[3] control parity, kernels vs plain, float64 ----
+    counts = quadruped_parity(q64)
+    require(counts["riccati_small"] > 0,
+            "the sweep's small-batch call site was not launched")
+    rows["riccati_small"]["launches"] = counts["riccati_small"]
 
     print(smi)
     print(json.dumps({"kernels": [

@@ -14,14 +14,14 @@
 namespace rbd {
 
 template <typename T, bool GN>
-RBD_HD void ee_one(const Model<T>& m, const T* ee, int jid, const T* q, const T* target, T* e,
+RBD_HD void ee_one(const Model<T, N8>& m, const T* ee, int jid, const T* q, const T* target, T* e,
                    T* g0, T* H0) {
   const int n = m.nb;
-  int chain[NB_MAX];
+  int chain[N8::NB];
   int len = 0;
   for (int k = jid; k >= 0; k = m.parent(k)) chain[len++] = k;  // tip -> root
   T R[9] = {1, 0, 0, 0, 1, 0, 0, 0, 1}, p[3] = {0, 0, 0};
-  T axw[NB_MAX][3], org[NB_MAX][3];
+  T axw[N8::NB][3], org[N8::NB][3];
   for (int idx = len - 1; idx >= 0; --idx) {
     const int k = chain[idx];
     const T* b = m.body(k);
@@ -47,7 +47,7 @@ RBD_HD void ee_one(const Model<T>& m, const T* ee, int jid, const T* q, const T*
     e[r] = pe[r] - target[r];
   }
   if constexpr (GN) {
-    T J[3][NB_MAX];
+    T J[3][N8::NB];
     for (int r = 0; r < 3; ++r)
       for (int c = 0; c < n; ++c) J[r][c] = T(0);
     for (int idx = 0; idx < len; ++idx) {
@@ -72,17 +72,17 @@ RBD_HD void ee_one(const Model<T>& m, const T* ee, int jid, const T* q, const T*
 
 #ifdef __CUDACC__
 template <typename T, bool GN>
-__global__ void ee_kernel(rbd::Model<T> m, const T* __restrict__ ee, int jid,
+__global__ void ee_kernel(rbd::Model<T, rbd::N8> m, const T* __restrict__ ee, int jid,
                           const T* __restrict__ q, T tx, T ty, T tz, T* __restrict__ e,
                           T* __restrict__ g0, T* __restrict__ H0, int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int n = m.nb;
   const T target[3] = {tx, ty, tz};
-  T qs[rbd::NB_MAX], es[3];
+  T qs[rbd::N8::NB], es[3];
   for (int k = 0; k < n; ++k) qs[k] = q[(size_t)b * n + k];
   if constexpr (GN) {
-    T g[rbd::NB_MAX], H[rbd::NB_MAX * rbd::NB_MAX];
+    T g[rbd::N8::NB], H[rbd::N8::NB * rbd::N8::NB];
     rbd::ee_one<T, true>(m, ee, jid, qs, target, es, g, H);
     for (int i = 0; i < n; ++i) g0[(size_t)b * n + i] = g[i];
     for (int i = 0; i < n * n; ++i) H0[(size_t)b * n * n + i] = H[i];
@@ -96,29 +96,29 @@ template <typename T, bool GN>
 static int launch_ee(const T* tab, const int* itab, int nb, const T* ee, int jid, const T* q,
                      T tx, T ty, T tz, T* e, T* g0, T* H0, int B, void* stream) {
   if (B <= 0) return 0;
-  rbd::Model<T> m{tab, itab, nb};
+  rbd::Model<T, rbd::N8> m{tab, itab, nb};
   ee_kernel<T, GN><<<RBD_GRID(B, RBD_THREADS), RBD_THREADS, 0, (cudaStream_t)stream>>>(
       m, ee, jid, q, tx, ty, tz, e, g0, H0, B);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
-int rbd_ee_gn_f32(const float* tab, const int* itab, int nb, const float* ee, int jid,
+int rbd_ee_gn_n8_f32(const float* tab, const int* itab, int nb, const float* ee, int jid,
                   const float* q, float tx, float ty, float tz, float* e, float* g0, float* H0,
                   int B, void* stream) {
   return launch_ee<float, true>(tab, itab, nb, ee, jid, q, tx, ty, tz, e, g0, H0, B, stream);
 }
-int rbd_ee_gn_f64(const double* tab, const int* itab, int nb, const double* ee, int jid,
+int rbd_ee_gn_n8_f64(const double* tab, const int* itab, int nb, const double* ee, int jid,
                   const double* q, double tx, double ty, double tz, double* e, double* g0,
                   double* H0, int B, void* stream) {
   return launch_ee<double, true>(tab, itab, nb, ee, jid, q, tx, ty, tz, e, g0, H0, B, stream);
 }
-int rbd_ee_err_f32(const float* tab, const int* itab, int nb, const float* ee, int jid,
+int rbd_ee_err_n8_f32(const float* tab, const int* itab, int nb, const float* ee, int jid,
                    const float* q, float tx, float ty, float tz, float* e, int B, void* stream) {
   return launch_ee<float, false>(tab, itab, nb, ee, jid, q, tx, ty, tz, e, nullptr, nullptr, B,
                                  stream);
 }
-int rbd_ee_err_f64(const double* tab, const int* itab, int nb, const double* ee, int jid,
+int rbd_ee_err_n8_f64(const double* tab, const int* itab, int nb, const double* ee, int jid,
                    const double* q, double tx, double ty, double tz, double* e, int B,
                    void* stream) {
   return launch_ee<double, false>(tab, itab, nb, ee, jid, q, tx, ty, tz, e, nullptr, nullptr, B,

@@ -20,17 +20,17 @@
 #ifdef __CUDACC__
 // FEXT false compiles the wrench code out of the step.
 template <typename T, bool DENSE, bool FEXT>
-__global__ void fd_step_minv_kernel(rbd::Model<T> m, const T* __restrict__ x,
+__global__ void fd_step_minv_kernel(rbd::Model<T, rbd::N8> m, const T* __restrict__ x,
                                     const T* __restrict__ u, const T* __restrict__ fext,
                                     int fext_stride, T* __restrict__ xo, int B, T dt,
                                     T gravity) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int n = m.nb;
-  T xs[2 * rbd::NB_MAX], us[rbd::NB_MAX], out[2 * rbd::NB_MAX];
+  T xs[2 * rbd::N8::NB], us[rbd::N8::NB], out[2 * rbd::N8::NB];
   for (int k = 0; k < 2 * n; ++k) xs[k] = x[(size_t)b * 2 * n + k];
   for (int k = 0; k < n; ++k) us[k] = u[(size_t)b * n + k];
-  rbd::fd_step_minv_state<T, DENSE>(m, xs, us, dt, gravity, out,
+  rbd::fd_step_minv_state<T, rbd::N8, DENSE>(m, xs, us, dt, gravity, out,
                                     FEXT ? fext + (size_t)b * fext_stride : nullptr);
   for (int k = 0; k < 2 * n; ++k) xo[(size_t)b * 2 * n + k] = out[k];
 }
@@ -40,7 +40,7 @@ static int launch_fd_step_minv(const T* tab, const int* itab, int nb, const T* x
                                const T* fext, int fext_stride, T* xo, int B, int dense, T dt,
                                T gravity, void* stream) {
   if (B <= 0) return 0;
-  rbd::Model<T> m{tab, itab, nb};
+  rbd::Model<T, rbd::N8> m{tab, itab, nb};
   const dim3 grid(RBD_GRID(B, RBD_THREADS)), block(RBD_THREADS);
   cudaStream_t st = (cudaStream_t)stream;
   if (dense && fext != nullptr) {
@@ -60,13 +60,13 @@ static int launch_fd_step_minv(const T* tab, const int* itab, int nb, const T* x
 }
 
 extern "C" {
-int rbd_fd_step_minv_f32(const float* tab, const int* itab, int nb, const float* x,
+int rbd_fd_step_minv_n8_f32(const float* tab, const int* itab, int nb, const float* x,
                          const float* u, const float* fext, int fext_stride, float* xo, int B,
                          int dense, float dt, float gravity, void* stream) {
   return launch_fd_step_minv<float>(tab, itab, nb, x, u, fext, fext_stride, xo, B, dense, dt,
                                     gravity, stream);
 }
-int rbd_fd_step_minv_f64(const double* tab, const int* itab, int nb, const double* x,
+int rbd_fd_step_minv_n8_f64(const double* tab, const int* itab, int nb, const double* x,
                          const double* u, const double* fext, int fext_stride, double* xo,
                          int B, int dense, double dt, double gravity, void* stream) {
   return launch_fd_step_minv<double>(tab, itab, nb, x, u, fext, fext_stride, xo, B, dense, dt,

@@ -5,10 +5,17 @@
 //
 // The model arrives as tables (kernels/_lib.py: model_tables), not as
 // constants folded into the code: a generic kernel walks the tree in loops
-// over bodies, with every per-body array sized by the compile-time NB_MAX.
-// Those arrays are indexed by loop variables, so they live in local memory
-// (L1-cached) rather than registers; model-specialised code generation that
-// would keep them in registers is later work (rbdtpu's K0).
+// over bodies, with every per-body array sized by the compile-time bound of
+// its size class (Dims: bodies NB, DoFs NV, and whether body 0 is the rpy
+// floating root).  Those arrays are indexed by loop variables, so they live
+// in local memory (L1-cached) rather than registers; model-specialised code
+// generation that would keep them in registers is later work (rbdtpu's K0).
+//
+// The rpy floating root (rbdtpu dynamics/*.py, the floating_base branches)
+// is body 0 with six DoFs, q[0:6] = [x, y, z, roll, pitch, yaw] and S = I;
+// body i > 0 owns DoF i + 5.  Its transform is plux(R^T, xyz) Xtree[0], its
+// articulated 6x6 block is solved by an unrolled Cholesky factorisation
+// (NaN, never a trap, when it is not positive definite).
 //
 // Everything here is templated on the scalar type T (float or double) and
 // compiles for the host too (RBD_HD), which lets a host build check the
@@ -28,8 +35,18 @@
 
 namespace rbd {
 
-constexpr int NB_MAX = 8;  // kernels/_lib.py NB_MAX
 constexpr int PRISMATIC = 1;
+
+// A size class (kernels/_lib.py SIZE_CLASSES): at most NB bodies; FB marks
+// the rpy floating root, whose six DoFs make NV = NB + 5.
+template <int NB_, bool FB_>
+struct Dims {
+  static constexpr int NB = NB_;
+  static constexpr bool FB = FB_;
+  static constexpr int NV = FB_ ? NB_ + 5 : NB_;
+};
+using N8 = Dims<8, false>;    // fixed-base trees of up to 8 bodies
+using FB16 = Dims<16, true>;  // rpy floating-base trees of up to 16 bodies
 
 // per-body table layout (kernels/_lib.py STRIDE): compact Xtree (E, r),
 // joint axis, 6x6 inertia, motion subspace S, Ttree rotation and translation
@@ -40,8 +57,10 @@ RBD_HD float rsin(float x) { return sinf(x); }
 RBD_HD double rsin(double x) { return sin(x); }
 RBD_HD float rcos(float x) { return cosf(x); }
 RBD_HD double rcos(double x) { return cos(x); }
+RBD_HD float sqrt_r(float x) { return sqrtf(x); }
+RBD_HD double sqrt_r(double x) { return sqrt(x); }
 
-template <typename T>
+template <typename T, class D>
 struct Model {
   const T* tab;     // nb * STRIDE
   const int* itab;  // parent[nb], joint_type[nb]
@@ -49,6 +68,11 @@ struct Model {
   RBD_HD const T* body(int i) const { return tab + i * STRIDE; }
   RBD_HD int parent(int i) const { return itab[i]; }
   RBD_HD int jtype(int i) const { return itab[nb + i]; }
+  RBD_HD int nv() const { return D::FB ? nb + 5 : nb; }
+  // the DoF of a 1-DoF body i (not the floating root)
+  RBD_HD int vi(int i) const { return D::FB ? i + 5 : i; }
+  // body i is the six-DoF rpy root
+  RBD_HD bool root6(int i) const { return D::FB && i == 0; }
 };
 
 // Compact Pluecker transform X = [[E, 0], [-E r^, E]] (parent -> child).
@@ -97,8 +121,8 @@ RBD_HD void rot_axis(const T* ax, T q, bool transpose, T* R) {
 // X = XJ(q) Xtree with Xtree = (Et, rt):
 //   revolute:  XJ = plux(R(q)^T, 0)      -> E = R^T Et, r = rt
 //   prismatic: XJ = plux(I, axis q)      -> E = Et,     r = rt + Et^T axis q
-template <typename T>
-RBD_HD void joint_xc(const Model<T>& m, int i, T q, Xc<T>& X) {
+template <typename T, class D>
+RBD_HD void joint_xc(const Model<T, D>& m, int i, T q, Xc<T>& X) {
   const T* b = m.body(i);
   const T* Et = b + OFF_E;
   const T* rt = b + OFF_R;
@@ -220,9 +244,92 @@ RBD_HD void gravity_accel(T gravity, T* a) {
   a[5] = -gravity;
 }
 
+// Active rotation R = Rz(yaw) Ry(pitch) Rx(roll) of URDF rpy angles
+// (rbdtpu spatial/transforms.py rpy_to_R), row-major.
 template <typename T>
-RBD_HD void joint_transforms(const Model<T>& m, const T* q, Xc<T>* X) {
-  for (int i = 0; i < m.nb; ++i) joint_xc(m, i, q[i], X[i]);
+RBD_HD void rpy_R(const T* rpy, T* R) {
+  const T sr = rsin(rpy[0]), cr = rcos(rpy[0]), sp = rsin(rpy[1]), cp = rcos(rpy[1]),
+          sy = rsin(rpy[2]), cy = rcos(rpy[2]);
+  R[0] = cy * cp, R[1] = cy * sp * sr - sy * cr, R[2] = cy * sp * cr + sy * sr;
+  R[3] = sy * cp, R[4] = sy * sp * sr + cy * cr, R[5] = sy * sp * cr - cy * sr;
+  R[6] = -sp, R[7] = cp * sr, R[8] = cp * cr;
+}
+
+// d R / d rpy[j] of rpy_R (rbdtpu kernels/lanescalar.py rpy_dR).
+template <typename T>
+RBD_HD void rpy_dR(const T* rpy, int j, T* dR) {
+  const T sr = rsin(rpy[0]), cr = rcos(rpy[0]), sp = rsin(rpy[1]), cp = rcos(rpy[1]),
+          sy = rsin(rpy[2]), cy = rcos(rpy[2]);
+  if (j == 0) {
+    dR[0] = 0, dR[1] = cy * sp * cr + sy * sr, dR[2] = -(cy * sp * sr) + sy * cr;
+    dR[3] = 0, dR[4] = sy * sp * cr - cy * sr, dR[5] = -(sy * sp * sr) - cy * cr;
+    dR[6] = 0, dR[7] = cp * cr, dR[8] = -(cp * sr);
+  } else if (j == 1) {
+    dR[0] = -(cy * sp), dR[1] = cy * cp * sr, dR[2] = cy * cp * cr;
+    dR[3] = -(sy * sp), dR[4] = sy * cp * sr, dR[5] = sy * cp * cr;
+    dR[6] = -cp, dR[7] = -(sp * sr), dR[8] = -(sp * cr);
+  } else {
+    dR[0] = -(sy * cp), dR[1] = -(sy * sp * sr) - cy * cr, dR[2] = -(sy * sp * cr) + cy * sr;
+    dR[3] = cy * cp, dR[4] = cy * sp * sr - sy * cr, dR[5] = cy * sp * cr + sy * sr;
+    dR[6] = 0, dR[7] = 0, dR[8] = 0;
+  }
+}
+
+// The rpy root's X = plux(R^T, p) Xtree[0] = plux(R^T Et, rt + Et^T p) for
+// q6 = [p; rpy] (composition: plux(E1, r1) plux(E2, r2) =
+// plux(E1 E2, r2 + E2^T r1)).  A real call: inlined into the
+// linearize_parts kernel, nvcc 12.9 gave the root's r NaN and overwrote
+// q[0] in the kernel's copy of q (float and double, on an H100); as a call,
+// or reading a fresh copy of q, it is right.
+template <typename T, class D>
+RBD_HD_CALL void floating_xc(const Model<T, D>& m, const T* q6, Xc<T>& X) {
+  const T* b = m.body(0);
+  T R[9], Rt[9], d[3];
+  rpy_R(q6 + 3, R);
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) Rt[3 * i + j] = R[3 * j + i];
+  mm3(Rt, b + OFF_E, X.E);
+  mtv3(b + OFF_E, q6, d);
+  for (int k = 0; k < 3; ++k) X.r[k] = b[OFF_R + k] + d[k];
+}
+
+template <typename T, class D>
+RBD_HD void joint_transforms(const Model<T, D>& m, const T* q, Xc<T>* X) {
+  if constexpr (D::FB) {
+    floating_xc(m, q, X[0]);
+    for (int i = 1; i < m.nb; ++i) joint_xc(m, i, q[i + 5], X[i]);
+  } else {
+    for (int i = 0; i < m.nb; ++i) joint_xc(m, i, q[i], X[i]);
+  }
+}
+
+// Cholesky factor L (row-major, lower) of a symmetric 6x6 A, unrolled
+// (rbdtpu kernels/lanescalar.py cholesky6): a block that is not positive
+// definite gives NaN entries.
+template <typename T>
+RBD_HD void chol6(const T* A, T* L) {
+  for (int i = 0; i < 6; ++i)
+    for (int j = 0; j <= i; ++j) {
+      T s = A[6 * i + j];
+      for (int k = 0; k < j; ++k) s -= L[6 * i + k] * L[6 * j + k];
+      L[6 * i + j] = i == j ? sqrt_r(s) : s / L[6 * j + j];
+    }
+}
+
+// x = (L L^T)^-1 b for L from chol6 (cholesky6_solve).
+template <typename T>
+RBD_HD void chol6_solve(const T* L, const T* b, T* x) {
+  T y[6];
+  for (int i = 0; i < 6; ++i) {
+    T s = b[i];
+    for (int k = 0; k < i; ++k) s -= L[6 * i + k] * y[k];
+    y[i] = s / L[6 * i + i];
+  }
+  for (int i = 5; i >= 0; --i) {
+    T s = y[i];
+    for (int k = i + 1; k < 6; ++k) s -= L[6 * k + i] * x[k];
+    x[i] = s / L[6 * i + i];
+  }
 }
 
 // World-frame wrenches into the body forces (rbdtpu dynamics/rnea.py
@@ -230,9 +337,9 @@ RBD_HD void joint_transforms(const Model<T>& m, const T* q, Xc<T>* X) {
 // chain Xa[i] = X[i] Xa[parent], composed compactly as
 // plux(E1, r1) plux(E2, r2) = plux(E1 E2, r2 + E2^T r1); for Xa = plux(E, r),
 // Xa^{-T} [n; fl] = [E (n - r x fl); E fl].  fext is (nb, 6).
-template <typename T>
-RBD_HD void apply_fext(const Model<T>& m, const Xc<T>* X, const T* fext, T (*f)[6]) {
-  Xc<T> Xa[NB_MAX];
+template <typename T, class D>
+RBD_HD void apply_fext(const Model<T, D>& m, const Xc<T>* X, const T* fext, T (*f)[6]) {
+  Xc<T> Xa[D::NB];
   for (int i = 0; i < m.nb; ++i) {
     const int p = m.parent(i);
     if (p < 0) {
@@ -253,21 +360,26 @@ RBD_HD void apply_fext(const Model<T>& m, const Xc<T>* X, const T* fext, T (*f)[
   }
 }
 
-// Articulated-body forward dynamics (rbdtpu dynamics/aba.py): qdd from
-// q (through X), qd and tau; world-frame wrenches fext (nb, 6) enter the
-// bias forces after the first sweep when not null.
-template <typename T>
-RBD_HD void aba(const Model<T>& m, const Xc<T>* X, const T* qd, const T* tau, T gravity,
-                T* qdd, const T* fext = nullptr) {
-  T v[NB_MAX][6], c[NB_MAX][6], pA[NB_MAX][6], IA[NB_MAX][36];
-  T U[NB_MAX][6], d[NB_MAX], u[NB_MAX];
+// ABA on the rpy floating root (rbdtpu dynamics/aba.py, floating branch):
+// body 0 is a six-DoF joint (S = I) whose articulated block U = D = IA[0]
+// gives its accelerations from IA[0] qdd = u - IA[0]^T a (chol6); body
+// i > 0 owns DoF i + 5.  A real call: inlined into the fd_step kernel,
+// nvcc 12.9 returned NaN for every acceleration of this instantiation
+// (float and double, on an H100), while the same code called, inlined
+// into the feedback_rollout kernel's horizon loop, or built by g++ was
+// right.
+template <typename T, class D>
+RBD_HD_CALL void aba_root6(const Model<T, D>& m, const Xc<T>* X, const T* qd, const T* tau,
+                           T gravity, T* qdd, const T* fext) {
+  T v[D::NB][6], c[D::NB][6], pA[D::NB][6], IA[D::NB][36];
+  T U[D::NB][6], d[D::NB], u[D::NB];
   const int nb = m.nb;
   for (int i = 0; i < nb; ++i) {
     const T* b = m.body(i);
     const T* S = b + OFF_S;
     const int p = m.parent(i);
     T vJ[6], Iv[6];
-    for (int k = 0; k < 6; ++k) vJ[k] = S[k] * qd[i];
+    for (int k = 0; k < 6; ++k) vJ[k] = i == 0 ? qd[k] : S[k] * qd[i + 5];
     if (p < 0) {
       for (int k = 0; k < 6; ++k) {
         v[i][k] = vJ[k];
@@ -283,43 +395,115 @@ RBD_HD void aba(const Model<T>& m, const Xc<T>* X, const T* qd, const T* tau, T 
     for (int k = 0; k < 36; ++k) IA[i][k] = b[OFF_I + k];
   }
   if (fext != nullptr) apply_fext(m, X, fext, pA);
-  for (int i = nb - 1; i >= 0; --i) {
+  for (int i = nb - 1; i > 0; --i) {
     const T* S = m.body(i) + OFF_S;
     const int p = m.parent(i);
     matvec6(IA[i], S, U[i]);
     d[i] = dot6(S, U[i]);
-    u[i] = tau[i] - dot6(S, pA[i]);
-    if (p >= 0) {
-      T Ia[36], pa[6], Iac[6];
-      for (int r = 0; r < 6; ++r)
-        for (int s = 0; s < 6; ++s) Ia[6 * r + s] = IA[i][6 * r + s] - U[i][r] * U[i][s] / d[i];
-      matvec6(Ia, c[i], Iac);
-      const T ud = u[i] / d[i];
-      for (int k = 0; k < 6; ++k) pa[k] = pA[i][k] + Iac[k] + U[i][k] * ud;
-      xtax_add(X[i], Ia, IA[p]);
-      T t[6];
-      xc_mtv(X[i], pa, t);
-      for (int k = 0; k < 6; ++k) pA[p][k] += t[k];
-    }
+    u[i] = tau[i + 5] - dot6(S, pA[i]);
+    T Ia[36], pa[6], Iac[6], t[6];
+    for (int r = 0; r < 6; ++r)
+      for (int s = 0; s < 6; ++s) Ia[6 * r + s] = IA[i][6 * r + s] - U[i][r] * U[i][s] / d[i];
+    matvec6(Ia, c[i], Iac);
+    const T ud = u[i] / d[i];
+    for (int k = 0; k < 6; ++k) pa[k] = pA[i][k] + Iac[k] + U[i][k] * ud;
+    xtax_add(X[i], Ia, IA[p]);
+    xc_mtv(X[i], pa, t);
+    for (int k = 0; k < 6; ++k) pA[p][k] += t[k];
   }
-  T a[NB_MAX][6], ag[6];
+  T a[D::NB][6], ag[6], L[36], rhs[6];
   gravity_accel(gravity, ag);
-  for (int i = 0; i < nb; ++i) {
+  xc_mv(X[0], ag, a[0]);
+  for (int r = 0; r < 6; ++r) {
+    T s = 0;
+    for (int k = 0; k < 6; ++k) s += IA[0][6 * k + r] * a[0][k];
+    rhs[r] = tau[r] - pA[0][r] - s;
+  }
+  chol6(IA[0], L);
+  chol6_solve(L, rhs, qdd);
+  for (int k = 0; k < 6; ++k) a[0][k] += qdd[k];
+  for (int i = 1; i < nb; ++i) {
     const T* S = m.body(i) + OFF_S;
-    const int p = m.parent(i);
-    xc_mv(X[i], p < 0 ? ag : a[p], a[i]);
+    xc_mv(X[i], a[m.parent(i)], a[i]);
     for (int k = 0; k < 6; ++k) a[i][k] += c[i][k];
-    qdd[i] = (u[i] - dot6(U[i], a[i])) / d[i];
-    for (int k = 0; k < 6; ++k) a[i][k] += S[k] * qdd[i];
+    qdd[i + 5] = (u[i] - dot6(U[i], a[i])) / d[i];
+    for (int k = 0; k < 6; ++k) a[i][k] += S[k] * qdd[i + 5];
+  }
+}
+
+// Articulated-body forward dynamics (rbdtpu dynamics/aba.py): qdd from
+// q (through X), qd and tau; world-frame wrenches fext (nb, 6) enter the
+// bias forces after the first sweep when not null.  The rpy root's
+// instantiation is aba_root6; the fixed-base body below is kept as it was
+// before that root existed, which keeps the fixed-base kernels' registers.
+template <typename T, class D>
+RBD_HD void aba(const Model<T, D>& m, const Xc<T>* X, const T* qd, const T* tau, T gravity,
+                T* qdd, const T* fext = nullptr) {
+  if constexpr (D::FB) {
+    aba_root6(m, X, qd, tau, gravity, qdd, fext);
+  } else {
+    T v[D::NB][6], c[D::NB][6], pA[D::NB][6], IA[D::NB][36];
+    T U[D::NB][6], d[D::NB], u[D::NB];
+    const int nb = m.nb;
+    for (int i = 0; i < nb; ++i) {
+      const T* b = m.body(i);
+      const T* S = b + OFF_S;
+      const int p = m.parent(i);
+      T vJ[6], Iv[6];
+      for (int k = 0; k < 6; ++k) vJ[k] = S[k] * qd[i];
+      if (p < 0) {
+        for (int k = 0; k < 6; ++k) {
+          v[i][k] = vJ[k];
+          c[i][k] = T(0);
+        }
+      } else {
+        xc_mv(X[i], v[p], v[i]);
+        for (int k = 0; k < 6; ++k) v[i][k] += vJ[k];
+        cross_motion(v[i], vJ, c[i]);
+      }
+      matvec6(b + OFF_I, v[i], Iv);
+      cross_force(v[i], Iv, pA[i]);
+      for (int k = 0; k < 36; ++k) IA[i][k] = b[OFF_I + k];
+    }
+    if (fext != nullptr) apply_fext(m, X, fext, pA);
+    for (int i = nb - 1; i >= 0; --i) {
+      const T* S = m.body(i) + OFF_S;
+      const int p = m.parent(i);
+      matvec6(IA[i], S, U[i]);
+      d[i] = dot6(S, U[i]);
+      u[i] = tau[i] - dot6(S, pA[i]);
+      if (p >= 0) {
+        T Ia[36], pa[6], Iac[6];
+        for (int r = 0; r < 6; ++r)
+          for (int s = 0; s < 6; ++s) Ia[6 * r + s] = IA[i][6 * r + s] - U[i][r] * U[i][s] / d[i];
+        matvec6(Ia, c[i], Iac);
+        const T ud = u[i] / d[i];
+        for (int k = 0; k < 6; ++k) pa[k] = pA[i][k] + Iac[k] + U[i][k] * ud;
+        xtax_add(X[i], Ia, IA[p]);
+        T t[6];
+        xc_mtv(X[i], pa, t);
+        for (int k = 0; k < 6; ++k) pA[p][k] += t[k];
+      }
+    }
+    T a[D::NB][6], ag[6];
+    gravity_accel(gravity, ag);
+    for (int i = 0; i < nb; ++i) {
+      const T* S = m.body(i) + OFF_S;
+      const int p = m.parent(i);
+      xc_mv(X[i], p < 0 ? ag : a[p], a[i]);
+      for (int k = 0; k < 6; ++k) a[i][k] += c[i][k];
+      qdd[i] = (u[i] - dot6(U[i], a[i])) / d[i];
+      for (int k = 0; k < 6; ++k) a[i][k] += S[k] * qdd[i];
+    }
   }
 }
 
 // RNEA forward sweep at the given qdd (null: zero, folded away when the
 // caller passes a literal nullptr), world-frame wrenches fext (null: none),
 // then the force accumulation of the backward sweep (f[parent] += X^T f[i]).
-template <typename T>
-RBD_HD void rnea_sweeps(const Model<T>& m, const Xc<T>* X, const T* qd, const T* qdd, T gravity,
-                        T (*v)[6], T (*a)[6], T (*f)[6], const T* fext = nullptr) {
+template <typename T, class D>
+RBD_HD void rnea_sweeps(const Model<T, D>& m, const Xc<T>* X, const T* qd, const T* qdd,
+                        T gravity, T (*v)[6], T (*a)[6], T (*f)[6], const T* fext = nullptr) {
   T ag[6];
   gravity_accel(gravity, ag);
   for (int i = 0; i < m.nb; ++i) {
@@ -327,7 +511,11 @@ RBD_HD void rnea_sweeps(const Model<T>& m, const Xc<T>* X, const T* qd, const T*
     const T* S = b + OFF_S;
     const int p = m.parent(i);
     T vJ[6], vxvJ[6], Ia[6], Iv[6], vxIv[6];
-    for (int k = 0; k < 6; ++k) vJ[k] = S[k] * qd[i];
+    if (m.root6(i)) {
+      for (int k = 0; k < 6; ++k) vJ[k] = qd[k];
+    } else {
+      for (int k = 0; k < 6; ++k) vJ[k] = S[k] * qd[m.vi(i)];
+    }
     if (p < 0) {
       for (int k = 0; k < 6; ++k) v[i][k] = vJ[k];
       xc_mv(X[i], ag, a[i]);
@@ -337,8 +525,10 @@ RBD_HD void rnea_sweeps(const Model<T>& m, const Xc<T>* X, const T* qd, const T*
       xc_mv(X[i], a[p], a[i]);
     }
     cross_motion(v[i], vJ, vxvJ);
-    if (qdd != nullptr) {
-      for (int k = 0; k < 6; ++k) a[i][k] += vxvJ[k] + S[k] * qdd[i];
+    if (qdd != nullptr && m.root6(i)) {
+      for (int k = 0; k < 6; ++k) a[i][k] += vxvJ[k] + qdd[k];
+    } else if (qdd != nullptr) {
+      for (int k = 0; k < 6; ++k) a[i][k] += vxvJ[k] + S[k] * qdd[m.vi(i)];
     } else {
       for (int k = 0; k < 6; ++k) a[i][k] += vxvJ[k];
     }
@@ -358,21 +548,30 @@ RBD_HD void rnea_sweeps(const Model<T>& m, const Xc<T>* X, const T* qd, const T*
   }
 }
 
-// RNEA joint forces tau = S^T f (rbdtpu dynamics/rnea.py rnea(...)[0]).
-template <typename T>
-RBD_HD void rnea_tau(const Model<T>& m, const Xc<T>* X, const T* qd, const T* qdd, T gravity,
+// RNEA joint forces tau = S^T f (rbdtpu dynamics/rnea.py rnea(...)[0]); the
+// rpy root's six rows are f[0].
+template <typename T, class D>
+RBD_HD void rnea_tau(const Model<T, D>& m, const Xc<T>* X, const T* qd, const T* qdd, T gravity,
                      const T* fext, T* tau) {
-  T v[NB_MAX][6], a[NB_MAX][6], f[NB_MAX][6];
+  T v[D::NB][6], a[D::NB][6], f[D::NB][6];
   rnea_sweeps(m, X, qd, qdd, gravity, v, a, f, fext);
-  for (int i = 0; i < m.nb; ++i) tau[i] = dot6(m.body(i) + OFF_S, f[i]);
+  for (int i = 0; i < m.nb; ++i) {
+    if (m.root6(i)) {
+      for (int k = 0; k < 6; ++k) tau[k] = f[0][k];
+    } else {
+      tau[m.vi(i)] = dot6(m.body(i) + OFF_S, f[i]);
+    }
+  }
 }
 
 // qdd = M^-1 rhs by the articulated-inertia factorisation: the ABA sweeps
 // with zero velocity and zero gravity, whose velocity sweep vanishes (rbdtpu
 // kernels/fused.py _step_lane, route "minv": aba_lane(qd=0, gravity=0)).
-template <typename T>
-RBD_HD void minv_apply(const Model<T>& m, const Xc<T>* X, const T* rhs, T* qdd) {
-  T pA[NB_MAX][6], IA[NB_MAX][36], U[NB_MAX][6], d[NB_MAX], u[NB_MAX];
+// Fixed-base trees only (the rpy root's block is not written here).
+template <typename T, class D>
+RBD_HD void minv_apply(const Model<T, D>& m, const Xc<T>* X, const T* rhs, T* qdd) {
+  static_assert(!D::FB, "minv_apply covers fixed-base trees");
+  T pA[D::NB][6], IA[D::NB][36], U[D::NB][6], d[D::NB], u[D::NB];
   const int nb = m.nb;
   for (int i = 0; i < nb; ++i) {
     for (int k = 0; k < 6; ++k) pA[i][k] = T(0);
@@ -395,7 +594,7 @@ RBD_HD void minv_apply(const Model<T>& m, const Xc<T>* X, const T* rhs, T* qdd) 
       for (int k = 0; k < 6; ++k) pA[p][k] += t[k];
     }
   }
-  T a[NB_MAX][6];
+  T a[D::NB][6];
   for (int i = 0; i < nb; ++i) {
     const T* S = m.body(i) + OFF_S;
     const int p = m.parent(i);
@@ -410,37 +609,53 @@ RBD_HD void minv_apply(const Model<T>& m, const Xc<T>* X, const T* rhs, T* qdd) 
 }
 
 // Analytical M^-1 (rbdtpu dynamics/minv.py): leaf->root sweep for the upper
-// rows, root->leaf sweep completing them; out (n, n) symmetric.
+// rows, root->leaf sweep completing them; out (nv, nv) symmetric.  The rpy
+// root's six rows are IA[0]^-1 (e_c - F[0][:, c]) over every column c (the
+// dense fill over all nv columns, rbdtpu's deviation from its oracle).
 // A real call, not inlined: inlined into linearize_knot, nvcc (CUDA 12.8)
 // gave the float instantiation's M^-1 locals the storage of the caller's
 // still-live RNEA accelerations and forces, corrupting dc/dq (measured on an
 // H100; double and the host build were unaffected).
-template <typename T>
-RBD_HD_CALL void minv_dense(const Model<T>& m, const Xc<T>* X, T* out) {
-  const int n = m.nb;
-  T M[NB_MAX][NB_MAX], F[NB_MAX][6][NB_MAX], IA[NB_MAX][36], U[NB_MAX][6], Dinv[NB_MAX];
-  for (int i = 0; i < n; ++i) {
+template <typename T, class D>
+RBD_HD_CALL void minv_dense(const Model<T, D>& m, const Xc<T>* X, T* out) {
+  const int nb = m.nb, n = m.nv();
+  T M[D::NV][D::NV], F[D::NB][6][D::NV], IA[D::NB][36], U[D::NB][6], Dinv[D::NB];
+  for (int i = 0; i < nb; ++i) {
     for (int c = 0; c < n; ++c) {
       M[i][c] = T(0);
       for (int r = 0; r < 6; ++r) F[i][r][c] = T(0);
     }
     for (int k = 0; k < 36; ++k) IA[i][k] = m.body(i)[OFF_I + k];
   }
-  for (int i = n - 1; i >= 0; --i) {
+  for (int i = nb; i < n; ++i)
+    for (int c = 0; c < n; ++c) M[i][c] = T(0);
+  for (int i = nb - 1; i >= 0; --i) {
+    if (m.root6(i)) {
+      T L[36];
+      chol6(IA[0], L);
+      for (int c = 0; c < n; ++c) {
+        T rhs[6], x[6];
+        for (int r = 0; r < 6; ++r) rhs[r] = (r == c ? T(1) : T(0)) - F[0][r][c];
+        chol6_solve(L, rhs, x);
+        for (int r = 0; r < 6; ++r) M[r][c] += x[r];
+      }
+      continue;
+    }
     const T* S = m.body(i) + OFF_S;
     const int p = m.parent(i);
+    const int mi = m.vi(i);
     matvec6(IA[i], S, U[i]);
     Dinv[i] = T(1) / dot6(S, U[i]);
     for (int c = 0; c < n; ++c) {
       T sF = 0;
       for (int r = 0; r < 6; ++r) sF += S[r] * F[i][r][c];
-      M[i][c] += -Dinv[i] * sF + (c == i ? Dinv[i] : T(0));
+      M[mi][c] += -Dinv[i] * sF + (c == mi ? Dinv[i] : T(0));
     }
     if (p >= 0) {
       for (int c = 0; c < n; ++c) {
         T col[6], t[6];
         for (int r = 0; r < 6; ++r) {
-          F[i][r][c] += U[i][r] * M[i][c];
+          F[i][r][c] += U[i][r] * M[mi][c];
           col[r] = F[i][r][c];
         }
         xc_mtv(X[i], col, t);
@@ -452,18 +667,21 @@ RBD_HD_CALL void minv_dense(const Model<T>& m, const Xc<T>* X, T* out) {
       xtax_add(X[i], Ia, IA[p]);
     }
   }
-  for (int i = 0; i < n; ++i) {
+  for (int i = 0; i < nb; ++i) {
     const T* S = m.body(i) + OFF_S;
     const int p = m.parent(i);
+    const int mi = m.root6(i) ? 0 : m.vi(i);
     for (int c = 0; c < n; ++c) {
-      if (p < 0) {
-        for (int r = 0; r < 6; ++r) F[i][r][c] = S[r] * M[i][c];
+      if (m.root6(i)) {
+        for (int r = 0; r < 6; ++r) F[0][r][c] = M[r][c];
+      } else if (p < 0) {
+        for (int r = 0; r < 6; ++r) F[i][r][c] = S[r] * M[mi][c];
       } else {
         T col[6], XF[6];
         for (int r = 0; r < 6; ++r) col[r] = F[p][r][c];
         xc_mv(X[i], col, XF);
-        M[i][c] -= Dinv[i] * dot6(U[i], XF);
-        for (int r = 0; r < 6; ++r) F[i][r][c] = XF[r] + S[r] * M[i][c];
+        M[mi][c] -= Dinv[i] * dot6(U[i], XF);
+        for (int r = 0; r < 6; ++r) F[i][r][c] = XF[r] + S[r] * M[mi][c];
       }
     }
   }
@@ -471,7 +689,8 @@ RBD_HD_CALL void minv_dense(const Model<T>& m, const Xc<T>* X, T* out) {
     for (int c = 0; c < n; ++c) out[i * n + c] = i <= c ? M[i][c] : M[c][i];
 }
 
-// Semi-implicit Euler: qd' = qd + dt qdd, q' = q + dt qd'.
+// Semi-implicit Euler: qd' = qd + dt qdd, q' = q + dt qd' (flat on the rpy
+// root's six coordinates, as rbdtpu integrates them).
 template <typename T>
 RBD_HD void euler_step(int n, const T* x, const T* qdd, T dt, T* xo) {
   for (int i = 0; i < n; ++i) {
@@ -482,32 +701,33 @@ RBD_HD void euler_step(int n, const T* x, const T* qdd, T dt, T* xo) {
 }
 
 // One ABA + semi-implicit Euler step with optional world-frame wrenches
-// fext (nb, 6).  x and xo are [q; qd] of length 2 nb and may not alias.
-template <typename T>
-RBD_HD void fd_step_state(const Model<T>& m, const T* x, const T* u, T dt, T gravity, T* xo,
+// fext (nb, 6).  x and xo are [q; qd] of length 2 nv and may not alias.
+template <typename T, class D>
+RBD_HD void fd_step_state(const Model<T, D>& m, const T* x, const T* u, T dt, T gravity, T* xo,
                           const T* fext = nullptr) {
-  Xc<T> X[NB_MAX];
-  T qdd[NB_MAX];
+  Xc<T> X[D::NB];
+  T qdd[D::NV];
   joint_transforms(m, x, X);
-  aba(m, X, x + m.nb, u, gravity, qdd, fext);
-  euler_step(m.nb, x, qdd, dt, xo);
+  aba(m, X, x + m.nv(), u, gravity, qdd, fext);
+  euler_step(m.nv(), x, qdd, dt, xo);
 }
 
 // One step on the M^-1 + RNEA route (rbdtpu kernels/fused.py _step_lane,
 // route "minv"): bias c = RNEA(q, qd, 0) with the wrenches, then
 // qdd = M^-1 (u - c) by the factorised apply, or by the dense M^-1 with
 // DENSE, then semi-implicit Euler.  x and xo may not alias.
-template <typename T, bool DENSE>
-RBD_HD void fd_step_minv_state(const Model<T>& m, const T* x, const T* u, T dt, T gravity,
+template <typename T, class D, bool DENSE>
+RBD_HD void fd_step_minv_state(const Model<T, D>& m, const T* x, const T* u, T dt, T gravity,
                                T* xo, const T* fext = nullptr) {
+  static_assert(!D::FB, "fd_step_minv_state covers fixed-base trees");
   const int n = m.nb;
-  Xc<T> X[NB_MAX];
-  T c[NB_MAX], qdd[NB_MAX];
+  Xc<T> X[D::NB];
+  T c[D::NB], qdd[D::NB];
   joint_transforms(m, x, X);
   rnea_tau(m, X, x + n, static_cast<const T*>(nullptr), gravity, fext, c);
   for (int i = 0; i < n; ++i) c[i] = u[i] - c[i];
   if (DENSE) {
-    T Mi[NB_MAX * NB_MAX];
+    T Mi[D::NB * D::NB];
     minv_dense(m, X, Mi);
     for (int i = 0; i < n; ++i) {
       T s = 0;

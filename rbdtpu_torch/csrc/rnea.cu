@@ -16,19 +16,20 @@
 
 #ifdef __CUDACC__
 template <typename T, bool HAS_QDD>
-__global__ void rnea_kernel(rbd::Model<T> m, const T* __restrict__ q, const T* __restrict__ qd,
+__global__ void rnea_kernel(rbd::Model<T, rbd::N8> m, const T* __restrict__ q,
+                            const T* __restrict__ qd,
                             const T* __restrict__ qdd, T* __restrict__ tau, int B, T gravity) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int n = m.nb;
   const size_t o = (size_t)b * n;
-  T qs[rbd::NB_MAX], qds[rbd::NB_MAX], qdds[rbd::NB_MAX], taus[rbd::NB_MAX];
+  T qs[rbd::N8::NB], qds[rbd::N8::NB], qdds[rbd::N8::NB], taus[rbd::N8::NB];
   for (int k = 0; k < n; ++k) {
     qs[k] = q[o + k];
     qds[k] = qd[o + k];
     if (HAS_QDD) qdds[k] = qdd[o + k];
   }
-  rbd::Xc<T> X[rbd::NB_MAX];
+  rbd::Xc<T> X[rbd::N8::NB];
   rbd::joint_transforms(m, qs, X);
   const T* qdd_s = HAS_QDD ? qdds : nullptr;
   rbd::rnea_tau(m, X, qds, qdd_s, gravity, static_cast<const T*>(nullptr), taus);
@@ -39,7 +40,7 @@ template <typename T>
 static int launch_rnea(const T* tab, const int* itab, int nb, const T* q, const T* qd,
                        const T* qdd, T* tau, int B, T gravity, void* stream) {
   if (B <= 0) return 0;
-  rbd::Model<T> m{tab, itab, nb};
+  rbd::Model<T, rbd::N8> m{tab, itab, nb};
   if (qdd != nullptr) {
     rnea_kernel<T, true><<<RBD_GRID(B, RBD_THREADS), RBD_THREADS, 0, (cudaStream_t)stream>>>(
         m, q, qd, qdd, tau, B, gravity);
@@ -51,11 +52,11 @@ static int launch_rnea(const T* tab, const int* itab, int nb, const T* q, const 
 }
 
 extern "C" {
-int rbd_rnea_f32(const float* tab, const int* itab, int nb, const float* q, const float* qd,
+int rbd_rnea_n8_f32(const float* tab, const int* itab, int nb, const float* q, const float* qd,
                  const float* qdd, float* tau, int B, float gravity, void* stream) {
   return launch_rnea<float>(tab, itab, nb, q, qd, qdd, tau, B, gravity, stream);
 }
-int rbd_rnea_f64(const double* tab, const int* itab, int nb, const double* q, const double* qd,
+int rbd_rnea_n8_f64(const double* tab, const int* itab, int nb, const double* q, const double* qd,
                  const double* qdd, double* tau, int B, double gravity, void* stream) {
   return launch_rnea<double>(tab, itab, nb, q, qd, qdd, tau, B, gravity, stream);
 }

@@ -25,16 +25,16 @@ namespace rbd {
 // One trajectory: x0 and xo at its row, U at row b of knot 0 with a knot
 // stride of ustride values; fext (H, nb, 6), read only with FEXT.
 template <typename T, bool MINV, bool FEXT>
-RBD_HD void rollout_one(const Model<T>& m, const T* x0, const T* U, size_t ustride,
+RBD_HD void rollout_one(const Model<T, N8>& m, const T* x0, const T* U, size_t ustride,
                         const T* fext, T* xo, int H, T dt, T gravity) {
   const int n = m.nb, nx = 2 * n;
-  T x[2 * NB_MAX], xn[2 * NB_MAX], u[NB_MAX];
+  T x[2 * N8::NB], xn[2 * N8::NB], u[N8::NB];
   for (int k = 0; k < nx; ++k) x[k] = x0[k];
   for (int t = 0; t < H; ++t) {
     for (int k = 0; k < n; ++k) u[k] = U[t * ustride + k];
     const T* fe = FEXT ? fext + (size_t)t * n * 6 : nullptr;
     if (MINV) {
-      fd_step_minv_state<T, false>(m, x, u, dt, gravity, xn, fe);
+      fd_step_minv_state<T, N8, false>(m, x, u, dt, gravity, xn, fe);
     } else {
       fd_step_state(m, x, u, dt, gravity, xn, fe);
     }
@@ -49,7 +49,7 @@ RBD_HD void rollout_one(const Model<T>& m, const T* x0, const T* U, size_t ustri
 #define RBD_RM_THREADS 32
 
 template <typename T, bool MINV, bool FEXT>
-__global__ void rollout_multi_kernel(rbd::Model<T> m, const T* __restrict__ x0,
+__global__ void rollout_multi_kernel(rbd::Model<T, rbd::N8> m, const T* __restrict__ x0,
                                      const T* __restrict__ U, const T* __restrict__ fext,
                                      T* __restrict__ xo, int B, int H, T dt, T gravity) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -64,7 +64,7 @@ static int launch_rollout_multi(const T* tab, const int* itab, int nb, const T* 
                                 const T* fext, T* xo, int B, int H, int minv, T dt, T gravity,
                                 void* stream) {
   if (B <= 0) return 0;
-  rbd::Model<T> m{tab, itab, nb};
+  rbd::Model<T, rbd::N8> m{tab, itab, nb};
   const dim3 grid(RBD_GRID(B, RBD_RM_THREADS)), block(RBD_RM_THREADS);
   cudaStream_t st = (cudaStream_t)stream;
   if (minv && fext != nullptr) {
@@ -84,13 +84,13 @@ static int launch_rollout_multi(const T* tab, const int* itab, int nb, const T* 
 }
 
 extern "C" {
-int rbd_rollout_multi_f32(const float* tab, const int* itab, int nb, const float* x0,
+int rbd_rollout_multi_n8_f32(const float* tab, const int* itab, int nb, const float* x0,
                           const float* U, const float* fext, float* xo, int B, int H, int minv,
                           float dt, float gravity, void* stream) {
   return launch_rollout_multi<float>(tab, itab, nb, x0, U, fext, xo, B, H, minv, dt, gravity,
                                      stream);
 }
-int rbd_rollout_multi_f64(const double* tab, const int* itab, int nb, const double* x0,
+int rbd_rollout_multi_n8_f64(const double* tab, const int* itab, int nb, const double* x0,
                           const double* U, const double* fext, double* xo, int B, int H,
                           int minv, double dt, double gravity, void* stream) {
   return launch_rollout_multi<double>(tab, itab, nb, x0, U, fext, xo, B, H, minv, dt, gravity,

@@ -1,4 +1,5 @@
-"""Dynamics algorithms on torch tensors (fixed-base models)."""
+"""Dynamics algorithms on torch tensors (fixed-base models and the rpy
+floating root)."""
 from .xforms import joint_transforms_list, joint_transforms_hom_list
 from .rnea import (
     rnea, rnea_fpass, rnea_bpass, gravity_accel, apply_external_forces,

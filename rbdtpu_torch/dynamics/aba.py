@@ -1,12 +1,18 @@
 """ABA — articulated-body forward dynamics, O(NB) per state
-(``rbdtpu.dynamics.aba``, fixed-base branch), with world-frame external
-wrenches (``f_ext``) subtracted from the bias forces between sweeps 1 and 2."""
+(``rbdtpu.dynamics.aba``), with world-frame external wrenches (``f_ext``)
+subtracted from the bias forces between sweeps 1 and 2.  The rpy floating
+root is a 6-wide joint (S = I) whose 6x6 articulated block is solved by an
+unrolled Cholesky factorisation: a block that is not positive definite
+gives NaN, never an error."""
 from __future__ import annotations
 
 import torch
 
 from ..model.robot import RobotModel
-from ..spatial.ops import cross_force, cross_motion, mtv, mv, xtax
+from ..spatial.ops import (
+    cholesky_small, cholesky_solve_small, cross_force, cross_motion, mtv, mv,
+    xtax,
+)
 from .rnea import apply_external_forces, gravity_accel, joint_motion
 from .xforms import joint_transforms_list
 
@@ -38,12 +44,16 @@ def aba(model: RobotModel, q, qd, tau, f_ext=None, gravity: float = -9.81):
 
     # sweep 2 (leaf->root): articulated inertias
     U_l, d_l, u_l = [None] * nb, [None] * nb, [None] * nb
+    fb = model.floating_base
     for i in range(nb - 1, -1, -1):
         p = model.parent[i]
+        if fb and i == 0:  # U = IA S = IA, D = S^T IA S = IA
+            U_l[0], d_l[0], u_l[0] = IA[0], IA[0], tau[..., 0:6] - pA[0]
+            continue
         S = model.S[i]
         U = mv(IA[i], S)
         d = (S * U).sum(-1)
-        u = tau[..., i] - (S * pA[i]).sum(-1)
+        u = tau[..., model.v_index(i)] - (S * pA[i]).sum(-1)
         U_l[i], d_l[i], u_l[i] = U, d, u
         if p != -1:
             Ia = IA[i] - U[..., :, None] * U[..., None, :] / d[..., None, None]
@@ -57,7 +67,13 @@ def aba(model: RobotModel, q, qd, tau, f_ext=None, gravity: float = -9.81):
     for i in range(nb):
         p = model.parent[i]
         a = mv(Xs[i], a_grav if p == -1 else a_l[p]) + c_l[i]
+        if fb and i == 0:
+            qdd_i = cholesky_solve_small(cholesky_small(d_l[0]),
+                                         u_l[0] - mtv(U_l[0], a))
+            a_l[0] = a + qdd_i
+            qdd_cols[0] = qdd_i
+            continue
         qdd_i = (u_l[i] - (U_l[i] * a).sum(-1)) / d_l[i]
         a_l[i] = a + model.S[i] * qdd_i[..., None]
-        qdd_cols[i] = qdd_i
-    return torch.stack(qdd_cols, dim=-1)
+        qdd_cols[i] = qdd_i[..., None]
+    return torch.cat(qdd_cols, dim=-1)

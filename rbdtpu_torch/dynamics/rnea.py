@@ -2,6 +2,7 @@
 with world-frame external wrenches (``f_ext``).
 
 Batched over arbitrary leading dims; the two tree sweeps loop over bodies.
+Fixed-base models and the rpy floating root (a 6-DoF joint with S = I).
 """
 from __future__ import annotations
 
@@ -21,8 +22,19 @@ def gravity_accel(gravity: float, dtype=torch.float32, device="cpu"):
 
 
 def joint_motion(model: RobotModel, i: int, u):
-    """S_i * u_i: (..., nv) -> (..., 6)."""
-    return model.S[i] * u[..., i, None]
+    """S_i * u_i: (..., nv) -> (..., 6); the rpy root's S is the identity,
+    so its motion is u[..., 0:6]."""
+    if model.floating_base and i == 0:
+        return u[..., 0:6]
+    return model.S[i] * u[..., model.v_index(i), None]
+
+
+def joint_force(model: RobotModel, i: int, f):
+    """S_i^T f: (..., 6) -> (..., k), the k = 6 rows of the rpy root or the
+    one row of a 1-DoF joint."""
+    if model.floating_base and i == 0:
+        return f
+    return (model.S[i] * f).sum(-1, keepdim=True)
 
 
 def apply_external_forces(model: RobotModel, Xs, f_list, f_ext):
@@ -70,10 +82,10 @@ def rnea_bpass(model: RobotModel, Xs, f_list):
     c_cols = [None] * model.nb
     for i in range(model.nb - 1, -1, -1):
         p = model.parent[i]
-        c_cols[i] = (model.S[i] * f_l[i]).sum(-1)
+        c_cols[i] = joint_force(model, i, f_l[i])
         if p != -1:
             f_l[p] = f_l[p] + mtv(Xs[i], f_l[i])
-    return torch.stack(c_cols, dim=-1), f_l
+    return torch.cat(c_cols, dim=-1), f_l
 
 
 def rnea(model: RobotModel, q, qd, qdd=None, gravity: float = -9.81,

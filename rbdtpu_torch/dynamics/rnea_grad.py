@@ -1,6 +1,11 @@
-"""Analytical RNEA gradient dc/dq and dc/dqd (``rbdtpu.dynamics.rnea_grad``,
-fixed-base branch): both forward derivative sweeps fused in one pass over
-bodies, each body's block a (..., 6, n) tensor over all derivative columns."""
+"""Analytical RNEA gradient dc/dq and dc/dqd (``rbdtpu.dynamics.rnea_grad``):
+both forward derivative sweeps fused in one pass over bodies, each body's
+block a (..., 6, n) tensor over all derivative columns.
+
+The rpy floating root's dqd columns are the identity block through the
+same sweeps; its six root-pose dq columns are filled, as rbdtpu fills them,
+by forward-mode derivatives of RNEA (``torch.func.jvp``, one tangent per
+root coordinate)."""
 from __future__ import annotations
 
 import torch
@@ -30,24 +35,32 @@ def rnea_grad_fpass(model: RobotModel, Xs, qd, v, a, gravity=-9.81):
         Xi = Xs[i]
         S = model.S[i]
         zeros = torch.zeros(batch + (6, n), **kw)
-        if p == -1:
+        if model.floating_base and i == 0:
+            # root-pose dq columns come from forward-mode AD (rnea_grad);
+            # dqd: dv = the identity block, da = d(v x v) = 0
             dvq, daq, dad = zeros, zeros, zeros
-            Xa_ref = mv(Xi, a_grav)
             dvd = zeros.clone()
-            dvd[..., :, i] += S
+            dvd[..., :, 0:6] += torch.eye(6, **kw)
         else:
-            dvq = Xi @ dv_q[p]
-            dvq[..., :, i] += cross_motion(mv(Xi, v[..., p, :]), S)
-            daq = Xi @ da_q[p]
-            Xa_ref = mv(Xi, a[..., p, :])
-            dvd = Xi @ dv_d[p]
-            dvd[..., :, i] += S
-            dad = Xi @ da_d[p]
-        qd_i = qd[..., i, None, None]
-        daq = daq + qd_i * _cols(cross_motion, dvq, S)
-        daq[..., :, i] += cross_motion(Xa_ref, S)
-        dad = dad + qd_i * _cols(cross_motion, dvd, S)
-        dad[..., :, i] += cross_motion(v[..., i, :], S)
+            qi = model.v_index(i)
+            if p == -1:
+                dvq, daq, dad = zeros, zeros, zeros
+                Xa_ref = mv(Xi, a_grav)
+                dvd = zeros.clone()
+                dvd[..., :, qi] += S
+            else:
+                dvq = Xi @ dv_q[p]
+                dvq[..., :, qi] += cross_motion(mv(Xi, v[..., p, :]), S)
+                daq = Xi @ da_q[p]
+                Xa_ref = mv(Xi, a[..., p, :])
+                dvd = Xi @ dv_d[p]
+                dvd[..., :, qi] += S
+                dad = Xi @ da_d[p]
+            qd_i = qd[..., qi, None, None]
+            daq = daq + qd_i * _cols(cross_motion, dvq, S)
+            daq[..., :, qi] += cross_motion(Xa_ref, S)
+            dad = dad + qd_i * _cols(cross_motion, dvd, S)
+            dad[..., :, qi] += cross_motion(v[..., i, :], S)
 
         Ii = model.I[i]
         vi = v[..., i, :]
@@ -70,16 +83,20 @@ def rnea_grad_bpass(model: RobotModel, Xs, f, df_q, df_d):
     rows_q, rows_d = [None] * nb, [None] * nb
     for i in range(nb - 1, -1, -1):
         p = model.parent[i]
+        if model.floating_base and i == 0:  # S = I: the six rows of df
+            rows_q[0], rows_d[0] = df_q[0], df_d[0]
+            continue
         S = model.S[i]
-        rows_q[i] = (S[:, None] * df_q[i]).sum(-2)
-        rows_d[i] = (S[:, None] * df_d[i]).sum(-2)
+        rows_q[i] = (S[:, None] * df_q[i]).sum(-2, keepdim=True)
+        rows_d[i] = (S[:, None] * df_d[i]).sum(-2, keepdim=True)
         if p != -1:
             Xt = Xs[i].transpose(-1, -2)
             df_q[p] = Xt @ df_q[i] + df_q[p]
             # d(X^T f)/dq_i = X^T crf(S) f, injected into column i
-            df_q[p][..., :, i] += mtv(Xs[i], cross_force(S, f[..., i, :]))
+            df_q[p][..., :, model.v_index(i)] += mtv(
+                Xs[i], cross_force(S, f[..., i, :]))
             df_d[p] = Xt @ df_d[i] + df_d[p]
-    return torch.stack(rows_q, dim=-2), torch.stack(rows_d, dim=-2)
+    return torch.cat(rows_q, dim=-2), torch.cat(rows_d, dim=-2)
 
 
 def rnea_grad(model: RobotModel, q, qd, qdd=None, gravity: float = -9.81,
@@ -90,6 +107,23 @@ def rnea_grad(model: RobotModel, q, qd, qdd=None, gravity: float = -9.81,
     _, v, a, f = rnea(model, q, qd, qdd, gravity)
     df_q, df_d = rnea_grad_fpass(model, Xs, qd, v, a, gravity)
     dc_dq, dc_dqd = rnea_grad_bpass(model, Xs, f, df_q, df_d)
+    if model.floating_base:
+        dc_dq[..., :, 0:6] = _root_pose_columns(model, q, qd, qdd, gravity)
     if split:
         return dc_dq, dc_dqd
     return torch.cat([dc_dq, dc_dqd], dim=-1)
+
+
+def _root_pose_columns(model: RobotModel, q, qd, qdd, gravity):
+    """d tau / d q[0:6] of the rpy root by forward-mode AD through RNEA:
+    (..., nv, 6)."""
+    rest = q[..., 6:]
+    tau_of_root = lambda r6: rnea(model, torch.cat([r6, rest], -1), qd, qdd,
+                                  gravity)[0]
+    cols = []
+    for j in range(6):
+        tangent = torch.zeros_like(q[..., 0:6])
+        tangent[..., j] = 1.0
+        cols.append(torch.func.jvp(tau_of_root, (q[..., 0:6],),
+                                   (tangent,))[1])
+    return torch.stack(cols, dim=-1)

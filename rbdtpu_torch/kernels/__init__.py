@@ -1,5 +1,7 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
-version.  ``_lib.launches`` counts the launches of each kernel."""
+version.  ``_lib.launches`` counts the launches of each kernel.  The tree
+kernels K1-K3 cover fixed-base models and the rpy floating root; K4-K6 and
+K10 fixed-base models only."""
 from ._lib import launches, reset_launches
 from .fused import (
     fd_step_fused, fd_step_plain, feedback_rollout_fused,
@@ -9,6 +11,7 @@ from .fused import (
 )
 from .colvec import linearize_parts_fused, linearize_parts_plain, linearize_fused
 from .fk_lane import ee_gn_fused, ee_gn_plain
+from .riccati_chunk import backward_pass_chunked
 
 __all__ = [
     "launches", "reset_launches",
@@ -17,5 +20,5 @@ __all__ = [
     "rnea_fused", "rnea_plain", "fd_step_minv_fused", "fd_step_minv_plain",
     "rollout_fused", "rollout_fused_multi", "rollout_multi_plain",
     "linearize_parts_fused", "linearize_parts_plain", "linearize_fused",
-    "ee_gn_fused", "ee_gn_plain",
+    "ee_gn_fused", "ee_gn_plain", "backward_pass_chunked",
 ]

@@ -28,20 +28,32 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v", "-c")
 LINK_FLAGS = (*ARCH, "-shared")
-# compile-time bound on bodies per tree; equals rbd::NB_MAX in rbd_common.cuh
-NB_MAX = 8
 # per-body table stride; equals rbd::STRIDE (E 9, r 3, axis 3, I 36, S 6,
 # Ttree rotation 9, Ttree translation 3)
 STRIDE = 69
+# The tree kernels are compiled once per size class (rbd_common.cuh: Dims),
+# each with its own compile-time bound on bodies: fixed-base trees of up to
+# 8 bodies ("n8"), rpy floating-base trees of up to 16 ("fb16").  A class
+# lists the kernels instantiated for it; C symbols are
+# rbd_<kernel>_<class>_<f32|f64>.
+SIZE_CLASSES = {
+    "n8": (8, False, ("fd_step", "feedback_rollout", "linearize_parts",
+                      "ee_gn", "ee_err", "rnea", "fd_step_minv",
+                      "rollout_multi")),
+    "fb16": (16, True, ("fd_step", "feedback_rollout", "linearize_parts")),
+}
 
 # launches per kernel since the last reset_launches(); a wrapper adds one
-# only after its kernel launched without error
+# only after its kernel launched without error.  riccati_chunk and
+# riccati_small count the one Riccati kernel at its two call sites (batch
+# >= 128 and < 128).
 launches = {"fd_step": 0, "feedback_rollout": 0, "linearize_parts": 0,
             "ee_gn": 0, "ee_err": 0, "rnea": 0, "fd_step_minv": 0,
-            "rollout_multi": 0}
+            "rollout_multi": 0, "riccati_chunk": 0, "riccati_small": 0}
 
-# C signatures after the leading (tab, itab, nb): p pointer, i int,
-# s scalar of the kernel's dtype; every function ends with the stream
+# C signatures: p pointer, i int, s scalar of the kernel's dtype; every
+# function ends with the stream.  The tree kernels' signatures follow a
+# leading (tab, itab, nb); the Riccati sweep takes no model.
 _SIGNATURES = {
     "fd_step": "pppipiss",         # x u fext fext_stride xo B dt gravity
     "feedback_rollout": "ppppppppiiss",  # x0 Xn Un kf Kf uclip Xo Uo B H dt g
@@ -52,6 +64,8 @@ _SIGNATURES = {
     "fd_step_minv": "pppipiiss",   # x u fext fext_stride xo B dense dt g
     "rollout_multi": "ppppiiiss",  # x0 U fext xo B H minv dt gravity
 }
+# A B lx lu lxx sb st luu sb st lux sb st lfx lfxx reg k K dV1 ok B H nx nu
+_MODEL_FREE = {"riccati": "pppppiipiipiipppppppiiii"}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _CTYPE = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
 
@@ -121,22 +135,49 @@ def build() -> str:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     lib = ctypes.CDLL(build())
-    for kernel, sig in _SIGNATURES.items():
+    model_args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    bind = [(f"rbd_{k}_{cls}", model_args, _SIGNATURES[k])
+            for cls, (_, _, kernels) in SIZE_CLASSES.items() for k in kernels]
+    bind += [(f"rbd_{k}", [], sig) for k, sig in _MODEL_FREE.items()]
+    for prefix, lead, sig in bind:
         for dtype, suffix in _SUFFIX.items():
             codes = {"p": ctypes.c_void_p, "i": ctypes.c_int,
                      "s": _CTYPE[dtype]}
-            fn = getattr(lib, f"rbd_{kernel}_{suffix}")
-            fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                           + [codes[c] for c in sig] + [ctypes.c_void_p])
+            fn = getattr(lib, f"{prefix}_{suffix}")
+            fn.argtypes = (lead + [codes[c] for c in sig]
+                           + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
     return lib
+
+
+def size_class(kernel: str, model) -> str:
+    """The size class whose instantiation of ``kernel`` takes ``model``;
+    raises NotImplementedError for a root the kernel does not cover and
+    ValueError for a tree larger than every instantiation."""
+    if model.floating_base and model.root_quat:
+        raise NotImplementedError(
+            f"{kernel}: the CUDA kernels do not cover the quaternion "
+            "floating root yet")
+    fits = [(nmax, cls) for cls, (nmax, fb, kernels) in SIZE_CLASSES.items()
+            if fb == model.floating_base and kernel in kernels]
+    if not fits:
+        raise NotImplementedError(
+            f"{kernel}: the CUDA kernel covers fixed-base models only; the "
+            "rpy floating root is not ported to it yet")
+    for nmax, cls in sorted(fits):
+        if model.nb <= nmax:
+            return cls
+    raise ValueError(f"{kernel}: {model.nb} bodies exceed the kernel's "
+                     f"largest instantiation ({max(fits)[0]} bodies)")
 
 
 def model_tables(model, device, dtype):
     """The model's kernel tables on ``device`` in ``dtype``, uploaded once
     per (model, device, dtype): per body [E, r, axis, I, S, Ttree R, Ttree p]
     (the compact (E, r) split of Xtree: X = [[E, 0], [-E r^, E]]), and the
-    int32 [parent..., joint_type...]."""
+    int32 [parent..., joint_type...].  An rpy floating root's row carries
+    its Xtree[0] and inertia like any other; its joint (type FLOATING, six
+    DoFs, S = I) is the kernels' to know."""
     key = ("model", str(device), dtype)
     if key not in model._tables:
         hd = model.host_data
@@ -183,27 +224,28 @@ def check(t: torch.Tensor, name: str, shape, ref: torch.Tensor):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def launch(kernel: str, model, ref: torch.Tensor, *args):
-    """Launch ``kernel`` for ``model`` on ref's device and dtype, on the
-    current stream.  ``args`` follow the C signature after (tab, itab, nb):
-    tensors (or None for a null pointer), ints and floats."""
+def launch(kernel: str, model, ref: torch.Tensor, *args, count_as=None):
+    """Launch ``kernel`` on ref's device and dtype, on the current stream,
+    for ``model`` (its size class's instantiation, after the leading (tab,
+    itab, nb)), or with ``model=None`` for a kernel that takes no model.
+    ``args`` follow the C signature: tensors (or None for a null pointer),
+    ints and floats.  The launch counts under ``count_as`` (default: the
+    kernel's name)."""
     if ref.dtype not in _SUFFIX:
         raise ValueError(f"{kernel}: kernels take float32 or float64, got "
                          f"{ref.dtype}")
-    if model.floating_base:
-        raise NotImplementedError(
-            f"{kernel}: the CUDA kernels cover fixed-base models; the "
-            "floating-base root is not ported yet")
-    if model.nb > NB_MAX:
-        raise ValueError(f"{kernel}: {model.nb} bodies exceed the kernels' "
-                         f"NB_MAX={NB_MAX}")
-    fn = getattr(library(), f"rbd_{kernel}_{_SUFFIX[ref.dtype]}")
-    tab, itab = model_tables(model, ref.device, ref.dtype)
+    lead = []
+    symbol = f"rbd_{kernel}"
+    if model is not None:
+        symbol += "_" + size_class(kernel, model)
+        tab, itab = model_tables(model, ref.device, ref.dtype)
+        lead = [tab.data_ptr(), itab.data_ptr(), model.nb]
+    fn = getattr(library(), f"{symbol}_{_SUFFIX[ref.dtype]}")
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(ref.device):
         stream = torch.cuda.current_stream(ref.device).cuda_stream
-        err = fn(tab.data_ptr(), itab.data_ptr(), model.nb, *conv, stream)
+        err = fn(*lead, *conv, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
                            f"cudaError {err}")
-    launches[kernel] += 1
+    launches[count_as or kernel] += 1

@@ -27,7 +27,8 @@ def linearize_parts_plain(model: RobotModel, q, qd, u,
 
 def linearize_parts_fused(model: RobotModel, q, qd, u,
                           gravity: float = -9.81):
-    """The pieces of ``linearize_parts_plain`` in one launch.
+    """The pieces of ``linearize_parts_plain`` in one launch, for
+    fixed-base models and the rpy floating root.
 
     Kernel ``linearize_parts`` (csrc/linearize.cu) replaces rbdtpu's
     ``kernels.colvec.linearize_parts_fused`` (Pallas, colvec.py:289): one
@@ -39,7 +40,10 @@ def linearize_parts_fused(model: RobotModel, q, qd, u,
     registers, so they spill to L1-cached local memory.  12,800 knots are
     200 blocks of 64 threads, enough to cover the 132 SMs; one thread per
     (knot, column) would add parallelism at the cost of recomputing the
-    shared sweeps, a later trade.
+    shared sweeps, a later trade.  On the rpy root the kernel seeds the
+    six root-pose columns of dc/dq analytically (the pose enters only
+    through the gravity seed, as in rbdtpu's kernel); the plain version
+    takes them by forward-mode AD, so the two agree to rounding.
     """
     if not q.is_cuda:
         return linearize_parts_plain(model, q, qd, u, gravity)

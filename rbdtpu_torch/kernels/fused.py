@@ -3,7 +3,8 @@ semi-implicit Euler step (K1), the line-search feedback rollout (K2), RNEA
 (K10), the M^-1 + RNEA step (K6) and the whole-horizon rollout (K5).
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
-raises.
+raises.  K1 and K2 take fixed-base models and the rpy floating root; K5, K6
+and K10 fixed-base models only (``_lib.size_class``).
 """
 from __future__ import annotations
 

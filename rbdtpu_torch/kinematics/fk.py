@@ -1,6 +1,8 @@
 """Forward kinematics: world transforms, end-effector pose and the position
-Jacobian in the solver's chart (``rbdtpu.kinematics.fk``, fixed-base
-branch; a floating-base model raises ``NotImplementedError``).
+Jacobian in the solver's chart (``rbdtpu.kinematics.fk``).  The world
+transforms and poses cover the rpy floating root; the position Jacobian
+covers fixed-base models only (a floating root raises
+``NotImplementedError``).
 
 The Jacobian is the analytic chain derivative of rbdtpu's
 ``ee_pose_gradient``: one prefix and one suffix product per chain, column
@@ -12,7 +14,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..dynamics.xforms import joint_transforms_hom_list, require_fixed_base
+from ..dynamics.xforms import joint_transforms_hom_list
 from ..model.robot import RobotModel
 from ..spatial.transforms import joint_hom_dT
 
@@ -78,7 +80,10 @@ def ee_position_jacobian_tangent(model: RobotModel, q, ee_names=None,
     """d(EE position)/dq: (..., nq) -> (..., n_ee, 3, nv).  For fixed-base
     models the solver chart is the configuration coordinates; columns of
     joints off the EE's chain are zero."""
-    require_fixed_base(model)
+    if model.floating_base:
+        raise NotImplementedError(
+            "ee_position_jacobian_tangent: the floating root's columns are "
+            "not ported yet")
     offset = _offset(model, offset)
     T = joint_transforms_hom_list(model, q)
     eye = torch.eye(4, dtype=q.dtype, device=q.device).expand(

@@ -23,6 +23,17 @@ kernels execute:
   velocities, accelerations and I v from its ABA pass, M^-1 is formed on
   and above the diagonal only, and J^T J likewise.
 
+The rpy floating root (body 0, six DoFs, S = I) costs its rotation from
+three angles, its 6x6 articulated block's Cholesky factorisation and
+solves, and in the linearisation its three rotation columns of dc/dq
+(seeded analytically, as the kernel does; the position columns are zero).
+
+``riccati_knot`` counts one knot of the iLQR Riccati sweep: the products
+whose results are symmetric (Q_xx, Q_uu, the new V_xx) are formed on and
+above the diagonal, the Cholesky factor of Q_uu + reg I takes about
+nu^3 / 3 operations and each of the nx + 1 right-hand sides two triangular
+solves.
+
 Every function also carries the values, so a test holds each against the
 port's plain versions (tests/test_torch_opcount.py): what is counted is the
 right function.
@@ -258,8 +269,13 @@ class Model:
     (m, h, I_o)), Ttree; the EE mount of a fixed frame."""
 
     def __init__(self, model):
+        if model.floating_base and model.root_quat:
+            raise NotImplementedError("opcount: the quaternion root is not "
+                                      "counted")
         hd = model.host_data
         self.nb = model.nb
+        self.fb = model.floating_base
+        self.nv = model.nv
         self.parent = model.parent
         self.jtype = model.joint_type
         self.E, self.r, self.I, self.rbi, self.TR, self.Tp = ([] for _ in
@@ -280,6 +296,14 @@ class Model:
         self.S = hd["S"].tolist()
         self.T_fixed = hd["T_fixed"]
 
+    def root6(self, i: int) -> bool:
+        """Body i is the six-DoF rpy root."""
+        return self.fb and i == 0
+
+    def vi(self, i: int) -> int:
+        """The DoF of a 1-DoF body."""
+        return i + 5 if self.fb else i
+
 
 def rbi_mv(I, v):
     """Rigid-body inertia (m, h, I_o) times a motion vector:
@@ -298,18 +322,93 @@ def rot_axis(ax, q):
              for b in range(3)] for a in range(3)]
 
 
-def joint_transforms(md: Model, q):
+def rpy_trig(rpy):
+    return [f(a) for a in rpy for f in (sin, cos)]
+
+
+def rpy_R(trig):
+    """R = Rz(yaw) Ry(pitch) Rx(roll) from (sin, cos) of the three angles,
+    the products cy sp and sy sp shared."""
+    sr, cr, sp, cp, sy, cy = trig
+    cysp, sysp = cy * sp, sy * sp
+    return [[cy * cp, cysp * sr - sy * cr, cysp * cr + sy * sr],
+            [sy * cp, sysp * sr + cy * cr, sysp * cr - cy * sr],
+            [-sp, cp * sr, cp * cr]]
+
+
+def rpy_dR(trig, j):
+    """d R / d rpy[j]."""
+    sr, cr, sp, cp, sy, cy = trig
+    if j == 0:
+        cysp, sysp = cy * sp, sy * sp
+        return [[0.0, cysp * cr + sy * sr, -(cysp * sr) + sy * cr],
+                [0.0, sysp * cr - cy * sr, -(sysp * sr) - cy * cr],
+                [0.0, cp * cr, -(cp * sr)]]
+    if j == 1:
+        cycp, sycp = cy * cp, sy * cp
+        return [[-(cy * sp), cycp * sr, cycp * cr],
+                [-(sy * sp), sycp * sr, sycp * cr],
+                [-cp, -(sp * sr), -(sp * cr)]]
+    sysp, cysp = sy * sp, cy * sp
+    return [[-(sy * cp), -(sysp * sr) - cy * cr, -(sysp * cr) + cy * sr],
+            [cy * cp, cysp * sr - sy * cr, cysp * cr + sy * sr],
+            [0.0, 0.0, 0.0]]
+
+
+def joint_transforms(md: Model, q, trig=None):
     """X_i = XJ(q_i) Xtree_i as (E, r): revolute E = R(q)^T Et, r = rt;
-    prismatic E = Et, r = rt + Et^T axis q."""
+    prismatic E = Et, r = rt + Et^T axis q; the rpy root
+    plux(R^T, p) Xtree_0 = (R^T Et, rt + Et^T p), from ``trig`` (the root
+    angles' rpy_trig) when the caller already has it."""
     X = []
     for i in range(md.nb):
+        if md.root6(i):
+            R = rpy_R(trig or rpy_trig(q[3:6]))
+            X.append((mm3([col(R, j) for j in range(3)], md.E[0]),
+                      vadd(md.r[0], mtv(md.E[0], q[0:3]))))
+            continue
+        qi = q[md.vi(i)]
         if md.jtype[i] == 1:
             d = mtv(md.E[i], md.axis[i])
-            X.append((md.E[i], vadd(md.r[i], scale(q[i], d))))
+            X.append((md.E[i], vadd(md.r[i], scale(qi, d))))
         else:
-            R = rot_axis(md.axis[i], q[i])
+            R = rot_axis(md.axis[i], qi)
             X.append((mm3([col(R, j) for j in range(3)], md.E[i]), md.r[i]))
     return X
+
+
+def chol_solve(A, rhs_cols):
+    """The Cholesky factor of a symmetric A (lower triangle read) and the
+    solutions of A x = b for each b of ``rhs_cols``; a pivot that is not
+    positive gives NaN, as the kernels' factorisations do."""
+    n = len(A)
+    L = [[None] * n for _ in range(n)]
+    for j in range(n):
+        s = A[j][j]
+        for k in range(j):
+            s = s - L[j][k] * L[j][k]
+        L[j][j] = _unary(s, lambda v: math.sqrt(v) if v > 0 else math.nan)
+        for i in range(j + 1, n):
+            s = A[i][j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            L[i][j] = s / L[j][j]
+    out = []
+    for b in rhs_cols:
+        y = [None] * n
+        for i in range(n):
+            s = b[i]
+            for k in range(i):
+                s = s - L[i][k] * y[k]
+            y[i] = s / L[i][i]
+        x = [None] * n
+        for i in reversed(range(n)):
+            s = y[i]
+            for k in range(i + 1, n):
+                s = s - L[k][i] * x[k]
+            x[i] = s / L[i][i]
+        out.append(x)
+    return out
 
 
 def gravity_accel(gravity):
@@ -341,16 +440,18 @@ def rnea(md: Model, X, qd, qdd, gravity, fext=None):
     v, a, f = [None] * n, [None] * n, [None] * n
     for i in range(n):
         p, S = md.parent[i], md.S[i]
-        vJ = scale(qd[i], S)
+        vJ = list(qd[0:6]) if md.root6(i) else scale(qd[md.vi(i)], S)
         if p < 0:
             v[i] = vJ
             a[i] = xmv(X[i], gravity_accel(gravity))
         else:
             v[i] = vadd(xmv(X[i], v[p]), vJ)
             a[i] = xmv(X[i], a[p])
-        a[i] = vadd(a[i], crm(v[i], vJ))
+        if not md.root6(i):  # v x v = 0 at the root
+            a[i] = vadd(a[i], crm(v[i], vJ))
         if qdd is not None:
-            a[i] = vadd(a[i], scale(qdd[i], S))
+            a[i] = vadd(a[i], list(qdd[0:6]) if md.root6(i)
+                        else scale(qdd[md.vi(i)], S))
         f[i] = vadd(rbi_mv(md.rbi[i], a[i]),
                     crf(v[i], rbi_mv(md.rbi[i], v[i])))
     if fext is not None:
@@ -359,10 +460,14 @@ def rnea(md: Model, X, qd, qdd, gravity, fext=None):
 
 
 def _accumulate(md: Model, X, f):
-    """Leaf->root: tau_i = S_i^T f_i, f[parent] += X^T f_i."""
-    tau = [None] * md.nb
+    """Leaf->root: tau_i = S_i^T f_i (the root's six rows: f_0),
+    f[parent] += X^T f_i."""
+    tau = [None] * md.nv
     for i in reversed(range(md.nb)):
-        tau[i] = dot(md.S[i], f[i])
+        if md.root6(i):
+            tau[0:6] = f[0]
+            continue
+        tau[md.vi(i)] = dot(md.S[i], f[i])
         p = md.parent[i]
         if p >= 0:
             f[p] = vadd(f[p], xtf(X[i], f[i]))
@@ -376,7 +481,7 @@ def aba(md: Model, X, qd, tau, gravity, fext=None, keep=None):
     v, c, pA, Iv, Xv = ([None] * n for _ in range(5))
     for i in range(n):
         p, S = md.parent[i], md.S[i]
-        vJ = scale(qd[i], S)
+        vJ = list(qd[0:6]) if md.root6(i) else scale(qd[md.vi(i)], S)
         if p < 0:
             Xv[i], v[i], c[i] = [0.0] * 6, vJ, [0.0] * 6
         else:
@@ -392,9 +497,12 @@ def aba(md: Model, X, qd, tau, gravity, fext=None, keep=None):
     U, dinv, u = [None] * n, [None] * n, [None] * n
     for i in reversed(range(n)):
         p, S = md.parent[i], md.S[i]
+        if md.root6(i):  # U = D = IA_0
+            u[0] = vsub(tau[0:6], pA[0])
+            continue
         U[i] = mv(IA[i], S)
         dinv[i] = 1.0 / dot(S, U[i])
-        u[i] = tau[i] - dot(S, pA[i])
+        u[i] = tau[md.vi(i)] - dot(S, pA[i])
         if p >= 0:
             Ud = scale(dinv[i], U[i])
             Ia = sym_update(lambda r, s: IA[i][r][s] - Ud[r] * U[i][s])
@@ -402,13 +510,17 @@ def aba(md: Model, X, qd, tau, gravity, fext=None, keep=None):
             C = xtax(X[i], Ia)
             IA[p] = sym_update(lambda r, s: IA[p][r][s] + C[r][s])
             pA[p] = vadd(pA[p], xtf(X[i], pa))
-    a, Xa, qdd = [None] * n, [None] * n, [None] * n
+    a, Xa, qdd = [None] * n, [None] * n, [None] * md.nv
     for i in range(n):
         p, S = md.parent[i], md.S[i]
         Xa[i] = xmv(X[i], gravity_accel(gravity) if p < 0 else a[p])
         a[i] = vadd(Xa[i], c[i])
-        qdd[i] = (u[i] - dot(U[i], a[i])) * dinv[i]
-        a[i] = vadd(a[i], scale(qdd[i], S))
+        if md.root6(i):
+            qdd[0:6] = chol_solve(IA[0], [vsub(u[0], mv(IA[0], a[0]))])[0]
+            a[0] = vadd(a[0], qdd[0:6])
+            continue
+        qdd[md.vi(i)] = (u[i] - dot(U[i], a[i])) * dinv[i]
+        a[i] = vadd(a[i], scale(qdd[md.vi(i)], S))
     if keep is not None:
         keep.update(v=v, a=a, Xv=Xv, Xa=Xa, Iv=Iv, bias=bias)
     return qdd
@@ -416,42 +528,56 @@ def aba(md: Model, X, qd, tau, gravity, fext=None, keep=None):
 
 def minv_apply(md: Model, X, rhs):
     """M^-1 rhs: the ABA sweeps at zero velocity and zero gravity."""
-    return aba(md, X, [0.0] * md.nb, rhs, 0.0)
+    return aba(md, X, [0.0] * md.nv, rhs, 0.0)
 
 
 def minv_dense(md: Model, X):
     """The analytical M^-1 (rbdtpu dynamics/minv.py): leaf->root over the
     columns of each subtree, root->leaf over the columns on and right of
-    the diagonal; returned symmetric."""
-    n = md.nb
+    the diagonal; returned symmetric.  The rpy root's six rows are
+    IA_0^-1 (e_c - F_0[:, c]) over every column c."""
+    nb, n = md.nb, md.nv
     M = [[0.0] * n for _ in range(n)]
-    F = [[[0.0] * 6 for _ in range(n)] for _ in range(n)]
+    F = [[[0.0] * 6 for _ in range(n)] for _ in range(nb)]
     IA = list(md.I)
-    U, dinv = [None] * n, [None] * n
-    for i in reversed(range(n)):
+    U, dinv = [None] * nb, [None] * nb
+    for i in reversed(range(nb)):
         p, S = md.parent[i], md.S[i]
+        if md.root6(i):
+            cols = chol_solve(IA[0], [
+                vsub([1.0 if r == c else 0.0 for r in range(6)], F[0][c])
+                for c in range(n)])
+            for c in range(n):
+                for r in range(6):
+                    M[r][c] = cols[c][r]
+            continue
+        mi = md.vi(i)
         U[i] = mv(IA[i], S)
         dinv[i] = 1.0 / dot(S, U[i])
         for c in range(n):
-            M[i][c] = (M[i][c] - dinv[i] * dot(S, F[i][c])
-                       + (dinv[i] if c == i else 0.0))
+            M[mi][c] = (M[mi][c] - dinv[i] * dot(S, F[i][c])
+                        + (dinv[i] if c == mi else 0.0))
         if p >= 0:
             for c in range(n):
-                F[i][c] = vadd(F[i][c], scale(M[i][c], U[i]))
+                F[i][c] = vadd(F[i][c], scale(M[mi][c], U[i]))
                 F[p][c] = vadd(F[p][c], xtf(X[i], F[i][c]))
             Ia = sym_update(lambda r, s: IA[i][r][s]
                             - dinv[i] * U[i][r] * U[i][s])
             C = xtax(X[i], Ia)
             IA[p] = sym_update(lambda r, s: IA[p][r][s] + C[r][s])
-    for i in range(n):
+    for i in range(nb):
         p, S = md.parent[i], md.S[i]
-        for c in range(i, n):
+        if md.root6(i):
+            F[0] = [[M[r][c] for r in range(6)] for c in range(n)]
+            continue
+        mi = md.vi(i)
+        for c in range(mi, n):
             if p < 0:
-                F[i][c] = scale(M[i][c], S)
+                F[i][c] = scale(M[mi][c], S)
             else:
                 XF = xmv(X[i], F[p][c])
-                M[i][c] = M[i][c] - dinv[i] * dot(U[i], XF)
-                F[i][c] = vadd(XF, scale(M[i][c], S))
+                M[mi][c] = M[mi][c] - dinv[i] * dot(U[i], XF)
+                F[i][c] = vadd(XF, scale(M[mi][c], S))
     return [[M[min(i, c)][max(i, c)] for c in range(n)] for i in range(n)]
 
 
@@ -462,7 +588,7 @@ def euler(x, qdd, dt):
 
 
 def fd_step(md: Model, x, u, dt, gravity, fext=None):
-    n = md.nb
+    n = md.nv
     X = joint_transforms(md, x[:n])
     return euler(x, aba(md, X, x[n:], u, gravity, fext), dt)
 
@@ -483,42 +609,62 @@ def rnea_state(md: Model, q, qd, qdd, gravity):
 def feedback_knot(md: Model, x, xn, un, kf, K, dt, gravity):
     """u = Un + kf + K (x - Xn), then one ABA step."""
     dx = vsub(x, xn)
-    u = [un[i] + kf[i] + dot(K[i], dx) for i in range(md.nb)]
+    u = [un[i] + kf[i] + dot(K[i], dx) for i in range(md.nv)]
     return fd_step(md, x, u, dt, gravity), u
 
 
-def rnea_derivatives(md: Model, X, qd, st, f):
-    """dc/dq and dc/dqd (n, n) at the state of ``st`` (aba's ``keep``) with
-    the accumulated RNEA forces f, one forward-mode column at a time."""
-    n = md.nb
+def rnea_derivatives(md: Model, X, qd, st, f, trig=None, gravity=-9.81):
+    """dc/dq and dc/dqd (nv, nv) at the state of ``st`` (aba's ``keep``)
+    with the accumulated RNEA forces f, one forward-mode column at a time.
+    The rpy root's dqd columns seed dv_0 = e_j; its rotation columns of
+    dc/dq seed da_0 = [0; (dR/drpy_j)^T g_l] (``trig``: the root angles'
+    rpy_trig; g_l the linear part of Xtree_0 a_grav); its position columns
+    are zero."""
+    nb, n = md.nb, md.nv
     out = {True: [[None] * n for _ in range(n)],
            False: [[None] * n for _ in range(n)]}
+    g_l = xmv((md.E[0], md.r[0]), gravity_accel(gravity))[3:]
     for wrt_q in (True, False):
         for j in range(n):
-            dv, da, df = [None] * n, [None] * n, [None] * n
-            for i in range(n):
+            dv, da, df = [None] * nb, [None] * nb, [None] * nb
+            for i in range(nb):
                 p, S = md.parent[i], md.S[i]
+                if md.root6(i):
+                    dv[0], da[0] = [0.0] * 6, [0.0] * 6
+                    if not wrt_q and j < 6:
+                        dv[0][j] = 1.0
+                    elif wrt_q and 3 <= j < 6:
+                        da[0] = [0.0] * 3 + mtv(rpy_dR(trig, j - 3), g_l)
+                    df[0] = vadd(vadd(rbi_mv(md.rbi[0], da[0]),
+                                      crf(dv[0], st["Iv"][0])),
+                                 crf(st["v"][0], rbi_mv(md.rbi[0], dv[0])))
+                    continue
+                vi = md.vi(i)
                 if p < 0:
                     dv[i], dab = [0.0] * 6, [0.0] * 6
                 else:
                     dv[i], dab = xmv(X[i], dv[p]), xmv(X[i], da[p])
-                if i == j and not wrt_q:
+                if vi == j and not wrt_q:
                     dv[i] = vadd(dv[i], S)
-                elif i == j and p >= 0:
+                elif vi == j and p >= 0:
                     dv[i] = vadd(dv[i], crm(st["Xv"][i], S))
-                da[i] = vadd(dab, scale(qd[i], crm(dv[i], S)))
-                if i == j:
+                da[i] = vadd(dab, scale(qd[vi], crm(dv[i], S)))
+                if vi == j:
                     da[i] = vadd(da[i], crm(
                         st["Xa"][i] if wrt_q else st["v"][i], S))
                 df[i] = vadd(vadd(rbi_mv(md.rbi[i], da[i]),
                                   crf(dv[i], st["Iv"][i])),
                              crf(st["v"][i], rbi_mv(md.rbi[i], dv[i])))
-            for i in reversed(range(n)):
-                p, S = md.parent[i], md.S[i]
-                out[wrt_q][i][j] = dot(S, df[i])
+            for i in reversed(range(nb)):
+                if md.root6(i):
+                    for k in range(6):
+                        out[wrt_q][k][j] = df[0][k]
+                    continue
+                p, S, vi = md.parent[i], md.S[i], md.vi(i)
+                out[wrt_q][vi][j] = dot(S, df[i])
                 if p >= 0:
                     df[p] = vadd(df[p], xtf(X[i], df[i]))
-                    if wrt_q and i == j:  # d(X^T f)/dq_i = X^T (S x* f)
+                    if wrt_q and vi == j:  # d(X^T f)/dq_i = X^T (S x* f)
                         df[p] = vadd(df[p], xtf(X[i], crf(S, f[i])))
     return out[True], out[False]
 
@@ -526,7 +672,8 @@ def rnea_derivatives(md: Model, X, qd, st, f):
 def linearize_parts(md: Model, q, qd, u, gravity):
     """(M^-1, dc/dq, dc/dqd, qdd) of one knot; the RNEA forces at the ABA
     acceleration reuse ABA's velocities, accelerations and v x* I v."""
-    X = joint_transforms(md, q)
+    trig = rpy_trig(q[3:6]) if md.fb else None
+    X = joint_transforms(md, q, trig)
     st = {}
     qdd = aba(md, X, qd, u, gravity, keep=st)
     f = [vadd(rbi_mv(md.rbi[i], st["a"][i]), st["bias"][i])
@@ -535,7 +682,7 @@ def linearize_parts(md: Model, q, qd, u, gravity):
         p = md.parent[i]
         if p >= 0:
             f[p] = vadd(f[p], xtf(X[i], f[i]))
-    dcq, dcd = rnea_derivatives(md, X, qd, st, f)
+    dcq, dcd = rnea_derivatives(md, X, qd, st, f, trig, gravity)
     return minv_dense(md, X), dcq, dcd, qdd
 
 
@@ -581,34 +728,87 @@ def counted(fn, *args, **kw):
     return out, Num.ops
 
 
-def per_state(model, target) -> dict:
-    """Operations per state (per knot for the rollouts) of each kernel's
-    function on ``model``, keyed as ``chip_smoke.py`` keys its checks."""
-    from .kernels.fk_lane import _single_ee
+def riccati_knot(A, Bm, lx, lu, lxx, luu, lux, Vx, Vxx, reg):
+    """One knot of the iLQR Riccati sweep (solver/ddp.py backward_pass):
+    (k, K, dV1 term, Vx', Vxx').  Vxx and the cost blocks are symmetric
+    where they should be, so Q_xx, Q_uu and Vxx' are formed on and above
+    the diagonal; Vx' = Q_x + K^T (Q_uu k + Q_u) + Q_ux^T k."""
+    n, m = len(A), len(Bm[0])
+    P = [[dot(Vxx[i], col(A, j)) for j in range(n)] for i in range(n)]
+    Pb = [[dot(Vxx[i], col(Bm, j)) for j in range(m)] for i in range(n)]
+    Qx, Qu = vadd(lx, mtv(A, Vx)), vadd(lu, mtv(Bm, Vx))
 
-    md = Model(model)
-    n = md.nb
+    def sym(fn, size):
+        out = [[None] * size for _ in range(size)]
+        for a in range(size):
+            for b in range(a, size):
+                out[a][b] = out[b][a] = fn(a, b)
+        return out
+
+    Quu = sym(lambda a, b: luu[a][b] + dot(col(Bm, a), col(Pb, b)), m)
+    Qux = [[lux[a][j] + dot(col(Bm, a), col(P, j)) for j in range(n)]
+           for a in range(m)]
+    Qxx = sym(lambda a, b: lxx[a][b] + dot(col(A, a), col(P, b)), n)
+    reg_Quu = [[Quu[a][b] + (reg if a == b else 0.0) for b in range(m)]
+               for a in range(m)]
+    sols = chol_solve(reg_Quu, [Qu] + [col(Qux, j) for j in range(n)])
+    k = [-x for x in sols[0]]
+    K = [[-sols[1 + j][a] for j in range(n)] for a in range(m)]
+    QuuK = [[dot(Quu[a], col(K, j)) for j in range(n)] for a in range(m)]
+    Vx_new = vadd(vadd(Qx, mtv(K, vadd(mv(Quu, k), Qu))), mtv(Qux, k))
+    Vxx_new = sym(lambda a, b: Qxx[a][b] + dot(col(K, a), col(QuuK, b))
+                  + dot(col(K, a), col(Qux, b)) + dot(col(Qux, a), col(K, b)),
+                  n)
+    return k, K, dot(k, Qu), Vx_new, Vxx_new
+
+
+def riccati_knot_ops(nx: int, nu: int) -> int:
+    """Operations of one ``riccati_knot`` at (nx, nu), every input counted
+    (constant cost blocks are read at every knot all the same)."""
     rng = np.random.default_rng(0)
     nums = lambda *s: np.vectorize(Num, otypes=[object])(
         rng.standard_normal(s)).tolist()
-    x, u, qdd, w = nums(2 * n), nums(n), nums(n), nums(n, 6)
+    symm = lambda n: (lambda M: [[M[min(a, b)][max(a, b)] for b in range(n)]
+                                 for a in range(n)])(nums(n, n))
+    return counted(riccati_knot, nums(nx, nx), nums(nx, nu), nums(nx),
+                   nums(nu), symm(nx), symm(nu), nums(nu, nx), nums(nx),
+                   symm(nx), Num(1e-6))[1]
+
+
+def per_state(model, target) -> dict:
+    """Operations per state (per knot for the rollouts) of each kernel's
+    function on ``model``, keyed as ``chip_smoke.py`` keys its checks:
+    those of K1-K3 for any tree the port covers, and of K4-K6 and K10 for
+    fixed-base ones (K4 with a single end effector)."""
+    from .kernels.fk_lane import _single_ee
+
+    md = Model(model)
+    n = md.nv
+    rng = np.random.default_rng(0)
+    nums = lambda *s: np.vectorize(Num, otypes=[object])(
+        rng.standard_normal(s)).tolist()
+    x, u, qdd, w = nums(2 * n), nums(n), nums(n), nums(md.nb, 6)
     q, qd = x[:n], x[n:]
     dt, g = 0.01, -9.81
-    jid, fid = _single_ee(model, None)
     ops = lambda fn, *a, **kw: counted(fn, md, *a, **kw)[1]
-    fd = ops(fd_step, x, u, dt, g)
-    minv = ops(fd_step_minv, x, u, dt, g)
-    return {
-        "fd_step": fd,
+    out = {
+        "fd_step": ops(fd_step, x, u, dt, g),
         "fd_step+fext": ops(fd_step, x, u, dt, g, fext=w),
         "feedback_rollout": ops(feedback_knot, x, nums(2 * n), u, nums(n),
                                 nums(n, 2 * n), dt, g),
         "linearize_parts": ops(linearize_parts, q, qd, u, g),
-        "ee_gn": ops(ee, jid, fid, q, target, True),
-        "ee_err": ops(ee, jid, fid, q, target, False),
+    }
+    if md.fb:
+        return out
+    out.update({
         "rnea": ops(rnea_state, q, qd, None, g),
         "rnea+qdd": ops(rnea_state, q, qd, qdd, g),
-        "fd_step_minv": minv,
+        "fd_step_minv": ops(fd_step_minv, x, u, dt, g),
         "fd_step_minv+dense": ops(fd_step_minv, x, u, dt, g, dense=True),
         "fd_step_minv+fext": ops(fd_step_minv, x, u, dt, g, fext=w),
-    }
+    })
+    if len(model.leaves()) == 1:
+        jid, fid = _single_ee(model, None)
+        out["ee_gn"] = ops(ee, jid, fid, q, target, True)
+        out["ee_err"] = ops(ee, jid, fid, q, target, False)
+    return out

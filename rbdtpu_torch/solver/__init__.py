@@ -1,4 +1,5 @@
-"""Trajectory optimisation on torch tensors: the arm end-effector DDP path."""
+"""Trajectory optimisation on torch tensors: DDP/iLQR with its costs,
+rollouts and linearisation."""
 from .integrate import (
     pack_state, split_state, state_diff, euler_semi_implicit, step_jacobians,
 )

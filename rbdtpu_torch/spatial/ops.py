@@ -74,3 +74,45 @@ def mtv(A, x):
 def xtax(X, A):
     """X^T @ A @ X."""
     return X.transpose(-1, -2) @ A @ X
+
+
+def cholesky_small(A):
+    """Cholesky factor of a small SPD matrix, unrolled over its static size
+    (``rbdtpu.spatial.batched.cholesky_small``): (..., n, n) -> L with
+    A = L L^T.  A matrix that is not positive definite gives NaN entries
+    (the square root of a negative number); it never raises."""
+    n = A.shape[-1]
+    L = [[None] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(i + 1):
+            s = A[..., i, j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            L[i][j] = torch.sqrt(s) if i == j else s / L[j][j]
+    zero = torch.zeros_like(A[..., 0, 0])
+    return torch.stack([torch.stack([L[i][j] if j <= i else zero
+                                     for j in range(n)], -1)
+                        for i in range(n)], -2)
+
+
+def cholesky_solve_small(L, b):
+    """Solve (L L^T) x = b for L = cholesky_small(A) by unrolled forward and
+    backward substitution; b (..., n) or (..., n, m)."""
+    n = L.shape[-1]
+    vec = b.dim() == L.dim() - 1
+    if vec:
+        b = b[..., None]
+    y = [None] * n
+    for i in range(n):
+        s = b[..., i, :]
+        for k in range(i):
+            s = s - L[..., i, k, None] * y[k]
+        y[i] = s / L[..., i, i, None]
+    x = [None] * n
+    for i in range(n - 1, -1, -1):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = s - L[..., k, i, None] * x[k]
+        x[i] = s / L[..., i, i, None]
+    out = torch.stack(x, dim=-2)
+    return out[..., 0] if vec else out

@@ -4,7 +4,8 @@
 Conventions (as in rbdtpu): the spatial motion transform ``X`` maps motion
 vectors from PARENT to CHILD coordinates, ``X = XJ(q) @ Xtree``; the
 homogeneous ``T`` maps points from CHILD to PARENT, ``T = Ttree @ TJ(q)``.
-Joint types: 0 revolute, 1 prismatic, 2 floating root, 3 fixed.
+Joint types: 0 revolute, 1 prismatic, 2 floating root, 3 fixed.  The
+floating root here is the rpy one: q6 = [x, y, z, roll, pitch, yaw].
 """
 from __future__ import annotations
 
@@ -65,10 +66,44 @@ def x_force_inv_T(X):
     return _blocks(E, X[..., 3:, :3], torch.zeros_like(E), E)
 
 
-def _hom(R, p):
+def rpy_to_R(rpy):
+    """URDF rpy (roll-pitch-yaw, extrinsic XYZ) to the active rotation
+    R = Rz Ry Rx: (..., 3) -> (..., 3, 3)."""
+    r, p, y = rpy.unbind(-1)
+    cr, sr = torch.cos(r), torch.sin(r)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cy, sy = torch.cos(y), torch.sin(y)
+    row0 = torch.stack([cy * cp, cy * sp * sr - sy * cr,
+                        cy * sp * cr + sy * sr], -1)
+    row1 = torch.stack([sy * cp, sy * sp * sr + cy * cr,
+                        sy * sp * cr - cy * sr], -1)
+    row2 = torch.stack([-sp, cp * sr, cp * cr], -1)
+    return torch.stack([row0, row1, row2], -2)
+
+
+def plux(E, r):
+    """Spatial motion transform [[E, 0], [-E r^, E]] from a coordinate
+    rotation E and an origin offset r: (..., 3, 3), (..., 3) -> (..., 6, 6)."""
+    return _blocks(E, torch.zeros_like(E), -E @ skew(r), E)
+
+
+def hom(R, p):
+    """Homogeneous transform from an active rotation R and a translation p."""
     bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype, device=R.device)
     bottom[..., 0, 3] = 1.0
     return torch.cat([torch.cat([R, p[..., None]], -1), bottom], -2)
+
+
+def floating_spatial_x(Xtree, q6):
+    """World->body motion transform of the rpy floating root,
+    plux(R^T, xyz) @ Xtree with q6 = [x, y, z, roll, pitch, yaw]."""
+    R = rpy_to_R(q6[..., 3:6])
+    return plux(R.transpose(-1, -2), q6[..., 0:3]) @ Xtree
+
+
+def floating_hom_T(Ttree, q6):
+    """Body->world homogeneous transform of the rpy floating root."""
+    return Ttree @ hom(rpy_to_R(q6[..., 3:6]), q6[..., 0:3])
 
 
 def _hom_zero_row(R):
@@ -82,10 +117,10 @@ def joint_hom_T(jtype: int, axis, Ttree, q):
     if jtype == PRISMATIC:
         eye3 = torch.eye(3, dtype=q.dtype, device=q.device).expand(
             q.shape + (3, 3))
-        TJ = _hom(eye3, axis * q[..., None])
+        TJ = hom(eye3, axis * q[..., None])
     elif jtype == REVOLUTE:
         R = rot_axis(axis, q)
-        TJ = _hom(R, torch.zeros(R.shape[:-1], dtype=q.dtype, device=q.device))
+        TJ = hom(R, torch.zeros(R.shape[:-1], dtype=q.dtype, device=q.device))
     else:
         raise NotImplementedError(f"joint type {jtype} has no 1-DoF transform")
     return Ttree @ TJ

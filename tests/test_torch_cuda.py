@@ -10,11 +10,12 @@ import pytest
 import torch
 
 from rbdtpu_torch.kernels import (
-    _lib, colvec, ee_gn_fused, fd_step_fused, fd_step_minv_fused,
-    feedback_rollout_fused, fk_lane, fused, linearize_parts_fused, rnea_fused,
-    rollout_fused_multi,
+    _lib, backward_pass_chunked, colvec, ee_gn_fused, fd_step_fused,
+    fd_step_minv_fused, feedback_rollout_fused, fk_lane, fused,
+    linearize_parts_fused, rnea_fused, rollout_fused_multi,
 )
 from rbdtpu_torch.model import load_asset, parse_urdf
+from riccati_problems import riccati_problem
 
 pytestmark = pytest.mark.cuda
 
@@ -49,6 +50,11 @@ MODELS = {
     "arm7": (lambda **kw: load_asset("arm7", **kw), None),
     "mixed": (lambda **kw: parse_urdf(mixed_tree_urdf(), **kw), ("j4",)),
 }
+# the kernels that also take the rpy floating root (K1-K3) run on these too
+FLOATING = {
+    "quad_rpy": (lambda **kw: load_asset("quadruped12", floating_base=True,
+                                         **kw), None),
+}
 
 
 @pytest.fixture(scope="module")
@@ -65,9 +71,21 @@ def case(card, request):
     """(model, end effector, tolerance): 1e-9 absolute in float64; float32
     sums are reordered between kernel and plain version, so 1e-4 relative
     to the output's scale."""
-    name, dt = request.param
-    build, ee = MODELS[name]
-    return (build(device=card, dtype=dt), ee,
+    return _case(MODELS, *request.param)
+
+
+@pytest.fixture(scope="module", params=[
+    (name, dt) for name in (*MODELS, *FLOATING)
+    for dt in (torch.float64, torch.float32)],
+    ids=lambda p: f"{p[0]}-{str(p[1])[6:]}")
+def tree_case(card, request):
+    """``case`` over the fixed-base trees and the rpy floating root."""
+    return _case({**MODELS, **FLOATING}, *request.param)
+
+
+def _case(models, name, dt):
+    build, ee = models[name]
+    return (build(device="cuda", dtype=dt), ee,
             1e-9 if dt == torch.float64 else 1e-4)
 
 
@@ -90,17 +108,17 @@ def _launched(name, fn):
     return out
 
 
-def test_fd_step(case):
-    m, _, tol = case
+def test_fd_step(tree_case):
+    m, _, tol = tree_case
     x, u = _inputs(m, (200, m.nx), (200, m.nv))
     out = _launched("fd_step", lambda: fd_step_fused(m, x, u, DT))
     _close(out, fused.fd_step_plain(m, x, u, DT), tol)
 
 
 @pytest.mark.parametrize("batched", [False, True], ids=["shared", "batched"])
-def test_fd_step_fext(case, batched):
+def test_fd_step_fext(tree_case, batched):
     """World-frame wrenches, (nb, 6) shared by the batch or (B, nb, 6)."""
-    m, _, tol = case
+    m, _, tol = tree_case
     B = 37
     x, u, fe = _inputs(m, (B, m.nx), (B, m.nv),
                        ((B,) if batched else ()) + (m.nb, 6))
@@ -154,8 +172,8 @@ def test_entry_points_default_to_the_card(card):
 
 
 @pytest.mark.parametrize("clip", [False, True])
-def test_feedback_rollout(case, clip):
-    m, _, tol = case
+def test_feedback_rollout(tree_case, clip):
+    m, _, tol = tree_case
     B, H = 70, 8
     x0, Xn, Un, kf, Kf = _inputs(m, (B, m.nx), (B, H, m.nx), (B, H, m.nv),
                                  (B, H, m.nv), (B, H, m.nv, m.nx), scale=0.1)
@@ -169,9 +187,11 @@ def test_feedback_rollout(case, clip):
     _close(U, Up, tol)
 
 
-def test_linearize_parts(case):
-    m, _, tol = case
-    q, qd, u = _inputs(m, (300, m.nv), (300, m.nv), (300, m.nv))
+def test_linearize_parts(tree_case):
+    """On the rpy root the plain version fills the root-pose columns of
+    dc/dq by forward-mode AD, the kernel analytically."""
+    m, _, tol = tree_case
+    q, qd, u = _inputs(m, (300, m.nq), (300, m.nv), (300, m.nv))
     out = _launched("linearize_parts",
                     lambda: linearize_parts_fused(m, q, qd, u))
     for a, b in zip(out, colvec.linearize_parts_plain(m, q, qd, u)):
@@ -205,12 +225,26 @@ def test_wrappers_refuse_bad_input(card):
         fd_step_fused(m, x, u.cpu(), DT)
     with pytest.raises(ValueError):  # integer tensors have no kernel
         fd_step_fused(m, x.int(), u.int(), DT)
+    # the rpy root reaches K1-K3 only; the quaternion root no kernel
     fb = load_asset("quadruped12", device=card, dtype=torch.float64,
                     floating_base=True)
     q = torch.zeros(8, fb.nq, dtype=torch.float64, device=card)
     v = torch.zeros(8, fb.nv, dtype=torch.float64, device=card)
+    x = torch.cat([q, v], -1)
+    for refused in (lambda: rnea_fused(fb, q, v),
+                    lambda: fd_step_minv_fused(fb, x, v, DT),
+                    lambda: rollout_fused_multi(fb, x, v[None], DT),
+                    lambda: ee_gn_fused(fb, q, TARGET,
+                                        ee_names=(fb.joint_names[3],))):
+        with pytest.raises(NotImplementedError):
+            refused()
+    quat = load_asset("quadruped12", device=card, dtype=torch.float64,
+                      floating_base=True, root_quat=True)
+    qq = torch.zeros(8, quat.nq, dtype=torch.float64, device=card)
+    vq = torch.zeros(8, quat.nv, dtype=torch.float64, device=card)
     with pytest.raises(NotImplementedError):
-        linearize_parts_fused(fb, q, v, v)
+        _lib.launch("linearize_parts", quat, qq, qq, vq, vq, vq, vq, vq, vq,
+                    8, -9.81)
 
 
 def test_ddp_kernels_match_plain(card):
@@ -232,3 +266,86 @@ def test_ddp_kernels_match_plain(card):
         out.append(ddp_solve(m, cost, x0, U0,
                              DDPConfig(iters=5, n_alphas=8, fused=fused_))[0])
     assert (out[0].U - out[1].U).abs().max().item() < 1e-6
+
+
+def _riccati(B, H, nx, nu, const, dtype, seed, non_pd=None):
+    return tuple(torch.tensor(a, dtype=dtype, device="cuda")
+                 for a in riccati_problem(np.random.default_rng(seed), nx, nu,
+                                          H, B, const, non_pd))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("B,H,nx,nu,const", [
+    (4, 6, 10, 4, True), (130, 5, 10, 4, False), (16, 4, 36, 18, True),
+    (128, 3, 36, 18, False), (3, 3, 72, 36, False)],
+    ids=["small", "lane", "quad-small", "quad-lane", "humanoid"])
+def test_riccati_chunked(card, B, H, nx, nu, const, dtype):
+    """The sweep kernel against the plain sweep at both call sites, with
+    constant and per-knot cost blocks, up to the humanoid's nx = 72 (above
+    48 KB of shared memory in float64); float64 within 1e-9 relative to the
+    output's scale, float32 within 1e-3 (a Riccati sweep accumulates the
+    reordered float32 sums of H knots)."""
+    from rbdtpu_torch.solver.ddp import backward_pass
+
+    args = _riccati(B, H, nx, nu, const, dtype, B + nx)
+    name = "riccati_chunk" if B >= 128 else "riccati_small"
+    out = _launched(name, lambda: backward_pass_chunked(*args))
+    ref = backward_pass(*args)
+    tol = 1e-9 if dtype == torch.float64 else 1e-3
+    for a, b in zip(out[:3], ref[:3]):
+        _close(a, b, tol)
+    assert out[3].tolist() == ref[3].tolist() == [True] * B
+
+
+def test_riccati_non_pd(card):
+    """A non-PD Quu: NaN gains from that knot back and ok False, in the same
+    places as the plain sweep; the other problems are untouched."""
+    from rbdtpu_torch.solver.ddp import backward_pass
+
+    args = _riccati(5, 6, 10, 4, False, torch.float64, 3, non_pd=(2, 3))
+    k, K, dV, ok = backward_pass_chunked(*args)
+    kr, Kr, dVr, okr = backward_pass(*args)
+    assert ok.tolist() == okr.tolist() == [True, True, False, True, True]
+    assert torch.equal(k.isnan(), kr.isnan())
+    assert torch.equal(K.isnan(), Kr.isnan())
+    assert k[2, :4].isnan().all() and k[2, 4:].isfinite().all()
+    fin = ok.nonzero()[:, 0]
+    _close(K[fin], Kr[fin], 1e-9)
+    _close(dV[fin], dVr[fin], 1e-9)
+
+
+@pytest.mark.parametrize("Bm,H,iters", [(4, 10, 3), (130, 4, 2)],
+                         ids=["small", "lane"])
+def test_ddp_quadruped_kernels_match_plain(card, Bm, H, iters):
+    """The floating-base quadruped solve (BASELINE.json configs[3]'s
+    problem, short) through K1, K2, K3 and the sweep kernel, and through
+    the plain versions, float64: the controls agree to 1e-6."""
+    from rbdtpu_torch.dynamics import rnea
+    from rbdtpu_torch.solver import (
+        DDPConfig, ddp_solve, quadratic_tracking_cost,
+    )
+
+    m = load_asset("quadruped12", device=card, dtype=torch.float64,
+                   floating_base=True)
+    rng = np.random.default_rng(11)
+    q0 = np.zeros((Bm, m.nq))
+    q0[:, 2] = 0.35
+    q0 = torch.tensor(q0 + 0.05 * rng.standard_normal(q0.shape),
+                      device=card)
+    z = torch.zeros(Bm, m.nv, dtype=torch.float64, device=card)
+    x0 = torch.cat([q0, z], -1)
+    U0 = rnea(m, q0, z, z)[0][:, None].expand(Bm, H, m.nv).contiguous()
+    goal = torch.zeros(m.nx, dtype=torch.float64)
+    goal[2] = 0.4
+    cost = quadratic_tracking_cost(m, goal, w_q=2.0, w_qd=0.05, w_u=1e-5)
+    name = "riccati_chunk" if Bm >= 128 else "riccati_small"
+    before = _lib.launches[name]
+    a = ddp_solve(m, cost, x0, U0, DDPConfig(iters=iters, n_alphas=6,
+                                             fused=True))[0]
+    torch.cuda.synchronize()
+    assert _lib.launches[name] == before + iters
+    b = ddp_solve(m, cost, x0, U0, DDPConfig(iters=iters, n_alphas=6,
+                                             fused=False,
+                                             fused_riccati=False))[0]
+    assert (a.U - b.U).abs().max().item() < 1e-6

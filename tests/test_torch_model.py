@@ -61,15 +61,44 @@ def test_model_from_numpy_matches_load_asset(name, kw):
                 v.shape), err_msg=k)
 
 
-def test_floating_base_dynamics_refuse():
+REFUSED = [("dynamics", "quat")] + [
+    (k, root) for root in ("quat", "rpy")
+    for k in ("ee_gn", "ee_err", "rnea", "fd_step_minv", "rollout_multi")
+] + [(k, "quat") for k in ("fd_step", "feedback_rollout", "linearize_parts")]
+
+
+@pytest.mark.parametrize("what,root", REFUSED,
+                         ids=[f"{w}-{r}" for w, r in REFUSED])
+def test_floating_base_dynamics_refuse(what, root):
+    """What the port does not cover raises NotImplementedError rather than
+    computing a wrong answer: the quaternion root everywhere, the rpy root
+    in the kernels that have no floating-base instantiation (K4, K5, K6,
+    K10).  The CUDA kernels refuse before launching, so this needs no
+    card."""
     from rbdtpu_torch.dynamics import aba
+    from rbdtpu_torch.kernels import _lib
+
+    m = load_asset("quadruped12", device="cpu", dtype=torch.float64,
+                   floating_base=True, root_quat=root == "quat")
+    with pytest.raises(NotImplementedError):
+        if what == "dynamics":
+            q = torch.zeros(2, m.nq, dtype=torch.float64)
+            v = torch.zeros(2, m.nv, dtype=torch.float64)
+            aba(m, q, v, v)
+        else:
+            _lib.size_class(what, m)
+
+
+def test_rpy_root_reaches_its_kernels():
+    """K1-K3 take the rpy root in their floating-base instantiation."""
+    from rbdtpu_torch.kernels import _lib
 
     m = load_asset("quadruped12", device="cpu", dtype=torch.float64,
                    floating_base=True)
-    q = torch.zeros(2, m.nq, dtype=torch.float64)
-    v = torch.zeros(2, m.nv, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        aba(m, q, v, v)
+    for k in ("fd_step", "feedback_rollout", "linearize_parts"):
+        assert _lib.size_class(k, m) == "fb16"
+    arm = load_asset("arm7", device="cpu", dtype=torch.float64)
+    assert _lib.size_class("rollout_multi", arm) == "n8"
 
 
 def test_import_leaves_jax_out():

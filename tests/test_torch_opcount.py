@@ -1,8 +1,10 @@
 """The operation counts behind the kernels' roofline bounds
 (``rbdtpu_torch.opcount``): each counted function carries its values, and
 here they are held against the port's plain versions, float64 on the CPU,
-at 1e-9, on arm7 and on the mixed revolute/prismatic tree.  So the
-operations counted are those of the function the kernel computes."""
+at 1e-9, on arm7, on the mixed revolute/prismatic tree and (for the
+kernels that take it) on quadruped12's rpy floating root; the Riccati
+knot against the plain sweep.  So the operations counted are those of the
+function the kernel computes."""
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ from rbdtpu_torch.kernels import (
 )
 from rbdtpu_torch.kernels.fk_lane import _single_ee
 from rbdtpu_torch.model import load_asset, parse_urdf
+from rbdtpu_torch.solver.ddp import backward_pass
 from test_torch_cuda import mixed_tree_urdf
 
 TOL = 1e-9
@@ -22,14 +25,27 @@ TARGET = (0.3, 0.2, 0.8)
 EE = {"arm7": None, "mixed": ("j4",)}
 
 
+def _case(name):
+    """(port model, counting model, EE names, numpy rng)."""
+    if name == "arm7":
+        m = load_asset("arm7", device="cpu", dtype=torch.float64)
+    elif name == "mixed":
+        m = parse_urdf(mixed_tree_urdf(), device="cpu", dtype=torch.float64)
+    else:
+        m = load_asset("quadruped12", device="cpu", dtype=torch.float64,
+                       floating_base=True)
+    return m, oc.Model(m), EE.get(name), np.random.default_rng(7)
+
+
 @pytest.fixture(scope="module", params=["arm7", "mixed"])
 def case(request):
-    """(port model, counting model, EE names, numpy rng)."""
-    if request.param == "arm7":
-        m = load_asset("arm7", device="cpu", dtype=torch.float64)
-    else:
-        m = parse_urdf(mixed_tree_urdf(), device="cpu", dtype=torch.float64)
-    return m, oc.Model(m), EE[request.param], np.random.default_rng(7)
+    return _case(request.param)
+
+
+@pytest.fixture(scope="module", params=["arm7", "mixed", "quad_rpy"])
+def tree_case(request):
+    """``case`` over the fixed-base trees and the rpy floating root."""
+    return _case(request.param)
 
 
 def _nums(a):
@@ -47,10 +63,10 @@ def _close(counted, ref):
 
 
 def _state(m, rng):
-    n = m.nb
+    n = m.nv
     x = np.concatenate([0.3 * rng.standard_normal(n),
                         0.5 * rng.standard_normal(n)])
-    return x, rng.standard_normal(n), 0.5 * rng.standard_normal((n, 6))
+    return x, rng.standard_normal(n), 0.5 * rng.standard_normal((m.nb, 6))
 
 
 @pytest.mark.parametrize("with_qdd", [False, True])
@@ -66,8 +82,8 @@ def test_rnea(case, with_qdd):
 
 
 @pytest.mark.parametrize("with_fext", [False, True])
-def test_fd_step(case, with_fext):
-    m, md, _, rng = case
+def test_fd_step(tree_case, with_fext):
+    m, md, _, rng = tree_case
     x, u, w = _state(m, rng)
     out = oc.fd_step(md, _nums(x), _nums(u), DT, G,
                      _nums(w) if with_fext else None)
@@ -89,9 +105,9 @@ def test_fd_step_minv(case, dense, with_fext):
     _close(out, ref[0])
 
 
-def test_feedback_knot(case):
-    m, md, _, rng = case
-    n = m.nb
+def test_feedback_knot(tree_case):
+    m, md, _, rng = tree_case
+    n = m.nv
     x, u, _ = _state(m, rng)
     xn, kf = rng.standard_normal(2 * n), rng.standard_normal(n)
     K = rng.standard_normal((n, 2 * n))
@@ -104,9 +120,9 @@ def test_feedback_knot(case):
     _close(uo, Ur[0, 0])
 
 
-def test_linearize_parts(case):
-    m, md, _, rng = case
-    n = m.nb
+def test_linearize_parts(tree_case):
+    m, md, _, rng = tree_case
+    n = m.nv
     x, u, _ = _state(m, rng)
     out = oc.linearize_parts(md, _nums(x[:n]), _nums(x[n:]), _nums(u), G)
     T = lambda a: torch.tensor(a)[None]
@@ -163,3 +179,40 @@ def test_per_state_keys():
     assert ops["rnea"] < ops["rnea+qdd"] < ops["fd_step_minv"]
     assert ops["ee_err"] < ops["ee_gn"]
     assert ops["fd_step"] < ops["fd_step+fext"]
+    fb = load_asset("quadruped12", device="cpu", dtype=torch.float64,
+                    floating_base=True)
+    assert set(oc.per_state(fb, TARGET)) == {
+        "fd_step", "fd_step+fext", "feedback_rollout", "linearize_parts"}
+
+
+def test_riccati_knot():
+    """Two knots of the counted sweep against the plain sweep over H=2
+    (so the new Vx and Vxx are held too), and the count's growth with nx
+    at nu = nx / 2: as nx^3."""
+    rng = np.random.default_rng(3)
+    nx, nu = 6, 3
+    A = np.eye(nx) + 0.1 * rng.standard_normal((2, nx, nx))
+    Bm = 0.1 * rng.standard_normal((2, nx, nu))
+    lx, lu = rng.standard_normal((2, nx)), rng.standard_normal((2, nu))
+    lxx, luu = 2.0 * np.eye(nx), 2.0 * np.eye(nu)
+    lux = 0.1 * rng.standard_normal((nu, nx))
+    lfx = rng.standard_normal(nx)
+    G = rng.standard_normal((nx, nx))
+    lfxx = G @ G.T + np.eye(nx)
+    reg = 1e-3
+    T = lambda a: torch.tensor(a)[None]
+    k, K, dV, ok = backward_pass(T(A), T(Bm), T(lx), T(lu), torch.tensor(lxx),
+                                 torch.tensor(luu), torch.tensor(lux), T(lfx),
+                                 T(lfxx), torch.tensor([reg]))
+    Vx, Vxx, dV_c = _nums(lfx), _nums(lfxx), 0.0
+    for t in (1, 0):
+        kc, Kc, dv, Vx, Vxx = oc.riccati_knot(
+            _nums(A[t]), _nums(Bm[t]), _nums(lx[t]), _nums(lu[t]), lxx, luu,
+            lux, Vx, Vxx, reg)
+        _close(kc, k[0, t])
+        _close(Kc, K[0, t])
+        dV_c = dV_c + dv
+    _close([dV_c], dV)
+    assert ok.item()
+    ops = [oc.riccati_knot_ops(n, n // 2) for n in (16, 32)]
+    assert 7.0 < ops[1] / ops[0] < 8.0
