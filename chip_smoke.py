@@ -51,7 +51,27 @@ Phases, each ending the run with a nonzero exit when it fails:
 11. solve the configs[3] problem in float64 through the kernels and
    through the plain versions at Bm=4, H=50, 5 iterations (the sweep's
    small-batch call site) and at Bm=130, H=10, 2 iterations (its lane
-   call site): max |U_kernel - U_plain| < 1e-6 at both.
+   call site): max |U_kernel - U_plain| < 1e-6 at both;
+12. hold the arm-class Riccati sweep kernel (K11, ``riccati_fused``)
+   against the plain sweep at configs[2]'s shape (B=128, H=100, nx=14,
+   nu=7) with per-knot and with constant cost blocks, at B=1 and at B=4:
+   float64 relative error <= 1e-9, float32 <= 1e-4, each timed beside the
+   plain sweep, beside the chunked sweep kernel (K7) on the same inputs
+   and beside its bound; and on a batch with one non-PD problem;
+13. path A: the configs[2] solve of phase 3 with ``fused_riccati=True``:
+   per solve ``riccati_fused`` 10 launches, the plain sweep none; J finite,
+   nonincreasing and falling; its profile; float64 control parity against
+   the plain route at Bm=4, H=20 and H=100 (< 1e-6);
+14. path B: the closed-loop MPC loop of examples/mpc_reaching.py with the
+   kernels (``mpc_run``: configs[2]'s cost and dt, H=100, 50 ticks,
+   ``DDPConfig(iters=3, n_alphas=4, fused=True)``, float32) at Bm=1
+   under the plain sweep, K11 and the parallel-in-time scan, and at
+   Bm=128 under K11 and the plain sweep: ms per tick, the end effector's
+   distance to the target (must fall), finite controls and states, J
+   finite at Bm=1 (at Bm=128 the robots whose J overflowed are printed);
+   K11 against the plain sweep on the controls applied over 5 ticks at
+   Bm=2, H=20, float64 (< 1e-6); a solver-state checkpoint written and
+   read back on the card bit for bit.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON summary and the result line.  Without a CUDA
@@ -79,7 +99,7 @@ TOL64 = 1e-9
 # carries 100 closed-loop steps, so 1e-3.
 TOL32 = {"fd_step": 1e-4, "feedback_rollout": 1e-3, "linearize_parts": 1e-4,
          "ee_gn": 1e-4, "ee_err": 1e-4, "rnea": 1e-4, "fd_step_minv": 1e-4,
-         "rollout_multi": 1e-3, "riccati": 1e-4}
+         "rollout_multi": 1e-3, "riccati": 1e-4, "riccati_fused": 1e-4}
 U_PARITY = 1e-6
 PARITY_H = (100, 20)
 # the rollout path (BASELINE.json configs[1], bench.py:132-209, 377-416)
@@ -99,6 +119,17 @@ PARITY3 = ((4, 50, 5), (130, 10, 2))
 RICCATI_CASES = (("configs[3]", B3, H3, 36, 18, True),
                  ("small batch", 4, H3, 36, 18, True),
                  ("humanoid", 16, 32, 72, 36, False))
+# the arm-class sweep's (K11) checks, in the same form: configs[2]'s shape
+# (the EE cost's blocks are per knot), with constant blocks, one robot, four
+RICCATI_FUSED_CASES = (("configs[2]", 128, 100, 14, 7, False),
+                       ("configs[2] constant", 128, 100, 14, 7, True),
+                       ("one robot", 1, 100, 14, 7, False),
+                       ("four robots", 4, 100, 14, 7, True))
+# the MPC loop (examples/mpc_reaching.py:57-63 with the kernels): horizon,
+# ticks, iterations and line-search steps a tick, and the K11-vs-plain
+# check (problems, knots, ticks)
+MPC_H, MPC_TICKS, MPC_ITERS, MPC_ALPHAS = 100, 50, 3, 4
+MPC_PARITY = (2, 20, 5)
 
 
 def require(ok: bool, msg: str):
@@ -287,13 +318,15 @@ def errors(outs_a, outs_b, relative: bool) -> list:
     return errs
 
 
-def solve(model, x0, U0, fused: bool, iters: int):
+def solve(model, x0, U0, fused: bool, iters: int, **options):
+    """configs[2]'s ``ddp_solve``; ``options`` are further DDPConfig
+    fields (the backward pass's)."""
     from rbdtpu_torch.solver import DDPConfig, ddp_solve, ee_reaching_cost
 
     cost = ee_reaching_cost(model, TARGET, fused=None if fused else False,
                             **WEIGHTS)
     cfg = DDPConfig(iters=iters, dt=DT, gravity=GRAVITY, n_alphas=8,
-                    fused=fused)
+                    fused=fused, **options)
     return ddp_solve(model, cost, x0, U0, cfg)
 
 
@@ -356,12 +389,12 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
-def profile_main_path(solve_once):
+def profile_main_path(solve_once, extra=()):
     """Where one solve (``solve_once()``) spends its time: per-phase wall
     time (each phase synchronised, so the total exceeds an unsynchronised
-    solve), then torch.profiler's device time per kernel, the kernels
-    launched per solve and the device's idle share against an unprofiled
-    solve."""
+    solve; ``extra`` names further phases of ``solver.ddp``), then
+    torch.profiler's device time per kernel, the kernels launched per solve
+    and the device's idle share against an unprofiled solve."""
     import collections
 
     import torch
@@ -387,7 +420,8 @@ def profile_main_path(solve_once):
 
     phases = {p: getattr(ddp, p) for p in (
         "fd_step_fused", "linearize_fused", "quadratize_trajectory",
-        "backward_pass", "backward_pass_chunked", "forward_pass_fused")}
+        "backward_pass", "backward_pass_chunked", "forward_pass_fused",
+        *extra)}
     for p, fn in phases.items():
         setattr(ddp, p, timed(p, fn))
     try:
@@ -577,25 +611,60 @@ def riccati_problem(rng, nx, nv, H, Bm, const, non_pd=None):
     return (A, Bmat, lx, lu, lxx, luu, lux, lfx, lfxx, reg)
 
 
-RICCATI_REPLACES = {"riccati_chunk": "rbdtpu/kernels/riccati_chunk.py:523",
-                    "riccati_small": "rbdtpu/kernels/riccati_chunk.py:334"}
+# each sweep kernel's row: (source, replaces)
+SWEEP_ROWS = {
+    "riccati_chunk": ("rbdtpu_torch/csrc/riccati_chunk.cu",
+                      "rbdtpu/kernels/riccati_chunk.py:523"),
+    "riccati_small": ("rbdtpu_torch/csrc/riccati_chunk.cu",
+                      "rbdtpu/kernels/riccati_chunk.py:334"),
+    "riccati_fused": ("rbdtpu_torch/csrc/riccati_fused.cu",
+                      "rbdtpu/kernels/riccati.py:102"),
+}
 
 
 def check_riccati(smi: str, rows: dict):
-    """The sweep kernel against the plain sweep (``solver.ddp
-    .backward_pass``) on the card: each of RICCATI_CASES in float64 (max
-    error relative to each output's scale <= TOL64) and float32 (<=
-    TOL32["riccati"]), every ok True, timed in float32 beside its bound;
-    then a configs[3]-shaped batch in float64 with one problem whose Quu
-    is not positive definite at one knot: the NaN entries and ok must be
-    the plain sweep's, the finite entries within TOL64.  Adds the rows of
-    riccati_chunk (K7, batch >= 128) and riccati_small (K8).  Fails after
-    printing every check."""
-    import torch
-    from rbdtpu_torch import opcount
+    """The chunked sweep kernel against the plain sweep: RICCATI_CASES,
+    then a configs[3]-shaped batch with one non-PD problem.  Adds the rows
+    of riccati_chunk (K7, batch >= 128) and riccati_small (K8)."""
     from rbdtpu_torch.kernels.riccati_chunk import (
         LANE_BATCH, backward_pass_chunked,
     )
+
+    check_sweep(smi, rows, "riccati", backward_pass_chunked, RICCATI_CASES,
+                lambda B: "riccati_chunk" if B >= LANE_BATCH
+                else "riccati_small", (B3, H3, 36, 18, (7, H3 // 2)),
+                (SEED + 10, SEED + 20))
+
+
+def check_riccati_fused(smi: str, rows: dict):
+    """The arm-class sweep kernel (K11) against the plain sweep:
+    RICCATI_FUSED_CASES, each also timed through the chunked sweep kernel
+    on the same inputs, then a configs[2]-shaped batch with one non-PD
+    problem.  Adds the row of riccati_fused."""
+    from rbdtpu_torch.kernels import backward_pass_chunked, backward_pass_fused
+
+    check_sweep(smi, rows, "riccati_fused", backward_pass_fused,
+                RICCATI_FUSED_CASES, lambda B: "riccati_fused",
+                (128, 100, 14, 7, (7, 50)), (SEED + 50, SEED + 60),
+                beside=("K7 kernel", backward_pass_chunked))
+
+
+def check_sweep(smi: str, rows: dict, tag: str, kernel, cases, row_name,
+                non_pd, seeds, beside=None):
+    """A sweep kernel's wrapper ``kernel`` against the plain sweep
+    (``solver.ddp.backward_pass``) on the card: each of ``cases`` (label,
+    B, H, nx, nu, constant cost blocks) in float64 (max error relative to
+    each output's scale <= TOL64) and float32 (<= TOL32[tag]), every ok
+    True, timed in float32 beside its bound (and beside ``beside`` =
+    (label, wrapper), another sweep on the same inputs); then, in float64,
+    a batch ``non_pd`` = (B, H, nx, nu, (problem, knot)) whose one problem
+    has a Quu that is not positive definite at one knot: the NaN entries
+    and ok must be the plain sweep's, the finite entries within TOL64.
+    ``row_name(B)`` names the JSON row a case belongs to; ``seeds`` seed
+    the first case (the next ones count up) and the non-PD batch.  Fails
+    after printing every check."""
+    import torch
+    from rbdtpu_torch import opcount
     from rbdtpu_torch.solver.ddp import backward_pass
 
     def cuda(args, dtype):
@@ -604,57 +673,60 @@ def check_riccati(smi: str, rows: dict):
 
     fmt = lambda es: "[" + " ".join(f"{e:.2e}" for e in es) + "]"
     failures = []
-    for i, (label, B, H, nx, nu, const) in enumerate(RICCATI_CASES):
-        name = "riccati_chunk" if B >= LANE_BATCH else "riccati_small"
-        prob = riccati_problem(np.random.default_rng(SEED + 10 + i), nx, nu,
+    for i, (label, B, H, nx, nu, const) in enumerate(cases):
+        name = row_name(B)
+        prob = riccati_problem(np.random.default_rng(seeds[0] + i), nx, nu,
                                H, B, const)
         a64, a32 = cuda(prob, torch.float64), cuda(prob, torch.float32)
-        k64, p64 = backward_pass_chunked(*a64), backward_pass(*a64)
-        k32, p32 = backward_pass_chunked(*a32), backward_pass(*a32)
+        k64, p64 = kernel(*a64), backward_pass(*a64)
+        k32, p32 = kernel(*a32), backward_pass(*a32)
         torch.cuda.synchronize()
         e64 = errors(k64[:3], p64[:3], relative=True)
         abs64 = errors(k64[:3], p64[:3], relative=False)
         e32 = errors(k32[:3], p32[:3], relative=True)
         oks = [o.tolist() for o in (k64[3], p64[3], k32[3], p32[3])]
         if max(e64) > TOL64:
-            failures.append(f"riccati {label}: float64 relative error "
+            failures.append(f"{tag} {label}: float64 relative error "
                             f"{max(e64):.3e} > {TOL64:g}")
-        if max(e32) > TOL32["riccati"]:
-            failures.append(f"riccati {label}: float32 relative error "
-                            f"{max(e32):.3e} > {TOL32['riccati']:g}")
+        if max(e32) > TOL32[tag]:
+            failures.append(f"{tag} {label}: float32 relative error "
+                            f"{max(e32):.3e} > {TOL32[tag]:g}")
         if any(ok != [True] * B for ok in oks):
-            failures.append(f"riccati {label}: a well-conditioned problem "
+            failures.append(f"{tag} {label}: a well-conditioned problem "
                             "was reported not positive definite")
-        ms = cuda_ms(lambda: backward_pass_chunked(*a32), reps=20)
+        ms = cuda_ms(lambda: kernel(*a32), reps=20)
         plain_ms = cuda_ms(lambda: backward_pass(*a32), reps=3)
+        also = ""
+        if beside is not None:
+            also = (f"  {beside[0]} "
+                    f"{cuda_ms(lambda: beside[1](*a32), reps=20):.4f} ms")
         ops = opcount.riccati_knot_ops(nx, nu) * B * H
         bound_ms, bound_by = bound(a32, k32, None, ops, "float32")
-        print(f"kernel riccati {label} ({name}): B={B} H={H} nx={nx} nu={nu} "
+        print(f"kernel {tag} {label} ({name}): B={B} H={H} nx={nx} nu={nu} "
               f"{'constant' if const else 'per-knot'} cost blocks  f64 rel "
               f"err {fmt(e64)} (abs {fmt(abs64)})  f32 rel err {fmt(e32)}  "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms{also}  bound "
               f"{bound_ms:.6f} ms by {bound_by} ({ops:.4g} operations) "
               f"(f32, median, {smi})")
         if name not in rows:
-            rows[name] = dict(name=name, route="cuda",
-                              source="rbdtpu_torch/csrc/riccati_chunk.cu",
-                              replaces=RICCATI_REPLACES[name],
-                              max_abs_err=max(abs64), ms=ms,
-                              plain_ms=plain_ms, bound_ms=bound_ms,
+            source, replaces = SWEEP_ROWS[name]
+            rows[name] = dict(name=name, route="cuda", source=source,
+                              replaces=replaces, max_abs_err=max(abs64),
+                              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by=bound_by, library_ms=None)
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], *abs64)
-    bad = (7, H3 // 2)
-    a64 = cuda(riccati_problem(np.random.default_rng(SEED + 20), 36, 18, H3,
-                               B3, False, non_pd=bad), torch.float64)
-    out, ref = backward_pass_chunked(*a64), backward_pass(*a64)
+    B, H, nx, nu, bad = non_pd
+    a64 = cuda(riccati_problem(np.random.default_rng(seeds[1]), nx, nu, H,
+                               B, False, non_pd=bad), torch.float64)
+    out, ref = kernel(*a64), backward_pass(*a64)
     same_nan = all(torch.equal(o.isnan(), r.isnan())
                    for o, r in zip(out[:3], ref[:3]))
     ok_rows = (~out[3]).nonzero()[:, 0].tolist()
     good = out[3].nonzero()[:, 0]
     e_fin = errors(tuple(o[good] for o in out[:3]),
                    tuple(r[good] for r in ref[:3]), relative=True)
-    print(f"kernel riccati non-PD: problem {bad[0]} knot {bad[1]} of B={B3} "
-          f"H={H3}: ok False at {ok_rows} (plain "
+    print(f"kernel {tag} non-PD: problem {bad[0]} knot {bad[1]} of B={B} "
+          f"H={H}: ok False at {ok_rows} (plain "
           f"{(~ref[3]).nonzero()[:, 0].tolist()}), NaN entries identical "
           f"{same_nan}, gains NaN at knots <= {bad[1]}: "
           f"{bool(out[0][bad[0], :bad[1] + 1].isnan().all())}, the other "
@@ -664,7 +736,7 @@ def check_riccati(smi: str, rows: dict):
             and bool(out[0][bad[0], :bad[1] + 1].isnan().all())
             and bool(out[0][bad[0], bad[1] + 1:].isfinite().all())
             and max(e_fin) <= TOL64):
-        failures.append("riccati non-PD: NaN rows or ok differ from the "
+        failures.append(f"{tag} non-PD: NaN rows or ok differ from the "
                         "plain sweep")
     require(not failures, "; ".join(failures))
 
@@ -833,6 +905,247 @@ def quadruped_parity(m64) -> dict:
     return counts
 
 
+def arm_path(m32, smi: str, name: str, Bm: int, H: int, iters: int,
+             **options):
+    """The configs[2] solve (arm7 EE reaching, float32, kernels) through
+    ``ddp_solve``, with ``options`` for its backward pass: one warm-up
+    solve, then three timed ones (CUDA events) with the counts set to 0
+    just before, the plain sweeps counted beside them.  J must be finite,
+    nonincreasing and fall.  Returns (the counts of the three solves, x0,
+    U0)."""
+    import torch
+    from rbdtpu_torch.kernels import _lib
+    from rbdtpu_torch.kernels.fused import fd_step_fused
+    from rbdtpu_torch.solver import ddp, ee_reaching_cost, trajectory_cost
+
+    x0, U0 = start_problems(m32, Bm, H, np.random.default_rng(SEED + 1))
+    # the starting cost, by the solver's own (kernel) rollout and cost: the
+    # open-loop warm start amplifies rounding, so only the same arithmetic
+    # reproduces the solver's J0
+    xs = [x0]
+    for t in range(H):
+        xs.append(fd_step_fused(m32, xs[-1], U0[:, t].contiguous(), DT,
+                                GRAVITY))
+    J0 = trajectory_cost(ee_reaching_cost(m32, TARGET, **WEIGHTS),
+                         torch.stack(xs, dim=-2), U0)
+    solve(m32, x0, U0, fused=True, iters=iters, **options)  # warm-up
+    torch.cuda.synchronize()
+    plain_sweeps = []
+    plain = ddp.backward_pass
+    ddp.backward_pass = lambda *a, **kw: plain_sweeps.append(1) or plain(
+        *a, **kw)
+    _lib.reset_launches()
+    times = []
+    try:
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, J_hist = solve(m32, x0, U0, fused=True, iters=iters,
+                                  **options)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3)
+    finally:
+        ddp.backward_pass = plain
+    counts = dict(_lib.launches)
+    print(f"{name} launches (3 solves): {counts}; plain sweeps "
+          f"{len(plain_sweeps)}")
+    if options.get("fused_riccati"):
+        require(not plain_sweeps, f"{name}: the plain sweep ran")
+    require(tuple(J_hist.shape) == (iters, Bm), f"J_hist shape {J_hist.shape}")
+    require(bool(J_hist.isfinite().all()), f"non-finite J on the {name}")
+    require(bool((J_hist[1:] <= J_hist[:-1]).all()) and bool(
+        (J_hist[0] <= J0 * (1 + 1e-6)).all()), "J increased in an iteration")
+    require(J_hist[-1].mean() < J0.mean(), "mean J did not fall")
+    require(tuple(state.U.shape) == (Bm, H, m32.nv), "U shape")
+    sec = statistics.median(times)
+    opts = "".join(f", {k}={v}" for k, v in options.items())
+    print(f"{name}: arm7 EE reaching, Bm={Bm} H={H} iters={iters} f32 "
+          f"fused{opts}: mean J {J0.mean().item():.4f} -> "
+          f"{J_hist[-1].mean().item():.4f}; solve {sec * 1e3:.1f} ms "
+          f"(median of {len(times)}: "
+          f"{' '.join(f'{t * 1e3:.1f}' for t in times)}, CUDA events) = "
+          f"{Bm / sec:.1f} solves/s on {smi}")
+    return counts, x0, U0
+
+
+def arm_parity(m64, name: str, iters: int, **options):
+    """Kernel route (with ``options``) against the plain route on the
+    configs[2] problem in float64, Bm=4, at each horizon of PARITY_H: max
+    |U_kernel - U_plain| < U_PARITY.  At H=100 the open-loop warm start
+    amplifies rounding ~1e9-fold and the weakly penalised controls
+    (w_u=1e-6) follow it, so the bound there also demands that each kernel
+    rounds almost as its plain version does; H=20 is the well-conditioned
+    check."""
+    for Hp in PARITY_H:
+        x0p, U0p = start_problems(m64, 4, Hp, np.random.default_rng(SEED + 2))
+        sk, _ = solve(m64, x0p, U0p, fused=True, iters=iters, **options)
+        sp, _ = solve(m64, x0p, U0p, fused=False, iters=iters)
+        du = (sk.U - sp.U).abs().max().item()
+        dj = ((sk.J - sp.J).abs() / sp.J.abs().clamp(min=1)).max().item()
+        print(f"{name} f64 Bm=4 H={Hp} iters={iters}: max|U_kernel - U_plain| "
+              f"{du:.3e} (bound {U_PARITY:g}); max rel |dJ| {dj:.3e}")
+        require(du < U_PARITY,
+                f"{name}: control parity at H={Hp}: {du:.3e} >= {U_PARITY:g}")
+
+
+def mpc_run_timed(model, x0, U0, ticks: int, **options):
+    """``mpc_run`` of configs[2]'s cost with the kernels (DDPConfig(iters=
+    MPC_ITERS, n_alphas=MPC_ALPHAS, fused=True, **options)), each tick
+    (one ``mpc_step``) timed by CUDA events, and the calls of each backward
+    pass of ``solver.ddp`` counted.  Returns (final carry, U_applied,
+    J_hist, ms per tick, calls)."""
+    import collections
+
+    import torch
+    from rbdtpu_torch.solver import DDPConfig, ddp, ee_reaching_cost, mpc
+
+    cfg = DDPConfig(iters=MPC_ITERS, dt=DT, gravity=GRAVITY,
+                    n_alphas=MPC_ALPHAS, fused=True, **options)
+    cost = ee_reaching_cost(model, TARGET, **WEIGHTS)
+    step, times, calls = mpc.mpc_step, [], collections.Counter()
+
+    def timed_step(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*a, **kw)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        return out
+
+    def counted(name, fn):
+        return lambda *a, **kw: calls.update([name]) or fn(*a, **kw)
+
+    sweeps = {n: getattr(ddp, n) for n in (
+        "backward_pass", "backward_pass_fused", "backward_pass_parallel",
+        "backward_pass_chunked")}
+    mpc.mpc_step = timed_step
+    for n, fn in sweeps.items():
+        setattr(ddp, n, counted(n, fn))
+    try:
+        carry, (U_app, J_hist) = mpc.mpc_run(model, cost, x0, U0, ticks, cfg)
+    finally:
+        mpc.mpc_step = step
+        for n, fn in sweeps.items():
+            setattr(ddp, n, fn)
+    return carry, U_app, J_hist, times, dict(calls)
+
+
+def ee_distance(model, x):
+    """The end effector's distance to TARGET at states x (..., nx)."""
+    import torch
+    from rbdtpu_torch.kinematics.fk import ee_pose
+
+    p = ee_pose(model, x[..., :model.nq])[..., 0, :3]
+    return (p - torch.tensor(TARGET, dtype=p.dtype, device=p.device)).norm(
+        dim=-1)
+
+
+def mpc_path(m32, m64, smi: str):
+    """Path B, the closed-loop MPC loop (examples/mpc_reaching.py:57-63
+    with the kernels) in float32 at H=MPC_H for MPC_TICKS ticks: at Bm=1
+    under the plain sweep, K11 and the parallel scan, and at Bm=128 under
+    K11 and the plain sweep, each from configs[2]'s start (at rest,
+    gravity compensation) with the counts set to 0 just before.  Every
+    run: the controls applied and the plant's states finite, the backward
+    pass ran MPC_ITERS times a tick through its strategy alone (and K11
+    launched as often), the mean EE distance to the target falls.  At
+    Bm=1 also every J is finite and the distance falls.  At Bm=128 the
+    robots whose J went non-finite are printed with their first such tick:
+    in float32 the open-loop rollout of a fast robot's warm start can
+    overflow, and the solver's acceptance test (rbdtpu's, J_new < J -
+    tol_dJ max(1, |J|)) never accepts against an infinite J, whatever the
+    backward pass.  Then K11 against the plain sweep in float64 on the
+    controls applied (MPC_PARITY), and a checkpoint round trip on the
+    card."""
+    import tempfile
+
+    import torch
+    from rbdtpu_torch.kernels import _lib
+    from rbdtpu_torch.solver import (
+        DDPConfig, ddp_solve, ee_reaching_cost, load_solver_state,
+        save_solver_state,
+    )
+
+    H = MPC_H
+    runs = (("plain sweep", 1, {}, "backward_pass"),
+            ("K11", 1, {"fused_riccati": True}, "backward_pass_fused"),
+            ("parallel scan", 1, {"parallel_riccati": True},
+             "backward_pass_parallel"),
+            ("K11", 128, {"fused_riccati": True}, "backward_pass_fused"),
+            ("plain sweep", 128, {}, "backward_pass"))
+    for label, Bm, options, sweep in runs:
+        x0, U0 = start_problems(m32, Bm, H, np.random.default_rng(SEED + 70))
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        carry, U_app, J_hist, ms, calls = mpc_run_timed(m32, x0, U0,
+                                                        MPC_TICKS, **options)
+        torch.cuda.synchronize()
+        counts = dict(_lib.launches)
+        d0, d1 = ee_distance(m32, x0), ee_distance(m32, carry.x)
+        bad = (~J_hist.isfinite()).any(0).nonzero()[:, 0].tolist()
+        first_bad = {b: int((~J_hist[:, b].isfinite()).nonzero()[0]) + 1
+                     for b in bad}
+        med = statistics.median(ms[1:])
+        print(f"path B {label} Bm={Bm} H={H} f32: {MPC_TICKS} ticks, "
+              f"{med:.2f} ms per tick (median of ticks 2-{MPC_TICKS}; first "
+              f"{ms[0]:.1f}, range {min(ms[1:]):.2f}-{max(ms[1:]):.2f}, CUDA "
+              f"events) = {1e3 / med:.1f} ticks/s, {Bm * 1e3 / med:.1f} "
+              f"robot-ticks/s; EE distance mean {d0.mean().item():.4f} -> "
+              f"{d1.mean().item():.4f} m (max {d1.max().item():.4f}, fell for "
+              f"{int((d1 < d0).sum())} of {Bm}); J (finite) "
+              f"{J_hist[0][J_hist[0].isfinite()].mean().item():.4f} -> "
+              f"{J_hist[-1][J_hist[-1].isfinite()].mean().item():.4f}; J "
+              f"non-finite for robot: first tick {first_bad}; sweeps {calls};"
+              f" launches {counts} on {smi}")
+        n = MPC_TICKS * MPC_ITERS
+        require(tuple(U_app.shape) == (MPC_TICKS, Bm, m32.nv),
+                f"path B {label}: U_applied {tuple(U_app.shape)}")
+        require(bool(U_app.isfinite().all()) and bool(carry.x.isfinite().all()),
+                f"path B {label} Bm={Bm}: non-finite controls or state")
+        require(d1.mean() < d0.mean(),
+                f"path B {label} Bm={Bm}: the EE distance did not fall")
+        if Bm == 1:
+            require(not bad and bool((d1 < d0).all()),
+                    f"path B {label}: non-finite J or the distance rose")
+        require(calls == {sweep: n}, f"path B {label}: backward passes "
+                f"{calls}, expected {n} of {sweep}")
+        require(counts["riccati_fused"] == (n if "fused_riccati" in options
+                                            else 0),
+                f"path B {label}: riccati_fused launched "
+                f"{counts['riccati_fused']} times")
+        require(counts["feedback_rollout"] == n and counts["fd_step"] > 0,
+                f"path B {label}: kernel launches {counts}")
+
+    Bp, Hp, ticks = MPC_PARITY
+    x0, U0 = start_problems(m64, Bp, Hp, np.random.default_rng(SEED + 71))
+    U_k = mpc_run_timed(m64, x0, U0, ticks, fused_riccati=True)[1]
+    U_p = mpc_run_timed(m64, x0, U0, ticks)[1]
+    du = (U_k - U_p).abs().max().item()
+    print(f"path B parity f64 Bm={Bp} H={Hp} {ticks} ticks: max|u_K11 - "
+          f"u_plain| over the controls applied {du:.3e} (bound {U_PARITY:g})")
+    require(du < U_PARITY, f"path B parity: {du:.3e} >= {U_PARITY:g}")
+
+    cost = ee_reaching_cost(m32, TARGET, **WEIGHTS)
+    x0, U0 = start_problems(m32, 4, 20, np.random.default_rng(SEED + 72))
+    state, _ = ddp_solve(m32, cost, x0, U0, DDPConfig(
+        iters=2, dt=DT, gravity=GRAVITY, n_alphas=MPC_ALPHAS, fused=True,
+        fused_riccati=True))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/solver_state.npz"
+        save_solver_state(path, state)
+        back = load_solver_state(path, state)
+    same = all(a.device == b.device and a.dtype == b.dtype
+               and torch.equal(a, b) for a, b in zip(back, state))
+    print(f"path B checkpoint: save_solver_state then load_solver_state on "
+          f"{back.X.device}: every field identical {same}")
+    require(same and type(back) is type(state),
+            "path B: the checkpoint round trip changed the state")
+
+
 def main() -> int:
     import torch
 
@@ -840,9 +1153,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from rbdtpu_torch.kernels import _lib
-    from rbdtpu_torch.kernels.fused import fd_step_fused
     from rbdtpu_torch.model import load_asset
-    from rbdtpu_torch.solver import ee_reaching_cost, trajectory_cost
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -878,61 +1189,13 @@ def main() -> int:
 
     # ---- 3. the main path: arm7 EE reaching DDP, float32, kernels ----
     Bm, H, iters = 128, 100, 10
-    x0, U0 = start_problems(m32, Bm, H, np.random.default_rng(SEED + 1))
-    # the starting cost, by the solver's own (kernel) rollout and cost: the
-    # open-loop warm start amplifies rounding, so only the same arithmetic
-    # reproduces the solver's J0
-    xs = [x0]
-    for t in range(H):
-        xs.append(fd_step_fused(m32, xs[-1], U0[:, t].contiguous(), DT,
-                                GRAVITY))
-    J0 = trajectory_cost(ee_reaching_cost(m32, TARGET, **WEIGHTS),
-                         torch.stack(xs, dim=-2), U0)
-    solve(m32, x0, U0, fused=True, iters=iters)  # warm-up
-    torch.cuda.synchronize()
-    _lib.reset_launches()
-    times = []
-    for _ in range(3):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, J_hist = solve(m32, x0, U0, fused=True, iters=iters)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / 1e3)
-    counts = dict(_lib.launches)
-    print(f"main path launches (3 solves): {counts}")
+    counts, x0, U0 = arm_path(m32, smi, "main path", Bm, H, iters)
     for kname in DDP_KERNELS:
         require(counts[kname] > 0, f"{kname} was not launched on the main path")
         rows[kname]["launches"] = counts[kname]
-    require(tuple(J_hist.shape) == (iters, Bm), f"J_hist shape {J_hist.shape}")
-    require(bool(J_hist.isfinite().all()), "non-finite J on the main path")
-    require(bool((J_hist[1:] <= J_hist[:-1]).all()) and bool(
-        (J_hist[0] <= J0 * (1 + 1e-6)).all()), "J increased in an iteration")
-    require(J_hist[-1].mean() < J0.mean(), "mean J did not fall")
-    require(tuple(state.U.shape) == (Bm, H, m32.nv), "U shape")
-    sec = statistics.median(times)
-    print(f"main path: arm7 EE reaching, Bm={Bm} H={H} iters={iters} f32 "
-          f"fused: mean J {J0.mean().item():.4f} -> "
-          f"{J_hist[-1].mean().item():.4f}; solve {sec * 1e3:.1f} ms "
-          f"(median of {len(times)}, CUDA events) = {Bm / sec:.1f} solves/s "
-          f"on {smi}")
 
     # ---- 4. solver parity in float64: kernels vs plain versions ----
-    # At H=100 the open-loop warm start amplifies rounding ~1e9-fold and the
-    # weakly penalised controls (w_u=1e-6) follow it, so the bound there
-    # also demands that each kernel rounds almost as its plain version does;
-    # H=20 is the well-conditioned check.
-    for Hp in PARITY_H:
-        x0p, U0p = start_problems(m64, 4, Hp, np.random.default_rng(SEED + 2))
-        sk, _ = solve(m64, x0p, U0p, fused=True, iters=iters)
-        sp, _ = solve(m64, x0p, U0p, fused=False, iters=iters)
-        du = (sk.U - sp.U).abs().max().item()
-        dj = ((sk.J - sp.J).abs() / sp.J.abs().clamp(min=1)).max().item()
-        print(f"parity f64 Bm=4 H={Hp} iters={iters}: max|U_kernel - U_plain| "
-              f"{du:.3e} (bound {U_PARITY:g}); max rel |dJ| {dj:.3e}")
-        require(du < U_PARITY,
-                f"control parity at H={Hp}: {du:.3e} >= {U_PARITY:g}")
+    arm_parity(m64, "parity", iters)
 
     # ---- 5. where the main path's time goes ----
     profile_main_path(lambda: solve(m32, x0, U0, fused=True, iters=iters))
@@ -974,6 +1237,27 @@ def main() -> int:
     require(counts["riccati_small"] > 0,
             "the sweep's small-batch call site was not launched")
     rows["riccati_small"]["launches"] = counts["riccati_small"]
+
+    # ---- 12. the arm-class Riccati sweep kernel (K11) against the plain
+    # sweep ----
+    check_riccati_fused(smi, rows)
+
+    # ---- 13. path A: configs[2] with the backward pass through K11 ----
+    counts, x0, U0 = arm_path(m32, smi, "path A", Bm, H, iters,
+                              fused_riccati=True)
+    require(counts["riccati_fused"] == 3 * iters,
+            f"path A: riccati_fused launched {counts['riccati_fused']} times "
+            f"in 3 solves, expected {3 * iters}")
+    for kname in DDP_KERNELS:
+        require(counts[kname] > 0, f"path A: {kname} was not launched")
+    rows["riccati_fused"]["launches"] = counts["riccati_fused"]
+    profile_main_path(lambda: solve(m32, x0, U0, fused=True, iters=iters,
+                                    fused_riccati=True),
+                      extra=("backward_pass_fused",))
+    arm_parity(m64, "path A parity", iters, fused_riccati=True)
+
+    # ---- 14. path B: the closed-loop MPC loop ----
+    mpc_path(m32, m64, smi)
 
     print(smi)
     print(json.dumps({"kernels": [

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version.  ``_lib.launches`` counts the launches of each kernel.  The tree
 kernels K1-K3 cover fixed-base models and the rpy floating root; K4-K6 and
-K10 fixed-base models only."""
+K10 fixed-base models only; the Riccati sweeps (K7/K8 chunked, K11 at
+nx <= 16) take no model."""
 from ._lib import launches, reset_launches
 from .fused import (
     fd_step_fused, fd_step_plain, feedback_rollout_fused,
@@ -11,6 +12,7 @@ from .fused import (
 )
 from .colvec import linearize_parts_fused, linearize_parts_plain, linearize_fused
 from .fk_lane import ee_gn_fused, ee_gn_plain
+from .riccati import backward_pass_fused
 from .riccati_chunk import backward_pass_chunked
 
 __all__ = [
@@ -21,4 +23,5 @@ __all__ = [
     "rollout_fused", "rollout_fused_multi", "rollout_multi_plain",
     "linearize_parts_fused", "linearize_parts_plain", "linearize_fused",
     "ee_gn_fused", "ee_gn_plain", "backward_pass_chunked",
+    "backward_pass_fused",
 ]

@@ -45,11 +45,12 @@ SIZE_CLASSES = {
 
 # launches per kernel since the last reset_launches(); a wrapper adds one
 # only after its kernel launched without error.  riccati_chunk and
-# riccati_small count the one Riccati kernel at its two call sites (batch
-# >= 128 and < 128).
+# riccati_small count the chunked Riccati kernel at its two call sites
+# (batch >= 128 and < 128); riccati_fused is the arm-class sweep (nx <= 16).
 launches = {"fd_step": 0, "feedback_rollout": 0, "linearize_parts": 0,
             "ee_gn": 0, "ee_err": 0, "rnea": 0, "fd_step_minv": 0,
-            "rollout_multi": 0, "riccati_chunk": 0, "riccati_small": 0}
+            "rollout_multi": 0, "riccati_chunk": 0, "riccati_small": 0,
+            "riccati_fused": 0}
 
 # C signatures: p pointer, i int, s scalar of the kernel's dtype; every
 # function ends with the stream.  The tree kernels' signatures follow a
@@ -65,7 +66,9 @@ _SIGNATURES = {
     "rollout_multi": "ppppiiiss",  # x0 U fext xo B H minv dt gravity
 }
 # A B lx lu lxx sb st luu sb st lux sb st lfx lfxx reg k K dV1 ok B H nx nu
-_MODEL_FREE = {"riccati": "pppppiipiipiipppppppiiii"}
+# (the two Riccati sweeps share one signature)
+_MODEL_FREE = {"riccati": "pppppiipiipiipppppppiiii",
+               "riccati_fused": "pppppiipiipiipppppppiiii"}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _CTYPE = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
 

@@ -64,9 +64,26 @@ def backward_pass_chunked(A, B, lx, lu, lxx, luu, lux, lfx, lfxx, reg):
     if not A.is_cuda:
         from ..solver.ddp import backward_pass
         return backward_pass(A, B, lx, lu, lxx, luu, lux, lfx, lfxx, reg)
+    nx, nu = A.shape[-1], B.shape[-1]
+    nbytes = smem_bytes(nx, nu, A.dtype)
+    if nbytes > SMEM_MAX:
+        raise ValueError(f"riccati: nx={nx}, nu={nu} in {A.dtype} needs "
+                         f"{nbytes} bytes of shared memory a block; the "
+                         f"H100 has {SMEM_MAX}")
+    args, outs = sweep_args(A, B, lx, lu, lxx, luu, lux, lfx, lfxx, reg)
+    Bn = math.prod(outs[2].shape)
+    _lib.launch("riccati", None, A, *args, *outs, Bn, A.shape[-3], nx, nu,
+                count_as="riccati_chunk" if Bn >= LANE_BATCH
+                else "riccati_small")
+    return outs
+
+
+def sweep_args(A, B, lx, lu, lxx, luu, lux, lfx, lfxx, reg):
+    """The C arguments of a Riccati sweep kernel (``riccati`` and
+    ``riccati_fused`` share one signature) up to ``reg``, after checking
+    them, and its outputs (k, K, dV1, ok), allocated on A's device."""
     nx, nu, H = A.shape[-1], B.shape[-1], A.shape[-3]
     batch = lfx.shape[:-1]
-    Bn = math.prod(batch)
     _lib.check(A, "A", tuple(batch) + (H, nx, nx), A)
     _lib.check(B, "B", tuple(batch) + (H, nx, nu), A)
     _lib.check(lx, "lx", tuple(batch) + (H, nx), A)
@@ -81,19 +98,10 @@ def backward_pass_chunked(A, B, lx, lu, lxx, luu, lux, lfx, lfxx, reg):
         batch).contiguous()
     for t, name in ((lfx, "lfx"), (lfxx, "lfxx"), (reg, "reg")):
         _lib.check(t, name, t.shape, A)
-    nbytes = smem_bytes(nx, nu, A.dtype)
-    if nbytes > SMEM_MAX:
-        raise ValueError(f"riccati: nx={nx}, nu={nu} in {A.dtype} needs "
-                         f"{nbytes} bytes of shared memory a block; the "
-                         f"H100 has {SMEM_MAX}")
     k = torch.empty(tuple(batch) + (H, nu), dtype=A.dtype, device=A.device)
     K = torch.empty(tuple(batch) + (H, nu, nx), dtype=A.dtype,
                     device=A.device)
     dV1 = torch.empty(batch, dtype=A.dtype, device=A.device)
     ok = torch.empty(batch, dtype=torch.bool, device=A.device)
-    args = [a for blk in blocks for a in blk]
-    _lib.launch("riccati", None, A, A, B, lx, lu, *args, lfx, lfxx, reg, k, K,
-                dV1, ok, Bn, H, nx, nu,
-                count_as="riccati_chunk" if Bn >= LANE_BATCH
-                else "riccati_small")
-    return k, K, dV1, ok
+    args = [A, B, lx, lu, *(a for blk in blocks for a in blk), lfx, lfxx, reg]
+    return args, (k, K, dV1, ok)

@@ -1,5 +1,6 @@
 """Trajectory optimisation on torch tensors: DDP/iLQR with its costs,
-rollouts and linearisation."""
+rollouts, linearisation and backward-pass strategies, and the
+receding-horizon MPC loop with solver-state checkpoints."""
 from .integrate import (
     pack_state, split_state, state_diff, euler_semi_implicit, step_jacobians,
 )
@@ -12,6 +13,10 @@ from .ddp import (
     DDPConfig, DDPState, ddp_solve, backward_pass, forward_pass,
     forward_pass_fused,
 )
+from .parallel_riccati import backward_pass_parallel
+from .mpc import (
+    MPCCarry, mpc_step, mpc_run, save_solver_state, load_solver_state,
+)
 
 __all__ = [
     "pack_state", "split_state", "state_diff", "euler_semi_implicit",
@@ -20,4 +25,6 @@ __all__ = [
     "quadratize_trajectory", "linearize_trajectory", "normalize_f_ext",
     "rollout", "DDPConfig", "DDPState",
     "ddp_solve", "backward_pass", "forward_pass", "forward_pass_fused",
+    "backward_pass_parallel", "MPCCarry", "mpc_step", "mpc_run",
+    "save_solver_state", "load_solver_state",
 ]

@@ -8,10 +8,12 @@ iteration count and masked accept/reject, as in rbdtpu:
   - linearisation: one batched sweep over all knots (``linearize_parts``
     kernel when fused);
   - backward pass: the Riccati recursion, with a Cholesky of Quu whose
-    non-PD result is NaN (the PD guard): one knot at a time in plain torch,
-    or the whole horizon in one launch of the ``riccati`` kernel
-    (``kernels.riccati_chunk``), routed as rbdtpu routes its chunked sweep
-    (``_use_chunked_sweep``);
+    non-PD result is NaN (the PD guard), routed as rbdtpu routes it
+    (``_backward_route``): one knot at a time in plain torch, the whole
+    horizon in one launch of the ``riccati_fused`` kernel at nx <= 16
+    (``kernels.riccati``) or of the ``riccati`` kernel above
+    (``kernels.riccati_chunk``), or the parallel-in-time scan
+    (``solver.parallel_riccati``);
   - line search: every step size of the alpha ladder in parallel (one more
     batch dim), through the ``feedback_rollout`` kernel when fused; the best
     candidate per problem is accepted only when it improves the cost by
@@ -32,22 +34,28 @@ from ..dynamics.aba import aba
 from ..dynamics.fd import forward_dynamics
 from ..kernels.colvec import linearize_fused
 from ..kernels.fused import fd_step_fused, feedback_rollout_fused
+from ..kernels.riccati import NX_MAX as LANE_SCALAR_NX_MAX
+from ..kernels.riccati import backward_pass_fused
 from ..kernels.riccati_chunk import backward_pass_chunked
 from ..model.robot import RobotModel
 from ..spatial.ops import mv
 from .costs import Cost, quadratize_trajectory, trajectory_cost
 from .integrate import euler_semi_implicit, split_state, state_diff
+from .parallel_riccati import backward_pass_parallel
 from .rollout import linearize_trajectory
 
 
 @dataclasses.dataclass(frozen=True)
 class DDPConfig:
-    """rbdtpu's DDPConfig fields.  Not ported yet (raise when set):
-    ``parallel_riccati=True``, ``exact_hessians=True``, and
-    ``fused_riccati=True`` at nx <= 16 (rbdtpu's lane-scalar sweep there).
+    """rbdtpu's DDPConfig fields.  Not ported yet (raises when set):
+    ``exact_hessians=True``.  The backward pass (``_backward_route``):
+    ``parallel_riccati=True`` runs the parallel-in-time scan (None and
+    False: off; rbdtpu's auto gate for it is TPU-only).  Otherwise
     ``fused_riccati``: None runs the chunked sweep kernel on CUDA tensors
-    at nx >= 24 (rbdtpu's routing boundary), True runs it at any nx > 16
-    (the plain sweep on CPU tensors), False always runs the plain sweep."""
+    at nx >= 24 (rbdtpu's routing boundary) and the plain sweep below;
+    True runs the lane-scalar sweep kernel at nx <= 16 and the chunked one
+    above (each its plain version on CPU tensors); False always runs the
+    plain sweep."""
     iters: int = 20
     dt: float = 0.01
     gravity: float = -9.81
@@ -79,31 +87,28 @@ class DDPState(NamedTuple):
 
 
 # rbdtpu's auto boundary for the chunked sweep (solver/ddp.py,
-# RBDTPU_CHUNK_NX_MIN's default), and the largest nx of its lane-scalar one
+# RBDTPU_CHUNK_NX_MIN's default); the lane-scalar sweep takes nx <= 16
 CHUNK_NX_MIN = 24
-LANE_SCALAR_NX_MAX = 16
 
 
-def _check_config(model: RobotModel, config: DDPConfig):
-    for name in ("parallel_riccati", "exact_hessians"):
-        if getattr(config, name):
-            raise NotImplementedError(f"DDPConfig.{name} is not ported yet")
-    if config.fused_riccati and model.nx <= LANE_SCALAR_NX_MAX:
-        raise NotImplementedError(
-            f"DDPConfig.fused_riccati=True at nx={model.nx} <= "
-            f"{LANE_SCALAR_NX_MAX} selects rbdtpu's lane-scalar Riccati "
-            "kernel (kernels/riccati.py backward_pass_fused), which is not "
-            "ported yet")
+def _check_config(config: DDPConfig):
+    if config.exact_hessians:
+        raise NotImplementedError("DDPConfig.exact_hessians is not ported yet")
     if config.rollout_route not in ("aba", "minv"):
         raise ValueError(f"unknown rollout_route {config.rollout_route!r}")
 
 
-def _use_chunked_sweep(model: RobotModel, config: DDPConfig, on_card: bool):
-    """rbdtpu's backward-pass routing (solver/ddp.py:529-586), its
-    ``_on_tpu()`` read as "the tensors are on the card"."""
+def _backward_route(model: RobotModel, config: DDPConfig, on_card: bool):
+    """rbdtpu's backward-pass routing (solver/ddp.py:475-586), its
+    ``_on_tpu()`` read as "the tensors are on the card": "parallel",
+    "fused" (the lane-scalar sweep), "chunked" or "plain"."""
+    if config.parallel_riccati:
+        return "parallel"
     if config.fused_riccati is None:
-        return on_card and model.nx >= CHUNK_NX_MIN
-    return bool(config.fused_riccati)
+        return "chunked" if on_card and model.nx >= CHUNK_NX_MIN else "plain"
+    if not config.fused_riccati:
+        return "plain"
+    return "fused" if model.nx <= LANE_SCALAR_NX_MAX else "chunked"
 
 
 def _step_plain(model, x, u, dt, gravity, route="aba"):
@@ -245,7 +250,7 @@ def ddp_solve(model: RobotModel, cost: Cost, x0, U0,
     """Solve trajectory-optimisation problem(s): x0 (..., nx), U0 (..., H, nv)
     with arbitrary (possibly empty) leading batch dims.
     Returns (DDPState, J_history (iters, ...))."""
-    _check_config(model, config)
+    _check_config(config)
     dt, gravity = config.dt, config.gravity
     kw = dict(dtype=x0.dtype, device=x0.device)
     alphas = 2.0 ** -torch.arange(config.n_alphas, **kw)
@@ -253,7 +258,11 @@ def ddp_solve(model: RobotModel, cost: Cost, x0, U0,
     step_fn = _make_step(model, config)
     lin_fn = _make_linearize(model, config)
     use_fused_fwd = config.fused and config.fused_feedback is not False
-    use_chunk_bwd = _use_chunked_sweep(model, config, x0.is_cuda)
+    route = _backward_route(model, config, x0.is_cuda)
+    backward = {"parallel": backward_pass_parallel,
+                "fused": backward_pass_fused,
+                "chunked": backward_pass_chunked,
+                "plain": backward_pass}[route]
     u_clip = model.u_limit_vector().to(**kw) if config.u_limits else None
     if u_clip is not None:
         U0 = torch.clamp(U0, -u_clip, u_clip)
@@ -272,14 +281,11 @@ def ddp_solve(model: RobotModel, cost: Cost, x0, U0,
         A, B = lin_fn(state.X, state.U)
         lx, lu, lxx, luu, lux, lfx, lfxx = quadratize_trajectory(
             cost, state.X, state.U)
-        if use_chunk_bwd:
-            k, K, _, ok = backward_pass_chunked(
-                A.contiguous(), B.contiguous(), lx.contiguous(),
-                lu.contiguous(), lxx.contiguous(), luu.contiguous(),
-                lux.contiguous(), lfx, lfxx, state.reg)
-        else:
-            k, K, _, ok = backward_pass(A, B, lx, lu, lxx, luu, lux, lfx,
-                                        lfxx, state.reg)
+        if route in ("fused", "chunked"):
+            A, B, lx, lu, lxx, luu, lux = (t.contiguous() for t in (
+                A, B, lx, lu, lxx, luu, lux))
+        k, K, _, ok = backward(A, B, lx, lu, lxx, luu, lux, lfx, lfxx,
+                               state.reg)
         if use_fused_fwd:
             Xs, Us, Js = forward_pass_fused(model, cost, state.X, state.U, k,
                                             K, alphas, dt, gravity, u_clip)

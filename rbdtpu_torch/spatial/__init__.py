@@ -2,7 +2,7 @@
 ported dynamics and kinematics use)."""
 from .ops import (
     skew, crm, crf, cross_motion, cross_force, mv, mtv, xtax, cholesky_small,
-    cholesky_solve_small,
+    cholesky_solve_small, solve_small,
 )
 from .transforms import (
     REVOLUTE, PRISMATIC, FLOATING, FIXED, rot_axis, drot_axis,
@@ -15,5 +15,5 @@ __all__ = [
     "REVOLUTE", "PRISMATIC", "FLOATING", "FIXED", "rot_axis", "drot_axis",
     "joint_spatial_x", "joint_hom_T", "joint_hom_dT", "x_force_inv_T",
     "rpy_to_R", "plux", "hom", "floating_spatial_x", "floating_hom_T",
-    "cholesky_small", "cholesky_solve_small",
+    "cholesky_small", "cholesky_solve_small", "solve_small",
 ]

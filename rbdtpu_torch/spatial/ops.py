@@ -116,3 +116,16 @@ def cholesky_solve_small(L, b):
         x[i] = s / L[..., i, i, None]
     out = torch.stack(x, dim=-2)
     return out[..., 0] if vec else out
+
+
+def solve_small(A, b):
+    """Solve A x = b for a small general A (``rbdtpu.spatial.batched
+    .solve_small``): A (..., n, n), b (..., n) or (..., n, m).  rbdtpu
+    unrolls Gaussian elimination without pivoting for the TPU's vector
+    unit; here one batched LU solve with partial pivoting, which gives the
+    same x up to rounding for the well-conditioned systems it is meant for
+    (I + PSD PSD in the parallel Riccati combine).  ``solve_ex`` does not
+    check for a singular A, so it never waits on the card."""
+    vec = b.dim() == A.dim() - 1
+    x = torch.linalg.solve_ex(A, b[..., None] if vec else b)[0]
+    return x[..., 0] if vec else x

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from rbdtpu_torch.kernels import (
-    _lib, backward_pass_chunked, colvec, ee_gn_fused, fd_step_fused,
+    _lib, backward_pass_chunked, backward_pass_fused, colvec, ee_gn_fused,
+    fd_step_fused,
     fd_step_minv_fused, feedback_rollout_fused, fk_lane, fused,
     linearize_parts_fused, rnea_fused, rollout_fused_multi,
 )
@@ -349,3 +350,102 @@ def test_ddp_quadruped_kernels_match_plain(card, Bm, H, iters):
                                              fused=False,
                                              fused_riccati=False))[0]
     assert (a.U - b.U).abs().max().item() < 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("B,H,nx,nu,const", [
+    (1, 100, 14, 7, False), (3, 20, 14, 7, True), (130, 6, 14, 7, False),
+    (5, 7, 6, 3, True), (4, 5, 16, 16, False)],
+    ids=["one-arm7", "three-constant", "lane-arm7", "small", "nx16"])
+def test_riccati_fused(card, B, H, nx, nu, const, dtype):
+    """The arm-class sweep kernel (K11) against the plain sweep, one launch
+    a call, at any batch (warps past the batch in the last block return),
+    with per-knot and constant cost blocks, up to nx = 16; float64 within
+    1e-9 relative to the output's scale, float32 within 1e-3 (a sweep
+    accumulates the reordered float32 sums of H knots)."""
+    from rbdtpu_torch.solver.ddp import backward_pass
+
+    args = _riccati(B, H, nx, nu, const, dtype, 2 * B + nx)
+    out = _launched("riccati_fused", lambda: backward_pass_fused(*args))
+    ref = backward_pass(*args)
+    tol = 1e-9 if dtype == torch.float64 else 1e-3
+    for a, b in zip(out[:3], ref[:3]):
+        _close(a, b, tol)
+    assert out[3].tolist() == ref[3].tolist() == [True] * B
+
+
+def test_riccati_fused_non_pd(card):
+    """A non-PD Quu: NaN gains from that knot back and ok False, in the same
+    places as the plain sweep; the other problems are untouched."""
+    from rbdtpu_torch.solver.ddp import backward_pass
+
+    args = _riccati(6, 8, 14, 7, False, torch.float64, 5, non_pd=(4, 5))
+    k, K, dV, ok = backward_pass_fused(*args)
+    kr, Kr, dVr, okr = backward_pass(*args)
+    assert ok.tolist() == okr.tolist() == [True] * 4 + [False, True]
+    assert torch.equal(k.isnan(), kr.isnan())
+    assert torch.equal(K.isnan(), Kr.isnan())
+    assert k[4, :6].isnan().all() and k[4, 6:].isfinite().all()
+    fin = ok.nonzero()[:, 0]
+    _close(K[fin], Kr[fin], 1e-9)
+    _close(dV[fin], dVr[fin], 1e-9)
+
+
+def _arm_start(m, B, H):
+    from rbdtpu_torch.dynamics import rnea
+
+    (q0,) = _inputs(m, (B, m.nq), scale=0.3)
+    z = torch.zeros_like(q0)
+    return (torch.cat([q0, z], -1),
+            rnea(m, q0, z, z)[0][:, None].expand(B, H, m.nv).contiguous())
+
+
+@pytest.mark.parametrize("option", ["fused_riccati", "parallel_riccati"])
+def test_ddp_backward_routes_match_plain(card, option):
+    """The arm7 EE solve in float64 with the backward pass through K11
+    (one launch an iteration, no plain sweep) or the parallel scan, beside
+    the plain sweep: K11 gives the plain sweep's controls (1e-6); the scan
+    solves the exactly regularised subproblem, so its iterates differ and
+    only its descent is held."""
+    from rbdtpu_torch.solver import DDPConfig, ddp_solve, ee_reaching_cost
+
+    m = load_asset("arm7", device=card, dtype=torch.float64)
+    x0, U0 = _arm_start(m, 3, 12)
+    cost = ee_reaching_cost(m, TARGET, w_ee=10.0, w_ee_f=2000.0, w_u=1e-6,
+                            w_qd=1e-3, w_qd_f=0.1)
+    before = _lib.launches["riccati_fused"]
+    a, hist = ddp_solve(m, cost, x0, U0, DDPConfig(iters=4, n_alphas=8,
+                                                   fused=True, **{option: True}))
+    torch.cuda.synchronize()
+    b = ddp_solve(m, cost, x0, U0, DDPConfig(iters=4, n_alphas=8, fused=True,
+                                             fused_riccati=False))[0]
+    if option == "fused_riccati":
+        assert _lib.launches["riccati_fused"] == before + 4
+        assert (a.U - b.U).abs().max().item() < 1e-6
+    else:
+        assert _lib.launches["riccati_fused"] == before
+        assert torch.isfinite(a.U).all() and (hist[-1] <= hist[0]).all()
+
+
+def test_mpc_step_and_checkpoint_on_the_card(card, tmp_path):
+    """A batched MPC tick through the kernels, and its solver state
+    written and read back on the card bit for bit."""
+    from rbdtpu_torch.solver import (
+        DDPConfig, MPCCarry, ddp_solve, ee_reaching_cost, load_solver_state,
+        mpc_step, save_solver_state,
+    )
+
+    m = load_asset("arm7", device=card, dtype=torch.float32)
+    x0, U0 = _arm_start(m, 2, 10)
+    cost = ee_reaching_cost(m, TARGET)
+    cfg = DDPConfig(iters=2, n_alphas=4, fused=True, fused_riccati=True)
+    carry, (u, J) = mpc_step(m, cost, MPCCarry(x0, U0), cfg)
+    assert carry.x.shape == x0.shape and u.shape == (2, m.nv)
+    assert torch.isfinite(carry.x).all() and torch.isfinite(J).all()
+    state = ddp_solve(m, cost, x0, U0, cfg)[0]
+    path = str(tmp_path / "state.npz")
+    save_solver_state(path, state)
+    back = load_solver_state(path, state)
+    for a, b in zip(back, state):
+        assert a.device == b.device and torch.equal(a, b)

@@ -8,7 +8,6 @@ import pytest
 import torch
 
 from rbdtpu import solver as js
-from rbdtpu.dynamics import rnea as jrnea
 from rbdtpu_torch import solver as ts
 from rbdtpu_torch.model import load_asset
 
@@ -21,31 +20,23 @@ def tm():
     return load_asset("arm7", device="cpu", dtype=torch.float64)
 
 
-def _problems(arm7, rng, B, H):
-    """bench.py's configs[2] start: random configurations at rest, gravity
-    compensation at every knot."""
-    q0 = 0.3 * rng.standard_normal((B, arm7.nq))
-    z = np.zeros((B, arm7.nv))
-    x0 = np.concatenate([q0, z], -1)
-    U0 = np.broadcast_to(np.asarray(jrnea(arm7, q0, z, z)[0])[:, None],
-                         (B, H, arm7.nv)).copy()
-    return x0, U0
-
-
-def test_ddp_solve_matches_rbdtpu(arm7, tm, rng):
+def test_ddp_solve_matches_rbdtpu(tm):
     """fused=True on CPU tensors runs the kernels' plain versions; rbdtpu
-    solves with its jnp path."""
-    x0, U0 = _problems(arm7, rng, B=2, H=8)
-    cfg = dict(iters=3, dt=0.01, n_alphas=8)
-    cost = js.ee_reaching_cost(arm7, jnp.array(TARGET), **WEIGHTS)
-    ref, ref_hist = jax.jit(lambda x, U: js.ddp_solve(
-        arm7, cost, x, U, js.DDPConfig(fused=False, **cfg)))(x0, U0)
+    solved with its jnp path (B=2, H=8, 3 iterations), as recorded in
+    tests/data/arm7_solver_refs.npz by tests/make_arm7_fixture.py (its
+    live re-run is tests/test_torch_mpc.py's slow test)."""
+    from make_arm7_fixture import DDP, PATH
+
+    with np.load(PATH) as f:
+        rec = dict(f)
     out, hist = ts.ddp_solve(
-        tm, ts.ee_reaching_cost(tm, TARGET, **WEIGHTS), torch.tensor(x0),
-        torch.tensor(U0), ts.DDPConfig(fused=True, **cfg))
-    assert np.abs(out.U.numpy() - np.asarray(ref.U)).max() < 1e-6
-    np.testing.assert_allclose(hist.numpy(), np.asarray(ref_hist), rtol=1e-9)
-    np.testing.assert_allclose(out.reg.numpy(), np.asarray(ref.reg))
+        tm, ts.ee_reaching_cost(tm, TARGET, **WEIGHTS),
+        torch.tensor(rec["ddp_x0"]), torch.tensor(rec["ddp_U0"]),
+        ts.DDPConfig(fused=True, **DDP["cfg"]))
+    assert np.abs(out.U.numpy() - rec["ddp_plain_U"]).max() < 1e-6
+    np.testing.assert_allclose(hist.numpy(), rec["ddp_plain_J_hist"],
+                               rtol=1e-9)
+    np.testing.assert_allclose(out.reg.numpy(), rec["ddp_plain_reg"])
     assert hist[-1].mean() < hist[0].mean()
 
 
@@ -137,11 +128,41 @@ def test_tracking_cost_matches_rbdtpu(arm7, tm, rng):
         np.asarray(js.trajectory_cost(ref_cost, X, U)), rtol=1e-12)
 
 
-@pytest.mark.parametrize("field", ["parallel_riccati", "exact_hessians",
-                                   "fused_riccati"])
+@pytest.mark.parametrize("field", ["exact_hessians"])
 def test_unported_options_raise(tm, field):
     x0 = torch.zeros(1, tm.nx, dtype=torch.float64)
     U0 = torch.zeros(1, 2, tm.nv, dtype=torch.float64)
     cost = ts.ee_reaching_cost(tm, TARGET)
     with pytest.raises(NotImplementedError):
         ts.ddp_solve(tm, cost, x0, U0, ts.DDPConfig(**{field: True}))
+
+
+@pytest.mark.parametrize("option,ran", [
+    ({"fused_riccati": True}, ["backward_pass_fused", "backward_pass"]),
+    ({"parallel_riccati": True}, ["backward_pass_parallel"]),
+    ({"parallel_riccati": True, "fused_riccati": True},
+     ["backward_pass_parallel"]),
+    ({}, ["backward_pass"])])
+def test_backward_route_on_cpu(tm, monkeypatch, option, ran):
+    """On CPU tensors at nx = 14, the calls of each iteration:
+    fused_riccati=True goes through the lane-scalar kernel's wrapper, which
+    runs the plain sweep; parallel_riccati=True runs the scan, ahead of
+    fused_riccati."""
+    from rbdtpu_torch.kernels import launches, reset_launches
+    from rbdtpu_torch.solver import ddp
+
+    calls = []
+    for name in ("backward_pass", "backward_pass_parallel",
+                 "backward_pass_fused", "backward_pass_chunked"):
+        fn = getattr(ddp, name)
+        monkeypatch.setattr(ddp, name, lambda *a, _n=name, _f=fn, **kw: (
+            calls.append(_n), _f(*a, **kw))[1])
+    x0 = torch.zeros(2, tm.nx, dtype=torch.float64)
+    U0 = torch.zeros(2, 3, tm.nv, dtype=torch.float64)
+    cost = ts.ee_reaching_cost(tm, TARGET, **WEIGHTS)
+    reset_launches()
+    state, _ = ts.ddp_solve(tm, cost, x0, U0, ts.DDPConfig(
+        iters=2, n_alphas=3, fused=True, **option))
+    assert calls == ran * 2
+    assert not any(launches.values())
+    assert torch.isfinite(state.U).all()

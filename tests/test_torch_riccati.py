@@ -63,20 +63,26 @@ def test_chunked_cpu_route_matches_rbdtpu_chunked(case):
     assert launches["riccati_chunk"] == launches["riccati_small"] == 0
 
 
-@pytest.mark.parametrize("name,fused_riccati,on_card,chunked", [
-    ("arm7", None, True, False),  # nx = 14: configs[2] keeps the plain sweep
-    ("quadruped12", None, True, True),  # nx = 36 >= 24 on the card
-    ("quadruped12", None, False, False),
-    ("quadruped12", True, False, True),
-    ("quadruped12", False, True, False),
+@pytest.mark.parametrize("name,option,on_card,route", [
+    ("arm7", {}, True, "plain"),  # nx = 14: configs[2] keeps the plain sweep
+    ("arm7", {"fused_riccati": True}, True, "fused"),  # K11 at nx <= 16
+    ("arm7", {"fused_riccati": True}, False, "fused"),
+    ("arm7", {"parallel_riccati": True, "fused_riccati": True}, True,
+     "parallel"),
+    ("quadruped12", {}, True, "chunked"),  # nx = 36 >= 24 on the card
+    ("quadruped12", {}, False, "plain"),
+    ("quadruped12", {"fused_riccati": True}, False, "chunked"),
+    ("quadruped12", {"fused_riccati": False}, True, "plain"),
+    ("quadruped12", {"parallel_riccati": True}, True, "parallel"),
 ])
-def test_backward_pass_routing(name, fused_riccati, on_card, chunked):
-    """rbdtpu's routing (solver/ddp.py:529-586) with "on the TPU" read as
-    "the tensors are on the card"."""
+def test_backward_pass_routing(name, option, on_card, route):
+    """rbdtpu's routing (solver/ddp.py:475-586) with "on the TPU" read as
+    "the tensors are on the card"; parallel_riccati=None stays off (its
+    auto gate is TPU-only)."""
     m = load_asset(name, device="cpu", dtype=torch.float64,
                    floating_base=name != "arm7")
-    cfg = tddp.DDPConfig(fused_riccati=fused_riccati)
-    assert tddp._use_chunked_sweep(m, cfg, on_card) is chunked
+    cfg = tddp.DDPConfig(**option)
+    assert tddp._backward_route(m, cfg, on_card) == route
 
 
 def test_chunked_route_on_cpu_gives_the_plain_sweep():
