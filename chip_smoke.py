@@ -35,8 +35,10 @@ Phases, each ending the run with a nonzero exit when it fails:
    finite;
 8. hold the Riccati sweep kernel against the plain sweep at configs[3]'s
    shape (B=1024, H=50, nx=36, nu=18, constant cost blocks), at B=4 (the
-   small-batch call site) and at the humanoid's (B=16, H=32, nx=72, nu=36,
-   per-knot cost blocks, above 48 KB of shared memory in float64): float64
+   small-batch call site), at the humanoid's (B=16, H=32, nx=72, nu=36,
+   per-knot cost blocks, above 48 KB of shared memory in float64) and at
+   paths C and D's (B=16 and B=256, H=32, nx=72, nu=36, the tracking
+   cost's constant blocks; the small-batch and the lane call site): float64
    relative error <= 1e-9, float32 <= 1e-4, each timed beside its bound;
    and on a batch with one non-PD problem, whose NaN gains and ok must be
    the plain sweep's;
@@ -71,7 +73,31 @@ Phases, each ending the run with a nonzero exit when it fails:
    finite at Bm=1 (at Bm=128 the robots whose J overflowed are printed);
    K11 against the plain sweep on the controls applied over 5 ticks at
    Bm=2, H=20, float64 (< 1e-6); a solver-state checkpoint written and
-   read back on the card bit for bit.
+   read back on the card bit for bit;
+15. the humanoid's kernels (humanoid30, rpy root, the "fb32" size class):
+   K1, K2 and K3 against their plain versions at paths C and D's shapes
+   (2048 states, 1024 trajectories x 32 knots, 8192 knots), as in phase 2,
+   with the device memory the CUDA driver reserves for their stacks (the
+   stack limit is set back afterwards, which frees it); K9
+   (``feedback_chunked``) at nchunks 2, 1, 3 and 100 with and without a
+   clamp, at an odd batch, on arm7 and on the rpy quadruped, and against
+   K2 on the same inputs (float64 <= 1e-9, both timed);
+16. path C, BASELINE.json configs[4] (bench.py:539-590): ``hybrid_solve``
+   of 16 humanoid problems, H=32, 4 MPPI iterations of 128 samples then 4
+   DDP iterations of 4 line-search steps, float32, every kernel on: solve
+   time, the MPPI and DDP stages apart, launch counts (K1, K2, K3 and the
+   small-batch sweep; no K9), both J histories finite and falling; then
+   the hybrid in float64 at the same shapes, through the kernels and
+   through the plain route (``fused=False``), fed the same standard
+   normals, at configs[4]'s sigma and at a sigma small enough that MPPI
+   replaces its nominal plan: |dU| < 1e-6 and relative |dJ| < 1e-9 over
+   both J histories, and at the small sigma MPPI must have moved;
+17. path D, the DDP stage at 256 problems (tools/bench_chunked.py) with
+   ``fused_feedback=True``, which rbdtpu's rule sends to K9 with two
+   chunks: one K9 launch an iteration and no K2, J falling, its profile,
+   the same solve timed on the K2 tier and on the plain pass; then the K9
+   tier against the K2 tier in float64 at 142 problems (|dU| < 1e-6,
+   relative |dJ| < 1e-9).
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON summary and the result line.  Without a CUDA
@@ -99,7 +125,8 @@ TOL64 = 1e-9
 # carries 100 closed-loop steps, so 1e-3.
 TOL32 = {"fd_step": 1e-4, "feedback_rollout": 1e-3, "linearize_parts": 1e-4,
          "ee_gn": 1e-4, "ee_err": 1e-4, "rnea": 1e-4, "fd_step_minv": 1e-4,
-         "rollout_multi": 1e-3, "riccati": 1e-4, "riccati_fused": 1e-4}
+         "rollout_multi": 1e-3, "riccati": 1e-4, "riccati_fused": 1e-4,
+         "feedback_chunked": 1e-3}
 U_PARITY = 1e-6
 PARITY_H = (100, 20)
 # the rollout path (BASELINE.json configs[1], bench.py:132-209, 377-416)
@@ -114,11 +141,30 @@ PEAK_BYTES, PEAK_OPS = 3.35e12, {"float32": 67e12, "float64": 34e12}
 B3, H3, ITERS3, ALPHAS3 = 1024, 50, 5, 6
 W3 = dict(w_q=2.0, w_qd=0.05, w_u=1e-5)
 PARITY3 = ((4, 50, 5), (130, 10, 2))
+# the humanoid paths: humanoid30 on the rpy root, tracking weights to a
+# standing height of 0.95.  Path C is BASELINE.json configs[4]
+# (bench.py:539-590): Bm problems, H knots, MPPI samples, noise scale and
+# iterations, then DDP iterations and line-search steps.  Path D is its DDP
+# stage at fleet batch (tools/bench_chunked.py), whose line search takes
+# K9; its float64 tier parity runs at the smallest batch where rbdtpu's
+# rule picks K9 with two chunks.  K9 is checked at these chunk counts.
+BH, HH, SAMPLES_H, SIGMA_H, MPPI_ITERS_H = 16, 32, 128, 0.3, 4
+# a noise scale at which MPPI beats the nominal plan on path C's problems
+# (at configs[4]'s sigma every sample rolls out worse than the nominal)
+SIGMA_MOVE = 3e-4
+ITERS_H, ALPHAS_H = 4, 4
+WH = dict(w_q=2.0, w_qd=0.05, w_u=1e-5)
+BD, BD_PARITY, NCHUNKS_D = 256, 142, 2
+NCHUNKS_CHECKS = (2, 1, 3, 100)
 # the Riccati sweep's checks: (label, problems, knots, nx, nu, constant cost
-# blocks): configs[3]'s shape, the small-batch call site, the humanoid's
+# blocks): configs[3]'s shape, the small-batch call site, a humanoid batch
+# with per-knot blocks, and the humanoid paths' shapes with the tracking
+# cost's constant blocks (path C: K8; path D: K7)
 RICCATI_CASES = (("configs[3]", B3, H3, 36, 18, True),
                  ("small batch", 4, H3, 36, 18, True),
-                 ("humanoid", 16, 32, 72, 36, False))
+                 ("humanoid", 16, 32, 72, 36, False),
+                 ("path C", BH, HH, 72, 36, True),
+                 ("path D", BD, HH, 72, 36, True))
 # the arm-class sweep's (K11) checks, in the same form: configs[2]'s shape
 # (the EE cost's blocks are per knot), with constant blocks, one robot, four
 RICCATI_FUSED_CASES = (("configs[2]", 128, 100, 14, 7, False),
@@ -263,6 +309,13 @@ def kernel_table():
                                                              GRAVITY, **kw),
             "rbdtpu_torch/csrc/rollout_multi.cu",
             "rbdtpu/kernels/fused.py:1029"),
+        "feedback_chunked": (
+            lambda m, *a, **kw: fused.feedback_rollout_fused_chunked(
+                m, *a, DT, GRAVITY, **kw),
+            lambda m, *a, **kw: fused.feedback_rollout_chunked_plain(
+                m, *a, DT, GRAVITY, **kw),
+            "rbdtpu_torch/csrc/feedback_chunked.cu",
+            "rbdtpu/kernels/fused.py:819"),
     }
 
 
@@ -459,13 +512,16 @@ def profile_main_path(solve_once, extra=()):
     print(f"profile: host launch calls per solve {launch_calls}")
 
 
-def check_kernels(checks, m64, m32, smi: str, rows=None) -> dict:
+def check_kernels(checks, m64, m32, smi: str, rows=None, row_tag: str = "",
+                  time_all: bool = True) -> dict:
     """Hold each kernel against its plain version (float64 max abs error
     <= TOL64, float32 relative error <= TOL32), time both in float32 and
     compute the bound.  ``checks``: (label, kernel name, float64 args,
     keyword args, operations key, states x steps).  The first check of a
-    kernel gives its row of the JSON line; the row's max_abs_err is the
-    largest over the kernel's checks.  Fails after printing every check."""
+    kernel gives its row of the JSON line (named kernel name + row_tag);
+    the row's max_abs_err is the largest over the kernel's checks.  With
+    ``time_all=False`` only that first check is timed.  Fails after
+    printing every check."""
     import torch
     from rbdtpu_torch import opcount
 
@@ -475,6 +531,7 @@ def check_kernels(checks, m64, m32, smi: str, rows=None) -> dict:
     failures = []
     for label, kname, a64, kw, ops_key, states in checks:
         kern, plain, source, replaces = table[kname]
+        row = kname + row_tag
         a32 = tuple(a.float() for a in a64)
         kw32 = {k: v.float() if isinstance(v, torch.Tensor) else v
                 for k, v in kw.items()}
@@ -490,25 +547,28 @@ def check_kernels(checks, m64, m32, smi: str, rows=None) -> dict:
         if err32 > TOL32[kname]:
             failures.append(f"{label}: float32 relative error {err32:.3e} > "
                             f"{TOL32[kname]:g}")
-        ms = cuda_ms(lambda: kern(m32, *a32, **kw32), reps=20)
-        plain_ms = cuda_ms(lambda: plain(m32, *a32, **kw32), reps=3)
         ops = flops[ops_key] * states
         bound_ms, bound_by = bound((*a32, *kw32.values()), k32, m32, ops,
                                    "float32")
         shapes = " ".join(str(tuple(a.shape)) for a in a64)
         fmt = lambda es: "[" + " ".join(f"{e:.2e}" for e in es) + "]"
-        print(f"kernel {label}: inputs {shapes}  f64 max|err| {fmt(e64)}  "
-              f"f32 rel err {fmt(e32)} (kernel vs f64 plain "
+        timing = "not timed"
+        if time_all or row not in rows:
+            ms = cuda_ms(lambda: kern(m32, *a32, **kw32), reps=20)
+            plain_ms = cuda_ms(lambda: plain(m32, *a32, **kw32), reps=3)
+            timing = f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+        print(f"kernel {label}: inputs {shapes}  f64 max|err| "
+              f"{fmt(e64)}  f32 rel err {fmt(e32)} (kernel vs f64 plain "
               f"{fmt(errors(k32, p64, relative=True))}, plain vs f64 plain "
-              f"{fmt(errors(p32, p64, relative=True))})  kernel {ms:.4f} ms  "
-              f"plain {plain_ms:.4f} ms  bound {bound_ms:.6f} ms by "
-              f"{bound_by} ({ops:.4g} operations) (f32, median, {smi})")
-        if kname not in rows:
-            rows[kname] = dict(name=kname, route="cuda", source=source,
-                               replaces=replaces, max_abs_err=err64, ms=ms,
-                               plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by, library_ms=None)
-        rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"], err64)
+              f"{fmt(errors(p32, p64, relative=True))})  {timing}  bound "
+              f"{bound_ms:.6f} ms by {bound_by} ({ops:.4g} operations) (f32, "
+              f"median, {smi})")
+        if row not in rows:
+            rows[row] = dict(name=row, route="cuda", source=source,
+                             replaces=replaces, max_abs_err=err64, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=None)
+        rows[row]["max_abs_err"] = max(rows[row]["max_abs_err"], err64)
     require(not failures, "; ".join(failures))
     return rows
 
@@ -779,36 +839,45 @@ def quadruped_solve(model, x0, U0, iters: int, kernels: bool):
 def quadruped_kernel_inputs(m64, rng):
     """Float64 CUDA inputs for K1-K3 on the rpy quadruped at configs[3]'s
     shapes: K1 at B3 states (the initial rollout's step), K2 at ALPHAS3 *
-    B3 trajectories over H3 knots (the line search), K3 at B3 * H3 knots.
-    K2's gains pull each trajectory, started 0.02 N(0,1) away, back to
-    its nominal start x0: u = U + K (x - x0) with K = -M(q0) [400 I, 40 I]
-    perturbed by 10% per knot and U the gravity compensation, so the
-    50-step closed loop stays near x0."""
+    B3 trajectories over H3 knots (the line search), K3 at B3 * H3 knots
+    (``floating_kernel_inputs``)."""
+    return floating_kernel_inputs(m64, rng, quadruped_problems, B3,
+                                  ALPHAS3 * B3, H3, B3 * H3)
+
+
+def floating_kernel_inputs(m64, rng, problems, n_step, n_traj, H, n_knots):
+    """Float64 CUDA inputs for K1-K3 (and K9) on an rpy-root model whose
+    start configurations ``problems(model, Bm, H, rng)`` makes: K1 at
+    n_step states, K2 at n_traj trajectories over H knots, K3 at n_knots
+    knots.  K2's gains pull each trajectory, started 0.02 N(0,1) away, back
+    to its nominal start x0: u = U + K (x - x0) with K = -M(q0) [400 I,
+    40 I] perturbed by 10% per knot and U the gravity compensation, so the
+    closed loop stays near x0."""
     import torch
-    from rbdtpu_torch.dynamics import minv, rnea
+    from rbdtpu_torch.dynamics import minv
 
     n = m64.nv
     T = lambda a: torch.tensor(a, dtype=torch.float64, device=m64.device)
 
     def states(B):
-        x0, U0 = quadruped_problems(m64, B, 1, rng)
+        x0, U0 = problems(m64, B, 1, rng)
         qd = T(0.5 * rng.standard_normal((B, n)))
         return (x0[:, :n].contiguous(), qd,
                 (U0[:, 0] + T(rng.standard_normal((B, n)))).contiguous())
 
-    q, qd, u = states(B3)
+    q, qd, u = states(n_step)
     fd = (torch.cat([q, qd], -1), u)
-    B = ALPHAS3 * B3
-    x0, U0 = quadruped_problems(m64, B, H3, rng)
-    Xn = x0[:, None] + T(0.01 * rng.standard_normal((B, H3, 2 * n)))
+    B = n_traj
+    x0, U0 = problems(m64, B, H, rng)
+    Xn = x0[:, None] + T(0.01 * rng.standard_normal((B, H, 2 * n)))
     pd = np.concatenate([400.0 * np.eye(n), 40.0 * np.eye(n)], 1)
-    gains = T(pd * (1 + 0.1 * rng.standard_normal((B, H3, n, 2 * n))))
+    gains = T(pd * (1 + 0.1 * rng.standard_normal((B, H, n, 2 * n))))
     Kf = -(torch.linalg.inv(minv(m64, x0[:, :n]))[:, None] @ gains)
     kf = -(Kf @ (x0[:, None] - Xn)[..., None])[..., 0]
     x_start = x0 + T(0.02 * rng.standard_normal((B, 2 * n)))
     fb = (x_start, Xn.contiguous(), U0, kf.contiguous(), Kf.contiguous())
     return {"fd_step": fd, "feedback_rollout": fb,
-            "linearize_parts": states(B3 * H3)}
+            "linearize_parts": states(n_knots)}
 
 
 def quadruped_path(m32, smi: str) -> dict:
@@ -1146,6 +1215,370 @@ def mpc_path(m32, m64, smi: str):
             "path B: the checkpoint round trip changed the state")
 
 
+def humanoid_problems(model, Bm: int, H: int, rng):
+    """configs[4]'s start (bench.py:555-579): standing at q[2] = 0.9 with
+    0.02 N(0,1) on every coordinate, at rest, gravity compensation at
+    every knot."""
+    import torch
+    from rbdtpu_torch.dynamics import rnea
+
+    q0 = np.zeros((Bm, model.nq))
+    q0[:, 2] = 0.9
+    q0 = torch.tensor(q0 + 0.02 * rng.standard_normal(q0.shape),
+                      dtype=model.dtype, device=model.device)
+    z = torch.zeros(Bm, model.nv, dtype=model.dtype, device=model.device)
+    U0 = rnea(model, q0, z, z)[0][:, None].expand(Bm, H, model.nv)
+    return torch.cat([q0, z], -1), U0.contiguous()
+
+
+def humanoid_cost(model):
+    from rbdtpu_torch.solver import quadratic_tracking_cost
+
+    goal = np.zeros(model.nx)
+    goal[2] = 0.95
+    return quadratic_tracking_cost(model, goal, **WH)
+
+
+def humanoid_kernels(h64, h32, arm, quad, smi: str, rows: dict, ptxas: list):
+    """Phase 15: K1-K3 at the fb32 size class against their plain versions
+    at the humanoid paths' shapes (K1 at path C's BH x SAMPLES_H sample
+    states, K2 at path D's BD x ALPHAS_H trajectories of HH knots, K3 at
+    path D's BD x HH knots); K9 (``feedback_chunked``) at path D's shape at
+    every count of NCHUNKS_CHECKS, with and without a clamp that bites,
+    on arm7 and the rpy quadruped (``arm``, ``quad``: (m64, m32, K2's
+    float64 inputs, states x steps)) and at an odd batch; then K9 against
+    K2 on the same inputs of each model, float64 within TOL64, both
+    timed."""
+    import torch
+    from rbdtpu_torch.kernels import _lib, fused
+
+    for line in ptxas:
+        if "FB32" in line or "Dims<32" in line or "feedback_chunked" in line:
+            print(f"phase 15 {line}")
+    hin = floating_kernel_inputs(h64, np.random.default_rng(SEED + 90),
+                                 humanoid_problems, BH * SAMPLES_H,
+                                 BD * ALPHAS_H, HH, BD * HH)
+    states = {"fd_step": BH * SAMPLES_H, "feedback_rollout":
+              BD * ALPHAS_H * HH, "linearize_parts": BD * HH}
+
+    def outside_pool():
+        """GB of device memory in use outside PyTorch's allocator: the
+        context and the local memory the CUDA driver reserves for the
+        largest stack frame launched so far, for every thread the card can
+        hold."""
+        torch.cuda.synchronize()
+        free, total = torch.cuda.mem_get_info()
+        return (total - free - torch.cuda.memory_reserved()) / 1e9
+
+    limit, before = _lib.stack_limit(h64.device), outside_pool()
+    check_kernels([(f"{k} humanoid", k, hin[k], {}, k, states[k])
+                   for k in hin], h64, h32, smi, rows, row_tag="_fb32")
+    grown, after = _lib.stack_limit(h64.device), outside_pool()
+    _lib.set_stack_limit(h64.device, limit)
+    print(f"device memory outside PyTorch's pool: {before:.2f} GB before "
+          f"the fb32 kernels (stack limit {limit} B a thread), {after:.2f} "
+          f"GB after (limit {grown} B), {outside_pool():.2f} GB once the "
+          f"limit was set back to {_lib.stack_limit(h64.device)} B ({smi})")
+    fb = hin["feedback_rollout"]
+    # 0.8 of the largest control each coordinate takes unclamped: the clamp
+    # bites on a few knots.  A tighter one lets the humanoid fall out of the
+    # closed loop, whose rounding then grows past any tolerance (float32 and
+    # float64 plain versions part by 1e-1 at half the nominal controls).
+    applied = fused.feedback_rollout_fused(h64, *fb, DT, GRAVITY)[1]
+    clip = 0.8 * applied.abs().amax(dim=(0, 1))
+    k9 = [(f"feedback_chunked humanoid nchunks={c}"
+           f"{' u_clip' if u is not None else ''}", "feedback_chunked", fb,
+           {"nchunks": c, **({} if u is None else {"u_clip": u})},
+           "feedback_chunked", states["feedback_rollout"])
+          for c in NCHUNKS_CHECKS for u in (None, clip)]
+    odd = tuple(a[:BD * ALPHAS_H - 3].contiguous() for a in fb)
+    k9.append(("feedback_chunked humanoid odd batch", "feedback_chunked", odd,
+               {"nchunks": NCHUNKS_D}, "feedback_chunked",
+               odd[0].shape[0] * HH))
+    check_kernels(k9, h64, h32, smi, rows, time_all=False)
+    for label, (m64, m32, args, steps) in (("arm7", arm),
+                                           ("rpy quadruped", quad)):
+        check_kernels([(f"feedback_chunked {label}", "feedback_chunked", args,
+                        {"nchunks": NCHUNKS_D}, "feedback_chunked", steps)],
+                      m64, m32, smi, rows, time_all=False)
+    for label, (m64, m32, args, _) in (("humanoid", (h64, h32, fb, 0)),
+                                       ("arm7", arm), ("rpy quadruped", quad)):
+        k2 = fused.feedback_rollout_fused(m64, *args, DT, GRAVITY)
+        k9 = fused.feedback_rollout_fused_chunked(m64, *args, DT, GRAVITY,
+                                                  nchunks=NCHUNKS_D)
+        err = max(errors(k9, k2, relative=False))
+        a32 = tuple(a.float() for a in args)
+        ms2 = cuda_ms(lambda: fused.feedback_rollout_fused(
+            m32, *a32, DT, GRAVITY), reps=20)
+        ms9 = cuda_ms(lambda: fused.feedback_rollout_fused_chunked(
+            m32, *a32, DT, GRAVITY, nchunks=NCHUNKS_D), reps=20)
+        print(f"kernel feedback_chunked vs feedback_rollout {label} "
+              f"{tuple(args[4].shape)}: f64 max|K9 - K2| {err:.3e} (bound "
+              f"{TOL64:g}); f32 K9 nchunks={NCHUNKS_D} {ms9:.4f} ms, K2 "
+              f"{ms2:.4f} ms (median of 20, CUDA events, {smi})")
+        require(err <= TOL64, f"K9 against K2 on {label}: {err:.3e} > "
+                f"{TOL64:g}")
+
+
+def timed_runs(fn, reps: int = 3, warm: bool = True):
+    """A warm-up call of ``fn`` (unless ``warm`` is False), then ``reps``
+    calls each timed by CUDA events: (the last call's result, seconds of
+    each)."""
+    import torch
+
+    if warm:
+        fn()
+        torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    return out, times
+
+
+def hybrid_path(m32, smi: str) -> dict:
+    """Phase 16, path C: BASELINE.json configs[4] as bench.py:539-590 runs
+    it, through ``hybrid_solve``: BH humanoid problems, HH knots, float32,
+    MPPI_ITERS_H MPPI iterations of SAMPLES_H samples then ITERS_H DDP
+    iterations of ALPHAS_H line-search steps, every kernel on, noise from a
+    seeded generator on the card.  One warm-up solve, then three timed ones
+    with the counts set to 0 just before: K1 in the sampling, K2, K3 and
+    the small-batch sweep once a DDP iteration, K9 and the plain sweep
+    never; then the MPPI and DDP stages timed apart.  Both J histories must
+    be finite and fall (MPPI's within 1e-6 relative: its guard compares
+    costs of separately batched rollouts), the final J below the initial.
+    Returns the counts of the three solves."""
+    import torch
+    from rbdtpu_torch.kernels import _lib
+    from rbdtpu_torch.solver import (
+        DDPConfig, MPPIConfig, ddp_solve, hybrid_solve, mppi_solve, rollout,
+        trajectory_cost,
+    )
+
+    x0, U0 = humanoid_problems(m32, BH, HH, np.random.default_rng(SEED + 91))
+    cost = humanoid_cost(m32)
+    mcfg = MPPIConfig(n_samples=SAMPLES_H, sigma=SIGMA_H, dt=DT,
+                      gravity=GRAVITY, fused=True)
+    dcfg = DDPConfig(iters=ITERS_H, dt=DT, gravity=GRAVITY,
+                     n_alphas=ALPHAS_H, fused=True)
+    J0 = trajectory_cost(cost, rollout(m32, x0, U0, DT, GRAVITY, fused=True),
+                         U0)
+    gen = torch.Generator(device=m32.device)
+
+    def solve():
+        gen.manual_seed(SEED)
+        return hybrid_solve(m32, cost, x0, U0, gen, mcfg, dcfg,
+                            mppi_iters=MPPI_ITERS_H)
+
+    def sample():
+        gen.manual_seed(SEED)
+        return mppi_solve(m32, cost, x0, U0, gen, MPPI_ITERS_H, mcfg)
+
+    solve()
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    (state, (mh, dh)), times = timed_runs(solve, warm=False)
+    torch.cuda.synchronize()
+    counts = dict(_lib.launches)
+    print(f"path C launches (3 solves): {counts}")
+    (U_warm, _), t_mppi = timed_runs(sample)
+    _, t_ddp = timed_runs(lambda: ddp_solve(m32, cost, x0, U_warm, dcfg))
+    n = 3 * ITERS_H
+    for k, v in {"feedback_rollout": n, "linearize_parts": n,
+                 "riccati_small": n, "feedback_chunked": 0,
+                 "riccati_chunk": 0}.items():
+        require(counts[k] == v, f"path C: {k} launched {counts[k]} times in "
+                f"3 solves, expected {v}")
+    require(counts["fd_step"] > 0, "path C: no fd_step launch")
+    for name, h in (("MPPI", mh), ("DDP", dh)):
+        require(tuple(h.shape) == (MPPI_ITERS_H if name == "MPPI"
+                                   else ITERS_H, BH), f"path C {name} J "
+                f"history {tuple(h.shape)}")
+        require(bool(h.isfinite().all()), f"path C: non-finite {name} J")
+    require(bool((mh[1:] <= mh[:-1] * (1 + 1e-6)).all())
+            and bool((mh[0] <= J0 * (1 + 1e-6)).all()),
+            "path C: MPPI's J increased")
+    require(bool((dh[1:] <= dh[:-1]).all())
+            and bool((dh[0] <= mh[-1] * (1 + 1e-6)).all()),
+            "path C: DDP's J increased")
+    require(bool((dh[-1] < J0).all()), "path C: J did not fall")
+    require(bool(state.U.isfinite().all()), "path C: non-finite controls")
+    sec, sm, sd = (statistics.median(t) for t in (times, t_mppi, t_ddp))
+    fmt = lambda h: " ".join(f"{v:.6g}" for v in h.mean(-1).tolist())
+    print(f"path C: configs[4] humanoid30 rpy hybrid, Bm={BH} H={HH} "
+          f"MPPI {MPPI_ITERS_H} x {SAMPLES_H} samples, DDP {ITERS_H} iters x "
+          f"{ALPHAS_H} alphas, f32 fused: mean J {J0.mean().item():.6g}, "
+          f"MPPI {fmt(mh)}, DDP {fmt(dh)}; solve {sec * 1e3:.1f} ms (median "
+          f"of 3: {' '.join(f'{t * 1e3:.1f}' for t in times)}, CUDA events) "
+          f"= {BH / sec:.1f} solves/s; MPPI stage {sm * 1e3:.1f} ms, DDP "
+          f"stage {sd * 1e3:.1f} ms (medians of 3) on {smi}")
+    return counts
+
+
+def mppi_moved(J0, hist, rel: float = 1e-9) -> int:
+    """(iteration, problem) pairs whose accepted J fell below the previous
+    one: MPPI's guard took the weighted update or the best sample, not the
+    nominal plan."""
+    import torch
+
+    prev = torch.cat([J0[None], hist[:-1]])
+    return int((hist < prev * (1 - rel)).sum())
+
+
+def hybrid_parity(m64, smi: str):
+    """Phase 16's check of the hybrid at path C's shapes (BH problems, HH
+    knots, MPPI_ITERS_H iterations of SAMPLES_H samples, then ITERS_H DDP
+    iterations) in float64: ``hybrid_solve`` through the kernels and
+    through the plain route (``fused=False`` in both stages), fed the same
+    standard normals through ``noise``, at configs[4]'s sigma and at
+    SIGMA_MOVE, where MPPI replaces its nominal plan.  |dU| < U_PARITY and
+    relative |dJ| < TOL64 over both J histories; at SIGMA_MOVE the MPPI
+    stage must have moved in at least one (iteration, problem) pair."""
+    import torch
+    from rbdtpu_torch.solver import (
+        DDPConfig, MPPIConfig, hybrid_solve, rollout, trajectory_cost,
+    )
+
+    x0, U0 = humanoid_problems(m64, BH, HH, np.random.default_rng(SEED + 94))
+    cost = humanoid_cost(m64)
+    J0 = trajectory_cost(cost, rollout(m64, x0, U0, DT, GRAVITY), U0)
+    gen = torch.Generator(device=m64.device).manual_seed(SEED + 95)
+    noise = torch.randn((MPPI_ITERS_H, BH, SAMPLES_H, HH, m64.nv),
+                        generator=gen, dtype=m64.dtype, device=m64.device)
+    for sigma in (SIGMA_H, SIGMA_MOVE):
+        out = {}
+        for fused in (True, False):
+            state, (mh, dh) = hybrid_solve(
+                m64, cost, x0, U0, None,
+                MPPIConfig(n_samples=SAMPLES_H, sigma=sigma, dt=DT,
+                           gravity=GRAVITY, fused=fused),
+                DDPConfig(iters=ITERS_H, dt=DT, gravity=GRAVITY,
+                          n_alphas=ALPHAS_H, fused=fused),
+                mppi_iters=MPPI_ITERS_H, noise=noise)
+            out[fused] = (state.U, mh, dh)
+        (Uk, mk, dk), (Up, mp, dp) = out[True], out[False]
+        du = (Uk - Up).abs().max().item()
+        dj = max(((a - b).abs() / b.abs()).max().item()
+                 for a, b in ((mk, mp), (dk, dp)))
+        moved = (mppi_moved(J0, mk), mppi_moved(J0, mp))
+        print(f"path C parity f64 sigma={sigma:g}: hybrid Bm={BH} H={HH} "
+              f"MPPI {MPPI_ITERS_H} x {SAMPLES_H} samples, DDP {ITERS_H} "
+              f"iters, kernels vs plain route, same noise: max|dU| "
+              f"{du:.3e} (bound {U_PARITY:g}), max rel |dJ| over both J "
+              f"histories {dj:.3e} (bound {TOL64:g}); (iteration, problem) "
+              f"pairs where MPPI replaced the nominal: {moved[0]} kernels, "
+              f"{moved[1]} plain, of {mk.numel()}; mean J "
+              f"{J0.mean().item():.9g} -> MPPI "
+              f"{mk[-1].mean().item():.9g} -> DDP {dk[-1].mean().item():.9g}"
+              f" ({smi})")
+        require(du < U_PARITY and dj < TOL64 and moved[0] == moved[1],
+                f"path C sigma={sigma:g}: the kernels' hybrid departs from "
+                "the plain route's")
+        require(sigma != SIGMA_MOVE or moved[0] > 0, f"path C sigma="
+                f"{sigma:g}: MPPI never replaced its nominal plan, so the "
+                "check did not reach its update")
+
+
+def humanoid_solve(m, x0, U0, fused_feedback):
+    """Path D's ``ddp_solve``: the humanoid tracking task, ITERS_H
+    iterations, ALPHAS_H line-search steps, every kernel on, the line
+    search's tier from ``fused_feedback``."""
+    from rbdtpu_torch.solver import DDPConfig, ddp_solve
+
+    return ddp_solve(m, humanoid_cost(m), x0, U0, DDPConfig(
+        iters=ITERS_H, dt=DT, gravity=GRAVITY, n_alphas=ALPHAS_H, fused=True,
+        fused_feedback=fused_feedback))
+
+
+def humanoid_ddp_path(m32, m64, smi: str) -> dict:
+    """Phase 17, path D: configs[4]'s DDP stage at fleet batch as
+    tools/bench_chunked.py runs it: BD humanoid problems, HH knots, ITERS_H
+    iterations, ALPHAS_H line-search steps, float32,
+    ``DDPConfig(fused=True, fused_feedback=True)``, whose line search
+    rbdtpu's rule sends to K9 with NCHUNKS_D chunks.  One warm-up, three
+    timed solves with the counts set to 0 just before: K9 and the chunked
+    sweep once an iteration, K2 and the plain pass never; J finite,
+    nonincreasing and falling; its profile; the same solve timed with
+    ``fused_feedback=None`` (K2) and False (the plain pass).  Then in
+    float64 at BD_PARITY problems the K9 tier against the K2 tier:
+    |dU| < U_PARITY and relative |dJ| < TOL64.  Returns the counts of the
+    three K9-tier solves."""
+    import torch
+    from rbdtpu_torch.kernels import _lib
+    from rbdtpu_torch.solver import DDPConfig, ddp, rollout, trajectory_cost
+
+    cfg = DDPConfig(fused=True, fused_feedback=True, n_alphas=ALPHAS_H)
+    for B in (BD, BD_PARITY):
+        tier = ddp._feedback_route(m32, cfg, B * ALPHAS_H)
+        require(tier == ("chunked", NCHUNKS_D), f"path D: {B} problems take "
+                f"the line-search tier {tier}")
+    x0, U0 = humanoid_problems(m32, BD, HH, np.random.default_rng(SEED + 92))
+    J0 = trajectory_cost(humanoid_cost(m32),
+                         rollout(m32, x0, U0, DT, GRAVITY, fused=True), U0)
+    plain_passes = []
+    plain = ddp.forward_pass
+    ddp.forward_pass = lambda *a, **kw: plain_passes.append(1) or plain(
+        *a, **kw)
+    results = {}
+    try:
+        for fb in (True, None, False):
+            humanoid_solve(m32, x0, U0, fb)
+            torch.cuda.synchronize()
+            plain_passes.clear()
+            _lib.reset_launches()
+            (state, J_hist), times = timed_runs(
+                lambda: humanoid_solve(m32, x0, U0, fb), warm=False)
+            torch.cuda.synchronize()
+            results[fb] = (state, J_hist, times, dict(_lib.launches),
+                           len(plain_passes))
+    finally:
+        ddp.forward_pass = plain
+    n = 3 * ITERS_H
+    expect = {True: (n, 0, 0), None: (0, n, 0), False: (0, 0, n)}
+    for fb, (state, J_hist, times, counts, passes) in results.items():
+        sec = statistics.median(times)
+        print(f"path D fused_feedback={fb}: humanoid30 rpy tracking, Bm={BD} "
+              f"H={HH} iters={ITERS_H} alphas={ALPHAS_H} f32: mean J "
+              f"{J0.mean().item():.6g} -> {J_hist[-1].mean().item():.6g}; "
+              f"solve {sec * 1e3:.1f} ms (median of 3: "
+              f"{' '.join(f'{t * 1e3:.1f}' for t in times)}, CUDA events) = "
+              f"{BD / sec:.1f} solves/s; launches (3 solves) {counts}; plain "
+              f"line-search passes {passes} on {smi}")
+        got = (counts["feedback_chunked"], counts["feedback_rollout"], passes)
+        require(got == expect[fb], f"path D fused_feedback={fb}: K9, K2 and "
+                f"plain passes {got}, expected {expect[fb]}")
+        require(counts["riccati_chunk"] == n and counts["linearize_parts"]
+                == n, f"path D fused_feedback={fb}: launches {counts}")
+        require(bool(J_hist.isfinite().all()), f"path D {fb}: non-finite J")
+        require(bool((J_hist[1:] <= J_hist[:-1]).all()) and bool(
+            (J_hist[0] <= J0 * (1 + 1e-6)).all()), f"path D {fb}: J increased")
+        require(J_hist[-1].mean() < J0.mean(), f"path D {fb}: J did not fall")
+    profile_main_path(lambda: humanoid_solve(m32, x0, U0, True),
+                      extra=("forward_pass",))
+
+    x0, U0 = humanoid_problems(m64, BD_PARITY, HH,
+                               np.random.default_rng(SEED + 93))
+    _lib.reset_launches()
+    k9, h9 = humanoid_solve(m64, x0, U0, True)
+    torch.cuda.synchronize()
+    launched = _lib.launches["feedback_chunked"]
+    k2, h2 = humanoid_solve(m64, x0, U0, None)
+    du = (k9.U - k2.U).abs().max().item()
+    dj = ((h9 - h2).abs() / h2.abs().clamp(min=1)).max().item()
+    print(f"path D parity f64 Bm={BD_PARITY} H={HH} iters={ITERS_H}: K9 tier "
+          f"({launched} launches) vs K2 tier max|dU| {du:.3e} (bound "
+          f"{U_PARITY:g}), max rel |dJ| over the J history {dj:.3e} (bound "
+          f"{TOL64:g})")
+    require(launched == ITERS_H and du < U_PARITY and dj < TOL64,
+            "path D: the K9 tier departs from the K2 tier")
+    return results[True][3]
+
+
 def main() -> int:
     import torch
 
@@ -1173,8 +1606,9 @@ def main() -> int:
     _lib.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {so}")
     with open(so[:-3] + ".ptxas.log") as f:
-        for line in ptxas_summary(f.read()):
-            print(line)
+        ptxas = ptxas_summary(f.read())
+    for line in ptxas:
+        print(line)
 
     # ---- 2. the DDP path's kernels against their plain versions ----
     m64 = load_asset("arm7", device="cuda", dtype=torch.float64)
@@ -1258,6 +1692,29 @@ def main() -> int:
 
     # ---- 14. path B: the closed-loop MPC loop ----
     mpc_path(m32, m64, smi)
+
+    # ---- 15. the humanoid's kernels: K1-K3 at fb32 and K9 ----
+    h64 = load_asset("humanoid30", device="cuda", dtype=torch.float64,
+                     floating_base=True)
+    h32 = load_asset("humanoid30", device="cuda", dtype=torch.float32,
+                     floating_base=True)
+    humanoid_kernels(
+        h64, h32, (m64, m32, inputs64["feedback_rollout"], 1024 * 100),
+        (q64, q32, qin["feedback_rollout"], ALPHAS3 * B3 * H3), smi, rows,
+        ptxas)
+
+    # ---- 16. path C: configs[4], the humanoid MPPI -> DDP hybrid ----
+    counts = hybrid_path(h32, smi)
+    rows["fd_step_fb32"]["launches"] = counts["fd_step"]
+    rows["feedback_rollout_fb32"]["launches"] = counts["feedback_rollout"]
+    hybrid_parity(h64, smi)
+
+    # ---- 17. path D: the 256-problem humanoid DDP on the K9 tier ----
+    counts = humanoid_ddp_path(h32, h64, smi)
+    for kname in ("linearize_parts", "feedback_chunked"):
+        require(counts[kname] > 0, f"{kname} was not launched on path D")
+    rows["linearize_parts_fb32"]["launches"] = counts["linearize_parts"]
+    rows["feedback_chunked"]["launches"] = counts["feedback_chunked"]
 
     print(smi)
     print(json.dumps({"kernels": [

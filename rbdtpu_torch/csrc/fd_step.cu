@@ -1,7 +1,8 @@
 // fd_step: one ABA + semi-implicit Euler step per batch element, with
 // optional world-frame wrenches.
 // Replaces rbdtpu kernels/fused.py fd_step_fused (Pallas, fused.py:450).
-// Instantiated for fixed-base trees (N8) and the rpy floating root (FB16).
+// Instantiated for fixed-base trees (N8) and the rpy floating root (FB16,
+// FB32).
 // One thread per element; x (B, 2nv) -> xo (B, 2nv) row-major; fext null (no
 // wrenches) or (nb, 6) rows read at fext + b * fext_stride (stride 0: one
 // wrench set shared by the batch; nb * 6: one per element).
@@ -59,5 +60,7 @@ RBD_FD_STEP(n8, N8, float, f32)
 RBD_FD_STEP(n8, N8, double, f64)
 RBD_FD_STEP(fb16, FB16, float, f32)
 RBD_FD_STEP(fb16, FB16, double, f64)
+RBD_FD_STEP(fb32, FB32, float, f32)
+RBD_FD_STEP(fb32, FB32, double, f64)
 }
 #endif

@@ -8,9 +8,10 @@
 // ABA and semi-implicit Euler.  Writes states 1..H and the applied u.
 // Layouts (row-major): x0 (B, nx), Xn/Xo (B, H, nx), Un/kf/Uo (B, H, n),
 // Kf (B, H, n, nx), n = nv and nx = 2 nv (the rpy root's dx is the flat
-// difference, as rbdtpu's).  Instantiated for N8 and FB16.  Each thread
-// reads its n*nx gains per knot as one contiguous run, uncoalesced across
-// the warp; small blocks (32 threads) spread 1024 trajectories over 32 SMs.
+// difference, as rbdtpu's).  Instantiated for N8, FB16 and FB32.  Each
+// thread reads its n*nx gains per knot as one contiguous run, uncoalesced
+// across the warp; small blocks (32 threads) spread 1024 trajectories over
+// 32 SMs.  feedback_chunked.cu stages the gains through shared memory.
 #include "rbd_common.cuh"
 
 namespace rbd {
@@ -90,5 +91,7 @@ RBD_FEEDBACK_ROLLOUT(n8, N8, float, f32)
 RBD_FEEDBACK_ROLLOUT(n8, N8, double, f64)
 RBD_FEEDBACK_ROLLOUT(fb16, FB16, float, f32)
 RBD_FEEDBACK_ROLLOUT(fb16, FB16, double, f64)
+RBD_FEEDBACK_ROLLOUT(fb32, FB32, float, f32)
+RBD_FEEDBACK_ROLLOUT(fb32, FB32, double, f64)
 }
 #endif

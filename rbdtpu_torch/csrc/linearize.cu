@@ -8,7 +8,8 @@
 // dc/dq and dc/dqd sweeps (rbdtpu dynamics/rnea_grad.py).
 // Outputs (row-major): Minv, dcq, dcd (B, n, n) indexed [b, row, col];
 // qdd (B, n); n = nv.  The per-body sweep state and the M^-1 F blocks live in
-// local memory; see the build's .ptxas.log.  Instantiated for N8 and FB16.
+// local memory; see the build's .ptxas.log.  Instantiated for N8, FB16 and
+// FB32.
 //
 // The rpy root's columns (rbdtpu kernels/colvec.py grad_pass_colvec): its
 // dqd columns seed dv_0 = e_j; its pose enters tau only through the gravity
@@ -179,5 +180,16 @@ RBD_LINEARIZE_PARTS(n8, N8, float, f32)
 RBD_LINEARIZE_PARTS(n8, N8, double, f64)
 RBD_LINEARIZE_PARTS(fb16, FB16, float, f32)
 RBD_LINEARIZE_PARTS(fb16, FB16, double, f64)
+RBD_LINEARIZE_PARTS(fb32, FB32, float, f32)
+RBD_LINEARIZE_PARTS(fb32, FB32, double, f64)
+
+// The current device's per-thread stack limit (cudaLimitStackSize).  The
+// driver raises it to the largest stack frame launched so far (this kernel's
+// at FB32 in double is the largest of the library) and keeps local memory of
+// that size for every thread the card can hold; setting it lower frees it.
+int rbd_stack_limit(size_t* bytes) { return (int)cudaDeviceGetLimit(bytes, cudaLimitStackSize); }
+int rbd_set_stack_limit(size_t bytes) {
+  return (int)cudaDeviceSetLimit(cudaLimitStackSize, bytes);
+}
 }
 #endif

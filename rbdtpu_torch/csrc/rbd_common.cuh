@@ -47,6 +47,7 @@ struct Dims {
 };
 using N8 = Dims<8, false>;    // fixed-base trees of up to 8 bodies
 using FB16 = Dims<16, true>;  // rpy floating-base trees of up to 16 bodies
+using FB32 = Dims<32, true>;  // rpy floating-base trees of up to 32 bodies
 
 // per-body table layout (kernels/_lib.py STRIDE): compact Xtree (E, r),
 // joint axis, 6x6 inertia, motion subspace S, Ttree rotation and translation

@@ -1,14 +1,16 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version.  ``_lib.launches`` counts the launches of each kernel.  The tree
-kernels K1-K3 cover fixed-base models and the rpy floating root; K4-K6 and
-K10 fixed-base models only; the Riccati sweeps (K7/K8 chunked, K11 at
-nx <= 16) take no model."""
+kernels K1-K3 and K9 cover fixed-base models and the rpy floating root (up
+to 32 bodies); K4-K6 and K10 fixed-base models only; the Riccati sweeps
+(K7/K8 chunked, K11 at nx <= 16) take no model."""
 from ._lib import launches, reset_launches
 from .fused import (
     fd_step_fused, fd_step_plain, feedback_rollout_fused,
-    feedback_rollout_plain, rnea_fused, rnea_plain, fd_step_minv_fused,
-    fd_step_minv_plain, rollout_fused, rollout_fused_multi,
-    rollout_multi_plain,
+    feedback_rollout_plain, feedback_rollout_fused_chunked,
+    feedback_rollout_chunked_plain, feedback_fused_ok, feedback_chunks,
+    feedback_lane_budget, rnea_fused, rnea_plain,
+    fd_step_minv_fused, fd_step_minv_plain, rollout_fused,
+    rollout_fused_multi, rollout_multi_plain,
 )
 from .colvec import linearize_parts_fused, linearize_parts_plain, linearize_fused
 from .fk_lane import ee_gn_fused, ee_gn_plain
@@ -19,6 +21,8 @@ __all__ = [
     "launches", "reset_launches",
     "fd_step_fused", "fd_step_plain",
     "feedback_rollout_fused", "feedback_rollout_plain",
+    "feedback_rollout_fused_chunked", "feedback_rollout_chunked_plain",
+    "feedback_fused_ok", "feedback_chunks", "feedback_lane_budget",
     "rnea_fused", "rnea_plain", "fd_step_minv_fused", "fd_step_minv_plain",
     "rollout_fused", "rollout_fused_multi", "rollout_multi_plain",
     "linearize_parts_fused", "linearize_parts_plain", "linearize_fused",

@@ -33,24 +33,30 @@ LINK_FLAGS = (*ARCH, "-shared")
 STRIDE = 69
 # The tree kernels are compiled once per size class (rbd_common.cuh: Dims),
 # each with its own compile-time bound on bodies: fixed-base trees of up to
-# 8 bodies ("n8"), rpy floating-base trees of up to 16 ("fb16").  A class
-# lists the kernels instantiated for it; C symbols are
-# rbd_<kernel>_<class>_<f32|f64>.
+# 8 bodies ("n8"), rpy floating-base trees of up to 16 ("fb16", the
+# quadruped) and up to 32 ("fb32", the humanoid).  A class lists the kernels
+# instantiated for it; C symbols are rbd_<kernel>_<class>_<f32|f64>.
+# ``size_class`` takes the smallest class that fits.
 SIZE_CLASSES = {
     "n8": (8, False, ("fd_step", "feedback_rollout", "linearize_parts",
                       "ee_gn", "ee_err", "rnea", "fd_step_minv",
-                      "rollout_multi")),
-    "fb16": (16, True, ("fd_step", "feedback_rollout", "linearize_parts")),
+                      "rollout_multi", "feedback_chunked")),
+    "fb16": (16, True, ("fd_step", "feedback_rollout", "linearize_parts",
+                        "feedback_chunked")),
+    "fb32": (32, True, ("fd_step", "feedback_rollout", "linearize_parts",
+                        "feedback_chunked")),
 }
 
 # launches per kernel since the last reset_launches(); a wrapper adds one
 # only after its kernel launched without error.  riccati_chunk and
 # riccati_small count the chunked Riccati kernel at its two call sites
-# (batch >= 128 and < 128); riccati_fused is the arm-class sweep (nx <= 16).
+# (batch >= 128 and < 128); riccati_fused is the arm-class sweep (nx <= 16);
+# feedback_chunked is the line search's chunked-gain kernel (K9), counted
+# apart from feedback_rollout (K2).
 launches = {"fd_step": 0, "feedback_rollout": 0, "linearize_parts": 0,
             "ee_gn": 0, "ee_err": 0, "rnea": 0, "fd_step_minv": 0,
             "rollout_multi": 0, "riccati_chunk": 0, "riccati_small": 0,
-            "riccati_fused": 0}
+            "riccati_fused": 0, "feedback_chunked": 0}
 
 # C signatures: p pointer, i int, s scalar of the kernel's dtype; every
 # function ends with the stream.  The tree kernels' signatures follow a
@@ -64,6 +70,8 @@ _SIGNATURES = {
     "rnea": "ppppis",              # q qd qdd tau B gravity
     "fd_step_minv": "pppipiiss",   # x u fext fext_stride xo B dense dt g
     "rollout_multi": "ppppiiiss",  # x0 U fext xo B H minv dt gravity
+    # x0 Xn Un kf Kf uclip Xo Uo B H cw nc dt gravity
+    "feedback_chunked": "ppppppppiiiiss",
 }
 # A B lx lu lxx sb st luu sb st lux sb st lfx lfxx reg k K dV1 ok B H nx nu
 # (the two Riccati sweeps share one signature)
@@ -150,7 +158,35 @@ def library() -> ctypes.CDLL:
             fn.argtypes = (lead + [codes[c] for c in sig]
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
+    lib.rbd_stack_limit.argtypes = [ctypes.POINTER(ctypes.c_size_t)]
+    lib.rbd_set_stack_limit.argtypes = [ctypes.c_size_t]
+    lib.rbd_stack_limit.restype = lib.rbd_set_stack_limit.restype = (
+        ctypes.c_int)
     return lib
+
+
+def stack_limit(device) -> int:
+    """The per-thread stack limit of CUDA ``device`` in bytes
+    (cudaLimitStackSize).  The driver raises it to the largest stack frame
+    launched so far and keeps local memory of that size for every thread
+    the card can hold, outside PyTorch's allocator."""
+    out = ctypes.c_size_t()
+    with torch.cuda.device(device):
+        err = library().rbd_stack_limit(ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"cudaDeviceGetLimit failed: cudaError {err}")
+    return out.value
+
+
+def set_stack_limit(device, nbytes: int):
+    """Set ``device``'s per-thread stack limit; lowering it frees the local
+    memory the driver kept for a larger frame (a later launch that needs
+    more raises it again)."""
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        err = library().rbd_set_stack_limit(nbytes)
+    if err != 0:
+        raise RuntimeError(f"cudaDeviceSetLimit failed: cudaError {err}")
 
 
 def size_class(kernel: str, model) -> str:

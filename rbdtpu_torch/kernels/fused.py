@@ -1,10 +1,12 @@
 """Dynamics-step kernels, each beside its plain PyTorch version: the ABA +
-semi-implicit Euler step (K1), the line-search feedback rollout (K2), RNEA
-(K10), the M^-1 + RNEA step (K6) and the whole-horizon rollout (K5).
+semi-implicit Euler step (K1), the line-search feedback rollout (K2) and
+its chunked-gain form (K9), RNEA (K10), the M^-1 + RNEA step (K6) and the
+whole-horizon rollout (K5); and rbdtpu's budget arithmetic that picks
+between K2 and K9 in the line search.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
-raises.  K1 and K2 take fixed-base models and the rpy floating root; K5, K6
-and K10 fixed-base models only (``_lib.size_class``).
+raises.  K1, K2 and K9 take fixed-base models and the rpy floating root; K5,
+K6 and K10 fixed-base models only (``_lib.size_class``).
 """
 from __future__ import annotations
 
@@ -35,7 +37,15 @@ def _fext_arg(model: RobotModel, f_ext, B: int, ref: torch.Tensor):
 def fd_step_plain(model: RobotModel, x, u, dt: float, gravity: float = -9.81,
                   f_ext=None):
     """x (B, nx), u (B, nv) -> x' (B, nx): ABA with the world-frame wrenches
-    f_ext ((nb, 6) or (B, nb, 6)) when given, then semi-implicit Euler."""
+    f_ext ((nb, 6) or (B, nb, 6)) when given, then semi-implicit Euler.
+    A state narrower than the model's dtype (MPPI's sampling dtype) is
+    stepped in the wider of the two, as rbdtpu's promotion does, and
+    returned in its own."""
+    wide = torch.promote_types(x.dtype, model.dtype)
+    if wide != x.dtype:
+        return fd_step_plain(
+            model, x.to(wide), u.to(wide), dt, gravity,
+            None if f_ext is None else f_ext.to(wide)).to(x.dtype)
     q, qd = split_state(model, x)
     return euler_semi_implicit(
         model, x, aba(model, q, qd, u, f_ext=f_ext, gravity=gravity), dt)
@@ -251,3 +261,140 @@ def feedback_rollout_fused(model: RobotModel, x0, X_nom, U_nom, k_ff, K_fb,
     _lib.launch("feedback_rollout", model, x0, x0, X_nom, U_nom, k_ff, K_fb,
                 u_clip, Xo, Uo, B, H, dt, gravity)
     return Xo, Uo
+
+
+def chunk_geometry(ndx: int, nchunks: int):
+    """(width, count) of the gain's column chunks as rbdtpu splits them
+    (fused.py:842-843): width ceil(ndx / nchunks), then the count
+    renormalised to ceil(ndx / width), so every chunk is nonempty."""
+    if nchunks < 1:
+        raise ValueError(f"nchunks must be >= 1, got {nchunks}")
+    cw = -(-ndx // nchunks)
+    return cw, -(-ndx // cw)
+
+
+def feedback_rollout_chunked_plain(model: RobotModel, x0, X_nom, U_nom, k_ff,
+                                   K_fb, dt: float, gravity: float = -9.81,
+                                   u_clip=None, nchunks: int = 2):
+    """``feedback_rollout_plain`` with the feedback summed in rbdtpu's
+    chunked order: u = U_t + k_t, then for each column chunk in order
+    u += sum over its columns, ascending, starting from the first product;
+    clamp, ABA, Euler.  Same shapes and outputs."""
+    ndx = K_fb.shape[-1]
+    cw, nc = chunk_geometry(ndx, nchunks)
+    x = x0
+    xs, us = [], []
+    for t in range(U_nom.shape[1]):
+        dx = state_diff(model, x, X_nom[:, t])
+        K = K_fb[:, t]
+        u = U_nom[:, t] + k_ff[:, t]
+        for c in range(nc):
+            j0 = c * cw
+            acc = K[..., j0] * dx[:, None, j0]
+            for j in range(j0 + 1, min(j0 + cw, ndx)):
+                acc = acc + K[..., j] * dx[:, None, j]
+            u = u + acc
+        if u_clip is not None:
+            u = torch.clamp(u, -u_clip, u_clip)
+        x = fd_step_plain(model, x, u, dt, gravity)
+        xs.append(x)
+        us.append(u)
+    return torch.stack(xs, dim=1), torch.stack(us, dim=1)
+
+
+def feedback_rollout_fused_chunked(model: RobotModel, x0, X_nom, U_nom, k_ff,
+                                   K_fb, dt: float, gravity: float = -9.81,
+                                   u_clip=None, nchunks: int = 2):
+    """The line-search rollout with the gain block taken in ``nchunks``
+    column chunks, one launch for the whole horizon; shapes and outputs as
+    ``feedback_rollout_fused``.
+
+    Kernel ``feedback_chunked`` (csrc/feedback_chunked.cu) replaces
+    rbdtpu's ``kernels.fused.feedback_rollout_fused_chunked`` (Pallas,
+    fused.py:819: nchunks partial products and one dynamics call per knot,
+    :904 and :945).  A warp-sized block owns a few trajectories; per knot
+    and chunk it stages their gain columns in shared memory with coalesced
+    loads, splits the partial sums over its threads, and each trajectory's
+    thread clamps and steps with the ABA body K1 and K2 share.  Bound on the
+    H100: the gain bytes and the serial ABA walk.  Any nchunks >= 1 is
+    taken (``chunk_geometry``).  No quaternion root, no wrenches (K2 takes
+    none either).
+    """
+    cw, nc = chunk_geometry(model.nv * 2, nchunks)
+    if not x0.is_cuda:
+        return feedback_rollout_chunked_plain(model, x0, X_nom, U_nom, k_ff,
+                                              K_fb, dt, gravity, u_clip,
+                                              nchunks)
+    B, H = U_nom.shape[0], U_nom.shape[1]
+    nx, nv = model.nx, model.nv
+    _lib.check(x0, "x0", (B, nx), x0)
+    _lib.check(X_nom, "X_nom", (B, H, nx), x0)
+    _lib.check(U_nom, "U_nom", (B, H, nv), x0)
+    _lib.check(k_ff, "k_ff", (B, H, nv), x0)
+    _lib.check(K_fb, "K_fb", (B, H, nv, nx), x0)
+    if u_clip is not None:
+        _lib.check(u_clip, "u_clip", (nv,), x0)
+    Xo = torch.empty_like(X_nom)
+    Uo = torch.empty_like(U_nom)
+    _lib.launch("feedback_chunked", model, x0, x0, X_nom, U_nom, k_ff, K_fb,
+                u_clip, Xo, Uo, B, H, cw, nc, dt, gravity)
+    return Xo, Uo
+
+
+# rbdtpu's routing between K2 and K9 (kernels/fused.py:312-319, 530-560,
+# 757-777): a model of the TPU's scoped VMEM, copied as integer arithmetic
+# only (no compile probe).  It is rbdtpu's rule, not a limit of the H100;
+# the port applies it so that both packages run the same line search on the
+# same configuration.
+VMEM_BUDGET = 6 * 1024 * 1024
+
+
+def _pad_batch(B: int) -> int:
+    """rbdtpu's lane padding: B up to a multiple of 8, and above 4096 up to
+    a multiple of 1024."""
+    B8 = ((B + 7) // 8) * 8
+    if B8 // 8 <= 512:
+        return B8
+    return ((B8 + 1023) // 1024) * 1024
+
+
+def _feedback_rows_total(nx: int, nv: int, ndx: int) -> int:
+    """Rows per lane of the unchunked feedback kernel: x, X_t, U_t, k_t,
+    K_t and the outputs x', u."""
+    return 3 * nx + 3 * nv + nv * ndx
+
+
+def feedback_lane_budget(nx: int, nv: int, ndx: int) -> int:
+    """The widest lane block of the unchunked feedback kernel within
+    rbdtpu's VMEM budget."""
+    return VMEM_BUDGET // (_feedback_rows_total(nx, nv, ndx) * 8 * 4)
+
+
+def feedback_fused_ok(model: RobotModel, batch_total: int) -> bool:
+    """The budget half of rbdtpu's ``feedback_fused_ok``: the unchunked
+    kernel (K2) takes ``batch_total`` = batch x alphas trajectories."""
+    if batch_total % 8 != 0:
+        return False
+    nv = int(model.nv)
+    nx = int(model.nq) + nv
+    BT = _pad_batch(batch_total) // 8
+    return feedback_lane_budget(nx, nv, 2 * nv) >= min(BT, 128)
+
+
+def feedback_chunks(model: RobotModel, batch_total: int,
+                    max_chunks: int = 8):
+    """rbdtpu's ``feedback_chunks``, which is also the budget half of its
+    ``feedback_chunked_ok``: the smallest chunk count (1 .. max_chunks)
+    whose chunk call fits the budget at this batch, or None."""
+    if batch_total % 8 != 0:
+        return None
+    nv = int(model.nv)
+    nx = int(model.nq) + nv
+    ndx = 2 * nv
+    BT = _pad_batch(batch_total) // 8
+    for c in range(1, max_chunks + 1):
+        cw = chunk_geometry(ndx, c)[0]
+        rows = 2 * nx + nv * cw + nv
+        if VMEM_BUDGET // (rows * 8 * 4) >= min(BT, 128):
+            return c
+    return None

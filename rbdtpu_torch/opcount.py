@@ -45,6 +45,8 @@ import operator
 
 import numpy as np
 
+from .kernels.fused import chunk_geometry
+
 
 class Num:
     """A value that counts the arithmetic it takes part in (``Num.ops``)."""
@@ -613,6 +615,21 @@ def feedback_knot(md: Model, x, xn, un, kf, K, dt, gravity):
     return fd_step(md, x, u, dt, gravity), u
 
 
+def feedback_knot_chunked(md: Model, x, xn, un, kf, K, dt, gravity,
+                          nchunks=2):
+    """K9's knot: u = Un + kf, then per column chunk u += its partial sum
+    (rbdtpu's order; as many operations as ``feedback_knot``), then one ABA
+    step."""
+    dx = vsub(x, xn)
+    ndx = len(dx)
+    cw = chunk_geometry(ndx, nchunks)[0]
+    u = [un[i] + kf[i] for i in range(md.nv)]
+    for j0 in range(0, ndx, cw):
+        u = [u[i] + dot(K[i][j0:j0 + cw], dx[j0:j0 + cw])
+             for i in range(md.nv)]
+    return fd_step(md, x, u, dt, gravity), u
+
+
 def rnea_derivatives(md: Model, X, qd, st, f, trig=None, gravity=-9.81):
     """dc/dq and dc/dqd (nv, nv) at the state of ``st`` (aba's ``keep``)
     with the accumulated RNEA forces f, one forward-mode column at a time.
@@ -796,6 +813,8 @@ def per_state(model, target) -> dict:
         "fd_step+fext": ops(fd_step, x, u, dt, g, fext=w),
         "feedback_rollout": ops(feedback_knot, x, nums(2 * n), u, nums(n),
                                 nums(n, 2 * n), dt, g),
+        "feedback_chunked": ops(feedback_knot_chunked, x, nums(2 * n), u,
+                                nums(n), nums(n, 2 * n), dt, g),
         "linearize_parts": ops(linearize_parts, q, qd, u, g),
     }
     if md.fb:

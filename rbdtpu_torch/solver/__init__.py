@@ -1,6 +1,7 @@
 """Trajectory optimisation on torch tensors: DDP/iLQR with its costs,
-rollouts, linearisation and backward-pass strategies, and the
-receding-horizon MPC loop with solver-state checkpoints."""
+rollouts, linearisation and backward-pass strategies, MPPI and the
+MPPI -> DDP hybrid, and the receding-horizon MPC loop with solver-state
+checkpoints."""
 from .integrate import (
     pack_state, split_state, state_diff, euler_semi_implicit, step_jacobians,
 )
@@ -14,6 +15,8 @@ from .ddp import (
     forward_pass_fused,
 )
 from .parallel_riccati import backward_pass_parallel
+from .mppi import MPPIConfig, mppi_step, mppi_solve
+from .hybrid import hybrid_solve
 from .mpc import (
     MPCCarry, mpc_step, mpc_run, save_solver_state, load_solver_state,
 )
@@ -27,4 +30,5 @@ __all__ = [
     "ddp_solve", "backward_pass", "forward_pass", "forward_pass_fused",
     "backward_pass_parallel", "MPCCarry", "mpc_step", "mpc_run",
     "save_solver_state", "load_solver_state",
+    "MPPIConfig", "mppi_step", "mppi_solve", "hybrid_solve",
 ]

@@ -15,13 +15,15 @@ iteration count and masked accept/reject, as in rbdtpu:
     (``kernels.riccati_chunk``), or the parallel-in-time scan
     (``solver.parallel_riccati``);
   - line search: every step size of the alpha ladder in parallel (one more
-    batch dim), through the ``feedback_rollout`` kernel when fused; the best
-    candidate per problem is accepted only when it improves the cost by
-    more than ``tol_dJ`` (relative).
+    batch dim), through the ``feedback_rollout`` kernel (K2) or its
+    chunked-gain form ``feedback_chunked`` (K9) when fused, routed by
+    ``_feedback_route``; the best candidate per problem is accepted only
+    when it improves the cost by more than ``tol_dJ`` (relative).
 
-rbdtpu's TPU routing gates (compile probes, the batch % 8 packing branches,
-the 256-lane floor of the feedback kernel) are not carried over: with
-``fused=True`` and CUDA tensors every call site launches its kernel.
+rbdtpu's TPU gates are not carried over (compile probes, the 256-lane floor
+of the feedback kernel): with ``fused=True`` and CUDA tensors every call
+site launches its kernel.  The one exception is ``fused_feedback=True``,
+which applies rbdtpu's tier rule between K2, K9 and the plain pass.
 """
 from __future__ import annotations
 
@@ -33,7 +35,10 @@ import torch
 from ..dynamics.aba import aba
 from ..dynamics.fd import forward_dynamics
 from ..kernels.colvec import linearize_fused
-from ..kernels.fused import fd_step_fused, feedback_rollout_fused
+from ..kernels.fused import (
+    fd_step_fused, feedback_chunks, feedback_fused_ok,
+    feedback_rollout_fused, feedback_rollout_fused_chunked,
+)
 from ..kernels.riccati import NX_MAX as LANE_SCALAR_NX_MAX
 from ..kernels.riccati import backward_pass_fused
 from ..kernels.riccati_chunk import backward_pass_chunked
@@ -55,7 +60,18 @@ class DDPConfig:
     at nx >= 24 (rbdtpu's routing boundary) and the plain sweep below;
     True runs the lane-scalar sweep kernel at nx <= 16 and the chunked one
     above (each its plain version on CPU tensors); False always runs the
-    plain sweep."""
+    plain sweep.
+
+    The line search (``_feedback_route``), with ``fused=True``:
+    ``fused_feedback`` None runs K2 at any batch; True runs K2 where
+    rbdtpu's budget for the unchunked kernel admits batch x alphas
+    trajectories, else K9 with rbdtpu's chunk count, else (a batch x alphas
+    that is not a multiple of 8, or no count fits) the plain pass; False
+    runs the plain pass.  The budget is rbdtpu's routing rule, derived from
+    the TPU's VMEM (``kernels.fused.feedback_fused_ok``,
+    ``feedback_chunks``), not a limit of the H100: it keeps both packages on
+    the same algorithm for the same configuration, and the port's own bench
+    decides later whether the tier pays on this card."""
     iters: int = 20
     dt: float = 0.01
     gravity: float = -9.81
@@ -109,6 +125,19 @@ def _backward_route(model: RobotModel, config: DDPConfig, on_card: bool):
     if not config.fused_riccati:
         return "plain"
     return "fused" if model.nx <= LANE_SCALAR_NX_MAX else "chunked"
+
+
+def _feedback_route(model: RobotModel, config: DDPConfig,
+                    batch_total: int):
+    """The line search's route for ``batch_total`` = batch x alphas
+    trajectories (rbdtpu solver/ddp.py:506-528): ("fused", None) for K2,
+    ("chunked", nchunks) for K9, ("plain", None) for the plain pass."""
+    if not config.fused or config.fused_feedback is False:
+        return "plain", None
+    if config.fused_feedback is None or feedback_fused_ok(model, batch_total):
+        return "fused", None
+    nchunks = feedback_chunks(model, batch_total)
+    return ("plain", None) if nchunks is None else ("chunked", nchunks)
 
 
 def _step_plain(model, x, u, dt, gravity, route="aba"):
@@ -224,9 +253,10 @@ def forward_pass(model: RobotModel, cost: Cost, X, U, k, K, alphas, dt,
 
 
 def forward_pass_fused(model: RobotModel, cost: Cost, X, U, k, K, alphas, dt,
-                       gravity, u_clip=None):
+                       gravity, u_clip=None, nchunks=None):
     """forward_pass with the whole alpha ladder x problem batch flattened
-    into one ``feedback_rollout`` launch (alpha folded into k)."""
+    into one launch (alpha folded into k): ``feedback_rollout`` (K2), or
+    with ``nchunks`` its chunked-gain form ``feedback_chunked`` (K9)."""
     n_alpha = alphas.shape[0]
     batch = U.shape[:-2]
     lead = (n_alpha,) + batch
@@ -234,11 +264,14 @@ def forward_pass_fused(model: RobotModel, cost: Cost, X, U, k, K, alphas, dt,
     flat = lambda a: a.expand(lead + a.shape[len(batch):]).reshape(
         (-1,) + a.shape[len(batch):]).contiguous()
     X_b = flat(X)
-    X_tail, U_new = feedback_rollout_fused(
-        model, X_b[:, 0].contiguous(), X_b[:, :-1].contiguous(), flat(U),
-        (al * k).reshape((-1,) + k.shape[len(batch):]).contiguous(), flat(K),
-        dt, gravity, u_clip=u_clip,
-    )
+    args = (model, X_b[:, 0].contiguous(), X_b[:, :-1].contiguous(), flat(U),
+            (al * k).reshape((-1,) + k.shape[len(batch):]).contiguous(),
+            flat(K), dt, gravity)
+    if nchunks is None:
+        X_tail, U_new = feedback_rollout_fused(*args, u_clip=u_clip)
+    else:
+        X_tail, U_new = feedback_rollout_fused_chunked(
+            *args, u_clip=u_clip, nchunks=nchunks)
     X_new = torch.cat([X_b[:, :1], X_tail], dim=1)
     X_new = X_new.reshape(lead + X_new.shape[1:])
     U_new = U_new.reshape(lead + U_new.shape[1:])
@@ -257,7 +290,10 @@ def ddp_solve(model: RobotModel, cost: Cost, x0, U0,
     batch = x0.shape[:-1]
     step_fn = _make_step(model, config)
     lin_fn = _make_linearize(model, config)
-    use_fused_fwd = config.fused and config.fused_feedback is not False
+    batch_total = config.n_alphas
+    for b in batch:
+        batch_total *= b
+    fwd_route, nchunks = _feedback_route(model, config, batch_total)
     route = _backward_route(model, config, x0.is_cuda)
     backward = {"parallel": backward_pass_parallel,
                 "fused": backward_pass_fused,
@@ -286,9 +322,10 @@ def ddp_solve(model: RobotModel, cost: Cost, x0, U0,
                 A, B, lx, lu, lxx, luu, lux))
         k, K, _, ok = backward(A, B, lx, lu, lxx, luu, lux, lfx, lfxx,
                                state.reg)
-        if use_fused_fwd:
+        if fwd_route != "plain":
             Xs, Us, Js = forward_pass_fused(model, cost, state.X, state.U, k,
-                                            K, alphas, dt, gravity, u_clip)
+                                            K, alphas, dt, gravity, u_clip,
+                                            nchunks)
         else:
             Xs, Us, Js = forward_pass(model, cost, state.X, state.U, k, K,
                                       alphas, dt, gravity, step_fn, u_clip)

@@ -3,10 +3,9 @@ from __future__ import annotations
 
 import torch
 
-from ..dynamics.aba import aba
 from ..dynamics.fd import forward_dynamics_full
 from ..model.robot import RobotModel
-from .integrate import euler_semi_implicit, split_state, step_jacobians
+from .integrate import split_state, step_jacobians
 
 
 def normalize_f_ext(model: RobotModel, f_ext, H: int, dtype):
@@ -35,24 +34,26 @@ def rollout(model: RobotModel, x0, U, dt: float, gravity: float = -9.81,
     through ``kernels.fd_step_fused`` (K1) on the flattened batch — one
     launch per step on a CUDA tensor, its plain version on a CPU tensor.
     f_ext: optional world-frame wrenches, (NB, 6) or (H, NB, 6)
-    (``normalize_f_ext``), applied with ``dynamics.aba(f_ext)`` semantics."""
+    (``normalize_f_ext``), applied with ``dynamics.aba(f_ext)`` semantics.
+    Each step's state is pinned to the input's dtype, as rbdtpu pins its
+    scan carry: a model in a wider dtype would otherwise promote the
+    reduced-precision states of MPPI's ``sampling_dtype``."""
     H = U.shape[-2]
     F = normalize_f_ext(model, f_ext, H, U.dtype)
     if F is not None:
         F = F.to(U.device)
-    if fused:
-        from ..kernels.fused import fd_step_fused
+    from ..kernels.fused import fd_step_fused, fd_step_plain
 
+    if fused:
         def step(x, u, fe):
             flat = x.reshape(-1, x.shape[-1]).contiguous()
             return fd_step_fused(model, flat,
                                  u.reshape(-1, u.shape[-1]).contiguous(), dt,
-                                 gravity, f_ext=fe).reshape(x.shape)
+                                 gravity, f_ext=fe).reshape(x.shape).to(
+                                     x.dtype)
     else:
         def step(x, u, fe):
-            q, qd = split_state(model, x)
-            return euler_semi_implicit(
-                model, x, aba(model, q, qd, u, f_ext=fe, gravity=gravity), dt)
+            return fd_step_plain(model, x, u, dt, gravity, fe).to(x.dtype)
 
     xs = [x0]
     for t in range(H):

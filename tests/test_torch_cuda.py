@@ -12,7 +12,8 @@ import torch
 from rbdtpu_torch.kernels import (
     _lib, backward_pass_chunked, backward_pass_fused, colvec, ee_gn_fused,
     fd_step_fused,
-    fd_step_minv_fused, feedback_rollout_fused, fk_lane, fused,
+    fd_step_minv_fused, feedback_rollout_fused,
+    feedback_rollout_fused_chunked, fk_lane, fused,
     linearize_parts_fused, rnea_fused, rollout_fused_multi,
 )
 from rbdtpu_torch.model import load_asset, parse_urdf
@@ -449,3 +450,196 @@ def test_mpc_step_and_checkpoint_on_the_card(card, tmp_path):
     back = load_solver_state(path, state)
     for a, b in zip(back, state):
         assert a.device == b.device and torch.equal(a, b)
+
+
+def _humanoid(dtype):
+    return load_asset("humanoid30", device="cuda", dtype=dtype,
+                      floating_base=True)
+
+
+def _humanoid_inputs(m, B, H):
+    """configs[4]'s start (standing at q[2] = 0.9, 0.02 N(0,1) on every
+    coordinate, at rest) and a closed loop that holds it: gravity
+    compensation plus K (x - x0), K = -M(q0) [400 I, 40 I] perturbed by 10%
+    per knot, from states 0.02 N(0,1) away.  Random gains would make the
+    humanoid's light links amplify rounding far beyond any tolerance.
+    Returns (x0, Xn, Un, kf, Kf) and step inputs (x, u) at B states."""
+    from rbdtpu_torch.dynamics import minv, rnea
+
+    rng = np.random.default_rng(5)
+    T = lambda a: torch.tensor(a, dtype=m.dtype, device=m.device)
+    n = m.nv
+    q0 = np.zeros((B, n))
+    q0[:, 2] = 0.9
+    q0 = T(q0 + 0.02 * rng.standard_normal(q0.shape))
+    z = torch.zeros_like(q0)
+    x0 = torch.cat([q0, z], -1)
+    g = rnea(m, q0, z, z)[0]
+    Xn = x0[:, None] + T(0.01 * rng.standard_normal((B, H, 2 * n)))
+    pd = np.concatenate([400.0 * np.eye(n), 40.0 * np.eye(n)], 1)
+    gains = T(pd * (1 + 0.1 * rng.standard_normal((B, H, n, 2 * n))))
+    Kf = -(torch.linalg.inv(minv(m, q0))[:, None] @ gains)
+    kf = -(Kf @ (x0[:, None] - Xn)[..., None])[..., 0]
+    Un = g[:, None].expand(B, H, n).contiguous()
+    xs = x0 + T(0.02 * rng.standard_normal((B, 2 * n)))
+    qd = T(0.5 * rng.standard_normal((B, n)))
+    u = g + T(rng.standard_normal((B, n)))
+    return ((xs, Xn.contiguous(), Un, kf.contiguous(), Kf.contiguous()),
+            (torch.cat([q0, qd], -1), u))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+def test_humanoid_tree_kernels(card, dtype):
+    """K1, K2 and K3 at the humanoid's size class (fb32, 31 bodies) against
+    their plain versions: 1e-9 in float64, 1e-4 relative in float32 (1e-3
+    for the 8-knot closed loop)."""
+    m = _humanoid(dtype)
+    assert _lib.size_class("fd_step", m) == "fb32"
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    fb, (x, u) = _humanoid_inputs(m, 70, 8)
+    out = _launched("fd_step", lambda: fd_step_fused(m, x, u, DT))
+    _close(out, fused.fd_step_plain(m, x, u, DT), tol)
+    X, U = _launched("feedback_rollout",
+                     lambda: feedback_rollout_fused(m, *fb, DT))
+    Xp, Up = fused.feedback_rollout_plain(m, *fb, DT)
+    _close(X, Xp, 10 * tol if dtype == torch.float32 else tol)
+    _close(U, Up, 10 * tol if dtype == torch.float32 else tol)
+    q, qd = x[:, :m.nq].contiguous(), x[:, m.nq:].contiguous()
+    out = _launched("linearize_parts",
+                    lambda: linearize_parts_fused(m, q, qd, u))
+    for a, b in zip(out, colvec.linearize_parts_plain(m, q, qd, u)):
+        _close(a, b, tol)
+
+
+@pytest.mark.parametrize("nchunks", [1, 2, 3, 100])
+@pytest.mark.parametrize("clip", [False, True])
+def test_feedback_chunked(tree_case, clip, nchunks):
+    """K9 against its plain version (rbdtpu's chunked order of sums) at
+    any chunk count, with and without the clamp, on the fixed-base trees
+    and the rpy quadruped; an odd batch."""
+    m, _, tol = tree_case
+    B, H = 67, 8
+    args = _inputs(m, (B, m.nx), (B, H, m.nx), (B, H, m.nv), (B, H, m.nv),
+                   (B, H, m.nv, m.nx), scale=0.1)
+    u_clip = torch.full((m.nv,), 0.05, dtype=m.dtype,
+                        device=m.device) if clip else None
+    X, U = _launched("feedback_chunked", lambda: feedback_rollout_fused_chunked(
+        m, *args, DT, u_clip=u_clip, nchunks=nchunks))
+    Xp, Up = fused.feedback_rollout_chunked_plain(m, *args, DT, u_clip=u_clip,
+                                                  nchunks=nchunks)
+    _close(X, Xp, tol)
+    _close(U, Up, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("nchunks", [1, 2, 3, 100])
+def test_feedback_chunked_humanoid(card, dtype, nchunks):
+    """K9 at the humanoid's size class against its plain version and
+    against K2 on the same inputs (in float64 they differ only in the order
+    of the feedback sums)."""
+    m = _humanoid(dtype)
+    fb, _ = _humanoid_inputs(m, 70, 8)
+    tol = 1e-9 if dtype == torch.float64 else 1e-3
+    X, U = _launched("feedback_chunked", lambda: feedback_rollout_fused_chunked(
+        m, *fb, DT, nchunks=nchunks))
+    Xp, Up = fused.feedback_rollout_chunked_plain(m, *fb, DT, nchunks=nchunks)
+    X2, U2 = feedback_rollout_fused(m, *fb, DT)
+    for a, b in ((X, Xp), (U, Up), (X, X2), (U, U2)):
+        _close(a, b, tol)
+
+
+def test_feedback_chunked_refuses_a_bad_split(card):
+    """The launch takes the chunk width and count from the caller
+    (``fused.chunk_geometry``) and refuses a split that does not cover the
+    gain's columns exactly."""
+    m = load_asset("arm7", device=card, dtype=torch.float64)
+    B, H = 4, 2
+    x0, Xn, Un, kf, Kf = _inputs(m, (B, m.nx), (B, H, m.nx), (B, H, m.nv),
+                                 (B, H, m.nv), (B, H, m.nv, m.nx))
+    Xo, Uo = torch.empty_like(Xn), torch.empty_like(Un)
+    assert fused.chunk_geometry(m.nx, 2) == (7, 2)
+    for cw, nc in ((7, 1), (7, 3), (0, 14), (14, 0)):
+        with pytest.raises(RuntimeError, match="feedback_chunked"):
+            _lib.launch("feedback_chunked", m, x0, x0, Xn, Un, kf, Kf, None,
+                        Xo, Uo, B, H, cw, nc, DT, -9.81)
+
+
+def test_stack_limit_round_trip(card):
+    """The per-thread stack limit reads back what was set, K3 at the
+    humanoid's size class (the largest stack frame, in double) stays right
+    under a lowered limit, and the limit is set back afterwards."""
+    limit = _lib.stack_limit(card)
+    _lib.set_stack_limit(card, 1024)
+    try:
+        assert _lib.stack_limit(card) == 1024
+        m = _humanoid(torch.float64)
+        _, (x, u) = _humanoid_inputs(m, 70, 2)
+        q, qd = x[:, :m.nq].contiguous(), x[:, m.nq:].contiguous()
+        out = _launched("linearize_parts",
+                        lambda: linearize_parts_fused(m, q, qd, u))
+        for a, b in zip(out, colvec.linearize_parts_plain(m, q, qd, u)):
+            _close(a, b, 1e-9)
+    finally:
+        _lib.set_stack_limit(card, limit)
+    assert _lib.stack_limit(card) == limit
+
+
+def test_ddp_k9_tier_on_the_card(card):
+    """The humanoid DDP solve at the smallest batch where rbdtpu's rule
+    sends the line search to K9 with two chunks (142 problems, 4 step
+    sizes): one K9 launch an iteration and no K2, and the K2 tier's
+    controls, float64."""
+    from rbdtpu_torch.solver import DDPConfig, ddp, ddp_solve, \
+        quadratic_tracking_cost
+
+    m = _humanoid(torch.float64)
+    fb, _ = _humanoid_inputs(m, 142, 2)
+    x0, U0 = fb[0], fb[2]
+    goal = torch.zeros(m.nx, dtype=m.dtype)
+    goal[2] = 0.95
+    cost = quadratic_tracking_cost(m, goal, w_q=2.0, w_qd=0.05, w_u=1e-5)
+    cfg = dict(iters=2, n_alphas=4, fused=True)
+    assert ddp._feedback_route(m, DDPConfig(fused_feedback=True, **cfg),
+                               568) == ("chunked", 2)
+    before = dict(_lib.launches)
+    a = ddp_solve(m, cost, x0, U0, DDPConfig(fused_feedback=True, **cfg))[0]
+    torch.cuda.synchronize()
+    assert _lib.launches["feedback_chunked"] == before["feedback_chunked"] + 2
+    assert _lib.launches["feedback_rollout"] == before["feedback_rollout"]
+    b = ddp_solve(m, cost, x0, U0, DDPConfig(fused_feedback=None, **cfg))[0]
+    assert (a.U - b.U).abs().max().item() < 1e-6
+
+
+def test_hybrid_solve_on_the_card(card):
+    """configs[4]'s hybrid, small, float64: through the kernels and
+    through the plain versions on the card with the same noise, the same
+    controls (1e-6); a bfloat16 sampling rollout has no kernel and
+    raises."""
+    from rbdtpu_torch.solver import (
+        DDPConfig, MPPIConfig, hybrid_solve, mppi_step,
+        quadratic_tracking_cost,
+    )
+
+    m = _humanoid(torch.float64)
+    fb, _ = _humanoid_inputs(m, 2, 4)
+    x0, U0 = fb[0], fb[2]
+    goal = torch.zeros(m.nx, dtype=m.dtype)
+    goal[2] = 0.95
+    cost = quadratic_tracking_cost(m, goal, w_q=2.0, w_qd=0.05, w_u=1e-5)
+    noise = torch.randn(2, 2, 8, 4, m.nv, dtype=m.dtype, device=card,
+                        generator=torch.Generator(card).manual_seed(3))
+    out = []
+    for kernels in (True, False):
+        state, (mh, dh) = hybrid_solve(
+            m, cost, x0, U0, None,
+            MPPIConfig(n_samples=8, sigma=0.3, fused=kernels),
+            DDPConfig(iters=2, n_alphas=4, fused=kernels), mppi_iters=2,
+            noise=noise)
+        out.append(state.U)
+        assert torch.isfinite(mh).all() and torch.isfinite(dh).all()
+    assert (out[0] - out[1]).abs().max().item() < 1e-6
+    with pytest.raises(ValueError):
+        mppi_step(m, cost, x0, U0, torch.Generator(card), MPPIConfig(
+            n_samples=8, fused=True, sampling_dtype="bfloat16"))

@@ -11,7 +11,8 @@ import torch
 
 from rbdtpu_torch import opcount as oc
 from rbdtpu_torch.kernels import (
-    ee_gn_plain, fd_step_minv_plain, fd_step_plain, feedback_rollout_plain,
+    ee_gn_plain, fd_step_minv_plain, fd_step_plain,
+    feedback_rollout_chunked_plain, feedback_rollout_plain,
     linearize_parts_plain, rnea_plain,
 )
 from rbdtpu_torch.kernels.fk_lane import _single_ee
@@ -120,6 +121,27 @@ def test_feedback_knot(tree_case):
     _close(uo, Ur[0, 0])
 
 
+@pytest.mark.parametrize("nchunks", [1, 2, 5])
+def test_feedback_knot_chunked(tree_case, nchunks):
+    """K9's counted knot computes the chunked plain version's function, in
+    as many operations as K2's."""
+    m, md, _, rng = tree_case
+    n = m.nv
+    x, u, _ = _state(m, rng)
+    xn, kf = rng.standard_normal(2 * n), rng.standard_normal(n)
+    K = rng.standard_normal((n, 2 * n))
+    args = (_nums(x), _nums(xn), _nums(u), _nums(kf), _nums(K), DT, G)
+    (xo, uo), ops = oc.counted(oc.feedback_knot_chunked, md, *args,
+                               nchunks=nchunks)
+    T = lambda a: torch.tensor(a)[None, None]
+    Xr, Ur = feedback_rollout_chunked_plain(
+        m, torch.tensor(x)[None], T(xn), T(u), T(kf), T(K), DT, G,
+        nchunks=nchunks)
+    _close(xo, Xr[0, 0])
+    _close(uo, Ur[0, 0])
+    assert ops == oc.counted(oc.feedback_knot, md, *args)[1]
+
+
 def test_linearize_parts(tree_case):
     m, md, _, rng = tree_case
     n = m.nv
@@ -173,16 +195,32 @@ def test_per_state_keys():
     m = load_asset("arm7", device="cpu", dtype=torch.float64)
     ops = oc.per_state(m, TARGET)
     assert set(ops) == {
-        "fd_step", "fd_step+fext", "feedback_rollout", "linearize_parts",
-        "ee_gn", "ee_err", "rnea", "rnea+qdd", "fd_step_minv",
-        "fd_step_minv+dense", "fd_step_minv+fext"}
+        "fd_step", "fd_step+fext", "feedback_rollout", "feedback_chunked",
+        "linearize_parts", "ee_gn", "ee_err", "rnea", "rnea+qdd",
+        "fd_step_minv", "fd_step_minv+dense", "fd_step_minv+fext"}
+    assert ops["feedback_chunked"] == ops["feedback_rollout"]
     assert ops["rnea"] < ops["rnea+qdd"] < ops["fd_step_minv"]
     assert ops["ee_err"] < ops["ee_gn"]
     assert ops["fd_step"] < ops["fd_step+fext"]
     fb = load_asset("quadruped12", device="cpu", dtype=torch.float64,
                     floating_base=True)
     assert set(oc.per_state(fb, TARGET)) == {
-        "fd_step", "fd_step+fext", "feedback_rollout", "linearize_parts"}
+        "fd_step", "fd_step+fext", "feedback_rollout", "feedback_chunked",
+        "linearize_parts"}
+
+
+def test_per_state_humanoid():
+    """The counts reach the humanoid (31 bodies, rpy root), whose kernels
+    are the fb32 size class, and grow with the tree."""
+    quad = oc.per_state(load_asset("quadruped12", device="cpu",
+                                   dtype=torch.float64, floating_base=True),
+                        TARGET)
+    hum = oc.per_state(load_asset("humanoid30", device="cpu",
+                                  dtype=torch.float64, floating_base=True),
+                       TARGET)
+    assert set(hum) == set(quad)
+    assert all(hum[k] > quad[k] for k in hum)
+    assert hum["feedback_chunked"] == hum["feedback_rollout"]
 
 
 def test_riccati_knot():
