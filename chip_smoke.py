@@ -5,14 +5,23 @@
 
 Phases, each ending the run with a nonzero exit when it fails:
 
-1. identify the card (name, power limit) and build the CUDA kernels from
-   ``rbdtpu_torch/csrc``;
+1. identify the card (name, power limit), build the CUDA kernels from
+   ``rbdtpu_torch/csrc`` and require every instantiation of the team
+   kernels K1 (``fd_step``) and K2 (``feedback_rollout``) in the build with
+   a ptxas stack frame under 1,024 bytes;
 2. hold each kernel of the DDP path against its plain PyTorch version on
    the card, at that path's shapes: max abs error <= 1e-9 in float64, and
-   a relative bound in float32; time both (CUDA events) and compute each
-   kernel's bound (bytes over the memory rate, or operations over the
-   float32 peak, whichever is larger; the operations each function needs
-   are counted by ``rbdtpu_torch/opcount.py``);
+   a relative bound in float32; time both (CUDA events around one call
+   with its launch; K1 and K2, whose launch from Python can outlast them,
+   also by replaying a CUDA graph of 20 calls) and compute each kernel's
+   bound (bytes over the memory rate, or operations over the float32 peak,
+   whichever is larger; the operations each function needs are counted by
+   ``rbdtpu_torch/opcount.py``); then
+   K1 at 1, 37 and 1000 states and under world wrenches (one set, one per
+   state), K2 over one knot at 1 and 37 trajectories with and without a
+   clamp and at 37 over the horizon, in both dtypes; print the team
+   kernels' launch geometry (team size, teams and shared memory a block,
+   K2's walk of the step's recursions);
 3. drive the arm7 end-effector DDP path (BASELINE.json configs[2]) —
    ``ddp_solve`` on arm7 EE reaching, Bm=128, H=100, 10 iterations, 8
    line-search steps, float32, ``fused=True`` — and check that every kernel
@@ -44,7 +53,8 @@ Phases, each ending the run with a nonzero exit when it fails:
    the plain sweep's;
 9. hold K1, K2 and K3 on quadruped12's rpy floating root against their
    plain versions at configs[3]'s shapes (1024 states, 6 x 1024
-   trajectories of 50 knots, 51,200 knots), as in phase 2;
+   trajectories of 50 knots, 51,200 knots), with the team kernels' extra
+   checks and times, as in phase 2;
 10. drive the floating-base quadruped MPC path (BASELINE.json configs[3],
    bench.py:482-507): ``ddp_solve`` of 1024 problems, H=50, 5 iterations,
    6 line-search steps, float32, ``fused=True``, timed (solves/s); per
@@ -78,7 +88,8 @@ Phases, each ending the run with a nonzero exit when it fails:
    K1, K2 and K3 against their plain versions at paths C and D's shapes
    (2048 states, 1024 trajectories x 32 knots, 8192 knots), as in phase 2,
    with the device memory the CUDA driver reserves for their stacks (the
-   stack limit is set back afterwards, which frees it); K9
+   stack limit is set back afterwards, which frees it), then the team
+   kernels' extra checks and times; K9
    (``feedback_chunked``) at nchunks 2, 1, 3 and 100 with and without a
    clamp, at an odd batch, on arm7 and on the rpy quadruped, and against
    K2 on the same inputs (float64 <= 1e-9, both timed);
@@ -129,6 +140,15 @@ TOL32 = {"fd_step": 1e-4, "feedback_rollout": 1e-3, "linearize_parts": 1e-4,
          "feedback_chunked": 1e-3}
 U_PARITY = 1e-6
 PARITY_H = (100, 20)
+# the team kernels (csrc/rbd_team.cuh): one team of lanes per state (K1) or
+# trajectory (K2); their ptxas stack must stay under STACK_MAX bytes in
+# every instantiation (3 classes x 2 dtypes at the team size of
+# kernels/_lib.py TEAM, K1 with and without wrenches, K2 in both walks), and
+# their extra checks run these batches
+TEAM_KERNELS = ("fd_step", "feedback_rollout")
+TEAM_INSTANCES = {"fd_step": 12, "feedback_rollout": 12}
+STACK_MAX = 1024
+TEAM_BATCHES = (1, 37, 1000)
 # the rollout path (BASELINE.json configs[1], bench.py:132-209, 377-416)
 B1, H1, HONEST_H, HONEST_TOL = 4096, 50, 10, 1e-3
 # H100 SXM published peaks at 700 W: HBM bytes/s, float32 and float64
@@ -199,6 +219,32 @@ def cuda_ms(fn, reps: int) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Median milliseconds of one ``fn`` call on the device alone: after a
+    warm-up call, ``reps`` calls captured in one CUDA graph, the graph
+    replayed 5 times, each replay timed by CUDA events.  The host's cost of
+    a launch, which the single-call events of ``cuda_ms`` take in whenever
+    it exceeds the kernel's time, is not in it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -279,8 +325,10 @@ def kernel_table():
                                                       **kw),
             "rbdtpu_torch/csrc/fd_step.cu", "rbdtpu/kernels/fused.py:450"),
         "feedback_rollout": (
-            lambda m, *a: fused.feedback_rollout_fused(m, *a, DT, GRAVITY),
-            lambda m, *a: fused.feedback_rollout_plain(m, *a, DT, GRAVITY),
+            lambda m, *a, **kw: fused.feedback_rollout_fused(m, *a, DT, GRAVITY,
+                                                             **kw),
+            lambda m, *a, **kw: fused.feedback_rollout_plain(m, *a, DT, GRAVITY,
+                                                             **kw),
             "rbdtpu_torch/csrc/feedback_rollout.cu",
             "rbdtpu/kernels/fused.py:611"),
         "linearize_parts": (
@@ -398,13 +446,14 @@ def start_problems(model, Bm: int, H: int, rng):
 
 
 _TEMPLATE_ARG = re.compile(
-    r"N3rbd4DimsILi(\d+)ELb([01])EEE|Lb([01])E|([fd])")
+    r"N3rbd4DimsILi(\d+)ELb([01])EEE|Lb([01])E|([fd])|Li(\d+)E")
 
 
 def template_args(tail: str) -> list:
     """The template arguments of a mangled kernel name's tail
-    (``I...E``): the scalar type, the size class ``Dims<NB, FB>`` and the
-    bools (GN, HAS_QDD, DENSE, MINV or FEXT)."""
+    (``I...E``): the scalar type, the size class ``Dims<NB, FB>``, the
+    bools (GN, HAS_QDD, DENSE, MINV or FEXT) and the ints (a team's
+    lanes)."""
     args, pos = [], 1
     while pos < len(tail) and tail[pos] != "E":
         m = _TEMPLATE_ARG.match(tail, pos)
@@ -415,6 +464,8 @@ def template_args(tail: str) -> list:
                         f"{'true' if m.group(2) == '1' else 'false'}>")
         elif m.group(3):
             args.append("true" if m.group(3) == "1" else "false")
+        elif m.group(5):
+            args.append(m.group(5))
         else:
             args.append("double" if m.group(4) == "d" else "float")
         pos = m.end()
@@ -520,7 +571,9 @@ def check_kernels(checks, m64, m32, smi: str, rows=None, row_tag: str = "",
     keyword args, operations key, states x steps).  The first check of a
     kernel gives its row of the JSON line (named kernel name + row_tag);
     the row's max_abs_err is the largest over the kernel's checks.  With
-    ``time_all=False`` only that first check is timed.  Fails after
+    ``time_all=False`` only that first check is timed.  ``ms`` is one
+    call's time with its launch (``cuda_ms``) for every kernel; the team
+    kernels' row adds the device's time alone (``graph_ms``).  Fails after
     printing every check."""
     import torch
     from rbdtpu_torch import opcount
@@ -552,11 +605,14 @@ def check_kernels(checks, m64, m32, smi: str, rows=None, row_tag: str = "",
                                    "float32")
         shapes = " ".join(str(tuple(a.shape)) for a in a64)
         fmt = lambda es: "[" + " ".join(f"{e:.2e}" for e in es) + "]"
-        timing = "not timed"
+        timing, gms = "not timed", None
         if time_all or row not in rows:
             ms = cuda_ms(lambda: kern(m32, *a32, **kw32), reps=20)
             plain_ms = cuda_ms(lambda: plain(m32, *a32, **kw32), reps=3)
             timing = f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+            if kname in TEAM_KERNELS:
+                gms = graph_ms(lambda: kern(m32, *a32, **kw32))
+                timing += f" ({gms:.4f} ms by graph replay)"
         print(f"kernel {label}: inputs {shapes}  f64 max|err| "
               f"{fmt(e64)}  f32 rel err {fmt(e32)} (kernel vs f64 plain "
               f"{fmt(errors(k32, p64, relative=True))}, plain vs f64 plain "
@@ -568,9 +624,90 @@ def check_kernels(checks, m64, m32, smi: str, rows=None, row_tag: str = "",
                              replaces=replaces, max_abs_err=err64, ms=ms,
                              plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=None)
+            if gms is not None:
+                rows[row]["graph_ms"] = gms
         rows[row]["max_abs_err"] = max(rows[row]["max_abs_err"], err64)
     require(not failures, "; ".join(failures))
     return rows
+
+
+def team_stack_check(ptxas: list):
+    """Phase 1: every instantiation of the team kernels is in the build
+    and none has a stack frame of STACK_MAX bytes or more."""
+    for k in TEAM_KERNELS:
+        lines = [ln for ln in ptxas if ln.startswith(f"ptxas {k}_kernel<")]
+        stacks = [int(re.search(r"(\d+) bytes stack frame", ln).group(1))
+                  for ln in lines]
+        require(len(lines) == TEAM_INSTANCES[k],
+                f"{k}: {len(lines)} instantiations in the build, expected "
+                f"{TEAM_INSTANCES[k]}")
+        require(max(stacks) < STACK_MAX, f"{k}: a stack frame of "
+                f"{max(stacks)} B a thread (limit {STACK_MAX})")
+        print(f"ptxas {k}: {len(lines)} instantiations, stack frames "
+              f"{min(stacks)}-{max(stacks)} B a thread (limit {STACK_MAX})")
+
+
+def team_checks(m64, fd, fb, tag: str) -> list:
+    """The team kernels' extra checks at one size class, from its path's
+    float64 inputs ``fd`` = (x, u) and ``fb`` (K2's five): K1 at
+    TEAM_BATCHES states (rows of fd repeated as needed) and at 37 states
+    under one wrench set and under one set per state (0.5 N(0,1)); K2 at 1
+    and 37 trajectories over one knot, with and without a clamp at 0.8 of
+    the largest first control each coordinate takes unclamped, and at 37
+    over the path's horizon.  Entries as ``check_kernels`` takes them."""
+    import torch
+    from rbdtpu_torch.kernels import fused
+
+    x, u = fd
+    rows = lambda t, B: t.repeat(-(-B // t.shape[0]), 1)[:B].contiguous()
+    checks = [(f"fd_step {tag} B={B}", "fd_step", (rows(x, B), rows(u, B)),
+               {}, "fd_step", B) for B in TEAM_BATCHES]
+    rng = np.random.default_rng(SEED + 7)
+    wrench = lambda *shape: torch.tensor(
+        0.5 * rng.standard_normal(shape), dtype=torch.float64,
+        device=m64.device)
+    for label, f in (("(nb,6)", wrench(m64.nb, 6)),
+                     ("(B,nb,6)", wrench(37, m64.nb, 6))):
+        checks.append((f"fd_step {tag} B=37 f_ext {label}", "fd_step",
+                       (rows(x, 37), rows(u, 37)), {"f_ext": f},
+                       "fd_step+fext", 37))
+    first = tuple((t[:64, :1] if t.dim() > 2 else t[:64]).contiguous()
+                  for t in fb)
+    applied = fused.feedback_rollout_plain(m64, *first, DT, GRAVITY)[1]
+    clip = (0.8 * applied.abs().amax(dim=(0, 1))).contiguous()
+    for B in (1, 37):
+        one = tuple((t[:B, :1] if t.dim() > 2 else t[:B]).contiguous()
+                    for t in fb)
+        for kw in ({}, {"u_clip": clip}):
+            checks.append((f"feedback_rollout {tag} B={B} H=1"
+                           f"{' u_clip' if kw else ''}", "feedback_rollout",
+                           one, kw, "feedback_rollout", B))
+    H = fb[1].shape[1]
+    checks.append((f"feedback_rollout {tag} B=37 H={H}", "feedback_rollout",
+                   tuple(t[:37].contiguous() for t in fb), {},
+                   "feedback_rollout", 37 * H))
+    return checks
+
+
+def team_report(label: str, m64, m32, fd, fb):
+    """The team kernels' launch geometry at one size class's path shapes
+    (``fd`` and ``fb`` as ``team_checks`` takes them), in float32 and
+    float64: team size, teams a block, shared memory a block, blocks, and
+    K2's walk of the step's root->leaf recursions."""
+    from rbdtpu_torch.kernels import _lib
+
+    cls = _lib.size_class("fd_step", m32)
+    for m in (m32, m64):
+        sfx = _lib._SUFFIX[m.dtype]
+        for kernel, B in (("fd_step", fd[0].shape[0]),
+                          ("feedback_rollout", fb[2].shape[0])):
+            team, tpb, smem, blocks = _lib.team_geometry(
+                kernel, cls, m.dtype, B, _lib.sm_count(m.device))
+            walk = ("levels" if kernel == "feedback_rollout"
+                    and _lib.level_walk(m) else "bodies")
+            print(f"team {label} {kernel} {cls} {sfx}: B={B} team {team} "
+                  f"lanes, {tpb} teams a block, {smem} B of shared memory a "
+                  f"block, {blocks} blocks, walk {walk}")
 
 
 # the kernels each path launches; the JSON line reports each kernel's
@@ -1279,6 +1416,10 @@ def humanoid_kernels(h64, h32, arm, quad, smi: str, rows: dict, ptxas: list):
           f"the fb32 kernels (stack limit {limit} B a thread), {after:.2f} "
           f"GB after (limit {grown} B), {outside_pool():.2f} GB once the "
           f"limit was set back to {_lib.stack_limit(h64.device)} B ({smi})")
+    check_kernels(team_checks(h64, hin["fd_step"], hin["feedback_rollout"],
+                              "humanoid"), h64, h32, smi, rows,
+                  row_tag="_fb32", time_all=False)
+    team_report("humanoid", h64, h32, hin["fd_step"], hin["feedback_rollout"])
     fb = hin["feedback_rollout"]
     # 0.8 of the largest control each coordinate takes unclamped: the clamp
     # bites on a few knots.  A tighter one lets the humanoid fall out of the
@@ -1609,6 +1750,7 @@ def main() -> int:
         ptxas = ptxas_summary(f.read())
     for line in ptxas:
         print(line)
+    team_stack_check(ptxas)
 
     # ---- 2. the DDP path's kernels against their plain versions ----
     m64 = load_asset("arm7", device="cuda", dtype=torch.float64)
@@ -1620,6 +1762,11 @@ def main() -> int:
     rows = check_kernels(
         [(k, k, inputs64[k], {}, k, ddp_states[k]) for k in inputs64],
         m64, m32, smi)
+    check_kernels(team_checks(m64, inputs64["fd_step"],
+                              inputs64["feedback_rollout"], "arm7"),
+                  m64, m32, smi, rows, time_all=False)
+    team_report("arm7", m64, m32, inputs64["fd_step"],
+                inputs64["feedback_rollout"])
 
     # ---- 3. the main path: arm7 EE reaching DDP, float32, kernels ----
     Bm, H, iters = 128, 100, 10
@@ -1661,6 +1808,10 @@ def main() -> int:
                 "linearize_parts": B3 * H3}
     check_kernels([(f"{k} rpy", k, qin[k], {}, k, q_states[k]) for k in qin],
                   q64, q32, smi, rows)
+    check_kernels(team_checks(q64, qin["fd_step"], qin["feedback_rollout"],
+                              "rpy"), q64, q32, smi, rows, time_all=False)
+    team_report("rpy quadruped", q64, q32, qin["fd_step"],
+                qin["feedback_rollout"])
 
     # ---- 10. the configs[3] path: 1024 quadruped MPC problems, float32 ----
     counts = quadruped_path(q32, smi)
@@ -1720,7 +1871,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {k: rows[n_][k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "graph_ms") if k in rows[n_]}
         for n_ in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -12,8 +12,8 @@
 // c in order, u += (K_t[:, j0..j0+w) dx[j0..j0+w), summed over ascending
 // columns from the first product);  u clamped to [-uclip, uclip] when
 // uclip is given (NaN stays NaN);  ABA and semi-implicit Euler through the
-// body K1 and K2 share (fd_step_state).  The caller passes the chunk width
-// cw and count nc as rbdtpu splits the columns (rbdtpu_torch
+// one-thread step (rbd_common.cuh fd_step_state).  The caller passes the
+// chunk width cw and count nc as rbdtpu splits the columns (rbdtpu_torch
 // kernels/fused.py chunk_geometry: every chunk nonempty, the last one
 // possibly narrower); the launch refuses a split that does not cover the
 // ndx columns exactly.

@@ -2,88 +2,160 @@
 // Replaces rbdtpu kernels/fused.py feedback_rollout_fused (Pallas,
 // fused.py:611), which launched once per knot inside lax.scan.
 //
-// One thread per trajectory loops over the H knots with its state held in
-// the thread:  dx = x - Xn_t;  u = Un_t + kf_t + Kf_t dx  (alpha is already
-// folded into kf);  u clamped to [-uclip, uclip] when uclip is given; then
-// ABA and semi-implicit Euler.  Writes states 1..H and the applied u.
-// Layouts (row-major): x0 (B, nx), Xn/Xo (B, H, nx), Un/kf/Uo (B, H, n),
-// Kf (B, H, n, nx), n = nv and nx = 2 nv (the rpy root's dx is the flat
-// difference, as rbdtpu's).  Instantiated for N8, FB16 and FB32.  Each
-// thread reads its n*nx gains per knot as one contiguous run, uncoalesced
-// across the warp; small blocks (32 threads) spread 1024 trajectories over
-// 32 SMs.  feedback_chunked.cu stages the gains through shared memory.
-#include "rbd_common.cuh"
+// Per knot t:  dx = x - Xn_t (the rpy root's dx is the flat difference, as
+// rbdtpu's);  u = Un_t + kf_t + Kf_t dx  (alpha is already folded into kf);
+// u clamped to [-uclip, uclip] when uclip is given (torch.clamp: NaN stays
+// NaN);  then ABA and semi-implicit Euler.  Writes states 1..H and the
+// applied u.  Layouts (row-major): x0 (B, nx), Xn/Xo (B, H, nx), Un/kf/Uo
+// (B, H, n), Kf (B, H, n, nx), n = nv and nx = 2 nv.  Instantiated for N8,
+// FB16 and FB32 in both walks, each class and dtype at one team size fixed
+// at build time (RBD_TEAM_feedback_rollout_<class>_<f32|f64>, which
+// kernels/_lib.py defines from its TEAM table).
+//
+// One team of NL lanes per trajectory (rbd_team.cuh), its state, the
+// knot's gains and the ABA state in the team's shared memory:
+//   - the knot's K_t, Xn_t, Un_t and kf_t arrive in a shared buffer by
+//     cp.async, consecutive lanes on consecutive addresses (K rows padded
+//     to nx + 1 values, so the lanes' rows fall on different banks);
+//   - the lanes form dx, then one lane a row of K sums its feedback,
+//     clamps, and writes u to shared memory and Uo[t];
+//   - the buffer is consumed before the step begins, so the copies of knot
+//     t + 1 are issued right then into the same buffer and arrive while the
+//     team runs knot t's step: one stage overlaps the loads with the step
+//     in half the shared memory of a two-stage ring, which keeps every class
+//     and dtype (fb32 in double too) at the same design;
+//   - the team step writes x' to shared memory and Xo[t].
+// The step walks its root->leaf recursions level by level where the tree
+// branches (LV; the caller decides, kernels/_lib.py level_walk) and body by
+// body on a chain.  Bound on the H100: the latency of H dependent steps per
+// trajectory (the gain bytes, nv x nx values a knot, are read once,
+// coalesced and ahead of use); at the line searches' 1024-6144 trajectories
+// 32 lanes a team are fastest in every class (PERF.md §6).  A block is one
+// warp or less, halved until the batch gives every SM a block, and the grid
+// covers any B down to 1.
+#include "rbd_team.cuh"
 
 namespace rbd {
 
-// One trajectory: pointers already offset to it (Xn/Un/kf/Kf/Xo/Uo start at
-// its knot 0).
-template <typename T, class D>
-RBD_HD void feedback_rollout_one(const Model<T, D>& m, const T* x0, const T* Xn, const T* Un,
-                                 const T* kf, const T* Kf, const T* uclip, T* Xo, T* Uo, int H,
-                                 T dt, T gravity) {
-  const int n = m.nv(), nx = 2 * n;
-  T x[2 * D::NV], xn[2 * D::NV], dx[2 * D::NV], u[D::NV];
-  for (int k = 0; k < nx; ++k) x[k] = x0[k];
+// The step's layout here: no wrenches, the level order (for either walk).
+template <class D>
+using FbLayout = TeamLayout<D, false, true>;
+
+// Shared-memory values a team of NL lanes takes: the step's scratch, x, dx
+// and u, and the knot buffer (K with rows of nx + 1, Xn, Un, kf); padded so
+// the teams of a warp start on different banks.
+template <class D, int NL>
+RBD_HD constexpr int feedback_team_stride() {
+  constexpr int NV = D::NV;
+  return (FbLayout<D>::VALUES + 5 * NV + NV * (2 * NV + 1) + 4 * NV + 31) / 32 * 32 + NL % 32;
+}
+
+// Knot t's gains and nominals of one trajectory (pointers at its knot 0)
+// into the buffer: K rows of ld values, then Xn, Un, kf.
+template <int NL, typename T>
+RBD_HD void feedback_load_knot(const Team<NL>& tm, int n, int t, const T* Xn, const T* Un,
+                               const T* kf, const T* Kf, T* bK, T* bXn, T* bUn, T* bkf) {
+  const int nx = 2 * n, ld = nx + 1;
+  const T* K = Kf + (size_t)t * n * nx;
+  for (int i = 0; i < n; ++i)
+    for (int j = tm.lane; j < nx; j += NL) copy_async(bK + i * ld + j, K + i * nx + j);
+  for (int k = tm.lane; k < nx; k += NL) copy_async(bXn + k, Xn + (size_t)t * nx + k);
+  for (int k = tm.lane; k < n; k += NL) {
+    copy_async(bUn + k, Un + (size_t)t * n + k);
+    copy_async(bkf + k, kf + (size_t)t * n + k);
+  }
+  copy_async_commit();
+}
+
+// One trajectory by the team ``tm`` with shared scratch ``s``
+// (feedback_team_stride values); pointers already offset to the trajectory
+// (Xn/Un/kf/Kf/Xo/Uo at its knot 0).  A host loop with a team of one lane
+// runs it too.
+template <int NL, bool LV, typename T, class D>
+RBD_HD void feedback_rollout_team(const Team<NL>& tm, const Model<T, D>& m, T* s, const T* x0,
+                                  const T* Xn, const T* Un, const T* kf, const T* Kf,
+                                  const T* uclip, T* Xo, T* Uo, int H, T dt, T gravity) {
+  constexpr int NV = D::NV;
+  const int n = m.nv(), nx = 2 * n, ld = nx + 1;
+  T* xs = s + FbLayout<D>::VALUES;
+  T* dx = xs + 2 * NV;
+  T* us = dx + 2 * NV;
+  T* bK = us + NV;
+  T* bXn = bK + NV * (2 * NV + 1);
+  T* bUn = bXn + 2 * NV;
+  T* bkf = bUn + NV;
+  for (int k = tm.lane; k < nx; k += NL) xs[k] = x0[k];
+  feedback_load_knot(tm, n, 0, Xn, Un, kf, Kf, bK, bXn, bUn, bkf);
   for (int t = 0; t < H; ++t) {
-    for (int k = 0; k < nx; ++k) dx[k] = x[k] - Xn[t * nx + k];
-    const T* K = Kf + (size_t)t * n * nx;
-    for (int i = 0; i < n; ++i) {
-      T acc = Un[t * n + i] + kf[t * n + i];
-      for (int j = 0; j < nx; ++j) acc += K[i * nx + j] * dx[j];
-      if (uclip != nullptr) {  // torch.clamp semantics: NaN stays NaN
-        acc = acc < -uclip[i] ? -uclip[i] : (acc > uclip[i] ? uclip[i] : acc);
-      }
-      u[i] = acc;
+    copy_async_wait();
+    tm.sync();
+    for (int k = tm.lane; k < nx; k += NL) dx[k] = xs[k] - bXn[k];
+    tm.sync();
+    for (int i = tm.lane; i < n; i += NL) {
+      const T* K = bK + i * ld;
+      T acc = bUn[i] + bkf[i];
+      for (int j = 0; j < nx; ++j) acc += K[j] * dx[j];
+      if (uclip != nullptr) acc = acc < -uclip[i] ? -uclip[i] : (acc > uclip[i] ? uclip[i] : acc);
+      us[i] = acc;
+      Uo[(size_t)t * n + i] = acc;
     }
-    fd_step_state(m, x, u, dt, gravity, xn);
-    for (int k = 0; k < nx; ++k) {
-      x[k] = xn[k];
-      Xo[t * nx + k] = xn[k];
-    }
-    for (int i = 0; i < n; ++i) Uo[t * n + i] = u[i];
+    tm.sync();
+    if (t + 1 < H) feedback_load_knot(tm, n, t + 1, Xn, Un, kf, Kf, bK, bXn, bUn, bkf);
+    team_fd_step<NL, false, LV, FbLayout<D>>(tm, m, s, xs, us, dt, gravity,
+                                   static_cast<const T*>(nullptr), xs, Xo + (size_t)t * nx);
   }
 }
 
 }  // namespace rbd
 
 #ifdef __CUDACC__
-#define RBD_FB_THREADS 32
-
-template <typename T, class D>
-__global__ void feedback_rollout_kernel(rbd::Model<T, D> m, const T* __restrict__ x0,
-                                        const T* __restrict__ Xn, const T* __restrict__ Un,
-                                        const T* __restrict__ kf, const T* __restrict__ Kf,
-                                        const T* __restrict__ uclip, T* __restrict__ Xo,
-                                        T* __restrict__ Uo, int B, int H, T dt, T gravity) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+template <int NL, bool LV, typename T, class D>
+__global__ void __launch_bounds__(32)
+    feedback_rollout_kernel(rbd::Model<T, D> m, const T* __restrict__ x0,
+                            const T* __restrict__ Xn, const T* __restrict__ Un,
+                            const T* __restrict__ kf, const T* __restrict__ Kf,
+                            const T* __restrict__ uclip, T* __restrict__ Xo,
+                            T* __restrict__ Uo, int B, int H, int tpb, T dt, T gravity) {
+  extern __shared__ __align__(16) unsigned char fb_smem[];
+  const rbd::Team<NL> tm = this_team<NL>();
+  const int tix = (int)threadIdx.x / NL;
+  const int b = blockIdx.x * tpb + tix;
   if (b >= B) return;
   const int n = m.nv(), nx = 2 * n;
   const size_t bx = (size_t)b * H * nx, bu = (size_t)b * H * n;
-  rbd::feedback_rollout_one(m, x0 + (size_t)b * nx, Xn + bx, Un + bu, kf + bu, Kf + bu * nx,
-                            uclip, Xo + bx, Uo + bu, H, dt, gravity);
+  T* s = reinterpret_cast<T*>(fb_smem) + (size_t)tix * rbd::feedback_team_stride<D, NL>();
+  rbd::feedback_rollout_team<NL, LV>(tm, m, s, x0 + (size_t)b * nx, Xn + bx, Un + bu, kf + bu,
+                             Kf + bu * nx, uclip, Xo + bx, Uo + bu, H, dt, gravity);
 }
 
-template <typename T, class D>
+template <int NL, typename T, class D>
 static int launch_feedback_rollout(const T* tab, const int* itab, int nb, const T* x0,
                                    const T* Xn, const T* Un, const T* kf, const T* Kf,
-                                   const T* uclip, T* Xo, T* Uo, int B, int H, T dt, T gravity,
-                                   void* stream) {
+                                   const T* uclip, T* Xo, T* Uo, int B, int H, int levels,
+                                   int tpb, int smem, T dt, T gravity, void* stream) {
   if (B <= 0 || H <= 0) return 0;
-  rbd::Model<T, D> m{tab, itab, nb};
-  feedback_rollout_kernel<T, D>
-      <<<RBD_GRID(B, RBD_FB_THREADS), RBD_FB_THREADS, 0, (cudaStream_t)stream>>>(
-          m, x0, Xn, Un, kf, Kf, uclip, Xo, Uo, B, H, dt, gravity);
+  if (nb > D::NB || tpb * NL > 32 || (levels != 0 && levels != 1))
+    return (int)cudaErrorInvalidValue;
+  const rbd::Model<T, D> m{tab, itab, nb};
+  auto kernel = levels ? feedback_rollout_kernel<NL, true, T, D>
+                       : feedback_rollout_kernel<NL, false, T, D>;
+  const int err =
+      team_smem_check(kernel, smem, tpb, rbd::feedback_team_stride<D, NL>(), sizeof(T));
+  if (err != 0) return err;
+  kernel<<<(B + tpb - 1) / tpb, tpb * NL, smem, (cudaStream_t)stream>>>(
+      m, x0, Xn, Un, kf, Kf, uclip, Xo, Uo, B, H, tpb, dt, gravity);
   return (int)cudaGetLastError();
 }
 
 #define RBD_FEEDBACK_ROLLOUT(CLS, D, T, SFX)                                                 \
   int rbd_feedback_rollout_##CLS##_##SFX(const T* tab, const int* itab, int nb, const T* x0, \
                                          const T* Xn, const T* Un, const T* kf, const T* Kf, \
-                                         const T* uclip, T* Xo, T* Uo, int B, int H, T dt,   \
-                                         T gravity, void* stream) {                          \
-    return launch_feedback_rollout<T, rbd::D>(tab, itab, nb, x0, Xn, Un, kf, Kf, uclip, Xo,  \
-                                              Uo, B, H, dt, gravity, stream);                \
+                                         const T* uclip, T* Xo, T* Uo, int B, int H,         \
+                                         int levels, int tpb, int smem, T dt, T gravity,     \
+                                         void* stream) {                                     \
+    return launch_feedback_rollout<RBD_TEAM_feedback_rollout_##CLS##_##SFX, T, rbd::D>(      \
+        tab, itab, nb, x0, Xn, Un, kf, Kf, uclip, Xo, Uo, B, H, levels, tpb, smem, dt,       \
+        gravity, stream);                                                                    \
   }
 
 extern "C" {

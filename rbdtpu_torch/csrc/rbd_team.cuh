@@ -1,0 +1,526 @@
+// One forward-dynamics step (ABA, then semi-implicit Euler) for ONE state,
+// run cooperatively by a team of NL lanes (NL = 8, 16 or 32) of one warp,
+// with the per-body state in the team's shared memory.  It computes what
+// fd_step_state (rbd_common.cuh) computes for one thread, with the rpy
+// root's six-DoF block and optional world-frame wrenches; fd_step.cu (K1)
+// and feedback_rollout.cu (K2) run it, one team per state or trajectory.
+//
+// Why: one thread per state runs the ~10k operations of an arm7 step (and
+// ~10x that on the humanoid) as one dependent chain, with its per-body
+// arrays indexed by loop variables and therefore in local memory.  Here
+//   - the joint transforms (one sin/cos pair a body), the lower-left blocks
+//     of the dense transforms, the bias terms (v x vJ, v x* I v) and the
+//     inertia copies take one lane a body (or a value);
+//   - the root->leaf velocity and acceleration recursions put one lane on
+//     each of a 6-vector's components, body after body, and load the next
+//     body's transform row, parent and S before the barrier;
+//   - in the leaf->root sweep one lane a component forms U = IA S and the
+//     partial sums of d = S.U and S.pA, which every lane then adds in the
+//     same order; the 36 entries of (IA - U U^T / d) X and the six of the
+//     bias force take one lane each, as do the 21 entries of the symmetric
+//     X^T (IA - U U^T / d) X and the six of X^T pa.  Each of those is a
+//     6-term dot product with a column of the dense X read through the
+//     same strided view as a force vector (Col), so the lanes of a step run
+//     the same instructions;
+// and every array lives in shared memory, so ptxas gives the kernels no
+// per-body stack.  A lane carries no value across a team barrier except
+// through shared memory (or values every lane computes alike).  Reductions
+// are partial sums in shared memory read back in a fixed order, not
+// shuffles: the barrier that publishes U is needed anyway, and reading six
+// partials after it costs less than a five-step butterfly a sum (measured
+// on an H100, PERF.md §6).
+//
+// Bound: the step is latency- and issue-bound, not by bytes or operations:
+// at 32 lanes most phases keep six lanes busy, so instructions per body
+// decide its time; the kernels run one warp a block and as many teams per
+// SM as shared memory allows.
+//
+// No tensor cores: the products are 6x6 per state with a serial dependence
+// along the tree, and float32 results stay float32 in their arithmetic
+// (TF32 would keep ten bits of mantissa).
+//
+// The rpy root's block (chol6, chol6_solve) and the wrenches' world->body
+// chain run on lane 0 as real calls (RBD_HD_CALL): nvcc 12.9 miscompiled
+// inlined root bodies twice (rbd_common.cuh, aba_root6 and floating_xc).
+//
+// The code compiles for the host too: a host harness may define
+// RBD_TEAM_HOST_SYNC() as a barrier of NL threads and run them as one team
+// (the copies then happen at once).
+#pragma once
+
+#include "rbd_common.cuh"
+
+namespace rbd {
+
+// A team of NL lanes: this lane's index and the team's lanes in its warp.
+template <int NL>
+struct Team {
+  int lane;
+  unsigned mask;
+
+  RBD_HD void sync() const {
+#if defined(__CUDA_ARCH__)
+    __syncwarp(mask);
+#elif defined(RBD_TEAM_HOST_SYNC)
+    RBD_TEAM_HOST_SYNC();
+#endif
+  }
+};
+
+// Asynchronous global -> shared copies of one value (cp.async, 4 or 8
+// bytes), the commit of this lane's copies, and the wait for all of them;
+// the host copies at once.
+template <typename T>
+RBD_HD void copy_async(T* dst, const T* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+               "n"(sizeof(T)));
+#else
+  *dst = *src;
+#endif
+}
+
+RBD_HD void copy_async_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+
+RBD_HD void copy_async_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#endif
+}
+
+// The team step's shared-memory layout, in values of T, for size class D:
+// compact transforms X (and, with W, the wrenches' chain Xa), the lower-left
+// blocks BL of the dense X (row k = r x row k of E), velocities v (reused
+// for the accelerations), bias c, articulated bias pA, U, articulated
+// inertias IA, the motion subspaces S, 1 / d, u and the parent per body;
+// with LEV the bodies in order of tree level, the level count and each
+// level's start (copied from the model's int table); one body's
+// (IA - U U^T / d) X and bias force; the partial sums of the leaf->root
+// sweep's two reductions and of U.a (each body's with LEV, two buffers
+// otherwise); qdd.  kernels/_lib.py team_values mirrors these counts.
+template <class D, bool W, bool LEV>
+struct TeamLayout {
+  static constexpr bool WRENCH = W, LEVELS = LEV;
+  static constexpr int NB = D::NB, NV = D::NV;
+  static constexpr int X = 0, XA = X + 12 * NB, BL = XA + (W ? 12 * NB : 0), V = BL + 9 * NB,
+                       C = V + 6 * NB, PA = C + 6 * NB, U = PA + 6 * NB, IA = U + 6 * NB,
+                       SP = IA + 36 * NB, INVD = SP + 6 * NB, UB = INVD + NB, PAR = UB + NB,
+                       ORD = PAR + NB, AD = ORD + (LEV ? 2 * NB + 2 : 0), PAS = AD + 36,
+                       PART = PAS + 6, PROD = PART + 12, QDD = PROD + (LEV ? 6 * NB : 12),
+                       VALUES = QDD + NV;
+};
+
+// Entry k (row kr = k mod 3 of E, lo = k < 3) of X m for a motion vector
+// m = [a; b] (xc_mv): [E a; E (b - r x a)], from that row of E and r.
+template <typename T>
+RBD_HD T xc_mv_row(const T* e, const T* r, const T* m, bool lo) {
+  if (lo) return e[0] * m[0] + e[1] * m[1] + e[2] * m[2];
+  const T t0 = m[3] - (r[1] * m[2] - r[2] * m[1]);
+  const T t1 = m[4] - (r[2] * m[0] - r[0] * m[2]);
+  const T t2 = m[5] - (r[0] * m[1] - r[1] * m[0]);
+  return e[0] * t0 + e[1] * t1 + e[2] * t2;
+}
+
+// Column c of a body's dense 6x6 X = [[E, 0], [BL, E]] (xc_dense), read as
+// entries m < 3 from lo[3 m] (zero when c >= 3) and m >= 3 from
+// hi[3 (m - 3)]: lo = E + c, hi = BL + c for c < 3 and E + c - 3 otherwise.
+// A force vector f read through the same view is lo = f, hi = f + 3 with
+// stride 1 (``vector_col``), so the products by columns of X and by the
+// bias force run the same instructions in every lane.
+template <typename T>
+struct Col {
+  const T* lo;
+  const T* hi;
+  int stride;
+  bool zlo;
+  RBD_HD T operator[](int m) const {
+    return m < 3 ? (zlo ? T(0) : lo[stride * m]) : hi[stride * (m - 3)];
+  }
+};
+
+template <typename T>
+RBD_HD Col<T> dense_col(const Xc<T>& X, const T* BL, int c) {
+  return c < 3 ? Col<T>{X.E + c, BL + c, 3, false} : Col<T>{X.E + c, X.E + c - 3, 3, true};
+}
+
+template <typename T>
+RBD_HD Col<T> vector_col(const T* f) {
+  return Col<T>{f, f + 3, 1, false};
+}
+
+// Row and column of entry e < 21 of a symmetric 6x6's upper triangle, row
+// by row, three bits an entry.
+constexpr unsigned long long TRI_ROW = 0x591b692449240000ull, TRI_COL = 0x5b2c76356346c688ull;
+
+template <typename T>
+RBD_HD T sum6(const T* p) {
+  return ((p[0] + p[1]) + (p[2] + p[3])) + (p[4] + p[5]);
+}
+
+// The world->body chain of the wrenches (apply_fext): Xa[i] = X[i] Xa[parent].
+template <typename T, class D>
+RBD_HD_CALL void fext_chain(const Model<T, D>& m, const Xc<T>* X, Xc<T>* Xa) {
+  for (int i = 0; i < m.nb; ++i) {
+    const int p = m.parent(i);
+    if (p < 0) {
+      Xa[i] = X[i];
+    } else {
+      T t[3];
+      mm3(X[i].E, Xa[p].E, Xa[i].E);
+      mtv3(Xa[p].E, X[i].r, t);
+      for (int k = 0; k < 3; ++k) Xa[i].r[k] = Xa[p].r[k] + t[k];
+    }
+  }
+}
+
+// The rpy root's accelerations (aba_root6's root block): a0 = X0 ag, then
+// IA0 qdd = tau - pA0 - IA0^T a0 by chol6 (NaN when IA0 is not positive
+// definite), a0 += qdd.
+template <typename T>
+RBD_HD_CALL void root_accel(const Xc<T>& X0, const T* IA0, const T* pA0, const T* tau,
+                            T gravity, T* a0, T* qdd) {
+  T ag[6], a[6], L[36], rhs[6];
+  gravity_accel(gravity, ag);
+  xc_mv(X0, ag, a);
+  for (int r = 0; r < 6; ++r) {
+    T s = 0;
+    for (int k = 0; k < 6; ++k) s += IA0[6 * k + r] * a[k];
+    rhs[r] = tau[r] - pA0[r] - s;
+  }
+  chol6(IA0, L);
+  chol6_solve(L, rhs, qdd);
+  for (int k = 0; k < 6; ++k) a0[k] = a[k] + qdd[k];
+}
+
+// One ABA + semi-implicit Euler step of the state x = [q; qd] (2 nv values
+// in shared memory) under the joint forces tau (nv), by the team ``tm``,
+// with the wrenches fext (nb, 6; global memory) when FEXT.  ``s`` is the
+// team's scratch of layout L (a TeamLayout<D, W, LEV>: W holds the wrenches'
+// chain, LEV the level order).  LV walks the root->leaf recursions level by
+// level (the layout must hold the level order), else body by body.  x' is
+// written to xs (shared; may be x itself) and to xg (global) where they are
+// not null.  Every lane returns after the last write; a caller that reads
+// xs must sync first.
+template <int NL, bool FEXT, bool LV, class L, typename T, class D>
+RBD_HD void team_fd_step(const Team<NL>& tm, const Model<T, D>& m, T* s, const T* x,
+                         const T* tau, T dt, T gravity, const T* fext, T* xs, T* xg) {
+  static_assert(NL >= 8 && NL <= 32 && (NL & (NL - 1)) == 0, "a team is 8, 16 or 32 lanes");
+  static_assert(L::NB == D::NB && (L::WRENCH || !FEXT) && (L::LEVELS || !LV),
+                "the layout holds the step");
+  const int nb = m.nb, n = m.nv(), lane = tm.lane;
+  Xc<T>* X = reinterpret_cast<Xc<T>*>(s + L::X);
+  T(*v)[6] = reinterpret_cast<T(*)[6]>(s + L::V);
+  T(*c)[6] = reinterpret_cast<T(*)[6]>(s + L::C);
+  T(*pA)[6] = reinterpret_cast<T(*)[6]>(s + L::PA);
+  T(*U)[6] = reinterpret_cast<T(*)[6]>(s + L::U);
+  T* IA = s + L::IA;
+  T* BL = s + L::BL;
+  T* Sp = s + L::SP;
+  T* invd = s + L::INVD;
+  T* ub = s + L::UB;
+  int* par = reinterpret_cast<int*>(s + L::PAR);
+  T* AD = s + L::AD;
+  T* pa = s + L::PAS;
+  T* part = s + L::PART;
+  T* qdd = s + L::QDD;
+  int* ord = reinterpret_cast<int*>(s + L::ORD);
+  const T* qd = x + n;
+
+  // joint transforms, motion subspaces and parents, one lane a body
+  for (int i = lane; i < nb; i += NL) {
+    if (m.root6(i)) {
+      floating_xc(m, x, X[0]);
+    } else {
+      joint_xc(m, i, x[m.vi(i)], X[i]);
+    }
+    for (int k = 0; k < 6; ++k) Sp[6 * i + k] = m.body(i)[OFF_S + k];
+    par[i] = m.parent(i);
+    for (int k = 0; k < 3; ++k) cross3(X[i].r, X[i].E + 3 * k, BL + 9 * i + 3 * k);
+  }
+  if constexpr (LV) {
+    const int* lv = m.itab + 2 * nb;  // order, level count, level starts
+    for (int e = lane; e < 2 * nb + 2; e += NL) ord[e] = lv[e];
+  }
+  tm.sync();
+  // velocities root -> leaf, one lane a component: with LV level by level,
+  // a group of 8 lanes a body of the level (the model's level order,
+  // _lib.model_tables); otherwise body by body, lane k < 6 loading the next
+  // body's row k mod 3 of E, r, parent and S[k] before the barrier
+  const int* loff = ord + nb + 1;
+  const int levels = LV ? ord[nb] : 0, grp = lane / 8, kl = lane % 8;
+  constexpr int GROUPS = NL / 8;
+  if constexpr (LV) {
+    const int k = kl, kr = k < 3 ? k : k - 3;
+    for (int l = 0; l < levels; ++l) {
+      for (int b = loff[l] + grp; b < loff[l + 1]; b += GROUPS) {
+        const int i = ord[b], p = par[i];
+        if (k < 6) {
+          const T vJ = m.root6(i) ? qd[k] : Sp[6 * i + k] * qd[m.vi(i)];
+          v[i][k] = p < 0 ? vJ : xc_mv_row(X[i].E + 3 * kr, X[i].r, v[p], k < 3) + vJ;
+        }
+      }
+      tm.sync();
+    }
+  } else {
+    const int k = lane < 6 ? lane : 0, kr = k < 3 ? k : k - 3;
+    T e[3], r[3], sk = Sp[k];
+    int p = par[0];
+    for (int j = 0; j < 3; ++j) {
+      e[j] = X[0].E[3 * kr + j];
+      r[j] = X[0].r[j];
+    }
+    for (int i = 0; i < nb; ++i) {
+      T en[3], rn[3], skn = sk;
+      int pn = p;
+      if (i + 1 < nb) {
+        pn = par[i + 1];
+        skn = Sp[6 * (i + 1) + k];
+        for (int j = 0; j < 3; ++j) {
+          en[j] = X[i + 1].E[3 * kr + j];
+          rn[j] = X[i + 1].r[j];
+        }
+      }
+      if (lane < 6) {
+        const T vJ = m.root6(i) ? qd[k] : sk * qd[m.vi(i)];
+        v[i][k] = p < 0 ? vJ : xc_mv_row(e, r, v[p], k < 3) + vJ;
+      }
+      tm.sync();
+      p = pn;
+      sk = skn;
+      for (int j = 0; j < 3; ++j) {
+        e[j] = en[j];
+        r[j] = rn[j];
+      }
+    }
+  }
+  // bias terms one lane a body; the inertias one lane a value
+  for (int i = lane; i < nb; i += NL) {
+    T vJ[6], Iv[6];
+    for (int k = 0; k < 6; ++k) vJ[k] = m.root6(i) ? qd[k] : Sp[6 * i + k] * qd[m.vi(i)];
+    if (par[i] < 0) {
+      for (int k = 0; k < 6; ++k) c[i][k] = T(0);
+    } else {
+      cross_motion(v[i], vJ, c[i]);
+    }
+    matvec6(m.body(i) + OFF_I, v[i], Iv);
+    cross_force(v[i], Iv, pA[i]);
+  }
+  for (int e = lane; e < nb * 36; e += NL) IA[e] = m.body(e / 36)[OFF_I + e % 36];
+  tm.sync();
+  if constexpr (FEXT) {
+    Xc<T>* Xa = reinterpret_cast<Xc<T>*>(s + L::XA);
+    if (lane == 0) fext_chain(m, X, Xa);
+    tm.sync();
+    for (int i = lane; i < nb; i += NL) {
+      const T* w = fext + 6 * i;
+      T rxf[3], nr[3], o[6];
+      cross3(Xa[i].r, w + 3, rxf);
+      for (int k = 0; k < 3; ++k) nr[k] = w[k] - rxf[k];
+      mv3(Xa[i].E, nr, o);
+      mv3(Xa[i].E, w + 3, o + 3);
+      for (int k = 0; k < 6; ++k) pA[i][k] -= o[k];
+    }
+    tm.sync();
+  }
+  // articulated inertias leaf -> root: U = IA S and the partial sums of
+  // d = S.U and S.pA one lane a component; then every lane sums them in
+  // the same order.  The body's S and U sit in every lane's registers.
+  for (int i = nb - 1; i >= (D::FB ? 1 : 0); --i) {
+    const T* Ii = IA + 36 * i;
+    const int p = par[i];
+    T Si[6];
+    for (int k = 0; k < 6; ++k) Si[k] = Sp[6 * i + k];
+    if (lane < 6) {
+      T u_k = 0;
+      for (int j = 0; j < 6; ++j) u_k += Ii[6 * lane + j] * Si[j];
+      U[i][lane] = u_k;
+      part[lane] = Sp[6 * i + lane] * u_k;
+      part[6 + lane] = Sp[6 * i + lane] * pA[i][lane];
+    }
+    tm.sync();
+    T Ui[6];
+    for (int k = 0; k < 6; ++k) Ui[k] = U[i][k];
+    const T inv = T(1) / sum6(part), ui = tau[m.vi(i)] - sum6(part + 6);
+    if (lane == 0) {
+      invd[i] = inv;
+      ub[i] = ui;
+    }
+    if (p < 0) {  // a fixed-base root: no parent to accumulate into
+      tm.sync();
+      continue;
+    }
+    const T ud = ui * inv;
+    // AD = (IA - U U^T / d) X one lane an entry; pa = pA + (IA - U U^T / d) c
+    // + U u / d one lane a component
+    for (int e = lane; e < 42; e += NL) {
+      const bool ad = e < 36;
+      const int r = ad ? e / 6 : e - 36;
+      const Col<T> col = ad ? dense_col(X[i], BL + 9 * i, e - 6 * r) : vector_col(c[i]);
+      const T ur = U[i][r] * inv;
+      const T* row = Ii + 6 * r;
+      T acc = 0;
+      for (int k = 0; k < 6; ++k) acc += (row[k] - ur * Ui[k]) * col[k];
+      if (ad) {
+        AD[e] = acc;
+      } else {
+        pa[r] = pA[i][r] + acc + U[i][r] * ud;
+      }
+    }
+    tm.sync();
+    // IA[p] += X^T AD (symmetric: 21 entries) and pA[p] += X^T pa, one lane
+    // an entry
+    T* Ip = IA + 36 * p;
+    for (int e = lane; e < 27; e += NL) {
+      const bool ia = e < 21;
+      const int r = ia ? (int)((TRI_ROW >> (3 * e)) & 7) : e - 21,
+                j = ia ? (int)((TRI_COL >> (3 * e)) & 7) : 0;
+      const Col<T> xr = dense_col(X[i], BL + 9 * i, r);
+      const T* src = ia ? AD + j : pa;
+      const int st = ia ? 6 : 1;
+      T acc = 0;
+      for (int k = 0; k < 6; ++k) acc += xr[k] * src[st * k];
+      if (ia) {
+        Ip[6 * r + j] += acc;
+        if (j != r) Ip[6 * j + r] += acc;
+      } else {
+        pA[p][r] += acc;
+      }
+    }
+    tm.sync();
+  }
+  // accelerations root -> leaf in v's storage: a[i] holds X a[p] + c before
+  // its own S qdd, which the children add.  With LV level by level as the
+  // velocities, the children summing the parent's partial sums of U.a (in
+  // the same order in every lane, or the group's own qdd kept from the
+  // level before); otherwise body by body, the partial sums alternating
+  // between two buffers so that one barrier a body separates their writes
+  // from every lane's reads
+  T(*a)[6] = v;
+  T* pr = s + L::PROD;
+  if constexpr (D::FB) {
+    if (lane == 0) root_accel(X[0], IA, pA[0], tau, gravity, a[0], qdd);
+    tm.sync();
+  }
+  if constexpr (LV) {
+    const int k = kl, kr = k < 3 ? k : k - 3;
+    int mine = -1;  // the group's last body, whose qdd its lanes hold
+    T qmine = 0;
+    for (int l = D::FB ? 1 : 0; l < levels; ++l) {
+      int last = -1;
+      for (int b = loff[l] + grp; b < loff[l + 1]; b += GROUPS) {
+        const int i = ord[b], p = par[i];
+        last = i;
+        if (k < 6) {
+          T ap[6];
+          if (p < 0) {
+            gravity_accel(gravity, ap);
+          } else if (D::FB && p == 0) {  // the root's block is final
+            for (int j = 0; j < 6; ++j) ap[j] = a[0][j];
+          } else {
+            const T qp = p == mine ? qmine : (ub[p] - sum6(pr + 6 * p)) * invd[p];
+            for (int j = 0; j < 6; ++j) ap[j] = a[p][j] + Sp[6 * p + j] * qp;
+          }
+          const T ak = xc_mv_row(X[i].E + 3 * kr, X[i].r, ap, k < 3) + c[i][k];
+          a[i][k] = ak;
+          pr[6 * i + k] = U[i][k] * ak;
+        }
+      }
+      tm.sync();
+      if (last >= 0) {
+        mine = last;
+        qmine = (ub[last] - sum6(pr + 6 * last)) * invd[last];
+      }
+    }
+    for (int i = lane; i < nb; i += NL)
+      if (!m.root6(i)) qdd[m.vi(i)] = (ub[i] - sum6(pr + 6 * i)) * invd[i];
+  } else {
+    const int i0 = D::FB ? 1 : 0;
+    T qprev = 0;  // qdd of body i - 1, in every lane
+    const int k = lane < 6 ? lane : 0, kr = k < 3 ? k : k - 3;
+    T e[3], r[3], ck = 0, uk = 0;
+    int p = 0;
+    auto load = [&](int i, T* e_, T* r_, T& c_, T& u_, int& p_) {
+      p_ = par[i];
+      c_ = c[i][k];
+      u_ = U[i][k];
+      for (int j = 0; j < 3; ++j) {
+        e_[j] = X[i].E[3 * kr + j];
+        r_[j] = X[i].r[j];
+      }
+    };
+    if (i0 < nb) load(i0, e, r, ck, uk, p);
+    for (int i = i0; i < nb; ++i) {
+      T en[3], rn[3], cn = ck, un = uk;
+      int pn = p;
+      if (i + 1 < nb) load(i + 1, en, rn, cn, un, pn);
+      T* pri = pr + 6 * (i & 1);
+      if (lane < 6) {
+        T ap[6];
+        if (p < 0) {
+          gravity_accel(gravity, ap);
+        } else if (D::FB && p == 0) {  // the root's block is final
+          for (int j = 0; j < 6; ++j) ap[j] = a[0][j];
+        } else {
+          const T qp = p == i - 1 ? qprev : qdd[m.vi(p)];
+          for (int j = 0; j < 6; ++j) ap[j] = a[p][j] + Sp[6 * p + j] * qp;
+        }
+        const T ak = xc_mv_row(e, r, ap, k < 3) + ck;
+        a[i][k] = ak;
+        pri[k] = uk * ak;
+      }
+      tm.sync();
+      qprev = (ub[i] - sum6(pri)) * invd[i];
+      if (lane == 0) qdd[m.vi(i)] = qprev;
+      p = pn;
+      ck = cn;
+      uk = un;
+      for (int j = 0; j < 3; ++j) {
+        e[j] = en[j];
+        r[j] = rn[j];
+      }
+    }
+  }
+  tm.sync();
+  // semi-implicit Euler, one lane a coordinate
+  for (int k = lane; k < n; k += NL) {
+    const T qdn = x[n + k] + dt * qdd[k], qn = x[k] + dt * qdn;
+    if (xg != nullptr) {
+      xg[k] = qn;
+      xg[n + k] = qdn;
+    }
+    if (xs != nullptr) {
+      xs[k] = qn;
+      xs[n + k] = qdn;
+    }
+  }
+}
+
+}  // namespace rbd
+
+#ifdef __CUDACC__
+// The team of thread ``threadIdx.x`` in a block of whole teams of NL lanes.
+template <int NL>
+__device__ __forceinline__ rbd::Team<NL> this_team() {
+  const int lane = (int)(threadIdx.x % NL);
+  const unsigned mask =
+      NL == 32 ? 0xffffffffu : ((1u << NL) - 1u) << ((threadIdx.x % 32) / NL * NL);
+  return rbd::Team<NL>{lane, mask};
+}
+
+// Dynamic shared memory of a block: the caller's byte count must equal
+// tpb teams of ``stride`` values, at most the H100's 232,448 bytes a block;
+// above 48 KB the kernel is opted in.  Returns a cudaError_t.
+template <typename K>
+static int team_smem_check(K kernel, int smem, int tpb, int stride, size_t value_size) {
+  if (tpb < 1 || (size_t)smem != (size_t)tpb * stride * value_size || smem > 232448)
+    return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024)
+    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return 0;
+}
+#endif

@@ -6,7 +6,7 @@
 // the thread for all H steps, reads U[t, b, :] (and the wrench set f_ext[t]
 // shared by the batch) per step, and writes only the final state.
 // Template MINV picks the route: false is the ABA step (rbd_common.cuh
-// fd_step_state, the body of fd_step.cu); true is the M^-1 + RNEA step
+// fd_step_state, the one-thread step); true is the M^-1 + RNEA step
 // (fd_step_minv_state with the factorised M^-1 apply, the body of
 // fd_step_minv.cu); FEXT false compiles the wrench code out.
 // Layouts (row-major): x0, xo (B, 2n); U (H, B, n), scan-major as in rbdtpu;

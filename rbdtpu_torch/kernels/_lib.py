@@ -47,6 +47,109 @@ SIZE_CLASSES = {
                         "feedback_chunked")),
 }
 
+# Lanes a team of the team kernels (csrc/rbd_team.cuh: one team of one warp
+# runs one state's step in fd_step, one trajectory in feedback_rollout), per
+# kernel, size class and dtype, fixed from their times on an H100 at each
+# class's path shapes (PERF.md §6, tools/time_step_kernels.py --sweep).  The
+# build compiles each kernel at this size alone (``team_defines``).
+TEAM = {(k, cls, sfx): 32 for k in ("fd_step", "feedback_rollout")
+        for cls in ("n8", "fb16", "fb32") for sfx in ("f32", "f64")}
+TEAM[("fd_step", "fb32", "f32")] = 16
+# the team sizes rbd_team.cuh takes
+TEAM_SIZES = (8, 16, 32)
+# shared memory a block may take on an H100 (above 48 KB by opt-in)
+SMEM_MAX = 232448
+# streaming multiprocessors of an H100 SXM, the default of team_geometry
+H100_SMS = 132
+
+
+def team_values(kernel: str, cls: str, team: int) -> int:
+    """Shared-memory values one team of ``kernel`` takes in size class
+    ``cls``: the step's scratch (rbd_team.cuh TeamLayout: per body the
+    compact transform, 12, and the dense transform's lower-left block, 9;
+    v, c, pA, U and S, 6 each; IA, 36; 1 / d, u and the parent; then one
+    body's (IA - U U^T / d) X and bias force and 12 partial sums, 54, and
+    qdd), fd_step's with the wrenches' chain (12 a body) and two buffers of
+    U.a partial sums, feedback_rollout's with the level order (2 nb + 2)
+    and each body's U.a partial sums; then the kernel's own values
+    (fd_step: x and u; feedback_rollout: x, dx, u and the knot buffer, K
+    with rows of nx + 1), rounded up to 32 and offset by ``team`` % 32 as
+    fd_step.cu and feedback_rollout.cu pad them.  The launch refuses any
+    other count."""
+    nb, fb, _ = SIZE_CLASSES[cls]
+    nv = nb + 5 if fb else nb
+    values = 90 * nb + 54 + nv
+    if kernel == "fd_step":
+        values += 12 * nb + 12 + 3 * nv
+    elif kernel == "feedback_rollout":
+        values += 8 * nb + 2 + 9 * nv + nv * (2 * nv + 1)
+    else:
+        raise ValueError(f"{kernel} is not a team kernel")
+    return -(-values // 32) * 32 + team % 32
+
+
+def team_geometry(kernel: str, cls: str, dtype, B: int, nsm: int = H100_SMS):
+    """(team, teams a block, shared bytes a block, blocks) of a launch of
+    ``kernel`` over B states or trajectories on a card with ``nsm`` SMs: the
+    team size of TEAM, at most one warp of teams a block within SMEM_MAX,
+    halved while the batch would leave SMs without a block."""
+    team = TEAM[(kernel, cls, _SUFFIX[dtype])]
+    per = team_values(kernel, cls, team) * torch.finfo(dtype).bits // 8
+    tpb = min(32 // team, SMEM_MAX // per)
+    while tpb > 1 and -(-B // tpb) < nsm:
+        tpb //= 2
+    return team, tpb, tpb * per, -(-B // tpb)
+
+
+def team_defines() -> tuple:
+    """The nvcc defines that fix each team kernel's team size per size
+    class and dtype (RBD_TEAM_<kernel>_<class>_<f32|f64>) from TEAM."""
+    return tuple(f"-DRBD_TEAM_{k}_{cls}_{sfx}={n}"
+                 for (k, cls, sfx), n in sorted(TEAM.items()))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The SMs of CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _check_dtype(kernel: str, ref: torch.Tensor):
+    if ref.dtype not in _SUFFIX:
+        raise ValueError(f"{kernel}: kernels take float32 or float64, got "
+                         f"{ref.dtype}")
+
+
+def tree_depths(model) -> list:
+    """Each body's depth in the model's tree (parents precede children)."""
+    depth = []
+    for p in model.parent:
+        depth.append(0 if p < 0 else depth[p] + 1)
+    return depth
+
+
+def level_walk(model) -> bool:
+    """Whether feedback_rollout walks the step's root->leaf recursions level
+    by level: where the tree branches (the rpy root's legs and limbs), the
+    bodies of a level run side by side; a chain (an arm) is walked body by
+    body, which keeps the next body's data loading under the barrier
+    (PERF.md §6).  fd_step always walks body by body."""
+    return max(tree_depths(model)) + 1 < model.nb
+
+
+def team_args(kernel: str, model, ref: torch.Tensor, B: int):
+    """The geometry arguments of a team kernel's launch over B elements of
+    ``model`` on ref's device: (teams a block, shared bytes a block), for
+    feedback_rollout after the walk (1: level by level, 0: body by body;
+    ``level_walk``'s)."""
+    _check_dtype(kernel, ref)
+    _, tpb, smem, _ = team_geometry(kernel, size_class(kernel, model),
+                                    ref.dtype, B, sm_count(ref.device))
+    if kernel != "feedback_rollout":
+        return tpb, smem
+    return int(level_walk(model)), tpb, smem
+
+
 # launches per kernel since the last reset_launches(); a wrapper adds one
 # only after its kernel launched without error.  riccati_chunk and
 # riccati_small count the chunked Riccati kernel at its two call sites
@@ -62,8 +165,10 @@ launches = {"fd_step": 0, "feedback_rollout": 0, "linearize_parts": 0,
 # function ends with the stream.  The tree kernels' signatures follow a
 # leading (tab, itab, nb); the Riccati sweep takes no model.
 _SIGNATURES = {
-    "fd_step": "pppipiss",         # x u fext fext_stride xo B dt gravity
-    "feedback_rollout": "ppppppppiiss",  # x0 Xn Un kf Kf uclip Xo Uo B H dt g
+    # x u fext fext_stride xo B tpb smem dt gravity
+    "fd_step": "pppipiiiss",
+    # x0 Xn Un kf Kf uclip Xo Uo B H levels tpb smem dt gravity
+    "feedback_rollout": "ppppppppiiiiiss",
     "linearize_parts": "pppppppis",  # q qd u Minv dcq dcd qdd B gravity
     "ee_gn": "pipssspppi",         # ee jid q tx ty tz e g0 H0 B
     "ee_err": "pipssspi",          # ee jid q tx ty tz e B
@@ -103,12 +208,13 @@ def _nvcc() -> str:
 
 
 def build() -> str:
-    """Compile the kernels (once per source content); returns the .so path.
-    One nvcc per source, all started together, then one link.  The
-    compiler's register/spill report is kept beside the library as
+    """Compile the kernels (once per source content and TEAM); returns the
+    .so path.  One nvcc per source, all started together, then one link.
+    The compiler's register/spill report is kept beside the library as
     .ptxas.log."""
     srcs = _sources()
-    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    flags = (*COMPILE_FLAGS, *team_defines())
+    h = hashlib.sha256(" ".join(flags + LINK_FLAGS).encode())
     for p in srcs:
         h.update(os.path.basename(p).encode())
         with open(p, "rb") as f:
@@ -125,7 +231,7 @@ def build() -> str:
         objs = [os.path.join(work, os.path.basename(p)[:-3] + ".o")
                 for p in cus]
         lib = os.path.join(work, "lib.so")
-        procs = [run([nvcc, *COMPILE_FLAGS, "-o", o, p])
+        procs = [run([nvcc, *flags, "-o", o, p])
                  for o, p in zip(objs, cus)]
         logs = [p.communicate()[0] for p in procs]
         if all(p.returncode == 0 for p in procs):
@@ -214,9 +320,12 @@ def model_tables(model, device, dtype):
     """The model's kernel tables on ``device`` in ``dtype``, uploaded once
     per (model, device, dtype): per body [E, r, axis, I, S, Ttree R, Ttree p]
     (the compact (E, r) split of Xtree: X = [[E, 0], [-E r^, E]]), and the
-    int32 [parent..., joint_type...].  An rpy floating root's row carries
-    its Xtree[0] and inertia like any other; its joint (type FLOATING, six
-    DoFs, S = I) is the kernels' to know."""
+    int32 [parent..., joint_type..., the bodies in order of depth in the
+    tree..., the number of depths, where each depth starts in that order
+    (and its end)...], which the team kernels (csrc/rbd_team.cuh) walk level
+    by level.  An rpy floating root's row carries its Xtree[0] and inertia
+    like any other; its joint (type FLOATING, six DoFs, S = I) is the
+    kernels' to know."""
     key = ("model", str(device), dtype)
     if key not in model._tables:
         hd = model.host_data
@@ -231,8 +340,13 @@ def model_tables(model, device, dtype):
                 hd["I"][i].ravel(), hd["S"][i], T[:3, :3].ravel(), T[:3, 3],
             ]))
         tab = torch.tensor(np.concatenate(rows), dtype=dtype, device=device)
-        itab = torch.tensor(list(model.parent) + list(model.joint_type),
-                            dtype=torch.int32, device=device)
+        depth = tree_depths(model)
+        levels = max(depth) + 1
+        order = sorted(range(model.nb), key=lambda i: (depth[i], i))
+        starts = [sum(d < lv for d in depth) for lv in range(levels + 1)]
+        itab = torch.tensor(
+            list(model.parent) + list(model.joint_type) + order + [levels]
+            + starts, dtype=torch.int32, device=device)
         model._tables[key] = (tab, itab)
     return model._tables[key]
 
@@ -270,9 +384,7 @@ def launch(kernel: str, model, ref: torch.Tensor, *args, count_as=None):
     ``args`` follow the C signature: tensors (or None for a null pointer),
     ints and floats.  The launch counts under ``count_as`` (default: the
     kernel's name)."""
-    if ref.dtype not in _SUFFIX:
-        raise ValueError(f"{kernel}: kernels take float32 or float64, got "
-                         f"{ref.dtype}")
+    _check_dtype(kernel, ref)
     lead = []
     symbol = f"rbd_{kernel}"
     if model is not None:

@@ -58,15 +58,18 @@ def fd_step_fused(model: RobotModel, x, u, dt: float, gravity: float = -9.81,
     (B, nb, 6).
 
     Kernel ``fd_step`` (csrc/fd_step.cu) replaces rbdtpu's
-    ``kernels.fused.fd_step_fused`` (Pallas, fused.py:450): one thread per
-    batch element builds the compact joint transforms, runs the three ABA
-    sweeps (the wrenches enter the bias forces through the compact
-    world->body chain) and integrates, reading only x, u and f_ext and
-    writing only x'.  Bound on the H100: latency, not bandwidth — at the
-    solver's B=128 one launch fills one SM, and the per-thread ABA state
-    (articulated inertias of every body) lives in local memory.  The design
-    accepts that for now: a rollout that needs only its final state takes
-    the whole-horizon kernel (``rollout_fused_multi``) instead.
+    ``kernels.fused.fd_step_fused`` (Pallas, fused.py:450): one team of
+    lanes of a warp per batch element (csrc/rbd_team.cuh) builds the
+    compact joint transforms one lane a body, runs the three ABA sweeps
+    with each body's 6x6 products split over its lanes and the per-body
+    state in shared memory (the wrenches enter the bias forces through the
+    compact world->body chain) and integrates, reading only x, u and f_ext
+    and writing only x'.  Bound on the H100: the latency of the step's
+    chain along the tree for a small batch, instruction issue for a large
+    one, not bytes; the team size per size class and dtype (``_lib.TEAM``)
+    and the teams a block are ``_lib.team_geometry``'s, which spreads a
+    small batch (the MPC plant's B=1, the solver's B=128) over as many SMs
+    as it has teams.
     """
     if not x.is_cuda:
         return fd_step_plain(model, x, u, dt, gravity, f_ext)
@@ -75,7 +78,8 @@ def fd_step_fused(model: RobotModel, x, u, dt: float, gravity: float = -9.81,
     _lib.check(u, "u", (B, model.nv), x)
     fe, stride = _fext_arg(model, f_ext, B, x)
     xo = torch.empty_like(x)
-    _lib.launch("fd_step", model, x, x, u, fe, stride, xo, B, dt, gravity)
+    _lib.launch("fd_step", model, x, x, u, fe, stride, xo, B,
+                *_lib.team_args("fd_step", model, x, B), dt, gravity)
     return xo
 
 
@@ -236,13 +240,19 @@ def feedback_rollout_fused(model: RobotModel, x0, X_nom, U_nom, k_ff, K_fb,
 
     Kernel ``feedback_rollout`` (csrc/feedback_rollout.cu) replaces rbdtpu's
     ``kernels.fused.feedback_rollout_fused`` (Pallas, fused.py:611, one
-    launch per knot inside lax.scan): one thread per trajectory loops over
-    the H knots with its state in registers.  Bound on the H100: the gain
-    reads — each knot reads nv*nx values of K per thread, contiguous within
-    a thread and so uncoalesced across the warp — and occupancy: 1024
-    trajectories are 32 blocks of 32 threads on 132 SMs.  Small blocks
-    spread them over as many SMs as possible; a transposed K layout (knot
-    major, trajectory minor) would coalesce the reads and is left for later.
+    launch per knot inside lax.scan): one team of lanes of a warp per
+    trajectory loops over the H knots with its state in shared memory.  Per
+    knot the team's lanes copy the knot's gains and nominals into shared
+    memory with consecutive lanes on consecutive addresses (cp.async, issued
+    one knot ahead so the copies overlap the previous knot's step), sum the
+    feedback one lane a row of K, clamp, and run the team ABA step of
+    ``fd_step_fused``, its root->leaf recursions level by level on a
+    branched tree (``_lib.level_walk``).  Bound on the H100: the latency of
+    H dependent steps per trajectory; the gains are read once, coalesced.
+    Team size and teams a block are ``_lib.team_geometry``'s; any B >= 1
+    and H >= 1 are taken as they are.  The lanes stay independent and alpha
+    stays folded into k_ff (rbdtpu's contract), so the line search's
+    n_alpha candidates of one problem each read their own copy of K.
     """
     if not x0.is_cuda:
         return feedback_rollout_plain(model, x0, X_nom, U_nom, k_ff, K_fb,
@@ -259,7 +269,9 @@ def feedback_rollout_fused(model: RobotModel, x0, X_nom, U_nom, k_ff, K_fb,
     Xo = torch.empty_like(X_nom)
     Uo = torch.empty_like(U_nom)
     _lib.launch("feedback_rollout", model, x0, x0, X_nom, U_nom, k_ff, K_fb,
-                u_clip, Xo, Uo, B, H, dt, gravity)
+                u_clip, Xo, Uo, B, H,
+                *_lib.team_args("feedback_rollout", model, x0, B), dt,
+                gravity)
     return Xo, Uo
 
 
@@ -315,7 +327,7 @@ def feedback_rollout_fused_chunked(model: RobotModel, x0, X_nom, U_nom, k_ff,
     :904 and :945).  A warp-sized block owns a few trajectories; per knot
     and chunk it stages their gain columns in shared memory with coalesced
     loads, splits the partial sums over its threads, and each trajectory's
-    thread clamps and steps with the ABA body K1 and K2 share.  Bound on the
+    thread clamps and steps with the one-thread ABA step.  Bound on the
     H100: the gain bytes and the serial ABA walk.  Any nchunks >= 1 is
     taken (``chunk_geometry``).  No quaternion root, no wrenches (K2 takes
     none either).

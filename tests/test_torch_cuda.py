@@ -110,9 +110,15 @@ def _launched(name, fn):
     return out
 
 
-def test_fd_step(tree_case):
+# batches around the team kernels' team and block sizes (one team a block
+# for a small batch, whole warps of teams, a ragged last block)
+TEAM_BATCHES = (1, 37, 1000)
+
+
+@pytest.mark.parametrize("B", TEAM_BATCHES)
+def test_fd_step(tree_case, B):
     m, _, tol = tree_case
-    x, u = _inputs(m, (200, m.nx), (200, m.nv))
+    x, u = _inputs(m, (B, m.nx), (B, m.nv))
     out = _launched("fd_step", lambda: fd_step_fused(m, x, u, DT))
     _close(out, fused.fd_step_plain(m, x, u, DT), tol)
 
@@ -173,18 +179,66 @@ def test_entry_points_default_to_the_card(card):
     assert parse_urdf(mixed_tree_urdf()).device.type == "cuda"
 
 
+def _closed_loop(m, B, H):
+    """Line-search inputs whose closed loop holds its start, as
+    ``_humanoid_inputs`` builds them: rest at 0.3 N(0,1) joint angles (an
+    rpy root standing at 0.35 with 0.05 N(0,1) on its coordinates), gravity
+    compensation, K = -M(q0) [400 I, 40 I] perturbed by 10% per knot toward
+    nominals 0.01 N(0,1) away, from states 0.02 N(0,1) away.  Random gains
+    let some of a thousand arm trajectories leave the loop and grow to 1e5
+    within 8 knots, where float32 rounding is amplified past any
+    tolerance."""
+    from rbdtpu_torch.dynamics import minv, rnea
+
+    rng = np.random.default_rng(11)
+    T = lambda a: torch.tensor(a, dtype=m.dtype, device=m.device)
+    n = m.nv
+    q0 = 0.3 * rng.standard_normal((B, n))
+    if m.floating_base:
+        q0[:, :6] = 0.05 * rng.standard_normal((B, 6))
+        q0[:, 2] += 0.35
+    q0 = T(q0)
+    z = torch.zeros_like(q0)
+    x0 = torch.cat([q0, z], -1)
+    Xn = x0[:, None] + T(0.01 * rng.standard_normal((B, H, 2 * n)))
+    pd = np.concatenate([400.0 * np.eye(n), 40.0 * np.eye(n)], 1)
+    gains = T(pd * (1 + 0.1 * rng.standard_normal((B, H, n, 2 * n))))
+    Kf = -(torch.linalg.inv(minv(m, q0))[:, None] @ gains)
+    kf = -(Kf @ (x0[:, None] - Xn)[..., None])[..., 0]
+    Un = rnea(m, q0, z, z)[0][:, None].expand(B, H, n).contiguous()
+    xs = x0 + T(0.02 * rng.standard_normal((B, 2 * n)))
+    return xs, Xn.contiguous(), Un, kf.contiguous(), Kf.contiguous()
+
+
+# (inputs, B, H) of K2's checks: the closed loop at TEAM_BATCHES over one
+# and eight knots, and random gains over eight knots at 70 trajectories
+FEEDBACK_CASES = [("closed", B, H) for B in TEAM_BATCHES for H in (1, 8)]
+FEEDBACK_CASES.append(("random", 70, 8))
+
+
+@pytest.mark.parametrize("inputs,B,H", FEEDBACK_CASES,
+                         ids=lambda v: str(v))
 @pytest.mark.parametrize("clip", [False, True])
-def test_feedback_rollout(tree_case, clip):
+def test_feedback_rollout(tree_case, clip, inputs, B, H):
+    """K2 against its plain version: over a closed loop, with and without a
+    clamp at 0.8 of the largest control each coordinate takes unclamped;
+    and open loop, random gains 0.1 N(0,1), with and without a clamp at
+    0.05, which bites on most controls."""
     m, _, tol = tree_case
-    B, H = 70, 8
-    x0, Xn, Un, kf, Kf = _inputs(m, (B, m.nx), (B, H, m.nx), (B, H, m.nv),
-                                 (B, H, m.nv), (B, H, m.nv, m.nx), scale=0.1)
-    u_clip = torch.full((m.nv,), 0.05, dtype=m.dtype,
-                        device=m.device) if clip else None
+    if inputs == "closed":
+        args = _closed_loop(m, B, H)
+    else:
+        args = _inputs(m, (B, m.nx), (B, H, m.nx), (B, H, m.nv),
+                       (B, H, m.nv), (B, H, m.nv, m.nx), scale=0.1)
+    u_clip = None
+    if clip and inputs == "closed":
+        applied = fused.feedback_rollout_plain(m, *args, DT)[1]
+        u_clip = 0.8 * applied.abs().amax(dim=(0, 1))
+    elif clip:
+        u_clip = torch.full((m.nv,), 0.05, dtype=m.dtype, device=m.device)
     X, U = _launched("feedback_rollout", lambda: feedback_rollout_fused(
-        m, x0, Xn, Un, kf, Kf, DT, u_clip=u_clip))
-    Xp, Up = fused.feedback_rollout_plain(m, x0, Xn, Un, kf, Kf, DT,
-                                          u_clip=u_clip)
+        m, *args, DT, u_clip=u_clip))
+    Xp, Up = fused.feedback_rollout_plain(m, *args, DT, u_clip=u_clip)
     _close(X, Xp, tol)
     _close(U, Up, tol)
 
@@ -488,23 +542,40 @@ def _humanoid_inputs(m, B, H):
             (torch.cat([q0, qd], -1), u))
 
 
+@pytest.mark.parametrize("B", TEAM_BATCHES)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["float64", "float32"])
-def test_humanoid_tree_kernels(card, dtype):
+def test_humanoid_tree_kernels(card, dtype, B):
     """K1, K2 and K3 at the humanoid's size class (fb32, 31 bodies) against
     their plain versions: 1e-9 in float64, 1e-4 relative in float32 (1e-3
-    for the 8-knot closed loop)."""
+    for the 8-knot closed loop).  K1 also under world wrenches, one set
+    shared by the batch and one per state; K2 also over one knot with and
+    without a clamp at 0.8 of the largest first control."""
     m = _humanoid(dtype)
     assert _lib.size_class("fd_step", m) == "fb32"
     tol = 1e-9 if dtype == torch.float64 else 1e-4
-    fb, (x, u) = _humanoid_inputs(m, 70, 8)
+    fb, (x, u) = _humanoid_inputs(m, B, 8)
     out = _launched("fd_step", lambda: fd_step_fused(m, x, u, DT))
     _close(out, fused.fd_step_plain(m, x, u, DT), tol)
+    for shape in ((m.nb, 6), (B, m.nb, 6)):
+        fe = 20.0 * _inputs(m, shape)[0]
+        out = _launched("fd_step",
+                        lambda: fd_step_fused(m, x, u, DT, f_ext=fe))
+        _close(out, fused.fd_step_plain(m, x, u, DT, f_ext=fe), tol)
     X, U = _launched("feedback_rollout",
                      lambda: feedback_rollout_fused(m, *fb, DT))
     Xp, Up = fused.feedback_rollout_plain(m, *fb, DT)
     _close(X, Xp, 10 * tol if dtype == torch.float32 else tol)
     _close(U, Up, 10 * tol if dtype == torch.float32 else tol)
+    one = tuple((a[:, :1] if a.dim() > 2 else a).contiguous() for a in fb)
+    clip = 0.8 * fused.feedback_rollout_plain(m, *one, DT)[1].abs().amax(
+        dim=(0, 1))
+    for u_clip in (None, clip):
+        X, U = _launched("feedback_rollout", lambda: feedback_rollout_fused(
+            m, *one, DT, u_clip=u_clip))
+        Xp, Up = fused.feedback_rollout_plain(m, *one, DT, u_clip=u_clip)
+        _close(X, Xp, tol)
+        _close(U, Up, tol)
     q, qd = x[:, :m.nq].contiguous(), x[:, m.nq:].contiguous()
     out = _launched("linearize_parts",
                     lambda: linearize_parts_fused(m, q, qd, u))

@@ -116,7 +116,9 @@ def test_cpu_tensors_take_the_plain_versions(tm, rng):
 
 def test_model_tables_layout(tm):
     """The kernels' per-body table: compact (E, r) rebuilds Xtree, and the
-    other fields are the model's own."""
+    other fields are the model's own; the int table holds the parents, the
+    joint types and the bodies level by level (every body once, each after
+    its parent's level)."""
     from rbdtpu_torch.kernels import _lib
 
     tab, itab = _lib.model_tables(tm, torch.device("cpu"), torch.float64)
@@ -133,4 +135,12 @@ def test_model_tables_layout(tm):
         T = tm.host_data["Ttree"][i]
         np.testing.assert_array_equal(row[57:66].reshape(3, 3), T[:3, :3])
         np.testing.assert_array_equal(row[66:69], T[:3, 3])
-    assert itab.tolist() == list(tm.parent) + list(tm.joint_type)
+    nb, it = tm.nb, itab.tolist()
+    assert it[:2 * nb] == list(tm.parent) + list(tm.joint_type)
+    order, levels, starts = it[2 * nb:3 * nb], it[3 * nb], it[3 * nb + 1:]
+    assert sorted(order) == list(range(nb))
+    assert len(starts) == levels + 1 and starts[0] == 0 and starts[-1] == nb
+    level = {i: lv for lv in range(levels)
+             for i in order[starts[lv]:starts[lv + 1]]}
+    for i, p in enumerate(tm.parent):
+        assert level[i] == (0 if p < 0 else level[p] + 1)

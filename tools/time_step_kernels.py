@@ -1,0 +1,170 @@
+#!/usr/bin/env python3
+"""Time the step kernels K1 (``fd_step``) and K2 (``feedback_rollout``) on
+one CUDA card, float32, at each size class's path shapes:
+
+    python3 tools/time_step_kernels.py [--root DIR] [--label NAME]
+    python3 tools/time_step_kernels.py --sweep
+
+Shapes: arm7 K1 at 128 and 1 states, K2 at 1024 trajectories x 100 knots
+(BASELINE.json configs[2]); the rpy quadruped K1 at 1024, K2 at 6144 x 50
+(configs[3]); humanoid30 K1 at 2048, K2 at 1024 x 32 (configs[4] paths C
+and D).  Each time is ``chip_smoke.graph_ms`` (the device's time alone)
+and, beside it, ``chip_smoke.cuda_ms`` over 20 single calls (the host's
+launch included).  ``--root`` times the ``rbdtpu_torch`` of another
+checkout (a parent commit unpacked into an ignored directory) with this
+checkout's timers and inputs, so two commits compare on one card by
+running the tool once per root in turns (parent, change, change, parent).
+
+``--sweep`` rebuilds this checkout's kernels at each team size of
+``_lib.TEAM_SIZES`` (every entry of ``_lib.TEAM`` set to it) and times, in
+float32 and float64, K1 at 1, 16 and 256 states and at the path's batch,
+and K2 at the path's shape in both walks of the step's root->leaf
+recursions (graph replay): the measurements ``_lib.TEAM`` and
+``_lib.level_walk`` were fixed from.  Prints one JSON line with the card's
+name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DT, GRAVITY = 0.01, -9.81
+MODELS = (("arm7", "arm7", False), ("rpy quadruped", "quadruped12", True),
+          ("humanoid", "humanoid30", True))
+SWEEP_STATES = (1, 16, 256)
+
+
+def smoke():
+    """This checkout's chip_smoke.py as a module (timers, input makers)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def path_inputs(cs, key, m64):
+    """(x, u) of K1 and K2's five inputs at ``key``'s path shapes, float64."""
+    if key == "arm7":
+        inp = cs.kernel_inputs(m64, np.random.default_rng(cs.SEED))
+    elif key == "rpy quadruped":
+        inp = cs.quadruped_kernel_inputs(m64,
+                                         np.random.default_rng(cs.SEED + 5))
+    else:
+        inp = cs.floating_kernel_inputs(
+            m64, np.random.default_rng(cs.SEED + 90), cs.humanoid_problems,
+            2048, 1024, 32, 8)
+    return inp["fd_step"], inp["feedback_rollout"]
+
+
+def compare(cs, label: str) -> dict:
+    from rbdtpu_torch.kernels import fused
+    from rbdtpu_torch.model import load_asset
+
+    out = {}
+    for key, name, fb in MODELS:
+        m64 = load_asset(name, device="cuda", dtype=torch.float64,
+                         floating_base=fb)
+        m32 = load_asset(name, device="cuda", dtype=torch.float32,
+                         floating_base=fb)
+        (x, u), k2 = path_inputs(cs, key, m64)
+        x, u = x.float().contiguous(), u.float().contiguous()
+        k2 = tuple(t.float().contiguous() for t in k2)
+        cases = [(f"K1 B={x.shape[0]}",
+                  lambda: fused.fd_step_fused(m32, x, u, DT, GRAVITY))]
+        if key == "arm7":
+            x1, u1 = x[:1].contiguous(), u[:1].contiguous()
+            cases.append(("K1 B=1", lambda: fused.fd_step_fused(
+                m32, x1, u1, DT, GRAVITY)))
+        cases.append((f"K2 {k2[2].shape[0]}x{k2[2].shape[1]}",
+                      lambda: fused.feedback_rollout_fused(m32, *k2, DT,
+                                                           GRAVITY)))
+        for case, fn in cases:
+            out[f"{key} {case}"] = {"graph": cs.graph_ms(fn),
+                                    "call": cs.cuda_ms(fn, reps=20)}
+        del x, u, k2
+        torch.cuda.empty_cache()
+    return {"label": label, "ms": out}
+
+
+def sweep(cs) -> dict:
+    from rbdtpu_torch.kernels import _lib
+    from rbdtpu_torch.model import load_asset
+
+    out = {}
+    for team in _lib.TEAM_SIZES:
+        for k in _lib.TEAM:
+            _lib.TEAM[k] = team
+        _lib.library.cache_clear()
+        _lib.library()
+        for key, name, fb in MODELS:
+            m64 = load_asset(name, device="cuda", dtype=torch.float64,
+                             floating_base=fb)
+            (x64, u64), k2_64 = path_inputs(cs, key, m64)
+            for dtype in (torch.float32, torch.float64):
+                m = load_asset(name, device="cuda", dtype=dtype,
+                               floating_base=fb)
+                sfx = _lib._SUFFIX[dtype]
+                x, u = x64.to(dtype), u64.to(dtype)
+                k2 = tuple(t.to(dtype).contiguous() for t in k2_64)
+
+                def k1(B):
+                    xb = x.repeat(-(-B // x.shape[0]), 1)[:B].contiguous()
+                    ub = u.repeat(-(-B // u.shape[0]), 1)[:B].contiguous()
+                    xo = torch.empty_like(xb)
+                    return lambda: _lib.launch(
+                        "fd_step", m, xb, xb, ub, None, 0, xo, B,
+                        *_lib.team_args("fd_step", m, xb, B), DT, GRAVITY)
+
+                def k2_walk(levels):
+                    B, H = k2[2].shape[:2]
+                    Xo, Uo = torch.empty_like(k2[1]), torch.empty_like(k2[2])
+                    args = _lib.team_args("feedback_rollout", m, x, B)[1:]
+                    return lambda: _lib.launch(
+                        "feedback_rollout", m, x, *k2, None, Xo, Uo, B, H,
+                        levels, *args, DT, GRAVITY)
+
+                for B in (*SWEEP_STATES, x.shape[0]):
+                    out[f"{team} {key} {sfx} K1 B={B}"] = cs.graph_ms(k1(B))
+                B, H = k2[2].shape[:2]
+                for levels, walk in ((1, "levels"), (0, "bodies")):
+                    out[f"{team} {key} {sfx} K2 {B}x{H} by {walk}"] = (
+                        cs.graph_ms(k2_walk(levels)))
+            torch.cuda.empty_cache()
+    return {"label": "team sweep", "ms": out}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=REPO,
+                    help="checkout whose rbdtpu_torch is timed")
+    ap.add_argument("--label", default=None)
+    ap.add_argument("--sweep", action="store_true",
+                    help="time every team size of this checkout")
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("time_step_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    root = REPO if a.sweep else os.path.abspath(a.root)
+    sys.path.insert(0, root)
+    cs = smoke()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    out = sweep(cs) if a.sweep else compare(
+        cs, a.label or os.path.basename(root))
+    print(json.dumps({**out, "card": smi.strip()}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
