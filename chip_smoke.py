@@ -7,13 +7,14 @@ Phases, each ending the run with a nonzero exit when it fails:
 
 1. identify the card (name, power limit), build the CUDA kernels from
    ``rbdtpu_torch/csrc`` and require every instantiation of the team
-   kernels K1 (``fd_step``) and K2 (``feedback_rollout``) in the build with
-   a ptxas stack frame under 1,024 bytes;
+   kernels K1 (``fd_step``), K2 (``feedback_rollout``) and K3
+   (``linearize_parts``) and of the Riccati sweep (``riccati``) in the
+   build with a ptxas stack frame under 1,024 bytes;
 2. hold each kernel of the DDP path against its plain PyTorch version on
    the card, at that path's shapes: max abs error <= 1e-9 in float64, and
    a relative bound in float32; time both (CUDA events around one call
-   with its launch; K1 and K2, whose launch from Python can outlast them,
-   also by replaying a CUDA graph of 20 calls) and compute each kernel's
+   with its launch; K1, K2 and K3 also by replaying a CUDA graph of 20
+   calls, the device's time alone) and compute each kernel's
    bound (bytes over the memory rate, or operations over the float32 peak,
    whichever is larger; the operations each function needs are counted by
    ``rbdtpu_torch/opcount.py``); then
@@ -47,10 +48,11 @@ Phases, each ending the run with a nonzero exit when it fails:
    small-batch call site), at the humanoid's (B=16, H=32, nx=72, nu=36,
    per-knot cost blocks, above 48 KB of shared memory in float64) and at
    paths C and D's (B=16 and B=256, H=32, nx=72, nu=36, the tracking
-   cost's constant blocks; the small-batch and the lane call site): float64
-   relative error <= 1e-9, float32 <= 1e-4, each timed beside its bound;
-   and on a batch with one non-PD problem, whose NaN gains and ok must be
-   the plain sweep's;
+   cost's constant blocks; the small-batch and the lane call site), each
+   with the split it took (one block a problem, its threads): float64
+   relative error <= 1e-9, float32 <= 1e-4, each timed (one call, and by
+   graph replay) beside its bound; and on a batch with one non-PD problem,
+   whose NaN gains and ok must be the plain sweep's;
 9. hold K1, K2 and K3 on quadruped12's rpy floating root against their
    plain versions at configs[3]'s shapes (1024 states, 6 x 1024
    trajectories of 50 knots, 51,200 knots), with the team kernels' extra
@@ -87,9 +89,9 @@ Phases, each ending the run with a nonzero exit when it fails:
 15. the humanoid's kernels (humanoid30, rpy root, the "fb32" size class):
    K1, K2 and K3 against their plain versions at paths C and D's shapes
    (2048 states, 1024 trajectories x 32 knots, 8192 knots), as in phase 2,
-   with the device memory the CUDA driver reserves for their stacks (the
-   stack limit is set back afterwards, which frees it), then the team
-   kernels' extra checks and times; K9
+   with the per-thread stack limit and the device memory outside
+   PyTorch's pool before and after them (K3 must leave the limit where it
+   was), then the team kernels' extra checks and times; K9
    (``feedback_chunked``) at nchunks 2, 1, 3 and 100 with and without a
    clamp, at an odd batch, on arm7 and on the rpy quadruped, and against
    K2 on the same inputs (float64 <= 1e-9, both timed);
@@ -140,13 +142,17 @@ TOL32 = {"fd_step": 1e-4, "feedback_rollout": 1e-3, "linearize_parts": 1e-4,
          "feedback_chunked": 1e-3}
 U_PARITY = 1e-6
 PARITY_H = (100, 20)
-# the team kernels (csrc/rbd_team.cuh): one team of lanes per state (K1) or
-# trajectory (K2); their ptxas stack must stay under STACK_MAX bytes in
-# every instantiation (3 classes x 2 dtypes at the team size of
-# kernels/_lib.py TEAM, K1 with and without wrenches, K2 in both walks), and
-# their extra checks run these batches
+# the team kernels (csrc/rbd_team.cuh): one team of lanes per state (K1),
+# trajectory (K2) or knot (K3); their ptxas stack, and the Riccati sweep's,
+# must stay under STACK_MAX bytes in every instantiation (3 classes x 2
+# dtypes at the team size of kernels/_lib.py TEAM, K1 with and without
+# wrenches, K2 in both walks; the sweep in 2 dtypes), and K1/K2's extra
+# checks run these batches
 TEAM_KERNELS = ("fd_step", "feedback_rollout")
-TEAM_INSTANCES = {"fd_step": 12, "feedback_rollout": 12}
+STACK_INSTANCES = {"fd_step": 12, "feedback_rollout": 12,
+                   "linearize_parts": 6, "riccati": 2}
+# the kernels whose rows add graph_ms, the device's time by graph replay
+GRAPH_KERNELS = ("fd_step", "feedback_rollout", "linearize_parts")
 STACK_MAX = 1024
 TEAM_BATCHES = (1, 37, 1000)
 # the rollout path (BASELINE.json configs[1], bench.py:132-209, 377-416)
@@ -572,9 +578,9 @@ def check_kernels(checks, m64, m32, smi: str, rows=None, row_tag: str = "",
     kernel gives its row of the JSON line (named kernel name + row_tag);
     the row's max_abs_err is the largest over the kernel's checks.  With
     ``time_all=False`` only that first check is timed.  ``ms`` is one
-    call's time with its launch (``cuda_ms``) for every kernel; the team
-    kernels' row adds the device's time alone (``graph_ms``).  Fails after
-    printing every check."""
+    call's time with its launch (``cuda_ms``) for every kernel; the rows
+    of GRAPH_KERNELS add the device's time alone (``graph_ms``).  Fails
+    after printing every check."""
     import torch
     from rbdtpu_torch import opcount
 
@@ -610,7 +616,7 @@ def check_kernels(checks, m64, m32, smi: str, rows=None, row_tag: str = "",
             ms = cuda_ms(lambda: kern(m32, *a32, **kw32), reps=20)
             plain_ms = cuda_ms(lambda: plain(m32, *a32, **kw32), reps=3)
             timing = f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-            if kname in TEAM_KERNELS:
+            if kname in GRAPH_KERNELS:
                 gms = graph_ms(lambda: kern(m32, *a32, **kw32))
                 timing += f" ({gms:.4f} ms by graph replay)"
         print(f"kernel {label}: inputs {shapes}  f64 max|err| "
@@ -632,15 +638,15 @@ def check_kernels(checks, m64, m32, smi: str, rows=None, row_tag: str = "",
 
 
 def team_stack_check(ptxas: list):
-    """Phase 1: every instantiation of the team kernels is in the build
-    and none has a stack frame of STACK_MAX bytes or more."""
-    for k in TEAM_KERNELS:
+    """Phase 1: every instantiation of the kernels of STACK_INSTANCES is in
+    the build and none has a stack frame of STACK_MAX bytes or more."""
+    for k in STACK_INSTANCES:
         lines = [ln for ln in ptxas if ln.startswith(f"ptxas {k}_kernel<")]
         stacks = [int(re.search(r"(\d+) bytes stack frame", ln).group(1))
                   for ln in lines]
-        require(len(lines) == TEAM_INSTANCES[k],
+        require(len(lines) == STACK_INSTANCES[k],
                 f"{k}: {len(lines)} instantiations in the build, expected "
-                f"{TEAM_INSTANCES[k]}")
+                f"{STACK_INSTANCES[k]}")
         require(max(stacks) < STACK_MAX, f"{k}: a stack frame of "
                 f"{max(stacks)} B a thread (limit {STACK_MAX})")
         print(f"ptxas {k}: {len(lines)} instantiations, stack frames "
@@ -830,7 +836,7 @@ def check_riccati(smi: str, rows: dict):
     check_sweep(smi, rows, "riccati", backward_pass_chunked, RICCATI_CASES,
                 lambda B: "riccati_chunk" if B >= LANE_BATCH
                 else "riccati_small", (B3, H3, 36, 18, (7, H3 // 2)),
-                (SEED + 10, SEED + 20))
+                (SEED + 10, SEED + 20), split=True)
 
 
 def check_riccati_fused(smi: str, rows: dict):
@@ -847,7 +853,7 @@ def check_riccati_fused(smi: str, rows: dict):
 
 
 def check_sweep(smi: str, rows: dict, tag: str, kernel, cases, row_name,
-                non_pd, seeds, beside=None):
+                non_pd, seeds, beside=None, split=False):
     """A sweep kernel's wrapper ``kernel`` against the plain sweep
     (``solver.ddp.backward_pass``) on the card: each of ``cases`` (label,
     B, H, nx, nu, constant cost blocks) in float64 (max error relative to
@@ -858,10 +864,15 @@ def check_sweep(smi: str, rows: dict, tag: str, kernel, cases, row_name,
     has a Quu that is not positive definite at one knot: the NaN entries
     and ok must be the plain sweep's, the finite entries within TOL64.
     ``row_name(B)`` names the JSON row a case belongs to; ``seeds`` seed
-    the first case (the next ones count up) and the non-PD batch.  Fails
-    after printing every check."""
+    the first case (the next ones count up) and the non-PD batch.  With
+    ``split`` (the chunked sweep) each case also prints the launch's split
+    in both dtypes (``_lib.riccati_geometry``: one block a problem, its
+    threads and shared bytes) and is timed by graph replay as well, which
+    the row keeps as ``graph_ms``.  Fails after printing every
+    check."""
     import torch
     from rbdtpu_torch import opcount
+    from rbdtpu_torch.kernels import _lib
     from rbdtpu_torch.solver.ddp import backward_pass
 
     def cuda(args, dtype):
@@ -893,7 +904,16 @@ def check_sweep(smi: str, rows: dict, tag: str, kernel, cases, row_name,
                             "was reported not positive definite")
         ms = cuda_ms(lambda: kernel(*a32), reps=20)
         plain_ms = cuda_ms(lambda: backward_pass(*a32), reps=3)
-        also = ""
+        also, gms = "", None
+        if split:
+            gms = graph_ms(lambda: kernel(*a32))
+            also = f" ({gms:.4f} ms by graph replay)"
+            for a in (a64, a32):
+                nt, smem, blocks = _lib.riccati_geometry(
+                    nx, nu, a[0].dtype, B, _lib.sm_count(a[0].device))
+                also += (f"  split {str(a[0].dtype)[6:]}: one block a "
+                         f"problem, {nt} threads, {smem} B of shared memory "
+                         f"a block, {blocks} blocks")
         if beside is not None:
             also = (f"  {beside[0]} "
                     f"{cuda_ms(lambda: beside[1](*a32), reps=20):.4f} ms")
@@ -911,6 +931,8 @@ def check_sweep(smi: str, rows: dict, tag: str, kernel, cases, row_name,
                               replaces=replaces, max_abs_err=max(abs64),
                               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by=bound_by, library_ms=None)
+            if gms is not None:
+                rows[name]["graph_ms"] = gms
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], *abs64)
     B, H, nx, nu, bad = non_pd
     a64 = cuda(riccati_problem(np.random.default_rng(seeds[1]), nx, nu, H,
@@ -1411,11 +1433,11 @@ def humanoid_kernels(h64, h32, arm, quad, smi: str, rows: dict, ptxas: list):
     check_kernels([(f"{k} humanoid", k, hin[k], {}, k, states[k])
                    for k in hin], h64, h32, smi, rows, row_tag="_fb32")
     grown, after = _lib.stack_limit(h64.device), outside_pool()
-    _lib.set_stack_limit(h64.device, limit)
     print(f"device memory outside PyTorch's pool: {before:.2f} GB before "
-          f"the fb32 kernels (stack limit {limit} B a thread), {after:.2f} "
-          f"GB after (limit {grown} B), {outside_pool():.2f} GB once the "
-          f"limit was set back to {_lib.stack_limit(h64.device)} B ({smi})")
+          f"K1-K3 at fb32 (stack limit {limit} B a thread), {after:.2f} GB "
+          f"after them (limit {grown} B) ({smi})")
+    require(grown == limit, f"K1-K3 at fb32 raised the stack limit from "
+            f"{limit} to {grown} B a thread")
     check_kernels(team_checks(h64, hin["fd_step"], hin["feedback_rollout"],
                               "humanoid"), h64, h32, smi, rows,
                   row_tag="_fb32", time_all=False)

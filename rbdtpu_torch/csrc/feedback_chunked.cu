@@ -167,5 +167,15 @@ RBD_FEEDBACK_CHUNKED(fb16, FB16, float, f32)
 RBD_FEEDBACK_CHUNKED(fb16, FB16, double, f64)
 RBD_FEEDBACK_CHUNKED(fb32, FB32, float, f32)
 RBD_FEEDBACK_CHUNKED(fb32, FB32, double, f64)
+
+// The current device's per-thread stack limit (cudaLimitStackSize).  The
+// driver raises it to the largest stack frame launched so far (this
+// kernel's one-thread frame at FB32 in double, ~20 KB, is the largest of
+// the library) and keeps local memory of that size for every thread the
+// card can hold; setting it lower frees it.
+int rbd_stack_limit(size_t* bytes) { return (int)cudaDeviceGetLimit(bytes, cudaLimitStackSize); }
+int rbd_set_stack_limit(size_t bytes) {
+  return (int)cudaDeviceSetLimit(cudaLimitStackSize, bytes);
+}
 }
 #endif

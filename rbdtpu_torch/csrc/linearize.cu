@@ -2,177 +2,417 @@
 // Replaces rbdtpu kernels/colvec.py linearize_parts_fused (Pallas,
 // colvec.py:289).
 //
-// One thread per knot: ABA for qdd; RNEA velocities, accelerations and
-// accumulated forces at that qdd; the analytical M^-1 (upper triangle
-// authoritative, mirrored here); then, one derivative column at a time, the
-// dc/dq and dc/dqd sweeps (rbdtpu dynamics/rnea_grad.py).
 // Outputs (row-major): Minv, dcq, dcd (B, n, n) indexed [b, row, col];
-// qdd (B, n); n = nv.  The per-body sweep state and the M^-1 F blocks live in
-// local memory; see the build's .ptxas.log.  Instantiated for N8, FB16 and
-// FB32.
+// qdd (B, n); n = nv.  Per knot: ABA for qdd; RNEA velocities,
+// accelerations and accumulated forces at that qdd; the analytical M^-1
+// (rbdtpu dynamics/minv.py; upper triangle authoritative, mirrored here);
+// the dc/dq and dc/dqd sweeps (rbdtpu dynamics/rnea_grad.py).
+//
+// One team of NL lanes (_lib.TEAM) per knot, like the TPU kernel's
+// column dimension (minv_colvec and grad_pass_colvec, colvec.py:63,129,
+// hold one derivative column per sublane):
+//   - the base quantities once, into the team's shared memory: the team's
+//     ABA step (rbd_team.cuh team_fd_step, with the velocities kept) gives
+//     the transforms, qdd, the articulated inertias, U and 1/d; the RNEA
+//     accelerations at qdd are its accelerations plus S qdd, the forces one
+//     lane a body, accumulated leaf -> root one lane a component;
+//   - then the 2 nv derivative columns and the nv columns of M^-1, one column
+//     a lane, NL at a time.  A column walks the bodies in depth-first
+//     preorder (the model's int table, _lib.model_tables), so its state is a
+//     stack of one slot per tree level (dv, da, df: 18 values) in shared
+//     memory, column-fastest: a lane's slot entries sit in consecutive banks
+//     from its neighbours'.  A body's forward step reads its parent's slot;
+//     when the walk leaves a subtree its nodes are finished deepest first
+//     (dc row = S . df, df added into the parent's slot).  M^-1's leaf ->
+//     root pass runs the preorder backwards with one accumulator a level.
+//     No per-body array lives on a lane's stack.
+//   - each dc row is written by the lanes that hold its columns; M^-1 is
+//     staged in shared memory and written row by row (mirrored).
+// The deepest tree a class takes is lin_levels (8 levels for n8 and fb16,
+// 12 for fb32; the humanoid has 11), fixed at build time with the layout;
+// _lib.size_class sends a deeper tree on to a larger class or refuses it.
+//
+// Bound on the H100: latency.  A column's walk is a dependent chain of 6x6
+// algebra over the bodies, and the team's ABA step one over the tree; the
+// card holds as many teams as shared memory allows (LinLayout), up to one
+// warp of teams a block (kernels/_lib.py linearize_geometry).
 //
 // The rpy root's columns (rbdtpu kernels/colvec.py grad_pass_colvec): its
 // dqd columns seed dv_0 = e_j; its pose enters tau only through the gravity
 // seed a_0 = X_0 a_grav (v_0 = qd[0:6], the child transforms do not depend
 // on it), so the position columns vanish and rotation column 3 + j seeds
 // da_0 = [0; (dR/drpy_j)^T g_l], g_l the linear part of Xtree_0 a_grav.
-#include "rbd_common.cuh"
+// The root's 6x6 inverse (chol6) and the root transform (floating_xc) stay
+// real calls (nvcc 12.9 miscompiled inlined root bodies, rbd_common.cuh).
+#include "rbd_team.cuh"
 
 namespace rbd {
 
-// Column j of dc/dq (wrt_q) or dc/dqd: forward derivative sweep over the
-// bodies, then the backward sweep; dc (n,) receives rows 0..n-1.
-template <typename T, class D>
-RBD_HD void grad_column(const Model<T, D>& m, const Xc<T>* X, const T* q, const T* qd,
-                        T (*v)[6], T (*a)[6], T (*f)[6], int j, bool wrt_q, T gravity, T* dc) {
-  T dv[D::NB][6], da[D::NB][6], df[D::NB][6], ag[6];
-  gravity_accel(gravity, ag);
-  for (int i = 0; i < m.nb; ++i) {
-    const T* b = m.body(i);
-    const T* S = b + OFF_S;
-    const T* I = b + OFF_I;
-    const int p = m.parent(i);
-    if (m.root6(i)) {
-      for (int k = 0; k < 6; ++k) dv[0][k] = da[0][k] = T(0);
-      if (j < 6 && !wrt_q) {
-        dv[0][j] = T(1);
-      } else if (wrt_q && j >= 3 && j < 6) {
-        T g6[6], dR[9];
-        Xc<T> Xt;
-        for (int k = 0; k < 9; ++k) Xt.E[k] = b[OFF_E + k];
-        for (int k = 0; k < 3; ++k) Xt.r[k] = b[OFF_R + k];
-        xc_mv(Xt, ag, g6);
-        rpy_dR(q + 3, j - 3, dR);
-        mtv3(dR, g6 + 3, da[0] + 3);
-      }
-      T Ida[6], Iv[6], Idv[6], t1[6], t2[6];
-      matvec6(I, da[0], Ida);
-      matvec6(I, v[0], Iv);
-      matvec6(I, dv[0], Idv);
-      cross_force(dv[0], Iv, t1);
-      cross_force(v[0], Idv, t2);
-      for (int k = 0; k < 6; ++k) df[0][k] = Ida[k] + t1[k] + t2[k];
-      continue;
-    }
-    const int vi = m.vi(i);
-    T dab[6], Xa_ref[6];
-    if (p < 0) {
-      for (int k = 0; k < 6; ++k) dv[i][k] = dab[k] = T(0);
-      xc_mv(X[i], ag, Xa_ref);
-    } else {
-      xc_mv(X[i], dv[p], dv[i]);
-      xc_mv(X[i], da[p], dab);
-      xc_mv(X[i], a[p], Xa_ref);
-    }
-    if (vi == j) {
-      if (!wrt_q) {
-        for (int k = 0; k < 6; ++k) dv[i][k] += S[k];
-      } else if (p >= 0) {
-        T Xv[6], inj[6];
-        xc_mv(X[i], v[p], Xv);
-        cross_motion(Xv, S, inj);
-        for (int k = 0; k < 6; ++k) dv[i][k] += inj[k];
-      }
-    }
-    T cm[6];
-    cross_motion(dv[i], S, cm);
-    for (int k = 0; k < 6; ++k) da[i][k] = dab[k] + qd[vi] * cm[k];
-    if (vi == j) {
-      T inj[6];
-      cross_motion(wrt_q ? Xa_ref : v[i], S, inj);
-      for (int k = 0; k < 6; ++k) da[i][k] += inj[k];
-    }
-    T Ida[6], Iv[6], Idv[6], t1[6], t2[6];
-    matvec6(I, da[i], Ida);
-    matvec6(I, v[i], Iv);
-    matvec6(I, dv[i], Idv);
-    cross_force(dv[i], Iv, t1);
-    cross_force(v[i], Idv, t2);
-    for (int k = 0; k < 6; ++k) df[i][k] = Ida[k] + t1[k] + t2[k];
-  }
-  for (int i = m.nb - 1; i >= 0; --i) {
-    if (m.root6(i)) {  // S = I: the root's six rows
-      for (int k = 0; k < 6; ++k) dc[k] = df[0][k];
-      continue;
-    }
-    const T* S = m.body(i) + OFF_S;
-    const int p = m.parent(i);
-    dc[m.vi(i)] = dot6(S, df[i]);
-    if (p >= 0) {
-      T t[6];
-      xc_mtv(X[i], df[i], t);
-      for (int k = 0; k < 6; ++k) df[p][k] += t[k];
-      if (wrt_q && m.vi(i) == j) {  // d(X^T f)/dq_i = X^T (S x* f)
-        T Sf[6];
-        cross_force(S, f[i], Sf);
-        xc_mtv(X[i], Sf, t);
-        for (int k = 0; k < 6; ++k) df[p][k] += t[k];
-      }
-    }
+template <typename T>
+RBD_HD T nan_q() {
+  return T(0) / T(0);
+}
+
+// The most tree levels K3 takes per size class (kernels/_lib.py LIN_LEVELS).
+template <class D>
+constexpr int lin_levels() {
+  return D::NB > 16 ? 12 : 8;
+}
+
+// K3's shared memory per team, in values of T (kernels/_lib.py
+// linearize_values): what the columns read of the ABA step (the transforms,
+// v, the accelerations, U, 1/d per body, and qdd: BASE), I v and the RNEA
+// forces per body, the rpy root's IA0^-1, the knot's q, qd and u, the body
+// at each level of the walk's current path, then one region that holds the
+// team step's scratch (TL, with the velocities kept) during the step and
+// the columns' slots after it: 18 values a level a lane ([value][level]
+// [lane]); the M^-1 columns use values 0..5 and keep M^-1 (NV x (NV + 1))
+// over the rest (MS).  Sharing the region lets more teams onto an SM.  A
+// block holds several teams; STRIDE pads a team's values so that the teams
+// of a warp start on different banks.
+template <class D, int NL>
+struct LinLayout {
+  using TL = TeamLayout<D, false, false, true>;
+  static constexpr int NB = D::NB, NV = D::NV, LV = lin_levels<D>(), LDM = NV + 1;
+  static constexpr int BX = 0, BV = BX + 12 * NB, BA = BV + 6 * NB, BU = BA + 6 * NB,
+                       BINVD = BU + 6 * NB, BQDD = BINVD + NB, IV = BQDD + NV, F = IV + 6 * NB,
+                       FBI = F + 6 * NB, XQ = FBI + 36, US = XQ + 2 * NV, PATH = US + NV,
+                       SHARED = PATH + LV * NL, TEAM = SHARED, COL = SHARED,
+                       END = SHARED + (TL::VALUES > 18 * LV * NL ? TL::VALUES : 18 * LV * NL),
+                       // M^-1 beside the M^-1 columns' slots where it fits (every
+                       // team size of _lib.TEAM), else after the region
+                       MS_IN = 12 * LV * NL >= NV * LDM, MS = MS_IN ? COL + 6 * LV * NL : END,
+                       VALUES = END + (MS_IN ? 0 : NV * LDM),
+                       STRIDE = (VALUES + 31) / 32 * 32 + NL % 32;
+};
+
+// out (row-major 6x6) = IA0^-1 by its Cholesky factor (NaN where IA0 is not
+// positive definite), a real call.
+template <typename T>
+RBD_HD_CALL void inverse6(const T* IA0, T* out) {
+  T L[36], e[6], x[6];
+  chol6(IA0, L);
+  for (int c = 0; c < 6; ++c) {
+    for (int r = 0; r < 6; ++r) e[r] = r == c ? T(1) : T(0);
+    chol6_solve(L, e, x);
+    for (int r = 0; r < 6; ++r) out[6 * r + c] = x[r];
   }
 }
 
-// All outputs of one knot: Minv, dcq, dcd (n, n) and qdd (n,).
-template <typename T, class D>
-RBD_HD void linearize_knot(const Model<T, D>& m, const T* q, const T* qd, const T* u, T gravity,
-                           T* Minv, T* dcq, T* dcd, T* qdd) {
-  const int n = m.nv();
-  Xc<T> X[D::NB];
-  T v[D::NB][6], a[D::NB][6], f[D::NB][6], dc[D::NV];
-  joint_transforms(m, q, X);
-  aba(m, X, qd, u, gravity, qdd);
-  rnea_sweeps(m, X, qd, qdd, gravity, v, a, f);
-  minv_dense(m, X, Minv);
-  for (int w = 0; w < 2; ++w) {
-    T* out = w == 0 ? dcq : dcd;
-    for (int j = 0; j < n; ++j) {
-      grad_column(m, X, q, qd, v, a, f, j, w == 0, gravity, dc);
-      for (int i = 0; i < n; ++i) out[i * n + j] = dc[i];
+// One knot by the team ``tm``: q (nq = nv), qd, u in global memory; outputs
+// as the kernel's, at this knot's offsets.
+template <int NL, typename T, class D>
+RBD_HD void linearize_team(const Team<NL>& tm, const Model<T, D>& m, T* sm, const T* q,
+                           const T* qd, const T* u, T gravity, T* Minv, T* dcq, T* dcd, T* qddo) {
+  using LL = LinLayout<D, NL>;
+  using TL = typename LL::TL;
+  const int nb = m.nb, n = m.nv(), lane = tm.lane;
+  const int* pre = m.itab + 3 * nb + 2 + m.itab[3 * nb];  // preorder, then depths
+  const int* dep = pre + nb;
+  T* s = sm + LL::TEAM;
+  T* base = sm;
+  T* xq = sm + LL::XQ;
+  T* us = sm + LL::US;
+  T* Iv = sm + LL::IV;
+  T* F = sm + LL::F;
+  T* fbi = sm + LL::FBI;
+  T* Ms = sm + LL::MS;
+  int* path = reinterpret_cast<int*>(sm + LL::PATH);
+  T* col = sm + LL::COL;
+  bool deep = false;  // a tree deeper than the layout's levels: NaN outputs
+  for (int i = 0; i < nb; ++i) deep |= dep[i] >= LL::LV;
+  if (deep) {
+    for (int e = lane; e < n * n; e += NL) Minv[e] = dcq[e] = dcd[e] = nan_q<T>();
+    for (int e = lane; e < n; e += NL) qddo[e] = nan_q<T>();
+    return;
+  }
+  for (int k = lane; k < n; k += NL) {
+    xq[k] = q[k];
+    xq[n + k] = qd[k];
+    us[k] = u[k];
+  }
+  tm.sync();
+  // ABA (dt = 0, no state written): X, v, the accelerations without the
+  // body's own S qdd, IA, U, 1/d and qdd in the team's scratch
+  team_fd_step<NL, false, false, TL>(tm, m, s, xq, us, T(0), gravity, static_cast<const T*>(nullptr),
+                                    static_cast<T*>(nullptr), static_cast<T*>(nullptr));
+  tm.sync();
+  // what the columns read of the step, out of the scratch the slots reuse
+  for (int e = lane; e < 31 * nb + n; e += NL) {
+    const int src = e < 12 * nb ? TL::X + e
+                    : e < 18 * nb ? TL::V + e - 12 * nb
+                    : e < 24 * nb ? TL::A + e - 18 * nb
+                    : e < 30 * nb ? TL::U + e - 24 * nb
+                    : e < 31 * nb ? TL::INVD + e - 30 * nb
+                                  : TL::QDD + e - 31 * nb;
+    const int dst = e < 12 * nb ? LL::BX + e
+                    : e < 18 * nb ? LL::BV + e - 12 * nb
+                    : e < 24 * nb ? LL::BA + e - 18 * nb
+                    : e < 30 * nb ? LL::BU + e - 24 * nb
+                    : e < 31 * nb ? LL::BINVD + e - 30 * nb
+                                  : LL::BQDD + e - 31 * nb;
+    base[dst] = s[src];
+  }
+  tm.sync();
+  const Xc<T>* X = reinterpret_cast<const Xc<T>*>(base + LL::BX);
+  T(*v)[6] = reinterpret_cast<T(*)[6]>(base + LL::BV);
+  T(*a)[6] = reinterpret_cast<T(*)[6]>(base + LL::BA);
+  const T(*U)[6] = reinterpret_cast<const T(*)[6]>(base + LL::BU);
+  const T* invd = base + LL::BINVD;
+  const T* qdd = base + LL::BQDD;
+  // RNEA accelerations at qdd (the rpy root's already hold it) and I v, one
+  // lane a value
+  for (int e = lane; e < 6 * nb; e += NL) {
+    const int i = e / 6, k = e - 6 * i;
+    const T* I = m.body(i) + OFF_I;
+    if (!m.root6(i)) a[i][k] += m.body(i)[OFF_S + k] * qdd[m.vi(i)];
+    T iv = 0;
+    for (int j = 0; j < 6; ++j) iv += I[6 * k + j] * v[i][j];
+    Iv[6 * i + k] = iv;
+  }
+  for (int k = lane; k < n; k += NL) qddo[k] = qdd[k];
+  tm.sync();
+  // forces I a + v x* I v one lane a body; the root's IA0^-1 on the last lane
+  for (int i = lane; i < nb; i += NL) {
+    T Ia[6], vf[6];
+    matvec6(m.body(i) + OFF_I, a[i], Ia);
+    cross_force(v[i], Iv + 6 * i, vf);
+    for (int k = 0; k < 6; ++k) F[6 * i + k] = Ia[k] + vf[k];
+  }
+  if constexpr (D::FB) {
+    if (lane == NL - 1) inverse6(s + TL::IA, fbi);
+  }
+  tm.sync();
+  // forces accumulated leaf -> root, one lane a component
+  for (int i = nb - 1; i >= 0; --i) {
+    const int p = m.parent(i);
+    if (p < 0) continue;
+    if (lane < 6) {
+      T t[6], tk = 0;
+      xc_mtv(X[i], F + 6 * i, t);
+      for (int k = 0; k < 6; ++k) tk = k == lane ? t[k] : tk;
+      F[6 * p + lane] += tk;
     }
+    tm.sync();
+  }
+
+  tm.sync();  // the step's scratch (IA[0] above) is dead: the slots reuse it
+  // slot k (0..17: dv, da, df) of level d of this lane's column state
+  auto slot = [&](int d, int k) -> T& { return col[(k * LL::LV + d) * NL + lane]; };
+  // the derivative columns: dq columns 0..n-1, then dqd columns, NL at a time
+  T ag[6];
+  gravity_accel(gravity, ag);
+  for (int t0 = 0; t0 < 2 * n; t0 += NL) {
+    const int task = t0 + lane;
+    const bool on = task < 2 * n, wrt_q = task < n;
+    const int j = on ? (wrt_q ? task : task - n) : 0;
+    T* out = wrt_q ? dcq : dcd;
+    // finish the node at level d: its dc row, then df into its parent's slot
+    auto finish = [&](int d) {
+      const int k = path[d * NL + lane];
+      T df[6];
+      for (int c = 0; c < 6; ++c) df[c] = slot(d, 12 + c);
+      if (m.root6(k)) {  // S = I: the root's six rows
+        if (on)
+          for (int c = 0; c < 6; ++c) out[c * n + j] = df[c];
+      } else {
+        const T* S = m.body(k) + OFF_S;
+        if (on) out[m.vi(k) * n + j] = dot6(S, df);
+        if (d > 0) {
+          T tt[6];
+          xc_mtv(X[k], df, tt);
+          if (wrt_q && m.vi(k) == j) {  // d(X^T f)/dq_k = X^T (S x* f)
+            T Sf[6], t2[6];
+            cross_force(S, F + 6 * k, Sf);
+            xc_mtv(X[k], Sf, t2);
+            for (int c = 0; c < 6; ++c) tt[c] += t2[c];
+          }
+          for (int c = 0; c < 6; ++c) slot(d - 1, 12 + c) += tt[c];
+        }
+      }
+    };
+    int cur = -1;
+    for (int idx = 0; idx < nb; ++idx) {
+      const int i = pre[idx], d = dep[i];
+      for (; cur >= d; --cur) finish(cur);
+      const T* b = m.body(i);
+      const T* S = b + OFF_S;
+      const T* I = b + OFF_I;
+      T dvi[6], dai[6];
+      if (m.root6(i)) {
+        for (int k = 0; k < 6; ++k) {
+          dvi[k] = !wrt_q && k == j ? T(1) : T(0);
+          dai[k] = T(0);
+        }
+        if (wrt_q && j >= 3 && j < 6) {
+          T g6[6], dR[9];
+          Xc<T> Xt;
+          for (int k = 0; k < 9; ++k) Xt.E[k] = b[OFF_E + k];
+          for (int k = 0; k < 3; ++k) Xt.r[k] = b[OFF_R + k];
+          xc_mv(Xt, ag, g6);
+          rpy_dR(xq + 3, j - 3, dR);
+          mtv3(dR, g6 + 3, dai + 3);
+        }
+      } else {
+        const int p = m.parent(i), vi = m.vi(i);
+        T dab[6], Xa[6];
+        if (p < 0) {
+          for (int k = 0; k < 6; ++k) dvi[k] = dab[k] = T(0);
+          xc_mv(X[i], ag, Xa);
+        } else {
+          T dvp[6], dap[6];
+          for (int k = 0; k < 6; ++k) {
+            dvp[k] = slot(d - 1, k);
+            dap[k] = slot(d - 1, 6 + k);
+          }
+          xc_mv(X[i], dvp, dvi);
+          xc_mv(X[i], dap, dab);
+          xc_mv(X[i], a[p], Xa);
+        }
+        if (vi == j) {
+          if (!wrt_q) {
+            for (int k = 0; k < 6; ++k) dvi[k] += S[k];
+          } else if (p >= 0) {
+            T Xv[6], inj[6];
+            xc_mv(X[i], v[p], Xv);
+            cross_motion(Xv, S, inj);
+            for (int k = 0; k < 6; ++k) dvi[k] += inj[k];
+          }
+        }
+        T cm[6];
+        cross_motion(dvi, S, cm);
+        for (int k = 0; k < 6; ++k) dai[k] = dab[k] + xq[n + vi] * cm[k];
+        if (vi == j) {
+          T inj[6];
+          cross_motion(wrt_q ? Xa : v[i], S, inj);
+          for (int k = 0; k < 6; ++k) dai[k] += inj[k];
+        }
+      }
+      T Ida[6], Idv[6], t1[6], t2[6];
+      matvec6(I, dai, Ida);
+      matvec6(I, dvi, Idv);
+      cross_force(dvi, Iv + 6 * i, t1);
+      cross_force(v[i], Idv, t2);
+      for (int k = 0; k < 6; ++k) {
+        slot(d, k) = dvi[k];
+        slot(d, 6 + k) = dai[k];
+        slot(d, 12 + k) = Ida[k] + t1[k] + t2[k];
+      }
+      path[d * NL + lane] = i;
+      cur = d;
+    }
+    for (; cur >= 0; --cur) finish(cur);
+  }
+
+  tm.sync();  // every lane's derivative columns done: Ms reuses their slots
+  // M^-1 one column a lane (rbdtpu minv_colvec): leaf -> root over the
+  // preorder backwards, an accumulator a level (slot k 0..5), then root ->
+  // leaf with the parent's F in its level's slot; column c of M^-1 in Ms
+  for (int t0 = 0; t0 < n; t0 += NL) {
+    // lanes past n read Ms's pad column and write nothing
+    const bool on = t0 + lane < n;
+    const int c = on ? t0 + lane : n;
+    for (int d = 0; d < LL::LV; ++d)
+      for (int k = 0; k < 6; ++k) slot(d, k) = T(0);
+    for (int idx = nb - 1; idx >= 0; --idx) {
+      const int i = pre[idx], d = dep[i];
+      T Fi[6];
+      for (int k = 0; k < 6; ++k) {
+        Fi[k] = slot(d, k);
+        slot(d, k) = T(0);
+      }
+      if (m.root6(i)) {
+        for (int r = 0; r < 6; ++r) {
+          T x = 0;
+          for (int k = 0; k < 6; ++k) x += fbi[6 * r + k] * ((k == c ? T(1) : T(0)) - Fi[k]);
+          if (on) Ms[r * LL::LDM + c] = x;
+        }
+        continue;
+      }
+      const T* S = m.body(i) + OFF_S;
+      const int mi = m.vi(i), p = m.parent(i);
+      const T dinv = invd[i];
+      const T Mmi = -dinv * dot6(S, Fi) + (c == mi ? dinv : T(0));
+      if (on) Ms[mi * LL::LDM + c] = Mmi;
+      if (p >= 0) {
+        T t[6];
+        for (int k = 0; k < 6; ++k) Fi[k] += U[i][k] * Mmi;
+        xc_mtv(X[i], Fi, t);
+        for (int k = 0; k < 6; ++k) slot(d - 1, k) += t[k];
+      }
+    }
+    for (int idx = 0; idx < nb; ++idx) {
+      const int i = pre[idx], d = dep[i];
+      const T* S = m.body(i) + OFF_S;
+      const int p = m.parent(i);
+      T Fi[6];
+      if (m.root6(i)) {
+        for (int r = 0; r < 6; ++r) Fi[r] = Ms[r * LL::LDM + c];
+      } else if (p < 0) {
+        const T Mi = Ms[i * LL::LDM + c];
+        for (int r = 0; r < 6; ++r) Fi[r] = S[r] * Mi;
+      } else {
+        const int mi = m.vi(i);
+        T Fp[6], XF[6];
+        for (int k = 0; k < 6; ++k) Fp[k] = slot(d - 1, k);
+        xc_mv(X[i], Fp, XF);
+        const T Mmi = Ms[mi * LL::LDM + c] - invd[i] * dot6(U[i], XF);
+        if (on) Ms[mi * LL::LDM + c] = Mmi;
+        for (int r = 0; r < 6; ++r) Fi[r] = XF[r] + S[r] * Mmi;
+      }
+      for (int k = 0; k < 6; ++k) slot(d, k) = Fi[k];
+    }
+  }
+  tm.sync();
+  // M^-1 row by row, the upper triangle mirrored
+  for (int e = lane; e < n * n; e += NL) {
+    const int r = e / n, c = e - r * n;
+    Minv[e] = r <= c ? Ms[r * LL::LDM + c] : Ms[c * LL::LDM + r];
   }
 }
 
 }  // namespace rbd
 
 #ifdef __CUDACC__
-template <typename T, class D>
-__global__ void linearize_parts_kernel(rbd::Model<T, D> m, const T* __restrict__ q,
-                                       const T* __restrict__ qd, const T* __restrict__ u,
-                                       T* __restrict__ Minv, T* __restrict__ dcq,
-                                       T* __restrict__ dcd, T* __restrict__ qdd, int B,
-                                       T gravity) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+// tpb teams of NL lanes a block, one team a knot.
+template <typename T, class D, int NL>
+__global__ void __launch_bounds__(32)
+    linearize_parts_kernel(rbd::Model<T, D> m, const T* __restrict__ q, const T* __restrict__ qd,
+                           const T* __restrict__ u, T* __restrict__ Minv, T* __restrict__ dcq,
+                           T* __restrict__ dcd, T* __restrict__ qdd, int B, int tpb, T gravity) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int team = (int)threadIdx.x / NL, b = blockIdx.x * tpb + team;
   if (b >= B) return;
   const int n = m.nv();
   const size_t o1 = (size_t)b * n, o2 = (size_t)b * n * n;
-  T qs[D::NV], qds[D::NV], us[D::NV], qdds[D::NV];
-  for (int k = 0; k < n; ++k) {
-    qs[k] = q[o1 + k];
-    qds[k] = qd[o1 + k];
-    us[k] = u[o1 + k];
-  }
-  rbd::linearize_knot(m, qs, qds, us, gravity, Minv + o2, dcq + o2, dcd + o2, qdds);
-  for (int k = 0; k < n; ++k) qdd[o1 + k] = qdds[k];
+  T* sm = reinterpret_cast<T*>(smem_raw) + (size_t)team * rbd::LinLayout<D, NL>::STRIDE;
+  rbd::linearize_team(this_team<NL>(), m, sm, q + o1, qd + o1, u + o1, gravity, Minv + o2,
+                      dcq + o2, dcd + o2, qdd + o1);
 }
 
-template <typename T, class D>
+// B knots, tpb teams of NL lanes a block; smem must be tpb teams' bytes.
+template <typename T, class D, int NL>
 static int launch_linearize_parts(const T* tab, const int* itab, int nb, const T* q, const T* qd,
-                                  const T* u, T* Minv, T* dcq, T* dcd, T* qdd, int B, T gravity,
-                                  void* stream) {
+                                  const T* u, T* Minv, T* dcq, T* dcd, T* qdd, int B, int tpb,
+                                  int smem, T gravity, void* stream) {
   if (B <= 0) return 0;
+  if (tpb < 1 || tpb * NL > 32) return (int)cudaErrorInvalidValue;
+  const int err = team_smem_check(linearize_parts_kernel<T, D, NL>, smem, tpb,
+                                  rbd::LinLayout<D, NL>::STRIDE, sizeof(T));
+  if (err != 0) return err;
   rbd::Model<T, D> m{tab, itab, nb};
-  linearize_parts_kernel<T, D>
-      <<<RBD_GRID(B, RBD_THREADS), RBD_THREADS, 0, (cudaStream_t)stream>>>(
-          m, q, qd, u, Minv, dcq, dcd, qdd, B, gravity);
+  linearize_parts_kernel<T, D, NL><<<(B + tpb - 1) / tpb, tpb * NL, smem, (cudaStream_t)stream>>>(
+      m, q, qd, u, Minv, dcq, dcd, qdd, B, tpb, gravity);
   return (int)cudaGetLastError();
 }
 
 #define RBD_LINEARIZE_PARTS(CLS, D, T, SFX)                                                    \
   int rbd_linearize_parts_##CLS##_##SFX(const T* tab, const int* itab, int nb, const T* q,    \
                                         const T* qd, const T* u, T* Minv, T* dcq, T* dcd,     \
-                                        T* qdd, int B, T gravity, void* stream) {             \
-    return launch_linearize_parts<T, rbd::D>(tab, itab, nb, q, qd, u, Minv, dcq, dcd, qdd, B, \
-                                             gravity, stream);                                \
+                                        T* qdd, int B, int tpb, int smem, T gravity,          \
+                                        void* stream) {                                       \
+    return launch_linearize_parts<T, rbd::D, RBD_TEAM_linearize_parts_##CLS##_##SFX>(          \
+        tab, itab, nb, q, qd, u, Minv, dcq, dcd, qdd, B, tpb, smem, gravity, stream);         \
   }
 
 extern "C" {
@@ -182,14 +422,5 @@ RBD_LINEARIZE_PARTS(fb16, FB16, float, f32)
 RBD_LINEARIZE_PARTS(fb16, FB16, double, f64)
 RBD_LINEARIZE_PARTS(fb32, FB32, float, f32)
 RBD_LINEARIZE_PARTS(fb32, FB32, double, f64)
-
-// The current device's per-thread stack limit (cudaLimitStackSize).  The
-// driver raises it to the largest stack frame launched so far (this kernel's
-// at FB32 in double is the largest of the library) and keeps local memory of
-// that size for every thread the card can hold; setting it lower frees it.
-int rbd_stack_limit(size_t* bytes) { return (int)cudaDeviceGetLimit(bytes, cudaLimitStackSize); }
-int rbd_set_stack_limit(size_t bytes) {
-  return (int)cudaDeviceSetLimit(cudaLimitStackSize, bytes);
-}
 }
 #endif

@@ -102,8 +102,10 @@ RBD_HD void copy_async_wait() {
 // level's start (copied from the model's int table); one body's
 // (IA - U U^T / d) X and bias force; the partial sums of the leaf->root
 // sweep's two reductions and of U.a (each body's with LEV, two buffers
-// otherwise); qdd.  kernels/_lib.py team_values mirrors these counts.
-template <class D, bool W, bool LEV>
+// otherwise); qdd; with KEEPV the accelerations A apart from v, which the
+// step otherwise overwrites (linearize.cu reads both).  kernels/_lib.py
+// team_values and linearize_values mirror these counts.
+template <class D, bool W, bool LEV, bool KEEPV = false>
 struct TeamLayout {
   static constexpr bool WRENCH = W, LEVELS = LEV;
   static constexpr int NB = D::NB, NV = D::NV;
@@ -112,7 +114,7 @@ struct TeamLayout {
                        SP = IA + 36 * NB, INVD = SP + 6 * NB, UB = INVD + NB, PAR = UB + NB,
                        ORD = PAR + NB, AD = ORD + (LEV ? 2 * NB + 2 : 0), PAS = AD + 36,
                        PART = PAS + 6, PROD = PART + 12, QDD = PROD + (LEV ? 6 * NB : 12),
-                       VALUES = QDD + NV;
+                       A = KEEPV ? QDD + NV : V, VALUES = QDD + NV + (KEEPV ? 6 * NB : 0);
 };
 
 // Entry k (row kr = k mod 3 of E, lo = k < 3) of X m for a motion vector
@@ -393,14 +395,14 @@ RBD_HD void team_fd_step(const Team<NL>& tm, const Model<T, D>& m, T* s, const T
     }
     tm.sync();
   }
-  // accelerations root -> leaf in v's storage: a[i] holds X a[p] + c before
-  // its own S qdd, which the children add.  With LV level by level as the
-  // velocities, the children summing the parent's partial sums of U.a (in
-  // the same order in every lane, or the group's own qdd kept from the
-  // level before); otherwise body by body, the partial sums alternating
-  // between two buffers so that one barrier a body separates their writes
-  // from every lane's reads
-  T(*a)[6] = v;
+  // accelerations root -> leaf in A (v's storage unless the layout keeps
+  // v): a[i] holds X a[p] + c before its own S qdd, which the children add.
+  // With LV level by level as the velocities, the children summing the
+  // parent's partial sums of U.a (in the same order in every lane, or the
+  // group's own qdd kept from the level before); otherwise body by body,
+  // the partial sums alternating between two buffers so that one barrier a
+  // body separates their writes from every lane's reads
+  T(*a)[6] = reinterpret_cast<T(*)[6]>(s + L::A);
   T* pr = s + L::PROD;
   if constexpr (D::FB) {
     if (lane == 0) root_accel(X[0], IA, pA[0], tau, gravity, a[0], qdd);

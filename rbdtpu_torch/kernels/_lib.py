@@ -48,13 +48,21 @@ SIZE_CLASSES = {
 }
 
 # Lanes a team of the team kernels (csrc/rbd_team.cuh: one team of one warp
-# runs one state's step in fd_step, one trajectory in feedback_rollout), per
+# runs one state's step in fd_step, one trajectory in feedback_rollout, one
+# knot's linearisation in linearize_parts, one team a block), per
 # kernel, size class and dtype, fixed from their times on an H100 at each
 # class's path shapes (PERF.md §6, tools/time_step_kernels.py --sweep).  The
 # build compiles each kernel at this size alone (``team_defines``).
-TEAM = {(k, cls, sfx): 32 for k in ("fd_step", "feedback_rollout")
+TEAM = {(k, cls, sfx): 32 for k in ("fd_step", "feedback_rollout",
+                                     "linearize_parts")
         for cls in ("n8", "fb16", "fb32") for sfx in ("f32", "f64")}
 TEAM[("fd_step", "fb32", "f32")] = 16
+TEAM.update({("linearize_parts", "n8", "f32"): 8,
+             ("linearize_parts", "n8", "f64"): 8,
+             ("linearize_parts", "fb16", "f32"): 8,
+             ("linearize_parts", "fb16", "f64"): 16,
+             ("linearize_parts", "fb32", "f32"): 16,
+             ("linearize_parts", "fb32", "f64"): 16})
 # the team sizes rbd_team.cuh takes
 TEAM_SIZES = (8, 16, 32)
 # shared memory a block may take on an H100 (above 48 KB by opt-in)
@@ -86,6 +94,94 @@ def team_values(kernel: str, cls: str, team: int) -> int:
     else:
         raise ValueError(f"{kernel} is not a team kernel")
     return -(-values // 32) * 32 + team % 32
+
+
+# The most tree levels linearize_parts takes per size class: its column
+# sweeps keep one slot a level (csrc/linearize.cu lin_levels).
+LIN_LEVELS = {"n8": 8, "fb16": 8, "fb32": 12}
+
+
+def linearize_values(cls: str, team: int) -> int:
+    """Shared-memory values of one team of linearize_parts in size class
+    ``cls`` (csrc/linearize.cu LinLayout STRIDE): what the columns read of
+    the ABA step (31 a body and qdd), I v and the RNEA forces (12 a body),
+    the rpy root's 6x6 inverse, q, qd and u, the walk's path (a level a
+    lane), then one region for the team step's scratch (96 a body, 66 and
+    qdd) that the columns' slots (18 a level a lane, M^-1 among them)
+    reuse; rounded up to 32 and offset by ``team`` % 32 so the teams of a
+    warp start on different banks; M^-1 (rows of nv + 1) sits beside the
+    M^-1 columns' slots where it fits, else after the region.  The launch
+    refuses any other count."""
+    nb, fb, _ = SIZE_CLASSES[cls]
+    nv = nb + 5 if fb else nb
+    levels = LIN_LEVELS[cls]
+    minv = nv * (nv + 1)  # M^-1, beside the slots where it fits
+    values = (31 * nb + nv + 12 * nb + 36 + 3 * nv + levels * team
+              + max(96 * nb + 66 + nv, 18 * levels * team)
+              + (0 if 12 * levels * team >= minv else minv))
+    return -(-values // 32) * 32 + team % 32
+
+
+def linearize_geometry(cls: str, dtype, B: int, nsm: int = H100_SMS):
+    """(team, teams a block, shared bytes a block, blocks) of a
+    linearize_parts launch over B knots: one team a knot, at most one warp
+    of teams a block within SMEM_MAX, halved while the batch would leave
+    SMs without a block."""
+    team = TEAM[("linearize_parts", cls, _SUFFIX[dtype])]
+    per = linearize_values(cls, team) * torch.finfo(dtype).bits // 8
+    tpb = min(32 // team, SMEM_MAX // per)
+    while tpb > 1 and -(-B // tpb) < nsm:
+        tpb //= 2
+    return team, tpb, tpb * per, -(-B // tpb)
+
+
+def riccati_values(nx: int, nu: int) -> int:
+    """Shared-memory values of the Riccati sweep (csrc/riccati_chunk.cu
+    riccati_layout): the carry Vxx (rows padded to four), Vx, Qx, [A | B],
+    the products' region (n x (n + m), or R, the elimination's entries and
+    T, Z and [K | k] if larger), [Qux | Qu], Quu, the pivots and a flag."""
+    up4 = lambda x: -(-x // 4) * 4
+    n, m = nx, nu
+    ldv, ldab, ldq, ldm = up4(n), up4(n + m), up4(n + 1), up4(m)
+    after = up4(m) * ldm + max(m * ldm, m * ldq) + m * ldq
+    return (n * ldv + 2 * up4(n) + n * ldab + max(n * ldab, after)
+            + m * ldq + up4(m) * ldm + up4(m) + 4)
+
+
+# threads a block of the Riccati sweep: at least two warps, at most 256
+# (csrc/riccati_chunk.cu RBD_RIC_THREADS), the registers a thread the
+# kernel's launch bounds allow, and the elimination entries a thread keeps in
+# registers (riccati_chunk.cu TRI)
+RIC_THREADS = (64, 256)
+RIC_REGS = 128
+RIC_TRI = 8
+# shared memory of an SM on an H100, and what the driver keeps of it a block
+SM_SMEM, BLOCK_SMEM_RESERVED = 233472, 1024
+
+
+def riccati_geometry(nx: int, nu: int, dtype, B: int, nsm: int = H100_SMS):
+    """(threads a block, shared bytes a block, blocks) of a Riccati sweep
+    over B problems, one block each, on a card with ``nsm`` SMs.  A sweep's
+    time is the chain of its knots, so a block takes the most threads (up
+    to one a tile of its largest product, in whole warps) that still leave
+    the launch as few waves as any count: configs[3]'s 1024 problems take
+    64 threads, eight blocks an SM, one wave; path D's 256 humanoid problems
+    256 threads, two blocks an SM."""
+    t4 = lambda x: -(-x // 4)
+    up32 = lambda x: -(-x // 32) * 32
+    tri = nu * (nu + 1) // 2
+    work = max(t4(nx) * t4(nx + nu), t4(nu) * t4(nx + 1), -(-tri // RIC_TRI))
+    lo = max(RIC_THREADS[0], up32(-(-tri // RIC_TRI)))
+    hi = max(lo, min(RIC_THREADS[1], up32(work)))
+    smem = riccati_values(nx, nu) * torch.finfo(dtype).bits // 8
+
+    def waves(nt):
+        per_sm = min(65536 // (RIC_REGS * nt),
+                     SM_SMEM // (smem + BLOCK_SMEM_RESERVED), 2048 // nt, 32)
+        return -(-B // (nsm * max(per_sm, 1)))
+
+    nt = min(range(hi, lo - 1, -32), key=lambda t: (waves(t), -t))
+    return nt, smem, B
 
 
 def team_geometry(kernel: str, cls: str, dtype, B: int, nsm: int = H100_SMS):
@@ -169,7 +265,8 @@ _SIGNATURES = {
     "fd_step": "pppipiiiss",
     # x0 Xn Un kf Kf uclip Xo Uo B H levels tpb smem dt gravity
     "feedback_rollout": "ppppppppiiiiiss",
-    "linearize_parts": "pppppppis",  # q qd u Minv dcq dcd qdd B gravity
+    # q qd u Minv dcq dcd qdd B tpb smem gravity
+    "linearize_parts": "pppppppiiis",
     "ee_gn": "pipssspppi",         # ee jid q tx ty tz e g0 H0 B
     "ee_err": "pipssspi",          # ee jid q tx ty tz e B
     "rnea": "ppppis",              # q qd qdd tau B gravity
@@ -179,8 +276,9 @@ _SIGNATURES = {
     "feedback_chunked": "ppppppppiiiiss",
 }
 # A B lx lu lxx sb st luu sb st lux sb st lfx lfxx reg k K dV1 ok B H nx nu
-# (the two Riccati sweeps share one signature)
-_MODEL_FREE = {"riccati": "pppppiipiipiipppppppiiii",
+# (the two Riccati sweeps share these), then riccati's threads and shared
+# bytes
+_MODEL_FREE = {"riccati": "pppppiipiipiipppppppiiiiii",
                "riccati_fused": "pppppiipiipiipppppppiiii"}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _CTYPE = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
@@ -309,11 +407,32 @@ def size_class(kernel: str, model) -> str:
         raise NotImplementedError(
             f"{kernel}: the CUDA kernel covers fixed-base models only; the "
             "rpy floating root is not ported to it yet")
+    levels = max(tree_depths(model)) + 1
     for nmax, cls in sorted(fits):
-        if model.nb <= nmax:
+        if model.nb <= nmax and (kernel != "linearize_parts"
+                                 or levels <= LIN_LEVELS[cls]):
             return cls
+    if model.nb <= max(fits)[0]:
+        raise ValueError(f"{kernel}: a tree of {levels} levels exceeds the "
+                         f"kernel's deepest instantiation "
+                         f"({max(LIN_LEVELS.values())} levels)")
     raise ValueError(f"{kernel}: {model.nb} bodies exceed the kernel's "
                      f"largest instantiation ({max(fits)[0]} bodies)")
+
+
+def preorder(model) -> list:
+    """The bodies in depth-first preorder (each body's children in the
+    model's order), which linearize_parts' column sweeps walk."""
+    children = [[] for _ in range(model.nb)]
+    for i, p in enumerate(model.parent):
+        if p >= 0:
+            children[p].append(i)
+    out, stack = [], [i for i, p in enumerate(model.parent) if p < 0][::-1]
+    while stack:
+        i = stack.pop()
+        out.append(i)
+        stack.extend(children[i][::-1])
+    return out
 
 
 def model_tables(model, device, dtype):
@@ -322,10 +441,11 @@ def model_tables(model, device, dtype):
     (the compact (E, r) split of Xtree: X = [[E, 0], [-E r^, E]]), and the
     int32 [parent..., joint_type..., the bodies in order of depth in the
     tree..., the number of depths, where each depth starts in that order
-    (and its end)...], which the team kernels (csrc/rbd_team.cuh) walk level
-    by level.  An rpy floating root's row carries its Xtree[0] and inertia
-    like any other; its joint (type FLOATING, six DoFs, S = I) is the
-    kernels' to know."""
+    (and its end)..., the bodies in depth-first preorder..., each body's
+    depth...]: the team kernels (csrc/rbd_team.cuh) walk the level order,
+    linearize_parts the preorder.  An rpy floating root's row carries its
+    Xtree[0] and inertia like any other; its joint (type FLOATING, six DoFs,
+    S = I) is the kernels' to know."""
     key = ("model", str(device), dtype)
     if key not in model._tables:
         hd = model.host_data
@@ -346,7 +466,8 @@ def model_tables(model, device, dtype):
         starts = [sum(d < lv for d in depth) for lv in range(levels + 1)]
         itab = torch.tensor(
             list(model.parent) + list(model.joint_type) + order + [levels]
-            + starts, dtype=torch.int32, device=device)
+            + starts + preorder(model) + depth, dtype=torch.int32,
+            device=device)
         model._tables[key] = (tab, itab)
     return model._tables[key]
 

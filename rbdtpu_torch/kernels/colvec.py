@@ -32,18 +32,18 @@ def linearize_parts_fused(model: RobotModel, q, qd, u,
 
     Kernel ``linearize_parts`` (csrc/linearize.cu) replaces rbdtpu's
     ``kernels.colvec.linearize_parts_fused`` (Pallas, colvec.py:289): one
-    thread per knot runs ABA, the RNEA sweeps at that acceleration, the
-    analytical M^-1 (upper triangle, mirrored in the kernel) and, column by
-    column, the dc/dq and dc/dqd derivative sweeps.  Bound on the H100:
-    arithmetic per knot (roughly 2n tree sweeps of 6x6 algebra) and local
-    memory — the per-body sweep state and the M^-1 F blocks do not fit in
-    registers, so they spill to L1-cached local memory.  12,800 knots are
-    200 blocks of 64 threads, enough to cover the 132 SMs; one thread per
-    (knot, column) would add parallelism at the cost of recomputing the
-    shared sweeps, a later trade.  On the rpy root the kernel seeds the
-    six root-pose columns of dc/dq analytically (the pose enters only
-    through the gravity seed, as in rbdtpu's kernel); the plain version
-    takes them by forward-mode AD, so the two agree to rounding.
+    team of lanes (``_lib.TEAM``) per knot computes the base quantities once
+    into shared memory (the team ABA step of csrc/rbd_team.cuh, then the
+    RNEA accelerations and forces at its qdd), then runs the 2 nv
+    derivative columns and the nv columns of M^-1 one column a lane, each
+    walking the bodies in depth-first preorder with one shared-memory slot
+    a tree level, so no lane keeps a per-body array on its stack (trees of
+    up to ``_lib.LIN_LEVELS`` levels).  Bound on the H100: latency (a
+    column's walk over the tree is one dependent chain).  On the rpy root
+    the kernel seeds the six root-pose columns of dc/dq analytically (the
+    pose enters only through the gravity seed, as in rbdtpu's kernel); the
+    plain version takes them by forward-mode AD, so the two agree to
+    rounding.
     """
     if not q.is_cuda:
         return linearize_parts_plain(model, q, qd, u, gravity)
@@ -55,8 +55,11 @@ def linearize_parts_fused(model: RobotModel, q, qd, u,
     dcq = torch.empty_like(Minv)
     dcd = torch.empty_like(Minv)
     qdd = torch.empty_like(qd)
+    _, tpb, smem, _ = _lib.linearize_geometry(
+        _lib.size_class("linearize_parts", model), q.dtype, B,
+        _lib.sm_count(q.device))
     _lib.launch("linearize_parts", model, q, q, qd, u, Minv, dcq, dcd, qdd,
-                B, gravity)
+                B, tpb, smem, gravity)
     return Minv, dcq, dcd, qdd
 
 

@@ -21,10 +21,10 @@ SMEM_MAX = 232448
 
 
 def smem_bytes(nx: int, nu: int, dtype) -> int:
-    """Shared memory one problem's sweep holds (csrc/riccati_chunk.cu
-    riccati_smem_values)."""
-    values = 2 * nx * nx + 4 * nx * nu + 2 * nu * nu + 2 * nx + 3 * nu
-    return values * torch.empty((), dtype=dtype).element_size()
+    """Shared memory a block of one problem's sweep holds
+    (csrc/riccati_chunk.cu riccati_layout, ``_lib.riccati_values``)."""
+    return _lib.riccati_values(nx, nu) * torch.empty(
+        (), dtype=dtype).element_size()
 
 
 def _cost_block(arr, name, batch, H, r, c, ref):
@@ -53,13 +53,17 @@ def backward_pass_chunked(A, B, lx, lu, lxx, luu, lux, lfx, lfxx, reg):
     Kernel ``riccati`` (csrc/riccati_chunk.cu) replaces rbdtpu's
     ``kernels.riccati_chunk.backward_pass_chunked`` (Pallas,
     riccati_chunk.py:523) and its small-batch variant ``_backward_small``
-    (riccati_chunk.py:334): one thread block per problem loops over the
-    horizon with Vx, Vxx and the Q terms in shared memory, the products
-    split over its 256 threads, the Quu Cholesky on one warp and the k/K
-    solves one thread per right-hand column.  Bound on the H100: the
-    operations, issued at the rate of shared-memory operand loads.  Any
-    batch is taken as it is, with no padding; launches count as
-    ``riccati_chunk`` at batches >= 128 and ``riccati_small`` below.
+    (riccati_chunk.py:334): a thread block per problem loops over the
+    horizon with the carry and the Q terms in shared memory; every product
+    gives a thread a 4 x 4 register tile, knot t-1's [A | B] arrives by
+    cp.async during knot t, Quu + reg I is factored as L D L^T with L^-1
+    by one elimination step a barrier, and k, K come from two products;
+    the block's threads are picked to run the batch in as few waves as any
+    count (``_lib.riccati_geometry``).  Bound on the H100: the
+    operations.  Any batch is taken as it is, with no padding; launches
+    count as ``riccati_chunk`` at batches >= 128 and ``riccati_small``
+    below.  lfxx is taken as symmetric, as the solver's terminal Hessian
+    is (the sweep symmetrises every later Vxx itself).
     """
     if not A.is_cuda:
         from ..solver.ddp import backward_pass
@@ -72,8 +76,10 @@ def backward_pass_chunked(A, B, lx, lu, lxx, luu, lux, lfx, lfxx, reg):
                          f"H100 has {SMEM_MAX}")
     args, outs = sweep_args(A, B, lx, lu, lxx, luu, lux, lfx, lfxx, reg)
     Bn = math.prod(outs[2].shape)
+    nt, smem, _ = _lib.riccati_geometry(nx, nu, A.dtype, Bn,
+                                        _lib.sm_count(A.device))
     _lib.launch("riccati", None, A, *args, *outs, Bn, A.shape[-3], nx, nu,
-                count_as="riccati_chunk" if Bn >= LANE_BATCH
+                nt, smem, count_as="riccati_chunk" if Bn >= LANE_BATCH
                 else "riccati_small")
     return outs
 

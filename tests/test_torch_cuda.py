@@ -243,6 +243,35 @@ def test_feedback_rollout(tree_case, clip, inputs, B, H):
     _close(U, Up, tol)
 
 
+@pytest.mark.parametrize("B", [1, 37, 70])
+def test_linearize_parts_batches(tree_case, B):
+    """K3 at one knot, at a batch past one warp of columns' teams, and at
+    an odd batch, on n8 (arm7, the mixed tree) and fb16 (the rpy
+    quadruped)."""
+    m, _, tol = tree_case
+    q, qd, u = _inputs(m, (B, m.nq), (B, m.nv), (B, m.nv))
+    out = _launched("linearize_parts",
+                    lambda: linearize_parts_fused(m, q, qd, u))
+    for a, b in zip(out, colvec.linearize_parts_plain(m, q, qd, u)):
+        _close(a, b, tol)
+
+
+@pytest.mark.parametrize("B", [1, 37, 70])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+def test_linearize_parts_humanoid_batches(card, dtype, B):
+    """K3 at fb32 (the humanoid, 11 tree levels) at the same batches."""
+    m = _humanoid(dtype)
+    assert _lib.size_class("linearize_parts", m) == "fb32"
+    _, (x, u) = _humanoid_inputs(m, B, 2)
+    q, qd = x[:, :m.nq].contiguous(), x[:, m.nq:].contiguous()
+    out = _launched("linearize_parts",
+                    lambda: linearize_parts_fused(m, q, qd, u))
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    for a, b in zip(out, colvec.linearize_parts_plain(m, q, qd, u)):
+        _close(a, b, tol)
+
+
 def test_linearize_parts(tree_case):
     """On the rpy root the plain version fills the root-pose columns of
     dc/dq by forward-mode AD, the kernel analytically."""
@@ -334,12 +363,17 @@ def _riccati(B, H, nx, nu, const, dtype, seed, non_pd=None):
                          ids=["float64", "float32"])
 @pytest.mark.parametrize("B,H,nx,nu,const", [
     (4, 6, 10, 4, True), (130, 5, 10, 4, False), (16, 4, 36, 18, True),
-    (128, 3, 36, 18, False), (3, 3, 72, 36, False)],
-    ids=["small", "lane", "quad-small", "quad-lane", "humanoid"])
+    (128, 3, 36, 18, False), (3, 3, 72, 36, False), (1, 1, 6, 1, True),
+    (7, 5, 13, 5, False), (16, 4, 72, 36, True), (256, 3, 72, 36, True)],
+    ids=["small", "lane", "quad-small", "quad-lane", "humanoid", "one",
+         "odd", "path-C", "path-D"])
 def test_riccati_chunked(card, B, H, nx, nu, const, dtype):
     """The sweep kernel against the plain sweep at both call sites, with
-    constant and per-knot cost blocks, up to the humanoid's nx = 72 (above
-    48 KB of shared memory in float64); float64 within 1e-9 relative to the
+    constant and per-knot cost blocks: one problem of one knot and one
+    control, an odd nx = 13 / nu = 5 (tiles past every edge), and the
+    humanoid's nx = 72 / nu = 36 at path C's 16 problems and path D's 256
+    (256 threads a block, 195 KB of shared memory in float64); float64
+    within 1e-9 relative to the
     output's scale, float32 within 1e-3 (a Riccati sweep accumulates the
     reordered float32 sums of H knots)."""
     from rbdtpu_torch.solver.ddp import backward_pass
@@ -352,6 +386,30 @@ def test_riccati_chunked(card, B, H, nx, nu, const, dtype):
     for a, b in zip(out[:3], ref[:3]):
         _close(a, b, tol)
     assert out[3].tolist() == ref[3].tolist() == [True] * B
+
+
+@pytest.mark.parametrize("knot", [0, 3], ids=["t0", "mid"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+def test_riccati_non_pd_humanoid(card, dtype, knot):
+    """A non-PD Quu at knot t = 0 (the sweep's last) or mid-horizon in one
+    of 16 humanoid-size problems (path C's batch): NaN gains from that knot
+    back and ok False where the plain sweep has them, the other problems
+    within the sweep's tolerance."""
+    from rbdtpu_torch.solver.ddp import backward_pass
+
+    args = _riccati(16, 6, 72, 36, False, dtype, 11 + knot, non_pd=(9, knot))
+    k, K, dV, ok = _launched("riccati_small",
+                             lambda: backward_pass_chunked(*args))
+    kr, Kr, dVr, okr = backward_pass(*args)
+    assert ok.tolist() == okr.tolist() == [i != 9 for i in range(16)]
+    assert torch.equal(k.isnan(), kr.isnan())
+    assert torch.equal(K.isnan(), Kr.isnan())
+    assert k[9, :knot + 1].isnan().all() and k[9, knot + 1:].isfinite().all()
+    fin = ok.nonzero()[:, 0]
+    tol = 1e-9 if dtype == torch.float64 else 1e-3
+    for a, b in ((k[fin], kr[fin]), (K[fin], Kr[fin]), (dV[fin], dVr[fin])):
+        _close(a, b, tol)
 
 
 def test_riccati_non_pd(card):
@@ -638,9 +696,10 @@ def test_feedback_chunked_refuses_a_bad_split(card):
 
 
 def test_stack_limit_round_trip(card):
-    """The per-thread stack limit reads back what was set, K3 at the
-    humanoid's size class (the largest stack frame, in double) stays right
-    under a lowered limit, and the limit is set back afterwards."""
+    """The per-thread stack limit reads back what was set; K3 at the
+    humanoid's size class in double, whose columns keep their state in
+    shared memory, runs right under a 1,024-byte limit and leaves it at
+    1,024 bytes; the limit is set back afterwards."""
     limit = _lib.stack_limit(card)
     _lib.set_stack_limit(card, 1024)
     try:
@@ -652,6 +711,7 @@ def test_stack_limit_round_trip(card):
                         lambda: linearize_parts_fused(m, q, qd, u))
         for a, b in zip(out, colvec.linearize_parts_plain(m, q, qd, u)):
             _close(a, b, 1e-9)
+        assert _lib.stack_limit(card) == 1024
     finally:
         _lib.set_stack_limit(card, limit)
     assert _lib.stack_limit(card) == limit

@@ -117,8 +117,9 @@ def test_cpu_tensors_take_the_plain_versions(tm, rng):
 def test_model_tables_layout(tm):
     """The kernels' per-body table: compact (E, r) rebuilds Xtree, and the
     other fields are the model's own; the int table holds the parents, the
-    joint types and the bodies level by level (every body once, each after
-    its parent's level)."""
+    joint types, the bodies level by level (every body once, each after
+    its parent's level), then the bodies in depth-first preorder (each
+    body's subtree the block right after it) and each body's level."""
     from rbdtpu_torch.kernels import _lib
 
     tab, itab = _lib.model_tables(tm, torch.device("cpu"), torch.float64)
@@ -137,10 +138,23 @@ def test_model_tables_layout(tm):
         np.testing.assert_array_equal(row[66:69], T[:3, 3])
     nb, it = tm.nb, itab.tolist()
     assert it[:2 * nb] == list(tm.parent) + list(tm.joint_type)
-    order, levels, starts = it[2 * nb:3 * nb], it[3 * nb], it[3 * nb + 1:]
+    order, levels = it[2 * nb:3 * nb], it[3 * nb]
+    starts = it[3 * nb + 1:3 * nb + 2 + levels]
     assert sorted(order) == list(range(nb))
     assert len(starts) == levels + 1 and starts[0] == 0 and starts[-1] == nb
     level = {i: lv for lv in range(levels)
              for i in order[starts[lv]:starts[lv + 1]]}
     for i, p in enumerate(tm.parent):
         assert level[i] == (0 if p < 0 else level[p] + 1)
+    pre, depth = it[3 * nb + 2 + levels:][:nb], it[4 * nb + 2 + levels:]
+    assert sorted(pre) == list(range(nb)) and depth == [level[i]
+                                                        for i in range(nb)]
+    pos = {b: k for k, b in enumerate(pre)}
+    for k, b in enumerate(pre):  # b's subtree: the bodies after it, deeper
+        end = next((e for e in range(k + 1, nb)
+                    if depth[pre[e]] <= depth[b]), nb)
+        for d in pre[k + 1:end]:
+            a = d
+            while a != b:
+                a = tm.parent[a]
+                assert a >= 0 and pos[a] >= k

@@ -102,7 +102,8 @@ def test_level_order(name):
                    floating_base=name != "arm7")
     it = _lib.model_tables(m, torch.device("cpu"), torch.float64)[1].tolist()
     nb = m.nb
-    order, levels, starts = it[2 * nb:3 * nb], it[3 * nb], it[3 * nb + 1:]
+    order, levels = it[2 * nb:3 * nb], it[3 * nb]
+    starts = it[3 * nb + 1:3 * nb + 2 + levels]
     assert (nb, levels) == {"quadruped12": (13, 4), "humanoid30": (31, 11),
                             "arm7": (7, 7)}[name]
     assert _lib.level_walk(m) == (name != "arm7")

@@ -1,26 +1,32 @@
 #!/usr/bin/env python3
-"""Time the step kernels K1 (``fd_step``) and K2 (``feedback_rollout``) on
-one CUDA card, float32, at each size class's path shapes:
+"""Time the step kernels K1 (``fd_step``) and K2 (``feedback_rollout``),
+the linearisation K3 (``linearize_parts``) and the Riccati sweep K7/K8
+(``riccati``) on one CUDA card, float32, at each path's shapes:
 
     python3 tools/time_step_kernels.py [--root DIR] [--label NAME]
     python3 tools/time_step_kernels.py --sweep
 
-Shapes: arm7 K1 at 128 and 1 states, K2 at 1024 trajectories x 100 knots
-(BASELINE.json configs[2]); the rpy quadruped K1 at 1024, K2 at 6144 x 50
-(configs[3]); humanoid30 K1 at 2048, K2 at 1024 x 32 (configs[4] paths C
-and D).  Each time is ``chip_smoke.graph_ms`` (the device's time alone)
-and, beside it, ``chip_smoke.cuda_ms`` over 20 single calls (the host's
-launch included).  ``--root`` times the ``rbdtpu_torch`` of another
-checkout (a parent commit unpacked into an ignored directory) with this
-checkout's timers and inputs, so two commits compare on one card by
-running the tool once per root in turns (parent, change, change, parent).
+Shapes: arm7 K1 at 128 and 1 states, K2 at 1024 trajectories x 100 knots,
+K3 at 12,800 knots (BASELINE.json configs[2]); the rpy quadruped K1 at
+1024, K2 at 6144 x 50, K3 at 51,200 knots (configs[3]); humanoid30 K1 at
+2048, K2 at 1024 x 32, K3 at 8,192 knots (configs[4] paths C and D); the
+sweep at configs[3]'s 1024 problems x 50 knots (nx=36, nu=18), at four
+such problems (the small-batch call site), and at paths D's and C's 256
+and 16 humanoid problems x 32 knots (nx=72, nu=36), constant cost blocks
+(``chip_smoke.riccati_problem``).  Each time is ``chip_smoke.graph_ms``
+(the device's time alone) and, beside it, ``chip_smoke.cuda_ms`` over 20
+single calls (the host's launch included).  ``--root`` times the
+``rbdtpu_torch`` of another checkout (a parent commit unpacked into an
+ignored directory) with this checkout's timers and inputs, so two commits
+compare on one card by running the tool once per root in turns (parent,
+change, change, parent).
 
 ``--sweep`` rebuilds this checkout's kernels at each team size of
 ``_lib.TEAM_SIZES`` (every entry of ``_lib.TEAM`` set to it) and times, in
 float32 and float64, K1 at 1, 16 and 256 states and at the path's batch,
-and K2 at the path's shape in both walks of the step's root->leaf
-recursions (graph replay): the measurements ``_lib.TEAM`` and
-``_lib.level_walk`` were fixed from.  Prints one JSON line with the card's
+K2 at the path's shape in both walks of the step's root->leaf recursions
+and K3 at the path's knots (graph replay): the measurements ``_lib.TEAM``
+and ``_lib.level_walk`` were fixed from.  Prints one JSON line with the card's
 name and power limit.
 """
 from __future__ import annotations
@@ -40,6 +46,9 @@ DT, GRAVITY = 0.01, -9.81
 MODELS = (("arm7", "arm7", False), ("rpy quadruped", "quadruped12", True),
           ("humanoid", "humanoid30", True))
 SWEEP_STATES = (1, 16, 256)
+# the Riccati sweep's shapes: (label, problems, knots, nx, nu)
+RICCATI_SHAPES = (("configs[3]", 1024, 50, 36, 18), ("B=4", 4, 50, 36, 18),
+                  ("path D", 256, 32, 72, 36), ("path C", 16, 32, 72, 36))
 
 
 def smoke():
@@ -52,7 +61,8 @@ def smoke():
 
 
 def path_inputs(cs, key, m64):
-    """(x, u) of K1 and K2's five inputs at ``key``'s path shapes, float64."""
+    """(x, u) of K1, K2's five inputs and K3's (q, qd, u) at ``key``'s path
+    shapes, float64."""
     if key == "arm7":
         inp = cs.kernel_inputs(m64, np.random.default_rng(cs.SEED))
     elif key == "rpy quadruped":
@@ -61,23 +71,27 @@ def path_inputs(cs, key, m64):
     else:
         inp = cs.floating_kernel_inputs(
             m64, np.random.default_rng(cs.SEED + 90), cs.humanoid_problems,
-            2048, 1024, 32, 8)
-    return inp["fd_step"], inp["feedback_rollout"]
+            2048, 1024, 32, cs.BD * cs.HH)
+    return inp["fd_step"], inp["feedback_rollout"], inp["linearize_parts"]
 
 
 def compare(cs, label: str) -> dict:
-    from rbdtpu_torch.kernels import fused
+    from rbdtpu_torch.kernels import colvec, fused
+    from rbdtpu_torch.kernels.riccati_chunk import backward_pass_chunked
     from rbdtpu_torch.model import load_asset
 
     out = {}
+    timed = lambda fn: {"graph": cs.graph_ms(fn),
+                        "call": cs.cuda_ms(fn, reps=20)}
     for key, name, fb in MODELS:
         m64 = load_asset(name, device="cuda", dtype=torch.float64,
                          floating_base=fb)
         m32 = load_asset(name, device="cuda", dtype=torch.float32,
                          floating_base=fb)
-        (x, u), k2 = path_inputs(cs, key, m64)
+        (x, u), k2, k3 = path_inputs(cs, key, m64)
         x, u = x.float().contiguous(), u.float().contiguous()
         k2 = tuple(t.float().contiguous() for t in k2)
+        k3 = tuple(t.float().contiguous() for t in k3)
         cases = [(f"K1 B={x.shape[0]}",
                   lambda: fused.fd_step_fused(m32, x, u, DT, GRAVITY))]
         if key == "arm7":
@@ -87,16 +101,25 @@ def compare(cs, label: str) -> dict:
         cases.append((f"K2 {k2[2].shape[0]}x{k2[2].shape[1]}",
                       lambda: fused.feedback_rollout_fused(m32, *k2, DT,
                                                            GRAVITY)))
+        cases.append((f"K3 {k3[0].shape[0]}", lambda: colvec.
+                      linearize_parts_fused(m32, *k3, GRAVITY)))
         for case, fn in cases:
-            out[f"{key} {case}"] = {"graph": cs.graph_ms(fn),
-                                    "call": cs.cuda_ms(fn, reps=20)}
-        del x, u, k2
+            out[f"{key} {case}"] = timed(fn)
+        del x, u, k2, k3
         torch.cuda.empty_cache()
+    for case, B, H, nx, nu in RICCATI_SHAPES:
+        prob = tuple(torch.tensor(a, dtype=torch.float32, device="cuda")
+                     for a in cs.riccati_problem(
+                         np.random.default_rng(cs.SEED + B), nx, nu, H, B,
+                         True))
+        out[f"riccati {case} {B}x{H} nx={nx}"] = timed(
+            lambda: backward_pass_chunked(*prob))
+        del prob
     return {"label": label, "ms": out}
 
 
 def sweep(cs) -> dict:
-    from rbdtpu_torch.kernels import _lib
+    from rbdtpu_torch.kernels import _lib, colvec
     from rbdtpu_torch.model import load_asset
 
     out = {}
@@ -108,7 +131,7 @@ def sweep(cs) -> dict:
         for key, name, fb in MODELS:
             m64 = load_asset(name, device="cuda", dtype=torch.float64,
                              floating_base=fb)
-            (x64, u64), k2_64 = path_inputs(cs, key, m64)
+            (x64, u64), k2_64, k3_64 = path_inputs(cs, key, m64)
             for dtype in (torch.float32, torch.float64):
                 m = load_asset(name, device="cuda", dtype=dtype,
                                floating_base=fb)
@@ -138,6 +161,10 @@ def sweep(cs) -> dict:
                 for levels, walk in ((1, "levels"), (0, "bodies")):
                     out[f"{team} {key} {sfx} K2 {B}x{H} by {walk}"] = (
                         cs.graph_ms(k2_walk(levels)))
+                k3 = tuple(t.to(dtype).contiguous() for t in k3_64)
+                out[f"{team} {key} {sfx} K3 B={k3[0].shape[0]}"] = (
+                    cs.graph_ms(lambda: colvec.linearize_parts_fused(
+                        m, *k3, GRAVITY)))
             torch.cuda.empty_cache()
     return {"label": "team sweep", "ms": out}
 
