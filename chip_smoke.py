@@ -7,14 +7,16 @@ Phases, each ending the run with a nonzero exit when it fails:
 
 1. identify the card (name, power limit), build the CUDA kernels from
    ``rbdtpu_torch/csrc`` and require every instantiation of the team
-   kernels K1 (``fd_step``), K2 (``feedback_rollout``) and K3
-   (``linearize_parts``) and of the Riccati sweep (``riccati``) in the
-   build with a ptxas stack frame under 1,024 bytes;
+   kernels K1 (``fd_step``), K2 (``feedback_rollout``), K3
+   (``linearize_parts``) and K9 (``feedback_chunked``) and of the Riccati
+   sweeps (``riccati``, K7/K8, and ``riccati_fused``, K11) in the build
+   with a ptxas stack frame under 1,024 bytes;
 2. hold each kernel of the DDP path against its plain PyTorch version on
    the card, at that path's shapes: max abs error <= 1e-9 in float64, and
    a relative bound in float32; time both (CUDA events around one call
-   with its launch; K1, K2 and K3 also by replaying a CUDA graph of 20
-   calls, the device's time alone) and compute each kernel's
+   with its launch; K1, K2, K3 and K9 and the Riccati sweeps also by
+   replaying a CUDA graph of 20 calls, the device's time alone) and
+   compute each kernel's
    bound (bytes over the memory rate, or operations over the float32 peak,
    whichever is larger; the operations each function needs are counted by
    ``rbdtpu_torch/opcount.py``); then
@@ -68,10 +70,13 @@ Phases, each ending the run with a nonzero exit when it fails:
    call site): max |U_kernel - U_plain| < 1e-6 at both;
 12. hold the arm-class Riccati sweep kernel (K11, ``riccati_fused``)
    against the plain sweep at configs[2]'s shape (B=128, H=100, nx=14,
-   nu=7) with per-knot and with constant cost blocks, at B=1 and at B=4:
-   float64 relative error <= 1e-9, float32 <= 1e-4, each timed beside the
-   plain sweep, beside the chunked sweep kernel (K7) on the same inputs
-   and beside its bound; and on a batch with one non-PD problem;
+   nu=7) with per-knot and with constant cost blocks, at B=1 and at B=4,
+   each with the split it took (one block a problem, its threads and
+   shared bytes, in both dtypes): float64 relative error <= 1e-9, float32
+   <= 1e-4, each timed (one call, and by graph replay) beside the plain
+   sweep, beside the chunked sweep kernel (K7) on the same inputs (timed
+   both ways) and beside its bound; and on a batch with one non-PD
+   problem;
 13. path A: the configs[2] solve of phase 3 with ``fused_riccati=True``:
    per solve ``riccati_fused`` 10 launches, the plain sweep none; J finite,
    nonincreasing and falling; its profile; float64 control parity against
@@ -92,9 +97,12 @@ Phases, each ending the run with a nonzero exit when it fails:
    with the per-thread stack limit and the device memory outside
    PyTorch's pool before and after them (K3 must leave the limit where it
    was), then the team kernels' extra checks and times; K9
-   (``feedback_chunked``) at nchunks 2, 1, 3 and 100 with and without a
-   clamp, at an odd batch, on arm7 and on the rpy quadruped, and against
-   K2 on the same inputs (float64 <= 1e-9, both timed);
+   (``feedback_chunked``, K2's team body with rbdtpu's chunked sum) at
+   nchunks 2, 1, 3 and 100 with and without a clamp, at an odd batch, on
+   arm7 and on the rpy quadruped, with the stack limit before and after
+   (K9 at fb32 in float64 must leave it where it was), and against K2 on
+   the same inputs (float64 <= 1e-9, both timed by one call and by graph
+   replay);
 16. path C, BASELINE.json configs[4] (bench.py:539-590): ``hybrid_solve``
    of 16 humanoid problems, H=32, 4 MPPI iterations of 128 samples then 4
    DDP iterations of 4 line-search steps, float32, every kernel on: solve
@@ -143,16 +151,18 @@ TOL32 = {"fd_step": 1e-4, "feedback_rollout": 1e-3, "linearize_parts": 1e-4,
 U_PARITY = 1e-6
 PARITY_H = (100, 20)
 # the team kernels (csrc/rbd_team.cuh): one team of lanes per state (K1),
-# trajectory (K2) or knot (K3); their ptxas stack, and the Riccati sweep's,
-# must stay under STACK_MAX bytes in every instantiation (3 classes x 2
-# dtypes at the team size of kernels/_lib.py TEAM, K1 with and without
-# wrenches, K2 in both walks; the sweep in 2 dtypes), and K1/K2's extra
-# checks run these batches
+# trajectory (K2, K9) or knot (K3); their ptxas stack, and the Riccati
+# sweeps', must stay under STACK_MAX bytes in every instantiation (3
+# classes x 2 dtypes at the team size of kernels/_lib.py TEAM, K1 with and
+# without wrenches, K2 and K9 in both walks; each sweep in 2 dtypes), and
+# K1/K2's extra checks run these batches
 TEAM_KERNELS = ("fd_step", "feedback_rollout")
 STACK_INSTANCES = {"fd_step": 12, "feedback_rollout": 12,
-                   "linearize_parts": 6, "riccati": 2}
+                   "linearize_parts": 6, "feedback_chunked": 12,
+                   "riccati": 2, "riccati_fused": 2}
 # the kernels whose rows add graph_ms, the device's time by graph replay
-GRAPH_KERNELS = ("fd_step", "feedback_rollout", "linearize_parts")
+GRAPH_KERNELS = ("fd_step", "feedback_rollout", "linearize_parts",
+                 "feedback_chunked")
 STACK_MAX = 1024
 TEAM_BATCHES = (1, 37, 1000)
 # the rollout path (BASELINE.json configs[1], bench.py:132-209, 377-416)
@@ -829,6 +839,7 @@ def check_riccati(smi: str, rows: dict):
     """The chunked sweep kernel against the plain sweep: RICCATI_CASES,
     then a configs[3]-shaped batch with one non-PD problem.  Adds the rows
     of riccati_chunk (K7, batch >= 128) and riccati_small (K8)."""
+    from rbdtpu_torch.kernels import _lib
     from rbdtpu_torch.kernels.riccati_chunk import (
         LANE_BATCH, backward_pass_chunked,
     )
@@ -836,24 +847,27 @@ def check_riccati(smi: str, rows: dict):
     check_sweep(smi, rows, "riccati", backward_pass_chunked, RICCATI_CASES,
                 lambda B: "riccati_chunk" if B >= LANE_BATCH
                 else "riccati_small", (B3, H3, 36, 18, (7, H3 // 2)),
-                (SEED + 10, SEED + 20), split=True)
+                (SEED + 10, SEED + 20), split=_lib.riccati_geometry)
 
 
 def check_riccati_fused(smi: str, rows: dict):
     """The arm-class sweep kernel (K11) against the plain sweep:
-    RICCATI_FUSED_CASES, each also timed through the chunked sweep kernel
-    on the same inputs, then a configs[2]-shaped batch with one non-PD
-    problem.  Adds the row of riccati_fused."""
-    from rbdtpu_torch.kernels import backward_pass_chunked, backward_pass_fused
+    RICCATI_FUSED_CASES, each with its split and also timed through the
+    chunked sweep kernel on the same inputs, then a configs[2]-shaped batch
+    with one non-PD problem.  Adds the row of riccati_fused."""
+    from rbdtpu_torch.kernels import (
+        _lib, backward_pass_chunked, backward_pass_fused,
+    )
 
     check_sweep(smi, rows, "riccati_fused", backward_pass_fused,
                 RICCATI_FUSED_CASES, lambda B: "riccati_fused",
                 (128, 100, 14, 7, (7, 50)), (SEED + 50, SEED + 60),
-                beside=("K7 kernel", backward_pass_chunked))
+                beside=("K7 kernel", backward_pass_chunked),
+                split=_lib.riccati_fused_geometry)
 
 
 def check_sweep(smi: str, rows: dict, tag: str, kernel, cases, row_name,
-                non_pd, seeds, beside=None, split=False):
+                non_pd, seeds, beside=None, split=None):
     """A sweep kernel's wrapper ``kernel`` against the plain sweep
     (``solver.ddp.backward_pass``) on the card: each of ``cases`` (label,
     B, H, nx, nu, constant cost blocks) in float64 (max error relative to
@@ -865,11 +879,12 @@ def check_sweep(smi: str, rows: dict, tag: str, kernel, cases, row_name,
     and ok must be the plain sweep's, the finite entries within TOL64.
     ``row_name(B)`` names the JSON row a case belongs to; ``seeds`` seed
     the first case (the next ones count up) and the non-PD batch.  With
-    ``split`` (the chunked sweep) each case also prints the launch's split
-    in both dtypes (``_lib.riccati_geometry``: one block a problem, its
-    threads and shared bytes) and is timed by graph replay as well, which
-    the row keeps as ``graph_ms``.  Fails after printing every
-    check."""
+    ``split`` (the kernel's geometry function, ``_lib.riccati_geometry``
+    or ``_lib.riccati_fused_geometry``) each case also prints the launch's
+    split in both dtypes (one block a problem, its threads and shared
+    bytes) and is timed by graph replay as well, which the row keeps as
+    ``graph_ms``; ``beside`` is then timed both ways too.  Fails after
+    printing every check."""
     import torch
     from rbdtpu_torch import opcount
     from rbdtpu_torch.kernels import _lib
@@ -905,18 +920,21 @@ def check_sweep(smi: str, rows: dict, tag: str, kernel, cases, row_name,
         ms = cuda_ms(lambda: kernel(*a32), reps=20)
         plain_ms = cuda_ms(lambda: backward_pass(*a32), reps=3)
         also, gms = "", None
-        if split:
+        if split is not None:
             gms = graph_ms(lambda: kernel(*a32))
             also = f" ({gms:.4f} ms by graph replay)"
             for a in (a64, a32):
-                nt, smem, blocks = _lib.riccati_geometry(
-                    nx, nu, a[0].dtype, B, _lib.sm_count(a[0].device))
+                nt, smem, blocks = split(nx, nu, a[0].dtype, B,
+                                         _lib.sm_count(a[0].device))
                 also += (f"  split {str(a[0].dtype)[6:]}: one block a "
                          f"problem, {nt} threads, {smem} B of shared memory "
                          f"a block, {blocks} blocks")
         if beside is not None:
-            also = (f"  {beside[0]} "
-                    f"{cuda_ms(lambda: beside[1](*a32), reps=20):.4f} ms")
+            also += (f"  {beside[0]} "
+                     f"{cuda_ms(lambda: beside[1](*a32), reps=20):.4f} ms")
+            if split is not None:
+                also += (f" ({graph_ms(lambda: beside[1](*a32)):.4f} ms by "
+                         "graph replay)")
         ops = opcount.riccati_knot_ops(nx, nu) * B * H
         bound_ms, bound_by = bound(a32, k32, None, ops, "float32")
         print(f"kernel {tag} {label} ({name}): B={B} H={H} nx={nx} nu={nu} "
@@ -1405,9 +1423,9 @@ def humanoid_kernels(h64, h32, arm, quad, smi: str, rows: dict, ptxas: list):
     path D's BD x HH knots); K9 (``feedback_chunked``) at path D's shape at
     every count of NCHUNKS_CHECKS, with and without a clamp that bites,
     on arm7 and the rpy quadruped (``arm``, ``quad``: (m64, m32, K2's
-    float64 inputs, states x steps)) and at an odd batch; then K9 against
-    K2 on the same inputs of each model, float64 within TOL64, both
-    timed."""
+    float64 inputs, states x steps)) and at an odd batch, the stack limit
+    required unchanged across K9 at fb32 in float64; then K9 against K2 on
+    the same inputs of each model, float64 within TOL64, both timed."""
     import torch
     from rbdtpu_torch.kernels import _lib, fused
 
@@ -1458,7 +1476,15 @@ def humanoid_kernels(h64, h32, arm, quad, smi: str, rows: dict, ptxas: list):
     k9.append(("feedback_chunked humanoid odd batch", "feedback_chunked", odd,
                {"nchunks": NCHUNKS_D}, "feedback_chunked",
                odd[0].shape[0] * HH))
+    # K9 is a team kernel: at fb32 in float64 it runs within the stack
+    # limit the earlier phases left
+    limit = _lib.stack_limit(h64.device)
     check_kernels(k9, h64, h32, smi, rows, time_all=False)
+    grown = _lib.stack_limit(h64.device)
+    print(f"stack limit {limit} B a thread before K9 at fb32, {grown} B after "
+          f"it ({smi})")
+    require(grown == limit, f"K9 at fb32 raised the stack limit from {limit} "
+            f"to {grown} B a thread")
     for label, (m64, m32, args, steps) in (("arm7", arm),
                                            ("rpy quadruped", quad)):
         check_kernels([(f"feedback_chunked {label}", "feedback_chunked", args,
@@ -1471,14 +1497,16 @@ def humanoid_kernels(h64, h32, arm, quad, smi: str, rows: dict, ptxas: list):
                                                   nchunks=NCHUNKS_D)
         err = max(errors(k9, k2, relative=False))
         a32 = tuple(a.float() for a in args)
-        ms2 = cuda_ms(lambda: fused.feedback_rollout_fused(
-            m32, *a32, DT, GRAVITY), reps=20)
-        ms9 = cuda_ms(lambda: fused.feedback_rollout_fused_chunked(
-            m32, *a32, DT, GRAVITY, nchunks=NCHUNKS_D), reps=20)
+        k2_32 = lambda: fused.feedback_rollout_fused(m32, *a32, DT, GRAVITY)
+        k9_32 = lambda: fused.feedback_rollout_fused_chunked(
+            m32, *a32, DT, GRAVITY, nchunks=NCHUNKS_D)
+        ms2, ms9 = cuda_ms(k2_32, reps=20), cuda_ms(k9_32, reps=20)
         print(f"kernel feedback_chunked vs feedback_rollout {label} "
               f"{tuple(args[4].shape)}: f64 max|K9 - K2| {err:.3e} (bound "
-              f"{TOL64:g}); f32 K9 nchunks={NCHUNKS_D} {ms9:.4f} ms, K2 "
-              f"{ms2:.4f} ms (median of 20, CUDA events, {smi})")
+              f"{TOL64:g}); f32 K9 nchunks={NCHUNKS_D} {ms9:.4f} ms "
+              f"({graph_ms(k9_32):.4f} ms by graph replay), K2 {ms2:.4f} ms "
+              f"({graph_ms(k2_32):.4f} ms by graph replay) (median of 20, "
+              f"CUDA events, {smi})")
         require(err <= TOL64, f"K9 against K2 on {label}: {err:.3e} > "
                 f"{TOL64:g}")
 

@@ -12,19 +12,11 @@
 // at build time (RBD_TEAM_feedback_rollout_<class>_<f32|f64>, which
 // kernels/_lib.py defines from its TEAM table).
 //
-// One team of NL lanes per trajectory (rbd_team.cuh), its state, the
-// knot's gains and the ABA state in the team's shared memory:
-//   - the knot's K_t, Xn_t, Un_t and kf_t arrive in a shared buffer by
-//     cp.async, consecutive lanes on consecutive addresses (K rows padded
-//     to nx + 1 values, so the lanes' rows fall on different banks);
-//   - the lanes form dx, then one lane a row of K sums its feedback,
-//     clamps, and writes u to shared memory and Uo[t];
-//   - the buffer is consumed before the step begins, so the copies of knot
-//     t + 1 are issued right then into the same buffer and arrive while the
-//     team runs knot t's step: one stage overlaps the loads with the step
-//     in half the shared memory of a two-stage ring, which keeps every class
-//     and dtype (fb32 in double too) at the same design;
-//   - the team step writes x' to shared memory and Xo[t].
+// One team of NL lanes per trajectory runs feedback_team.cuh's
+// feedback_rollout_team (shared with K9, csrc/feedback_chunked.cu): its
+// state, the knot's gains (staged by cp.async one knot ahead) and the ABA
+// state in the team's shared memory, one lane a row of K for the feedback
+// sum, the team ABA step of rbd_team.cuh.
 // The step walks its root->leaf recursions level by level where the tree
 // branches (LV; the caller decides, kernels/_lib.py level_walk) and body by
 // body on a chain.  Bound on the H100: the latency of H dependent steps per
@@ -33,80 +25,7 @@
 // 32 lanes a team are fastest in every class (PERF.md §6).  A block is one
 // warp or less, halved until the batch gives every SM a block, and the grid
 // covers any B down to 1.
-#include "rbd_team.cuh"
-
-namespace rbd {
-
-// The step's layout here: no wrenches, the level order (for either walk).
-template <class D>
-using FbLayout = TeamLayout<D, false, true>;
-
-// Shared-memory values a team of NL lanes takes: the step's scratch, x, dx
-// and u, and the knot buffer (K with rows of nx + 1, Xn, Un, kf); padded so
-// the teams of a warp start on different banks.
-template <class D, int NL>
-RBD_HD constexpr int feedback_team_stride() {
-  constexpr int NV = D::NV;
-  return (FbLayout<D>::VALUES + 5 * NV + NV * (2 * NV + 1) + 4 * NV + 31) / 32 * 32 + NL % 32;
-}
-
-// Knot t's gains and nominals of one trajectory (pointers at its knot 0)
-// into the buffer: K rows of ld values, then Xn, Un, kf.
-template <int NL, typename T>
-RBD_HD void feedback_load_knot(const Team<NL>& tm, int n, int t, const T* Xn, const T* Un,
-                               const T* kf, const T* Kf, T* bK, T* bXn, T* bUn, T* bkf) {
-  const int nx = 2 * n, ld = nx + 1;
-  const T* K = Kf + (size_t)t * n * nx;
-  for (int i = 0; i < n; ++i)
-    for (int j = tm.lane; j < nx; j += NL) copy_async(bK + i * ld + j, K + i * nx + j);
-  for (int k = tm.lane; k < nx; k += NL) copy_async(bXn + k, Xn + (size_t)t * nx + k);
-  for (int k = tm.lane; k < n; k += NL) {
-    copy_async(bUn + k, Un + (size_t)t * n + k);
-    copy_async(bkf + k, kf + (size_t)t * n + k);
-  }
-  copy_async_commit();
-}
-
-// One trajectory by the team ``tm`` with shared scratch ``s``
-// (feedback_team_stride values); pointers already offset to the trajectory
-// (Xn/Un/kf/Kf/Xo/Uo at its knot 0).  A host loop with a team of one lane
-// runs it too.
-template <int NL, bool LV, typename T, class D>
-RBD_HD void feedback_rollout_team(const Team<NL>& tm, const Model<T, D>& m, T* s, const T* x0,
-                                  const T* Xn, const T* Un, const T* kf, const T* Kf,
-                                  const T* uclip, T* Xo, T* Uo, int H, T dt, T gravity) {
-  constexpr int NV = D::NV;
-  const int n = m.nv(), nx = 2 * n, ld = nx + 1;
-  T* xs = s + FbLayout<D>::VALUES;
-  T* dx = xs + 2 * NV;
-  T* us = dx + 2 * NV;
-  T* bK = us + NV;
-  T* bXn = bK + NV * (2 * NV + 1);
-  T* bUn = bXn + 2 * NV;
-  T* bkf = bUn + NV;
-  for (int k = tm.lane; k < nx; k += NL) xs[k] = x0[k];
-  feedback_load_knot(tm, n, 0, Xn, Un, kf, Kf, bK, bXn, bUn, bkf);
-  for (int t = 0; t < H; ++t) {
-    copy_async_wait();
-    tm.sync();
-    for (int k = tm.lane; k < nx; k += NL) dx[k] = xs[k] - bXn[k];
-    tm.sync();
-    for (int i = tm.lane; i < n; i += NL) {
-      const T* K = bK + i * ld;
-      T acc = bUn[i] + bkf[i];
-      for (int j = 0; j < nx; ++j) acc += K[j] * dx[j];
-      if (uclip != nullptr) acc = acc < -uclip[i] ? -uclip[i] : (acc > uclip[i] ? uclip[i] : acc);
-      us[i] = acc;
-      Uo[(size_t)t * n + i] = acc;
-    }
-    tm.sync();
-    if (t + 1 < H) feedback_load_knot(tm, n, t + 1, Xn, Un, kf, Kf, bK, bXn, bUn, bkf);
-    team_fd_step<NL, false, LV, FbLayout<D>>(tm, m, s, xs, us, dt, gravity,
-                                   static_cast<const T*>(nullptr), xs, Xo + (size_t)t * nx);
-  }
-}
-
-}  // namespace rbd
+#include "feedback_team.cuh"
 
 #ifdef __CUDACC__
 template <int NL, bool LV, typename T, class D>

@@ -93,6 +93,24 @@ RBD_HD void copy_async_wait() {
 #endif
 }
 
+// Asynchronous copies of BYTES bytes (4, 8 or 16) global -> shared (the
+// Riccati sweeps' staging); the host copies at once.
+template <int BYTES>
+RBD_HD void copy_async_bytes(void* dst, const void* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(BYTES));
+  }
+#else
+  const char* s = static_cast<const char*>(src);
+  char* t = static_cast<char*>(dst);
+  for (int k = 0; k < BYTES; ++k) t[k] = s[k];
+#endif
+}
+
 // The team step's shared-memory layout, in values of T, for size class D:
 // compact transforms X (and, with W, the wrenches' chain Xa), the lower-left
 // blocks BL of the dense X (row k = r x row k of E), velocities v (reused

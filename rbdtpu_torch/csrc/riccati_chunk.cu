@@ -220,23 +220,6 @@ RBD_HD void row_tiles(int tid, int nt, int ntr, Cols cols, Body body) {
   }
 }
 
-// Asynchronous copies of BYTES bytes (4, 8 or 16) global -> shared.
-template <int BYTES>
-RBD_HD void copy_async_bytes(void* dst, const void* src) {
-#if defined(__CUDA_ARCH__)
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(BYTES));
-  }
-#else
-  const char* s = static_cast<const char*>(src);
-  char* t = static_cast<char*>(dst);
-  for (int k = 0; k < BYTES; ++k) t[k] = s[k];
-#endif
-}
-
 // The entries (i, j) of an r x c matrix, row by row, that thread tid of nt
 // takes: each thread's k-th entry is tid + k nt, without a division a step.
 template <class Body>

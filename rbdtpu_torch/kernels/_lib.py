@@ -48,13 +48,13 @@ SIZE_CLASSES = {
 }
 
 # Lanes a team of the team kernels (csrc/rbd_team.cuh: one team of one warp
-# runs one state's step in fd_step, one trajectory in feedback_rollout, one
-# knot's linearisation in linearize_parts, one team a block), per
+# runs one state's step in fd_step, one trajectory in feedback_rollout and
+# feedback_chunked, one knot's linearisation in linearize_parts), per
 # kernel, size class and dtype, fixed from their times on an H100 at each
 # class's path shapes (PERF.md §6, tools/time_step_kernels.py --sweep).  The
 # build compiles each kernel at this size alone (``team_defines``).
 TEAM = {(k, cls, sfx): 32 for k in ("fd_step", "feedback_rollout",
-                                     "linearize_parts")
+                                     "linearize_parts", "feedback_chunked")
         for cls in ("n8", "fb16", "fb32") for sfx in ("f32", "f64")}
 TEAM[("fd_step", "fb32", "f32")] = 16
 TEAM.update({("linearize_parts", "n8", "f32"): 8,
@@ -80,16 +80,16 @@ def team_values(kernel: str, cls: str, team: int) -> int:
     qdd), fd_step's with the wrenches' chain (12 a body) and two buffers of
     U.a partial sums, feedback_rollout's with the level order (2 nb + 2)
     and each body's U.a partial sums; then the kernel's own values
-    (fd_step: x and u; feedback_rollout: x, dx, u and the knot buffer, K
-    with rows of nx + 1), rounded up to 32 and offset by ``team`` % 32 as
-    fd_step.cu and feedback_rollout.cu pad them.  The launch refuses any
-    other count."""
+    (fd_step: x and u; feedback_rollout and feedback_chunked, which share
+    one team body: x, dx, u and the knot buffer, K with rows of nx + 1),
+    rounded up to 32 and offset by ``team`` % 32 as fd_step.cu and
+    feedback_team.cuh pad them.  The launch refuses any other count."""
     nb, fb, _ = SIZE_CLASSES[cls]
     nv = nb + 5 if fb else nb
     values = 90 * nb + 54 + nv
     if kernel == "fd_step":
         values += 12 * nb + 12 + 3 * nv
-    elif kernel == "feedback_rollout":
+    elif kernel in ("feedback_rollout", "feedback_chunked"):
         values += 8 * nb + 2 + 9 * nv + nv * (2 * nv + 1)
     else:
         raise ValueError(f"{kernel} is not a team kernel")
@@ -148,9 +148,10 @@ def riccati_values(nx: int, nu: int) -> int:
             + m * ldq + up4(m) * ldm + up4(m) + 4)
 
 
-# threads a block of the Riccati sweep: at least two warps, at most 256
-# (csrc/riccati_chunk.cu RBD_RIC_THREADS), the registers a thread the
-# kernel's launch bounds allow, and the elimination entries a thread keeps in
+# threads a block of the Riccati sweeps: at least two warps, at most 256
+# (csrc/riccati_chunk.cu RBD_RIC_THREADS, csrc/riccati_fused.cu
+# RBD_K11_THREADS), the registers a thread both kernels' launch bounds
+# allow, and the elimination entries a thread of the chunked sweep keeps in
 # registers (riccati_chunk.cu TRI)
 RIC_THREADS = (64, 256)
 RIC_REGS = 128
@@ -174,14 +175,52 @@ def riccati_geometry(nx: int, nu: int, dtype, B: int, nsm: int = H100_SMS):
     lo = max(RIC_THREADS[0], up32(-(-tri // RIC_TRI)))
     hi = max(lo, min(RIC_THREADS[1], up32(work)))
     smem = riccati_values(nx, nu) * torch.finfo(dtype).bits // 8
+    return _fewest_waves(lo, hi, smem, B, nsm), smem, B
 
+
+def _fewest_waves(lo: int, hi: int, smem: int, B: int, nsm: int) -> int:
+    """The most threads a block, in whole warps from hi down to lo, that
+    leave B blocks of ``smem`` shared bytes (at most RIC_REGS registers a
+    thread) in as few waves over ``nsm`` SMs as any count."""
     def waves(nt):
         per_sm = min(65536 // (RIC_REGS * nt),
                      SM_SMEM // (smem + BLOCK_SMEM_RESERVED), 2048 // nt, 32)
         return -(-B // (nsm * max(per_sm, 1)))
 
-    nt = min(range(hi, lo - 1, -32), key=lambda t: (waves(t), -t))
-    return nt, smem, B
+    return min(range(hi, lo - 1, -32), key=lambda t: (waves(t), -t))
+
+
+def riccati_fused_values(nx: int, nu: int) -> int:
+    """Shared-memory values of the arm-class sweep K11
+    (csrc/riccati_fused.cu k11::layout): two stage buffers of a knot's A,
+    B, lx, lu, lxx, luu and lux, each padded to four values; Vxx with Vx as its last row; [P | Pb] with
+    [Qx | Qu] as its last row; Qux, Qu, Quu; the augmented system
+    [Quu + reg I | Qux | Qu]; the pivots' inverses; [K | k] and Z; the
+    entry tables of its first, second and fourth phase, one slot an
+    entry."""
+    n, m = nx, nu
+    up4 = lambda x: -(-x // 4) * 4
+    stage = sum(up4(v) for v in (n * n, n * m, n, m, n * n, m * m, m * n))
+    return (2 * stage + n * n + n + 2 * (n + 1) * (n + m) + m * n + m + m * m
+            + m * (m + n + 1) + m + 2 * m * (n + 1)
+            + n * n + m * n + m * (m + 1) // 2 + n * (n + 1) // 2 + n)
+
+
+def riccati_fused_geometry(nx: int, nu: int, dtype, B: int,
+                           nsm: int = H100_SMS):
+    """(threads a block, shared bytes a block, blocks) of a K11 sweep over
+    B problems, one block each, on a card with ``nsm`` SMs.  A sweep's time
+    is its knots' chain of phases, each one dot product a thread at one
+    entry a thread, so a block takes the most threads (up to one an entry
+    of its largest phase, in whole warps) that still leave the launch as
+    few waves as any count: configs[2]'s 128 problems, the MPC tick's one
+    and the parity cases' four take 256."""
+    up32 = lambda x: -(-x // 32) * 32
+    work = max((nx + 1) * (nx + nu), nx * nx + nu * nx + nu * (nu + 1) // 2)
+    lo = RIC_THREADS[0]
+    hi = max(lo, min(RIC_THREADS[1], up32(work)))
+    smem = riccati_fused_values(nx, nu) * torch.finfo(dtype).bits // 8
+    return _fewest_waves(lo, hi, smem, B, nsm), smem, B
 
 
 def team_geometry(kernel: str, cls: str, dtype, B: int, nsm: int = H100_SMS):
@@ -225,7 +264,8 @@ def tree_depths(model) -> list:
 
 
 def level_walk(model) -> bool:
-    """Whether feedback_rollout walks the step's root->leaf recursions level
+    """Whether feedback_rollout and feedback_chunked walk the step's
+    root->leaf recursions level
     by level: where the tree branches (the rpy root's legs and limbs), the
     bodies of a level run side by side; a chain (an arm) is walked body by
     body, which keeps the next body's data loading under the barrier
@@ -236,12 +276,12 @@ def level_walk(model) -> bool:
 def team_args(kernel: str, model, ref: torch.Tensor, B: int):
     """The geometry arguments of a team kernel's launch over B elements of
     ``model`` on ref's device: (teams a block, shared bytes a block), for
-    feedback_rollout after the walk (1: level by level, 0: body by body;
-    ``level_walk``'s)."""
+    feedback_rollout and feedback_chunked after the walk (1: level by
+    level, 0: body by body; ``level_walk``'s)."""
     _check_dtype(kernel, ref)
     _, tpb, smem, _ = team_geometry(kernel, size_class(kernel, model),
                                     ref.dtype, B, sm_count(ref.device))
-    if kernel != "feedback_rollout":
+    if kernel not in ("feedback_rollout", "feedback_chunked"):
         return tpb, smem
     return int(level_walk(model)), tpb, smem
 
@@ -272,14 +312,13 @@ _SIGNATURES = {
     "rnea": "ppppis",              # q qd qdd tau B gravity
     "fd_step_minv": "pppipiiss",   # x u fext fext_stride xo B dense dt g
     "rollout_multi": "ppppiiiss",  # x0 U fext xo B H minv dt gravity
-    # x0 Xn Un kf Kf uclip Xo Uo B H cw nc dt gravity
-    "feedback_chunked": "ppppppppiiiiss",
+    # x0 Xn Un kf Kf uclip Xo Uo B H cw nc levels tpb smem dt gravity
+    "feedback_chunked": "ppppppppiiiiiiiss",
 }
 # A B lx lu lxx sb st luu sb st lux sb st lfx lfxx reg k K dV1 ok B H nx nu
-# (the two Riccati sweeps share these), then riccati's threads and shared
-# bytes
+# threads smem (the two Riccati sweeps share these)
 _MODEL_FREE = {"riccati": "pppppiipiipiipppppppiiiiii",
-               "riccati_fused": "pppppiipiipiipppppppiiii"}
+               "riccati_fused": "pppppiipiipiipppppppiiiiii"}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _CTYPE = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
 

@@ -324,13 +324,15 @@ def feedback_rollout_fused_chunked(model: RobotModel, x0, X_nom, U_nom, k_ff,
     Kernel ``feedback_chunked`` (csrc/feedback_chunked.cu) replaces
     rbdtpu's ``kernels.fused.feedback_rollout_fused_chunked`` (Pallas,
     fused.py:819: nchunks partial products and one dynamics call per knot,
-    :904 and :945).  A warp-sized block owns a few trajectories; per knot
-    and chunk it stages their gain columns in shared memory with coalesced
-    loads, splits the partial sums over its threads, and each trajectory's
-    thread clamps and steps with the one-thread ABA step.  Bound on the
-    H100: the gain bytes and the serial ABA walk.  Any nchunks >= 1 is
-    taken (``chunk_geometry``).  No quaternion root, no wrenches (K2 takes
-    none either).
+    :904 and :945).  It runs K2's team body (csrc/feedback_team.cuh): one
+    team of lanes a trajectory, each knot's whole gain block staged in
+    shared memory by cp.async one knot ahead, one lane a row of K summing
+    its column chunks in rbdtpu's order, then the team ABA step.  On this
+    card the chunk is only the order of the sum.  Bound on the H100: the
+    latency of H dependent steps per trajectory, as K2.  Team size, teams a
+    block and walk are ``_lib.team_args``'; any B >= 1 and any nchunks >= 1
+    are taken (``chunk_geometry``).  No quaternion root, no wrenches (K2
+    takes none either).
     """
     cw, nc = chunk_geometry(model.nv * 2, nchunks)
     if not x0.is_cuda:
@@ -349,7 +351,9 @@ def feedback_rollout_fused_chunked(model: RobotModel, x0, X_nom, U_nom, k_ff,
     Xo = torch.empty_like(X_nom)
     Uo = torch.empty_like(U_nom)
     _lib.launch("feedback_chunked", model, x0, x0, X_nom, U_nom, k_ff, K_fb,
-                u_clip, Xo, Uo, B, H, cw, nc, dt, gravity)
+                u_clip, Xo, Uo, B, H, cw, nc,
+                *_lib.team_args("feedback_chunked", model, x0, B), dt,
+                gravity)
     return Xo, Uo
 
 

@@ -17,15 +17,13 @@ from .riccati_chunk import SMEM_MAX, sweep_args
 # the largest state the lane-scalar sweep takes (rbdtpu's routing bound,
 # solver/ddp.py:539, and its kernel's "nx <= ~16" regime)
 NX_MAX = 16
-# problems (warps) per block: csrc/riccati_fused.cu RICCATI_FUSED_WARPS
-WARPS = 4
 
 
 def smem_bytes(nx: int, nu: int, dtype) -> int:
-    """Shared memory one block holds (csrc/riccati_fused.cu
-    k11::smem_values, per warp)."""
-    values = 4 * nx * nx + 5 * nx * nu + 3 * nu * nu + 3 * nx + 4 * nu
-    return WARPS * values * torch.empty((), dtype=dtype).element_size()
+    """Shared memory one block holds (csrc/riccati_fused.cu k11::layout,
+    ``_lib.riccati_fused_values``)."""
+    return _lib.riccati_fused_values(nx, nu) * torch.empty(
+        (), dtype=dtype).element_size()
 
 
 def backward_pass_fused(A, B, lx, lu, lxx, luu, lux, lfx, lfxx, reg):
@@ -43,12 +41,14 @@ def backward_pass_fused(A, B, lx, lu, lxx, luu, lux, lfx, lfxx, reg):
 
     Kernel ``riccati_fused`` (csrc/riccati_fused.cu) replaces rbdtpu's
     ``kernels.riccati.backward_pass_fused`` (Pallas, riccati.py:102): one
-    warp per problem loops over the horizon with Vx, Vxx, the knot's A and
-    B and the Q terms in its slice of shared memory, the products split
-    over its 32 lanes, the Cholesky left-looking on the warp, the k/K
-    solves one lane per right-hand column.  Latency-bound on the H100 (at
-    configs[2]'s 128 problems, fewer warps than SMs).  Any batch is taken
-    as it is, with no padding; launches count as ``riccati_fused``.
+    thread block per problem loops over the horizon with the carry, the
+    knot's inputs (the next knot's arriving by cp.async) and the Q terms in
+    shared memory, in four barrier-separated phases a knot: [Vxx; Vx^T]
+    [A | B], then [A | B]^T [P | Pb], one thread an entry; a Gauss-Jordan
+    solve of (Quu + reg I) [K | k] = -[Qux | Qu] on one warp, one lane a
+    column; the Vxx/Vx update.  Latency-bound on the H100; the block's
+    threads are ``_lib.riccati_fused_geometry``'s.  Any batch is taken as
+    it is, with no padding; launches count as ``riccati_fused``.
     """
     nx, nu = A.shape[-1], B.shape[-1]
     if nx > NX_MAX:
@@ -65,6 +65,9 @@ def backward_pass_fused(A, B, lx, lu, lxx, luu, lux, lfx, lfxx, reg):
                          f"needs {nbytes} bytes of shared memory a block; "
                          f"the H100 has {SMEM_MAX}")
     args, outs = sweep_args(A, B, lx, lu, lxx, luu, lux, lfx, lfxx, reg)
-    _lib.launch("riccati_fused", None, A, *args, *outs,
-                math.prod(outs[2].shape), A.shape[-3], nx, nu)
+    Bn = math.prod(outs[2].shape)
+    nt, smem, _ = _lib.riccati_fused_geometry(nx, nu, A.dtype, Bn,
+                                              _lib.sm_count(A.device))
+    _lib.launch("riccati_fused", None, A, *args, *outs, Bn, A.shape[-3], nx,
+                nu, nt, smem)
     return outs

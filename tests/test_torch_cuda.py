@@ -469,14 +469,21 @@ def test_ddp_quadruped_kernels_match_plain(card, Bm, H, iters):
                          ids=["float64", "float32"])
 @pytest.mark.parametrize("B,H,nx,nu,const", [
     (1, 100, 14, 7, False), (3, 20, 14, 7, True), (130, 6, 14, 7, False),
-    (5, 7, 6, 3, True), (4, 5, 16, 16, False)],
-    ids=["one-arm7", "three-constant", "lane-arm7", "small", "nx16"])
+    (5, 7, 6, 3, True), (4, 5, 16, 16, False)] + [
+    (B, 5, nx, nu, const) for B in (1, 4, 128, 133)
+    for nx, nu in ((16, 16), (13, 5), (10, 1)) for const in (False, True)],
+    ids=["one-arm7", "three-constant", "lane-arm7", "small", "nx16"] + [
+    f"B{B}-{nx}-{nu}-{'constant' if const else 'per-knot'}"
+    for B in (1, 4, 128, 133)
+    for nx, nu in ((16, 16), (13, 5), (10, 1)) for const in (False, True)])
 def test_riccati_fused(card, B, H, nx, nu, const, dtype):
-    """The arm-class sweep kernel (K11) against the plain sweep, one launch
-    a call, at any batch (warps past the batch in the last block return),
-    with per-knot and constant cost blocks, up to nx = 16; float64 within
-    1e-9 relative to the output's scale, float32 within 1e-3 (a sweep
-    accumulates the reordered float32 sums of H knots)."""
+    """The arm-class sweep kernel (K11, one block a problem) against the
+    plain sweep, one launch a call, at any batch: path B's one problem, the
+    parity cases' four, configs[2]'s 128 and more problems than SMs, with
+    per-knot and constant cost blocks, up to nx = nu = 16, an odd (13, 5)
+    and one control; float64 within 1e-9 relative to the output's scale,
+    float32 within 1e-3 (a sweep accumulates the reordered float32 sums of
+    H knots)."""
     from rbdtpu_torch.solver.ddp import backward_pass
 
     args = _riccati(B, H, nx, nu, const, dtype, 2 * B + nx)
@@ -486,6 +493,31 @@ def test_riccati_fused(card, B, H, nx, nu, const, dtype):
     for a, b in zip(out[:3], ref[:3]):
         _close(a, b, tol)
     assert out[3].tolist() == ref[3].tolist() == [True] * B
+
+
+@pytest.mark.parametrize("knot", [0, 50], ids=["t0", "mid"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+def test_riccati_fused_non_pd_knots(card, dtype, knot):
+    """A non-PD Quu at knot t = 0 (the sweep's last) or mid-horizon in one
+    of configs[2]'s 128 arm-size problems (H = 100): NaN gains from that
+    knot back and ok False where the plain sweep has them, the other
+    problems within the sweep's tolerance."""
+    from rbdtpu_torch.solver.ddp import backward_pass
+
+    args = _riccati(128, 100, 14, 7, False, dtype, 17 + knot,
+                    non_pd=(77, knot))
+    k, K, dV, ok = _launched("riccati_fused",
+                             lambda: backward_pass_fused(*args))
+    kr, Kr, dVr, okr = backward_pass(*args)
+    assert ok.tolist() == okr.tolist() == [i != 77 for i in range(128)]
+    assert torch.equal(k.isnan(), kr.isnan())
+    assert torch.equal(K.isnan(), Kr.isnan())
+    assert k[77, :knot + 1].isnan().all() and k[77, knot + 1:].isfinite().all()
+    fin = ok.nonzero()[:, 0]
+    tol = 1e-9 if dtype == torch.float64 else 1e-3
+    for a, b in ((k[fin], kr[fin]), (K[fin], Kr[fin]), (dV[fin], dVr[fin])):
+        _close(a, b, tol)
 
 
 def test_riccati_fused_non_pd(card):
@@ -689,10 +721,60 @@ def test_feedback_chunked_refuses_a_bad_split(card):
                                  (B, H, m.nv), (B, H, m.nv, m.nx))
     Xo, Uo = torch.empty_like(Xn), torch.empty_like(Un)
     assert fused.chunk_geometry(m.nx, 2) == (7, 2)
+    geometry = _lib.team_args("feedback_chunked", m, x0, B)
     for cw, nc in ((7, 1), (7, 3), (0, 14), (14, 0)):
         with pytest.raises(RuntimeError, match="feedback_chunked"):
             _lib.launch("feedback_chunked", m, x0, x0, Xn, Un, kf, Kf, None,
-                        Xo, Uo, B, H, cw, nc, DT, -9.81)
+                        Xo, Uo, B, H, cw, nc, *geometry, DT, -9.81)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("nchunks", [1, 2, 3, 100])
+def test_feedback_chunked_path_d(card, dtype, nchunks):
+    """K9 at path D's line search (1024 humanoid trajectories x 32 knots)
+    against its plain version, with and without a clamp at 0.8 of the
+    largest unclamped control, at one trajectory and at an odd batch, and
+    against K2 on the same inputs: 1e-9 in float64, 1e-3 relative in
+    float32 (32 closed-loop humanoid knots)."""
+    m = _humanoid(dtype)
+    fb, _ = _humanoid_inputs(m, 1024, 32)
+    tol = 1e-9 if dtype == torch.float64 else 1e-3
+    U = fused.feedback_rollout_plain(m, *fb, DT)[1]
+    clip = (0.8 * U.abs().amax(dim=(0, 1))).contiguous()
+    cases = [(fb, None), (fb, clip)] + [
+        (tuple(a[:B].contiguous() for a in fb), None) for B in (1, 1021)]
+    for args, u_clip in cases:
+        X, U = _launched("feedback_chunked",
+                         lambda: feedback_rollout_fused_chunked(
+                             m, *args, DT, u_clip=u_clip, nchunks=nchunks))
+        Xp, Up = fused.feedback_rollout_chunked_plain(
+            m, *args, DT, u_clip=u_clip, nchunks=nchunks)
+        _close(X, Xp, tol)
+        _close(U, Up, tol)
+    X, U = feedback_rollout_fused_chunked(m, *fb, DT, nchunks=nchunks)
+    X2, U2 = feedback_rollout_fused(m, *fb, DT)
+    _close(X, X2, tol)
+    _close(U, U2, tol)
+
+
+def test_feedback_chunked_keeps_the_stack_limit(card):
+    """K9 at the humanoid's size class in double, a team kernel since its
+    redesign, runs right under a 1,024-byte stack limit and leaves it
+    there; the limit is set back afterwards."""
+    limit = _lib.stack_limit(card)
+    _lib.set_stack_limit(card, 1024)
+    try:
+        m = _humanoid(torch.float64)
+        fb, _ = _humanoid_inputs(m, 70, 4)
+        X, U = _launched("feedback_chunked", lambda: (
+            feedback_rollout_fused_chunked(m, *fb, DT, nchunks=2)))
+        Xp, Up = fused.feedback_rollout_chunked_plain(m, *fb, DT, nchunks=2)
+        _close(X, Xp, 1e-9)
+        _close(U, Up, 1e-9)
+        assert _lib.stack_limit(card) == 1024
+    finally:
+        _lib.set_stack_limit(card, limit)
 
 
 def test_stack_limit_round_trip(card):

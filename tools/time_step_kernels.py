@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Time the step kernels K1 (``fd_step``) and K2 (``feedback_rollout``),
-the linearisation K3 (``linearize_parts``) and the Riccati sweep K7/K8
-(``riccati``) on one CUDA card, float32, at each path's shapes:
+the chunked line search K9 (``feedback_chunked``), the linearisation K3
+(``linearize_parts``), the Riccati sweep K7/K8 (``riccati``) and the
+arm-class sweep K11 (``riccati_fused``) on one CUDA card, float32, at each
+path's shapes:
 
     python3 tools/time_step_kernels.py [--root DIR] [--label NAME]
     python3 tools/time_step_kernels.py --sweep
@@ -9,11 +11,15 @@ the linearisation K3 (``linearize_parts``) and the Riccati sweep K7/K8
 Shapes: arm7 K1 at 128 and 1 states, K2 at 1024 trajectories x 100 knots,
 K3 at 12,800 knots (BASELINE.json configs[2]); the rpy quadruped K1 at
 1024, K2 at 6144 x 50, K3 at 51,200 knots (configs[3]); humanoid30 K1 at
-2048, K2 at 1024 x 32, K3 at 8,192 knots (configs[4] paths C and D); the
-sweep at configs[3]'s 1024 problems x 50 knots (nx=36, nu=18), at four
-such problems (the small-batch call site), and at paths D's and C's 256
-and 16 humanoid problems x 32 knots (nx=72, nu=36), constant cost blocks
-(``chip_smoke.riccati_problem``).  Each time is ``chip_smoke.graph_ms``
+2048, K2 at 1024 x 32, K3 at 8,192 knots (configs[4] paths C and D); K9
+with two chunks on each model's K2 inputs (path D's line search on the
+humanoid); the sweep at configs[3]'s 1024 problems x 50 knots (nx=36,
+nu=18), at four such problems (the small-batch call site), and at paths
+D's and C's 256 and 16 humanoid problems x 32 knots (nx=72, nu=36),
+constant cost blocks; K11 and, on the same inputs, the sweep at
+configs[2]'s 128 problems x 100 knots (nx=14, nu=7, per-knot cost blocks),
+at four and at one (path B's tick) (``chip_smoke.riccati_problem``).
+Each time is ``chip_smoke.graph_ms``
 (the device's time alone) and, beside it, ``chip_smoke.cuda_ms`` over 20
 single calls (the host's launch included).  ``--root`` times the
 ``rbdtpu_torch`` of another checkout (a parent commit unpacked into an
@@ -24,7 +30,8 @@ change, change, parent).
 ``--sweep`` rebuilds this checkout's kernels at each team size of
 ``_lib.TEAM_SIZES`` (every entry of ``_lib.TEAM`` set to it) and times, in
 float32 and float64, K1 at 1, 16 and 256 states and at the path's batch,
-K2 at the path's shape in both walks of the step's root->leaf recursions
+K2 at the path's shape in both walks of the step's root->leaf recursions,
+K9 (two chunks) at the same shape in the walk ``_lib.level_walk`` picks
 and K3 at the path's knots (graph replay): the measurements ``_lib.TEAM``
 and ``_lib.level_walk`` were fixed from.  Prints one JSON line with the card's
 name and power limit.
@@ -49,6 +56,11 @@ SWEEP_STATES = (1, 16, 256)
 # the Riccati sweep's shapes: (label, problems, knots, nx, nu)
 RICCATI_SHAPES = (("configs[3]", 1024, 50, 36, 18), ("B=4", 4, 50, 36, 18),
                   ("path D", 256, 32, 72, 36), ("path C", 16, 32, 72, 36))
+# K11's shapes, per-knot cost blocks: configs[2] (path A), the parity
+# batch, path B's one robot
+K11_SHAPES = (("configs[2]", 128, 100, 14, 7), ("B=4", 4, 100, 14, 7),
+              ("B=1", 1, 100, 14, 7))
+NCHUNKS = 2
 
 
 def smoke():
@@ -77,6 +89,7 @@ def path_inputs(cs, key, m64):
 
 def compare(cs, label: str) -> dict:
     from rbdtpu_torch.kernels import colvec, fused
+    from rbdtpu_torch.kernels.riccati import backward_pass_fused
     from rbdtpu_torch.kernels.riccati_chunk import backward_pass_chunked
     from rbdtpu_torch.model import load_asset
 
@@ -101,6 +114,9 @@ def compare(cs, label: str) -> dict:
         cases.append((f"K2 {k2[2].shape[0]}x{k2[2].shape[1]}",
                       lambda: fused.feedback_rollout_fused(m32, *k2, DT,
                                                            GRAVITY)))
+        cases.append((f"K9 {k2[2].shape[0]}x{k2[2].shape[1]} nchunks="
+                      f"{NCHUNKS}", lambda: fused.feedback_rollout_fused_chunked(
+                          m32, *k2, DT, GRAVITY, nchunks=NCHUNKS)))
         cases.append((f"K3 {k3[0].shape[0]}", lambda: colvec.
                       linearize_parts_fused(m32, *k3, GRAVITY)))
         for case, fn in cases:
@@ -115,11 +131,20 @@ def compare(cs, label: str) -> dict:
         out[f"riccati {case} {B}x{H} nx={nx}"] = timed(
             lambda: backward_pass_chunked(*prob))
         del prob
+    for case, B, H, nx, nu in K11_SHAPES:
+        prob = tuple(torch.tensor(a, dtype=torch.float32, device="cuda")
+                     for a in cs.riccati_problem(
+                         np.random.default_rng(cs.SEED + B), nx, nu, H, B,
+                         False))
+        out[f"K11 {case} {B}x{H} nx={nx}"] = timed(
+            lambda: backward_pass_fused(*prob))
+        out[f"riccati on K11's {case} {B}x{H} nx={nx}"] = timed(
+            lambda: backward_pass_chunked(*prob))
     return {"label": label, "ms": out}
 
 
 def sweep(cs) -> dict:
-    from rbdtpu_torch.kernels import _lib, colvec
+    from rbdtpu_torch.kernels import _lib, colvec, fused
     from rbdtpu_torch.model import load_asset
 
     out = {}
@@ -161,6 +186,9 @@ def sweep(cs) -> dict:
                 for levels, walk in ((1, "levels"), (0, "bodies")):
                     out[f"{team} {key} {sfx} K2 {B}x{H} by {walk}"] = (
                         cs.graph_ms(k2_walk(levels)))
+                out[f"{team} {key} {sfx} K9 {B}x{H} nchunks={NCHUNKS}"] = (
+                    cs.graph_ms(lambda: fused.feedback_rollout_fused_chunked(
+                        m, *k2, DT, GRAVITY, nchunks=NCHUNKS)))
                 k3 = tuple(t.to(dtype).contiguous() for t in k3_64)
                 out[f"{team} {key} {sfx} K3 B={k3[0].shape[0]}"] = (
                     cs.graph_ms(lambda: colvec.linearize_parts_fused(
