@@ -8,14 +8,16 @@ Phases, each ending the run with a nonzero exit when it fails:
 1. identify the card (name, power limit), build the CUDA kernels from
    ``rbdtpu_torch/csrc`` and require every instantiation of the team
    kernels K1 (``fd_step``), K2 (``feedback_rollout``), K3
-   (``linearize_parts``) and K9 (``feedback_chunked``) and of the Riccati
-   sweeps (``riccati``, K7/K8, and ``riccati_fused``, K11) in the build
-   with a ptxas stack frame under 1,024 bytes;
+   (``linearize_parts``), K5 (``rollout_multi``) and K9
+   (``feedback_chunked``), of the end-effector kernels K4 (``ee_gn``,
+   ``ee_err``) and of the Riccati sweeps (``riccati``, K7/K8, and
+   ``riccati_fused``, K11) in the build with a ptxas stack frame under
+   1,024 bytes;
 2. hold each kernel of the DDP path against its plain PyTorch version on
    the card, at that path's shapes: max abs error <= 1e-9 in float64, and
    a relative bound in float32; time both (CUDA events around one call
-   with its launch; K1, K2, K3 and K9 and the Riccati sweeps also by
-   replaying a CUDA graph of 20 calls, the device's time alone) and
+   with its launch; K1-K5, K9 and the Riccati sweeps also by replaying a
+   CUDA graph of 20 calls, the device's time alone) and
    compute each kernel's
    bound (bytes over the memory rate, or operations over the float32 peak,
    whichever is larger; the operations each function needs are counted by
@@ -37,14 +39,16 @@ Phases, each ending the run with a nonzero exit when it fails:
 5. profile one DDP solve: per-phase wall time, torch.profiler's device time
    per kernel, the kernels a solve launches and the device's idle share;
 6. the same checks for the rollout path's kernels at its shapes (after
-   the DDP phases, which therefore run as they did before these kernels);
+   the DDP phases, which therefore run as they did before these kernels):
+   K5 on both routes, with and without per-step wrenches (H, nb, 6);
 7. drive the forward-dynamics rollout path (BASELINE.json configs[1]) on
-   bench.py's inputs: 4096 arm7 trajectories x H=50, float32, the 10-step
-   check of the whole-horizon kernel against the scan of its step kernel
-   and against the plain route (< 1e-3), then ``rollout_fused_multi``
-   timed on the "minv" and "aba" routes (steps/s), each call one launch;
-   every kernel of the path must have been launched and the final states
-   finite;
+   bench.py's inputs: 4096 arm7 trajectories x H=50, float32, K5's launch
+   geometry (team size, teams and shared memory a block) in both dtypes,
+   the 10-step check of the whole-horizon kernel against the scan of its
+   step kernel and against the plain route (< 1e-3), then
+   ``rollout_fused_multi`` timed on the "minv" and "aba" routes (steps/s),
+   each call one launch; every kernel of the path must have been launched
+   and the final states finite;
 8. hold the Riccati sweep kernel against the plain sweep at configs[3]'s
    shape (B=1024, H=50, nx=36, nu=18, constant cost blocks), at B=4 (the
    small-batch call site), at the humanoid's (B=16, H=32, nx=72, nu=36,
@@ -151,18 +155,20 @@ TOL32 = {"fd_step": 1e-4, "feedback_rollout": 1e-3, "linearize_parts": 1e-4,
 U_PARITY = 1e-6
 PARITY_H = (100, 20)
 # the team kernels (csrc/rbd_team.cuh): one team of lanes per state (K1),
-# trajectory (K2, K9) or knot (K3); their ptxas stack, and the Riccati
-# sweeps', must stay under STACK_MAX bytes in every instantiation (3
-# classes x 2 dtypes at the team size of kernels/_lib.py TEAM, K1 with and
-# without wrenches, K2 and K9 in both walks; each sweep in 2 dtypes), and
-# K1/K2's extra checks run these batches
+# trajectory (K2, K5, K9) or knot (K3); their ptxas stack, the end-effector
+# kernels' (K4) and the Riccati sweeps' must stay under STACK_MAX bytes in
+# every instantiation (3 classes x 2 dtypes at the team size of
+# kernels/_lib.py TEAM, K1 with and without wrenches, K2 and K9 in both
+# walks; K5 on n8 in 2 dtypes x 2 routes x with and without wrenches; K4
+# and each sweep in 2 dtypes), and K1/K2's extra checks run these batches
 TEAM_KERNELS = ("fd_step", "feedback_rollout")
 STACK_INSTANCES = {"fd_step": 12, "feedback_rollout": 12,
                    "linearize_parts": 6, "feedback_chunked": 12,
+                   "rollout_multi": 8, "ee_gn": 2, "ee_err": 2,
                    "riccati": 2, "riccati_fused": 2}
 # the kernels whose rows add graph_ms, the device's time by graph replay
 GRAPH_KERNELS = ("fd_step", "feedback_rollout", "linearize_parts",
-                 "feedback_chunked")
+                 "feedback_chunked", "rollout_multi", "ee_gn", "ee_err")
 STACK_MAX = 1024
 TEAM_BATCHES = (1, 37, 1000)
 # the rollout path (BASELINE.json configs[1], bench.py:132-209, 377-416)
@@ -408,6 +414,8 @@ def rollout_inputs(model64, rng):
          {"route": "minv"}, "fd_step_minv", B1 * H1),
         ("rollout_multi aba", "rollout_multi", (x0, U_aba),
          {"route": "aba"}, "fd_step", B1 * H1),
+        ("rollout_multi aba f_ext (H,nb,6)", "rollout_multi", (x0, U_aba),
+         {"route": "aba", "f_ext": FH}, "fd_step+fext", B1 * H1),
         ("rollout_multi minv f_ext (H,nb,6)", "rollout_multi", (x0, U_minv),
          {"route": "minv", "f_ext": FH}, "fd_step_minv+fext", B1 * H1),
         ("fd_step f_ext (nb,6)", "fd_step", (x0, u), {"f_ext": F1},
@@ -755,6 +763,12 @@ def rollout_path(m32, rng, smi: str) -> dict:
                                     dtype=torch.float32, device=m32.device)
     x0 = T(0.1, B1, 2 * n)
     U_check, U = T(0.5, HONEST_H, B1, n), T(0.2, H1, B1, n)
+    for dtype in (torch.float32, torch.float64):
+        team, tpb, smem, blocks = _lib.team_geometry(
+            "rollout_multi", "n8", dtype, B1, _lib.sm_count(m32.device))
+        print(f"team rollout_multi n8 {_lib._SUFFIX[dtype]}: B={B1} team "
+              f"{team} lanes, {tpb} teams a block, {smem} B of shared memory "
+              f"a block, {blocks} blocks")
     torch.cuda.synchronize()
     _lib.reset_launches()
 

@@ -104,9 +104,9 @@ RBD_FEEDBACK_CHUNKED(fb32, FB32, double, f64)
 // local memory of that size for every thread the card can hold; setting
 // it lower frees it.  The largest frame of the library is fd_step_minv's
 // in double with the dense M^-1 and wrenches (9,792 bytes a thread in the
-// nvcc 12.9 build's ptxas report, PERF.md §6), then rollout_multi's (up to
-// 6,368); every team kernel (this one included) and both Riccati sweeps
-// take under 1,024 bytes.
+// build's ptxas report, PERF.md §6), then rnea's (up to 2,160);
+// every team kernel (this one and rollout_multi included), the
+// end-effector kernels and both Riccati sweeps take under 1,024 bytes.
 int rbd_stack_limit(size_t* bytes) { return (int)cudaDeviceGetLimit(bytes, cudaLimitStackSize); }
 int rbd_set_stack_limit(size_t bytes) {
   return (int)cudaDeviceSetLimit(cudaLimitStackSize, bytes);

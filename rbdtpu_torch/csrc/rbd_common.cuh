@@ -1,7 +1,7 @@
 // Shared device code of the rbdtpu_torch kernels: the per-model tables,
-// compact spatial transforms, world-frame wrenches and the tree sweeps (ABA,
-// RNEA, M^-1 dense and applied, the two forward-dynamics steps) for ONE
-// state, run by one thread.
+// compact spatial transforms, world-frame wrenches and the tree sweeps
+// (RNEA, M^-1 dense and applied, the M^-1 + RNEA step) for ONE state, run
+// by one thread; the team kernels' ABA step is rbd_team.cuh's.
 //
 // The model arrives as tables (kernels/_lib.py: model_tables), not as
 // constants folded into the code: a generic kernel walks the tree in loops
@@ -109,14 +109,20 @@ RBD_HD void mm3(const T* A, const T* B, T* o) {  // A B
 
 // Joint rotation about a unit axis: R = I + s K + (1 - c) K^2, K = axis^.
 // With transpose the coordinate rotation E = R^T = I - s K + (1 - c) K^2.
+// rot_axis_sc takes s = sin q and c = cos q.
 template <typename T>
-RBD_HD void rot_axis(const T* ax, T q, bool transpose, T* R) {
-  const T s = rsin(q), c = rcos(q), oc = T(1) - c;
+RBD_HD void rot_axis_sc(const T* ax, T s, T c, bool transpose, T* R) {
+  const T oc = T(1) - c;
   const T K[9] = {0, -ax[2], ax[1], ax[2], 0, -ax[0], -ax[1], ax[0], 0};
   T K2[9];
   mm3(K, K, K2);
   const T sg = transpose ? -s : s;
   for (int i = 0; i < 9; ++i) R[i] = (i % 4 == 0 ? T(1) : T(0)) + sg * K[i] + oc * K2[i];
+}
+
+template <typename T>
+RBD_HD void rot_axis(const T* ax, T q, bool transpose, T* R) {
+  rot_axis_sc(ax, rsin(q), rcos(q), transpose, R);
 }
 
 // X = XJ(q) Xtree with Xtree = (Et, rt):
@@ -361,144 +367,6 @@ RBD_HD void apply_fext(const Model<T, D>& m, const Xc<T>* X, const T* fext, T (*
   }
 }
 
-// ABA on the rpy floating root (rbdtpu dynamics/aba.py, floating branch):
-// body 0 is a six-DoF joint (S = I) whose articulated block U = D = IA[0]
-// gives its accelerations from IA[0] qdd = u - IA[0]^T a (chol6); body
-// i > 0 owns DoF i + 5.  A real call: inlined into the fd_step kernel,
-// nvcc 12.9 returned NaN for every acceleration of this instantiation
-// (float and double, on an H100), while the same code called, inlined
-// into the feedback_rollout kernel's horizon loop, or built by g++ was
-// right.
-template <typename T, class D>
-RBD_HD_CALL void aba_root6(const Model<T, D>& m, const Xc<T>* X, const T* qd, const T* tau,
-                           T gravity, T* qdd, const T* fext) {
-  T v[D::NB][6], c[D::NB][6], pA[D::NB][6], IA[D::NB][36];
-  T U[D::NB][6], d[D::NB], u[D::NB];
-  const int nb = m.nb;
-  for (int i = 0; i < nb; ++i) {
-    const T* b = m.body(i);
-    const T* S = b + OFF_S;
-    const int p = m.parent(i);
-    T vJ[6], Iv[6];
-    for (int k = 0; k < 6; ++k) vJ[k] = i == 0 ? qd[k] : S[k] * qd[i + 5];
-    if (p < 0) {
-      for (int k = 0; k < 6; ++k) {
-        v[i][k] = vJ[k];
-        c[i][k] = T(0);
-      }
-    } else {
-      xc_mv(X[i], v[p], v[i]);
-      for (int k = 0; k < 6; ++k) v[i][k] += vJ[k];
-      cross_motion(v[i], vJ, c[i]);
-    }
-    matvec6(b + OFF_I, v[i], Iv);
-    cross_force(v[i], Iv, pA[i]);
-    for (int k = 0; k < 36; ++k) IA[i][k] = b[OFF_I + k];
-  }
-  if (fext != nullptr) apply_fext(m, X, fext, pA);
-  for (int i = nb - 1; i > 0; --i) {
-    const T* S = m.body(i) + OFF_S;
-    const int p = m.parent(i);
-    matvec6(IA[i], S, U[i]);
-    d[i] = dot6(S, U[i]);
-    u[i] = tau[i + 5] - dot6(S, pA[i]);
-    T Ia[36], pa[6], Iac[6], t[6];
-    for (int r = 0; r < 6; ++r)
-      for (int s = 0; s < 6; ++s) Ia[6 * r + s] = IA[i][6 * r + s] - U[i][r] * U[i][s] / d[i];
-    matvec6(Ia, c[i], Iac);
-    const T ud = u[i] / d[i];
-    for (int k = 0; k < 6; ++k) pa[k] = pA[i][k] + Iac[k] + U[i][k] * ud;
-    xtax_add(X[i], Ia, IA[p]);
-    xc_mtv(X[i], pa, t);
-    for (int k = 0; k < 6; ++k) pA[p][k] += t[k];
-  }
-  T a[D::NB][6], ag[6], L[36], rhs[6];
-  gravity_accel(gravity, ag);
-  xc_mv(X[0], ag, a[0]);
-  for (int r = 0; r < 6; ++r) {
-    T s = 0;
-    for (int k = 0; k < 6; ++k) s += IA[0][6 * k + r] * a[0][k];
-    rhs[r] = tau[r] - pA[0][r] - s;
-  }
-  chol6(IA[0], L);
-  chol6_solve(L, rhs, qdd);
-  for (int k = 0; k < 6; ++k) a[0][k] += qdd[k];
-  for (int i = 1; i < nb; ++i) {
-    const T* S = m.body(i) + OFF_S;
-    xc_mv(X[i], a[m.parent(i)], a[i]);
-    for (int k = 0; k < 6; ++k) a[i][k] += c[i][k];
-    qdd[i + 5] = (u[i] - dot6(U[i], a[i])) / d[i];
-    for (int k = 0; k < 6; ++k) a[i][k] += S[k] * qdd[i + 5];
-  }
-}
-
-// Articulated-body forward dynamics (rbdtpu dynamics/aba.py): qdd from
-// q (through X), qd and tau; world-frame wrenches fext (nb, 6) enter the
-// bias forces after the first sweep when not null.  The rpy root's
-// instantiation is aba_root6; the fixed-base body below is kept as it was
-// before that root existed, which keeps the fixed-base kernels' registers.
-template <typename T, class D>
-RBD_HD void aba(const Model<T, D>& m, const Xc<T>* X, const T* qd, const T* tau, T gravity,
-                T* qdd, const T* fext = nullptr) {
-  if constexpr (D::FB) {
-    aba_root6(m, X, qd, tau, gravity, qdd, fext);
-  } else {
-    T v[D::NB][6], c[D::NB][6], pA[D::NB][6], IA[D::NB][36];
-    T U[D::NB][6], d[D::NB], u[D::NB];
-    const int nb = m.nb;
-    for (int i = 0; i < nb; ++i) {
-      const T* b = m.body(i);
-      const T* S = b + OFF_S;
-      const int p = m.parent(i);
-      T vJ[6], Iv[6];
-      for (int k = 0; k < 6; ++k) vJ[k] = S[k] * qd[i];
-      if (p < 0) {
-        for (int k = 0; k < 6; ++k) {
-          v[i][k] = vJ[k];
-          c[i][k] = T(0);
-        }
-      } else {
-        xc_mv(X[i], v[p], v[i]);
-        for (int k = 0; k < 6; ++k) v[i][k] += vJ[k];
-        cross_motion(v[i], vJ, c[i]);
-      }
-      matvec6(b + OFF_I, v[i], Iv);
-      cross_force(v[i], Iv, pA[i]);
-      for (int k = 0; k < 36; ++k) IA[i][k] = b[OFF_I + k];
-    }
-    if (fext != nullptr) apply_fext(m, X, fext, pA);
-    for (int i = nb - 1; i >= 0; --i) {
-      const T* S = m.body(i) + OFF_S;
-      const int p = m.parent(i);
-      matvec6(IA[i], S, U[i]);
-      d[i] = dot6(S, U[i]);
-      u[i] = tau[i] - dot6(S, pA[i]);
-      if (p >= 0) {
-        T Ia[36], pa[6], Iac[6];
-        for (int r = 0; r < 6; ++r)
-          for (int s = 0; s < 6; ++s) Ia[6 * r + s] = IA[i][6 * r + s] - U[i][r] * U[i][s] / d[i];
-        matvec6(Ia, c[i], Iac);
-        const T ud = u[i] / d[i];
-        for (int k = 0; k < 6; ++k) pa[k] = pA[i][k] + Iac[k] + U[i][k] * ud;
-        xtax_add(X[i], Ia, IA[p]);
-        T t[6];
-        xc_mtv(X[i], pa, t);
-        for (int k = 0; k < 6; ++k) pA[p][k] += t[k];
-      }
-    }
-    T a[D::NB][6], ag[6];
-    gravity_accel(gravity, ag);
-    for (int i = 0; i < nb; ++i) {
-      const T* S = m.body(i) + OFF_S;
-      const int p = m.parent(i);
-      xc_mv(X[i], p < 0 ? ag : a[p], a[i]);
-      for (int k = 0; k < 6; ++k) a[i][k] += c[i][k];
-      qdd[i] = (u[i] - dot6(U[i], a[i])) / d[i];
-      for (int k = 0; k < 6; ++k) a[i][k] += S[k] * qdd[i];
-    }
-  }
-}
-
 // RNEA forward sweep at the given qdd (null: zero, folded away when the
 // caller passes a literal nullptr), world-frame wrenches fext (null: none),
 // then the force accumulation of the backward sweep (f[parent] += X^T f[i]).
@@ -699,18 +567,6 @@ RBD_HD void euler_step(int n, const T* x, const T* qdd, T dt, T* xo) {
     xo[n + i] = qdn;
     xo[i] = x[i] + dt * qdn;
   }
-}
-
-// One ABA + semi-implicit Euler step with optional world-frame wrenches
-// fext (nb, 6).  x and xo are [q; qd] of length 2 nv and may not alias.
-template <typename T, class D>
-RBD_HD void fd_step_state(const Model<T, D>& m, const T* x, const T* u, T dt, T gravity, T* xo,
-                          const T* fext = nullptr) {
-  Xc<T> X[D::NB];
-  T qdd[D::NV];
-  joint_transforms(m, x, X);
-  aba(m, X, x + m.nv(), u, gravity, qdd, fext);
-  euler_step(m.nv(), x, qdd, dt, xo);
 }
 
 // One step on the M^-1 + RNEA route (rbdtpu kernels/fused.py _step_lane,

@@ -1,9 +1,12 @@
 // One forward-dynamics step (ABA, then semi-implicit Euler) for ONE state,
 // run cooperatively by a team of NL lanes (NL = 8, 16 or 32) of one warp,
-// with the per-body state in the team's shared memory.  It computes what
-// fd_step_state (rbd_common.cuh) computes for one thread, with the rpy
-// root's six-DoF block and optional world-frame wrenches; fd_step.cu (K1)
-// and feedback_rollout.cu (K2) run it, one team per state or trajectory.
+// with the per-body state in the team's shared memory: rbdtpu's aba_lane
+// step, with the rpy root's six-DoF block and optional world-frame
+// wrenches; fd_step.cu (K1), feedback_rollout.cu (K2), linearize.cu (K3)
+// and rollout_multi.cu (K5) run it, one team per state, trajectory or knot.
+// K5's M^-1 + RNEA route runs the team's RNEA bias (team_rnea_bias) and
+// then the step's articulated sweeps alone on u - c (MINV: zero velocity,
+// no gravity, no wrenches), as rbdtpu's _step_lane does.
 //
 // Why: one thread per state runs the ~10k operations of an arm7 step (and
 // ~10x that on the humanoid) as one dependent chain, with its per-body
@@ -41,7 +44,8 @@
 //
 // The rpy root's block (chol6, chol6_solve) and the wrenches' world->body
 // chain run on lane 0 as real calls (RBD_HD_CALL): nvcc 12.9 miscompiled
-// inlined root bodies twice (rbd_common.cuh, aba_root6 and floating_xc).
+// inlined root bodies twice (the one-thread ABA's root block, and
+// floating_xc in rbd_common.cuh).
 //
 // The code compiles for the host too: a host harness may define
 // RBD_TEAM_HOST_SYNC() as a barrier of NL threads and run them as one team
@@ -182,6 +186,38 @@ RBD_HD T sum6(const T* p) {
   return ((p[0] + p[1]) + (p[2] + p[3])) + (p[4] + p[5]);
 }
 
+// Entry k of v x m (cross_motion) for motion vectors v = [w; l], m.
+template <typename T>
+RBD_HD T cross_motion_row(const T* v, const T* m, int k) {
+  const int j = k < 3 ? k : k - 3, j1 = j == 2 ? 0 : j + 1, j2 = j == 0 ? 2 : j - 1;
+  const T ang = v[j1] * m[j2] - v[j2] * m[j1];
+  if (k < 3) return ang;
+  return (v[3 + j1] * m[j2] - v[3 + j2] * m[j1]) + (v[j1] * m[3 + j2] - v[j2] * m[3 + j1]);
+}
+
+// Entry k of v x* f (cross_force) for a motion vector v = [w; l] and a
+// force vector f = [n; fl].
+template <typename T>
+RBD_HD T cross_force_row(const T* v, const T* f, int k) {
+  const int j = k < 3 ? k : k - 3, j1 = j == 2 ? 0 : j + 1, j2 = j == 0 ? 2 : j - 1;
+  const T lin = v[j1] * f[3 + j2] - v[j2] * f[3 + j1];
+  if (k >= 3) return lin;
+  return (v[j1] * f[j2] - v[j2] * f[j1]) + (v[3 + j1] * f[3 + j2] - v[3 + j2] * f[3 + j1]);
+}
+
+// Entry k of X^T f (xc_mtv) for X = (E, r) and a force vector f = [n; fl]:
+// [E^T n + r x t; t] with t = E^T fl.
+template <typename T>
+RBD_HD T xc_mtv_row(const T* E, const T* r, const T* f, int k) {
+  const int j = k < 3 ? k : k - 3;
+  const T tj = E[j] * f[3] + E[3 + j] * f[4] + E[6 + j] * f[5];
+  if (k >= 3) return tj;
+  const int j1 = j == 2 ? 0 : j + 1, j2 = j == 0 ? 2 : j - 1;
+  const T t1 = E[j1] * f[3] + E[3 + j1] * f[4] + E[6 + j1] * f[5];
+  const T t2 = E[j2] * f[3] + E[3 + j2] * f[4] + E[6 + j2] * f[5];
+  return (E[j] * f[0] + E[3 + j] * f[1] + E[6 + j] * f[2]) + (r[j1] * t2 - r[j2] * t1);
+}
+
 // The world->body chain of the wrenches (apply_fext): Xa[i] = X[i] Xa[parent].
 template <typename T, class D>
 RBD_HD_CALL void fext_chain(const Model<T, D>& m, const Xc<T>* X, Xc<T>* Xa) {
@@ -198,7 +234,7 @@ RBD_HD_CALL void fext_chain(const Model<T, D>& m, const Xc<T>* X, Xc<T>* Xa) {
   }
 }
 
-// The rpy root's accelerations (aba_root6's root block): a0 = X0 ag, then
+// The rpy root's accelerations (rbdtpu aba's root block): a0 = X0 ag, then
 // IA0 qdd = tau - pA0 - IA0^T a0 by chol6 (NaN when IA0 is not positive
 // definite), a0 += qdd.
 template <typename T>
@@ -217,21 +253,48 @@ RBD_HD_CALL void root_accel(const Xc<T>& X0, const T* IA0, const T* pA0, const T
   for (int k = 0; k < 6; ++k) a0[k] = a[k] + qdd[k];
 }
 
+// The joint transforms X, the lower-left blocks BL of the dense X, the
+// motion subspaces and the parents of the state x = [q; qd] into the
+// scratch ``s`` of layout L, one lane a body (no barrier).
+template <int NL, class L, typename T, class D>
+RBD_HD void team_transforms(const Team<NL>& tm, const Model<T, D>& m, T* s, const T* x) {
+  Xc<T>* X = reinterpret_cast<Xc<T>*>(s + L::X);
+  T* BL = s + L::BL;
+  T* Sp = s + L::SP;
+  int* par = reinterpret_cast<int*>(s + L::PAR);
+  for (int i = tm.lane; i < m.nb; i += NL) {
+    if (m.root6(i)) {
+      floating_xc(m, x, X[0]);
+    } else {
+      joint_xc(m, i, x[m.vi(i)], X[i]);
+    }
+    for (int k = 0; k < 6; ++k) Sp[6 * i + k] = m.body(i)[OFF_S + k];
+    par[i] = m.parent(i);
+    for (int k = 0; k < 3; ++k) cross3(X[i].r, X[i].E + 3 * k, BL + 9 * i + 3 * k);
+  }
+}
+
 // One ABA + semi-implicit Euler step of the state x = [q; qd] (2 nv values
 // in shared memory) under the joint forces tau (nv), by the team ``tm``,
-// with the wrenches fext (nb, 6; global memory) when FEXT.  ``s`` is the
-// team's scratch of layout L (a TeamLayout<D, W, LEV>: W holds the wrenches'
-// chain, LEV the level order).  LV walks the root->leaf recursions level by
-// level (the layout must hold the level order), else body by body.  x' is
-// written to xs (shared; may be x itself) and to xg (global) where they are
-// not null.  Every lane returns after the last write; a caller that reads
-// xs must sync first.
-template <int NL, bool FEXT, bool LV, class L, typename T, class D>
+// with the wrenches fext (nb, 6; global or shared memory) when FEXT.  ``s``
+// is the team's scratch of layout L (a TeamLayout<D, W, LEV>: W holds the
+// wrenches' chain, LEV the level order).  LV walks the root->leaf
+// recursions level by level (the layout must hold the level order), else
+// body by body.  MINV runs the sweeps of qdd = M^-1 tau instead (rbdtpu's
+// aba_lane at qd = 0 and gravity 0, fixed-base trees, no wrenches): it
+// takes the transforms team_rnea_bias left in ``s``, skips the velocity
+// recursion and the bias terms (c = pA = 0) and ignores ``gravity``, while
+// Euler still integrates the real qd of x.  x' is written to xs (shared;
+// may be x itself) and to xg (global) where they are not null.  Every lane
+// returns after the last write; a caller that reads xs must sync first.
+template <int NL, bool FEXT, bool LV, class L, bool MINV = false, typename T, class D>
 RBD_HD void team_fd_step(const Team<NL>& tm, const Model<T, D>& m, T* s, const T* x,
                          const T* tau, T dt, T gravity, const T* fext, T* xs, T* xg) {
   static_assert(NL >= 8 && NL <= 32 && (NL & (NL - 1)) == 0, "a team is 8, 16 or 32 lanes");
   static_assert(L::NB == D::NB && (L::WRENCH || !FEXT) && (L::LEVELS || !LV),
                 "the layout holds the step");
+  static_assert(!MINV || (!FEXT && !LV && !D::FB), "MINV: fixed base, no wrenches, by bodies");
+  if constexpr (MINV) gravity = T(0);
   const int nb = m.nb, n = m.nv(), lane = tm.lane;
   Xc<T>* X = reinterpret_cast<Xc<T>*>(s + L::X);
   T(*v)[6] = reinterpret_cast<T(*)[6]>(s + L::V);
@@ -252,16 +315,7 @@ RBD_HD void team_fd_step(const Team<NL>& tm, const Model<T, D>& m, T* s, const T
   const T* qd = x + n;
 
   // joint transforms, motion subspaces and parents, one lane a body
-  for (int i = lane; i < nb; i += NL) {
-    if (m.root6(i)) {
-      floating_xc(m, x, X[0]);
-    } else {
-      joint_xc(m, i, x[m.vi(i)], X[i]);
-    }
-    for (int k = 0; k < 6; ++k) Sp[6 * i + k] = m.body(i)[OFF_S + k];
-    par[i] = m.parent(i);
-    for (int k = 0; k < 3; ++k) cross3(X[i].r, X[i].E + 3 * k, BL + 9 * i + 3 * k);
-  }
+  if constexpr (!MINV) team_transforms<NL, L>(tm, m, s, x);
   if constexpr (LV) {
     const int* lv = m.itab + 2 * nb;  // order, level count, level starts
     for (int e = lane; e < 2 * nb + 2; e += NL) ord[e] = lv[e];
@@ -274,7 +328,9 @@ RBD_HD void team_fd_step(const Team<NL>& tm, const Model<T, D>& m, T* s, const T
   const int* loff = ord + nb + 1;
   const int levels = LV ? ord[nb] : 0, grp = lane / 8, kl = lane % 8;
   constexpr int GROUPS = NL / 8;
-  if constexpr (LV) {
+  if constexpr (MINV) {
+    // qd = 0: no velocities
+  } else if constexpr (LV) {
     const int k = kl, kr = k < 3 ? k : k - 3;
     for (int l = 0; l < levels; ++l) {
       for (int b = loff[l] + grp; b < loff[l + 1]; b += GROUPS) {
@@ -318,8 +374,13 @@ RBD_HD void team_fd_step(const Team<NL>& tm, const Model<T, D>& m, T* s, const T
       }
     }
   }
-  // bias terms one lane a body; the inertias one lane a value
+  // bias terms one lane a body (zero with MINV); the inertias one lane a
+  // value
   for (int i = lane; i < nb; i += NL) {
+    if constexpr (MINV) {
+      for (int k = 0; k < 6; ++k) c[i][k] = pA[i][k] = T(0);
+      continue;
+    }
     T vJ[6], Iv[6];
     for (int k = 0; k < 6; ++k) vJ[k] = m.root6(i) ? qd[k] : Sp[6 * i + k] * qd[m.vi(i)];
     if (par[i] < 0) {
@@ -518,6 +579,120 @@ RBD_HD void team_fd_step(const Team<NL>& tm, const Model<T, D>& m, T* s, const T
       xs[n + k] = qdn;
     }
   }
+}
+
+// The bias of the M^-1 + RNEA step (rbdtpu kernels/fused.py _step_lane,
+// route "minv"): c = RNEA(q, qd, qdd = 0) with gravity and, with FEXT, the
+// world-frame wrenches fext (nb, 6), of the state x = [q; qd] (shared) by
+// the team ``tm``; writes rhs = tau - c (nv values, shared).  Fixed-base
+// trees.  In the scratch ``s`` of layout L it leaves the transforms, BL, S
+// and parents, which team_fd_step<..., MINV> then takes, and uses v, c, U
+// and pA as v, a, I v and the body forces f:
+//   - the root->leaf recursions one lane a component, the velocities
+//     v_i = X_i v_p + S_i qd_i a body ahead of the accelerations
+//     a_i = X_i a_p + v_i x S_i qd_i (a_p = gravity at the root), and with
+//     FEXT the wrenches' chain X_a,i = X_i X_a,p one lane an entry beside
+//     the velocities, so one barrier a body serves all three;
+//   - I v, then f_i = I a_i + v_i x* I v_i - X_a,i^-T fext_i, one lane a
+//     value;
+//   - the leaf->root sum f_p += X_i^T f_i one lane a component;
+//   - rhs_i = tau_i - S_i . f_i one lane a body.
+// Every lane returns after its last write; team_fd_step's first barrier
+// orders them before its own.
+template <int NL, bool FEXT, class L, typename T, class D>
+RBD_HD void team_rnea_bias(const Team<NL>& tm, const Model<T, D>& m, T* s, const T* x,
+                           const T* tau, T gravity, const T* fext, T* rhs) {
+  static_assert(!D::FB, "team_rnea_bias covers fixed-base trees");
+  static_assert(L::NB == D::NB && (L::WRENCH || !FEXT), "the layout holds the bias");
+  const int nb = m.nb, lane = tm.lane;
+  const T* qd = x + nb;
+  const Xc<T>* X = reinterpret_cast<const Xc<T>*>(s + L::X);
+  const T* Sp = s + L::SP;
+  const int* par = reinterpret_cast<const int*>(s + L::PAR);
+  T(*v)[6] = reinterpret_cast<T(*)[6]>(s + L::V);
+  T(*a)[6] = reinterpret_cast<T(*)[6]>(s + L::C);
+  T(*Iv)[6] = reinterpret_cast<T(*)[6]>(s + L::U);
+  T(*f)[6] = reinterpret_cast<T(*)[6]>(s + L::PA);
+  Xc<T>* Xa = reinterpret_cast<Xc<T>*>(s + L::XA);
+  team_transforms<NL, L>(tm, m, s, x);
+  tm.sync();
+  T ag[6];
+  gravity_accel(gravity, ag);
+  // step i: v of body i (entries e < 6), a of body i - 1 (6 <= e < 12),
+  // with FEXT X_a of body i (12 <= e < 24: E_a's nine entries, r_a's three)
+  for (int i = 0; i <= nb; ++i) {
+    for (int e = lane; e < (FEXT ? 24 : 12); e += NL) {
+      if (e >= 12) {
+        if (i == nb) continue;
+        const int p = par[i], x = e - 12;
+        if (x < 9) {  // E_a = E_i E_a,p
+          const int r = x / 3, c = x - 3 * r;
+          Xa[i].E[x] = p < 0 ? X[i].E[x]
+                             : X[i].E[3 * r] * Xa[p].E[c] + X[i].E[3 * r + 1] * Xa[p].E[3 + c] +
+                                   X[i].E[3 * r + 2] * Xa[p].E[6 + c];
+        } else {  // r_a = r_a,p + E_a,p^T r_i
+          const int c = x - 9;
+          Xa[i].r[c] = p < 0 ? X[i].r[c]
+                             : Xa[p].r[c] + (Xa[p].E[c] * X[i].r[0] + Xa[p].E[3 + c] * X[i].r[1] +
+                                             Xa[p].E[6 + c] * X[i].r[2]);
+        }
+        continue;
+      }
+      const int j = e < 6 ? i : i - 1, k = e < 6 ? e : e - 6, kr = k < 3 ? k : k - 3;
+      if (j < 0 || j >= nb) continue;
+      const int p = par[j];
+      const T* Sj = Sp + 6 * j;
+      const T* src = e < 6 ? (p < 0 ? nullptr : v[p]) : (p < 0 ? ag : a[p]);
+      const T xm = src == nullptr ? T(0) : xc_mv_row(X[j].E + 3 * kr, X[j].r, src, k < 3);
+      if (e < 6) {
+        v[j][k] = xm + Sj[k] * qd[j];
+      } else {
+        T vJ[6];
+        for (int r = 0; r < 6; ++r) vJ[r] = Sj[r] * qd[j];
+        a[j][k] = xm + cross_motion_row(v[j], vJ, k);
+      }
+    }
+    tm.sync();
+  }
+  for (int e = lane; e < 6 * nb; e += NL) {
+    const int i = e / 6, k = e - 6 * i;
+    const T* I = m.body(i) + OFF_I + 6 * k;
+    T acc = 0;
+    for (int r = 0; r < 6; ++r) acc += I[r] * v[i][r];
+    Iv[i][k] = acc;
+  }
+  tm.sync();
+  for (int e = lane; e < 6 * nb; e += NL) {
+    const int i = e / 6, k = e - 6 * i;
+    const T* I = m.body(i) + OFF_I + 6 * k;
+    T acc = 0;
+    for (int r = 0; r < 6; ++r) acc += I[r] * a[i][r];
+    acc += cross_force_row(v[i], Iv[i], k);
+    if constexpr (FEXT) {
+      // X_a^-T [n; fl] = [E (n - r x fl); E fl] for X_a = (E, r)
+      const Xc<T>& Xi = Xa[i];
+      const T* w = fext + 6 * i;
+      const int kr = k < 3 ? k : k - 3;
+      T src[3];
+      if (k < 3) {
+        T rxf[3];
+        cross3(Xi.r, w + 3, rxf);
+        for (int r = 0; r < 3; ++r) src[r] = w[r] - rxf[r];
+      } else {
+        for (int r = 0; r < 3; ++r) src[r] = w[3 + r];
+      }
+      acc -= Xi.E[3 * kr] * src[0] + Xi.E[3 * kr + 1] * src[1] + Xi.E[3 * kr + 2] * src[2];
+    }
+    f[i][k] = acc;
+  }
+  tm.sync();
+  for (int i = nb - 1; i >= 0; --i) {
+    const int p = par[i];
+    if (p < 0) continue;
+    if (lane < 6) f[p][lane] += xc_mtv_row(X[i].E, X[i].r, f[i], lane);
+    tm.sync();
+  }
+  for (int i = lane; i < nb; i += NL) rhs[i] = tau[i] - dot6(Sp + 6 * i, f[i]);
 }
 
 }  // namespace rbd

@@ -48,14 +48,17 @@ SIZE_CLASSES = {
 }
 
 # Lanes a team of the team kernels (csrc/rbd_team.cuh: one team of one warp
-# runs one state's step in fd_step, one trajectory in feedback_rollout and
-# feedback_chunked, one knot's linearisation in linearize_parts), per
-# kernel, size class and dtype, fixed from their times on an H100 at each
-# class's path shapes (PERF.md §6, tools/time_step_kernels.py --sweep).  The
-# build compiles each kernel at this size alone (``team_defines``).
+# runs one state's step in fd_step, one trajectory in feedback_rollout,
+# feedback_chunked and rollout_multi, one knot's linearisation in
+# linearize_parts), per kernel, size class and dtype, fixed from their times
+# on an H100 at each class's path shapes (PERF.md §6,
+# tools/time_step_kernels.py --sweep).  The build compiles each kernel at
+# this size alone (``team_defines``).
 TEAM = {(k, cls, sfx): 32 for k in ("fd_step", "feedback_rollout",
                                      "linearize_parts", "feedback_chunked")
         for cls in ("n8", "fb16", "fb32") for sfx in ("f32", "f64")}
+TEAM.update({("rollout_multi", "n8", "f32"): 16,
+             ("rollout_multi", "n8", "f64"): 32})
 TEAM[("fd_step", "fb32", "f32")] = 16
 TEAM.update({("linearize_parts", "n8", "f32"): 8,
              ("linearize_parts", "n8", "f64"): 8,
@@ -77,18 +80,24 @@ def team_values(kernel: str, cls: str, team: int) -> int:
     compact transform, 12, and the dense transform's lower-left block, 9;
     v, c, pA, U and S, 6 each; IA, 36; 1 / d, u and the parent; then one
     body's (IA - U U^T / d) X and bias force and 12 partial sums, 54, and
-    qdd), fd_step's with the wrenches' chain (12 a body) and two buffers of
-    U.a partial sums, feedback_rollout's with the level order (2 nb + 2)
-    and each body's U.a partial sums; then the kernel's own values
-    (fd_step: x and u; feedback_rollout and feedback_chunked, which share
-    one team body: x, dx, u and the knot buffer, K with rows of nx + 1),
-    rounded up to 32 and offset by ``team`` % 32 as fd_step.cu and
-    feedback_team.cuh pad them.  The launch refuses any other count."""
-    nb, fb, _ = SIZE_CLASSES[cls]
+    qdd), fd_step's and rollout_multi's with the wrenches' chain (12 a
+    body) and two buffers of U.a partial sums, feedback_rollout's with the
+    level order (2 nb + 2) and each body's U.a partial sums; then the
+    kernel's own values (fd_step: x and u; rollout_multi: x, two stages of
+    u and of the wrench set, u - c; feedback_rollout and feedback_chunked,
+    which share one team body: x, dx, u and the knot buffer, K with rows of
+    nx + 1), rounded up to 32 and offset by ``team`` % 32 as fd_step.cu,
+    rollout_multi.cu and feedback_team.cuh pad them.  The launch refuses
+    any other count."""
+    nb, fb, kernels = SIZE_CLASSES[cls]
+    if kernel not in kernels:
+        raise ValueError(f"{kernel} has no instantiation in class {cls}")
     nv = nb + 5 if fb else nb
     values = 90 * nb + 54 + nv
     if kernel == "fd_step":
         values += 12 * nb + 12 + 3 * nv
+    elif kernel == "rollout_multi":
+        values += 12 * nb + 12 + 5 * nv + 12 * nb
     elif kernel in ("feedback_rollout", "feedback_chunked"):
         values += 8 * nb + 2 + 9 * nv + nv * (2 * nv + 1)
     else:
@@ -236,6 +245,54 @@ def team_geometry(kernel: str, cls: str, dtype, B: int, nsm: int = H100_SMS):
     return team, tpb, tpb * per, -(-B // tpb)
 
 
+# The end-effector kernels' blocks (csrc/ee_gn.cu): ee_gn runs a team of 8
+# lanes a state (one lane a column of J, four states a warp), ee_err one
+# thread a state; per kernel the lanes a state and the most and fewest
+# states a block.
+EE_LANES = {"ee_gn": 8, "ee_err": 1}
+EE_STATES = {"ee_gn": (32, 4), "ee_err": (128, 32)}
+# a block's shared values ahead of its states (csrc/ee_gn.cu EE_FIXED): the
+# walk's row of each body of the n8 class (Ttree's rotation and
+# translation, the joint axis: 15 values) and the EE mount (12)
+EE_FIXED = 15 * SIZE_CLASSES["n8"][0] + 12
+
+
+def ee_values(kernel: str) -> int:
+    """Shared-memory values a state takes in a block of ``kernel`` at the
+    n8 class's bound of 8 bodies (csrc/ee_gn.cu ee_state_values): the
+    staged q row (8) and e (3); ee_gn also g0 (8), H0 (64) and the state's
+    columns of J (3 x 8)."""
+    nb = SIZE_CLASSES["n8"][0]
+    if kernel == "ee_err":
+        return nb + 3
+    if kernel == "ee_gn":
+        return 2 * nb + 3 + nb * nb + 3 * nb
+    raise ValueError(f"{kernel} is not an end-effector kernel")
+
+
+def ee_geometry(kernel: str, dtype, B: int, nsm: int = H100_SMS):
+    """(states a block, threads a block, shared bytes a block, blocks) of
+    an ``ee_gn`` or ``ee_err`` launch over B states: the most states of
+    EE_STATES a block, halved down to its fewest while the batch would
+    leave SMs without a block; its shared memory holds EE_FIXED values and
+    ``ee_values`` a state.  Every count is a multiple of four, which keeps
+    each staged row's range of a block 16-byte aligned."""
+    spb, least = EE_STATES[kernel]
+    while spb > least and -(-B // spb) < nsm:
+        spb //= 2
+    size = torch.finfo(dtype).bits // 8
+    return (spb, spb * EE_LANES[kernel],
+            (EE_FIXED + spb * ee_values(kernel)) * size, -(-B // spb))
+
+
+def ee_args(kernel: str, ref: torch.Tensor, B: int):
+    """(states a block, shared bytes a block) of an end-effector launch
+    over B states on ref's device."""
+    _check_dtype(kernel, ref)
+    spb, _, smem, _ = ee_geometry(kernel, ref.dtype, B, sm_count(ref.device))
+    return spb, smem
+
+
 def team_defines() -> tuple:
     """The nvcc defines that fix each team kernel's team size per size
     class and dtype (RBD_TEAM_<kernel>_<class>_<f32|f64>) from TEAM."""
@@ -307,11 +364,14 @@ _SIGNATURES = {
     "feedback_rollout": "ppppppppiiiiiss",
     # q qd u Minv dcq dcd qdd B tpb smem gravity
     "linearize_parts": "pppppppiiis",
-    "ee_gn": "pipssspppi",         # ee jid q tx ty tz e g0 H0 B
-    "ee_err": "pipssspi",          # ee jid q tx ty tz e B
+    # ee chain prism q tx ty tz e g0 H0 B spb smem (chain: the EE joint
+    # and its ancestors, one bit a body; prism: those that are prismatic)
+    "ee_gn": "piipssspppiii",
+    "ee_err": "piipssspiii",       # ee chain prism q tx ty tz e B spb smem
     "rnea": "ppppis",              # q qd qdd tau B gravity
     "fd_step_minv": "pppipiiss",   # x u fext fext_stride xo B dense dt g
-    "rollout_multi": "ppppiiiss",  # x0 U fext xo B H minv dt gravity
+    # x0 U fext xo B H minv tpb smem dt gravity
+    "rollout_multi": "ppppiiiiiss",
     # x0 Xn Un kf Kf uclip Xo Uo B H cw nc levels tpb smem dt gravity
     "feedback_chunked": "ppppppppiiiiiiiss",
 }

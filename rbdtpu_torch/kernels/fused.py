@@ -191,11 +191,15 @@ def rollout_fused_multi(model: RobotModel, x0, U, dt: float,
     Kernel ``rollout_multi`` (csrc/rollout_multi.cu) replaces rbdtpu's
     ``kernels.fused.rollout_fused_multi`` (Pallas, fused.py:1029), whose
     sequential grid axis carried the state in VMEM between steps: here one
-    thread per trajectory loops over the H steps with its state in the
-    thread and writes only the final state.  Bound on the H100: arithmetic
-    and the latency of H dependent tree walks per thread; at B=4096 the
-    32-thread blocks reach 128 of the 132 SMs.  Any B >= 1 is taken as it
-    is.
+    team of lanes of a warp per trajectory loops over the H steps with its
+    state in shared memory and writes only the final state.  A step is the
+    team ABA step of ``fd_step_fused`` ("aba"), or the team's RNEA bias
+    followed by the step's articulated sweeps at zero velocity and gravity
+    ("minv"); the next step's controls and wrenches arrive by cp.async
+    while the team computes.  Bound on the H100: the latency and issue of H
+    dependent team steps; at B=4096 the batch fills the SMs in one wave.
+    Team size and teams a block are ``_lib.team_geometry``'s; any B >= 1
+    and H >= 0 are taken as they are.
     """
     if not x0.is_cuda:
         return rollout_multi_plain(model, x0, U, dt, gravity, route, f_ext)
@@ -208,7 +212,8 @@ def rollout_fused_multi(model: RobotModel, x0, U, dt: float,
         _lib.check(f_ext, "f_ext", (H, model.nb, 6), x0)
     xo = torch.empty_like(x0)
     _lib.launch("rollout_multi", model, x0, x0, U, f_ext, xo, B, H,
-                int(route == "minv"), dt, gravity)
+                int(route == "minv"),
+                *_lib.team_args("rollout_multi", model, x0, B), dt, gravity)
     return xo
 
 

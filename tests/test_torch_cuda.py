@@ -155,15 +155,26 @@ def test_fd_step_minv(case, dense, wrench):
     _close(out, fused.fd_step_minv_plain(m, x, u, DT, f_ext=fe), tol)
 
 
+@pytest.mark.parametrize("H", [1, 50])
+@pytest.mark.parametrize("B", [1, 37, 4096, 4097])
 @pytest.mark.parametrize("wrench", [False, True], ids=["free", "fext"])
 @pytest.mark.parametrize("route", ["aba", "minv"])
-def test_rollout_multi_is_one_launch(case, route, wrench):
+def test_rollout_multi_is_one_launch(case, route, wrench, B, H):
     """The whole horizon is one launch of rollout_multi and none of the
-    step kernels; an odd batch needs no padding."""
+    step kernels, for one trajectory, an odd batch, the rollout path's 4096
+    and one more (a ragged last block), over one step and the path's 50.
+    Over 50 steps the inputs are the rollout path's (x0 = 0.1 N(0,1),
+    wrenches 0.5 N(0,1); chip_smoke.rollout_inputs): from x0 = 0.5 N(0,1)
+    under 10 N wrenches some of 4096 open-loop arms diverge (|x| ~ 1e24),
+    where two orders of the same float64 sums part whatever computes
+    them."""
     m, _, tol = case
-    B, H = 37, 8
     x0, U, F = _inputs(m, (B, m.nx), (H, B, m.nv), (H, m.nb, 6))
-    F = 20.0 * F if wrench else None
+    if H > 1:
+        x0 = 0.2 * x0
+        F = F if wrench else None
+    else:
+        F = 20.0 * F if wrench else None
     before = dict(_lib.launches)
     out = rollout_fused_multi(m, x0, U, DT, route=route, f_ext=F)
     torch.cuda.synchronize()
@@ -283,10 +294,14 @@ def test_linearize_parts(tree_case):
         _close(a, b, tol)
 
 
+@pytest.mark.parametrize("B", [1, 37, 128, 12800, 102401])
 @pytest.mark.parametrize("gn", [True, False])
-def test_ee_gn(case, gn):
+def test_ee_gn(case, gn, B):
+    """One launch of ee_gn or ee_err against the plain version, at one
+    state, an odd batch, the paths' 128 and 12,800 and one past the line
+    search's 102,400 (a ragged last block)."""
     m, ee, tol = case
-    (q,) = _inputs(m, (500, m.nq), scale=1.0)
+    (q,) = _inputs(m, (B, m.nq), scale=1.0)
     out = _launched("ee_gn" if gn else "ee_err", lambda: ee_gn_fused(
         m, q, TARGET, ee_names=ee, gn=gn))
     for a, b in zip(out, fk_lane.ee_gn_plain(m, q, TARGET, ee_names=ee,

@@ -1,10 +1,11 @@
 """Launch geometry and shared-memory layouts of K3 (``linearize_parts``),
-K9 (``feedback_chunked``), the Riccati sweep (``riccati``, K7/K8) and K11
+K4 (``ee_gn``, ``ee_err``), K5 (``rollout_multi``), K9
+(``feedback_chunked``), the Riccati sweep (``riccati``, K7/K8) and K11
 (``riccati_fused``): ``rbdtpu_torch.kernels._lib`` gives each launch's
 threads, blocks and shared bytes, and the CUDA launch refuses any other
 count.  The C layouts are compiled for the host with g++ and held against
-their Python twins, and K9's and K11's per-thread code, built for the host,
-against the plain versions.  Needs no card and no JAX."""
+their Python twins, and K4's, K5's, K9's and K11's per-thread code, built
+for the host, against the plain versions.  Needs no card and no JAX."""
 import shutil
 import subprocess
 
@@ -120,6 +121,8 @@ _PROGRAM = r"""
 #include <cstdio>
 #include "riccati_chunk.cu"
 #include "linearize.cu"
+#include "rollout_multi.cu"
+#include "ee_gn.cu"
 int main() {
   const int shapes[][2] = {%s};
   for (const auto& s : shapes) std::printf("%%d\n", rbd::riccati_smem_values(s[0], s[1]));
@@ -130,18 +133,27 @@ int main() {
 
 
 def test_c_layouts_match_python(tmp_path):
-    """riccati_layout and LinLayout, compiled for the host from the
-    sources in csrc/, give the shared-memory counts that _lib computes:
-    the sweep's at every shape above, K3's at every class and team size."""
+    """riccati_layout, LinLayout, K5's team stride and K4's staging,
+    compiled for the host from the sources in csrc/, give the
+    shared-memory counts that _lib computes: the sweep's at every shape
+    above, K3's at every class and team size, K5's at every team size,
+    K4's a state of each kernel."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler (g++)")
     dims = {"n8": "N8", "fb16": "FB16", "fb32": "FB32"}
     lin = [(cls, team) for cls in _lib.SIZE_CLASSES for team in _lib.TEAM_SIZES]
+    show = lambda expr: f'std::printf("%d\\n", {expr});'
     src = _PROGRAM % (
         ", ".join(f"{{{n}, {m}}}" for n, m in SWEEP_SHAPES),
-        "\n  ".join(f'std::printf("%d\\n", rbd::LinLayout<rbd::{dims[c]}, '
-                    f'{t}>::STRIDE);' for c, t in lin))
+        "\n  ".join(
+            [show(f"rbd::LinLayout<rbd::{dims[c]}, {t}>::STRIDE")
+             for c, t in lin]
+            + [show(f"rbd::rollout_multi_team_stride<{t}>()")
+               for t in _lib.TEAM_SIZES]
+            + [show(f"rbd::ee_state_values<{gn}>()")
+               for gn in ("true", "false")]
+            + [show("rbd::EE_FIXED")]))
     (tmp_path / "layouts.cpp").write_text(src)
     exe = tmp_path / "layouts"
     subprocess.run([cxx, "-std=c++17", "-x", "c++", "-I", _lib.CSRC,
@@ -151,8 +163,84 @@ def test_c_layouts_match_python(tmp_path):
         [str(exe)], check=True, capture_output=True, text=True,
         timeout=60).stdout.split()]
     want = ([_lib.riccati_values(n, m) for n, m in SWEEP_SHAPES]
-            + [_lib.linearize_values(c, t) for c, t in lin])
+            + [_lib.linearize_values(c, t) for c, t in lin]
+            + [_lib.team_values("rollout_multi", "n8", t)
+               for t in _lib.TEAM_SIZES]
+            + [_lib.ee_values("ee_gn"), _lib.ee_values("ee_err"),
+               _lib.EE_FIXED])
     assert got == want
+
+
+# K5's and K4's batches: one state, an odd batch, the rollout path's 4096
+# and one more; K4 also the paths' terminal (128), knot (12,800) and line
+# search (1,024, 102,400) counts and one past the last
+ROLLOUT_BATCHES = (1, 37, 4096, 4097)
+EE_BATCHES = (*ROLLOUT_BATCHES, 128, 1024, 12800, 102400, 102401)
+
+
+@pytest.mark.parametrize("team", _lib.TEAM_SIZES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "float64"])
+def test_rollout_multi_geometry(dtype, team, monkeypatch):
+    """K5 is n8 only; at every team size (the table's own among them) one
+    team a trajectory, at most one warp of teams a block; a team holds the
+    step's scratch with the wrenches' chain (102 values a body), x, two
+    stages of u and of the wrench set and u - c, padded to the teams' bank
+    offset; the block's memory is its teams', within 232,448 bytes; the
+    grid covers every batch exactly, and the path's 4096 fill every SM."""
+    sfx = _lib._SUFFIX[dtype]
+    assert _lib.TEAM[("rollout_multi", "n8", sfx)] in _lib.TEAM_SIZES
+    assert [c for c, (_, _, ks) in _lib.SIZE_CLASSES.items()
+            if "rollout_multi" in ks] == ["n8"]
+    with pytest.raises(ValueError):
+        _lib.team_values("rollout_multi", "fb16", team)
+    monkeypatch.setitem(_lib.TEAM, ("rollout_multi", "n8", sfx), team)
+    values = _lib.team_values("rollout_multi", "n8", team)
+    assert values >= 102 * 8 + 54 + 8 + 12 + 5 * 8 + 12 * 8
+    assert values % 32 == team % 32
+    per = values * torch.finfo(dtype).bits // 8
+    for B in ROLLOUT_BATCHES:
+        t, tpb, smem, blocks = _lib.team_geometry("rollout_multi", "n8",
+                                                  dtype, B)
+        assert t == team and 1 <= tpb and tpb * team <= 32
+        assert smem == tpb * per <= _lib.SMEM_MAX
+        assert blocks * tpb >= B > (blocks - 1) * tpb
+        if B >= 4096:
+            assert blocks >= _lib.H100_SMS
+    assert _lib.team_geometry("rollout_multi", "n8", dtype, 1)[1:] == (
+        1, per, 1)
+
+
+@pytest.mark.parametrize("kernel", ["ee_gn", "ee_err"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "float64"])
+def test_ee_geometry(kernel, dtype):
+    """K4's blocks: a multiple of four states (so every staged row range
+    of a block is 16-byte aligned in both dtypes), 8 lanes a state for
+    ee_gn and one for ee_err, within the kernels' launch bounds (256 and
+    128 threads); a block stages the walk's rows of the class's 8 bodies and
+    the mount, then a state's q and e, and for ee_gn g0, H0 and J at the n8
+    bound; the grid covers every batch exactly, and a batch that can fill
+    every SM does."""
+    nb = _lib.SIZE_CLASSES["n8"][0]
+    per = _lib.ee_values(kernel)
+    assert per == (2 * nb + 3 + nb * nb + 3 * nb if kernel == "ee_gn"
+                   else nb + 3)
+    lanes, most = (8, 256) if kernel == "ee_gn" else (1, 128)
+    size = torch.finfo(dtype).bits // 8
+    for B in EE_BATCHES:
+        spb, threads, smem, blocks = _lib.ee_geometry(kernel, dtype, B)
+        assert spb % 4 == 0 and threads == spb * lanes <= most
+        assert threads % 32 == 0
+        assert _lib.EE_FIXED % 4 == 0
+        assert smem == (_lib.EE_FIXED + spb * per) * size <= 48 * 1024
+        assert blocks * spb >= B > (blocks - 1) * spb
+        if B >= _lib.H100_SMS * _lib.EE_STATES[kernel][1]:
+            assert blocks >= _lib.H100_SMS
+    # the path's large batch (12,800 knots, 102,400 line-search states)
+    # takes the most states a block
+    B = 12800 if kernel == "ee_gn" else 102400
+    assert _lib.ee_geometry(kernel, dtype, B)[0] == _lib.EE_STATES[kernel][0]
+    with pytest.raises(ValueError):
+        _lib.ee_values("rollout_multi")
 
 
 # K9 (feedback_chunked) runs K2's team body: its geometry at every class
@@ -251,6 +339,20 @@ static HostBarrier* g_bar;
 #define RBD_TEAM_HOST_SYNC() g_bar->wait()
 #include "feedback_chunked.cu"
 #include "riccati_fused.cu"
+#include "rollout_multi.cu"
+#include "ee_gn.cu"
+
+// NL std::threads as one team, lane = the thread's index
+template <int NL, class F>
+static void run_team(F body) {
+  HostBarrier bar;
+  bar.n = NL;
+  g_bar = &bar;
+  std::vector<std::thread> th;
+  for (int lane = 0; lane < NL; ++lane)
+    th.emplace_back([&, lane] { body(rbd::Team<NL>{lane, 0u}); });
+  for (auto& t : th) t.join();
+}
 
 template <class D, bool LV>
 static void k9(const double* tab, const int* itab, int nb, const double* x0,
@@ -304,12 +406,56 @@ extern "C" void host_k11(const double* A, const double* Bm, const double* lx,
 }
 
 extern "C" int host_k11_values(int nx, int nu) { return rbd::k11::smem_values(nx, nu); }
+
+template <bool MINV, bool FEXT>
+static void k5(const rbd::Model<double, rbd::N8>& m, const double* x0, const double* U,
+               const double* fext, double* xo, int B, int H, double dt, double g) {
+  constexpr int NL = 8;
+  const int nx = 2 * m.nb;
+  std::vector<double> s(rbd::rollout_multi_team_stride<NL>());
+  for (int b = 0; b < B; ++b)
+    run_team<NL>([&](const rbd::Team<NL>& tm) {
+      rbd::rollout_team<NL, MINV, FEXT>(tm, m, s.data(), x0 + (size_t)b * nx,
+                                        U + (size_t)b * m.nb, (size_t)B * m.nb, fext,
+                                        xo + (size_t)b * nx, H, dt, g);
+    });
+}
+
+extern "C" void host_k5(const double* tab, const int* itab, int nb, const double* x0,
+                        const double* U, const double* fext, double* xo, int B, int H,
+                        int minv, double dt, double g) {
+  const rbd::Model<double, rbd::N8> m{tab, itab, nb};
+  auto run = minv ? (fext ? k5<true, true> : k5<true, false>)
+                  : (fext ? k5<false, true> : k5<false, false>);
+  run(m, x0, U, fext, xo, B, H, dt, g);
+}
+
+extern "C" void host_k4(const double* tab, const int* itab, int nb, const double* ee,
+                        int chain, int prism, const double* q, double tx, double ty, double tz,
+                        double* e, double* g0, double* H0, int B, int gn) {
+  const rbd::Model<double, rbd::N8> m{tab, itab, nb};
+  const double target[3] = {tx, ty, tz};
+  std::vector<double> J(3 * rbd::N8::NB), rows(rbd::EE_ROW * rbd::N8::NB);
+  for (int k = 0; k < rbd::EE_ROW * nb; ++k) rows[k] = rbd::ee_row_value(m, k);
+  for (int b = 0; b < B; ++b) {
+    const double* qb = q + (size_t)b * nb;
+    if (gn) {
+      run_team<8>([&](const rbd::Team<8>& tm) {
+        rbd::ee_gn_team(tm, nb, rows.data(), (unsigned)chain, (unsigned)prism, ee, qb, target,
+                        e + 3 * b, g0 + (size_t)b * nb, H0 + (size_t)b * nb * nb, J.data());
+      });
+    } else {
+      rbd::ee_err_one(rows.data(), (unsigned)chain, (unsigned)prism, ee, qb, target, e + 3 * b);
+    }
+  }
+}
 """
 
 
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
-    """The host build of K9's and K11's bodies, loaded with ctypes."""
+    """The host build of K4's, K5's, K9's and K11's bodies, loaded with
+    ctypes."""
     import ctypes
 
     cxx = shutil.which("g++") or shutil.which("c++")
@@ -327,6 +473,8 @@ def host_kernels(tmp_path_factory):
         fn.argtypes = [P, P, I] + [P] * 8 + [I, I, I, I, D, D]
     lib.host_k11.argtypes = ([P] * 5 + [I, I, P, I, I, P, I, I] + [P] * 7
                              + [I] * 4)
+    lib.host_k5.argtypes = [P, P, I, P, P, P, P, I, I, I, D, D]
+    lib.host_k4.argtypes = [P, P, I, P, I, I, P, D, D, D, P, P, P, I, I]
     return lib
 
 
@@ -406,3 +554,71 @@ def test_host_riccati_fused(host_kernels, nx, nu, const, non_pd):
         assert torch.equal(a.isnan(), b.isnan())
         scale = max(1.0, b.nan_to_num(0).abs().max().item())
         assert (a - b).nan_to_num(0).abs().max().item() <= 1e-9 * scale
+
+
+def _tree(name):
+    """arm7 (a chain) or the mixed tree (branched, prismatic joints) in
+    float64 on the CPU, with the end effector the card tests use."""
+    from rbdtpu_torch.model import load_asset
+    from test_torch_cuda import mixed_tree_urdf
+
+    if name == "arm7":
+        return load_asset("arm7", device="cpu", dtype=torch.float64), None
+    return (parse_urdf(mixed_tree_urdf(), device="cpu", dtype=torch.float64),
+            ("j4",))
+
+
+@pytest.mark.parametrize("H", [1, 3])
+@pytest.mark.parametrize("wrench", [False, True], ids=["free", "fext"])
+@pytest.mark.parametrize("route", ["aba", "minv"])
+@pytest.mark.parametrize("name", ["arm7", "mixed"])
+def test_host_rollout_multi(host_kernels, name, route, wrench, H):
+    """K5's team body, built for the host and run by a team of 8 threads
+    a trajectory, against ``rollout_multi_plain`` in float64 (1e-9) on
+    arm7 and the mixed tree, on both routes (the minv route through the
+    team RNEA bias and the M^-1 sweeps), with and without per-step
+    wrenches."""
+    from rbdtpu_torch.kernels import fused
+
+    m, _ = _tree(name)
+    tab, itab = _lib.model_tables(m, "cpu", torch.float64)
+    rng = np.random.default_rng(11 + H)
+    B = 3
+    T = lambda sc, *s: torch.tensor(sc * rng.standard_normal(s))
+    x0, U = T(0.3, B, m.nx), T(0.5, H, B, m.nv)
+    F = T(5.0, H, m.nb, 6) if wrench else None
+    xo = torch.empty(B, m.nx, dtype=torch.float64)
+    host_kernels.host_k5(_ptr(tab), _ptr(itab), m.nb, _ptr(x0), _ptr(U),
+                         _ptr(F), _ptr(xo), B, H, int(route == "minv"), 0.01,
+                         -9.81)
+    want = fused.rollout_multi_plain(m, x0, U, 0.01, route=route, f_ext=F)
+    torch.testing.assert_close(xo, want, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("gn", [True, False], ids=["ee_gn", "ee_err"])
+@pytest.mark.parametrize("name", ["arm7", "mixed"])
+def test_host_ee_gn(host_kernels, name, gn):
+    """K4's bodies built for the host, ee_gn by a team of 8 threads a state
+    and ee_err by one thread, against ``ee_gn_plain`` in float64 (1e-9) on
+    arm7 and on the mixed tree, whose end effector sits behind both
+    prismatic joints."""
+    from rbdtpu_torch.kernels import fk_lane
+
+    m, ee_names = _tree(name)
+    jid, fid = fk_lane._single_ee(m, ee_names)
+    tab, itab = _lib.model_tables(m, "cpu", torch.float64)
+    ee = _lib.ee_table(m, fid, "cpu", torch.float64)
+    B, n = 5, m.nv
+    q = torch.tensor(np.random.default_rng(5).standard_normal((B, n)))
+    target = (0.3, 0.2, 0.8)
+    e = torch.empty(B, 3, dtype=torch.float64)
+    g0 = torch.empty(B, n, dtype=torch.float64)
+    H0 = torch.empty(B, n, n, dtype=torch.float64)
+    host_kernels.host_k4(_ptr(tab), _ptr(itab), m.nb, _ptr(ee),
+                         *fk_lane.ee_chain(m, jid), _ptr(q), *target, _ptr(e),
+                         _ptr(g0), _ptr(H0), B, int(gn))
+    want = fk_lane.ee_gn_plain(m, q, target, ee_names=ee_names, gn=gn)
+    torch.testing.assert_close(e, want[0], rtol=0, atol=1e-9)
+    if gn:
+        torch.testing.assert_close(g0, want[1], rtol=0, atol=1e-9)
+        torch.testing.assert_close(H0, want[2], rtol=0, atol=1e-9)

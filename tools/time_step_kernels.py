@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Time the step kernels K1 (``fd_step``) and K2 (``feedback_rollout``),
 the chunked line search K9 (``feedback_chunked``), the linearisation K3
-(``linearize_parts``), the Riccati sweep K7/K8 (``riccati``) and the
-arm-class sweep K11 (``riccati_fused``) on one CUDA card, float32, at each
-path's shapes:
+(``linearize_parts``), the end-effector terms K4 (``ee_gn``, ``ee_err``),
+the whole-horizon rollout K5 (``rollout_multi``), the Riccati sweep K7/K8
+(``riccati``) and the arm-class sweep K11 (``riccati_fused``) on one CUDA
+card, float32, at each path's shapes:
 
-    python3 tools/time_step_kernels.py [--root DIR] [--label NAME]
-    python3 tools/time_step_kernels.py --sweep
+    python3 tools/time_step_kernels.py [--root DIR] [--label NAME] [--kernels K4,K5]
+    python3 tools/time_step_kernels.py --sweep [--kernels K1,K2,K3,K5,K9]
 
 Shapes: arm7 K1 at 128 and 1 states, K2 at 1024 trajectories x 100 knots,
 K3 at 12,800 knots (BASELINE.json configs[2]); the rpy quadruped K1 at
@@ -18,8 +19,12 @@ nu=18), at four such problems (the small-batch call site), and at paths
 D's and C's 256 and 16 humanoid problems x 32 knots (nx=72, nu=36),
 constant cost blocks; K11 and, on the same inputs, the sweep at
 configs[2]'s 128 problems x 100 knots (nx=14, nu=7, per-knot cost blocks),
-at four and at one (path B's tick) (``chip_smoke.riccati_problem``).
-Each time is ``chip_smoke.graph_ms``
+at four and at one (path B's tick) (``chip_smoke.riccati_problem``); K4
+on arm7, ee_gn at 12,800 (the knots of configs[2]) and 128 states (its
+terminal cost) and ee_err at 102,400 (its line search) and 1,024; K5 on
+arm7 at 4096 trajectories x 50 steps (configs[1],
+``chip_smoke.rollout_inputs``) on each route, and on each route with
+(H, nb, 6) wrenches.  Each time is ``chip_smoke.graph_ms``
 (the device's time alone) and, beside it, ``chip_smoke.cuda_ms`` over 20
 single calls (the host's launch included).  ``--root`` times the
 ``rbdtpu_torch`` of another checkout (a parent commit unpacked into an
@@ -31,14 +36,17 @@ change, change, parent).
 ``_lib.TEAM_SIZES`` (every entry of ``_lib.TEAM`` set to it) and times, in
 float32 and float64, K1 at 1, 16 and 256 states and at the path's batch,
 K2 at the path's shape in both walks of the step's root->leaf recursions,
-K9 (two chunks) at the same shape in the walk ``_lib.level_walk`` picks
-and K3 at the path's knots (graph replay): the measurements ``_lib.TEAM``
-and ``_lib.level_walk`` were fixed from.  Prints one JSON line with the card's
-name and power limit.
+K9 (two chunks) at the same shape in the walk ``_lib.level_walk`` picks,
+K3 at the path's knots and K5 on arm7 at 4096 x 50 on each route, with
+and without (H, nb, 6) wrenches (graph replay): the measurements
+``_lib.TEAM`` and ``_lib.level_walk`` were fixed from.  ``--kernels``
+times only the kernels it names, in either mode.  Prints one JSON line
+with the card's name and power limit.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import json
 import os
@@ -61,6 +69,9 @@ RICCATI_SHAPES = (("configs[3]", 1024, 50, 36, 18), ("B=4", 4, 50, 36, 18),
 K11_SHAPES = (("configs[2]", 128, 100, 14, 7), ("B=4", 4, 100, 14, 7),
               ("B=1", 1, 100, 14, 7))
 NCHUNKS = 2
+SWEEP_KERNELS = ("K1", "K2", "K3", "K5", "K9")
+COMPARE_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K7", "K9", "K11")
+ROUTES = ("aba", "minv")
 
 
 def smoke():
@@ -87,8 +98,19 @@ def path_inputs(cs, key, m64):
     return inp["fd_step"], inp["feedback_rollout"], inp["linearize_parts"]
 
 
-def compare(cs, label: str) -> dict:
-    from rbdtpu_torch.kernels import colvec, fused
+def rollout_args(cs, m64):
+    """K5's float32 inputs at the rollout path's shape: x0, U per route and
+    the (H, nb, 6) wrenches (``chip_smoke.rollout_inputs``)."""
+    ins = {label: (args, kw) for label, _, args, kw, _, _ in
+           cs.rollout_inputs(m64, np.random.default_rng(cs.SEED + 3))}
+    f32 = lambda t: t.float().contiguous()
+    (x0, U_minv), _ = ins["rollout_multi minv"]
+    (_, U_aba), kw = ins["rollout_multi aba f_ext (H,nb,6)"]
+    return f32(x0), {"minv": f32(U_minv), "aba": f32(U_aba)}, f32(kw["f_ext"])
+
+
+def compare(cs, label: str, kernels=COMPARE_KERNELS) -> dict:
+    from rbdtpu_torch.kernels import colvec, fk_lane, fused
     from rbdtpu_torch.kernels.riccati import backward_pass_fused
     from rbdtpu_torch.kernels.riccati_chunk import backward_pass_chunked
     from rbdtpu_torch.model import load_asset
@@ -96,34 +118,58 @@ def compare(cs, label: str) -> dict:
     out = {}
     timed = lambda fn: {"graph": cs.graph_ms(fn),
                         "call": cs.cuda_ms(fn, reps=20)}
+    trees = bool(set(kernels) & {"K1", "K2", "K3", "K9"})
     for key, name, fb in MODELS:
+        if not trees and key != "arm7":
+            continue
         m64 = load_asset(name, device="cuda", dtype=torch.float64,
                          floating_base=fb)
         m32 = load_asset(name, device="cuda", dtype=torch.float32,
                          floating_base=fb)
-        (x, u), k2, k3 = path_inputs(cs, key, m64)
-        x, u = x.float().contiguous(), u.float().contiguous()
-        k2 = tuple(t.float().contiguous() for t in k2)
-        k3 = tuple(t.float().contiguous() for t in k3)
-        cases = [(f"K1 B={x.shape[0]}",
-                  lambda: fused.fd_step_fused(m32, x, u, DT, GRAVITY))]
+        cases = []
+        if trees:
+            (x, u), k2, k3 = path_inputs(cs, key, m64)
+            x, u = x.float().contiguous(), u.float().contiguous()
+            k2 = tuple(t.float().contiguous() for t in k2)
+            k3 = tuple(t.float().contiguous() for t in k3)
+            cases.append((f"K1 B={x.shape[0]}",
+                          lambda: fused.fd_step_fused(m32, x, u, DT, GRAVITY)))
+            if key == "arm7":
+                x1, u1 = x[:1].contiguous(), u[:1].contiguous()
+                cases.append(("K1 B=1", lambda: fused.fd_step_fused(
+                    m32, x1, u1, DT, GRAVITY)))
+            cases.append((f"K2 {k2[2].shape[0]}x{k2[2].shape[1]}",
+                          lambda: fused.feedback_rollout_fused(m32, *k2, DT,
+                                                               GRAVITY)))
+            cases.append((f"K9 {k2[2].shape[0]}x{k2[2].shape[1]} nchunks="
+                          f"{NCHUNKS}",
+                          lambda: fused.feedback_rollout_fused_chunked(
+                              m32, *k2, DT, GRAVITY, nchunks=NCHUNKS)))
+            cases.append((f"K3 {k3[0].shape[0]}", lambda: colvec.
+                          linearize_parts_fused(m32, *k3, GRAVITY)))
         if key == "arm7":
-            x1, u1 = x[:1].contiguous(), u[:1].contiguous()
-            cases.append(("K1 B=1", lambda: fused.fd_step_fused(
-                m32, x1, u1, DT, GRAVITY)))
-        cases.append((f"K2 {k2[2].shape[0]}x{k2[2].shape[1]}",
-                      lambda: fused.feedback_rollout_fused(m32, *k2, DT,
-                                                           GRAVITY)))
-        cases.append((f"K9 {k2[2].shape[0]}x{k2[2].shape[1]} nchunks="
-                      f"{NCHUNKS}", lambda: fused.feedback_rollout_fused_chunked(
-                          m32, *k2, DT, GRAVITY, nchunks=NCHUNKS)))
-        cases.append((f"K3 {k3[0].shape[0]}", lambda: colvec.
-                      linearize_parts_fused(m32, *k3, GRAVITY)))
+            x0, Us, F = rollout_args(cs, m64)
+            for route in ROUTES:
+                for wr, fe in (("", None), (" f_ext (H,nb,6)", F)):
+                    cases.append((f"K5 {route}{wr} {x0.shape[0]}x"
+                                  f"{Us[route].shape[0]}", functools.partial(
+                                      fused.rollout_fused_multi, m32, x0,
+                                      Us[route], DT, GRAVITY, route=route,
+                                      f_ext=fe)))
+            rng = np.random.default_rng(cs.SEED + 11)
+            for kernel, gn, batches in (("ee_gn", True, (12800, 128)),
+                                        ("ee_err", False, (102400, 1024))):
+                for B in batches:
+                    q = torch.tensor(0.3 * rng.standard_normal((B, m32.nq)),
+                                     dtype=torch.float32, device="cuda")
+                    cases.append((f"K4 {kernel} B={B}", functools.partial(
+                        fk_lane.ee_gn_fused, m32, q, cs.TARGET, gn=gn)))
         for case, fn in cases:
-            out[f"{key} {case}"] = timed(fn)
-        del x, u, k2, k3
+            if case.split()[0] in kernels:
+                out[f"{key} {case}"] = timed(fn)
+        del cases
         torch.cuda.empty_cache()
-    for case, B, H, nx, nu in RICCATI_SHAPES:
+    for case, B, H, nx, nu in RICCATI_SHAPES if "K7" in kernels else ():
         prob = tuple(torch.tensor(a, dtype=torch.float32, device="cuda")
                      for a in cs.riccati_problem(
                          np.random.default_rng(cs.SEED + B), nx, nu, H, B,
@@ -131,7 +177,7 @@ def compare(cs, label: str) -> dict:
         out[f"riccati {case} {B}x{H} nx={nx}"] = timed(
             lambda: backward_pass_chunked(*prob))
         del prob
-    for case, B, H, nx, nu in K11_SHAPES:
+    for case, B, H, nx, nu in K11_SHAPES if "K11" in kernels else ():
         prob = tuple(torch.tensor(a, dtype=torch.float32, device="cuda")
                      for a in cs.riccati_problem(
                          np.random.default_rng(cs.SEED + B), nx, nu, H, B,
@@ -143,24 +189,43 @@ def compare(cs, label: str) -> dict:
     return {"label": label, "ms": out}
 
 
-def sweep(cs) -> dict:
+def sweep(cs, kernels=SWEEP_KERNELS) -> dict:
     from rbdtpu_torch.kernels import _lib, colvec, fused
     from rbdtpu_torch.model import load_asset
 
     out = {}
+    arm64 = load_asset("arm7", device="cuda", dtype=torch.float64)
+    k5_in = rollout_args(cs, arm64)
     for team in _lib.TEAM_SIZES:
         for k in _lib.TEAM:
             _lib.TEAM[k] = team
         _lib.library.cache_clear()
         _lib.library()
+        trees = bool(set(kernels) & {"K1", "K2", "K3", "K9"})
         for key, name, fb in MODELS:
+            if not trees and key != "arm7":
+                continue
             m64 = load_asset(name, device="cuda", dtype=torch.float64,
                              floating_base=fb)
-            (x64, u64), k2_64, k3_64 = path_inputs(cs, key, m64)
+            if trees:
+                (x64, u64), k2_64, k3_64 = path_inputs(cs, key, m64)
             for dtype in (torch.float32, torch.float64):
                 m = load_asset(name, device="cuda", dtype=dtype,
                                floating_base=fb)
                 sfx = _lib._SUFFIX[dtype]
+                if "K5" in kernels and key == "arm7":
+                    x0, Us, F = k5_in
+                    for route in ROUTES:
+                        U = Us[route].to(dtype)
+                        for wr, fe in (("", None), (" f_ext", F.to(dtype))):
+                            out[f"{team} {key} {sfx} K5 {route}{wr} "
+                                f"{x0.shape[0]}x{U.shape[0]}"] = cs.graph_ms(
+                                    functools.partial(
+                                        fused.rollout_fused_multi, m,
+                                        x0.to(dtype), U, DT, GRAVITY,
+                                        route=route, f_ext=fe))
+                if not trees:
+                    continue
                 x, u = x64.to(dtype), u64.to(dtype)
                 k2 = tuple(t.to(dtype).contiguous() for t in k2_64)
 
@@ -180,19 +245,24 @@ def sweep(cs) -> dict:
                         "feedback_rollout", m, x, *k2, None, Xo, Uo, B, H,
                         levels, *args, DT, GRAVITY)
 
-                for B in (*SWEEP_STATES, x.shape[0]):
-                    out[f"{team} {key} {sfx} K1 B={B}"] = cs.graph_ms(k1(B))
+                if "K1" in kernels:
+                    for B in (*SWEEP_STATES, x.shape[0]):
+                        out[f"{team} {key} {sfx} K1 B={B}"] = cs.graph_ms(
+                            k1(B))
                 B, H = k2[2].shape[:2]
-                for levels, walk in ((1, "levels"), (0, "bodies")):
-                    out[f"{team} {key} {sfx} K2 {B}x{H} by {walk}"] = (
-                        cs.graph_ms(k2_walk(levels)))
-                out[f"{team} {key} {sfx} K9 {B}x{H} nchunks={NCHUNKS}"] = (
-                    cs.graph_ms(lambda: fused.feedback_rollout_fused_chunked(
-                        m, *k2, DT, GRAVITY, nchunks=NCHUNKS)))
-                k3 = tuple(t.to(dtype).contiguous() for t in k3_64)
-                out[f"{team} {key} {sfx} K3 B={k3[0].shape[0]}"] = (
-                    cs.graph_ms(lambda: colvec.linearize_parts_fused(
-                        m, *k3, GRAVITY)))
+                if "K2" in kernels:
+                    for levels, walk in ((1, "levels"), (0, "bodies")):
+                        out[f"{team} {key} {sfx} K2 {B}x{H} by {walk}"] = (
+                            cs.graph_ms(k2_walk(levels)))
+                if "K9" in kernels:
+                    out[f"{team} {key} {sfx} K9 {B}x{H} nchunks={NCHUNKS}"] = (
+                        cs.graph_ms(lambda: fused.feedback_rollout_fused_chunked(
+                            m, *k2, DT, GRAVITY, nchunks=NCHUNKS)))
+                if "K3" in kernels:
+                    k3 = tuple(t.to(dtype).contiguous() for t in k3_64)
+                    out[f"{team} {key} {sfx} K3 B={k3[0].shape[0]}"] = (
+                        cs.graph_ms(lambda: colvec.linearize_parts_fused(
+                            m, *k3, GRAVITY)))
             torch.cuda.empty_cache()
     return {"label": "team sweep", "ms": out}
 
@@ -204,6 +274,10 @@ def main() -> int:
     ap.add_argument("--label", default=None)
     ap.add_argument("--sweep", action="store_true",
                     help="time every team size of this checkout")
+    ap.add_argument("--kernels", default=None,
+                    help="time only these kernels (comma-separated, e.g. "
+                         "K4,K5; K7 is the Riccati sweep, K11 also times "
+                         "K7 on its inputs)")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_step_kernels: no CUDA device", file=sys.stderr)
@@ -215,8 +289,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.splitlines()[0]
-    out = sweep(cs) if a.sweep else compare(
-        cs, a.label or os.path.basename(root))
+    if a.sweep:
+        out = sweep(cs, a.kernels.split(",") if a.kernels else SWEEP_KERNELS)
+    else:
+        out = compare(cs, a.label or os.path.basename(root),
+                      a.kernels.split(",") if a.kernels else COMPARE_KERNELS)
     print(json.dumps({**out, "card": smi.strip()}))
     return 0
 
