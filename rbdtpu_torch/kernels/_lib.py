@@ -285,11 +285,12 @@ def ee_geometry(kernel: str, dtype, B: int, nsm: int = H100_SMS):
             (EE_FIXED + spb * ee_values(kernel)) * size, -(-B // spb))
 
 
-def ee_args(kernel: str, ref: torch.Tensor, B: int):
+@functools.lru_cache(maxsize=256)
+def ee_args(kernel: str, dtype, B: int, device):
     """(states a block, shared bytes a block) of an end-effector launch
-    over B states on ref's device."""
-    _check_dtype(kernel, ref)
-    spb, _, smem, _ = ee_geometry(kernel, ref.dtype, B, sm_count(ref.device))
+    over B states in ``dtype`` on CUDA ``device``, worked out once per
+    (kernel, dtype, B, device)."""
+    spb, _, smem, _ = ee_geometry(kernel, dtype, B, sm_count(device))
     return spb, smem
 
 

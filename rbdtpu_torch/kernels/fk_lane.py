@@ -25,13 +25,17 @@ def _single_ee(model: RobotModel, ee_names):
 def ee_chain(model: RobotModel, jid: int):
     """(chain, prismatic): the bodies from the root to joint ``jid`` and
     those of them whose joint is prismatic, one bit a body each: what the
-    end-effector kernels walk."""
-    chain = prism = 0
-    while jid >= 0:
-        chain |= 1 << jid
-        prism |= int(model.joint_type[jid] == PRISMATIC) << jid
-        jid = model.parent[jid]
-    return chain, prism
+    end-effector kernels walk.  Worked out once per (model, jid)."""
+    key = ("ee_chain", jid)
+    if key not in model._tables:
+        chain = prism = 0
+        j = jid
+        while j >= 0:
+            chain |= 1 << j
+            prism |= int(model.joint_type[j] == PRISMATIC) << j
+            j = model.parent[j]
+        model._tables[key] = (chain, prism)
+    return model._tables[key]
 
 
 def ee_gn_plain(model: RobotModel, q, target, *, ee_names=None,
@@ -78,10 +82,10 @@ def ee_gn_fused(model: RobotModel, q, target, *, ee_names=None,
     chain = ee_chain(model, jid)
     if not gn:
         _lib.launch("ee_err", model, q, ee, *chain, q, tx, ty, tz, e, B,
-                    *_lib.ee_args("ee_err", q, B))
+                    *_lib.ee_args("ee_err", q.dtype, B, q.device))
         return e, None, None
     g0 = torch.empty(B, n, dtype=q.dtype, device=q.device)
     H0 = torch.empty(B, n, n, dtype=q.dtype, device=q.device)
     _lib.launch("ee_gn", model, q, ee, *chain, q, tx, ty, tz, e, g0, H0, B,
-                *_lib.ee_args("ee_gn", q, B))
+                *_lib.ee_args("ee_gn", q.dtype, B, q.device))
     return e, g0, H0

@@ -6,8 +6,8 @@ the whole-horizon rollout K5 (``rollout_multi``), the Riccati sweep K7/K8
 (``riccati``) and the arm-class sweep K11 (``riccati_fused``) on one CUDA
 card, float32, at each path's shapes:
 
-    python3 tools/time_step_kernels.py [--root DIR] [--label NAME] [--kernels K4,K5]
-    python3 tools/time_step_kernels.py --sweep [--kernels K1,K2,K3,K5,K9]
+    python3 tools/time_step_kernels.py [--root DIR] [--label NAME]
+    python3 tools/time_step_kernels.py --sweep
 
 Shapes: arm7 K1 at 128 and 1 states, K2 at 1024 trajectories x 100 knots,
 K3 at 12,800 knots (BASELINE.json configs[2]); the rpy quadruped K1 at
@@ -26,7 +26,8 @@ arm7 at 4096 trajectories x 50 steps (configs[1],
 ``chip_smoke.rollout_inputs``) on each route, and on each route with
 (H, nb, 6) wrenches.  Each time is ``chip_smoke.graph_ms``
 (the device's time alone) and, beside it, ``chip_smoke.cuda_ms`` over 20
-single calls (the host's launch included).  ``--root`` times the
+single calls (the host's launch included) and ``host_ms``, the host's own
+time a call.  ``--root`` times the
 ``rbdtpu_torch`` of another checkout (a parent commit unpacked into an
 ignored directory) with this checkout's timers and inputs, so two commits
 compare on one card by running the tool once per root in turns (parent,
@@ -39,9 +40,8 @@ K2 at the path's shape in both walks of the step's root->leaf recursions,
 K9 (two chunks) at the same shape in the walk ``_lib.level_walk`` picks,
 K3 at the path's knots and K5 on arm7 at 4096 x 50 on each route, with
 and without (H, nb, 6) wrenches (graph replay): the measurements
-``_lib.TEAM`` and ``_lib.level_walk`` were fixed from.  ``--kernels``
-times only the kernels it names, in either mode.  Prints one JSON line
-with the card's name and power limit.
+``_lib.TEAM`` and ``_lib.level_walk`` were fixed from.  Prints one JSON
+line with the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -52,6 +52,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -69,8 +70,6 @@ RICCATI_SHAPES = (("configs[3]", 1024, 50, 36, 18), ("B=4", 4, 50, 36, 18),
 K11_SHAPES = (("configs[2]", 128, 100, 14, 7), ("B=4", 4, 100, 14, 7),
               ("B=1", 1, 100, 14, 7))
 NCHUNKS = 2
-SWEEP_KERNELS = ("K1", "K2", "K3", "K5", "K9")
-COMPARE_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K7", "K9", "K11")
 ROUTES = ("aba", "minv")
 
 
@@ -98,6 +97,24 @@ def path_inputs(cs, key, m64):
     return inp["fd_step"], inp["feedback_rollout"], inp["linearize_parts"]
 
 
+def host_ms(fn, reps: int = 100, rounds: int = 5) -> float:
+    """Milliseconds of the host's own work in one ``fn`` call: ``reps``
+    calls issued back to back without waiting on the device, the fewest
+    of ``rounds`` such runs (the device caught up between them), over
+    ``reps``.  ``reps`` launches stay well inside the device's queue, so
+    no call waits on an earlier one."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(rounds):
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, time.perf_counter() - t)
+        torch.cuda.synchronize()
+    return best / reps * 1e3
+
+
 def rollout_args(cs, m64):
     """K5's float32 inputs at the rollout path's shape: x0, U per route and
     the (H, nb, 6) wrenches (``chip_smoke.rollout_inputs``)."""
@@ -109,7 +126,7 @@ def rollout_args(cs, m64):
     return f32(x0), {"minv": f32(U_minv), "aba": f32(U_aba)}, f32(kw["f_ext"])
 
 
-def compare(cs, label: str, kernels=COMPARE_KERNELS) -> dict:
+def compare(cs, label: str) -> dict:
     from rbdtpu_torch.kernels import colvec, fk_lane, fused
     from rbdtpu_torch.kernels.riccati import backward_pass_fused
     from rbdtpu_torch.kernels.riccati_chunk import backward_pass_chunked
@@ -117,36 +134,30 @@ def compare(cs, label: str, kernels=COMPARE_KERNELS) -> dict:
 
     out = {}
     timed = lambda fn: {"graph": cs.graph_ms(fn),
-                        "call": cs.cuda_ms(fn, reps=20)}
-    trees = bool(set(kernels) & {"K1", "K2", "K3", "K9"})
+                        "call": cs.cuda_ms(fn, reps=20), "host": host_ms(fn)}
     for key, name, fb in MODELS:
-        if not trees and key != "arm7":
-            continue
         m64 = load_asset(name, device="cuda", dtype=torch.float64,
                          floating_base=fb)
         m32 = load_asset(name, device="cuda", dtype=torch.float32,
                          floating_base=fb)
-        cases = []
-        if trees:
-            (x, u), k2, k3 = path_inputs(cs, key, m64)
-            x, u = x.float().contiguous(), u.float().contiguous()
-            k2 = tuple(t.float().contiguous() for t in k2)
-            k3 = tuple(t.float().contiguous() for t in k3)
-            cases.append((f"K1 B={x.shape[0]}",
-                          lambda: fused.fd_step_fused(m32, x, u, DT, GRAVITY)))
-            if key == "arm7":
-                x1, u1 = x[:1].contiguous(), u[:1].contiguous()
-                cases.append(("K1 B=1", lambda: fused.fd_step_fused(
-                    m32, x1, u1, DT, GRAVITY)))
-            cases.append((f"K2 {k2[2].shape[0]}x{k2[2].shape[1]}",
-                          lambda: fused.feedback_rollout_fused(m32, *k2, DT,
-                                                               GRAVITY)))
-            cases.append((f"K9 {k2[2].shape[0]}x{k2[2].shape[1]} nchunks="
-                          f"{NCHUNKS}",
-                          lambda: fused.feedback_rollout_fused_chunked(
-                              m32, *k2, DT, GRAVITY, nchunks=NCHUNKS)))
-            cases.append((f"K3 {k3[0].shape[0]}", lambda: colvec.
-                          linearize_parts_fused(m32, *k3, GRAVITY)))
+        (x, u), k2, k3 = path_inputs(cs, key, m64)
+        x, u = x.float().contiguous(), u.float().contiguous()
+        k2 = tuple(t.float().contiguous() for t in k2)
+        k3 = tuple(t.float().contiguous() for t in k3)
+        cases = [(f"K1 B={x.shape[0]}",
+                  lambda: fused.fd_step_fused(m32, x, u, DT, GRAVITY))]
+        if key == "arm7":
+            x1, u1 = x[:1].contiguous(), u[:1].contiguous()
+            cases.append(("K1 B=1", lambda: fused.fd_step_fused(
+                m32, x1, u1, DT, GRAVITY)))
+        cases.append((f"K2 {k2[2].shape[0]}x{k2[2].shape[1]}",
+                      lambda: fused.feedback_rollout_fused(m32, *k2, DT,
+                                                           GRAVITY)))
+        cases.append((f"K9 {k2[2].shape[0]}x{k2[2].shape[1]} nchunks="
+                      f"{NCHUNKS}", lambda: fused.feedback_rollout_fused_chunked(
+                          m32, *k2, DT, GRAVITY, nchunks=NCHUNKS)))
+        cases.append((f"K3 {k3[0].shape[0]}", lambda: colvec.
+                      linearize_parts_fused(m32, *k3, GRAVITY)))
         if key == "arm7":
             x0, Us, F = rollout_args(cs, m64)
             for route in ROUTES:
@@ -165,11 +176,10 @@ def compare(cs, label: str, kernels=COMPARE_KERNELS) -> dict:
                     cases.append((f"K4 {kernel} B={B}", functools.partial(
                         fk_lane.ee_gn_fused, m32, q, cs.TARGET, gn=gn)))
         for case, fn in cases:
-            if case.split()[0] in kernels:
-                out[f"{key} {case}"] = timed(fn)
-        del cases
+            out[f"{key} {case}"] = timed(fn)
+        del x, u, k2, k3, cases
         torch.cuda.empty_cache()
-    for case, B, H, nx, nu in RICCATI_SHAPES if "K7" in kernels else ():
+    for case, B, H, nx, nu in RICCATI_SHAPES:
         prob = tuple(torch.tensor(a, dtype=torch.float32, device="cuda")
                      for a in cs.riccati_problem(
                          np.random.default_rng(cs.SEED + B), nx, nu, H, B,
@@ -177,7 +187,7 @@ def compare(cs, label: str, kernels=COMPARE_KERNELS) -> dict:
         out[f"riccati {case} {B}x{H} nx={nx}"] = timed(
             lambda: backward_pass_chunked(*prob))
         del prob
-    for case, B, H, nx, nu in K11_SHAPES if "K11" in kernels else ():
+    for case, B, H, nx, nu in K11_SHAPES:
         prob = tuple(torch.tensor(a, dtype=torch.float32, device="cuda")
                      for a in cs.riccati_problem(
                          np.random.default_rng(cs.SEED + B), nx, nu, H, B,
@@ -189,7 +199,7 @@ def compare(cs, label: str, kernels=COMPARE_KERNELS) -> dict:
     return {"label": label, "ms": out}
 
 
-def sweep(cs, kernels=SWEEP_KERNELS) -> dict:
+def sweep(cs) -> dict:
     from rbdtpu_torch.kernels import _lib, colvec, fused
     from rbdtpu_torch.model import load_asset
 
@@ -201,31 +211,14 @@ def sweep(cs, kernels=SWEEP_KERNELS) -> dict:
             _lib.TEAM[k] = team
         _lib.library.cache_clear()
         _lib.library()
-        trees = bool(set(kernels) & {"K1", "K2", "K3", "K9"})
         for key, name, fb in MODELS:
-            if not trees and key != "arm7":
-                continue
             m64 = load_asset(name, device="cuda", dtype=torch.float64,
                              floating_base=fb)
-            if trees:
-                (x64, u64), k2_64, k3_64 = path_inputs(cs, key, m64)
+            (x64, u64), k2_64, k3_64 = path_inputs(cs, key, m64)
             for dtype in (torch.float32, torch.float64):
                 m = load_asset(name, device="cuda", dtype=dtype,
                                floating_base=fb)
                 sfx = _lib._SUFFIX[dtype]
-                if "K5" in kernels and key == "arm7":
-                    x0, Us, F = k5_in
-                    for route in ROUTES:
-                        U = Us[route].to(dtype)
-                        for wr, fe in (("", None), (" f_ext", F.to(dtype))):
-                            out[f"{team} {key} {sfx} K5 {route}{wr} "
-                                f"{x0.shape[0]}x{U.shape[0]}"] = cs.graph_ms(
-                                    functools.partial(
-                                        fused.rollout_fused_multi, m,
-                                        x0.to(dtype), U, DT, GRAVITY,
-                                        route=route, f_ext=fe))
-                if not trees:
-                    continue
                 x, u = x64.to(dtype), u64.to(dtype)
                 k2 = tuple(t.to(dtype).contiguous() for t in k2_64)
 
@@ -245,24 +238,30 @@ def sweep(cs, kernels=SWEEP_KERNELS) -> dict:
                         "feedback_rollout", m, x, *k2, None, Xo, Uo, B, H,
                         levels, *args, DT, GRAVITY)
 
-                if "K1" in kernels:
-                    for B in (*SWEEP_STATES, x.shape[0]):
-                        out[f"{team} {key} {sfx} K1 B={B}"] = cs.graph_ms(
-                            k1(B))
+                for B in (*SWEEP_STATES, x.shape[0]):
+                    out[f"{team} {key} {sfx} K1 B={B}"] = cs.graph_ms(k1(B))
                 B, H = k2[2].shape[:2]
-                if "K2" in kernels:
-                    for levels, walk in ((1, "levels"), (0, "bodies")):
-                        out[f"{team} {key} {sfx} K2 {B}x{H} by {walk}"] = (
-                            cs.graph_ms(k2_walk(levels)))
-                if "K9" in kernels:
-                    out[f"{team} {key} {sfx} K9 {B}x{H} nchunks={NCHUNKS}"] = (
-                        cs.graph_ms(lambda: fused.feedback_rollout_fused_chunked(
-                            m, *k2, DT, GRAVITY, nchunks=NCHUNKS)))
-                if "K3" in kernels:
-                    k3 = tuple(t.to(dtype).contiguous() for t in k3_64)
-                    out[f"{team} {key} {sfx} K3 B={k3[0].shape[0]}"] = (
-                        cs.graph_ms(lambda: colvec.linearize_parts_fused(
-                            m, *k3, GRAVITY)))
+                for levels, walk in ((1, "levels"), (0, "bodies")):
+                    out[f"{team} {key} {sfx} K2 {B}x{H} by {walk}"] = (
+                        cs.graph_ms(k2_walk(levels)))
+                out[f"{team} {key} {sfx} K9 {B}x{H} nchunks={NCHUNKS}"] = (
+                    cs.graph_ms(lambda: fused.feedback_rollout_fused_chunked(
+                        m, *k2, DT, GRAVITY, nchunks=NCHUNKS)))
+                k3 = tuple(t.to(dtype).contiguous() for t in k3_64)
+                out[f"{team} {key} {sfx} K3 B={k3[0].shape[0]}"] = (
+                    cs.graph_ms(lambda: colvec.linearize_parts_fused(
+                        m, *k3, GRAVITY)))
+                if key == "arm7":
+                    x0, Us, F = k5_in
+                    for route in ROUTES:
+                        U = Us[route].to(dtype)
+                        for wr, fe in (("", None), (" f_ext", F.to(dtype))):
+                            out[f"{team} {key} {sfx} K5 {route}{wr} "
+                                f"{x0.shape[0]}x{U.shape[0]}"] = cs.graph_ms(
+                                    functools.partial(
+                                        fused.rollout_fused_multi, m,
+                                        x0.to(dtype), U, DT, GRAVITY,
+                                        route=route, f_ext=fe))
             torch.cuda.empty_cache()
     return {"label": "team sweep", "ms": out}
 
@@ -274,10 +273,6 @@ def main() -> int:
     ap.add_argument("--label", default=None)
     ap.add_argument("--sweep", action="store_true",
                     help="time every team size of this checkout")
-    ap.add_argument("--kernels", default=None,
-                    help="time only these kernels (comma-separated, e.g. "
-                         "K4,K5; K7 is the Riccati sweep, K11 also times "
-                         "K7 on its inputs)")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_step_kernels: no CUDA device", file=sys.stderr)
@@ -289,11 +284,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.splitlines()[0]
-    if a.sweep:
-        out = sweep(cs, a.kernels.split(",") if a.kernels else SWEEP_KERNELS)
-    else:
-        out = compare(cs, a.label or os.path.basename(root),
-                      a.kernels.split(",") if a.kernels else COMPARE_KERNELS)
+    out = sweep(cs) if a.sweep else compare(
+        cs, a.label or os.path.basename(root))
     print(json.dumps({**out, "card": smi.strip()}))
     return 0
 
