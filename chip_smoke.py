@@ -8,16 +8,16 @@ Phases, each ending the run with a nonzero exit when it fails:
 1. identify the card (name, power limit), build the CUDA kernels from
    ``rbdtpu_torch/csrc`` and require every instantiation of the team
    kernels K1 (``fd_step``), K2 (``feedback_rollout``), K3
-   (``linearize_parts``), K5 (``rollout_multi``) and K9
-   (``feedback_chunked``), of the end-effector kernels K4 (``ee_gn``,
-   ``ee_err``) and of the Riccati sweeps (``riccati``, K7/K8, and
-   ``riccati_fused``, K11) in the build with a ptxas stack frame under
-   1,024 bytes;
+   (``linearize_parts``), K5 (``rollout_multi``), K6 (``fd_step_minv``),
+   K9 (``feedback_chunked``) and K10 (``rnea``), of the end-effector
+   kernels K4 (``ee_gn``, ``ee_err``) and of the Riccati sweeps
+   (``riccati``, K7/K8, and ``riccati_fused``, K11) in the build with a
+   ptxas stack frame under 1,024 bytes;
 2. hold each kernel of the DDP path against its plain PyTorch version on
    the card, at that path's shapes: max abs error <= 1e-9 in float64, and
    a relative bound in float32; time both (CUDA events around one call
-   with its launch; K1-K5, K9 and the Riccati sweeps also by replaying a
-   CUDA graph of 20 calls, the device's time alone) and
+   with its launch; K1-K6, K9, K10 and the Riccati sweeps also by
+   replaying a CUDA graph of 20 calls, the device's time alone) and
    compute each kernel's
    bound (bytes over the memory rate, or operations over the float32 peak,
    whichever is larger; the operations each function needs are counted by
@@ -40,6 +40,8 @@ Phases, each ending the run with a nonzero exit when it fails:
    per kernel, the kernels a solve launches and the device's idle share;
 6. the same checks for the rollout path's kernels at its shapes (after
    the DDP phases, which therefore run as they did before these kernels):
+   K10 (bias and with qdd) and K6 (both routes, without wrenches, under
+   one set shared by the batch and under one set a state) at 4096 states,
    K5 on both routes, with and without per-step wrenches (H, nb, 6);
 7. drive the forward-dynamics rollout path (BASELINE.json configs[1]) on
    bench.py's inputs: 4096 arm7 trajectories x H=50, float32, K5's launch
@@ -62,7 +64,8 @@ Phases, each ending the run with a nonzero exit when it fails:
 9. hold K1, K2 and K3 on quadruped12's rpy floating root against their
    plain versions at configs[3]'s shapes (1024 states, 6 x 1024
    trajectories of 50 knots, 51,200 knots), with the team kernels' extra
-   checks and times, as in phase 2;
+   checks and times, as in phase 2, and K10 and K6 at its 1024 states as
+   in phase 6;
 10. drive the floating-base quadruped MPC path (BASELINE.json configs[3],
    bench.py:482-507): ``ddp_solve`` of 1024 problems, H=50, 5 iterations,
    6 line-search steps, float32, ``fused=True``, timed (solves/s); per
@@ -98,9 +101,10 @@ Phases, each ending the run with a nonzero exit when it fails:
 15. the humanoid's kernels (humanoid30, rpy root, the "fb32" size class):
    K1, K2 and K3 against their plain versions at paths C and D's shapes
    (2048 states, 1024 trajectories x 32 knots, 8192 knots), as in phase 2,
-   with the per-thread stack limit and the device memory outside
-   PyTorch's pool before and after them (K3 must leave the limit where it
-   was), then the team kernels' extra checks and times; K9
+   and K10 and K6 at path C's 2048 states as in phase 6, with the
+   per-thread stack limit and the device memory outside PyTorch's pool
+   before and after them (none may move the limit), then the team
+   kernels' extra checks and times; K9
    (``feedback_chunked``, K2's team body with rbdtpu's chunked sum) at
    nchunks 2, 1, 3 and 100 with and without a clamp, at an odd batch, on
    arm7 and on the rpy quadruped, with the stack limit before and after
@@ -159,16 +163,19 @@ PARITY_H = (100, 20)
 # kernels' (K4) and the Riccati sweeps' must stay under STACK_MAX bytes in
 # every instantiation (3 classes x 2 dtypes at the team size of
 # kernels/_lib.py TEAM, K1 with and without wrenches, K2 and K9 in both
-# walks; K5 on n8 in 2 dtypes x 2 routes x with and without wrenches; K4
+# walks, K10 with and without qdd, K6 on both routes with and without
+# wrenches; K5 on n8 in 2 dtypes x 2 routes x with and without wrenches; K4
 # and each sweep in 2 dtypes), and K1/K2's extra checks run these batches
 TEAM_KERNELS = ("fd_step", "feedback_rollout")
 STACK_INSTANCES = {"fd_step": 12, "feedback_rollout": 12,
                    "linearize_parts": 6, "feedback_chunked": 12,
                    "rollout_multi": 8, "ee_gn": 2, "ee_err": 2,
-                   "riccati": 2, "riccati_fused": 2}
+                   "riccati": 2, "riccati_fused": 2, "rnea": 12,
+                   "fd_step_minv": 24}
 # the kernels whose rows add graph_ms, the device's time by graph replay
 GRAPH_KERNELS = ("fd_step", "feedback_rollout", "linearize_parts",
-                 "feedback_chunked", "rollout_multi", "ee_gn", "ee_err")
+                 "feedback_chunked", "rollout_multi", "ee_gn", "ee_err",
+                 "rnea", "fd_step_minv")
 STACK_MAX = 1024
 TEAM_BATCHES = (1, 37, 1000)
 # the rollout path (BASELINE.json configs[1], bench.py:132-209, 377-416)
@@ -401,15 +408,10 @@ def rollout_inputs(model64, rng):
     T = lambda sc, *s: torch.tensor(sc * rng.standard_normal(s),
                                     dtype=torch.float64, device=model64.device)
     x0, u, qdd = T(0.1, B1, 2 * n), T(0.5, B1, n), T(0.5, B1, n)
-    q, qd = x0[:, :n].contiguous(), x0[:, n:].contiguous()
     U_minv, U_aba = T(0.5, H1, B1, n), T(0.2, H1, B1, n)
     F1, FB, FH = T(0.5, nb, 6), T(0.5, B1, nb, 6), T(0.5, H1, nb, 6)
     return [
-        ("rnea bias", "rnea", (q, qd), {}, "rnea", B1),
-        ("rnea qdd", "rnea", (q, qd, qdd), {}, "rnea+qdd", B1),
-        ("fd_step_minv", "fd_step_minv", (x0, u), {}, "fd_step_minv", B1),
-        ("fd_step_minv dense", "fd_step_minv", (x0, u),
-         {"dense_minv": True}, "fd_step_minv+dense", B1),
+        *minv_rnea_checks(model64, (x0, u), "", qdd, (F1, FB)),
         ("rollout_multi minv", "rollout_multi", (x0, U_minv),
          {"route": "minv"}, "fd_step_minv", B1 * H1),
         ("rollout_multi aba", "rollout_multi", (x0, U_aba),
@@ -423,6 +425,44 @@ def rollout_inputs(model64, rng):
         ("fd_step f_ext (B,nb,6)", "fd_step", (x0, u), {"f_ext": FB},
          "fd_step+fext", B1),
     ]
+
+
+def minv_rnea_checks(model64, fd, tag: str, qdd, wrenches) -> list:
+    """K10's and K6's checks at one model's step states ``fd`` = (x, u)
+    (float64), in ``check_kernels``'s form: K10 without qdd (the bias) and
+    with ``qdd``; K6 on the factorised and the dense route, and on each
+    under ``wrenches`` = (one set shared by the batch (nb, 6), one a state
+    (B, nb, 6)), the first on the factorised route, the second on the
+    dense one."""
+    x, u = fd
+    B, n = x.shape[0], model64.nv
+    q, qd = x[:, :n].contiguous(), x[:, n:].contiguous()
+    F1, FB = wrenches
+    sp = " " if tag else ""
+    return [
+        (f"rnea{sp}{tag} bias", "rnea", (q, qd), {}, "rnea", B),
+        (f"rnea{sp}{tag} qdd", "rnea", (q, qd, qdd), {}, "rnea+qdd", B),
+        (f"fd_step_minv{sp}{tag}", "fd_step_minv", (x, u), {},
+         "fd_step_minv", B),
+        (f"fd_step_minv{sp}{tag} dense", "fd_step_minv", (x, u),
+         {"dense_minv": True}, "fd_step_minv+dense", B),
+        (f"fd_step_minv{sp}{tag} f_ext (nb,6)", "fd_step_minv", (x, u),
+         {"f_ext": F1}, "fd_step_minv+fext", B),
+        (f"fd_step_minv{sp}{tag} dense f_ext (B,nb,6)", "fd_step_minv",
+         (x, u), {"dense_minv": True, "f_ext": FB},
+         "fd_step_minv+dense+fext", B),
+    ]
+
+
+def step_extras(model64, B: int, seed: int):
+    """``minv_rnea_checks``' qdd and wrenches for B states of ``model64``,
+    each 0.5 N(0,1), float64, drawn from ``seed``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    T = lambda *s: torch.tensor(0.5 * rng.standard_normal(s),
+                                dtype=torch.float64, device=model64.device)
+    return T(B, model64.nv), (T(model64.nb, 6), T(B, model64.nb, 6))
 
 
 def errors(outs_a, outs_b, relative: bool) -> list:
@@ -1434,7 +1474,8 @@ def humanoid_kernels(h64, h32, arm, quad, smi: str, rows: dict, ptxas: list):
     """Phase 15: K1-K3 at the fb32 size class against their plain versions
     at the humanoid paths' shapes (K1 at path C's BH x SAMPLES_H sample
     states, K2 at path D's BD x ALPHAS_H trajectories of HH knots, K3 at
-    path D's BD x HH knots); K9 (``feedback_chunked``) at path D's shape at
+    path D's BD x HH knots), K10 and K6 at K1's states, the stack limit
+    required unchanged across them; K9 (``feedback_chunked``) at path D's shape at
     every count of NCHUNKS_CHECKS, with and without a clamp that bites,
     on arm7 and the rpy quadruped (``arm``, ``quad``: (m64, m32, K2's
     float64 inputs, states x steps)) and at an odd batch, the stack limit
@@ -1444,7 +1485,7 @@ def humanoid_kernels(h64, h32, arm, quad, smi: str, rows: dict, ptxas: list):
     from rbdtpu_torch.kernels import _lib, fused
 
     for line in ptxas:
-        if "FB32" in line or "Dims<32" in line or "feedback_chunked" in line:
+        if "Dims<32" in line or "feedback_chunked" in line:
             print(f"phase 15 {line}")
     hin = floating_kernel_inputs(h64, np.random.default_rng(SEED + 90),
                                  humanoid_problems, BH * SAMPLES_H,
@@ -1464,12 +1505,16 @@ def humanoid_kernels(h64, h32, arm, quad, smi: str, rows: dict, ptxas: list):
     limit, before = _lib.stack_limit(h64.device), outside_pool()
     check_kernels([(f"{k} humanoid", k, hin[k], {}, k, states[k])
                    for k in hin], h64, h32, smi, rows, row_tag="_fb32")
+    check_kernels(minv_rnea_checks(h64, hin["fd_step"], "humanoid",
+                                   *step_extras(h64, BH * SAMPLES_H,
+                                                SEED + 91)),
+                  h64, h32, smi, rows)
     grown, after = _lib.stack_limit(h64.device), outside_pool()
     print(f"device memory outside PyTorch's pool: {before:.2f} GB before "
-          f"K1-K3 at fb32 (stack limit {limit} B a thread), {after:.2f} GB "
-          f"after them (limit {grown} B) ({smi})")
-    require(grown == limit, f"K1-K3 at fb32 raised the stack limit from "
-            f"{limit} to {grown} B a thread")
+          f"K1-K3, K6 and K10 at fb32 (stack limit {limit} B a thread), "
+          f"{after:.2f} GB after them (limit {grown} B) ({smi})")
+    require(grown == limit, f"K1-K3, K6 or K10 at fb32 raised the stack "
+            f"limit from {limit} to {grown} B a thread")
     check_kernels(team_checks(h64, hin["fd_step"], hin["feedback_rollout"],
                               "humanoid"), h64, h32, smi, rows,
                   row_tag="_fb32", time_all=False)
@@ -1874,6 +1919,9 @@ def main() -> int:
                   q64, q32, smi, rows)
     check_kernels(team_checks(q64, qin["fd_step"], qin["feedback_rollout"],
                               "rpy"), q64, q32, smi, rows, time_all=False)
+    check_kernels(minv_rnea_checks(q64, qin["fd_step"], "rpy",
+                                   *step_extras(q64, B3, SEED + 6)),
+                  q64, q32, smi, rows)
     team_report("rpy quadruped", q64, q32, qin["fd_step"],
                 qin["feedback_rollout"])
 

@@ -53,12 +53,6 @@ RBD_HD T nan_q() {
   return T(0) / T(0);
 }
 
-// The most tree levels K3 takes per size class (kernels/_lib.py LIN_LEVELS).
-template <class D>
-constexpr int lin_levels() {
-  return D::NB > 16 ? 12 : 8;
-}
-
 // K3's shared memory per team, in values of T (kernels/_lib.py
 // linearize_values): what the columns read of the ABA step (the transforms,
 // v, the accelerations, U, 1/d per body, and qdd: BASE), I v and the RNEA
@@ -85,19 +79,6 @@ struct LinLayout {
                        VALUES = END + (MS_IN ? 0 : NV * LDM),
                        STRIDE = (VALUES + 31) / 32 * 32 + NL % 32;
 };
-
-// out (row-major 6x6) = IA0^-1 by its Cholesky factor (NaN where IA0 is not
-// positive definite), a real call.
-template <typename T>
-RBD_HD_CALL void inverse6(const T* IA0, T* out) {
-  T L[36], e[6], x[6];
-  chol6(IA0, L);
-  for (int c = 0; c < 6; ++c) {
-    for (int r = 0; r < 6; ++r) e[r] = r == c ? T(1) : T(0);
-    chol6_solve(L, e, x);
-    for (int r = 0; r < 6; ++r) out[6 * r + c] = x[r];
-  }
-}
 
 // One knot by the team ``tm``: q (nq = nv), qd, u in global memory; outputs
 // as the kernel's, at this knot's offsets.

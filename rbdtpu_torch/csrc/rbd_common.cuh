@@ -1,15 +1,15 @@
-// Shared device code of the rbdtpu_torch kernels: the per-model tables,
-// compact spatial transforms, world-frame wrenches and the tree sweeps
-// (RNEA, M^-1 dense and applied, the M^-1 + RNEA step) for ONE state, run
-// by one thread; the team kernels' ABA step is rbd_team.cuh's.
+// Shared device code of the rbdtpu_torch kernels: the per-model tables and
+// size classes, compact spatial transforms and their 3x3 and 6-vector
+// algebra, the joint and rpy-root transforms and the root block's 6x6
+// Cholesky solve.  The tree sweeps are rbd_team.cuh's (a team of lanes a
+// state, the per-body arrays in shared memory).
 //
 // The model arrives as tables (kernels/_lib.py: model_tables), not as
 // constants folded into the code: a generic kernel walks the tree in loops
-// over bodies, with every per-body array sized by the compile-time bound of
-// its size class (Dims: bodies NB, DoFs NV, and whether body 0 is the rpy
-// floating root).  Those arrays are indexed by loop variables, so they live
-// in local memory (L1-cached) rather than registers; model-specialised code
-// generation that would keep them in registers is later work (rbdtpu's K0).
+// over bodies, its per-body arrays sized by the compile-time bound of its
+// size class (Dims: bodies NB, DoFs NV, and whether body 0 is the rpy
+// floating root).  Model-specialised code generation is later work
+// (rbdtpu's K0).
 //
 // The rpy floating root (rbdtpu dynamics/*.py, the floating_base branches)
 // is body 0 with six DoFs, q[0:6] = [x, y, z, roll, pitch, yaw] and S = I;
@@ -170,40 +170,6 @@ RBD_HD void xc_mtv(const Xc<T>& X, const T* f, T* o) {
   }
 }
 
-// Dense 6x6 of X: [[E, 0], [BL, E]] with row i of BL = r x (row i of E).
-template <typename T>
-RBD_HD void xc_dense(const Xc<T>& X, T* D) {
-  for (int k = 0; k < 36; ++k) D[k] = T(0);
-  for (int i = 0; i < 3; ++i) {
-    T bl[3];
-    cross3(X.r, X.E + 3 * i, bl);
-    for (int j = 0; j < 3; ++j) {
-      D[6 * i + j] = X.E[3 * i + j];
-      D[6 * (3 + i) + 3 + j] = X.E[3 * i + j];
-      D[6 * (3 + i) + j] = bl[j];
-    }
-  }
-}
-
-// acc += X^T A X for a 6x6 A (dense products; 432 multiply-adds)
-template <typename T>
-RBD_HD void xtax_add(const Xc<T>& X, const T* A, T* acc) {
-  T D[36], AD[36];
-  xc_dense(X, D);
-  for (int i = 0; i < 6; ++i)
-    for (int j = 0; j < 6; ++j) {
-      T s = 0;
-      for (int k = 0; k < 6; ++k) s += A[6 * i + k] * D[6 * k + j];
-      AD[6 * i + j] = s;
-    }
-  for (int i = 0; i < 6; ++i)
-    for (int j = 0; j < 6; ++j) {
-      T s = 0;
-      for (int k = 0; k < 6; ++k) s += D[6 * k + i] * AD[6 * k + j];
-      acc[6 * i + j] += s;
-    }
-}
-
 template <typename T>
 RBD_HD void matvec6(const T* A, const T* x, T* o) {
   for (int i = 0; i < 6; ++i) {
@@ -300,16 +266,6 @@ RBD_HD_CALL void floating_xc(const Model<T, D>& m, const T* q6, Xc<T>& X) {
   for (int k = 0; k < 3; ++k) X.r[k] = b[OFF_R + k] + d[k];
 }
 
-template <typename T, class D>
-RBD_HD void joint_transforms(const Model<T, D>& m, const T* q, Xc<T>* X) {
-  if constexpr (D::FB) {
-    floating_xc(m, q, X[0]);
-    for (int i = 1; i < m.nb; ++i) joint_xc(m, i, q[i + 5], X[i]);
-  } else {
-    for (int i = 0; i < m.nb; ++i) joint_xc(m, i, q[i], X[i]);
-  }
-}
-
 // Cholesky factor L (row-major, lower) of a symmetric 6x6 A, unrolled
 // (rbdtpu kernels/lanescalar.py cholesky6): a block that is not positive
 // definite gives NaN entries.
@@ -339,268 +295,4 @@ RBD_HD void chol6_solve(const T* L, const T* b, T* x) {
   }
 }
 
-// World-frame wrenches into the body forces (rbdtpu dynamics/rnea.py
-// apply_external_forces): f[i] -= Xa[i]^{-T} fext[i] along the world->body
-// chain Xa[i] = X[i] Xa[parent], composed compactly as
-// plux(E1, r1) plux(E2, r2) = plux(E1 E2, r2 + E2^T r1); for Xa = plux(E, r),
-// Xa^{-T} [n; fl] = [E (n - r x fl); E fl].  fext is (nb, 6).
-template <typename T, class D>
-RBD_HD void apply_fext(const Model<T, D>& m, const Xc<T>* X, const T* fext, T (*f)[6]) {
-  Xc<T> Xa[D::NB];
-  for (int i = 0; i < m.nb; ++i) {
-    const int p = m.parent(i);
-    if (p < 0) {
-      Xa[i] = X[i];
-    } else {
-      T t[3];
-      mm3(X[i].E, Xa[p].E, Xa[i].E);
-      mtv3(Xa[p].E, X[i].r, t);
-      for (int k = 0; k < 3; ++k) Xa[i].r[k] = Xa[p].r[k] + t[k];
-    }
-    const T* w = fext + 6 * i;
-    T rxf[3], nr[3], o[6];
-    cross3(Xa[i].r, w + 3, rxf);
-    for (int k = 0; k < 3; ++k) nr[k] = w[k] - rxf[k];
-    mv3(Xa[i].E, nr, o);
-    mv3(Xa[i].E, w + 3, o + 3);
-    for (int k = 0; k < 6; ++k) f[i][k] -= o[k];
-  }
-}
-
-// RNEA forward sweep at the given qdd (null: zero, folded away when the
-// caller passes a literal nullptr), world-frame wrenches fext (null: none),
-// then the force accumulation of the backward sweep (f[parent] += X^T f[i]).
-template <typename T, class D>
-RBD_HD void rnea_sweeps(const Model<T, D>& m, const Xc<T>* X, const T* qd, const T* qdd,
-                        T gravity, T (*v)[6], T (*a)[6], T (*f)[6], const T* fext = nullptr) {
-  T ag[6];
-  gravity_accel(gravity, ag);
-  for (int i = 0; i < m.nb; ++i) {
-    const T* b = m.body(i);
-    const T* S = b + OFF_S;
-    const int p = m.parent(i);
-    T vJ[6], vxvJ[6], Ia[6], Iv[6], vxIv[6];
-    if (m.root6(i)) {
-      for (int k = 0; k < 6; ++k) vJ[k] = qd[k];
-    } else {
-      for (int k = 0; k < 6; ++k) vJ[k] = S[k] * qd[m.vi(i)];
-    }
-    if (p < 0) {
-      for (int k = 0; k < 6; ++k) v[i][k] = vJ[k];
-      xc_mv(X[i], ag, a[i]);
-    } else {
-      xc_mv(X[i], v[p], v[i]);
-      for (int k = 0; k < 6; ++k) v[i][k] += vJ[k];
-      xc_mv(X[i], a[p], a[i]);
-    }
-    cross_motion(v[i], vJ, vxvJ);
-    if (qdd != nullptr && m.root6(i)) {
-      for (int k = 0; k < 6; ++k) a[i][k] += vxvJ[k] + qdd[k];
-    } else if (qdd != nullptr) {
-      for (int k = 0; k < 6; ++k) a[i][k] += vxvJ[k] + S[k] * qdd[m.vi(i)];
-    } else {
-      for (int k = 0; k < 6; ++k) a[i][k] += vxvJ[k];
-    }
-    matvec6(b + OFF_I, a[i], Ia);
-    matvec6(b + OFF_I, v[i], Iv);
-    cross_force(v[i], Iv, vxIv);
-    for (int k = 0; k < 6; ++k) f[i][k] = Ia[k] + vxIv[k];
-  }
-  if (fext != nullptr) apply_fext(m, X, fext, f);
-  for (int i = m.nb - 1; i >= 0; --i) {
-    const int p = m.parent(i);
-    if (p >= 0) {
-      T t[6];
-      xc_mtv(X[i], f[i], t);
-      for (int k = 0; k < 6; ++k) f[p][k] += t[k];
-    }
-  }
-}
-
-// RNEA joint forces tau = S^T f (rbdtpu dynamics/rnea.py rnea(...)[0]); the
-// rpy root's six rows are f[0].
-template <typename T, class D>
-RBD_HD void rnea_tau(const Model<T, D>& m, const Xc<T>* X, const T* qd, const T* qdd, T gravity,
-                     const T* fext, T* tau) {
-  T v[D::NB][6], a[D::NB][6], f[D::NB][6];
-  rnea_sweeps(m, X, qd, qdd, gravity, v, a, f, fext);
-  for (int i = 0; i < m.nb; ++i) {
-    if (m.root6(i)) {
-      for (int k = 0; k < 6; ++k) tau[k] = f[0][k];
-    } else {
-      tau[m.vi(i)] = dot6(m.body(i) + OFF_S, f[i]);
-    }
-  }
-}
-
-// qdd = M^-1 rhs by the articulated-inertia factorisation: the ABA sweeps
-// with zero velocity and zero gravity, whose velocity sweep vanishes (rbdtpu
-// kernels/fused.py _step_lane, route "minv": aba_lane(qd=0, gravity=0)).
-// Fixed-base trees only (the rpy root's block is not written here).
-template <typename T, class D>
-RBD_HD void minv_apply(const Model<T, D>& m, const Xc<T>* X, const T* rhs, T* qdd) {
-  static_assert(!D::FB, "minv_apply covers fixed-base trees");
-  T pA[D::NB][6], IA[D::NB][36], U[D::NB][6], d[D::NB], u[D::NB];
-  const int nb = m.nb;
-  for (int i = 0; i < nb; ++i) {
-    for (int k = 0; k < 6; ++k) pA[i][k] = T(0);
-    for (int k = 0; k < 36; ++k) IA[i][k] = m.body(i)[OFF_I + k];
-  }
-  for (int i = nb - 1; i >= 0; --i) {
-    const T* S = m.body(i) + OFF_S;
-    const int p = m.parent(i);
-    matvec6(IA[i], S, U[i]);
-    d[i] = dot6(S, U[i]);
-    u[i] = rhs[i] - dot6(S, pA[i]);
-    if (p >= 0) {
-      T Ia[36], pa[6], t[6];
-      for (int r = 0; r < 6; ++r)
-        for (int s = 0; s < 6; ++s) Ia[6 * r + s] = IA[i][6 * r + s] - U[i][r] * U[i][s] / d[i];
-      const T ud = u[i] / d[i];
-      for (int k = 0; k < 6; ++k) pa[k] = pA[i][k] + U[i][k] * ud;
-      xtax_add(X[i], Ia, IA[p]);
-      xc_mtv(X[i], pa, t);
-      for (int k = 0; k < 6; ++k) pA[p][k] += t[k];
-    }
-  }
-  T a[D::NB][6];
-  for (int i = 0; i < nb; ++i) {
-    const T* S = m.body(i) + OFF_S;
-    const int p = m.parent(i);
-    if (p < 0) {
-      for (int k = 0; k < 6; ++k) a[i][k] = T(0);
-    } else {
-      xc_mv(X[i], a[p], a[i]);
-    }
-    qdd[i] = (u[i] - dot6(U[i], a[i])) / d[i];
-    for (int k = 0; k < 6; ++k) a[i][k] += S[k] * qdd[i];
-  }
-}
-
-// Analytical M^-1 (rbdtpu dynamics/minv.py): leaf->root sweep for the upper
-// rows, root->leaf sweep completing them; out (nv, nv) symmetric.  The rpy
-// root's six rows are IA[0]^-1 (e_c - F[0][:, c]) over every column c (the
-// dense fill over all nv columns, rbdtpu's deviation from its oracle).
-// A real call, not inlined: inlined into linearize_knot, nvcc (CUDA 12.8)
-// gave the float instantiation's M^-1 locals the storage of the caller's
-// still-live RNEA accelerations and forces, corrupting dc/dq (measured on an
-// H100; double and the host build were unaffected).
-template <typename T, class D>
-RBD_HD_CALL void minv_dense(const Model<T, D>& m, const Xc<T>* X, T* out) {
-  const int nb = m.nb, n = m.nv();
-  T M[D::NV][D::NV], F[D::NB][6][D::NV], IA[D::NB][36], U[D::NB][6], Dinv[D::NB];
-  for (int i = 0; i < nb; ++i) {
-    for (int c = 0; c < n; ++c) {
-      M[i][c] = T(0);
-      for (int r = 0; r < 6; ++r) F[i][r][c] = T(0);
-    }
-    for (int k = 0; k < 36; ++k) IA[i][k] = m.body(i)[OFF_I + k];
-  }
-  for (int i = nb; i < n; ++i)
-    for (int c = 0; c < n; ++c) M[i][c] = T(0);
-  for (int i = nb - 1; i >= 0; --i) {
-    if (m.root6(i)) {
-      T L[36];
-      chol6(IA[0], L);
-      for (int c = 0; c < n; ++c) {
-        T rhs[6], x[6];
-        for (int r = 0; r < 6; ++r) rhs[r] = (r == c ? T(1) : T(0)) - F[0][r][c];
-        chol6_solve(L, rhs, x);
-        for (int r = 0; r < 6; ++r) M[r][c] += x[r];
-      }
-      continue;
-    }
-    const T* S = m.body(i) + OFF_S;
-    const int p = m.parent(i);
-    const int mi = m.vi(i);
-    matvec6(IA[i], S, U[i]);
-    Dinv[i] = T(1) / dot6(S, U[i]);
-    for (int c = 0; c < n; ++c) {
-      T sF = 0;
-      for (int r = 0; r < 6; ++r) sF += S[r] * F[i][r][c];
-      M[mi][c] += -Dinv[i] * sF + (c == mi ? Dinv[i] : T(0));
-    }
-    if (p >= 0) {
-      for (int c = 0; c < n; ++c) {
-        T col[6], t[6];
-        for (int r = 0; r < 6; ++r) {
-          F[i][r][c] += U[i][r] * M[mi][c];
-          col[r] = F[i][r][c];
-        }
-        xc_mtv(X[i], col, t);
-        for (int r = 0; r < 6; ++r) F[p][r][c] += t[r];
-      }
-      T Ia[36];
-      for (int r = 0; r < 6; ++r)
-        for (int s = 0; s < 6; ++s) Ia[6 * r + s] = IA[i][6 * r + s] - Dinv[i] * U[i][r] * U[i][s];
-      xtax_add(X[i], Ia, IA[p]);
-    }
-  }
-  for (int i = 0; i < nb; ++i) {
-    const T* S = m.body(i) + OFF_S;
-    const int p = m.parent(i);
-    const int mi = m.root6(i) ? 0 : m.vi(i);
-    for (int c = 0; c < n; ++c) {
-      if (m.root6(i)) {
-        for (int r = 0; r < 6; ++r) F[0][r][c] = M[r][c];
-      } else if (p < 0) {
-        for (int r = 0; r < 6; ++r) F[i][r][c] = S[r] * M[mi][c];
-      } else {
-        T col[6], XF[6];
-        for (int r = 0; r < 6; ++r) col[r] = F[p][r][c];
-        xc_mv(X[i], col, XF);
-        M[mi][c] -= Dinv[i] * dot6(U[i], XF);
-        for (int r = 0; r < 6; ++r) F[i][r][c] = XF[r] + S[r] * M[mi][c];
-      }
-    }
-  }
-  for (int i = 0; i < n; ++i)
-    for (int c = 0; c < n; ++c) out[i * n + c] = i <= c ? M[i][c] : M[c][i];
-}
-
-// Semi-implicit Euler: qd' = qd + dt qdd, q' = q + dt qd' (flat on the rpy
-// root's six coordinates, as rbdtpu integrates them).
-template <typename T>
-RBD_HD void euler_step(int n, const T* x, const T* qdd, T dt, T* xo) {
-  for (int i = 0; i < n; ++i) {
-    const T qdn = x[n + i] + dt * qdd[i];
-    xo[n + i] = qdn;
-    xo[i] = x[i] + dt * qdn;
-  }
-}
-
-// One step on the M^-1 + RNEA route (rbdtpu kernels/fused.py _step_lane,
-// route "minv"): bias c = RNEA(q, qd, 0) with the wrenches, then
-// qdd = M^-1 (u - c) by the factorised apply, or by the dense M^-1 with
-// DENSE, then semi-implicit Euler.  x and xo may not alias.
-template <typename T, class D, bool DENSE>
-RBD_HD void fd_step_minv_state(const Model<T, D>& m, const T* x, const T* u, T dt, T gravity,
-                               T* xo, const T* fext = nullptr) {
-  static_assert(!D::FB, "fd_step_minv_state covers fixed-base trees");
-  const int n = m.nb;
-  Xc<T> X[D::NB];
-  T c[D::NB], qdd[D::NB];
-  joint_transforms(m, x, X);
-  rnea_tau(m, X, x + n, static_cast<const T*>(nullptr), gravity, fext, c);
-  for (int i = 0; i < n; ++i) c[i] = u[i] - c[i];
-  if (DENSE) {
-    T Mi[D::NB * D::NB];
-    minv_dense(m, X, Mi);
-    for (int i = 0; i < n; ++i) {
-      T s = 0;
-      for (int j = 0; j < n; ++j) s += Mi[i * n + j] * c[j];
-      qdd[i] = s;
-    }
-  } else {
-    minv_apply(m, X, c, qdd);
-  }
-  euler_step(n, x, qdd, dt, xo);
-}
-
 }  // namespace rbd
-
-#ifdef __CUDACC__
-// Threads per block of the one-thread-per-element kernels.
-#define RBD_THREADS 64
-#define RBD_GRID(n, threads) (((n) + (threads) - 1) / (threads))
-#endif

@@ -4,9 +4,12 @@
 // step, with the rpy root's six-DoF block and optional world-frame
 // wrenches; fd_step.cu (K1), feedback_rollout.cu (K2), linearize.cu (K3)
 // and rollout_multi.cu (K5) run it, one team per state, trajectory or knot.
-// K5's M^-1 + RNEA route runs the team's RNEA bias (team_rnea_bias) and
+// The team's RNEA (team_rnea) is K10 (rnea.cu); the M^-1 + RNEA step of K5's
+// minv route and of K6 (fd_step_minv.cu) runs its bias (team_rnea_bias) and
 // then the step's articulated sweeps alone on u - c (MINV: zero velocity,
-// no gravity, no wrenches), as rbdtpu's _step_lane does.
+// no gravity, no wrenches), as rbdtpu's _step_lane does, or (K6's dense
+// route) those sweeps' factorisation and then M^-1 one column a lane
+// (team_minv_columns, the walk of K3's M^-1 columns).
 //
 // Why: one thread per state runs the ~10k operations of an arm7 step (and
 // ~10x that on the humanoid) as one dependent chain, with its per-body
@@ -150,7 +153,7 @@ RBD_HD T xc_mv_row(const T* e, const T* r, const T* m, bool lo) {
   return e[0] * t0 + e[1] * t1 + e[2] * t2;
 }
 
-// Column c of a body's dense 6x6 X = [[E, 0], [BL, E]] (xc_dense), read as
+// Column c of a body's dense 6x6 X = [[E, 0], [BL, E]], read as
 // entries m < 3 from lo[3 m] (zero when c >= 3) and m >= 3 from
 // hi[3 (m - 3)]: lo = E + c, hi = BL + c for c < 3 and E + c - 3 otherwise.
 // A force vector f read through the same view is lo = f, hi = f + 3 with
@@ -218,7 +221,9 @@ RBD_HD T xc_mtv_row(const T* E, const T* r, const T* f, int k) {
   return (E[j] * f[0] + E[3 + j] * f[1] + E[6 + j] * f[2]) + (r[j1] * t2 - r[j2] * t1);
 }
 
-// The world->body chain of the wrenches (apply_fext): Xa[i] = X[i] Xa[parent].
+// The world->body chain of the wrenches (rbdtpu dynamics/rnea.py
+// apply_external_forces): Xa[i] = X[i] Xa[parent], composed compactly as
+// plux(E1, r1) plux(E2, r2) = plux(E1 E2, r2 + E2^T r1).
 template <typename T, class D>
 RBD_HD_CALL void fext_chain(const Model<T, D>& m, const Xc<T>* X, Xc<T>* Xa) {
   for (int i = 0; i < m.nb; ++i) {
@@ -281,19 +286,24 @@ RBD_HD void team_transforms(const Team<NL>& tm, const Model<T, D>& m, T* s, cons
 // wrenches' chain, LEV the level order).  LV walks the root->leaf
 // recursions level by level (the layout must hold the level order), else
 // body by body.  MINV runs the sweeps of qdd = M^-1 tau instead (rbdtpu's
-// aba_lane at qd = 0 and gravity 0, fixed-base trees, no wrenches): it
-// takes the transforms team_rnea_bias left in ``s``, skips the velocity
-// recursion and the bias terms (c = pA = 0) and ignores ``gravity``, while
-// Euler still integrates the real qd of x.  x' is written to xs (shared;
-// may be x itself) and to xg (global) where they are not null.  Every lane
-// returns after the last write; a caller that reads xs must sync first.
-template <int NL, bool FEXT, bool LV, class L, bool MINV = false, typename T, class D>
+// aba_lane at qd = 0 and gravity 0, no wrenches): it takes the transforms
+// team_rnea left in ``s``, skips the velocity recursion and the bias terms
+// (c = pA = 0) and ignores ``gravity`` (the rpy root's block then solves
+// with a0 = 0), while Euler still integrates the real qd of x.  FACTOR
+// (with MINV) stops after the leaf->root sweep, leaving the articulated
+// inertias (the rpy root's IA[0] complete), U and 1 / d for a dense M^-1;
+// it writes no qdd and no state.  x' is written to xs (shared; may be x
+// itself) and to xg (global) where they are not null.  Every lane returns
+// after the last write; a caller that reads xs must sync first.
+template <int NL, bool FEXT, bool LV, class L, bool MINV = false, bool FACTOR = false, typename T,
+          class D>
 RBD_HD void team_fd_step(const Team<NL>& tm, const Model<T, D>& m, T* s, const T* x,
                          const T* tau, T dt, T gravity, const T* fext, T* xs, T* xg) {
   static_assert(NL >= 8 && NL <= 32 && (NL & (NL - 1)) == 0, "a team is 8, 16 or 32 lanes");
   static_assert(L::NB == D::NB && (L::WRENCH || !FEXT) && (L::LEVELS || !LV),
                 "the layout holds the step");
-  static_assert(!MINV || (!FEXT && !LV && !D::FB), "MINV: fixed base, no wrenches, by bodies");
+  static_assert(!MINV || (!FEXT && !LV), "MINV: no wrenches, by bodies");
+  static_assert(MINV || !FACTOR, "FACTOR: the M^-1 sweeps");
   if constexpr (MINV) gravity = T(0);
   const int nb = m.nb, n = m.nv(), lane = tm.lane;
   Xc<T>* X = reinterpret_cast<Xc<T>*>(s + L::X);
@@ -474,6 +484,7 @@ RBD_HD void team_fd_step(const Team<NL>& tm, const Model<T, D>& m, T* s, const T
     }
     tm.sync();
   }
+  if constexpr (FACTOR) return;
   // accelerations root -> leaf in A (v's storage unless the layout keeps
   // v): a[i] holds X a[p] + c before its own S qdd, which the children add.
   // With LV level by level as the velocities, the children summing the
@@ -581,31 +592,35 @@ RBD_HD void team_fd_step(const Team<NL>& tm, const Model<T, D>& m, T* s, const T
   }
 }
 
-// The bias of the M^-1 + RNEA step (rbdtpu kernels/fused.py _step_lane,
-// route "minv"): c = RNEA(q, qd, qdd = 0) with gravity and, with FEXT, the
-// world-frame wrenches fext (nb, 6), of the state x = [q; qd] (shared) by
-// the team ``tm``; writes rhs = tau - c (nv values, shared).  Fixed-base
-// trees.  In the scratch ``s`` of layout L it leaves the transforms, BL, S
-// and parents, which team_fd_step<..., MINV> then takes, and uses v, c, U
-// and pA as v, a, I v and the body forces f:
+// RNEA (rbdtpu dynamics/rnea.py; kernels/fused.py rnea_lane) of the state
+// x = [q; qd] (shared) at the joint accelerations qdd (nv values, shared)
+// with QDD, at zero without, with gravity and, with FEXT, the world-frame
+// wrenches fext (nb, 6), by the team ``tm``: tau = S^T f, the rpy root's
+// six rows f_0 (S = I).  With BIAS it writes out = tau_in - tau (K5's and
+// K6's u - c, rbdtpu _step_lane's route "minv"), otherwise out = tau (K10);
+// out has nv values (shared or global).  In the scratch ``s`` of layout L
+// it leaves the transforms, BL, S and parents, which team_fd_step<...,
+// MINV> then takes, and uses v, c, U and pA as v, a, I v and the body
+// forces f:
 //   - the root->leaf recursions one lane a component, the velocities
 //     v_i = X_i v_p + S_i qd_i a body ahead of the accelerations
-//     a_i = X_i a_p + v_i x S_i qd_i (a_p = gravity at the root), and with
-//     FEXT the wrenches' chain X_a,i = X_i X_a,p one lane an entry beside
-//     the velocities, so one barrier a body serves all three;
+//     a_i = X_i a_p + v_i x S_i qd_i (+ S_i qdd_i) (a_p = gravity at the
+//     root; the rpy root's joint velocity and acceleration are qd[0:6] and
+//     qdd[0:6]), and with FEXT the wrenches' chain X_a,i = X_i X_a,p one
+//     lane an entry beside the velocities, so one barrier a body serves all
+//     three;
 //   - I v, then f_i = I a_i + v_i x* I v_i - X_a,i^-T fext_i, one lane a
 //     value;
 //   - the leaf->root sum f_p += X_i^T f_i one lane a component;
-//   - rhs_i = tau_i - S_i . f_i one lane a body.
+//   - the rows of tau one lane a row.
 // Every lane returns after its last write; team_fd_step's first barrier
 // orders them before its own.
-template <int NL, bool FEXT, class L, typename T, class D>
-RBD_HD void team_rnea_bias(const Team<NL>& tm, const Model<T, D>& m, T* s, const T* x,
-                           const T* tau, T gravity, const T* fext, T* rhs) {
-  static_assert(!D::FB, "team_rnea_bias covers fixed-base trees");
-  static_assert(L::NB == D::NB && (L::WRENCH || !FEXT), "the layout holds the bias");
+template <int NL, bool FEXT, bool QDD, bool BIAS, class L, typename T, class D>
+RBD_HD void team_rnea(const Team<NL>& tm, const Model<T, D>& m, T* s, const T* x, const T* qdd,
+                      const T* tau, T gravity, const T* fext, T* out) {
+  static_assert(L::NB == D::NB && (L::WRENCH || !FEXT), "the layout holds the RNEA");
   const int nb = m.nb, lane = tm.lane;
-  const T* qd = x + nb;
+  const T* qd = x + m.nv();
   const Xc<T>* X = reinterpret_cast<const Xc<T>*>(s + L::X);
   const T* Sp = s + L::SP;
   const int* par = reinterpret_cast<const int*>(s + L::PAR);
@@ -644,12 +659,16 @@ RBD_HD void team_rnea_bias(const Team<NL>& tm, const Model<T, D>& m, T* s, const
       const T* Sj = Sp + 6 * j;
       const T* src = e < 6 ? (p < 0 ? nullptr : v[p]) : (p < 0 ? ag : a[p]);
       const T xm = src == nullptr ? T(0) : xc_mv_row(X[j].E + 3 * kr, X[j].r, src, k < 3);
+      // qd[vi(j)] stays inside each branch: hoisted above them it moved
+      // K5's registers (on a fixed-base tree root6 is false, vi(j) = j)
       if (e < 6) {
-        v[j][k] = xm + Sj[k] * qd[j];
+        v[j][k] = xm + (m.root6(j) ? qd[k] : Sj[k] * qd[m.vi(j)]);
       } else {
         T vJ[6];
-        for (int r = 0; r < 6; ++r) vJ[r] = Sj[r] * qd[j];
-        a[j][k] = xm + cross_motion_row(v[j], vJ, k);
+        for (int r = 0; r < 6; ++r) vJ[r] = m.root6(j) ? qd[r] : Sj[r] * qd[m.vi(j)];
+        T ak = xm + cross_motion_row(v[j], vJ, k);
+        if constexpr (QDD) ak += m.root6(j) ? qdd[k] : Sj[k] * qdd[m.vi(j)];
+        a[j][k] = ak;
       }
     }
     tm.sync();
@@ -692,7 +711,123 @@ RBD_HD void team_rnea_bias(const Team<NL>& tm, const Model<T, D>& m, T* s, const
     if (lane < 6) f[p][lane] += xc_mtv_row(X[i].E, X[i].r, f[i], lane);
     tm.sync();
   }
-  for (int i = lane; i < nb; i += NL) rhs[i] = tau[i] - dot6(Sp + 6 * i, f[i]);
+  if constexpr (D::FB) {
+    for (int r = lane; r < m.nv(); r += NL) {
+      const int i = r < 6 ? 0 : r - 5;
+      const T t = r < 6 ? f[0][r] : dot6(Sp + 6 * i, f[i]);
+      out[r] = BIAS ? tau[r] - t : t;
+    }
+  } else if constexpr (BIAS) {
+    for (int i = lane; i < nb; i += NL) out[i] = tau[i] - dot6(Sp + 6 * i, f[i]);
+  } else {
+    for (int i = lane; i < nb; i += NL) out[i] = dot6(Sp + 6 * i, f[i]);
+  }
+}
+
+// The most tree levels the column walks of team_minv_columns and K3's
+// derivative columns take per size class: one slot a level
+// (kernels/_lib.py LIN_LEVELS).
+template <class D>
+constexpr int lin_levels() {
+  return D::NB > 16 ? 12 : 8;
+}
+
+// out (row-major 6x6) = IA0^-1 by its Cholesky factor (NaN where IA0 is not
+// positive definite), a real call.
+template <typename T>
+RBD_HD_CALL void inverse6(const T* IA0, T* out) {
+  T L[36], e[6], x[6];
+  chol6(IA0, L);
+  for (int c = 0; c < 6; ++c) {
+    for (int r = 0; r < 6; ++r) e[r] = r == c ? T(1) : T(0);
+    chol6_solve(L, e, x);
+    for (int r = 0; r < 6; ++r) out[6 * r + c] = x[r];
+  }
+}
+
+// The analytical M^-1 (rbdtpu dynamics/minv.py, kernels/colvec.py
+// minv_colvec) one column a lane, NL columns at a time, from the
+// articulated sweep's X, U and 1 / d and the rpy root's IA0^-1 (fbi): each
+// column walks the bodies in depth-first preorder ``pre`` (``dep``: each
+// body's depth), leaf -> root over the preorder backwards with one
+// accumulator a tree level (slot values 0..5 of ``col``, LV levels of NL
+// lanes, [value][level][lane]), then root -> leaf with the parent's F in
+// its level's slot.  Column c of M^-1 lands in column c of Ms (rows of
+// LDM >= nv + 1 values; lanes past nv use the pad column nv and write
+// nothing); its entries on and above the diagonal are M^-1's.  No barrier:
+// the caller syncs before reading Ms.  linearize.cu keeps its own copy of
+// this loop: as a call of this function, K3's registers moved (PERF.md §6).
+template <int NL, int LV, int LDM, typename T, class D>
+RBD_HD void team_minv_columns(const Team<NL>& tm, const Model<T, D>& m, const int* pre,
+                              const int* dep, const Xc<T>* X, const T (*U)[6], const T* invd,
+                              const T* fbi, T* col, T* Ms) {
+  const int nb = m.nb, n = m.nv(), lane = tm.lane;
+  auto slot = [&](int d, int k) -> T& { return col[(k * LV + d) * NL + lane]; };
+  for (int t0 = 0; t0 < n; t0 += NL) {
+    // lanes past n read Ms's pad column and write nothing
+    const bool on = t0 + lane < n;
+    const int c = on ? t0 + lane : n;
+    for (int d = 0; d < LV; ++d)
+      for (int k = 0; k < 6; ++k) slot(d, k) = T(0);
+    for (int idx = nb - 1; idx >= 0; --idx) {
+      const int i = pre[idx], d = dep[i];
+      T Fi[6];
+      for (int k = 0; k < 6; ++k) {
+        Fi[k] = slot(d, k);
+        slot(d, k) = T(0);
+      }
+      if (m.root6(i)) {
+        for (int r = 0; r < 6; ++r) {
+          T x = 0;
+          for (int k = 0; k < 6; ++k) x += fbi[6 * r + k] * ((k == c ? T(1) : T(0)) - Fi[k]);
+          if (on) Ms[r * LDM + c] = x;
+        }
+        continue;
+      }
+      const T* S = m.body(i) + OFF_S;
+      const int mi = m.vi(i), p = m.parent(i);
+      const T dinv = invd[i];
+      const T Mmi = -dinv * dot6(S, Fi) + (c == mi ? dinv : T(0));
+      if (on) Ms[mi * LDM + c] = Mmi;
+      if (p >= 0) {
+        T t[6];
+        for (int k = 0; k < 6; ++k) Fi[k] += U[i][k] * Mmi;
+        xc_mtv(X[i], Fi, t);
+        for (int k = 0; k < 6; ++k) slot(d - 1, k) += t[k];
+      }
+    }
+    for (int idx = 0; idx < nb; ++idx) {
+      const int i = pre[idx], d = dep[i];
+      const T* S = m.body(i) + OFF_S;
+      const int p = m.parent(i);
+      T Fi[6];
+      if (m.root6(i)) {
+        for (int r = 0; r < 6; ++r) Fi[r] = Ms[r * LDM + c];
+      } else if (p < 0) {
+        const T Mi = Ms[i * LDM + c];
+        for (int r = 0; r < 6; ++r) Fi[r] = S[r] * Mi;
+      } else {
+        const int mi = m.vi(i);
+        T Fp[6], XF[6];
+        for (int k = 0; k < 6; ++k) Fp[k] = slot(d - 1, k);
+        xc_mv(X[i], Fp, XF);
+        const T Mmi = Ms[mi * LDM + c] - invd[i] * dot6(U[i], XF);
+        if (on) Ms[mi * LDM + c] = Mmi;
+        for (int r = 0; r < 6; ++r) Fi[r] = XF[r] + S[r] * Mmi;
+      }
+      for (int k = 0; k < 6; ++k) slot(d, k) = Fi[k];
+    }
+  }
+}
+
+// The bias of the M^-1 + RNEA step (rbdtpu kernels/fused.py _step_lane,
+// route "minv"): rhs = tau - c with c = RNEA(q, qd, 0), gravity and, with
+// FEXT, the wrenches (team_rnea).
+template <int NL, bool FEXT, class L, typename T, class D>
+RBD_HD void team_rnea_bias(const Team<NL>& tm, const Model<T, D>& m, T* s, const T* x,
+                           const T* tau, T gravity, const T* fext, T* rhs) {
+  team_rnea<NL, FEXT, false, true, L>(tm, m, s, x, static_cast<const T*>(nullptr), tau, gravity,
+                                      fext, rhs);
 }
 
 }  // namespace rbd

@@ -42,24 +42,35 @@ SIZE_CLASSES = {
                       "ee_gn", "ee_err", "rnea", "fd_step_minv",
                       "rollout_multi", "feedback_chunked")),
     "fb16": (16, True, ("fd_step", "feedback_rollout", "linearize_parts",
-                        "feedback_chunked")),
+                        "feedback_chunked", "rnea", "fd_step_minv")),
     "fb32": (32, True, ("fd_step", "feedback_rollout", "linearize_parts",
-                        "feedback_chunked")),
+                        "feedback_chunked", "rnea", "fd_step_minv")),
 }
 
 # Lanes a team of the team kernels (csrc/rbd_team.cuh: one team of one warp
-# runs one state's step in fd_step, one trajectory in feedback_rollout,
-# feedback_chunked and rollout_multi, one knot's linearisation in
-# linearize_parts), per kernel, size class and dtype, fixed from their times
-# on an H100 at each class's path shapes (PERF.md §6,
-# tools/time_step_kernels.py --sweep).  The build compiles each kernel at
-# this size alone (``team_defines``).
+# runs one state's step in fd_step and fd_step_minv, its RNEA in rnea, one
+# trajectory in feedback_rollout, feedback_chunked and rollout_multi, one
+# knot's linearisation in linearize_parts), per kernel, size class and
+# dtype, fixed from their times on an H100 at each class's path shapes
+# (PERF.md §6, tools/time_step_kernels.py --sweep).  The build compiles each
+# kernel at this size alone (``team_defines``).
 TEAM = {(k, cls, sfx): 32 for k in ("fd_step", "feedback_rollout",
                                      "linearize_parts", "feedback_chunked")
         for cls in ("n8", "fb16", "fb32") for sfx in ("f32", "f64")}
 TEAM.update({("rollout_multi", "n8", "f32"): 16,
              ("rollout_multi", "n8", "f64"): 32})
 TEAM[("fd_step", "fb32", "f32")] = 16
+# K6's by its factorised route, K5's step (the dense route, off the paths,
+# would take 8 lanes on n8 and 16 on fb32: PERF.md §6)
+TEAM.update({("rnea", "n8", "f32"): 16, ("rnea", "n8", "f64"): 16,
+             ("rnea", "fb16", "f32"): 32, ("rnea", "fb16", "f64"): 32,
+             ("rnea", "fb32", "f32"): 16, ("rnea", "fb32", "f64"): 32,
+             ("fd_step_minv", "n8", "f32"): 16,
+             ("fd_step_minv", "n8", "f64"): 16,
+             ("fd_step_minv", "fb16", "f32"): 32,
+             ("fd_step_minv", "fb16", "f64"): 32,
+             ("fd_step_minv", "fb32", "f32"): 8,
+             ("fd_step_minv", "fb32", "f64"): 32})
 TEAM.update({("linearize_parts", "n8", "f32"): 8,
              ("linearize_parts", "n8", "f64"): 8,
              ("linearize_parts", "fb16", "f32"): 8,
@@ -74,28 +85,38 @@ SMEM_MAX = 232448
 H100_SMS = 132
 
 
-def team_values(kernel: str, cls: str, team: int) -> int:
+def team_values(kernel: str, cls: str, team: int, dense: bool = False) -> int:
     """Shared-memory values one team of ``kernel`` takes in size class
     ``cls``: the step's scratch (rbd_team.cuh TeamLayout: per body the
     compact transform, 12, and the dense transform's lower-left block, 9;
     v, c, pA, U and S, 6 each; IA, 36; 1 / d, u and the parent; then one
     body's (IA - U U^T / d) X and bias force and 12 partial sums, 54, and
-    qdd), fd_step's and rollout_multi's with the wrenches' chain (12 a
-    body) and two buffers of U.a partial sums, feedback_rollout's with the
-    level order (2 nb + 2) and each body's U.a partial sums; then the
-    kernel's own values (fd_step: x and u; rollout_multi: x, two stages of
-    u and of the wrench set, u - c; feedback_rollout and feedback_chunked,
-    which share one team body: x, dx, u and the knot buffer, K with rows of
-    nx + 1), rounded up to 32 and offset by ``team`` % 32 as fd_step.cu,
-    rollout_multi.cu and feedback_team.cuh pad them.  The launch refuses
-    any other count."""
+    qdd), fd_step's, fd_step_minv's and rollout_multi's with the wrenches'
+    chain (12 a body) and two buffers of U.a partial sums,
+    feedback_rollout's with the level order (2 nb + 2) and each body's U.a
+    partial sums; then the kernel's own values (fd_step: x and u;
+    fd_step_minv: x, u and u - c, and with ``dense`` the rpy root's 6x6
+    inverse, the M^-1 columns' slots, 6 a tree level (LIN_LEVELS) a lane,
+    and M^-1 with rows of nv + 1; rollout_multi: x, two stages of u and of
+    the wrench set, u - c; feedback_rollout and feedback_chunked, which
+    share one team body: x, dx, u and the knot buffer, K with rows of
+    nx + 1); rnea's is its own (rnea.cu RneaLayout: transform, lower-left
+    block, v, a, I v, f, S and the parent, 52 a body; then q, qd and qdd).
+    Rounded up to 32 and offset by ``team`` % 32 as the sources pad them.
+    The launch refuses any other count."""
     nb, fb, kernels = SIZE_CLASSES[cls]
     if kernel not in kernels:
         raise ValueError(f"{kernel} has no instantiation in class {cls}")
     nv = nb + 5 if fb else nb
     values = 90 * nb + 54 + nv
-    if kernel == "fd_step":
+    if kernel == "rnea":
+        values = 52 * nb + 3 * nv
+    elif kernel == "fd_step":
         values += 12 * nb + 12 + 3 * nv
+    elif kernel == "fd_step_minv":
+        values += 12 * nb + 12 + 4 * nv
+        if dense:
+            values += 36 + 6 * LIN_LEVELS[cls] * team + nv * (nv + 1)
     elif kernel == "rollout_multi":
         values += 12 * nb + 12 + 5 * nv + 12 * nb
     elif kernel in ("feedback_rollout", "feedback_chunked"):
@@ -105,9 +126,11 @@ def team_values(kernel: str, cls: str, team: int) -> int:
     return -(-values // 32) * 32 + team % 32
 
 
-# The most tree levels linearize_parts takes per size class: its column
-# sweeps keep one slot a level (csrc/linearize.cu lin_levels).
+# The most tree levels linearize_parts and fd_step_minv take per size
+# class: their column sweeps (K3's derivatives and M^-1, K6's dense M^-1)
+# keep one slot a level (csrc/rbd_team.cuh lin_levels).
 LIN_LEVELS = {"n8": 8, "fb16": 8, "fb32": 12}
+LEVEL_KERNELS = ("linearize_parts", "fd_step_minv")
 
 
 def linearize_values(cls: str, team: int) -> int:
@@ -232,13 +255,16 @@ def riccati_fused_geometry(nx: int, nu: int, dtype, B: int,
     return _fewest_waves(lo, hi, smem, B, nsm), smem, B
 
 
-def team_geometry(kernel: str, cls: str, dtype, B: int, nsm: int = H100_SMS):
+def team_geometry(kernel: str, cls: str, dtype, B: int, nsm: int = H100_SMS,
+                  dense: bool = False):
     """(team, teams a block, shared bytes a block, blocks) of a launch of
-    ``kernel`` over B states or trajectories on a card with ``nsm`` SMs: the
-    team size of TEAM, at most one warp of teams a block within SMEM_MAX,
-    halved while the batch would leave SMs without a block."""
+    ``kernel`` over B states or trajectories on a card with ``nsm`` SMs (for
+    fd_step_minv on the route ``dense`` picks): the team size of TEAM, at
+    most one warp of teams a block within SMEM_MAX, halved while the batch
+    would leave SMs without a block."""
     team = TEAM[(kernel, cls, _SUFFIX[dtype])]
-    per = team_values(kernel, cls, team) * torch.finfo(dtype).bits // 8
+    per = (team_values(kernel, cls, team, dense)
+           * torch.finfo(dtype).bits // 8)
     tpb = min(32 // team, SMEM_MAX // per)
     while tpb > 1 and -(-B // tpb) < nsm:
         tpb //= 2
@@ -331,17 +357,26 @@ def level_walk(model) -> bool:
     return max(tree_depths(model)) + 1 < model.nb
 
 
-def team_args(kernel: str, model, ref: torch.Tensor, B: int):
+def team_args(kernel: str, model, ref: torch.Tensor, B: int,
+              dense: bool = False):
     """The geometry arguments of a team kernel's launch over B elements of
-    ``model`` on ref's device: (teams a block, shared bytes a block), for
+    ``model`` on ref's device (fd_step_minv: on the ``dense`` route or the
+    factorised one): (teams a block, shared bytes a block), for
     feedback_rollout and feedback_chunked after the walk (1: level by
-    level, 0: body by body; ``level_walk``'s)."""
+    level, 0: body by body; ``level_walk``'s).  Worked out once per model,
+    kernel, dtype, B, device, route and team size, in the model's table
+    cache, so a call's host work is a few dictionary lookups."""
     _check_dtype(kernel, ref)
-    _, tpb, smem, _ = team_geometry(kernel, size_class(kernel, model),
-                                    ref.dtype, B, sm_count(ref.device))
-    if kernel not in ("feedback_rollout", "feedback_chunked"):
-        return tpb, smem
-    return int(level_walk(model)), tpb, smem
+    cls = model_class(kernel, model)
+    key = ("team_args", kernel, ref.dtype, B, str(ref.device), dense,
+           TEAM[(kernel, cls, _SUFFIX[ref.dtype])])
+    if key not in model._tables:
+        _, tpb, smem, _ = team_geometry(kernel, cls, ref.dtype, B,
+                                        sm_count(ref.device), dense)
+        walk = ((int(level_walk(model)),)
+                if kernel in ("feedback_rollout", "feedback_chunked") else ())
+        model._tables[key] = (*walk, tpb, smem)
+    return model._tables[key]
 
 
 # launches per kernel since the last reset_launches(); a wrapper adds one
@@ -369,8 +404,9 @@ _SIGNATURES = {
     # and its ancestors, one bit a body; prism: those that are prismatic)
     "ee_gn": "piipssspppiii",
     "ee_err": "piipssspiii",       # ee chain prism q tx ty tz e B spb smem
-    "rnea": "ppppis",              # q qd qdd tau B gravity
-    "fd_step_minv": "pppipiiss",   # x u fext fext_stride xo B dense dt g
+    "rnea": "ppppiiis",            # q qd qdd tau B tpb smem gravity
+    # x u fext fext_stride xo B dense tpb smem dt gravity
+    "fd_step_minv": "pppipiiiiss",
     # x0 U fext xo B H minv tpb smem dt gravity
     "rollout_multi": "ppppiiiiiss",
     # x0 Xn Un kf Kf uclip Xo Uo B H cw nc levels tpb smem dt gravity
@@ -509,7 +545,7 @@ def size_class(kernel: str, model) -> str:
             "rpy floating root is not ported to it yet")
     levels = max(tree_depths(model)) + 1
     for nmax, cls in sorted(fits):
-        if model.nb <= nmax and (kernel != "linearize_parts"
+        if model.nb <= nmax and (kernel not in LEVEL_KERNELS
                                  or levels <= LIN_LEVELS[cls]):
             return cls
     if model.nb <= max(fits)[0]:
@@ -518,6 +554,15 @@ def size_class(kernel: str, model) -> str:
                          f"({max(LIN_LEVELS.values())} levels)")
     raise ValueError(f"{kernel}: {model.nb} bodies exceed the kernel's "
                      f"largest instantiation ({max(fits)[0]} bodies)")
+
+
+def model_class(kernel: str, model) -> str:
+    """``size_class(kernel, model)``, worked out once per model and kernel
+    (the model's table cache)."""
+    key = ("size_class", kernel)
+    if key not in model._tables:
+        model._tables[key] = size_class(kernel, model)
+    return model._tables[key]
 
 
 def preorder(model) -> list:
@@ -609,7 +654,7 @@ def launch(kernel: str, model, ref: torch.Tensor, *args, count_as=None):
     lead = []
     symbol = f"rbd_{kernel}"
     if model is not None:
-        symbol += "_" + size_class(kernel, model)
+        symbol += "_" + model_class(kernel, model)
         tab, itab = model_tables(model, ref.device, ref.dtype)
         lead = [tab.data_ptr(), itab.data_ptr(), model.nb]
     fn = getattr(library(), f"{symbol}_{_SUFFIX[ref.dtype]}")

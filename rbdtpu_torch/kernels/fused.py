@@ -5,8 +5,8 @@ whole-horizon rollout (K5); and rbdtpu's budget arithmetic that picks
 between K2 and K9 in the line search.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
-raises.  K1, K2 and K9 take fixed-base models and the rpy floating root; K5,
-K6 and K10 fixed-base models only (``_lib.size_class``).
+raises.  K1, K2, K6, K9 and K10 take fixed-base models and the rpy floating
+root; K5 fixed-base models only (``_lib.size_class``).
 """
 from __future__ import annotations
 
@@ -103,11 +103,14 @@ def rnea_fused(model: RobotModel, q, qd, qdd=None, gravity: float = -9.81):
     tau (B, n).
 
     Kernel ``rnea`` (csrc/rnea.cu) replaces rbdtpu's
-    ``kernels.fused.rnea_fused`` (Pallas, fused.py:358): one thread per
-    state runs the transforms and both RNEA sweeps.  Without qdd the kernel
-    is instantiated with the acceleration term compiled out.  Bound on the
-    H100: arithmetic and latency of the serial tree walk; the traffic is the
-    inputs once and tau once.
+    ``kernels.fused.rnea_fused`` (Pallas, fused.py:358): one team of lanes
+    of a warp per state (csrc/rbd_team.cuh ``team_rnea``) builds the
+    transforms one lane a body and runs both RNEA sweeps one lane a
+    component, with the per-body state in shared memory; the rpy root's six
+    rows are its body force.  Without qdd the kernel is instantiated with
+    the acceleration term compiled out.  Bound on the H100: the latency of
+    the sweeps' chain along the tree; the traffic is the inputs once and tau
+    once.  Team size and teams a block are ``_lib.team_geometry``'s.
     """
     if not q.is_cuda:
         return rnea_plain(model, q, qd, qdd, gravity)
@@ -117,7 +120,8 @@ def rnea_fused(model: RobotModel, q, qd, qdd=None, gravity: float = -9.81):
     if qdd is not None:
         _lib.check(qdd, "qdd", (B, n), q)
     tau = torch.empty(B, n, dtype=q.dtype, device=q.device)
-    _lib.launch("rnea", model, q, q, qd, qdd, tau, B, gravity)
+    _lib.launch("rnea", model, q, q, qd, qdd, tau, B,
+                *_lib.team_args("rnea", model, q, B), gravity)
     return tau
 
 
@@ -141,11 +145,14 @@ def fd_step_minv_fused(model: RobotModel, x, u, dt: float,
     f_ext, (nb, 6) or (B, nb, 6).
 
     Kernel ``fd_step_minv`` (csrc/fd_step_minv.cu) replaces rbdtpu's
-    ``kernels.fused.fd_step_minv_fused`` (Pallas, fused.py:1267): per
-    element the bias RNEA (with the wrenches), then qdd = M^-1 (u - c) by
-    the articulated-inertia factorisation applied to that vector, or with
-    ``dense_minv=True`` by the explicit analytical M^-1, then Euler.  Bound
-    on the H100: arithmetic and latency of the serial tree walks.
+    ``kernels.fused.fd_step_minv_fused`` (Pallas, fused.py:1267): one team
+    of lanes of a warp per element runs the team RNEA bias (with the
+    wrenches), then qdd = M^-1 (u - c) by the articulated sweeps at zero
+    velocity and gravity (K5's minv step), or with ``dense_minv=True``
+    builds the explicit analytical M^-1 one column a lane and applies it,
+    then Euler.  Bound on the H100: the latency of the sweeps' chain along
+    the tree.  Team size and teams a block (per route) are
+    ``_lib.team_geometry``'s.
     """
     if not x.is_cuda:
         return fd_step_minv_plain(model, x, u, dt, gravity, dense_minv,
@@ -156,7 +163,9 @@ def fd_step_minv_fused(model: RobotModel, x, u, dt: float,
     fe, stride = _fext_arg(model, f_ext, B, x)
     xo = torch.empty_like(x)
     _lib.launch("fd_step_minv", model, x, x, u, fe, stride, xo, B,
-                int(dense_minv), dt, gravity)
+                int(dense_minv),
+                *_lib.team_args("fd_step_minv", model, x, B, dense_minv), dt,
+                gravity)
     return xo
 
 

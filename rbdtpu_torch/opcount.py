@@ -597,7 +597,7 @@ def fd_step(md: Model, x, u, dt, gravity, fext=None):
 
 def fd_step_minv(md: Model, x, u, dt, gravity, dense=False, fext=None):
     """Bias RNEA, then qdd = M^-1 (u - c), then Euler."""
-    n = md.nb
+    n = md.nv
     X = joint_transforms(md, x[:n])
     rhs = vsub(u, rnea(md, X, x[n:], None, gravity, fext))
     qdd = mv(minv_dense(md, X), rhs) if dense else minv_apply(md, X, rhs)
@@ -795,8 +795,8 @@ def riccati_knot_ops(nx: int, nu: int) -> int:
 def per_state(model, target) -> dict:
     """Operations per state (per knot for the rollouts) of each kernel's
     function on ``model``, keyed as ``chip_smoke.py`` keys its checks:
-    those of K1-K3 for any tree the port covers, and of K4-K6 and K10 for
-    fixed-base ones (K4 with a single end effector)."""
+    those of K1-K3, K6 and K10 for any tree the port covers, and of K4 and
+    K5 for fixed-base ones (K4 with a single end effector)."""
     from .kernels.fk_lane import _single_ee
 
     md = Model(model)
@@ -816,16 +816,16 @@ def per_state(model, target) -> dict:
         "feedback_chunked": ops(feedback_knot_chunked, x, nums(2 * n), u,
                                 nums(n), nums(n, 2 * n), dt, g),
         "linearize_parts": ops(linearize_parts, q, qd, u, g),
-    }
-    if md.fb:
-        return out
-    out.update({
         "rnea": ops(rnea_state, q, qd, None, g),
         "rnea+qdd": ops(rnea_state, q, qd, qdd, g),
         "fd_step_minv": ops(fd_step_minv, x, u, dt, g),
         "fd_step_minv+dense": ops(fd_step_minv, x, u, dt, g, dense=True),
         "fd_step_minv+fext": ops(fd_step_minv, x, u, dt, g, fext=w),
-    })
+        "fd_step_minv+dense+fext": ops(fd_step_minv, x, u, dt, g, dense=True,
+                                       fext=w),
+    }
+    if md.fb:
+        return out
     if len(model.leaves()) == 1:
         jid, fid = _single_ee(model, None)
         out["ee_gn"] = ops(ee, jid, fid, q, target, True)

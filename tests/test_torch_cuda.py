@@ -52,7 +52,8 @@ MODELS = {
     "arm7": (lambda **kw: load_asset("arm7", **kw), None),
     "mixed": (lambda **kw: parse_urdf(mixed_tree_urdf(), **kw), ("j4",)),
 }
-# the kernels that also take the rpy floating root (K1-K3) run on these too
+# the kernels that also take the rpy floating root (K1-K3, K6, K9, K10) run
+# on these too
 FLOATING = {
     "quad_rpy": (lambda **kw: load_asset("quadruped12", floating_base=True,
                                          **kw), None),
@@ -135,21 +136,34 @@ def test_fd_step_fext(tree_case, batched):
     _close(out, fused.fd_step_plain(m, x, u, DT, f_ext=fe), tol)
 
 
+# K6's and K10's batches: one state (one team a block), an odd batch, and
+# one past the rollout path's 4096 (a ragged last block)
+MINV_BATCHES = (1, 37, 4097)
+
+
+@pytest.mark.parametrize("B", MINV_BATCHES)
 @pytest.mark.parametrize("with_qdd", [True, False], ids=["qdd", "bias"])
-def test_rnea(case, with_qdd):
-    m, _, tol = case
-    q, qd, qdd = _inputs(m, (37, m.nq), (37, m.nv), (37, m.nv), scale=1.0)
+def test_rnea(tree_case, with_qdd, B):
+    """K10 against its plain version on the fixed-base trees and the rpy
+    quadruped, with and without qdd."""
+    m, _, tol = tree_case
+    q, qd, qdd = _inputs(m, (B, m.nq), (B, m.nv), (B, m.nv), scale=1.0)
     a = qdd if with_qdd else None
     out = _launched("rnea", lambda: rnea_fused(m, q, qd, a))
     _close(out, fused.rnea_plain(m, q, qd, a), tol)
 
 
-@pytest.mark.parametrize("wrench", [False, True], ids=["free", "fext"])
+@pytest.mark.parametrize("B", MINV_BATCHES)
+@pytest.mark.parametrize("wrench", ["free", "shared", "batched"])
 @pytest.mark.parametrize("dense", [False, True], ids=["fact", "dense"])
-def test_fd_step_minv(case, dense, wrench):
-    m, _, tol = case
-    x, u, fe = _inputs(m, (37, m.nx), (37, m.nv), (m.nb, 6))
-    fe = 20.0 * fe if wrench else None
+def test_fd_step_minv(tree_case, dense, wrench, B):
+    """K6 against its plain version on both routes, the fixed-base trees
+    and the rpy quadruped, without wrenches and under wrenches 10 N(0,1),
+    one set shared by the batch or one an element."""
+    m, _, tol = tree_case
+    x, u, fe = _inputs(m, (B, m.nx), (B, m.nv),
+                       ((B,) if wrench == "batched" else ()) + (m.nb, 6))
+    fe = None if wrench == "free" else 20.0 * fe
     out = _launched("fd_step_minv", lambda: fd_step_minv_fused(
         m, x, u, DT, dense_minv=dense, f_ext=fe))
     _close(out, fused.fd_step_minv_plain(m, x, u, DT, f_ext=fe), tol)
@@ -328,15 +342,21 @@ def test_wrappers_refuse_bad_input(card):
         fd_step_fused(m, x, u.cpu(), DT)
     with pytest.raises(ValueError):  # integer tensors have no kernel
         fd_step_fused(m, x.int(), u.int(), DT)
-    # the rpy root reaches K1-K3 only; the quaternion root no kernel
+    # the rpy root reaches K1-K3, K6, K9 and K10 (each launches its kernel)
+    # but not K4 or K5; the quaternion root no kernel
     fb = load_asset("quadruped12", device=card, dtype=torch.float64,
                     floating_base=True)
     q = torch.zeros(8, fb.nq, dtype=torch.float64, device=card)
     v = torch.zeros(8, fb.nv, dtype=torch.float64, device=card)
     x = torch.cat([q, v], -1)
-    for refused in (lambda: rnea_fused(fb, q, v),
-                    lambda: fd_step_minv_fused(fb, x, v, DT),
-                    lambda: rollout_fused_multi(fb, x, v[None], DT),
+    for name, launched in (
+            ("rnea", lambda: rnea_fused(fb, q, v)),
+            ("rnea", lambda: rnea_fused(fb, q, v, v)),
+            ("fd_step_minv", lambda: fd_step_minv_fused(fb, x, v, DT)),
+            ("fd_step_minv", lambda: fd_step_minv_fused(fb, x, v, DT,
+                                                        dense_minv=True))):
+        assert bool(_launched(name, launched).isfinite().all())
+    for refused in (lambda: rollout_fused_multi(fb, x, v[None], DT),
                     lambda: ee_gn_fused(fb, q, TARGET,
                                         ee_names=(fb.joint_names[3],))):
         with pytest.raises(NotImplementedError):
@@ -345,9 +365,15 @@ def test_wrappers_refuse_bad_input(card):
                       floating_base=True, root_quat=True)
     qq = torch.zeros(8, quat.nq, dtype=torch.float64, device=card)
     vq = torch.zeros(8, quat.nv, dtype=torch.float64, device=card)
-    with pytest.raises(NotImplementedError):
-        _lib.launch("linearize_parts", quat, qq, qq, vq, vq, vq, vq, vq, vq,
-                    8, -9.81)
+    xq = torch.cat([qq, vq], -1)
+    before = dict(_lib.launches)
+    for refused in (lambda: rnea_fused(quat, qq, vq),
+                    lambda: fd_step_minv_fused(quat, xq, vq, DT),
+                    lambda: _lib.launch("linearize_parts", quat, qq, qq, vq,
+                                        vq, vq, vq, vq, vq, 8, -9.81)):
+        with pytest.raises(NotImplementedError):
+            refused()
+    assert _lib.launches == before
 
 
 def test_ddp_kernels_match_plain(card):
@@ -617,6 +643,33 @@ def test_mpc_step_and_checkpoint_on_the_card(card, tmp_path):
 def _humanoid(dtype):
     return load_asset("humanoid30", device="cuda", dtype=dtype,
                       floating_base=True)
+
+
+@pytest.mark.parametrize("B", MINV_BATCHES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+def test_humanoid_rnea_and_minv_step(card, dtype, B):
+    """K10 (with and without qdd) and K6 (both routes, without wrenches
+    and under one set shared by the batch and one an element) at the
+    humanoid's size class (fb32, 31 bodies, 11 tree levels) against their
+    plain versions: 1e-9 in float64, 1e-4 relative in float32."""
+    m = _humanoid(dtype)
+    assert _lib.size_class("rnea", m) == "fb32"
+    assert _lib.size_class("fd_step_minv", m) == "fb32"
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    _, (x, u) = _humanoid_inputs(m, B, 1)
+    q, qd = x[:, :m.nq].contiguous(), x[:, m.nq:].contiguous()
+    (qdd,) = _inputs(m, (B, m.nv))
+    for a in (qdd, None):
+        out = _launched("rnea", lambda: rnea_fused(m, q, qd, a))
+        _close(out, fused.rnea_plain(m, q, qd, a), tol)
+    fes = [None] + [20.0 * _inputs(m, s)[0] for s in ((m.nb, 6),
+                                                      (B, m.nb, 6))]
+    for dense in (False, True):
+        for fe in fes:
+            out = _launched("fd_step_minv", lambda: fd_step_minv_fused(
+                m, x, u, DT, dense_minv=dense, f_ext=fe))
+            _close(out, fused.fd_step_minv_plain(m, x, u, DT, f_ext=fe), tol)
 
 
 def _humanoid_inputs(m, B, H):

@@ -136,6 +136,41 @@ def test_step_kernel_plain_and_cpu_route(tm, inputs, refs):
                                rtol=0, atol=1e-12)
 
 
+@pytest.mark.parametrize("wrench", [False, True], ids=["free", "fext"])
+@pytest.mark.parametrize("dense", [False, True], ids=["fact", "dense"])
+def test_minv_step_plain_and_cpu_route(tm, inputs, refs, dense, wrench):
+    """K6's plain version on the rpy root, on both routes: semi-implicit
+    Euler of rbdtpu's forward_dynamics, and under world-frame wrenches of
+    its aba with f_ext; its wrapper takes it for CPU tensors."""
+    q, qd, u, fe = (torch.tensor(a) for a in inputs)
+    fe = fe if wrench else None
+    x = torch.cat([q, qd], -1)
+    qd1 = qd + 0.01 * torch.tensor(
+        refs["aba_fext" if wrench else "forward_dynamics"])
+    ref = torch.cat([q + 0.01 * qd1, qd1], -1)
+    close(fused.fd_step_minv_plain(tm, x, u, 0.01, dense_minv=dense,
+                                   f_ext=fe), ref)
+    close(fused.fd_step_minv_fused(tm, x, u, 0.01, dense_minv=dense,
+                                   f_ext=fe), ref)
+
+
+@pytest.mark.parametrize("with_qdd", [True, False], ids=["qdd", "bias"])
+def test_rnea_plain_and_cpu_route(tm, inputs, refs, with_qdd):
+    """K10's plain version on the rpy root: at rbdtpu's ABA acceleration
+    it returns the joint forces u (the root's six rows included); without
+    qdd the bias u - M aba, M from rbdtpu's M^-1; its wrapper takes it for
+    CPU tensors."""
+    q, qd, u, _ = (torch.tensor(a) for a in inputs)
+    qdd = torch.tensor(refs["aba"])
+    if with_qdd:
+        want, a = u, qdd
+    else:
+        Mqdd = torch.linalg.solve(torch.tensor(refs["minv"]), qdd)
+        want, a = u - Mqdd, None
+    close(fused.rnea_plain(tm, q, qd, a), want)
+    close(fused.rnea_fused(tm, q, qd, a), want)
+
+
 def test_aba_inverts_rnea(tm, inputs):
     """Cross-consistency inside the port on the floating tree."""
     q, qd, qdd, _ = (torch.tensor(a) for a in inputs)

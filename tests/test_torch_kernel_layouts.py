@@ -1,11 +1,12 @@
 """Launch geometry and shared-memory layouts of K3 (``linearize_parts``),
-K4 (``ee_gn``, ``ee_err``), K5 (``rollout_multi``), K9
-(``feedback_chunked``), the Riccati sweep (``riccati``, K7/K8) and K11
-(``riccati_fused``): ``rbdtpu_torch.kernels._lib`` gives each launch's
-threads, blocks and shared bytes, and the CUDA launch refuses any other
-count.  The C layouts are compiled for the host with g++ and held against
-their Python twins, and K4's, K5's, K9's and K11's per-thread code, built
-for the host, against the plain versions.  Needs no card and no JAX."""
+K4 (``ee_gn``, ``ee_err``), K5 (``rollout_multi``), K6 (``fd_step_minv``),
+K9 (``feedback_chunked``), K10 (``rnea``), the Riccati sweep (``riccati``,
+K7/K8) and K11 (``riccati_fused``): ``rbdtpu_torch.kernels._lib`` gives
+each launch's threads, blocks and shared bytes, and the CUDA launch
+refuses any other count.  The C layouts are compiled for the host with g++
+and held against their Python twins, and K4's, K5's, K6's, K9's, K10's and
+K11's per-thread code, built for the host, against the plain versions.
+Needs no card and no JAX."""
 import shutil
 import subprocess
 
@@ -123,6 +124,8 @@ _PROGRAM = r"""
 #include "linearize.cu"
 #include "rollout_multi.cu"
 #include "ee_gn.cu"
+#include "rnea.cu"
+#include "fd_step_minv.cu"
 int main() {
   const int shapes[][2] = {%s};
   for (const auto& s : shapes) std::printf("%%d\n", rbd::riccati_smem_values(s[0], s[1]));
@@ -133,11 +136,11 @@ int main() {
 
 
 def test_c_layouts_match_python(tmp_path):
-    """riccati_layout, LinLayout, K5's team stride and K4's staging,
-    compiled for the host from the sources in csrc/, give the
+    """riccati_layout, LinLayout, K5's, K6's and K10's team strides and
+    K4's staging, compiled for the host from the sources in csrc/, give the
     shared-memory counts that _lib computes: the sweep's at every shape
-    above, K3's at every class and team size, K5's at every team size,
-    K4's a state of each kernel."""
+    above, K3's, K6's (both routes) and K10's at every class and team size,
+    K5's at every team size, K4's a state of each kernel."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler (g++)")
@@ -153,7 +156,11 @@ def test_c_layouts_match_python(tmp_path):
                for t in _lib.TEAM_SIZES]
             + [show(f"rbd::ee_state_values<{gn}>()")
                for gn in ("true", "false")]
-            + [show("rbd::EE_FIXED")]))
+            + [show("rbd::EE_FIXED")]
+            + [show(f"rbd::rnea_team_stride<rbd::{dims[c]}, {t}>()")
+               for c, t in lin]
+            + [show(f"rbd::MinvStepLayout<rbd::{dims[c]}, {t}, {d}>::STRIDE")
+               for c, t in lin for d in ("false", "true")]))
     (tmp_path / "layouts.cpp").write_text(src)
     exe = tmp_path / "layouts"
     subprocess.run([cxx, "-std=c++17", "-x", "c++", "-I", _lib.CSRC,
@@ -167,7 +174,10 @@ def test_c_layouts_match_python(tmp_path):
             + [_lib.team_values("rollout_multi", "n8", t)
                for t in _lib.TEAM_SIZES]
             + [_lib.ee_values("ee_gn"), _lib.ee_values("ee_err"),
-               _lib.EE_FIXED])
+               _lib.EE_FIXED]
+            + [_lib.team_values("rnea", c, t) for c, t in lin]
+            + [_lib.team_values("fd_step_minv", c, t, d) for c, t in lin
+               for d in (False, True)])
     assert got == want
 
 
@@ -341,6 +351,8 @@ static HostBarrier* g_bar;
 #include "riccati_fused.cu"
 #include "rollout_multi.cu"
 #include "ee_gn.cu"
+#include "rnea.cu"
+#include "fd_step_minv.cu"
 
 // NL std::threads as one team, lane = the thread's index
 template <int NL, class F>
@@ -430,6 +442,52 @@ extern "C" void host_k5(const double* tab, const int* itab, int nb, const double
   run(m, x0, U, fext, xo, B, H, dt, g);
 }
 
+template <class D, bool QDD>
+static void k10(const rbd::Model<double, D>& m, const double* q, const double* qd,
+                const double* qdd, double* tau, int B, double g) {
+  constexpr int NL = 8;
+  const int n = m.nv();
+  std::vector<double> s(rbd::rnea_team_stride<D, NL>());
+  for (int b = 0; b < B; ++b)
+    run_team<NL>([&](const rbd::Team<NL>& tm) {
+      rbd::rnea_team<NL, QDD>(tm, m, s.data(), q + (size_t)b * n, qd + (size_t)b * n,
+                              QDD ? qdd + (size_t)b * n : nullptr, tau + (size_t)b * n, g);
+    });
+}
+
+template <class D, bool DENSE, bool FEXT>
+static void k6(const rbd::Model<double, D>& m, const double* x, const double* u,
+               const double* fext, int fext_stride, double* xo, int B, double dt, double g) {
+  constexpr int NL = 8;
+  const int n = m.nv();
+  std::vector<double> s(rbd::MinvStepLayout<D, NL, DENSE>::STRIDE);
+  for (int b = 0; b < B; ++b)
+    run_team<NL>([&](const rbd::Team<NL>& tm) {
+      rbd::fd_step_minv_team<NL, DENSE, FEXT>(tm, m, s.data(), x + (size_t)b * 2 * n,
+                                              u + (size_t)b * n,
+                                              FEXT ? fext + (size_t)b * fext_stride : nullptr,
+                                              xo + (size_t)b * 2 * n, dt, g);
+    });
+}
+
+#define HOST_K6_K10(CLS, D)                                                                  \
+  extern "C" void host_k10_##CLS(const double* tab, const int* itab, int nb, const double* q, \
+                                 const double* qd, const double* qdd, double* tau, int B,    \
+                                 double g) {                                                 \
+    const rbd::Model<double, rbd::D> m{tab, itab, nb};                                       \
+    (qdd ? k10<rbd::D, true> : k10<rbd::D, false>)(m, q, qd, qdd, tau, B, g);                \
+  }                                                                                          \
+  extern "C" void host_k6_##CLS(const double* tab, const int* itab, int nb, const double* x,  \
+                                const double* u, const double* fext, int fext_stride,        \
+                                double* xo, int B, int dense, double dt, double g) {         \
+    const rbd::Model<double, rbd::D> m{tab, itab, nb};                                       \
+    auto run = dense ? (fext ? k6<rbd::D, true, true> : k6<rbd::D, true, false>)             \
+                     : (fext ? k6<rbd::D, false, true> : k6<rbd::D, false, false>);          \
+    run(m, x, u, fext, fext_stride, xo, B, dt, g);                                           \
+  }
+HOST_K6_K10(n8, N8)
+HOST_K6_K10(fb16, FB16)
+
 extern "C" void host_k4(const double* tab, const int* itab, int nb, const double* ee,
                         int chain, int prism, const double* q, double tx, double ty, double tz,
                         double* e, double* g0, double* H0, int B, int gn) {
@@ -454,8 +512,8 @@ extern "C" void host_k4(const double* tab, const int* itab, int nb, const double
 
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
-    """The host build of K4's, K5's, K9's and K11's bodies, loaded with
-    ctypes."""
+    """The host build of K4's, K5's, K6's, K9's, K10's and K11's bodies,
+    loaded with ctypes."""
     import ctypes
 
     cxx = shutil.which("g++") or shutil.which("c++")
@@ -475,6 +533,10 @@ def host_kernels(tmp_path_factory):
                              + [I] * 4)
     lib.host_k5.argtypes = [P, P, I, P, P, P, P, I, I, I, D, D]
     lib.host_k4.argtypes = [P, P, I, P, I, I, P, D, D, D, P, P, P, I, I]
+    for cls in ("n8", "fb16"):
+        getattr(lib, f"host_k10_{cls}").argtypes = [P, P, I, P, P, P, P, I, D]
+        getattr(lib, f"host_k6_{cls}").argtypes = [P, P, I, P, P, P, I, P, I,
+                                                   I, D, D]
     return lib
 
 
@@ -557,13 +619,17 @@ def test_host_riccati_fused(host_kernels, nx, nu, const, non_pd):
 
 
 def _tree(name):
-    """arm7 (a chain) or the mixed tree (branched, prismatic joints) in
-    float64 on the CPU, with the end effector the card tests use."""
+    """arm7 (a chain), the mixed tree (branched, prismatic joints) or the
+    rpy quadruped in float64 on the CPU, with the end effector the card
+    tests use."""
     from rbdtpu_torch.model import load_asset
     from test_torch_cuda import mixed_tree_urdf
 
     if name == "arm7":
         return load_asset("arm7", device="cpu", dtype=torch.float64), None
+    if name == "quad_rpy":
+        return load_asset("quadruped12", device="cpu", dtype=torch.float64,
+                          floating_base=True), None
     return (parse_urdf(mixed_tree_urdf(), device="cpu", dtype=torch.float64),
             ("j4",))
 
@@ -622,3 +688,67 @@ def test_host_ee_gn(host_kernels, name, gn):
     if gn:
         torch.testing.assert_close(g0, want[1], rtol=0, atol=1e-9)
         torch.testing.assert_close(H0, want[2], rtol=0, atol=1e-9)
+
+
+def _state(m, rng, B):
+    """B float64 states 0.3 N(0,1) (an rpy root 0.4 up) and controls
+    N(0,1)."""
+    x = torch.tensor(0.3 * rng.standard_normal((B, m.nx)))
+    if m.floating_base:
+        x[:, 2] += 0.4
+    return x, torch.tensor(rng.standard_normal((B, m.nv)))
+
+
+@pytest.mark.parametrize("qdd", [True, False], ids=["qdd", "bias"])
+@pytest.mark.parametrize("name", ["arm7", "mixed", "quad_rpy"])
+def test_host_rnea(host_kernels, name, qdd):
+    """K10's team body, built for the host and run by a team of 8 threads
+    a state, against ``rnea_plain`` in float64 (1e-9 relative to tau's
+    scale) on arm7, the mixed tree and the rpy quadruped (fb16), with and
+    without qdd."""
+    from rbdtpu_torch.kernels import fused
+
+    m, _ = _tree(name)
+    tab, itab = _lib.model_tables(m, "cpu", torch.float64)
+    B = 3
+    x, a = _state(m, np.random.default_rng(21), B)
+    q, qd = x[:, :m.nv].contiguous(), x[:, m.nv:].contiguous()
+    a = a if qdd else None
+    tau = torch.empty(B, m.nv, dtype=torch.float64)
+    fn = getattr(host_kernels, f"host_k10_{_lib.size_class('rnea', m)}")
+    fn(_ptr(tab), _ptr(itab), m.nb, _ptr(q), _ptr(qd), _ptr(a), _ptr(tau), B,
+       -9.81)
+    want = fused.rnea_plain(m, q, qd, a)
+    torch.testing.assert_close(tau, want, rtol=0,
+                               atol=1e-9 * max(1.0, want.abs().max().item()))
+
+
+@pytest.mark.parametrize("wrench", ["free", "shared", "batched"])
+@pytest.mark.parametrize("dense", [False, True], ids=["fact", "dense"])
+@pytest.mark.parametrize("name", ["arm7", "mixed", "quad_rpy"])
+def test_host_fd_step_minv(host_kernels, name, dense, wrench):
+    """K6's team body, built for the host and run by a team of 8 threads
+    an element, against ``fd_step_minv_plain`` in float64 (1e-9) on arm7,
+    the mixed tree and the rpy quadruped (fb16), on the factorised route
+    (the M^-1 sweeps, the root's block on the rpy root) and the dense one
+    (M^-1 one column a lane), without wrenches, under one set shared by the
+    batch and under one set an element."""
+    from rbdtpu_torch.kernels import fused
+
+    m, _ = _tree(name)
+    tab, itab = _lib.model_tables(m, "cpu", torch.float64)
+    rng = np.random.default_rng(23)
+    B = 3
+    x, u = _state(m, rng, B)
+    F = {"free": None,
+         "shared": torch.tensor(5.0 * rng.standard_normal((m.nb, 6))),
+         "batched": torch.tensor(5.0 * rng.standard_normal((B, m.nb, 6)))}[
+        wrench]
+    stride = 6 * m.nb if wrench == "batched" else 0
+    xo = torch.empty(B, m.nx, dtype=torch.float64)
+    fn = getattr(host_kernels,
+                 f"host_k6_{_lib.size_class('fd_step_minv', m)}")
+    fn(_ptr(tab), _ptr(itab), m.nb, _ptr(x), _ptr(u), _ptr(F), stride,
+       _ptr(xo), B, int(dense), 0.01, -9.81)
+    want = fused.fd_step_minv_plain(m, x, u, 0.01, f_ext=F)
+    torch.testing.assert_close(xo, want, rtol=0, atol=1e-9)

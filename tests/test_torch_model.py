@@ -63,8 +63,9 @@ def test_model_from_numpy_matches_load_asset(name, kw):
 
 REFUSED = [("dynamics", "quat")] + [
     (k, root) for root in ("quat", "rpy")
-    for k in ("ee_gn", "ee_err", "rnea", "fd_step_minv", "rollout_multi")
-] + [(k, "quat") for k in ("fd_step", "feedback_rollout", "linearize_parts")]
+    for k in ("ee_gn", "ee_err", "rollout_multi")
+] + [(k, "quat") for k in ("fd_step", "feedback_rollout", "linearize_parts",
+                           "rnea", "fd_step_minv")]
 
 
 @pytest.mark.parametrize("what,root", REFUSED,
@@ -72,9 +73,8 @@ REFUSED = [("dynamics", "quat")] + [
 def test_floating_base_dynamics_refuse(what, root):
     """What the port does not cover raises NotImplementedError rather than
     computing a wrong answer: the quaternion root everywhere, the rpy root
-    in the kernels that have no floating-base instantiation (K4, K5, K6,
-    K10).  The CUDA kernels refuse before launching, so this needs no
-    card."""
+    in the kernels that have no floating-base instantiation (K4, K5).  The
+    CUDA kernels refuse before launching, so this needs no card."""
     from rbdtpu_torch.dynamics import aba
     from rbdtpu_torch.kernels import _lib
 
@@ -90,12 +90,14 @@ def test_floating_base_dynamics_refuse(what, root):
 
 
 def test_rpy_root_reaches_its_kernels():
-    """K1-K3 take the rpy root in their floating-base instantiation."""
+    """K1-K3, K6 and K10 take the rpy root in their floating-base
+    instantiation."""
     from rbdtpu_torch.kernels import _lib
 
     m = load_asset("quadruped12", device="cpu", dtype=torch.float64,
                    floating_base=True)
-    for k in ("fd_step", "feedback_rollout", "linearize_parts"):
+    for k in ("fd_step", "feedback_rollout", "linearize_parts", "rnea",
+              "fd_step_minv"):
         assert _lib.size_class(k, m) == "fb16"
     arm = load_asset("arm7", device="cpu", dtype=torch.float64)
     assert _lib.size_class("rollout_multi", arm) == "n8"

@@ -71,10 +71,10 @@ def _state(m, rng):
 
 
 @pytest.mark.parametrize("with_qdd", [False, True])
-def test_rnea(case, with_qdd):
-    m, md, _, rng = case
+def test_rnea(tree_case, with_qdd):
+    m, md, _, rng = tree_case
     x, qdd, _ = _state(m, rng)
-    n = m.nb
+    n = m.nv
     out = oc.rnea_state(md, _nums(x[:n]), _nums(x[n:]),
                         _nums(qdd) if with_qdd else None, G)
     T = lambda a: torch.tensor(a)[None]
@@ -95,8 +95,8 @@ def test_fd_step(tree_case, with_fext):
 
 @pytest.mark.parametrize("dense,with_fext", [(False, False), (True, False),
                                              (False, True)])
-def test_fd_step_minv(case, dense, with_fext):
-    m, md, _, rng = case
+def test_fd_step_minv(tree_case, dense, with_fext):
+    m, md, _, rng = tree_case
     x, u, w = _state(m, rng)
     out = oc.fd_step_minv(md, _nums(x), _nums(u), DT, G, dense,
                           _nums(w) if with_fext else None)
@@ -197,16 +197,19 @@ def test_per_state_keys():
     assert set(ops) == {
         "fd_step", "fd_step+fext", "feedback_rollout", "feedback_chunked",
         "linearize_parts", "ee_gn", "ee_err", "rnea", "rnea+qdd",
-        "fd_step_minv", "fd_step_minv+dense", "fd_step_minv+fext"}
+        "fd_step_minv", "fd_step_minv+dense", "fd_step_minv+fext",
+        "fd_step_minv+dense+fext"}
     assert ops["feedback_chunked"] == ops["feedback_rollout"]
     assert ops["rnea"] < ops["rnea+qdd"] < ops["fd_step_minv"]
     assert ops["ee_err"] < ops["ee_gn"]
     assert ops["fd_step"] < ops["fd_step+fext"]
+    assert ops["fd_step_minv+dense"] < ops["fd_step_minv+dense+fext"]
     fb = load_asset("quadruped12", device="cpu", dtype=torch.float64,
                     floating_base=True)
     assert set(oc.per_state(fb, TARGET)) == {
         "fd_step", "fd_step+fext", "feedback_rollout", "feedback_chunked",
-        "linearize_parts"}
+        "linearize_parts", "rnea", "rnea+qdd", "fd_step_minv",
+        "fd_step_minv+dense", "fd_step_minv+fext", "fd_step_minv+dense+fext"}
 
 
 def test_per_state_humanoid():

@@ -2,7 +2,8 @@
 """Time the step kernels K1 (``fd_step``) and K2 (``feedback_rollout``),
 the chunked line search K9 (``feedback_chunked``), the linearisation K3
 (``linearize_parts``), the end-effector terms K4 (``ee_gn``, ``ee_err``),
-the whole-horizon rollout K5 (``rollout_multi``), the Riccati sweep K7/K8
+the whole-horizon rollout K5 (``rollout_multi``), the M^-1 + RNEA step K6
+(``fd_step_minv``), RNEA K10 (``rnea``), the Riccati sweep K7/K8
 (``riccati``) and the arm-class sweep K11 (``riccati_fused``) on one CUDA
 card, float32, at each path's shapes:
 
@@ -24,7 +25,12 @@ on arm7, ee_gn at 12,800 (the knots of configs[2]) and 128 states (its
 terminal cost) and ee_err at 102,400 (its line search) and 1,024; K5 on
 arm7 at 4096 trajectories x 50 steps (configs[1],
 ``chip_smoke.rollout_inputs``) on each route, and on each route with
-(H, nb, 6) wrenches.  Each time is ``chip_smoke.graph_ms``
+(H, nb, 6) wrenches; K10 (bias and with qdd) and K6 (factorised and
+dense, each without wrenches and with one set shared by the batch or one
+a state) at arm7's 4096 states (``chip_smoke.rollout_inputs``), the rpy
+quadruped's 1024 and the humanoid's 2048 (``chip_smoke.minv_rnea_checks``
+on K1's states; a root whose kernel has no instantiation there is
+reported as such).  Each time is ``chip_smoke.graph_ms``
 (the device's time alone) and, beside it, ``chip_smoke.cuda_ms`` over 20
 single calls (the host's launch included) and ``host_ms``, the host's own
 time a call.  ``--root`` times the
@@ -38,9 +44,10 @@ change, change, parent).
 float32 and float64, K1 at 1, 16 and 256 states and at the path's batch,
 K2 at the path's shape in both walks of the step's root->leaf recursions,
 K9 (two chunks) at the same shape in the walk ``_lib.level_walk`` picks,
-K3 at the path's knots and K5 on arm7 at 4096 x 50 on each route, with
-and without (H, nb, 6) wrenches (graph replay): the measurements
-``_lib.TEAM`` and ``_lib.level_walk`` were fixed from.  Prints one JSON
+K3 at the path's knots, K5 on arm7 at 4096 x 50 on each route, with
+and without (H, nb, 6) wrenches, and K10 and K6 at the shapes above
+(graph replay): the measurements ``_lib.TEAM`` and ``_lib.level_walk``
+were fixed from.  Prints one JSON
 line with the card's name and power limit.
 """
 from __future__ import annotations
@@ -126,6 +133,33 @@ def rollout_args(cs, m64):
     return f32(x0), {"minv": f32(U_minv), "aba": f32(U_aba)}, f32(kw["f_ext"])
 
 
+def minv_rnea_cases(cs, key, m64, fd):
+    """K10's and K6's checks (``chip_smoke.check_kernels``' form, float64)
+    at ``key``'s step shape: arm7 the rollout path's 4096 states, the rpy
+    models K1's states ``fd`` with the extras phases 9 and 15 draw."""
+    if key == "arm7":
+        return [c for c in cs.rollout_inputs(
+            m64, np.random.default_rng(cs.SEED + 3))
+            if c[1] in ("rnea", "fd_step_minv")]
+    seed = cs.SEED + (6 if key == "rpy quadruped" else 91)
+    return cs.minv_rnea_checks(m64, fd, "", *cs.step_extras(
+        m64, fd[0].shape[0], seed))
+
+
+def minv_rnea_calls(cs, m, checks):
+    """(label, call) of each K10/K6 check on model ``m`` in m's dtype."""
+    table = cs.kernel_table()
+    out = []
+    for label, kname, a64, kw, _, _ in checks:
+        a = tuple(t.to(m.dtype).contiguous() for t in a64)
+        k = {n: v.to(m.dtype) if isinstance(v, torch.Tensor) else v
+             for n, v in kw.items()}
+        tag = "K10" if kname == "rnea" else "K6"
+        out.append((f"{tag} {label} B={a[0].shape[0]}",
+                    functools.partial(table[kname][0], m, *a, **k)))
+    return out
+
+
 def compare(cs, label: str) -> dict:
     from rbdtpu_torch.kernels import colvec, fk_lane, fused
     from rbdtpu_torch.kernels.riccati import backward_pass_fused
@@ -140,8 +174,8 @@ def compare(cs, label: str) -> dict:
                          floating_base=fb)
         m32 = load_asset(name, device="cuda", dtype=torch.float32,
                          floating_base=fb)
-        (x, u), k2, k3 = path_inputs(cs, key, m64)
-        x, u = x.float().contiguous(), u.float().contiguous()
+        fd64, k2, k3 = path_inputs(cs, key, m64)
+        x, u = (t.float().contiguous() for t in fd64)
         k2 = tuple(t.float().contiguous() for t in k2)
         k3 = tuple(t.float().contiguous() for t in k3)
         cases = [(f"K1 B={x.shape[0]}",
@@ -175,9 +209,16 @@ def compare(cs, label: str) -> dict:
                                      dtype=torch.float32, device="cuda")
                     cases.append((f"K4 {kernel} B={B}", functools.partial(
                         fk_lane.ee_gn_fused, m32, q, cs.TARGET, gn=gn)))
+        cases += minv_rnea_calls(cs, m32,
+                                 minv_rnea_cases(cs, key, m64, fd64))
         for case, fn in cases:
+            try:
+                fn()
+            except NotImplementedError:
+                out[f"{key} {case}"] = "not instantiated"
+                continue
             out[f"{key} {case}"] = timed(fn)
-        del x, u, k2, k3, cases
+        del fd64, x, u, k2, k3, cases
         torch.cuda.empty_cache()
     for case, B, H, nx, nu in RICCATI_SHAPES:
         prob = tuple(torch.tensor(a, dtype=torch.float32, device="cuda")
@@ -215,6 +256,7 @@ def sweep(cs) -> dict:
             m64 = load_asset(name, device="cuda", dtype=torch.float64,
                              floating_base=fb)
             (x64, u64), k2_64, k3_64 = path_inputs(cs, key, m64)
+            k6 = minv_rnea_cases(cs, key, m64, (x64, u64))
             for dtype in (torch.float32, torch.float64):
                 m = load_asset(name, device="cuda", dtype=dtype,
                                floating_base=fb)
@@ -262,6 +304,8 @@ def sweep(cs) -> dict:
                                         fused.rollout_fused_multi, m,
                                         x0.to(dtype), U, DT, GRAVITY,
                                         route=route, f_ext=fe))
+                for case, fn in minv_rnea_calls(cs, m, k6):
+                    out[f"{team} {key} {sfx} {case}"] = cs.graph_ms(fn)
             torch.cuda.empty_cache()
     return {"label": "team sweep", "ms": out}
 
