@@ -126,7 +126,31 @@ Phases, each ending the run with a nonzero exit when it fails:
    chunks: one K9 launch an iteration and no K2, J falling, its profile,
    the same solve timed on the K2 tier and on the plain pass; then the K9
    tier against the K2 tier in float64 at 142 problems (|dU| < 1e-6,
-   relative |dJ| < 1e-9).
+   relative |dJ| < 1e-9);
+18. path E, quadruped foot reaching (bench.py:509-537): K4's fb16
+   instantiation (``ee_gn``, ``ee_err`` on the rpy root) against its plain
+   version at the path's shapes (ee_gn at 51,200 knots and 1,024 terminal
+   states, ee_err at the line search's 307,200 and 6,144), timed by one
+   call and by graph replay beside its bound; then ``ddp_solve`` of 1,024
+   quadrupeds reaching a foot target, H=50, 5 iterations, 6 line-search
+   steps, float32, ``fused=True``: ms a solve, each kernel's launches a
+   solve (K1 50, K2, K3 and K7 5, ee_gn 10, ee_err 12; the plain sweep
+   none), J finite, nonincreasing and falling, its profile; and float64
+   kernels against plain at Bm=4, H=50 and H=20 (|dU| < 1e-6);
+19. path F, robust MPC under world wrenches: K2 and K9 (nchunks 1, 2, 3)
+   with a per-knot wrench set (a trunk push window on 0.5 N(0,1)) against
+   their plain versions on arm7 (1,024 x 100), the rpy quadruped
+   (configs[3]'s 6 x 1,024 x 50) and the humanoid (path D's 1,024 x 32),
+   each timed, and with all-zero wrenches equal to the wrench-free
+   kernels bit for bit; the port's push-recovery example on the card (the
+   aware plan must beat the oblivious one, K1 and K2 launched with
+   wrenches); configs[3]'s solve at full width under a push (ms a solve,
+   launches, J falling); float64 kernels against plain under the push at
+   Bm=4, H=50 (|dU| < 1e-6); path D under a trunk push (K9 with wrenches
+   once an iteration, no wrench-free K9 or K2); and the hybrid at path C's
+   shapes under a 20 N trunk push in float64, kernels against plain on the
+   same normals (|dU| < 1e-6, relative |dJ| < 1e-9), beside the plain
+   route's own parting when its start moves by 1e-13.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON summary and the result line.  Without a CUDA
@@ -155,7 +179,8 @@ TOL64 = 1e-9
 TOL32 = {"fd_step": 1e-4, "feedback_rollout": 1e-3, "linearize_parts": 1e-4,
          "ee_gn": 1e-4, "ee_err": 1e-4, "rnea": 1e-4, "fd_step_minv": 1e-4,
          "rollout_multi": 1e-3, "riccati": 1e-4, "riccati_fused": 1e-4,
-         "feedback_chunked": 1e-3}
+         "feedback_chunked": 1e-3, "feedback_rollout_fext": 1e-3,
+         "feedback_chunked_fext": 1e-3}
 U_PARITY = 1e-6
 PARITY_H = (100, 20)
 # the team kernels (csrc/rbd_team.cuh): one team of lanes per state (K1),
@@ -165,17 +190,21 @@ PARITY_H = (100, 20)
 # kernels/_lib.py TEAM, K1 with and without wrenches, K2 and K9 in both
 # walks, K10 with and without qdd, K6 on both routes with and without
 # wrenches; K5 on n8 in 2 dtypes x 2 routes x with and without wrenches; K4
-# and each sweep in 2 dtypes), and K1/K2's extra checks run these batches
+# and each sweep in 2 dtypes; K4 on the rpy root and K2 and K9 with
+# wrenches at every class in both walks), and K1/K2's extra checks run these
+# batches
 TEAM_KERNELS = ("fd_step", "feedback_rollout")
 STACK_INSTANCES = {"fd_step": 12, "feedback_rollout": 12,
                    "linearize_parts": 6, "feedback_chunked": 12,
                    "rollout_multi": 8, "ee_gn": 2, "ee_err": 2,
                    "riccati": 2, "riccati_fused": 2, "rnea": 12,
-                   "fd_step_minv": 24}
+                   "fd_step_minv": 24, "ee_gn_rpy": 2, "ee_err_rpy": 2,
+                   "feedback_rollout_fext": 12, "feedback_chunked_fext": 12}
 # the kernels whose rows add graph_ms, the device's time by graph replay
 GRAPH_KERNELS = ("fd_step", "feedback_rollout", "linearize_parts",
                  "feedback_chunked", "rollout_multi", "ee_gn", "ee_err",
-                 "rnea", "fd_step_minv")
+                 "rnea", "fd_step_minv", "feedback_rollout_fext",
+                 "feedback_chunked_fext")
 STACK_MAX = 1024
 TEAM_BATCHES = (1, 37, 1000)
 # the rollout path (BASELINE.json configs[1], bench.py:132-209, 377-416)
@@ -225,6 +254,22 @@ RICCATI_FUSED_CASES = (("configs[2]", 128, 100, 14, 7, False),
 # check (problems, knots, ticks)
 MPC_H, MPC_TICKS, MPC_ITERS, MPC_ALPHAS = 100, 50, 3, 4
 MPC_PARITY = (2, 20, 5)
+# path E, quadruped foot reaching (bench.py:509-537): configs[3]'s problems
+# and solver, the first leaf joint's target and weights; its float64
+# control parity at Bm=4 over these horizons
+TARGET_E = (0.3, 0.1, 0.1)
+WE = dict(w_ee=10.0, w_ee_f=500.0, w_qd=1e-2, w_u=1e-5)
+PARITY_E = (50, 20)
+# path F, robust MPC: a push on the trunk (body 0) of PUSH_N newtons along
+# +y for the knots of PUSH_KNOTS (examples/push_recovery.py's), over
+# 0.5 N(0,1) wrenches on every body for the kernel checks; K9's counts.
+# The hybrid's float64 parity takes PUSH_HYBRID_N: under 80 N the humanoid
+# hybrid's plain route alone parts from itself by 5.1e-10 relative in J
+# when x0 moves by 1e-13 relative (tools/push_conditioning.py), so a 1e-9
+# bound there measures the problem, not the kernels; under 20 N by 3.3e-11.
+# The check prints that floor beside its result.
+PUSH_N, PUSH_KNOTS, PUSH_HYBRID_N = 80.0, (5, 15), 20.0
+NCHUNKS_F = (1, 2, 3)
 
 
 def require(ok: bool, msg: str):
@@ -343,10 +388,12 @@ def kernel_table():
     from rbdtpu_torch.kernels import colvec, fk_lane, fused
 
     def ee(gn):
-        return (lambda m, q: fk_lane.ee_gn_fused(m, q, TARGET, gn=gn),
-                lambda m, q: fk_lane.ee_gn_plain(m, q, TARGET, gn=gn))
+        return (lambda m, q, **kw: fk_lane.ee_gn_fused(m, q, TARGET, gn=gn,
+                                                       **kw),
+                lambda m, q, **kw: fk_lane.ee_gn_plain(m, q, TARGET, gn=gn,
+                                                       **kw))
 
-    return {
+    table = {
         "fd_step": (
             lambda m, x, u, **kw: fused.fd_step_fused(m, x, u, DT, GRAVITY,
                                                       **kw),
@@ -394,6 +441,10 @@ def kernel_table():
             "rbdtpu_torch/csrc/feedback_chunked.cu",
             "rbdtpu/kernels/fused.py:819"),
     }
+    # K2 and K9 with wrenches: the same entry points given f_ext
+    table["feedback_rollout_fext"] = table["feedback_rollout"]
+    table["feedback_chunked_fext"] = table["feedback_chunked"]
+    return table
 
 
 def rollout_inputs(model64, rng):
@@ -628,7 +679,7 @@ def profile_main_path(solve_once, extra=()):
 
 
 def check_kernels(checks, m64, m32, smi: str, rows=None, row_tag: str = "",
-                  time_all: bool = True) -> dict:
+                  time_all: bool = True, ee_names=None) -> dict:
     """Hold each kernel against its plain version (float64 max abs error
     <= TOL64, float32 relative error <= TOL32), time both in float32 and
     compute the bound.  ``checks``: (label, kernel name, float64 args,
@@ -638,11 +689,12 @@ def check_kernels(checks, m64, m32, smi: str, rows=None, row_tag: str = "",
     ``time_all=False`` only that first check is timed.  ``ms`` is one
     call's time with its launch (``cuda_ms``) for every kernel; the rows
     of GRAPH_KERNELS add the device's time alone (``graph_ms``).  Fails
-    after printing every check."""
+    after printing every check.  ``ee_names`` names K4's end effector on a
+    model of several leaves (for its operation count)."""
     import torch
     from rbdtpu_torch import opcount
 
-    flops = opcount.per_state(m32, TARGET)
+    flops = opcount.per_state(m32, TARGET, ee_names=ee_names)
     table = kernel_table()
     rows = {} if rows is None else rows
     failures = []
@@ -1057,14 +1109,17 @@ def quadruped_cost(model):
     return quadratic_tracking_cost(model, goal, **W3)
 
 
-def quadruped_solve(model, x0, U0, iters: int, kernels: bool):
-    """configs[3]'s ``ddp_solve``; ``kernels=False`` takes every plain
-    version (the plain sweep included)."""
+def quadruped_solve(model, x0, U0, iters: int, kernels: bool, cost=None,
+                    f_ext=None):
+    """configs[3]'s ``ddp_solve`` (with ``cost`` in place of its tracking
+    cost, and under the wrenches ``f_ext``, when given); ``kernels=False``
+    takes every plain version (the plain sweep included)."""
     from rbdtpu_torch.solver import DDPConfig, ddp_solve
 
     cfg = DDPConfig(iters=iters, dt=DT, gravity=GRAVITY, n_alphas=ALPHAS3,
                     fused=kernels, fused_riccati=None if kernels else False)
-    return ddp_solve(model, quadruped_cost(model), x0, U0, cfg)
+    return ddp_solve(model, quadruped_cost(model) if cost is None else cost,
+                     x0, U0, cfg, f_ext=f_ext)
 
 
 def quadruped_kernel_inputs(m64, rng):
@@ -1480,7 +1535,8 @@ def humanoid_kernels(h64, h32, arm, quad, smi: str, rows: dict, ptxas: list):
     on arm7 and the rpy quadruped (``arm``, ``quad``: (m64, m32, K2's
     float64 inputs, states x steps)) and at an odd batch, the stack limit
     required unchanged across K9 at fb32 in float64; then K9 against K2 on
-    the same inputs of each model, float64 within TOL64, both timed."""
+    the same inputs of each model, float64 within TOL64, both timed.
+    Returns the humanoid's float64 inputs (``floating_kernel_inputs``)."""
     import torch
     from rbdtpu_torch.kernels import _lib, fused
 
@@ -1568,6 +1624,7 @@ def humanoid_kernels(h64, h32, arm, quad, smi: str, rows: dict, ptxas: list):
               f"CUDA events, {smi})")
         require(err <= TOL64, f"K9 against K2 on {label}: {err:.3e} > "
                 f"{TOL64:g}")
+    return hin
 
 
 def timed_runs(fn, reps: int = 3, warm: bool = True):
@@ -1680,7 +1737,8 @@ def mppi_moved(J0, hist, rel: float = 1e-9) -> int:
     return int((hist < prev * (1 - rel)).sum())
 
 
-def hybrid_parity(m64, smi: str):
+def hybrid_parity(m64, smi: str, f_ext=None, sigmas=(SIGMA_H, SIGMA_MOVE),
+                  tag: str = "path C", floor: bool = False):
     """Phase 16's check of the hybrid at path C's shapes (BH problems, HH
     knots, MPPI_ITERS_H iterations of SAMPLES_H samples, then ITERS_H DDP
     iterations) in float64: ``hybrid_solve`` through the kernels and
@@ -1688,35 +1746,58 @@ def hybrid_parity(m64, smi: str):
     standard normals through ``noise``, at configs[4]'s sigma and at
     SIGMA_MOVE, where MPPI replaces its nominal plan.  |dU| < U_PARITY and
     relative |dJ| < TOL64 over both J histories; at SIGMA_MOVE the MPPI
-    stage must have moved in at least one (iteration, problem) pair."""
+    stage must have moved in at least one (iteration, problem) pair.  With
+    ``f_ext`` both routes solve under those wrenches (``tag`` names the
+    run); with ``floor`` the plain route also solves from x0 moved by
+    1e-13 N(0,1) relative, and how far that parts from it is printed (the
+    problem's own sensitivity to rounding, below which the check cannot
+    resolve the kernels).  Returns the kernel route's launches of its last
+    solve."""
     import torch
+    from rbdtpu_torch.kernels import _lib
     from rbdtpu_torch.solver import (
         DDPConfig, MPPIConfig, hybrid_solve, rollout, trajectory_cost,
     )
 
     x0, U0 = humanoid_problems(m64, BH, HH, np.random.default_rng(SEED + 94))
     cost = humanoid_cost(m64)
-    J0 = trajectory_cost(cost, rollout(m64, x0, U0, DT, GRAVITY), U0)
+    J0 = trajectory_cost(cost, rollout(m64, x0, U0, DT, GRAVITY,
+                                       f_ext=f_ext), U0)
     gen = torch.Generator(device=m64.device).manual_seed(SEED + 95)
     noise = torch.randn((MPPI_ITERS_H, BH, SAMPLES_H, HH, m64.nv),
                         generator=gen, dtype=m64.dtype, device=m64.device)
-    for sigma in (SIGMA_H, SIGMA_MOVE):
+    counts = None
+    rng = np.random.default_rng(SEED + 96)
+    moved_x0 = x0 * (1 + 1e-13 * torch.tensor(
+        rng.standard_normal(x0.shape), dtype=x0.dtype, device=x0.device))
+    runs = ((True, x0), (False, x0)) + (((None, moved_x0),) if floor else ())
+    for sigma in sigmas:
         out = {}
-        for fused in (True, False):
+        for fused, x in runs:
+            _lib.reset_launches()
             state, (mh, dh) = hybrid_solve(
-                m64, cost, x0, U0, None,
+                m64, cost, x, U0, None,
                 MPPIConfig(n_samples=SAMPLES_H, sigma=sigma, dt=DT,
-                           gravity=GRAVITY, fused=fused),
+                           gravity=GRAVITY, fused=bool(fused)),
                 DDPConfig(iters=ITERS_H, dt=DT, gravity=GRAVITY,
-                          n_alphas=ALPHAS_H, fused=fused),
-                mppi_iters=MPPI_ITERS_H, noise=noise)
+                          n_alphas=ALPHAS_H, fused=bool(fused)),
+                mppi_iters=MPPI_ITERS_H, f_ext=f_ext, noise=noise)
+            torch.cuda.synchronize()
+            if fused:
+                counts = dict(_lib.launches)
             out[fused] = (state.U, mh, dh)
+        if floor:
+            (Um, mm, dm), (Up, mp, dp) = out[None], out[False]
+            print(f"{tag} floor f64 sigma={sigma:g}: the plain route from x0 "
+                  f"x (1 + 1e-13 N(0,1)) against the plain route: max|dU| "
+                  f"{(Um - Up).abs().max().item():.3e}, max rel |dJ| "
+                  f"{max(((a - b).abs() / b.abs()).max().item() for a, b in ((mm, mp), (dm, dp))):.3e}")
         (Uk, mk, dk), (Up, mp, dp) = out[True], out[False]
         du = (Uk - Up).abs().max().item()
         dj = max(((a - b).abs() / b.abs()).max().item()
                  for a, b in ((mk, mp), (dk, dp)))
         moved = (mppi_moved(J0, mk), mppi_moved(J0, mp))
-        print(f"path C parity f64 sigma={sigma:g}: hybrid Bm={BH} H={HH} "
+        print(f"{tag} parity f64 sigma={sigma:g}: hybrid Bm={BH} H={HH} "
               f"MPPI {MPPI_ITERS_H} x {SAMPLES_H} samples, DDP {ITERS_H} "
               f"iters, kernels vs plain route, same noise: max|dU| "
               f"{du:.3e} (bound {U_PARITY:g}), max rel |dJ| over both J "
@@ -1727,22 +1808,24 @@ def hybrid_parity(m64, smi: str):
               f"{mk[-1].mean().item():.9g} -> DDP {dk[-1].mean().item():.9g}"
               f" ({smi})")
         require(du < U_PARITY and dj < TOL64 and moved[0] == moved[1],
-                f"path C sigma={sigma:g}: the kernels' hybrid departs from "
+                f"{tag} sigma={sigma:g}: the kernels' hybrid departs from "
                 "the plain route's")
-        require(sigma != SIGMA_MOVE or moved[0] > 0, f"path C sigma="
+        require(sigma != SIGMA_MOVE or moved[0] > 0, f"{tag} sigma="
                 f"{sigma:g}: MPPI never replaced its nominal plan, so the "
                 "check did not reach its update")
+    print(f"{tag} parity kernel-route launches (last solve): {counts}")
+    return counts
 
 
-def humanoid_solve(m, x0, U0, fused_feedback):
+def humanoid_solve(m, x0, U0, fused_feedback, f_ext=None):
     """Path D's ``ddp_solve``: the humanoid tracking task, ITERS_H
     iterations, ALPHAS_H line-search steps, every kernel on, the line
-    search's tier from ``fused_feedback``."""
+    search's tier from ``fused_feedback``, under ``f_ext`` when given."""
     from rbdtpu_torch.solver import DDPConfig, ddp_solve
 
     return ddp_solve(m, humanoid_cost(m), x0, U0, DDPConfig(
         iters=ITERS_H, dt=DT, gravity=GRAVITY, n_alphas=ALPHAS_H, fused=True,
-        fused_feedback=fused_feedback))
+        fused_feedback=fused_feedback), f_ext=f_ext)
 
 
 def humanoid_ddp_path(m32, m64, smi: str) -> dict:
@@ -1829,6 +1912,325 @@ def humanoid_ddp_path(m32, m64, smi: str) -> dict:
     return results[True][3]
 
 
+def foot_cost(model, fused: bool = True):
+    """Path E's cost (bench.py:525-530): ``ee_reaching_cost`` toward
+    TARGET_E at the first leaf joint (a front foot's knee), weights WE;
+    ``fused=False`` takes K4's plain version."""
+    from rbdtpu_torch.solver import ee_reaching_cost
+
+    return ee_reaching_cost(model, TARGET_E, ee_names=foot_ee(model),
+                            fused=None if fused else False, **WE)
+
+
+def foot_ee(model):
+    return (model.joint_names[model.leaves()[0]],)
+
+
+def foot_kernels(q64, q32, smi: str, rows: dict):
+    """Phase 18's kernel checks: K4's fb16 instantiation against its plain
+    version at path E's shapes: ee_gn at the B3 x H3 knots of a
+    quadratisation and the B3 terminal states, ee_err at the line search's
+    ALPHAS3 x B3 x H3 stage states and ALPHAS3 x B3 terminal ones;
+    configurations from configs[3]'s start with 0.1 N(0,1) more on every
+    coordinate."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 100)
+
+    def qs(B):
+        x0, _ = quadruped_problems(q64, B, 1, rng)
+        q = x0[:, :q64.nq]
+        return (q + torch.tensor(0.1 * rng.standard_normal(q.shape),
+                                 dtype=q.dtype, device=q.device)).contiguous()
+
+    kw = {"ee_names": foot_ee(q64)}
+    checks = [("ee_gn rpy knots", "ee_gn", (qs(B3 * H3),), kw, "ee_gn",
+               B3 * H3),
+              ("ee_gn rpy terminal", "ee_gn", (qs(B3),), kw, "ee_gn", B3),
+              ("ee_err rpy line search", "ee_err", (qs(ALPHAS3 * B3 * H3),),
+               kw, "ee_err", ALPHAS3 * B3 * H3),
+              ("ee_err rpy terminal", "ee_err", (qs(ALPHAS3 * B3),), kw,
+               "ee_err", ALPHAS3 * B3)]
+    check_kernels(checks, q64, q32, smi, rows, row_tag="_fb16",
+                  ee_names=foot_ee(q64))
+
+
+def foot_path(q32, smi: str) -> dict:
+    """Phase 18, path E (bench.py:509-537) through the port's entry points:
+    ``ddp_solve`` of B3 quadrupeds (configs[3]'s start, gravity
+    compensation) reaching TARGET_E with the first leaf, H3 knots, ITERS3
+    iterations, ALPHAS3 line-search steps, float32, ``fused=True``.  One
+    warm-up solve, then three timed ones with the counts set to 0 just
+    before: per solve K1 H3 times, K2, K3 and K7 once an iteration, ee_gn
+    twice an iteration (knots and terminal), ee_err twice for J0 and twice
+    an iteration (the line search's stage and terminal costs), the plain
+    sweep never.  J finite, nonincreasing and falling; its profile.
+    Returns the counts of the three solves."""
+    import torch
+    from rbdtpu_torch.kernels import _lib
+    from rbdtpu_torch.kernels.fused import fd_step_fused
+    from rbdtpu_torch.solver import ddp, trajectory_cost
+
+    x0, U0 = quadruped_problems(q32, B3, H3, np.random.default_rng(SEED + 101))
+    cost = foot_cost(q32)
+    xs = [x0]
+    for t in range(H3):
+        xs.append(fd_step_fused(q32, xs[-1], U0[:, t].contiguous(), DT,
+                                GRAVITY))
+    J0 = trajectory_cost(cost, torch.stack(xs, dim=-2), U0)
+    run = lambda: quadruped_solve(q32, x0, U0, ITERS3, True, cost=cost)
+    run()
+    torch.cuda.synchronize()
+    plain_sweeps = []
+    plain = ddp.backward_pass
+    ddp.backward_pass = lambda *a, **kw: plain_sweeps.append(1) or plain(
+        *a, **kw)
+    _lib.reset_launches()
+    try:
+        (state, J_hist), times = timed_runs(run, warm=False)
+    finally:
+        ddp.backward_pass = plain
+    counts = dict(_lib.launches)
+    per_solve = {"fd_step": H3, "feedback_rollout": ITERS3,
+                 "linearize_parts": ITERS3, "riccati_chunk": ITERS3,
+                 "ee_gn": 2 * ITERS3, "ee_err": 2 + 2 * ITERS3}
+    print(f"path E launches (3 solves): {counts}; per solve "
+          f"{ {k: counts[k] / 3 for k in per_solve} }; plain sweeps "
+          f"{len(plain_sweeps)}")
+    for k, v in per_solve.items():
+        require(counts[k] == 3 * v, f"path E: {k} launched {counts[k]} times "
+                f"in 3 solves, expected {3 * v}")
+    require(not plain_sweeps and counts["riccati_small"] == 0,
+            "path E: the plain sweep or the small-batch site ran")
+    require(tuple(J_hist.shape) == (ITERS3, B3), f"J_hist {J_hist.shape}")
+    require(bool(J_hist.isfinite().all()), "path E: non-finite J")
+    require(bool((J_hist[1:] <= J_hist[:-1]).all()) and bool(
+        (J_hist[0] <= J0 * (1 + 1e-6)).all()), "path E: J increased")
+    require(J_hist[-1].mean() < J0.mean(), "path E: mean J did not fall")
+    sec = statistics.median(times)
+    print(f"path E: quadruped12 rpy foot reaching {foot_ee(q32)[0]} -> "
+          f"{TARGET_E}, Bm={B3} H={H3} iters={ITERS3} alphas={ALPHAS3} f32 "
+          f"fused: mean J {J0.mean().item():.6g} -> "
+          f"{J_hist[-1].mean().item():.6g}; solve {sec * 1e3:.1f} ms (median "
+          f"of 3: {' '.join(f'{t * 1e3:.1f}' for t in times)}, CUDA events) "
+          f"= {B3 / sec:.1f} solves/s on {smi}")
+    profile_main_path(run)
+    return counts
+
+
+def foot_parity(q64):
+    """Path E in float64 at Bm=4 through the kernels and through the plain
+    versions (K4's included) at each horizon of PARITY_E, ITERS3
+    iterations: max |U_kernel - U_plain| < U_PARITY."""
+    for Hp in PARITY_E:
+        x0, U0 = quadruped_problems(q64, 4, Hp,
+                                    np.random.default_rng(SEED + 102))
+        sk, _ = quadruped_solve(q64, x0, U0, ITERS3, True, cost=foot_cost(q64))
+        sp, _ = quadruped_solve(q64, x0, U0, ITERS3, False,
+                                cost=foot_cost(q64, fused=False))
+        du = (sk.U - sp.U).abs().max().item()
+        dj = ((sk.J - sp.J).abs() / sp.J.abs().clamp(min=1)).max().item()
+        print(f"path E parity f64 Bm=4 H={Hp} iters={ITERS3}: "
+              f"max|U_kernel - U_plain| {du:.3e} (bound {U_PARITY:g}); max "
+              f"rel |dJ| {dj:.3e}")
+        require(du < U_PARITY, f"path E control parity at H={Hp}: {du:.3e} "
+                f">= {U_PARITY:g}")
+
+
+def push_wrenches(model, H: int, noise: float = 0.0, seed: int = 0,
+                  newtons: float = PUSH_N):
+    """(H, nb, 6) world-frame wrenches on ``model``'s device and dtype:
+    ``newtons`` along +y on the trunk (body 0) for the knots of
+    PUSH_KNOTS, over ``noise`` N(0,1) on every body (from ``seed``)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    F = noise * rng.standard_normal((H, model.nb, 6))
+    F[PUSH_KNOTS[0]:PUSH_KNOTS[1], 0, 4] += newtons
+    return torch.tensor(F, dtype=model.dtype, device=model.device)
+
+
+def fext_kernels(models, smi: str, rows: dict):
+    """Phase 19's kernel checks: K2 and K9 (NCHUNKS_F) with per-knot
+    wrenches (``push_wrenches`` over 0.5 N(0,1)) against their plain
+    versions on each of ``models`` ((label, m64, m32, K2's float64 inputs,
+    row tag)): float64 within TOL64, float32 within TOL32, timed (K9's
+    first count); then, in both dtypes, K2 and K9 under all-zero wrenches
+    equal the wrench-free kernels bit for bit."""
+    import torch
+    from rbdtpu_torch.kernels import fused
+
+    for i, (label, m64, m32, fb, tag) in enumerate(models):
+        B, H = fb[2].shape[:2]
+        F = push_wrenches(m64, H, 0.5, SEED + 110 + i)
+        checks = [(f"feedback_rollout f_ext {label}", "feedback_rollout_fext",
+                   fb, {"f_ext": F}, "feedback_rollout+fext", B * H)]
+        checks += [(f"feedback_chunked f_ext {label} nchunks={c}",
+                    "feedback_chunked_fext", fb, {"f_ext": F, "nchunks": c},
+                    "feedback_chunked+fext", B * H) for c in NCHUNKS_F]
+        check_kernels(checks, m64, m32, smi, rows, row_tag=tag,
+                      time_all=False)
+        for m in (m64, m32):
+            args = tuple(a.to(m.dtype) for a in fb)
+            Z = torch.zeros(H, m.nb, 6, dtype=m.dtype, device=m.device)
+            pairs = [(fused.feedback_rollout_fused(m, *args, DT, GRAVITY,
+                                                   f_ext=Z),
+                      fused.feedback_rollout_fused(m, *args, DT, GRAVITY))]
+            pairs += [(fused.feedback_rollout_fused_chunked(
+                m, *args, DT, GRAVITY, nchunks=c, f_ext=Z),
+                fused.feedback_rollout_fused_chunked(
+                    m, *args, DT, GRAVITY, nchunks=c)) for c in NCHUNKS_F]
+            same = all(torch.equal(a, b) for w, z in pairs
+                       for a, b in zip(w, z))
+            print(f"kernel feedback_rollout/feedback_chunked f_ext=0 {label} "
+                  f"{str(m.dtype)[6:]}: equal to the wrench-free kernels bit "
+                  f"for bit: {same}")
+            require(same, f"K2/K9 with zero wrenches on {label} differ from "
+                    "the wrench-free kernels")
+
+
+class WrenchSpy:
+    """Counts the calls of the step kernel's entry point (K1) with and
+    without wrenches made through ``solver.ddp`` and ``solver.rollout``
+    while it is entered."""
+
+    def __enter__(self):
+        from rbdtpu_torch.kernels import fused
+        from rbdtpu_torch.solver import ddp
+
+        self.calls = {"with": 0, "without": 0}
+        self.saved = [(mod, mod.fd_step_fused) for mod in (ddp, fused)]
+        real = fused.fd_step_fused
+
+        def spy(*a, **kw):
+            self.calls["with" if kw.get("f_ext") is not None
+                       else "without"] += 1
+            return real(*a, **kw)
+
+        for mod, _ in self.saved:
+            mod.fd_step_fused = spy
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn in self.saved:
+            mod.fd_step_fused = fn
+
+
+def push_path(q32, q64, h32, h64, smi: str) -> dict:
+    """Phase 19's paths (path F): the port's push-recovery example on the
+    card; configs[3]'s solve at full width under a trunk push (one warm-up,
+    three timed solves: K1 H3 and K2 with wrenches ITERS3 a solve, no
+    wrench-free K2; J finite, nonincreasing, falling); its float64 parity
+    under the push at Bm=4, H=H3; path D under a trunk push (K9 with
+    wrenches once an iteration, no wrench-free K9 or K2, J falling); and
+    the hybrid at path C's shapes and configs[4]'s sigma under a push of
+    PUSH_HYBRID_N, float64 kernels against plain on hybrid_parity's
+    normals, beside the plain route's floor.  Returns the launches of
+    each run: (example, configs[3], path D, hybrid)."""
+    import torch
+    from rbdtpu_torch.examples import push_recovery
+    from rbdtpu_torch.kernels import _lib
+    from rbdtpu_torch.solver import rollout, trajectory_cost
+
+    _lib.reset_launches()
+    with WrenchSpy() as spy:
+        t = time.perf_counter()
+        aware, oblivious = push_recovery.run("cuda")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+    ex = dict(_lib.launches)
+    print(f"path F push recovery (rbdtpu_torch/examples/push_recovery.py, "
+          f"B={push_recovery.B} H={push_recovery.H} iters="
+          f"{push_recovery.ITERS}, f32, kernels): disturbed cost aware plan "
+          f"{aware:.6g}, oblivious plan {oblivious:.6g}; {sec:.2f} s for both "
+          f"solves and the scoring rollout; launches {ex}; K1 calls with "
+          f"wrenches {spy.calls['with']}, without {spy.calls['without']} "
+          f"({smi})")
+    require(aware < oblivious, "path F: the disturbance-aware plan does not "
+            "beat the oblivious one under the push")
+    require(spy.calls["with"] >= 2 * push_recovery.H
+            and ex["feedback_rollout_fext"] == push_recovery.ITERS
+            and ex["feedback_rollout"] == push_recovery.ITERS,
+            f"path F example: K1 with wrenches {spy.calls}, K2 {ex}")
+
+    x0, U0 = quadruped_problems(q32, B3, H3, np.random.default_rng(SEED + 30))
+    F = push_wrenches(q32, H3)
+    J0 = trajectory_cost(quadruped_cost(q32),
+                         rollout(q32, x0, U0, DT, GRAVITY, fused=True,
+                                 f_ext=F), U0)
+    run = lambda: quadruped_solve(q32, x0, U0, ITERS3, True, f_ext=F)
+    run()
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    with WrenchSpy() as spy:
+        (state, J_hist), times = timed_runs(run, warm=False)
+    q3 = dict(_lib.launches)
+    sec = statistics.median(times)
+    print(f"path F configs[3] under a push of {PUSH_N:g} N on the trunk at "
+          f"knots {PUSH_KNOTS[0]}-{PUSH_KNOTS[1] - 1}: Bm={B3} H={H3} iters="
+          f"{ITERS3} f32 fused: mean J {J0.mean().item():.6g} -> "
+          f"{J_hist[-1].mean().item():.6g}; solve {sec * 1e3:.1f} ms (median "
+          f"of 3: {' '.join(f'{t * 1e3:.1f}' for t in times)}, CUDA events) "
+          f"= {B3 / sec:.1f} solves/s; launches (3 solves) {q3}; K1 calls "
+          f"with wrenches {spy.calls['with']}, without "
+          f"{spy.calls['without']} on {smi}")
+    require(spy.calls == {"with": 3 * H3, "without": 0}
+            and q3["feedback_rollout_fext"] == 3 * ITERS3
+            and q3["feedback_rollout"] == 0 and q3["feedback_chunked"] == 0,
+            f"path F configs[3]: K1 {spy.calls}, launches {q3}")
+    require(bool(J_hist.isfinite().all()), "path F configs[3]: non-finite J")
+    require(bool((J_hist[1:] <= J_hist[:-1]).all()) and bool(
+        (J_hist[0] <= J0 * (1 + 1e-6)).all()), "path F configs[3]: J rose")
+    require(J_hist[-1].mean() < J0.mean(), "path F configs[3]: J did not "
+            "fall")
+
+    x0, U0 = quadruped_problems(q64, 4, H3, np.random.default_rng(SEED + 40))
+    F64 = push_wrenches(q64, H3)
+    sk, _ = quadruped_solve(q64, x0, U0, ITERS3, True, f_ext=F64)
+    sp, _ = quadruped_solve(q64, x0, U0, ITERS3, False, f_ext=F64)
+    du = (sk.U - sp.U).abs().max().item()
+    dj = ((sk.J - sp.J).abs() / sp.J.abs().clamp(min=1)).max().item()
+    print(f"path F configs[3] parity f64 under the push Bm=4 H={H3} iters="
+          f"{ITERS3}: max|U_kernel - U_plain| {du:.3e} (bound {U_PARITY:g}); "
+          f"max rel |dJ| {dj:.3e}")
+    require(du < U_PARITY, f"path F control parity: {du:.3e}")
+
+    x0, U0 = humanoid_problems(h32, BD, HH, np.random.default_rng(SEED + 92))
+    FD = push_wrenches(h32, HH)
+    J0 = trajectory_cost(humanoid_cost(h32),
+                         rollout(h32, x0, U0, DT, GRAVITY, fused=True,
+                                 f_ext=FD), U0)
+    run = lambda: humanoid_solve(h32, x0, U0, True, f_ext=FD)
+    run()
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    (state, J_hist), times = timed_runs(run, warm=False)
+    pd = dict(_lib.launches)
+    sec = statistics.median(times)
+    print(f"path F path D under a push of {PUSH_N:g} N on the trunk: Bm={BD} "
+          f"H={HH} iters={ITERS_H} alphas={ALPHAS_H} f32 fused_feedback=True:"
+          f" mean J {J0.mean().item():.6g} -> {J_hist[-1].mean().item():.6g};"
+          f" solve {sec * 1e3:.1f} ms (median of 3: "
+          f"{' '.join(f'{t * 1e3:.1f}' for t in times)}, CUDA events); "
+          f"launches (3 solves) {pd} on {smi}")
+    require(pd["feedback_chunked_fext"] == 3 * ITERS_H
+            and pd["feedback_chunked"] == 0 and pd["feedback_rollout"] == 0
+            and pd["feedback_rollout_fext"] == 0,
+            f"path F path D: launches {pd}")
+    require(bool(J_hist.isfinite().all()) and bool(
+        (J_hist[1:] <= J_hist[:-1]).all()) and bool(
+        (J_hist[-1] < J0).all()), "path F path D: J not finite or not "
+        "falling")
+
+    hy = hybrid_parity(h64, smi, f_ext=push_wrenches(
+        h64, HH, newtons=PUSH_HYBRID_N), sigmas=(SIGMA_H,),
+        tag="path F hybrid", floor=True)
+    require(hy["feedback_rollout_fext"] == ITERS_H
+            and hy["feedback_rollout"] == 0,
+            f"path F hybrid: K2 launches {hy}")
+    return ex, q3, pd, hy
+
+
 def main() -> int:
     import torch
 
@@ -1840,6 +2242,12 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    clock = time.perf_counter()
+
+    def mark(phase: int):
+        print(f"chip_smoke: phase {phase} from {time.perf_counter() - clock:.1f} "
+              "s")
 
     # ---- 1. identify and build ----
     name = torch.cuda.get_device_name(0)
@@ -1861,6 +2269,7 @@ def main() -> int:
         print(line)
     team_stack_check(ptxas)
 
+    mark(2)
     # ---- 2. the DDP path's kernels against their plain versions ----
     m64 = load_asset("arm7", device="cuda", dtype=torch.float64)
     m32 = load_asset("arm7", device="cuda", dtype=torch.float32)
@@ -1877,6 +2286,7 @@ def main() -> int:
     team_report("arm7", m64, m32, inputs64["fd_step"],
                 inputs64["feedback_rollout"])
 
+    mark(3)
     # ---- 3. the main path: arm7 EE reaching DDP, float32, kernels ----
     Bm, H, iters = 128, 100, 10
     counts, x0, U0 = arm_path(m32, smi, "main path", Bm, H, iters)
@@ -1884,18 +2294,22 @@ def main() -> int:
         require(counts[kname] > 0, f"{kname} was not launched on the main path")
         rows[kname]["launches"] = counts[kname]
 
+    mark(4)
     # ---- 4. solver parity in float64: kernels vs plain versions ----
     arm_parity(m64, "parity", iters)
 
+    mark(5)
     # ---- 5. where the main path's time goes ----
     profile_main_path(lambda: solve(m32, x0, U0, fused=True, iters=iters))
 
+    mark(6)
     # ---- 6. the rollout path's kernels against their plain versions, after
     # the DDP path so that its host-bound solve runs in the same process
     # state as before they existed ----
     check_kernels(rollout_inputs(m64, np.random.default_rng(SEED + 3)),
                   m64, m32, smi, rows)
 
+    mark(7)
     # ---- 7. the rollout path: 4096 x H=50 arm7 rollouts, float32 ----
     counts = rollout_path(m32, np.random.default_rng(SEED + 4), smi)
     for kname in ROLLOUT_KERNELS:
@@ -1904,9 +2318,11 @@ def main() -> int:
         rows[kname]["launches"] = counts[kname]
     rows["rnea"]["launches"] = counts["rnea"]
 
+    mark(8)
     # ---- 8. the Riccati sweep kernel against the plain sweep ----
     check_riccati(smi, rows)
 
+    mark(9)
     # ---- 9. K1-K3 on the rpy floating root, at configs[3]'s shapes ----
     q64 = load_asset("quadruped12", device="cuda", dtype=torch.float64,
                      floating_base=True)
@@ -1925,20 +2341,24 @@ def main() -> int:
     team_report("rpy quadruped", q64, q32, qin["fd_step"],
                 qin["feedback_rollout"])
 
+    mark(10)
     # ---- 10. the configs[3] path: 1024 quadruped MPC problems, float32 ----
     counts = quadruped_path(q32, smi)
     rows["riccati_chunk"]["launches"] = counts["riccati_chunk"]
 
+    mark(11)
     # ---- 11. configs[3] control parity, kernels vs plain, float64 ----
     counts = quadruped_parity(q64)
     require(counts["riccati_small"] > 0,
             "the sweep's small-batch call site was not launched")
     rows["riccati_small"]["launches"] = counts["riccati_small"]
 
+    mark(12)
     # ---- 12. the arm-class Riccati sweep kernel (K11) against the plain
     # sweep ----
     check_riccati_fused(smi, rows)
 
+    mark(13)
     # ---- 13. path A: configs[2] with the backward pass through K11 ----
     counts, x0, U0 = arm_path(m32, smi, "path A", Bm, H, iters,
                               fused_riccati=True)
@@ -1953,25 +2373,29 @@ def main() -> int:
                       extra=("backward_pass_fused",))
     arm_parity(m64, "path A parity", iters, fused_riccati=True)
 
+    mark(14)
     # ---- 14. path B: the closed-loop MPC loop ----
     mpc_path(m32, m64, smi)
 
+    mark(15)
     # ---- 15. the humanoid's kernels: K1-K3 at fb32 and K9 ----
     h64 = load_asset("humanoid30", device="cuda", dtype=torch.float64,
                      floating_base=True)
     h32 = load_asset("humanoid30", device="cuda", dtype=torch.float32,
                      floating_base=True)
-    humanoid_kernels(
+    hin = humanoid_kernels(
         h64, h32, (m64, m32, inputs64["feedback_rollout"], 1024 * 100),
         (q64, q32, qin["feedback_rollout"], ALPHAS3 * B3 * H3), smi, rows,
         ptxas)
 
+    mark(16)
     # ---- 16. path C: configs[4], the humanoid MPPI -> DDP hybrid ----
     counts = hybrid_path(h32, smi)
     rows["fd_step_fb32"]["launches"] = counts["fd_step"]
     rows["feedback_rollout_fb32"]["launches"] = counts["feedback_rollout"]
     hybrid_parity(h64, smi)
 
+    mark(17)
     # ---- 17. path D: the 256-problem humanoid DDP on the K9 tier ----
     counts = humanoid_ddp_path(h32, h64, smi)
     for kname in ("linearize_parts", "feedback_chunked"):
@@ -1979,6 +2403,44 @@ def main() -> int:
     rows["linearize_parts_fb32"]["launches"] = counts["linearize_parts"]
     rows["feedback_chunked"]["launches"] = counts["feedback_chunked"]
 
+    mark(18)
+    # ---- 18. path E: quadruped foot reaching, K4 on the rpy root ----
+    foot_kernels(q64, q32, smi, rows)
+    counts = foot_path(q32, smi)
+    for k in ("ee_gn", "ee_err"):
+        rows[f"{k}_fb16"]["launches"] = counts[k]
+    foot_parity(q64)
+
+    mark(19)
+    # ---- 19. path F: robust MPC, K2 and K9 with wrenches ----
+    # K2 and K9 with wrenches are team kernels too: at fb32 in float64 they
+    # run within the stack limit the earlier phases left
+    limit = _lib.stack_limit(h64.device)
+    fext_kernels([
+        ("arm7", m64, m32, inputs64["feedback_rollout"], ""),
+        ("rpy quadruped", q64, q32, qin["feedback_rollout"], "_fb16"),
+        ("humanoid", h64, h32, hin["feedback_rollout"], "_fb32")],
+        smi, rows)
+    grown = _lib.stack_limit(h64.device)
+    print(f"stack limit {limit} B a thread before K2 and K9 with wrenches, "
+          f"{grown} B after them ({smi})")
+    require(grown == limit, f"K2 or K9 with wrenches raised the stack limit "
+            f"from {limit} to {grown} B a thread")
+    ex, q3, pd, hy = push_path(q32, q64, h32, h64, smi)
+    rows["feedback_rollout_fext_fb16"]["launches"] = (
+        ex["feedback_rollout_fext"] + q3["feedback_rollout_fext"])
+    rows["feedback_chunked_fext_fb32"]["launches"] = pd[
+        "feedback_chunked_fext"]
+    rows["feedback_rollout_fext_fb32"]["launches"] = hy[
+        "feedback_rollout_fext"]
+    # arm7's (n8) K2 and K9 with wrenches and the quadruped's K9 with
+    # wrenches: held against their plain versions above, launched by no
+    # path of this script (the quadruped's line searches take K2)
+    for k in ("feedback_rollout_fext", "feedback_chunked_fext",
+              "feedback_chunked_fext_fb16"):
+        rows[k]["launches"] = 0
+
+    print(f"chip_smoke: phases 1-19 took {time.perf_counter() - clock:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [
         {k: rows[n_][k] for k in (

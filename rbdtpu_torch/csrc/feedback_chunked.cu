@@ -32,7 +32,9 @@
 // batch gives every SM a block, and the grid covers any B down to 1.
 // Layouts (row-major): x0 (B, nx), Xn/Xo (B, H, nx), Un/kf/Uo (B, H, n),
 // Kf (B, H, n, nx), n = nv, nx = 2 nv.  Instantiated for N8, FB16 and FB32
-// in both walks.
+// in both walks.  feedback_chunked_fext takes world-frame wrenches, fext
+// (H, nb, 6), as feedback_rollout_fext does (feedback_team.cuh
+// BlockWrench), under its own C symbols.
 #include "feedback_team.cuh"
 
 #ifdef __CUDACC__
@@ -55,6 +57,32 @@ __global__ void __launch_bounds__(32)
   rbd::feedback_rollout_team<NL, LV>(tm, m, s, x0 + (size_t)b * nx, Xn + bx, Un + bu, kf + bu,
                                      Kf + bu * nx, uclip, Xo + bx, Uo + bu, H, dt, gravity,
                                      rbd::ChunkSum{cw});
+}
+
+// The wrench variant: fext (H, nb, 6), one set a knot shared by the batch,
+// staged once a block ahead of the teams (feedback_team.cuh BlockWrench);
+// a team past the batch runs the block's last trajectory and writes nothing.
+template <int NL, bool LV, typename T, class D>
+__global__ void __launch_bounds__(32)
+    feedback_chunked_fext_kernel(rbd::Model<T, D> m, const T* __restrict__ x0,
+                                 const T* __restrict__ Xn, const T* __restrict__ Un,
+                                 const T* __restrict__ kf, const T* __restrict__ Kf,
+                                 const T* __restrict__ fext, const T* __restrict__ uclip,
+                                 T* __restrict__ Xo, T* __restrict__ Uo, int B, int H, int cw,
+                                 int tpb, T dt, T gravity) {
+  extern __shared__ __align__(16) unsigned char fbw_smem[];
+  const rbd::Team<NL> tm = this_team<NL>();
+  const int tix = (int)threadIdx.x / NL;
+  const int b = blockIdx.x * tpb + tix, bb = b < B ? b : B - 1;
+  const int n = m.nv(), nx = 2 * n;
+  const size_t bx = (size_t)bb * H * nx, bu = (size_t)bb * H * n;
+  T* stage = reinterpret_cast<T*>(fbw_smem);
+  T* s = stage + rbd::feedback_wrench_values<D>() +
+         (size_t)tix * rbd::feedback_team_stride<D, NL, true>();
+  const rbd::BlockWrench<T, D> w{fext, stage, (int)threadIdx.x, (int)blockDim.x, m.nb, b < B};
+  rbd::feedback_rollout_team<NL, LV>(tm, m, s, x0 + (size_t)bb * nx, Xn + bx, Un + bu, kf + bu,
+                                     Kf + bu * nx, uclip, Xo + bx, Uo + bu, H, dt, gravity,
+                                     rbd::ChunkSum{cw}, w);
 }
 
 template <int NL, typename T, class D>
@@ -80,6 +108,29 @@ static int launch_feedback_chunked(const T* tab, const int* itab, int nb, const 
   return (int)cudaGetLastError();
 }
 
+template <int NL, typename T, class D>
+static int launch_feedback_chunked_fext(const T* tab, const int* itab, int nb, const T* x0,
+                                        const T* Xn, const T* Un, const T* kf, const T* Kf,
+                                        const T* fext, const T* uclip, T* Xo, T* Uo, int B,
+                                        int H, int cw, int nc, int levels, int tpb, int smem,
+                                        T dt, T gravity, void* stream) {
+  if (B <= 0 || H <= 0) return 0;
+  if (nb > D::NB || tpb * NL > 32 || (levels != 0 && levels != 1) || fext == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const rbd::Model<T, D> m{tab, itab, nb};
+  const int ndx = 2 * m.nv();
+  if (cw < 1 || nc < 1 || (nc - 1) * cw >= ndx || nc * cw < ndx)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = levels ? feedback_chunked_fext_kernel<NL, true, T, D>
+                       : feedback_chunked_fext_kernel<NL, false, T, D>;
+  const int err = team_smem_check(kernel, smem, tpb, rbd::feedback_team_stride<D, NL, true>(),
+                                  sizeof(T), rbd::feedback_wrench_values<D>());
+  if (err != 0) return err;
+  kernel<<<(B + tpb - 1) / tpb, tpb * NL, smem, (cudaStream_t)stream>>>(
+      m, x0, Xn, Un, kf, Kf, fext, uclip, Xo, Uo, B, H, cw, tpb, dt, gravity);
+  return (int)cudaGetLastError();
+}
+
 #define RBD_FEEDBACK_CHUNKED(CLS, D, T, SFX)                                                 \
   int rbd_feedback_chunked_##CLS##_##SFX(const T* tab, const int* itab, int nb, const T* x0, \
                                          const T* Xn, const T* Un, const T* kf, const T* Kf, \
@@ -91,6 +142,17 @@ static int launch_feedback_chunked(const T* tab, const int* itab, int nb, const 
         dt, gravity, stream);                                                                \
   }
 
+#define RBD_FEEDBACK_CHUNKED_FEXT(CLS, D, T, SFX)                                           \
+  int rbd_feedback_chunked_fext_##CLS##_##SFX(                                              \
+      const T* tab, const int* itab, int nb, const T* x0, const T* Xn, const T* Un,         \
+      const T* kf, const T* Kf, const T* fext, const T* uclip, T* Xo, T* Uo, int B, int H,  \
+      int cw, int nc, int levels, int tpb, int smem, T dt, T gravity, void* stream) {       \
+    return launch_feedback_chunked_fext<RBD_TEAM_feedback_chunked_fext_##CLS##_##SFX, T,    \
+                                        rbd::D>(tab, itab, nb, x0, Xn, Un, kf, Kf, fext,    \
+                                                uclip, Xo, Uo, B, H, cw, nc, levels, tpb,   \
+                                                smem, dt, gravity, stream);                 \
+  }
+
 extern "C" {
 RBD_FEEDBACK_CHUNKED(n8, N8, float, f32)
 RBD_FEEDBACK_CHUNKED(n8, N8, double, f64)
@@ -98,6 +160,12 @@ RBD_FEEDBACK_CHUNKED(fb16, FB16, float, f32)
 RBD_FEEDBACK_CHUNKED(fb16, FB16, double, f64)
 RBD_FEEDBACK_CHUNKED(fb32, FB32, float, f32)
 RBD_FEEDBACK_CHUNKED(fb32, FB32, double, f64)
+RBD_FEEDBACK_CHUNKED_FEXT(n8, N8, float, f32)
+RBD_FEEDBACK_CHUNKED_FEXT(n8, N8, double, f64)
+RBD_FEEDBACK_CHUNKED_FEXT(fb16, FB16, float, f32)
+RBD_FEEDBACK_CHUNKED_FEXT(fb16, FB16, double, f64)
+RBD_FEEDBACK_CHUNKED_FEXT(fb32, FB32, float, f32)
+RBD_FEEDBACK_CHUNKED_FEXT(fb32, FB32, double, f64)
 
 // The current device's per-thread stack limit (cudaLimitStackSize).  The
 // driver raises it to the largest stack frame launched so far and keeps

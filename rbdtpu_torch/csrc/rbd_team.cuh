@@ -128,18 +128,23 @@ RBD_HD void copy_async_bytes(void* dst, const void* src) {
 // (IA - U U^T / d) X and bias force; the partial sums of the leaf->root
 // sweep's two reductions and of U.a (each body's with LEV, two buffers
 // otherwise); qdd; with KEEPV the accelerations A apart from v, which the
-// step otherwise overwrites (linearize.cu reads both).  kernels/_lib.py
-// team_values and linearize_values mirror these counts.
-template <class D, bool W, bool LEV, bool KEEPV = false>
+// step otherwise overwrites (linearize.cu reads both).  With XIA the
+// wrenches' chain takes IA's values instead of its own (XA_IN_IA): the step
+// then copies the inertias after the wrenches are applied (feedback_team.cuh's
+// wrench kernels, whose teams it keeps at the wrench-free kernels' size).
+// kernels/_lib.py team_values and linearize_values mirror these counts.
+template <class D, bool W, bool LEV, bool KEEPV = false, bool XIA = false>
 struct TeamLayout {
-  static constexpr bool WRENCH = W, LEVELS = LEV;
+  static constexpr bool WRENCH = W, LEVELS = LEV, XA_IN_IA = W && XIA;
   static constexpr int NB = D::NB, NV = D::NV;
-  static constexpr int X = 0, XA = X + 12 * NB, BL = XA + (W ? 12 * NB : 0), V = BL + 9 * NB,
+  static constexpr int X = 0, XAO = X + 12 * NB, BL = XAO + (W && !XIA ? 12 * NB : 0),
+                       V = BL + 9 * NB,
                        C = V + 6 * NB, PA = C + 6 * NB, U = PA + 6 * NB, IA = U + 6 * NB,
                        SP = IA + 36 * NB, INVD = SP + 6 * NB, UB = INVD + NB, PAR = UB + NB,
                        ORD = PAR + NB, AD = ORD + (LEV ? 2 * NB + 2 : 0), PAS = AD + 36,
                        PART = PAS + 6, PROD = PART + 12, QDD = PROD + (LEV ? 6 * NB : 12),
-                       A = KEEPV ? QDD + NV : V, VALUES = QDD + NV + (KEEPV ? 6 * NB : 0);
+                       A = KEEPV ? QDD + NV : V, VALUES = QDD + NV + (KEEPV ? 6 * NB : 0),
+                       XA = XA_IN_IA ? IA : XAO;
 };
 
 // Entry k (row kr = k mod 3 of E, lo = k < 3) of X m for a motion vector
@@ -239,6 +244,22 @@ RBD_HD_CALL void fext_chain(const Model<T, D>& m, const Xc<T>* X, Xc<T>* Xa) {
   }
 }
 
+// One link of that chain: Xa = X Xap (Xap null at a root: Xa = X).  The
+// wrench kernels of the line search (feedback_team.cuh) compose a tree's
+// links level by level, one lane a body of the level, each a real call
+// like fext_chain.
+template <typename T>
+RBD_HD_CALL void fext_link(const Xc<T>& X, const Xc<T>* Xap, Xc<T>& Xa) {
+  if (Xap == nullptr) {
+    Xa = X;
+    return;
+  }
+  T t[3];
+  mm3(X.E, Xap->E, Xa.E);
+  mtv3(Xap->E, X.r, t);
+  for (int k = 0; k < 3; ++k) Xa.r[k] = Xap->r[k] + t[k];
+}
+
 // The rpy root's accelerations (rbdtpu aba's root block): a0 = X0 ag, then
 // IA0 qdd = tau - pA0 - IA0^T a0 by chol6 (NaN when IA0 is not positive
 // definite), a0 += qdd.
@@ -285,7 +306,9 @@ RBD_HD void team_transforms(const Team<NL>& tm, const Model<T, D>& m, T* s, cons
 // is the team's scratch of layout L (a TeamLayout<D, W, LEV>: W holds the
 // wrenches' chain, LEV the level order).  LV walks the root->leaf
 // recursions level by level (the layout must hold the level order), else
-// body by body.  MINV runs the sweeps of qdd = M^-1 tau instead (rbdtpu's
+// body by body; with LV and a layout whose wrench chain sits in IA's
+// values (the line search's) the chain too is composed level by level.
+// MINV runs the sweeps of qdd = M^-1 tau instead (rbdtpu's
 // aba_lane at qd = 0 and gravity 0, no wrenches): it takes the transforms
 // team_rnea left in ``s``, skips the velocity recursion and the bias terms
 // (c = pA = 0) and ignores ``gravity`` (the rpy root's block then solves
@@ -401,12 +424,23 @@ RBD_HD void team_fd_step(const Team<NL>& tm, const Model<T, D>& m, T* s, const T
     matvec6(m.body(i) + OFF_I, v[i], Iv);
     cross_force(v[i], Iv, pA[i]);
   }
-  for (int e = lane; e < nb * 36; e += NL) IA[e] = m.body(e / 36)[OFF_I + e % 36];
+  if constexpr (!L::XA_IN_IA)
+    for (int e = lane; e < nb * 36; e += NL) IA[e] = m.body(e / 36)[OFF_I + e % 36];
   tm.sync();
   if constexpr (FEXT) {
     Xc<T>* Xa = reinterpret_cast<Xc<T>*>(s + L::XA);
-    if (lane == 0) fext_chain(m, X, Xa);
-    tm.sync();
+    if constexpr (LV && L::XA_IN_IA) {  // the line search's: level by level
+      for (int l = 0; l < levels; ++l) {
+        for (int b = loff[l] + lane; b < loff[l + 1]; b += NL) {
+          const int i = ord[b], p = par[i];
+          fext_link(X[i], p < 0 ? static_cast<const Xc<T>*>(nullptr) : Xa + p, Xa[i]);
+        }
+        tm.sync();
+      }
+    } else {
+      if (lane == 0) fext_chain(m, X, Xa);
+      tm.sync();
+    }
     for (int i = lane; i < nb; i += NL) {
       const T* w = fext + 6 * i;
       T rxf[3], nr[3], o[6];
@@ -416,6 +450,10 @@ RBD_HD void team_fd_step(const Team<NL>& tm, const Model<T, D>& m, T* s, const T
       mv3(Xa[i].E, w + 3, o + 3);
       for (int k = 0; k < 6; ++k) pA[i][k] -= o[k];
     }
+    tm.sync();
+  }
+  if constexpr (L::XA_IN_IA) {  // the chain is spent: IA's values are free
+    for (int e = lane; e < nb * 36; e += NL) IA[e] = m.body(e / 36)[OFF_I + e % 36];
     tm.sync();
   }
   // articulated inertias leaf -> root: U = IA S and the partial sums of
@@ -843,11 +881,13 @@ __device__ __forceinline__ rbd::Team<NL> this_team() {
 }
 
 // Dynamic shared memory of a block: the caller's byte count must equal
-// tpb teams of ``stride`` values, at most the H100's 232,448 bytes a block;
-// above 48 KB the kernel is opted in.  Returns a cudaError_t.
+// ``extra`` values the block keeps for itself and tpb teams of ``stride``
+// values, at most the H100's 232,448 bytes a block; above 48 KB the kernel
+// is opted in.  Returns a cudaError_t.
 template <typename K>
-static int team_smem_check(K kernel, int smem, int tpb, int stride, size_t value_size) {
-  if (tpb < 1 || (size_t)smem != (size_t)tpb * stride * value_size || smem > 232448)
+static int team_smem_check(K kernel, int smem, int tpb, int stride, size_t value_size,
+                           int extra = 0) {
+  if (tpb < 1 || (size_t)smem != ((size_t)tpb * stride + extra) * value_size || smem > 232448)
     return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024)
     return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -36,15 +36,23 @@ STRIDE = 69
 # 8 bodies ("n8"), rpy floating-base trees of up to 16 ("fb16", the
 # quadruped) and up to 32 ("fb32", the humanoid).  A class lists the kernels
 # instantiated for it; C symbols are rbd_<kernel>_<class>_<f32|f64>.
-# ``size_class`` takes the smallest class that fits.
+# ``size_class`` takes the smallest class that fits.  K2 and K9 with world
+# wrenches are kernels of their own (``feedback_rollout_fext``,
+# ``feedback_chunked_fext``), beside the wrench-free ones.
+FEEDBACK_KERNELS = ("feedback_rollout", "feedback_chunked",
+                    "feedback_rollout_fext", "feedback_chunked_fext")
 SIZE_CLASSES = {
     "n8": (8, False, ("fd_step", "feedback_rollout", "linearize_parts",
                       "ee_gn", "ee_err", "rnea", "fd_step_minv",
-                      "rollout_multi", "feedback_chunked")),
+                      "rollout_multi", "feedback_chunked",
+                      "feedback_rollout_fext", "feedback_chunked_fext")),
     "fb16": (16, True, ("fd_step", "feedback_rollout", "linearize_parts",
-                        "feedback_chunked", "rnea", "fd_step_minv")),
+                        "feedback_chunked", "rnea", "fd_step_minv",
+                        "ee_gn", "ee_err", "feedback_rollout_fext",
+                        "feedback_chunked_fext")),
     "fb32": (32, True, ("fd_step", "feedback_rollout", "linearize_parts",
-                        "feedback_chunked", "rnea", "fd_step_minv")),
+                        "feedback_chunked", "rnea", "fd_step_minv",
+                        "feedback_rollout_fext", "feedback_chunked_fext")),
 }
 
 # Lanes a team of the team kernels (csrc/rbd_team.cuh: one team of one warp
@@ -54,8 +62,8 @@ SIZE_CLASSES = {
 # dtype, fixed from their times on an H100 at each class's path shapes
 # (PERF.md §6, tools/time_step_kernels.py --sweep).  The build compiles each
 # kernel at this size alone (``team_defines``).
-TEAM = {(k, cls, sfx): 32 for k in ("fd_step", "feedback_rollout",
-                                     "linearize_parts", "feedback_chunked")
+TEAM = {(k, cls, sfx): 32 for k in ("fd_step", "linearize_parts",
+                                     *FEEDBACK_KERNELS)
         for cls in ("n8", "fb16", "fb32") for sfx in ("f32", "f64")}
 TEAM.update({("rollout_multi", "n8", "f32"): 16,
              ("rollout_multi", "n8", "f64"): 32})
@@ -100,10 +108,12 @@ def team_values(kernel: str, cls: str, team: int, dense: bool = False) -> int:
     and M^-1 with rows of nv + 1; rollout_multi: x, two stages of u and of
     the wrench set, u - c; feedback_rollout and feedback_chunked, which
     share one team body: x, dx, u and the knot buffer, K with rows of
-    nx + 1); rnea's is its own (rnea.cu RneaLayout: transform, lower-left
-    block, v, a, I v, f, S and the parent, 52 a body; then q, qd and qdd).
-    Rounded up to 32 and offset by ``team`` % 32 as the sources pad them.
-    The launch refuses any other count."""
+    nx + 1; their _fext twins keep the wrenches' chain in IA's values, so
+    they take as much); rnea's is its
+    own (rnea.cu RneaLayout: transform, lower-left block, v, a, I v, f, S
+    and the parent, 52 a body; then q, qd and qdd).  Rounded up to 32 and
+    offset by ``team`` % 32 as the sources pad them.  The launch refuses
+    any other count (with ``block_values`` ahead of the teams)."""
     nb, fb, kernels = SIZE_CLASSES[cls]
     if kernel not in kernels:
         raise ValueError(f"{kernel} has no instantiation in class {cls}")
@@ -119,11 +129,21 @@ def team_values(kernel: str, cls: str, team: int, dense: bool = False) -> int:
             values += 36 + 6 * LIN_LEVELS[cls] * team + nv * (nv + 1)
     elif kernel == "rollout_multi":
         values += 12 * nb + 12 + 5 * nv + 12 * nb
-    elif kernel in ("feedback_rollout", "feedback_chunked"):
+    elif kernel in FEEDBACK_KERNELS:
         values += 8 * nb + 2 + 9 * nv + nv * (2 * nv + 1)
     else:
         raise ValueError(f"{kernel} is not a team kernel")
     return -(-values // 32) * 32 + team % 32
+
+
+def block_values(kernel: str, cls: str) -> int:
+    """Shared-memory values a block of ``kernel`` keeps ahead of its teams:
+    for the line-search kernels with wrenches two stages of a knot's wrench
+    set, 6 values a body of the class each, rounded up to 32
+    (csrc/feedback_team.cuh feedback_wrench_values); none for the others."""
+    if not kernel.endswith("_fext"):
+        return 0
+    return -(-12 * SIZE_CLASSES[cls][0] // 32) * 32
 
 
 # The most tree levels linearize_parts and fd_step_minv take per size
@@ -260,63 +280,82 @@ def team_geometry(kernel: str, cls: str, dtype, B: int, nsm: int = H100_SMS,
     """(team, teams a block, shared bytes a block, blocks) of a launch of
     ``kernel`` over B states or trajectories on a card with ``nsm`` SMs (for
     fd_step_minv on the route ``dense`` picks): the team size of TEAM, at
-    most one warp of teams a block within SMEM_MAX, halved while the batch
-    would leave SMs without a block."""
+    most one warp of teams a block within SMEM_MAX (after the block's own
+    ``block_values``), halved while the batch would leave SMs without a
+    block."""
     team = TEAM[(kernel, cls, _SUFFIX[dtype])]
-    per = (team_values(kernel, cls, team, dense)
-           * torch.finfo(dtype).bits // 8)
-    tpb = min(32 // team, SMEM_MAX // per)
+    size = torch.finfo(dtype).bits // 8
+    per = team_values(kernel, cls, team, dense) * size
+    extra = block_values(kernel, cls) * size
+    tpb = min(32 // team, (SMEM_MAX - extra) // per)
     while tpb > 1 and -(-B // tpb) < nsm:
         tpb //= 2
-    return team, tpb, tpb * per, -(-B // tpb)
+    return team, tpb, tpb * per + extra, -(-B // tpb)
 
 
 # The end-effector kernels' blocks (csrc/ee_gn.cu): ee_gn runs a team of 8
-# lanes a state (one lane a column of J, four states a warp), ee_err one
+# lanes a state (on the fixed base one lane a column of J, four states a
+# warp; on the rpy root lane c columns c, c + 8 and c + 16), ee_err one
 # thread a state; per kernel the lanes a state and the most and fewest
-# states a block.
+# states a block (n8; the rpy root's ee_gn: EE_STATES_RPY).  A block's
+# shared memory stays within EE_SMEM_MAX (no opt-in).
 EE_LANES = {"ee_gn": 8, "ee_err": 1}
 EE_STATES = {"ee_gn": (32, 4), "ee_err": (128, 32)}
-# a block's shared values ahead of its states (csrc/ee_gn.cu EE_FIXED): the
-# walk's row of each body of the n8 class (Ttree's rotation and
-# translation, the joint axis: 15 values) and the EE mount (12)
-EE_FIXED = 15 * SIZE_CLASSES["n8"][0] + 12
+EE_STATES_RPY = {"ee_gn": (16, 4), "ee_err": (128, 32)}
+EE_SMEM_MAX = 48 * 1024
 
 
-def ee_values(kernel: str) -> int:
+def ee_fixed(cls: str = "n8") -> int:
+    """A block's shared values ahead of its states (csrc/ee_gn.cu EE_FIXED,
+    EE_FIXED_RPY): the walk's row of each body of the class (Ttree's
+    rotation and translation, the joint axis: 15 values) and the EE mount
+    (12)."""
+    return 15 * SIZE_CLASSES[cls][0] + 12
+
+
+EE_FIXED = ee_fixed("n8")
+
+
+def ee_values(kernel: str, cls: str = "n8") -> int:
     """Shared-memory values a state takes in a block of ``kernel`` at the
-    n8 class's bound of 8 bodies (csrc/ee_gn.cu ee_state_values): the
-    staged q row (8) and e (3); ee_gn also g0 (8), H0 (64) and the state's
-    columns of J (3 x 8)."""
-    nb = SIZE_CLASSES["n8"][0]
+    class's bound of nv coordinates (csrc/ee_gn.cu ee_state_values, 8 on
+    n8, and ee_rpy_state_values, 21 on fb16): the staged q row (nq = nv)
+    and e (3); ee_gn also g0 (nv), H0 (nv x nv) and the state's columns of
+    J (3 x nv)."""
+    nb, fb, _ = SIZE_CLASSES[cls]
+    nv = nb + 5 if fb else nb
     if kernel == "ee_err":
-        return nb + 3
+        return nv + 3
     if kernel == "ee_gn":
-        return 2 * nb + 3 + nb * nb + 3 * nb
+        return 2 * nv + 3 + nv * nv + 3 * nv
     raise ValueError(f"{kernel} is not an end-effector kernel")
 
 
-def ee_geometry(kernel: str, dtype, B: int, nsm: int = H100_SMS):
+def ee_geometry(kernel: str, dtype, B: int, nsm: int = H100_SMS,
+                cls: str = "n8"):
     """(states a block, threads a block, shared bytes a block, blocks) of
-    an ``ee_gn`` or ``ee_err`` launch over B states: the most states of
-    EE_STATES a block, halved down to its fewest while the batch would
-    leave SMs without a block; its shared memory holds EE_FIXED values and
-    ``ee_values`` a state.  Every count is a multiple of four, which keeps
-    each staged row's range of a block 16-byte aligned."""
-    spb, least = EE_STATES[kernel]
-    while spb > least and -(-B // spb) < nsm:
-        spb //= 2
+    an ``ee_gn`` or ``ee_err`` launch over B states in size class ``cls``:
+    the most states of EE_STATES (EE_STATES_RPY on fb16) a block, halved
+    down to its fewest while the batch would leave SMs without a block or
+    the block would pass EE_SMEM_MAX; its shared memory holds
+    ``ee_fixed(cls)`` values and ``ee_values`` a state.  Every count is a
+    multiple of four, which keeps each staged row's range of a block
+    16-byte aligned."""
+    spb, least = (EE_STATES_RPY if SIZE_CLASSES[cls][1] else EE_STATES)[
+        kernel]
     size = torch.finfo(dtype).bits // 8
-    return (spb, spb * EE_LANES[kernel],
-            (EE_FIXED + spb * ee_values(kernel)) * size, -(-B // spb))
+    smem = lambda k: (ee_fixed(cls) + k * ee_values(kernel, cls)) * size
+    while spb > least and (-(-B // spb) < nsm or smem(spb) > EE_SMEM_MAX):
+        spb //= 2
+    return spb, spb * EE_LANES[kernel], smem(spb), -(-B // spb)
 
 
 @functools.lru_cache(maxsize=256)
-def ee_args(kernel: str, dtype, B: int, device):
+def ee_args(kernel: str, dtype, B: int, device, cls: str = "n8"):
     """(states a block, shared bytes a block) of an end-effector launch
-    over B states in ``dtype`` on CUDA ``device``, worked out once per
-    (kernel, dtype, B, device)."""
-    spb, _, smem, _ = ee_geometry(kernel, dtype, B, sm_count(device))
+    over B states in ``dtype`` on CUDA ``device`` in size class ``cls``,
+    worked out once per (kernel, dtype, B, device, cls)."""
+    spb, _, smem, _ = ee_geometry(kernel, dtype, B, sm_count(device), cls)
     return spb, smem
 
 
@@ -374,7 +413,7 @@ def team_args(kernel: str, model, ref: torch.Tensor, B: int,
         _, tpb, smem, _ = team_geometry(kernel, cls, ref.dtype, B,
                                         sm_count(ref.device), dense)
         walk = ((int(level_walk(model)),)
-                if kernel in ("feedback_rollout", "feedback_chunked") else ())
+                if kernel in FEEDBACK_KERNELS else ())
         model._tables[key] = (*walk, tpb, smem)
     return model._tables[key]
 
@@ -384,11 +423,13 @@ def team_args(kernel: str, model, ref: torch.Tensor, B: int,
 # riccati_small count the chunked Riccati kernel at its two call sites
 # (batch >= 128 and < 128); riccati_fused is the arm-class sweep (nx <= 16);
 # feedback_chunked is the line search's chunked-gain kernel (K9), counted
-# apart from feedback_rollout (K2).
+# apart from feedback_rollout (K2); feedback_rollout_fext and
+# feedback_chunked_fext are K2 and K9 with wrenches.
 launches = {"fd_step": 0, "feedback_rollout": 0, "linearize_parts": 0,
             "ee_gn": 0, "ee_err": 0, "rnea": 0, "fd_step_minv": 0,
             "rollout_multi": 0, "riccati_chunk": 0, "riccati_small": 0,
-            "riccati_fused": 0, "feedback_chunked": 0}
+            "riccati_fused": 0, "feedback_chunked": 0,
+            "feedback_rollout_fext": 0, "feedback_chunked_fext": 0}
 
 # C signatures: p pointer, i int, s scalar of the kernel's dtype; every
 # function ends with the stream.  The tree kernels' signatures follow a
@@ -411,6 +452,9 @@ _SIGNATURES = {
     "rollout_multi": "ppppiiiiiss",
     # x0 Xn Un kf Kf uclip Xo Uo B H cw nc levels tpb smem dt gravity
     "feedback_chunked": "ppppppppiiiiiiiss",
+    # as feedback_rollout and feedback_chunked, with fext (H, nb, 6) after Kf
+    "feedback_rollout_fext": "pppppppppiiiiiss",
+    "feedback_chunked_fext": "pppppppppiiiiiiiss",
 }
 # A B lx lu lxx sb st luu sb st lux sb st lfx lfxx reg k K dV1 ok B H nx nu
 # threads smem (the two Riccati sweeps share these)

@@ -25,7 +25,9 @@ def _single_ee(model: RobotModel, ee_names):
 def ee_chain(model: RobotModel, jid: int):
     """(chain, prismatic): the bodies from the root to joint ``jid`` and
     those of them whose joint is prismatic, one bit a body each: what the
-    end-effector kernels walk.  Worked out once per (model, jid)."""
+    end-effector kernels walk (an rpy root is body 0's bit; the kernel
+    expands it into the root's six columns).  Worked out once per (model,
+    jid)."""
     key = ("ee_chain", jid)
     if key not in model._tables:
         chain = prism = 0
@@ -62,14 +64,19 @@ def ee_gn_fused(model: RobotModel, q, target, *, ee_names=None,
     fk_lane.py:203): the EE chain is walked root to tip with homogeneous
     transforms in registers (the geometric position Jacobian a_k x (p - o_k)
     for revolute joints and a_k for prismatic ones), by a team of 8 lanes a
-    state for ``ee_gn`` (one lane a column of J, which forms g0's entry and
-    H0's row) and by one thread a state for ``ee_err``, which scores the
-    line search's 102,400 states, writes e alone and never forms J.  A
-    block stages its states' rows through shared memory, so every global
-    access is contiguous (``_lib.ee_geometry``).  The cost weights stay
-    outside.  Bound on the H100: the bytes at the large batches (H0 is n*n
-    values a state: 0.00101 ms for 12,800 arm7 states in float32, ee_err
-    0.00122 ms for 102,400), one state's chain at the small ones.
+    state for ``ee_gn`` (on the fixed base one lane a column of J, which
+    forms g0's entry and H0's row; on the rpy root, instantiated for the
+    "fb16" class, lane c columns c, c + 8 and c + 16, the root's six among
+    them) and by one thread a state for ``ee_err``, which scores the line
+    search's states, writes e alone and never forms J.  On the rpy root,
+    whose chart is the configuration coordinates, the root's columns are
+    its translations' (Ttree0's rotation) and its Euler angles' (rbdtpu
+    ``ee_chain_lane``).  A block stages its states' rows through shared
+    memory, so every global access is contiguous (``_lib.ee_geometry``).
+    The cost weights stay outside.  Bound on the H100: the bytes at the
+    large batches (H0 is n*n values a state: 0.00101 ms for 12,800 arm7
+    states in float32, ee_err 0.00122 ms for 102,400), one state's chain at
+    the small ones.
     """
     if not q.is_cuda:
         return ee_gn_plain(model, q, target, ee_names=ee_names, gn=gn)
@@ -80,12 +87,15 @@ def ee_gn_fused(model: RobotModel, q, target, *, ee_names=None,
     ee = _lib.ee_table(model, fid, q.device, q.dtype)
     e = torch.empty(B, 3, dtype=q.dtype, device=q.device)
     chain = ee_chain(model, jid)
+    kernel = "ee_gn" if gn else "ee_err"
+    args = _lib.ee_args(kernel, q.dtype, B, q.device,
+                        _lib.model_class(kernel, model))
     if not gn:
         _lib.launch("ee_err", model, q, ee, *chain, q, tx, ty, tz, e, B,
-                    *_lib.ee_args("ee_err", q.dtype, B, q.device))
+                    *args)
         return e, None, None
     g0 = torch.empty(B, n, dtype=q.dtype, device=q.device)
     H0 = torch.empty(B, n, n, dtype=q.dtype, device=q.device)
     _lib.launch("ee_gn", model, q, ee, *chain, q, tx, ty, tz, e, g0, H0, B,
-                *_lib.ee_args("ee_gn", q.dtype, B, q.device))
+                *args)
     return e, g0, H0

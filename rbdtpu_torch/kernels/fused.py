@@ -6,7 +6,8 @@ between K2 and K9 in the line search.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises.  K1, K2, K6, K9 and K10 take fixed-base models and the rpy floating
-root; K5 fixed-base models only (``_lib.size_class``).
+root; K5 fixed-base models only (``_lib.size_class``).  K1, K2, K5, K6 and
+K9 take world-frame wrenches.
 """
 from __future__ import annotations
 
@@ -227,12 +228,15 @@ def rollout_fused_multi(model: RobotModel, x0, U, dt: float,
 
 
 def feedback_rollout_plain(model: RobotModel, x0, X_nom, U_nom, k_ff, K_fb,
-                           dt: float, gravity: float = -9.81, u_clip=None):
+                           dt: float, gravity: float = -9.81, u_clip=None,
+                           f_ext=None):
     """Closed-loop rollout: per knot u = U_t + k_t + K_t (x - X_t), clamped
-    to [-u_clip, u_clip] when given, then one ABA + Euler step.
+    to [-u_clip, u_clip] when given, then one ABA + Euler step under the
+    knot's world-frame wrenches f_ext[t] when given.
 
     x0 (B, nx); X_nom (B, H, nx); U_nom, k_ff (B, H, nv) with the line-search
-    step already folded into k_ff; K_fb (B, H, nv, nx).
+    step already folded into k_ff; K_fb (B, H, nv, nx); f_ext None or
+    (H, nb, 6), shared by the batch (``dynamics.aba(f_ext)`` semantics).
     Returns (X (B, H, nx) — states 1..H, U (B, H, nv) — applied controls)."""
     x = x0
     xs, us = [], []
@@ -241,14 +245,16 @@ def feedback_rollout_plain(model: RobotModel, x0, X_nom, U_nom, k_ff, K_fb,
         u = U_nom[:, t] + k_ff[:, t] + mv(K_fb[:, t], dx)
         if u_clip is not None:
             u = torch.clamp(u, -u_clip, u_clip)
-        x = fd_step_plain(model, x, u, dt, gravity)
+        x = fd_step_plain(model, x, u, dt, gravity,
+                          None if f_ext is None else f_ext[t])
         xs.append(x)
         us.append(u)
     return torch.stack(xs, dim=1), torch.stack(us, dim=1)
 
 
 def feedback_rollout_fused(model: RobotModel, x0, X_nom, U_nom, k_ff, K_fb,
-                           dt: float, gravity: float = -9.81, u_clip=None):
+                           dt: float, gravity: float = -9.81, u_clip=None,
+                           f_ext=None):
     """The line-search rollout of ``feedback_rollout_plain``, one launch for
     the whole horizon.
 
@@ -267,10 +273,29 @@ def feedback_rollout_fused(model: RobotModel, x0, X_nom, U_nom, k_ff, K_fb,
     and H >= 1 are taken as they are.  The lanes stay independent and alpha
     stays folded into k_ff (rbdtpu's contract), so the line search's
     n_alpha candidates of one problem each read their own copy of K.
+
+    With ``f_ext`` ((H, nb, 6) world-frame wrenches shared by the batch,
+    rbdtpu's contract) the kernel ``feedback_rollout_fext`` runs the same
+    body with the wrenches' chain in the step: a knot's wrench set arrives
+    once a block, in the cp.async group of the knot's gains, into two
+    stages the block's teams share.
     """
     if not x0.is_cuda:
         return feedback_rollout_plain(model, x0, X_nom, U_nom, k_ff, K_fb,
-                                      dt, gravity, u_clip)
+                                      dt, gravity, u_clip, f_ext)
+    kernel, B, H, Xo, Uo = _feedback_launch_args(
+        "feedback_rollout", model, x0, X_nom, U_nom, k_ff, K_fb, u_clip,
+        f_ext)
+    _lib.launch(kernel, model, x0, x0, X_nom, U_nom, k_ff, K_fb,
+                *(() if f_ext is None else (f_ext,)), u_clip, Xo, Uo, B, H,
+                *_lib.team_args(kernel, model, x0, B), dt, gravity)
+    return Xo, Uo
+
+
+def _feedback_launch_args(kernel: str, model: RobotModel, x0, X_nom, U_nom,
+                          k_ff, K_fb, u_clip, f_ext):
+    """Check the line-search kernels' inputs; (the kernel to launch, with
+    ``_fext`` where wrenches are given, B, H, empty Xo, empty Uo)."""
     B, H = U_nom.shape[0], U_nom.shape[1]
     nx, nv = model.nx, model.nv
     _lib.check(x0, "x0", (B, nx), x0)
@@ -280,13 +305,10 @@ def feedback_rollout_fused(model: RobotModel, x0, X_nom, U_nom, k_ff, K_fb,
     _lib.check(K_fb, "K_fb", (B, H, nv, nx), x0)
     if u_clip is not None:
         _lib.check(u_clip, "u_clip", (nv,), x0)
-    Xo = torch.empty_like(X_nom)
-    Uo = torch.empty_like(U_nom)
-    _lib.launch("feedback_rollout", model, x0, x0, X_nom, U_nom, k_ff, K_fb,
-                u_clip, Xo, Uo, B, H,
-                *_lib.team_args("feedback_rollout", model, x0, B), dt,
-                gravity)
-    return Xo, Uo
+    if f_ext is not None:
+        _lib.check(f_ext, "f_ext", (H, model.nb, 6), x0)
+        kernel += "_fext"
+    return kernel, B, H, torch.empty_like(X_nom), torch.empty_like(U_nom)
 
 
 def chunk_geometry(ndx: int, nchunks: int):
@@ -301,11 +323,12 @@ def chunk_geometry(ndx: int, nchunks: int):
 
 def feedback_rollout_chunked_plain(model: RobotModel, x0, X_nom, U_nom, k_ff,
                                    K_fb, dt: float, gravity: float = -9.81,
-                                   u_clip=None, nchunks: int = 2):
+                                   u_clip=None, nchunks: int = 2, f_ext=None):
     """``feedback_rollout_plain`` with the feedback summed in rbdtpu's
     chunked order: u = U_t + k_t, then for each column chunk in order
     u += sum over its columns, ascending, starting from the first product;
-    clamp, ABA, Euler.  Same shapes and outputs."""
+    clamp, ABA under f_ext[t] when given, Euler.  Same shapes and
+    outputs."""
     ndx = K_fb.shape[-1]
     cw, nc = chunk_geometry(ndx, nchunks)
     x = x0
@@ -322,7 +345,8 @@ def feedback_rollout_chunked_plain(model: RobotModel, x0, X_nom, U_nom, k_ff,
             u = u + acc
         if u_clip is not None:
             u = torch.clamp(u, -u_clip, u_clip)
-        x = fd_step_plain(model, x, u, dt, gravity)
+        x = fd_step_plain(model, x, u, dt, gravity,
+                          None if f_ext is None else f_ext[t])
         xs.append(x)
         us.append(u)
     return torch.stack(xs, dim=1), torch.stack(us, dim=1)
@@ -330,7 +354,7 @@ def feedback_rollout_chunked_plain(model: RobotModel, x0, X_nom, U_nom, k_ff,
 
 def feedback_rollout_fused_chunked(model: RobotModel, x0, X_nom, U_nom, k_ff,
                                    K_fb, dt: float, gravity: float = -9.81,
-                                   u_clip=None, nchunks: int = 2):
+                                   u_clip=None, nchunks: int = 2, f_ext=None):
     """The line-search rollout with the gain block taken in ``nchunks``
     column chunks, one launch for the whole horizon; shapes and outputs as
     ``feedback_rollout_fused``.
@@ -345,29 +369,21 @@ def feedback_rollout_fused_chunked(model: RobotModel, x0, X_nom, U_nom, k_ff,
     card the chunk is only the order of the sum.  Bound on the H100: the
     latency of H dependent steps per trajectory, as K2.  Team size, teams a
     block and walk are ``_lib.team_args``'; any B >= 1 and any nchunks >= 1
-    are taken (``chunk_geometry``).  No quaternion root, no wrenches (K2
-    takes none either).
+    are taken (``chunk_geometry``).  No quaternion root.  With ``f_ext``
+    ((H, nb, 6), shared by the batch) the kernel ``feedback_chunked_fext``
+    takes the wrenches as ``feedback_rollout_fused`` does.
     """
     cw, nc = chunk_geometry(model.nv * 2, nchunks)
     if not x0.is_cuda:
         return feedback_rollout_chunked_plain(model, x0, X_nom, U_nom, k_ff,
                                               K_fb, dt, gravity, u_clip,
-                                              nchunks)
-    B, H = U_nom.shape[0], U_nom.shape[1]
-    nx, nv = model.nx, model.nv
-    _lib.check(x0, "x0", (B, nx), x0)
-    _lib.check(X_nom, "X_nom", (B, H, nx), x0)
-    _lib.check(U_nom, "U_nom", (B, H, nv), x0)
-    _lib.check(k_ff, "k_ff", (B, H, nv), x0)
-    _lib.check(K_fb, "K_fb", (B, H, nv, nx), x0)
-    if u_clip is not None:
-        _lib.check(u_clip, "u_clip", (nv,), x0)
-    Xo = torch.empty_like(X_nom)
-    Uo = torch.empty_like(U_nom)
-    _lib.launch("feedback_chunked", model, x0, x0, X_nom, U_nom, k_ff, K_fb,
-                u_clip, Xo, Uo, B, H, cw, nc,
-                *_lib.team_args("feedback_chunked", model, x0, B), dt,
-                gravity)
+                                              nchunks, f_ext)
+    kernel, B, H, Xo, Uo = _feedback_launch_args(
+        "feedback_chunked", model, x0, X_nom, U_nom, k_ff, K_fb, u_clip,
+        f_ext)
+    _lib.launch(kernel, model, x0, x0, X_nom, U_nom, k_ff, K_fb,
+                *(() if f_ext is None else (f_ext,)), u_clip, Xo, Uo, B, H,
+                cw, nc, *_lib.team_args(kernel, model, x0, B), dt, gravity)
     return Xo, Uo
 
 

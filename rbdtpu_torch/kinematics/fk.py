@@ -1,12 +1,13 @@
 """Forward kinematics: world transforms, end-effector pose and the position
-Jacobian in the solver's chart (``rbdtpu.kinematics.fk``).  The world
-transforms and poses cover the rpy floating root; the position Jacobian
-covers fixed-base models only (a floating root raises
+Jacobian in the solver's chart (``rbdtpu.kinematics.fk``), for fixed-base
+models and the rpy floating root (the quaternion root raises
 ``NotImplementedError``).
 
-The Jacobian is the analytic chain derivative of rbdtpu's
-``ee_pose_gradient``: one prefix and one suffix product per chain, column
-k = prefix[k] @ dT_k @ suffix[k] applied to the EE offset.
+The Jacobian is the position rows of rbdtpu's analytic ``ee_pose_gradient``:
+one prefix and one suffix product per chain, column k = prefix[k] @ dT_k @
+suffix[k] applied to the EE offset; on the rpy root, whose chart is the
+configuration coordinates, the root's six columns are its transform's exact
+derivatives (``_root_hom_derivs``) applied through suffix[0].
 """
 from __future__ import annotations
 
@@ -14,9 +15,9 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..dynamics.xforms import joint_transforms_hom_list
+from ..dynamics.xforms import joint_transforms_hom_list, q_per_joint
 from ..model.robot import RobotModel
-from ..spatial.transforms import joint_hom_dT
+from ..spatial.transforms import drot_axis, joint_hom_dT, rot_axis
 
 
 def fk_world_hom(model: RobotModel, q):
@@ -75,17 +76,59 @@ def ee_pose(model: RobotModel, q, ee_names=None, offset=None):
     return torch.stack(poses, dim=-2)
 
 
+def _hom_R_block(M):
+    """Embed a (..., 3, 3) block as [[M, 0], [0, 0]] (4x4)."""
+    out = torch.zeros(M.shape[:-2] + (4, 4), dtype=M.dtype, device=M.device)
+    out[..., :3, :3] = M
+    return out
+
+
+def _root_hom_derivs(model: RobotModel, q):
+    """The first derivatives of the rpy floating root's homogeneous
+    transform T0 = Ttree0 @ [[Rz(y) Ry(p) Rx(r), xyz], [0, 1]] with respect
+    to its six coordinates [x, y, z, roll, pitch, yaw]: a list of six
+    (..., 4, 4) (rbdtpu ``kinematics.fk._root_hom_derivs``, whose second
+    derivatives wait for the EE Hessian).  Translation: Ttree0 @ [[0, e_t],
+    [0, 0]]; rotation: Ttree0 @ [[dR, 0], [0, 0]]."""
+    r, p, y = q[..., 3], q[..., 4], q[..., 5]
+    kw = dict(dtype=q.dtype, device=q.device)
+    ex, ey, ez = (torch.tensor(v, **kw)
+                  for v in ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0)))
+    Rx, Ry, Rz = rot_axis(ex, r), rot_axis(ey, p), rot_axis(ez, y)
+    dRx, dRy, dRz = drot_axis(ex, r), drot_axis(ey, p), drot_axis(ez, y)
+    Tt = model.Ttree[0].to(q.dtype)
+    dT0 = []
+    for t in range(3):
+        D = torch.zeros(Rx.shape[:-2] + (4, 4), **kw)
+        D[..., t, 3] = 1.0
+        dT0.append(Tt @ D)
+    for dR in (Rz @ Ry @ dRx, Rz @ dRy @ Rx, dRz @ Ry @ Rx):
+        dT0.append(Tt @ _hom_R_block(dR))
+    return dT0
+
+
+def _check_fb_chain(model: RobotModel, chain) -> bool:
+    """True when the chain starts at a floating rpy root, whose columns
+    ``_root_hom_derivs`` gives; the quaternion root raises (its chart is
+    the body-twist tangent, ROADMAP.md modules item 4)."""
+    if not (model.floating_base and chain[0] == 0):
+        return False
+    if model.root_quat:
+        raise NotImplementedError(
+            "ee_position_jacobian_tangent: the quaternion root's tangent "
+            "columns are not ported yet (ROADMAP.md, modules to port, item "
+            "4)")
+    return True
+
+
 def ee_position_jacobian_tangent(model: RobotModel, q, ee_names=None,
                                  offset=None):
     """d(EE position)/dq: (..., nq) -> (..., n_ee, 3, nv).  For fixed-base
-    models the solver chart is the configuration coordinates; columns of
-    joints off the EE's chain are zero."""
-    if model.floating_base:
-        raise NotImplementedError(
-            "ee_position_jacobian_tangent: the floating root's columns are "
-            "not ported yet")
+    models and the rpy root the solver chart is the configuration
+    coordinates; columns of joints off the EE's chain are zero."""
     offset = _offset(model, offset)
     T = joint_transforms_hom_list(model, q)
+    qj = q_per_joint(model, q)
     eye = torch.eye(4, dtype=q.dtype, device=q.device).expand(
         T[0].shape)
     jacs = []
@@ -104,9 +147,16 @@ def ee_position_jacobian_tangent(model: RobotModel, q, ee_names=None,
             acc = T[chain[idx]] @ acc
         J = torch.zeros(eye.shape[:-2] + (3, model.nv), dtype=q.dtype,
                         device=q.device)
+        fb_root = _check_fb_chain(model, chain)
+        if fb_root:
+            for c, dT0 in enumerate(_root_hom_derivs(model, q)):
+                J[..., :, c] = (dT0 @ suffix[0] @ offset)[..., :3]
         for idx, k in enumerate(chain):
+            if fb_root and idx == 0:
+                continue
             dT = joint_hom_dT(model.joint_type[k], model.axis[k],
-                              model.Ttree[k], q[..., k])
-            J[..., :, k] = (prefix[idx] @ dT @ suffix[idx] @ offset)[..., :3]
+                              model.Ttree[k], qj[k])
+            J[..., :, model.v_index(k)] = (
+                prefix[idx] @ dT @ suffix[idx] @ offset)[..., :3]
         jacs.append(J)
     return torch.stack(jacs, dim=-3)

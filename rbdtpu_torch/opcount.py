@@ -608,18 +608,19 @@ def rnea_state(md: Model, q, qd, qdd, gravity):
     return rnea(md, joint_transforms(md, q), qd, qdd, gravity)
 
 
-def feedback_knot(md: Model, x, xn, un, kf, K, dt, gravity):
-    """u = Un + kf + K (x - Xn), then one ABA step."""
+def feedback_knot(md: Model, x, xn, un, kf, K, dt, gravity, fext=None):
+    """u = Un + kf + K (x - Xn), then one ABA step (under the wrenches
+    fext when given)."""
     dx = vsub(x, xn)
     u = [un[i] + kf[i] + dot(K[i], dx) for i in range(md.nv)]
-    return fd_step(md, x, u, dt, gravity), u
+    return fd_step(md, x, u, dt, gravity, fext), u
 
 
 def feedback_knot_chunked(md: Model, x, xn, un, kf, K, dt, gravity,
-                          nchunks=2):
+                          nchunks=2, fext=None):
     """K9's knot: u = Un + kf, then per column chunk u += its partial sum
     (rbdtpu's order; as many operations as ``feedback_knot``), then one ABA
-    step."""
+    step (under fext when given)."""
     dx = vsub(x, xn)
     ndx = len(dx)
     cw = chunk_geometry(ndx, nchunks)[0]
@@ -627,7 +628,7 @@ def feedback_knot_chunked(md: Model, x, xn, un, kf, K, dt, gravity,
     for j0 in range(0, ndx, cw):
         u = [u[i] + dot(K[i][j0:j0 + cw], dx[j0:j0 + cw])
              for i in range(md.nv)]
-    return fd_step(md, x, u, dt, gravity), u
+    return fd_step(md, x, u, dt, gravity, fext), u
 
 
 def rnea_derivatives(md: Model, X, qd, st, f, trig=None, gravity=-9.81):
@@ -706,7 +707,10 @@ def linearize_parts(md: Model, q, qd, u, gravity):
 def ee(md: Model, jid: int, fid, q, target, gn: bool):
     """EE position error e = p_ee - target and, with gn, J^T e and J^T J
     (upper triangle formed, mirrored) of the position Jacobian along the
-    root -> jid chain."""
+    root -> jid chain; q holds nq coordinates.  An rpy root's pose is
+    Ttree0 [[Rz Ry Rx, xyz], [0, 1]] and its six columns are its
+    translations' (Ttree0's rotation: no operations) and its Euler angles'
+    (Rt Rz Ry e_x, Rt Rz e_y, Rt e_z crossed with p_ee - o_root)."""
     mount = np.eye(4) if fid is None else md.T_fixed[fid]
     ee_p = mount[:3, 3].tolist()
     chain = [jid]
@@ -714,26 +718,42 @@ def ee(md: Model, jid: int, fid, q, target, gn: bool):
         chain.append(md.parent[chain[-1]])
     chain.reverse()
     R = np.eye(3).tolist()
-    p, axw, org = [0.0] * 3, {}, {}
+    p, axw, org, lin = [0.0] * 3, {}, {}, set()
     for idx, k in enumerate(chain):
+        if md.root6(k):
+            sr, cr, sp, cp, sy, cy = rpy_trig(q[3:6])
+            Rt = md.TR[0]
+            RtRz = mm3(Rt, [[cy, -sy, 0.0], [sy, cy, 0.0], [0.0, 0.0, 1.0]])
+            RtRzRy = mm3(RtRz, [[cp, 0.0, sp], [0.0, 1.0, 0.0],
+                                [-sp, 0.0, cp]])
+            R = mm3(RtRzRy, [[1.0, 0.0, 0.0], [0.0, cr, -sr], [0.0, sr, cr]])
+            p = vadd(mv(Rt, q[0:3]), md.Tp[0])
+            for t in range(3):
+                axw[t], lin = col(Rt, t), lin | {t}
+            axw[3], axw[4], axw[5] = col(RtRzRy, 0), col(RtRz, 1), col(Rt, 2)
+            for c in (3, 4, 5):
+                org[c] = p
+            continue
+        c = md.vi(k)
         p = vadd(p, mv(R, md.Tp[k]))
         R1 = mm3(R, md.TR[k])
-        axw[k], org[k] = mv(R1, md.axis[k]), p
+        axw[c], org[c] = mv(R1, md.axis[k]), p
         if md.jtype[k] == 1:
-            p, R = vadd(p, scale(q[k], axw[k])), R1
+            p, R, lin = vadd(p, scale(q[c], axw[c])), R1, lin | {c}
         elif idx < len(chain) - 1 or any(ee_p):
-            R = mm3(R1, rot_axis(md.axis[k], q[k]))
+            R = mm3(R1, rot_axis(md.axis[k], q[c]))
     pe = vadd(p, mv(R, ee_p))
     e = vsub(pe, [float(t) for t in target])
     if not gn:
         return e, None, None
-    J = {k: (axw[k] if md.jtype[k] == 1 else cross3(axw[k], vsub(pe, org[k])))
-         for k in chain}
-    Jc = [J.get(i, [0.0] * 3) for i in range(md.nb)]
-    g0 = [dot(Jc[i], e) for i in range(md.nb)]
-    H0 = [[None] * md.nb for _ in range(md.nb)]
-    for i in range(md.nb):
-        for j in range(i, md.nb):
+    J = {c: (a if c in lin else cross3(a, vsub(pe, org[c])))
+         for c, a in axw.items()}
+    n = md.nv
+    Jc = [J.get(i, [0.0] * 3) for i in range(n)]
+    g0 = [dot(Jc[i], e) for i in range(n)]
+    H0 = [[None] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(i, n):
             H0[i][j] = H0[j][i] = dot(Jc[i], Jc[j])
     return e, g0, H0
 
@@ -792,11 +812,12 @@ def riccati_knot_ops(nx: int, nu: int) -> int:
                    symm(nx), Num(1e-6))[1]
 
 
-def per_state(model, target) -> dict:
+def per_state(model, target, ee_names=None) -> dict:
     """Operations per state (per knot for the rollouts) of each kernel's
     function on ``model``, keyed as ``chip_smoke.py`` keys its checks:
-    those of K1-K3, K6 and K10 for any tree the port covers, and of K4 and
-    K5 for fixed-base ones (K4 with a single end effector)."""
+    those of K1-K3, K6, K10, and K2 and K9 under a wrench set, for any tree
+    the port covers, and of K4 at one end effector (the single leaf, or
+    ``ee_names``'s)."""
     from .kernels.fk_lane import _single_ee
 
     md = Model(model)
@@ -815,6 +836,12 @@ def per_state(model, target) -> dict:
                                 nums(n, 2 * n), dt, g),
         "feedback_chunked": ops(feedback_knot_chunked, x, nums(2 * n), u,
                                 nums(n), nums(n, 2 * n), dt, g),
+        "feedback_rollout+fext": ops(feedback_knot, x, nums(2 * n), u,
+                                     nums(n), nums(n, 2 * n), dt, g, fext=w),
+        "feedback_chunked+fext": ops(feedback_knot_chunked, x, nums(2 * n),
+                                     u, nums(n), nums(n, 2 * n), dt, g,
+                                     fext=w),
+
         "linearize_parts": ops(linearize_parts, q, qd, u, g),
         "rnea": ops(rnea_state, q, qd, None, g),
         "rnea+qdd": ops(rnea_state, q, qd, qdd, g),
@@ -824,10 +851,8 @@ def per_state(model, target) -> dict:
         "fd_step_minv+dense+fext": ops(fd_step_minv, x, u, dt, g, dense=True,
                                        fext=w),
     }
-    if md.fb:
-        return out
-    if len(model.leaves()) == 1:
-        jid, fid = _single_ee(model, None)
+    if ee_names is not None or len(model.leaves()) == 1:
+        jid, fid = _single_ee(model, ee_names)
         out["ee_gn"] = ops(ee, jid, fid, q, target, True)
         out["ee_err"] = ops(ee, jid, fid, q, target, False)
     return out

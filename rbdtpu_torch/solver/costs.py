@@ -78,7 +78,10 @@ def ee_reaching_cost(
     """Reach a Cartesian end-effector target: 0.5 w_ee |p_ee(q) - target|^2
     plus velocity and effort terms, with the Gauss-Newton quadratisation
     through the position Jacobian.  One end effector: ``ee_names`` names
-    it, and None means the model's single leaf.
+    it, and None means the model's single leaf (a floating model's feet are
+    several leaves: name one).  Fixed-base models and the rpy root, whose
+    chart is the configuration coordinates (nq = nv, so J^T J fills the
+    q-block of lxx as it is).
 
     ``fused``: compute (e, J^T e, J^T J) through the ``ee_gn`` kernel's
     wrapper (``kernels.fk_lane.ee_gn_fused``), which follows the tensor's

@@ -21,9 +21,15 @@ iteration count and masked accept/reject, as in rbdtpu:
     when it improves the cost by more than ``tol_dJ`` (relative).
 
 rbdtpu's TPU gates are not carried over (compile probes, the 256-lane floor
-of the feedback kernel): with ``fused=True`` and CUDA tensors every call
-site launches its kernel.  The one exception is ``fused_feedback=True``,
-which applies rbdtpu's tier rule between K2, K9 and the plain pass.
+of the feedback kernel, the multiple of 8 that the wrenches' fused step
+needs): with ``fused=True`` and CUDA tensors every call site launches its
+kernel.  The one exception is ``fused_feedback=True``, which applies
+rbdtpu's tier rule between K2, K9 and the plain pass.
+
+Disturbance wrenches (``ddp_solve(..., f_ext=...)``, rbdtpu's robust-MPC
+surface) enter every rollout, the initial one and every line-search
+candidate, through the kernels' wrench variants when fused; the
+linearisation keeps the undisturbed A and B.
 """
 from __future__ import annotations
 
@@ -47,7 +53,7 @@ from ..spatial.ops import mv
 from .costs import Cost, quadratize_trajectory, trajectory_cost
 from .integrate import euler_semi_implicit, split_state, state_diff
 from .parallel_riccati import backward_pass_parallel
-from .rollout import linearize_trajectory
+from .rollout import linearize_trajectory, normalize_f_ext
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,12 +146,12 @@ def _feedback_route(model: RobotModel, config: DDPConfig,
     return ("plain", None) if nchunks is None else ("chunked", nchunks)
 
 
-def _step_plain(model, x, u, dt, gravity, route="aba"):
+def _step_plain(model, x, u, dt, gravity, route="aba", f_ext=None):
     q, qd = split_state(model, x)
     if route == "minv":
-        qdd = forward_dynamics(model, q, qd, u, gravity)
+        qdd = forward_dynamics(model, q, qd, u, gravity, f_ext)
     else:
-        qdd = aba(model, q, qd, u, gravity=gravity)
+        qdd = aba(model, q, qd, u, f_ext=f_ext, gravity=gravity)
     return euler_semi_implicit(model, x, qdd, dt)
 
 
@@ -162,6 +168,20 @@ def _make_step(model, config):
         return step
     return lambda x, u: _step_plain(model, x, u, config.dt, config.gravity,
                                     config.rollout_route)
+
+
+def _make_step_fext(model, config):
+    """``_make_step``'s step under one knot's wrench set fe (nb, 6): with
+    ``fused`` the ``fd_step`` kernel's wrench variant at any batch."""
+    if config.fused:
+        def step(x, u, fe):
+            xn = fd_step_fused(model, _flat(x), _flat(u), config.dt,
+                               config.gravity, f_ext=fe)
+            return xn.reshape(x.shape)
+        return step
+    return lambda x, u, fe: _step_plain(model, x, u, config.dt,
+                                        config.gravity, config.rollout_route,
+                                        f_ext=fe)
 
 
 def _make_linearize(model, config):
@@ -228,12 +248,15 @@ def backward_pass(A, B, lx, lu, lxx, luu, lux, lfx, lfxx, reg):
 
 
 def forward_pass(model: RobotModel, cost: Cost, X, U, k, K, alphas, dt,
-                 gravity, step_fn=None, u_clip=None):
+                 gravity, step_fn=None, u_clip=None, f_ext=None):
     """Closed-loop rollouts for every alpha of the ladder, in parallel, for
     every problem.  X (..., H+1, nx), U/k (..., H, nv), K (..., H, nv, nx),
-    alphas (n_alpha,).  Returns (Xs, Us, Js) with a leading n_alpha axis."""
+    alphas (n_alpha,).  f_ext: None or (H, nb, 6) per-knot wrenches, each
+    knot's passed to ``step_fn(x, u, fe)`` (the default step takes either
+    arity).  Returns (Xs, Us, Js) with a leading n_alpha axis."""
     if step_fn is None:
-        step_fn = lambda x, u: _step_plain(model, x, u, dt, gravity)
+        step_fn = lambda x, u, fe=None: _step_plain(model, x, u, dt, gravity,
+                                                    f_ext=fe)
     n_alpha = alphas.shape[0]
     batch = U.shape[:-2]
     al = alphas.reshape((n_alpha,) + (1,) * (len(batch) + 1))
@@ -244,7 +267,7 @@ def forward_pass(model: RobotModel, cost: Cost, X, U, k, K, alphas, dt,
             K[..., t, :, :], state_diff(model, x, X[..., t, :]))
         if u_clip is not None:
             u = torch.clamp(u, -u_clip, u_clip)
-        x = step_fn(x, u)
+        x = step_fn(x, u) if f_ext is None else step_fn(x, u, f_ext[t])
         xs.append(x)
         us.append(u)
     X_new = torch.stack(xs, dim=-2)
@@ -253,10 +276,11 @@ def forward_pass(model: RobotModel, cost: Cost, X, U, k, K, alphas, dt,
 
 
 def forward_pass_fused(model: RobotModel, cost: Cost, X, U, k, K, alphas, dt,
-                       gravity, u_clip=None, nchunks=None):
+                       gravity, u_clip=None, nchunks=None, f_ext=None):
     """forward_pass with the whole alpha ladder x problem batch flattened
     into one launch (alpha folded into k): ``feedback_rollout`` (K2), or
-    with ``nchunks`` its chunked-gain form ``feedback_chunked`` (K9)."""
+    with ``nchunks`` its chunked-gain form ``feedback_chunked`` (K9); with
+    ``f_ext`` ((H, nb, 6), contiguous) their wrench variants."""
     n_alpha = alphas.shape[0]
     batch = U.shape[:-2]
     lead = (n_alpha,) + batch
@@ -268,10 +292,11 @@ def forward_pass_fused(model: RobotModel, cost: Cost, X, U, k, K, alphas, dt,
             (al * k).reshape((-1,) + k.shape[len(batch):]).contiguous(),
             flat(K), dt, gravity)
     if nchunks is None:
-        X_tail, U_new = feedback_rollout_fused(*args, u_clip=u_clip)
+        X_tail, U_new = feedback_rollout_fused(*args, u_clip=u_clip,
+                                               f_ext=f_ext)
     else:
         X_tail, U_new = feedback_rollout_fused_chunked(
-            *args, u_clip=u_clip, nchunks=nchunks)
+            *args, u_clip=u_clip, nchunks=nchunks, f_ext=f_ext)
     X_new = torch.cat([X_b[:, :1], X_tail], dim=1)
     X_new = X_new.reshape(lead + X_new.shape[1:])
     U_new = U_new.reshape(lead + U_new.shape[1:])
@@ -279,15 +304,26 @@ def forward_pass_fused(model: RobotModel, cost: Cost, X, U, k, K, alphas, dt,
 
 
 def ddp_solve(model: RobotModel, cost: Cost, x0, U0,
-              config: DDPConfig = DDPConfig()):
+              config: DDPConfig = DDPConfig(), f_ext=None):
     """Solve trajectory-optimisation problem(s): x0 (..., nx), U0 (..., H, nv)
     with arbitrary (possibly empty) leading batch dims.
+
+    f_ext: optional world-frame disturbance wrenches on the bodies, (nb, 6)
+    constant or (H, nb, 6) per knot, shared by the batch
+    (``normalize_f_ext``): the initial rollout and every line-search
+    candidate apply them with ``dynamics.aba(f_ext)`` semantics, so J is
+    the disturbed cost; A and B stay undisturbed (rbdtpu's
+    ``ddp_solve(f_ext)``).
     Returns (DDPState, J_history (iters, ...))."""
     _check_config(config)
     dt, gravity = config.dt, config.gravity
     kw = dict(dtype=x0.dtype, device=x0.device)
     alphas = 2.0 ** -torch.arange(config.n_alphas, **kw)
     batch = x0.shape[:-1]
+    F = normalize_f_ext(model, f_ext, U0.shape[-2], x0.dtype)
+    if F is not None:
+        F = F.to(x0.device).contiguous()
+        step_fe = _make_step_fext(model, config)
     step_fn = _make_step(model, config)
     lin_fn = _make_linearize(model, config)
     batch_total = config.n_alphas
@@ -305,7 +341,8 @@ def ddp_solve(model: RobotModel, cost: Cost, x0, U0,
 
     xs = [x0]
     for t in range(U0.shape[-2]):
-        xs.append(step_fn(xs[-1], U0[..., t, :]))
+        xs.append(step_fn(xs[-1], U0[..., t, :]) if F is None
+                  else step_fe(xs[-1], U0[..., t, :], F[t]))
     X0 = torch.stack(xs, dim=-2)
     state = DDPState(
         X=X0, U=U0, J=trajectory_cost(cost, X0, U0),
@@ -325,10 +362,11 @@ def ddp_solve(model: RobotModel, cost: Cost, x0, U0,
         if fwd_route != "plain":
             Xs, Us, Js = forward_pass_fused(model, cost, state.X, state.U, k,
                                             K, alphas, dt, gravity, u_clip,
-                                            nchunks)
+                                            nchunks, F)
         else:
-            Xs, Us, Js = forward_pass(model, cost, state.X, state.U, k, K,
-                                      alphas, dt, gravity, step_fn, u_clip)
+            Xs, Us, Js = forward_pass(
+                model, cost, state.X, state.U, k, K, alphas, dt, gravity,
+                step_fn if F is None else step_fe, u_clip, F)
         Js = torch.where(torch.isfinite(Js), Js, float("inf"))
         best = torch.argmin(Js, dim=0)  # first index on ties
         J_best = Js.amin(dim=0)

@@ -16,16 +16,12 @@ def hybrid_solve(model: RobotModel, cost: Cost, x0, U0, generator=None,
     """MPPI warm start, then DDP refinement, natively batched over leading
     problem dims: x0 (..., nx), U0 (..., H, nv).  ``generator`` and
     ``noise`` (iters, ..., S, H, nv) feed the MPPI stage as in
-    ``mppi_solve``.  Returns (DDPState, (mppi_hist, ddp_hist)).
-
-    ``f_ext`` is refused: the port's ``ddp_solve`` takes no wrenches yet
-    (ROADMAP.md, modules to port, item 3)."""
-    if f_ext is not None:
-        raise NotImplementedError(
-            "hybrid_solve: f_ext needs ddp_solve's wrenches, not ported yet "
-            "(ROADMAP.md, modules to port, item 3)")
+    ``mppi_solve``.  ``f_ext``: optional world-frame wrenches, (nb, 6) or
+    (H, nb, 6) (``solver.rollout.normalize_f_ext``), applied in both
+    stages' rollouts.  Returns (DDPState, (mppi_hist, ddp_hist))."""
     U_warm, mppi_hist = mppi_solve(model, cost, x0, U0, generator,
                                    iters=mppi_iters, config=mppi_config,
-                                   noise=noise)
-    state, ddp_hist = ddp_solve(model, cost, x0, U_warm, ddp_config)
+                                   f_ext=f_ext, noise=noise)
+    state, ddp_hist = ddp_solve(model, cost, x0, U_warm, ddp_config,
+                                f_ext=f_ext)
     return state, (mppi_hist, ddp_hist)

@@ -342,25 +342,31 @@ def test_wrappers_refuse_bad_input(card):
         fd_step_fused(m, x, u.cpu(), DT)
     with pytest.raises(ValueError):  # integer tensors have no kernel
         fd_step_fused(m, x.int(), u.int(), DT)
-    # the rpy root reaches K1-K3, K6, K9 and K10 (each launches its kernel)
-    # but not K4 or K5; the quaternion root no kernel
+    # the rpy root reaches K1-K4 (K4 up to 16 bodies), K6, K9 and K10
+    # (each launches its kernel) but not K5; the quaternion root no kernel
     fb = load_asset("quadruped12", device=card, dtype=torch.float64,
                     floating_base=True)
     q = torch.zeros(8, fb.nq, dtype=torch.float64, device=card)
     v = torch.zeros(8, fb.nv, dtype=torch.float64, device=card)
     x = torch.cat([q, v], -1)
+    ee = (fb.joint_names[3],)
     for name, launched in (
             ("rnea", lambda: rnea_fused(fb, q, v)),
             ("rnea", lambda: rnea_fused(fb, q, v, v)),
             ("fd_step_minv", lambda: fd_step_minv_fused(fb, x, v, DT)),
             ("fd_step_minv", lambda: fd_step_minv_fused(fb, x, v, DT,
-                                                        dense_minv=True))):
+                                                        dense_minv=True)),
+            ("ee_err", lambda: ee_gn_fused(fb, q, TARGET, ee_names=ee,
+                                           gn=False)[0]),
+            ("ee_gn", lambda: ee_gn_fused(fb, q, TARGET, ee_names=ee)[2])):
         assert bool(_launched(name, launched).isfinite().all())
-    for refused in (lambda: rollout_fused_multi(fb, x, v[None], DT),
-                    lambda: ee_gn_fused(fb, q, TARGET,
-                                        ee_names=(fb.joint_names[3],))):
-        with pytest.raises(NotImplementedError):
-            refused()
+    with pytest.raises(NotImplementedError):
+        rollout_fused_multi(fb, x, v[None], DT)
+    hum = _humanoid(torch.float64)
+    with pytest.raises(ValueError, match="31 bodies"):
+        ee_gn_fused(hum, torch.zeros(8, hum.nq, dtype=torch.float64,
+                                     device=card), TARGET,
+                    ee_names=(hum.joint_names[hum.leaves()[0]],))
     quat = load_asset("quadruped12", device=card, dtype=torch.float64,
                       floating_base=True, root_quat=True)
     qq = torch.zeros(8, quat.nq, dtype=torch.float64, device=card)
@@ -927,3 +933,139 @@ def test_hybrid_solve_on_the_card(card):
     with pytest.raises(ValueError):
         mppi_step(m, cost, x0, U0, torch.Generator(card), MPPIConfig(
             n_samples=8, fused=True, sampling_dtype="bfloat16"))
+
+
+# ---- K4 on the rpy root (fb16) and K2/K9 with wrenches ----
+
+QUAD_EE = ("FL_knee",)
+
+
+@pytest.mark.parametrize("ee", ["leaf", "foot"])
+@pytest.mark.parametrize("B", [1, 37, 1024, 51200, 313345])
+@pytest.mark.parametrize("gn", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+def test_ee_gn_rpy(card, dtype, gn, B, ee):
+    """One launch of K4's fb16 instantiation (ee_gn or ee_err) on the rpy
+    quadruped against the plain version, at a leaf joint and at a foot's
+    fixed frame: one state, an odd batch, path E's 1,024 (terminal) and
+    51,200 (knots), and one past its line search's 313,344; q uniform in
+    [-1, 1] (the root turned as far)."""
+    m = load_asset("quadruped12", device="cuda", dtype=dtype,
+                   floating_base=True)
+    assert _lib.size_class("ee_gn", m) == "fb16"
+    names = QUAD_EE if ee == "leaf" else ("RL_foot_fixed",)
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    q = torch.tensor(np.random.default_rng(9).uniform(-1, 1, (B, m.nq)),
+                     dtype=dtype, device="cuda")
+    target = (0.3, 0.1, 0.1)
+    out = _launched("ee_gn" if gn else "ee_err", lambda: ee_gn_fused(
+        m, q, target, ee_names=names, gn=gn))
+    for a, b in zip(out, fk_lane.ee_gn_plain(m, q, target, ee_names=names,
+                                             gn=gn)):
+        if b is None:
+            assert a is None
+        else:
+            _close(a, b, tol)
+
+
+def _fext_models(dtype):
+    """(name, model, closed-loop line-search inputs at 37 trajectories of 8
+    knots) at each class: arm7 (n8), the rpy quadruped (fb16), the
+    humanoid (fb32)."""
+    arm = load_asset("arm7", device="cuda", dtype=dtype)
+    quad = load_asset("quadruped12", device="cuda", dtype=dtype,
+                      floating_base=True)
+    hum = _humanoid(dtype)
+    return [("arm7", arm, _closed_loop(arm, 37, 8)),
+            ("quad_rpy", quad, _closed_loop(quad, 37, 8)),
+            ("humanoid", hum, _humanoid_inputs(hum, 37, 8)[0])]
+
+
+@pytest.mark.parametrize("nchunks", [None, 1, 2, 3],
+                         ids=["k2", "k9-1", "k9-2", "k9-3"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+def test_feedback_fext(card, dtype, nchunks):
+    """K2 (nchunks None) and K9 with per-knot wrenches (H, nb, 6) against
+    their plain versions at n8, fb16 and fb32 (1e-9 in float64, 1e-3
+    relative in float32 over 8 closed-loop knots), with and without a
+    clamp, at 37 trajectories (two of a block past the batch when teams
+    share a block) and at one; with all-zero wrenches each equals its
+    wrench-free twin bit for bit."""
+    tol = 1e-9 if dtype == torch.float64 else 1e-3
+    name = "feedback_rollout" if nchunks is None else "feedback_chunked"
+    kern = (feedback_rollout_fused if nchunks is None else
+            lambda *a, **kw: feedback_rollout_fused_chunked(
+                *a, nchunks=nchunks, **kw))
+    plain = (fused.feedback_rollout_plain if nchunks is None else
+             lambda *a, **kw: fused.feedback_rollout_chunked_plain(
+                 *a, nchunks=nchunks, **kw))
+    for label, m, fb in _fext_models(dtype):
+        (F,) = _inputs(m, (8, m.nb, 6), scale=2.0)
+        F[2:5, 0, 4] += 40.0
+        applied = plain(m, *fb, DT, f_ext=F)[1]
+        clip = 0.8 * applied.abs().amax(dim=(0, 1))
+        for args in (fb, tuple(a[:1].contiguous() for a in fb)):
+            for u_clip in (None, clip):
+                X, U = _launched(name + "_fext", lambda: kern(
+                    m, *args, DT, u_clip=u_clip, f_ext=F))
+                Xp, Up = plain(m, *args, DT, u_clip=u_clip, f_ext=F)
+                _close(X, Xp, tol)
+                _close(U, Up, tol)
+        Z = torch.zeros_like(F)
+        X, U = _launched(name + "_fext", lambda: kern(m, *fb, DT, f_ext=Z))
+        X0, U0 = _launched(name, lambda: kern(m, *fb, DT))
+        assert torch.equal(X, X0) and torch.equal(U, U0), label
+
+
+def test_feedback_fext_refuses_bad_wrenches(card):
+    """The wrench variants take (H, nb, 6) on the inputs' device and dtype
+    only."""
+    m = load_asset("arm7", device=card, dtype=torch.float64)
+    fb = _closed_loop(m, 4, 3)
+    for bad in (torch.zeros(m.nb, 6, dtype=m.dtype, device=card),
+                torch.zeros(3, m.nb, 6, dtype=torch.float32, device=card),
+                torch.zeros(4, m.nb, 6, dtype=m.dtype, device=card)):
+        with pytest.raises(ValueError):
+            feedback_rollout_fused(m, *fb, DT, f_ext=bad)
+        with pytest.raises(ValueError):
+            feedback_rollout_fused_chunked(m, *fb, DT, f_ext=bad)
+
+
+def test_ddp_fext_kernels_match_plain(card):
+    """``ddp_solve(f_ext)`` on the rpy quadruped (configs[3]'s tracking
+    problem, Bm=4, H=10, 3 iterations, float64) through the kernels and
+    through the plain route under a per-knot trunk push: |dU| < 1e-6; the
+    kernel route launches K1 and K2 with wrenches, and no wrench-free K2."""
+    from rbdtpu_torch.dynamics import rnea
+    from rbdtpu_torch.solver import (
+        DDPConfig, ddp_solve, quadratic_tracking_cost,
+    )
+
+    m = load_asset("quadruped12", device=card, dtype=torch.float64,
+                   floating_base=True)
+    Bm, H = 4, 10
+    rng = np.random.default_rng(13)
+    q0 = np.zeros((Bm, m.nq))
+    q0[:, 2] = 0.35
+    q0 = torch.tensor(q0 + 0.05 * rng.standard_normal(q0.shape),
+                      device=card)
+    z = torch.zeros(Bm, m.nv, dtype=m.dtype, device=card)
+    x0 = torch.cat([q0, z], -1)
+    U0 = rnea(m, q0, z, z)[0][:, None].expand(Bm, H, m.nv).contiguous()
+    goal = torch.zeros(m.nx, dtype=m.dtype, device=card)
+    goal[2] = 0.4
+    cost = quadratic_tracking_cost(m, goal, w_q=2.0, w_qd=0.05, w_u=1e-5)
+    F = torch.zeros(H, m.nb, 6, dtype=m.dtype, device=card)
+    F[2:6, 0, 4] = 60.0
+    _lib.reset_launches()
+    sk, _ = ddp_solve(m, cost, x0, U0, DDPConfig(iters=3, n_alphas=6,
+                                                fused=True), f_ext=F)
+    counts = dict(_lib.launches)
+    sp, _ = ddp_solve(m, cost, x0, U0, DDPConfig(iters=3, n_alphas=6,
+                                                fused=False,
+                                                fused_riccati=False), f_ext=F)
+    assert counts["feedback_rollout_fext"] == 3 and counts["fd_step"] == H
+    assert counts["feedback_rollout"] == counts["feedback_chunked"] == 0
+    assert (sk.U - sp.U).abs().max().item() < 1e-6

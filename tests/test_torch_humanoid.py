@@ -55,13 +55,13 @@ def _cost(tm, goal):
     return quadratic_tracking_cost(tm, torch.as_tensor(goal), **WEIGHTS)
 
 
-def solve(tm, ref, kernels: bool):
+def solve(tm, ref, kernels: bool, f_ext=None):
     g = lambda k: torch.tensor(ref[k])
     return hybrid_solve(
         tm, _cost(tm, ref["goal"]), g("x0"), g("U0"), None,
         MPPIConfig(n_samples=SAMPLES, sigma=SIGMA, dt=DT, fused=kernels),
         DDPConfig(iters=DDP_ITERS, dt=DT, n_alphas=N_ALPHAS, fused=kernels),
-        mppi_iters=MPPI_ITERS, noise=g("noise"))
+        mppi_iters=MPPI_ITERS, f_ext=f_ext, noise=g("noise"))
 
 
 def _hold(out, ref):
@@ -81,11 +81,17 @@ def test_hybrid_matches_recorded_rbdtpu(tm, recorded, kernels):
 
 
 def test_hybrid_refuses_wrenches(tm, recorded):
-    with pytest.raises(NotImplementedError, match="item 3"):
-        hybrid_solve(tm, _cost(tm, recorded["goal"]),
-                     torch.tensor(recorded["x0"]),
-                     torch.tensor(recorded["U0"]), None,
-                     f_ext=torch.zeros(tm.nb, 6, dtype=torch.float64))
+    """``hybrid_solve`` takes world wrenches in both stages (rbdtpu's
+    ``f_ext``) and refuses a set that is neither (nb, 6) nor (H, nb, 6);
+    an all-zero set gives rbdtpu's wrench-free solve.  Its wrenches are
+    held against rbdtpu in tests/test_torch_mppi.py."""
+    H = recorded["U0"].shape[-2]
+    for shape in ((tm.nb, 3), (H + 1, tm.nb, 6), (tm.nb - 1, 6)):
+        with pytest.raises(ValueError, match="f_ext"):
+            solve(tm, recorded, False,
+                  f_ext=torch.zeros(shape, dtype=torch.float64))
+    _hold(solve(tm, recorded, False,
+                f_ext=torch.zeros(tm.nb, 6, dtype=torch.float64)), recorded)
 
 
 def test_k9_tier_matches_k2_tier(tm, monkeypatch):

@@ -181,6 +181,112 @@ def test_c_layouts_match_python(tmp_path):
     assert got == want
 
 
+_PROGRAM_FEXT_RPY = r"""
+#include <cstdio>
+#include "feedback_chunked.cu"
+#include "ee_gn.cu"
+int main() {
+  %s
+  return 0;
+}
+"""
+
+
+def test_c_layouts_fext_and_rpy_match_python(tmp_path):
+    """K2's and K9's team stride with the wrenches' chain at every class and
+    team size, the block's wrench stages at every class, and K4's rpy-root
+    staging (its fixed values and a state's of each kernel), compiled for
+    the host from csrc/, give the counts _lib computes."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    dims = {"n8": "N8", "fb16": "FB16", "fb32": "FB32"}
+    lin = [(cls, team) for cls in _lib.SIZE_CLASSES for team in _lib.TEAM_SIZES]
+    show = lambda expr: f'std::printf("%d\\n", {expr});'
+    src = _PROGRAM_FEXT_RPY % "\n  ".join(
+        [show(f"rbd::feedback_team_stride<rbd::{dims[c]}, {t}, true>()")
+         for c, t in lin]
+        + [show(f"rbd::feedback_wrench_values<rbd::{dims[c]}>()")
+           for c in dims]
+        + [show(f"rbd::ee_rpy_state_values<{gn}>()")
+           for gn in ("true", "false")]
+        + [show("rbd::EE_FIXED_RPY")])
+    (tmp_path / "layouts.cpp").write_text(src)
+    exe = tmp_path / "layouts"
+    subprocess.run([cxx, "-std=c++17", "-x", "c++", "-I", _lib.CSRC,
+                    "-o", str(exe), str(tmp_path / "layouts.cpp")],
+                   check=True, capture_output=True, timeout=120)
+    got = [int(v) for v in subprocess.run(
+        [str(exe)], check=True, capture_output=True, text=True,
+        timeout=60).stdout.split()]
+    want = ([_lib.team_values("feedback_rollout_fext", c, t) for c, t in lin]
+            + [_lib.block_values("feedback_chunked_fext", c) for c in dims]
+            + [_lib.ee_values("ee_gn", "fb16"), _lib.ee_values("ee_err", "fb16"),
+               _lib.ee_fixed("fb16")])
+    assert got == want
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "float64"])
+@pytest.mark.parametrize("cls", list(_lib.SIZE_CLASSES))
+def test_feedback_fext_geometry(cls, dtype):
+    """K2 and K9 with wrenches, at every class: the wrench-free kernel's
+    team size and its team's values (the wrenches' chain reuses the
+    articulated inertias' values), both kernels alike; a block keeps two
+    stages of the wrench set (12 values a body of the class, rounded to
+    32) ahead of at most one warp of teams,
+    within 232,448 bytes; the grid covers every batch exactly, and a batch
+    that could give every SM a block does."""
+    nb = _lib.SIZE_CLASSES[cls][0]
+    size = torch.finfo(dtype).bits // 8
+    extra = _lib.block_values("feedback_rollout_fext", cls)
+    assert extra == _lib.block_values("feedback_chunked_fext", cls)
+    assert extra >= 12 * nb and extra % 32 == 0
+    assert _lib.block_values("feedback_rollout", cls) == 0
+    for kernel in ("feedback_rollout_fext", "feedback_chunked_fext"):
+        assert kernel in _lib.SIZE_CLASSES[cls][2]
+        team = _lib.TEAM[(kernel, cls, _lib._SUFFIX[dtype])]
+        plain = kernel[:-len("_fext")]
+        assert team == _lib.TEAM[(plain, cls, _lib._SUFFIX[dtype])]
+        values = _lib.team_values(kernel, cls, team)
+        assert values == _lib.team_values(plain, cls, team)
+        per = values * size
+        for B in LINE_BATCHES:
+            t, tpb, smem, blocks = _lib.team_geometry(kernel, cls, dtype, B)
+            assert t == team and 1 <= tpb and tpb * team <= 32
+            assert smem == tpb * per + extra * size <= _lib.SMEM_MAX
+            assert blocks * tpb >= B > (blocks - 1) * tpb
+            if B >= _lib.H100_SMS:
+                assert blocks >= _lib.H100_SMS
+
+
+@pytest.mark.parametrize("kernel", ["ee_gn", "ee_err"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "float64"])
+def test_ee_rpy_geometry(kernel, dtype):
+    """K4 on the rpy root (fb16): a multiple of four states a block, 8
+    lanes a state for ee_gn and one for ee_err, within the launch bounds;
+    a block stages the walk rows of the class's 16 bodies and the mount,
+    then a state's q (nv = 21 at the bound) and e, and for ee_gn g0, H0 and
+    J, within 48 KB; the grid covers every batch, and path E's batches
+    (51,200 knots, 313,344 line-search states) take the most states a
+    block that fit."""
+    per = _lib.ee_values(kernel, "fb16")
+    assert per == (2 * 21 + 3 + 21 * 21 + 3 * 21 if kernel == "ee_gn"
+                   else 21 + 3)
+    lanes, most = (8, 256) if kernel == "ee_gn" else (1, 128)
+    size = torch.finfo(dtype).bits // 8
+    fixed = _lib.ee_fixed("fb16")
+    assert fixed == 15 * 16 + 12 and fixed % 4 == 0
+    for B in (*EE_BATCHES, 51200, 6 * 1024 * 51):
+        spb, threads, smem, blocks = _lib.ee_geometry(kernel, dtype, B,
+                                                      cls="fb16")
+        assert spb % 4 == 0 and threads == spb * lanes <= most
+        assert smem == (fixed + spb * per) * size <= _lib.EE_SMEM_MAX
+        assert blocks * spb >= B > (blocks - 1) * spb
+    top = _lib.ee_geometry(kernel, dtype, 51200, cls="fb16")[0]
+    assert (fixed + 2 * top * per) * size > _lib.EE_SMEM_MAX or (
+        top == _lib.EE_STATES_RPY[kernel][0])
+
+
 # K5's and K4's batches: one state, an odd batch, the rollout path's 4096
 # and one more; K4 also the paths' terminal (128), knot (12,800) and line
 # search (1,024, 102,400) counts and one past the last
@@ -320,8 +426,8 @@ def test_riccati_fused_geometry(nx, nu, dtype):
             assert _lib.riccati_fused_geometry(nx, nu, dtype, B)[0] == 256
 
 
-# A host build of K9's team body (feedback_team.cuh, K9's chunked sum) on a
-# team of 8 std::threads, and of K11's block body on one thread, each
+# A host build of K9's team body (feedback_team.cuh, K9's chunked sum, or
+# K2's with cw = 0, with or without wrenches) on a team of 8 std::threads, and of K11's block body on one thread, each
 # behind a plain C entry point.
 _HOST = r"""
 #include <condition_variable>
@@ -383,10 +489,15 @@ static void k9(const double* tab, const int* itab, int nb, const double* x0,
     std::vector<std::thread> th;
     for (int lane = 0; lane < NL; ++lane)
       th.emplace_back([&, lane] {
-        rbd::feedback_rollout_team<NL, LV>(rbd::Team<NL>{lane, 0u}, m, s.data(),
-                                           x0 + (size_t)b * nx, Xn + bx, Un + bu, kf + bu,
-                                           Kf + bu * nx, uclip, Xo + bx, Uo + bu, H, dt, g,
-                                           rbd::ChunkSum{cw});
+        if (cw > 0)
+          rbd::feedback_rollout_team<NL, LV>(rbd::Team<NL>{lane, 0u}, m, s.data(),
+                                             x0 + (size_t)b * nx, Xn + bx, Un + bu, kf + bu,
+                                             Kf + bu * nx, uclip, Xo + bx, Uo + bu, H, dt, g,
+                                             rbd::ChunkSum{cw});
+        else
+          rbd::feedback_rollout_team<NL, LV>(rbd::Team<NL>{lane, 0u}, m, s.data(),
+                                             x0 + (size_t)b * nx, Xn + bx, Un + bu, kf + bu,
+                                             Kf + bu * nx, uclip, Xo + bx, Uo + bu, H, dt, g);
       });
     for (auto& t : th) t.join();
   }
@@ -403,6 +514,46 @@ static void k9(const double* tab, const int* itab, int nb, const double* x0,
   }
 HOST_K9(n8, N8)
 HOST_K9(fb16, FB16)
+
+// K2 (cw = 0: one run over a row) and K9 with the wrenches of a block of
+// one team: the block's two wrench stages, its threads the team's lanes
+template <class D, bool LV>
+static void k9_fext(const double* tab, const int* itab, int nb, const double* x0,
+                    const double* Xn, const double* Un, const double* kf, const double* Kf,
+                    const double* fext, const double* uclip, double* Xo, double* Uo, int B,
+                    int H, int cw, double dt, double g) {
+  constexpr int NL = 8;
+  const rbd::Model<double, D> m{tab, itab, nb};
+  const int n = m.nv(), nx = 2 * n;
+  std::vector<double> s(rbd::feedback_team_stride<D, NL, true>()),
+      stage(rbd::feedback_wrench_values<D>());
+  for (int b = 0; b < B; ++b) {
+    const size_t bx = (size_t)b * H * nx, bu = (size_t)b * H * n;
+    run_team<NL>([&](const rbd::Team<NL>& tm) {
+      const rbd::BlockWrench<double, D> w{fext, stage.data(), tm.lane, NL, nb, true};
+      if (cw > 0)
+        rbd::feedback_rollout_team<NL, LV>(tm, m, s.data(), x0 + (size_t)b * nx, Xn + bx,
+                                           Un + bu, kf + bu, Kf + bu * nx, uclip, Xo + bx,
+                                           Uo + bu, H, dt, g, rbd::ChunkSum{cw}, w);
+      else
+        rbd::feedback_rollout_team<NL, LV>(tm, m, s.data(), x0 + (size_t)b * nx, Xn + bx,
+                                           Un + bu, kf + bu, Kf + bu * nx, uclip, Xo + bx,
+                                           Uo + bu, H, dt, g, rbd::RowSum{}, w);
+    });
+  }
+}
+
+#define HOST_K9_FEXT(CLS, D)                                                                 \
+  extern "C" void host_k9_fext_##CLS(const double* tab, const int* itab, int nb,             \
+                                     const double* x0, const double* Xn, const double* Un,   \
+                                     const double* kf, const double* Kf, const double* fext, \
+                                     const double* uclip, double* Xo, double* Uo, int B,     \
+                                     int H, int cw, int lv, double dt, double g) {           \
+    (lv ? k9_fext<rbd::D, true> : k9_fext<rbd::D, false>)(                                   \
+        tab, itab, nb, x0, Xn, Un, kf, Kf, fext, uclip, Xo, Uo, B, H, cw, dt, g);            \
+  }
+HOST_K9_FEXT(n8, N8)
+HOST_K9_FEXT(fb16, FB16)
 
 extern "C" void host_k11(const double* A, const double* Bm, const double* lx,
                          const double* lu, const double* lxx, int lxx_sb, int lxx_st,
@@ -507,6 +658,30 @@ extern "C" void host_k4(const double* tab, const int* itab, int nb, const double
     }
   }
 }
+
+// K4 on the rpy root (FB16): ee_gn by a team of 8, ee_err by one thread
+extern "C" void host_k4_fb16(const double* tab, const int* itab, int nb, const double* ee,
+                             int chain, int prism, const double* q, double tx, double ty,
+                             double tz, double* e, double* g0, double* H0, int B, int gn) {
+  const rbd::Model<double, rbd::FB16> m{tab, itab, nb};
+  const int n = m.nv();
+  const double target[3] = {tx, ty, tz};
+  std::vector<double> J(3 * rbd::FB16::NV), rows(rbd::EE_ROW * rbd::FB16::NB);
+  for (int k = 0; k < rbd::EE_ROW * nb; ++k) rows[k] = rbd::ee_row_value(m, k);
+  for (int b = 0; b < B; ++b) {
+    const double* qb = q + (size_t)b * n;
+    if (gn) {
+      run_team<8>([&](const rbd::Team<8>& tm) {
+        rbd::ee_gn_team_rpy(tm, n, rows.data(), (unsigned)chain, (unsigned)prism, ee, qb,
+                            target, e + 3 * b, g0 + (size_t)b * n, H0 + (size_t)b * n * n,
+                            J.data());
+      });
+    } else {
+      rbd::ee_err_one_rpy(rows.data(), (unsigned)chain, (unsigned)prism, ee, qb, target,
+                          e + 3 * b);
+    }
+  }
+}
 """
 
 
@@ -529,10 +704,13 @@ def host_kernels(tmp_path_factory):
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for fn in (lib.host_k9_n8, lib.host_k9_fb16):
         fn.argtypes = [P, P, I] + [P] * 8 + [I, I, I, I, D, D]
+    for fn in (lib.host_k9_fext_n8, lib.host_k9_fext_fb16):
+        fn.argtypes = [P, P, I] + [P] * 9 + [I, I, I, I, D, D]
     lib.host_k11.argtypes = ([P] * 5 + [I, I, P, I, I, P, I, I] + [P] * 7
                              + [I] * 4)
     lib.host_k5.argtypes = [P, P, I, P, P, P, P, I, I, I, D, D]
     lib.host_k4.argtypes = [P, P, I, P, I, I, P, D, D, D, P, P, P, I, I]
+    lib.host_k4_fb16.argtypes = lib.host_k4.argtypes
     for cls in ("n8", "fb16"):
         getattr(lib, f"host_k10_{cls}").argtypes = [P, P, I, P, P, P, P, I, D]
         getattr(lib, f"host_k6_{cls}").argtypes = [P, P, I, P, P, P, I, P, I,
@@ -578,6 +756,61 @@ def test_host_feedback_chunked(host_kernels, name, nchunks):
             m, *args, 0.01, u_clip=clip, nchunks=nch)
         torch.testing.assert_close(Xo, Xp, rtol=0, atol=1e-9)
         torch.testing.assert_close(Uo, Up, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("nchunks", [0, 2, "ndx"], ids=["k2", "k9-2", "k9-ndx"])
+@pytest.mark.parametrize("name", ["arm7", "quadruped12"])
+def test_host_feedback_fext(host_kernels, name, nchunks):
+    """K2's and K9's team body with wrenches (one block of one team, the
+    block's two wrench stages), built for the host and run by a team of 8
+    threads, against ``feedback_rollout_plain`` (nchunks 0: K2's sum) and
+    ``feedback_rollout_chunked_plain`` under the same (H, nb, 6) wrenches in
+    float64 (1e-9), with and without a clamp, on arm7 (n8) and the rpy
+    quadruped (fb16); all-zero wrenches give the wrench-free body's result
+    bit for bit."""
+    from rbdtpu_torch.kernels import fused
+    from rbdtpu_torch.model import load_asset
+
+    fb = name == "quadruped12"
+    m = load_asset(name, device="cpu", dtype=torch.float64, floating_base=fb)
+    nch = m.nx if nchunks == "ndx" else nchunks
+    cw = fused.chunk_geometry(m.nx, nch)[0] if nch else 0
+    tab, itab = _lib.model_tables(m, "cpu", torch.float64)
+    rng = np.random.default_rng(31 + nch)
+    B, H = 3, 4
+    T = lambda sc, *s: torch.tensor(sc * rng.standard_normal(s))
+    x0 = T(0.1, B, m.nx)
+    if fb:
+        x0[:, 2] += 0.4
+    args = (x0, T(0.1, B, H, m.nx), T(0.1, B, H, m.nv), T(0.1, B, H, m.nv),
+            T(0.1, B, H, m.nv, m.nx))
+    cls = "fb16" if fb else "n8"
+    lv = int(_lib.level_walk(m))
+    for clip in (None, torch.full((m.nv,), 0.05, dtype=torch.float64)):
+        for F in (T(5.0, H, m.nb, 6), torch.zeros(H, m.nb, 6,
+                                                  dtype=torch.float64)):
+            Xo = torch.empty(B, H, m.nx, dtype=torch.float64)
+            Uo = torch.empty(B, H, m.nv, dtype=torch.float64)
+            getattr(host_kernels, f"host_k9_fext_{cls}")(
+                _ptr(tab), _ptr(itab), m.nb, *[_ptr(a) for a in args],
+                _ptr(F), _ptr(clip), _ptr(Xo), _ptr(Uo), B, H, cw, lv, 0.01,
+                -9.81)
+            if nch:
+                Xp, Up = fused.feedback_rollout_chunked_plain(
+                    m, *args, 0.01, u_clip=clip, nchunks=nch, f_ext=F)
+            else:
+                Xp, Up = fused.feedback_rollout_plain(m, *args, 0.01,
+                                                      u_clip=clip, f_ext=F)
+            torch.testing.assert_close(Xo, Xp, rtol=0, atol=1e-9)
+            torch.testing.assert_close(Uo, Up, rtol=0, atol=1e-9)
+            if not F.any():
+                X0 = torch.empty_like(Xo)
+                U0 = torch.empty_like(Uo)
+                getattr(host_kernels, f"host_k9_{cls}")(
+                    _ptr(tab), _ptr(itab), m.nb, *[_ptr(a) for a in args],
+                    _ptr(clip), _ptr(X0), _ptr(U0), B, H, cw, lv, 0.01,
+                    -9.81)
+                assert torch.equal(Xo, X0) and torch.equal(Uo, U0)
 
 
 @pytest.mark.parametrize("nx,nu,const,non_pd", [
@@ -688,6 +921,60 @@ def test_host_ee_gn(host_kernels, name, gn):
     if gn:
         torch.testing.assert_close(g0, want[1], rtol=0, atol=1e-9)
         torch.testing.assert_close(H0, want[2], rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("gn", [True, False], ids=["ee_gn", "ee_err"])
+@pytest.mark.parametrize("ee", ["leaf", "foot", "offset"])
+def test_host_ee_gn_rpy(host_kernels, ee, gn):
+    """K4's rpy-root bodies (fb16) built for the host, ee_gn by a team of 8
+    threads a state and ee_err by one thread, against ``ee_gn_plain`` in
+    float64 (1e-9) on the rpy quadruped at a leaf joint, at a foot's fixed
+    frame, and at a leaf joint of a copy of the model whose root frame is
+    offset and turned (Ttree[0] not the identity)."""
+    from rbdtpu_torch.kernels import fk_lane
+    from rbdtpu_torch.model import load_asset
+
+    m = load_asset("quadruped12", device="cpu", dtype=torch.float64,
+                   floating_base=True)
+    ee_names = {"leaf": None, "foot": ("RL_foot_fixed",),
+                "offset": ("FR_knee",)}[ee]
+    if ee == "offset":
+        m = _turned_root(m)
+    elif ee == "leaf":
+        ee_names = (m.joint_names[m.leaves()[0]],)
+    jid, fid = fk_lane._single_ee(m, ee_names)
+    tab, itab = _lib.model_tables(m, "cpu", torch.float64)
+    table = _lib.ee_table(m, fid, "cpu", torch.float64)
+    B, n = 5, m.nv
+    q = torch.tensor(np.random.default_rng(7).uniform(-1.0, 1.0, (B, m.nq)))
+    target = (0.3, 0.1, 0.1)
+    e = torch.empty(B, 3, dtype=torch.float64)
+    g0 = torch.empty(B, n, dtype=torch.float64)
+    H0 = torch.empty(B, n, n, dtype=torch.float64)
+    host_kernels.host_k4_fb16(_ptr(tab), _ptr(itab), m.nb, _ptr(table),
+                              *fk_lane.ee_chain(m, jid), _ptr(q), *target,
+                              _ptr(e), _ptr(g0), _ptr(H0), B, int(gn))
+    want = fk_lane.ee_gn_plain(m, q, target, ee_names=ee_names, gn=gn)
+    torch.testing.assert_close(e, want[0], rtol=0, atol=1e-9)
+    if gn:
+        torch.testing.assert_close(g0, want[1], rtol=0, atol=1e-9)
+        torch.testing.assert_close(H0, want[2], rtol=0, atol=1e-9)
+
+
+def _turned_root(m):
+    """``m`` with its root's joint frame moved by (0.1, -0.2, 0.05) and
+    turned by rpy (0.3, -0.2, 0.5) (both Ttree[0] and Xtree[0])."""
+    import dataclasses
+
+    from rbdtpu_torch.spatial.transforms import hom, plux, rpy_to_R
+
+    R = rpy_to_R(torch.tensor([0.3, -0.2, 0.5], dtype=torch.float64))
+    p = torch.tensor([0.1, -0.2, 0.05], dtype=torch.float64)
+    Ttree, Xtree = m.Ttree.clone(), m.Xtree.clone()
+    Ttree[0] = hom(R, p) @ Ttree[0]
+    Xtree[0] = Xtree[0] @ plux(R.T, p)
+    host = dict(m.host_data, Ttree=Ttree.numpy(), Xtree=Xtree.numpy())
+    return dataclasses.replace(m, Ttree=Ttree, Xtree=Xtree, host_data=host)
 
 
 def _state(m, rng, B):

@@ -72,14 +72,28 @@ REFUSED = [("dynamics", "quat")] + [
                          ids=[f"{w}-{r}" for w, r in REFUSED])
 def test_floating_base_dynamics_refuse(what, root):
     """What the port does not cover raises NotImplementedError rather than
-    computing a wrong answer: the quaternion root everywhere, the rpy root
-    in the kernels that have no floating-base instantiation (K4, K5).  The
-    CUDA kernels refuse before launching, so this needs no card."""
+    computing a wrong answer: the quaternion root everywhere (the EE
+    Jacobian's root columns included), the rpy root in K5, which has no
+    floating-base instantiation, and K4 on an rpy tree past its fb16
+    instantiation's 16 bodies (the humanoid's 31).  The CUDA kernels refuse
+    before launching, so this needs no card."""
     from rbdtpu_torch.dynamics import aba
     from rbdtpu_torch.kernels import _lib
+    from rbdtpu_torch.kinematics import ee_position_jacobian_tangent
 
     m = load_asset("quadruped12", device="cpu", dtype=torch.float64,
                    floating_base=True, root_quat=root == "quat")
+    if what.startswith("ee_") and root == "rpy":
+        assert _lib.size_class(what, m) == "fb16"
+        big = load_asset("humanoid30", device="cpu", dtype=torch.float64,
+                         floating_base=True)
+        with pytest.raises(ValueError, match="31 bodies"):
+            _lib.size_class(what, big)
+        return
+    if what.startswith("ee_"):
+        with pytest.raises(NotImplementedError):
+            ee_position_jacobian_tangent(
+                m, torch.zeros(2, m.nq, dtype=torch.float64))
     with pytest.raises(NotImplementedError):
         if what == "dynamics":
             q = torch.zeros(2, m.nq, dtype=torch.float64)

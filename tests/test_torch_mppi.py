@@ -115,6 +115,30 @@ def test_nominal_sample_ignores_its_draw(models, recorded):
     assert torch.equal(U, U2) and torch.equal(J, J2)
 
 
+def test_hybrid_solve_fext_matches_recorded_rbdtpu(models):
+    """``hybrid_solve(f_ext)`` on arm7 under a per-knot wrench set (both
+    stages' rollouts disturbed), fed the standard normals rbdtpu's MPPI
+    drew (recorded in tests/data/push_refs.npz by
+    tests/make_push_fixture.py): U within 1e-6, J and both J histories
+    within 1e-9 relative of rbdtpu's."""
+    import make_push_fixture as mp
+    from rbdtpu_torch.solver import DDPConfig, hybrid_solve
+
+    with np.load(mp.PATH) as f:
+        ref = {k: torch.tensor(f[k]) for k in f if k.startswith("hy_")}
+    m = models["arm7"]
+    cost = quadratic_tracking_cost(m, ref["hy_goal"], **mp.ARM_W)
+    state, (mh, dh) = hybrid_solve(
+        m, cost, ref["hy_x0"], ref["hy_U0"], None,
+        MPPIConfig(n_samples=mp.SAMPLES, sigma=mp.SIGMA, dt=mp.DT),
+        DDPConfig(iters=mp.DDP_ITERS, dt=mp.DT, n_alphas=mp.ARM_ALPHAS),
+        mppi_iters=mp.MPPI_ITERS, f_ext=ref["hy_F"], noise=ref["hy_noise"])
+    assert (state.U - ref["hy_U"]).abs().max().item() < 1e-6
+    for out, key in ((state.J, "hy_J"), (mh, "hy_mppi_hist"),
+                     (dh, "hy_ddp_hist")):
+        np.testing.assert_allclose(out.numpy(), ref[key].numpy(), rtol=1e-9)
+
+
 def test_generator_draws_and_their_checks(models):
     """With a generator the draws are torch's: the same seed gives the
     same update; without a generator or noise, or with noise of the wrong

@@ -168,6 +168,60 @@ def test_ee(case, gn):
             _close(o, r[0])
 
 
+@pytest.mark.parametrize("ee", ["leaf", "frame"])
+@pytest.mark.parametrize("gn", [True, False])
+def test_ee_rpy(gn, ee):
+    """The counted K4 function on the rpy quadruped (the root's six
+    columns, then the leg's) at a leaf joint and at a foot's fixed frame
+    against ``ee_gn_plain`` at 1e-9; the count grows with gn."""
+    m = load_asset("quadruped12", device="cpu", dtype=torch.float64,
+                   floating_base=True)
+    md = oc.Model(m)
+    names = ((m.joint_names[m.leaves()[1]],) if ee == "leaf"
+             else ("RR_foot_fixed",))
+    q = np.random.default_rng(4).uniform(-1.0, 1.0, m.nq)
+    jid, fid = _single_ee(m, names)
+    out, ops = oc.counted(oc.ee, md, jid, fid, _nums(q), TARGET, gn)
+    ref = ee_gn_plain(m, torch.tensor(q)[None], TARGET, ee_names=names,
+                      gn=gn)
+    for o, r in zip(out, ref):
+        if r is None:
+            assert o is None
+        else:
+            _close(o, r[0])
+    keys = oc.per_state(m, TARGET, ee_names=names)
+    assert keys["ee_err"] < keys["ee_gn"]
+    assert ops == keys["ee_gn" if gn else "ee_err"]
+
+
+def test_feedback_knot_fext():
+    """K2's counted knot under a wrench set against
+    ``feedback_rollout_plain`` over one knot with the same wrenches, and
+    ``per_state``'s counts: K2's and K9's with wrenches equal, above the
+    wrench-free ones."""
+    m = load_asset("quadruped12", device="cpu", dtype=torch.float64,
+                   floating_base=True)
+    md, n = oc.Model(m), m.nv
+    rng = np.random.default_rng(5)
+    x = 0.1 * rng.standard_normal(2 * n)
+    x[2] += 0.4
+    xn, u, kf = (0.1 * rng.standard_normal(s) for s in (2 * n, n, n))
+    K = 0.1 * rng.standard_normal((n, 2 * n))
+    w = rng.standard_normal((m.nb, 6))
+    (xo, uo), ops = oc.counted(oc.feedback_knot, md, _nums(x), _nums(xn),
+                               _nums(u), _nums(kf), _nums(K), 0.01, G,
+                               fext=_nums(w))
+    T = lambda a: torch.tensor(a)[None]
+    Xr, Ur = feedback_rollout_plain(
+        m, T(x), T(xn)[:, None], T(u)[:, None], T(kf)[:, None],
+        T(K)[:, None], 0.01, G, f_ext=torch.tensor(w)[None])
+    _close(xo, Xr[0, 0])
+    _close(uo, Ur[0, 0])
+    keys = oc.per_state(m, TARGET)
+    assert ops == keys["feedback_rollout+fext"] == keys[
+        "feedback_chunked+fext"] > keys["feedback_rollout"]
+
+
 def test_primitive_counts():
     """The general costs of the spatial primitives, all operands counted."""
     rng = np.random.default_rng(0)
@@ -196,6 +250,7 @@ def test_per_state_keys():
     ops = oc.per_state(m, TARGET)
     assert set(ops) == {
         "fd_step", "fd_step+fext", "feedback_rollout", "feedback_chunked",
+        "feedback_rollout+fext", "feedback_chunked+fext",
         "linearize_parts", "ee_gn", "ee_err", "rnea", "rnea+qdd",
         "fd_step_minv", "fd_step_minv+dense", "fd_step_minv+fext",
         "fd_step_minv+dense+fext"}
@@ -208,6 +263,7 @@ def test_per_state_keys():
                     floating_base=True)
     assert set(oc.per_state(fb, TARGET)) == {
         "fd_step", "fd_step+fext", "feedback_rollout", "feedback_chunked",
+        "feedback_rollout+fext", "feedback_chunked+fext",
         "linearize_parts", "rnea", "rnea+qdd", "fd_step_minv",
         "fd_step_minv+dense", "fd_step_minv+fext", "fd_step_minv+dense+fext"}
 

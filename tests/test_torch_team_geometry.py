@@ -53,23 +53,29 @@ def test_team_geometry(case):
 def test_team_defines_fix_every_instantiation(kernel):
     """The build fixes one team size per class and dtype: every C entry
     point of the kernel's source takes its lanes from a define, and the
-    build defines each of them once, from TEAM."""
+    build defines each of them once, from TEAM; the same holds for the
+    kernel's wrench variant where its source has one (K2's
+    ``feedback_rollout_fext``)."""
     import os
     import re
 
     with open(os.path.join(_lib.CSRC, f"{kernel}.cu")) as f:
         src = f.read()
-    entries = re.findall(r"^RBD_\w+\((\w+), \w+, \w+, (f32|f64)\)$", src,
-                         re.M)
-    assert sorted(entries) == sorted((cls, sfx) for cls in _lib.SIZE_CLASSES
-                                     for sfx in ("f32", "f64"))
-    assert f"RBD_TEAM_{kernel}_##CLS##_##SFX" in src
-    classes = "|".join(_lib.SIZE_CLASSES)
-    defines = [d for d in _lib.team_defines()
-               if re.match(rf"-DRBD_TEAM_{kernel}_({classes})_f(32|64)=", d)]
-    assert sorted(defines) == sorted(
-        f"-DRBD_TEAM_{kernel}_{cls}_{sfx}={_lib.TEAM[(kernel, cls, sfx)]}"
-        for cls, sfx in entries)
+    variants = [k for k in (kernel, f"{kernel}_fext")
+                if re.search(rf"^RBD_{k.upper()}\(", src, re.M)]
+    assert variants[0] == kernel
+    for k in variants:
+        entries = re.findall(
+            rf"^RBD_{k.upper()}\((\w+), \w+, \w+, (f32|f64)\)$", src, re.M)
+        assert sorted(entries) == sorted(
+            (cls, sfx) for cls in _lib.SIZE_CLASSES for sfx in ("f32", "f64"))
+        assert f"RBD_TEAM_{k}_##CLS##_##SFX" in src
+        classes = "|".join(_lib.SIZE_CLASSES)
+        defines = [d for d in _lib.team_defines()
+                   if re.match(rf"-DRBD_TEAM_{k}_({classes})_f(32|64)=", d)]
+        assert sorted(defines) == sorted(
+            f"-DRBD_TEAM_{k}_{cls}_{sfx}={_lib.TEAM[(k, cls, sfx)]}"
+            for cls, sfx in entries)
 
 
 @pytest.mark.parametrize("team", _lib.TEAM_SIZES)

@@ -30,7 +30,12 @@ dense, each without wrenches and with one set shared by the batch or one
 a state) at arm7's 4096 states (``chip_smoke.rollout_inputs``), the rpy
 quadruped's 1024 and the humanoid's 2048 (``chip_smoke.minv_rnea_checks``
 on K1's states; a root whose kernel has no instantiation there is
-reported as such).  Each time is ``chip_smoke.graph_ms``
+reported as such); on each model K2 and K9 (two chunks) under per-knot
+world wrenches (``chip_smoke.push_wrenches``, a trunk push over
+0.5 N(0,1)) at K2's shape, and on the rpy quadruped K4 at path E's shapes
+(ee_gn at 51,200 knots and 1,024 terminal states, ee_err at the line
+search's 307,200 and 6,144; the first leaf's target, ``chip_smoke.
+TARGET_E``); a tree whose entry points take no wrenches reports that.  Each time is ``chip_smoke.graph_ms``
 (the device's time alone) and, beside it, ``chip_smoke.cuda_ms`` over 20
 single calls (the host's launch included) and ``host_ms``, the host's own
 time a call.  ``--root`` times the
@@ -192,6 +197,29 @@ def compare(cs, label: str) -> dict:
                           m32, *k2, DT, GRAVITY, nchunks=NCHUNKS)))
         cases.append((f"K3 {k3[0].shape[0]}", lambda: colvec.
                       linearize_parts_fused(m32, *k3, GRAVITY)))
+        push = cs.push_wrenches(m32, k2[2].shape[1], 0.5, cs.SEED + 120)
+        cases.append((f"K2 f_ext {k2[2].shape[0]}x{k2[2].shape[1]}",
+                      functools.partial(fused.feedback_rollout_fused, m32,
+                                        *k2, DT, GRAVITY, f_ext=push)))
+        cases.append((f"K9 f_ext {k2[2].shape[0]}x{k2[2].shape[1]} "
+                      f"nchunks={NCHUNKS}", functools.partial(
+                          fused.feedback_rollout_fused_chunked, m32, *k2, DT,
+                          GRAVITY, nchunks=NCHUNKS, f_ext=push)))
+        if key == "rpy quadruped":
+            rng = np.random.default_rng(cs.SEED + 12)
+            ee = (m32.joint_names[m32.leaves()[0]],)
+            for kernel, gn, batches in (
+                    ("ee_gn", True, (cs.B3 * cs.H3, cs.B3)),
+                    ("ee_err", False, (cs.ALPHAS3 * cs.B3 * cs.H3,
+                                       cs.ALPHAS3 * cs.B3))):
+                for B in batches:
+                    x0q, _ = cs.quadruped_problems(m32, B, 1, rng)
+                    q = (x0q[:, :m32.nq] + torch.tensor(
+                        0.1 * rng.standard_normal((B, m32.nq)),
+                        dtype=torch.float32, device="cuda")).contiguous()
+                    cases.append((f"K4 {kernel} B={B}", functools.partial(
+                        fk_lane.ee_gn_fused, m32, q, cs.TARGET_E, gn=gn,
+                        ee_names=ee)))
         if key == "arm7":
             x0, Us, F = rollout_args(cs, m64)
             for route in ROUTES:
@@ -216,6 +244,9 @@ def compare(cs, label: str) -> dict:
                 fn()
             except NotImplementedError:
                 out[f"{key} {case}"] = "not instantiated"
+                continue
+            except TypeError:
+                out[f"{key} {case}"] = "no such argument"
                 continue
             out[f"{key} {case}"] = timed(fn)
         del fd64, x, u, k2, k3, cases
