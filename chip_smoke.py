@@ -263,12 +263,12 @@ PARITY_E = (50, 20)
 # path F, robust MPC: a push on the trunk (body 0) of PUSH_N newtons along
 # +y for the knots of PUSH_KNOTS (examples/push_recovery.py's), over
 # 0.5 N(0,1) wrenches on every body for the kernel checks; K9's counts.
-# The hybrid's float64 parity takes PUSH_HYBRID_N: under 80 N the humanoid
-# hybrid's plain route alone parts from itself by 5.1e-10 relative in J
-# when x0 moves by 1e-13 relative (tools/push_conditioning.py), so a 1e-9
-# bound there measures the problem, not the kernels; under 20 N by 3.3e-11.
-# The check prints that floor beside its result.
-PUSH_N, PUSH_KNOTS, PUSH_HYBRID_N = 80.0, (5, 15), 20.0
+# The hybrid's float64 parity holds |dJ| within TOL64 under PUSH_HYBRID_N.
+# Under PUSH_N the humanoid hybrid's plain route alone parts from itself by
+# about 5e-10 relative in J when x0 moves by 1e-13 relative, so there the
+# bound on |dJ| is FLOOR_TIMES that floor, measured in the same run: a
+# wrong wrench moves J by far more (the push raises it 180-fold).
+PUSH_N, PUSH_KNOTS, PUSH_HYBRID_N, FLOOR_TIMES = 80.0, (5, 15), 20.0, 100.0
 NCHUNKS_F = (1, 2, 3)
 
 
@@ -1738,7 +1738,7 @@ def mppi_moved(J0, hist, rel: float = 1e-9) -> int:
 
 
 def hybrid_parity(m64, smi: str, f_ext=None, sigmas=(SIGMA_H, SIGMA_MOVE),
-                  tag: str = "path C", floor: bool = False):
+                  tag: str = "path C", floor_times=None):
     """Phase 16's check of the hybrid at path C's shapes (BH problems, HH
     knots, MPPI_ITERS_H iterations of SAMPLES_H samples, then ITERS_H DDP
     iterations) in float64: ``hybrid_solve`` through the kernels and
@@ -1748,11 +1748,12 @@ def hybrid_parity(m64, smi: str, f_ext=None, sigmas=(SIGMA_H, SIGMA_MOVE),
     relative |dJ| < TOL64 over both J histories; at SIGMA_MOVE the MPPI
     stage must have moved in at least one (iteration, problem) pair.  With
     ``f_ext`` both routes solve under those wrenches (``tag`` names the
-    run); with ``floor`` the plain route also solves from x0 moved by
-    1e-13 N(0,1) relative, and how far that parts from it is printed (the
-    problem's own sensitivity to rounding, below which the check cannot
-    resolve the kernels).  Returns the kernel route's launches of its last
-    solve."""
+    run).  With ``floor_times`` the plain route also solves from x0 moved
+    by 1e-13 N(0,1) relative: how far that parts from it in J is the
+    problem's own sensitivity to rounding, below which no comparison of
+    two routes can resolve the kernels, and relative |dJ| must stay under
+    ``floor_times`` times it instead of TOL64.  Returns the kernel route's
+    launches of its last solve, by kernel and by (kernel, size class)."""
     import torch
     from rbdtpu_torch.kernels import _lib
     from rbdtpu_torch.solver import (
@@ -1770,7 +1771,8 @@ def hybrid_parity(m64, smi: str, f_ext=None, sigmas=(SIGMA_H, SIGMA_MOVE),
     rng = np.random.default_rng(SEED + 96)
     moved_x0 = x0 * (1 + 1e-13 * torch.tensor(
         rng.standard_normal(x0.shape), dtype=x0.dtype, device=x0.device))
-    runs = ((True, x0), (False, x0)) + (((None, moved_x0),) if floor else ())
+    runs = ((True, x0), (False, x0)) + (
+        ((None, moved_x0),) if floor_times else ())
     for sigma in sigmas:
         out = {}
         for fused, x in runs:
@@ -1785,36 +1787,42 @@ def hybrid_parity(m64, smi: str, f_ext=None, sigmas=(SIGMA_H, SIGMA_MOVE),
             torch.cuda.synchronize()
             if fused:
                 counts = dict(_lib.launches)
+                by_class = dict(_lib.class_launches)
             out[fused] = (state.U, mh, dh)
-        if floor:
-            (Um, mm, dm), (Up, mp, dp) = out[None], out[False]
+        Up, mp, dp = out[False]
+        parts = lambda U, m, d: ((U - Up).abs().max().item(), max(
+            ((a - b).abs() / b.abs()).max().item()
+            for a, b in ((m, mp), (d, dp))))
+        bound = TOL64
+        if floor_times:
+            fu, fj = parts(*out[None])
+            bound = floor_times * fj
             print(f"{tag} floor f64 sigma={sigma:g}: the plain route from x0 "
                   f"x (1 + 1e-13 N(0,1)) against the plain route: max|dU| "
-                  f"{(Um - Up).abs().max().item():.3e}, max rel |dJ| "
-                  f"{max(((a - b).abs() / b.abs()).max().item() for a, b in ((mm, mp), (dm, dp))):.3e}")
-        (Uk, mk, dk), (Up, mp, dp) = out[True], out[False]
-        du = (Uk - Up).abs().max().item()
-        dj = max(((a - b).abs() / b.abs()).max().item()
-                 for a, b in ((mk, mp), (dk, dp)))
+                  f"{fu:.3e}, max rel |dJ| {fj:.3e}")
+        Uk, mk, dk = out[True]
+        du, dj = parts(Uk, mk, dk)
         moved = (mppi_moved(J0, mk), mppi_moved(J0, mp))
         print(f"{tag} parity f64 sigma={sigma:g}: hybrid Bm={BH} H={HH} "
               f"MPPI {MPPI_ITERS_H} x {SAMPLES_H} samples, DDP {ITERS_H} "
               f"iters, kernels vs plain route, same noise: max|dU| "
               f"{du:.3e} (bound {U_PARITY:g}), max rel |dJ| over both J "
-              f"histories {dj:.3e} (bound {TOL64:g}); (iteration, problem) "
+              f"histories {dj:.3e} (bound {bound:.3g}"
+              f"{f' = {floor_times:g} x the floor' if floor_times else ''}); "
+              f"(iteration, problem) "
               f"pairs where MPPI replaced the nominal: {moved[0]} kernels, "
               f"{moved[1]} plain, of {mk.numel()}; mean J "
               f"{J0.mean().item():.9g} -> MPPI "
               f"{mk[-1].mean().item():.9g} -> DDP {dk[-1].mean().item():.9g}"
               f" ({smi})")
-        require(du < U_PARITY and dj < TOL64 and moved[0] == moved[1],
+        require(du < U_PARITY and dj < bound and moved[0] == moved[1],
                 f"{tag} sigma={sigma:g}: the kernels' hybrid departs from "
                 "the plain route's")
         require(sigma != SIGMA_MOVE or moved[0] > 0, f"{tag} sigma="
                 f"{sigma:g}: MPPI never replaced its nominal plan, so the "
                 "check did not reach its update")
     print(f"{tag} parity kernel-route launches (last solve): {counts}")
-    return counts
+    return counts, by_class
 
 
 def humanoid_solve(m, x0, U0, fused_feedback, f_ext=None):
@@ -2123,10 +2131,12 @@ def push_path(q32, q64, h32, h64, smi: str) -> dict:
     wrench-free K2; J finite, nonincreasing, falling); its float64 parity
     under the push at Bm=4, H=H3; path D under a trunk push (K9 with
     wrenches once an iteration, no wrench-free K9 or K2, J falling); and
-    the hybrid at path C's shapes and configs[4]'s sigma under a push of
-    PUSH_HYBRID_N, float64 kernels against plain on hybrid_parity's
-    normals, beside the plain route's floor.  Returns the launches of
-    each run: (example, configs[3], path D, hybrid)."""
+    the hybrid at path C's shapes and configs[4]'s sigma, float64 kernels
+    against plain on hybrid_parity's normals, under a push of
+    PUSH_HYBRID_N and under PUSH_N (there beside the plain route's floor).
+    Returns the launches by (kernel, size class) of three path runs, each
+    counted from 0: configs[3]'s three solves, path D's three solves and
+    the hybrid's kernel route under PUSH_N."""
     import torch
     from rbdtpu_torch.examples import push_recovery
     from rbdtpu_torch.kernels import _lib
@@ -2164,7 +2174,7 @@ def push_path(q32, q64, h32, h64, smi: str) -> dict:
     _lib.reset_launches()
     with WrenchSpy() as spy:
         (state, J_hist), times = timed_runs(run, warm=False)
-    q3 = dict(_lib.launches)
+    q3, q3_class = dict(_lib.launches), dict(_lib.class_launches)
     sec = statistics.median(times)
     print(f"path F configs[3] under a push of {PUSH_N:g} N on the trunk at "
           f"knots {PUSH_KNOTS[0]}-{PUSH_KNOTS[1] - 1}: Bm={B3} H={H3} iters="
@@ -2205,7 +2215,7 @@ def push_path(q32, q64, h32, h64, smi: str) -> dict:
     torch.cuda.synchronize()
     _lib.reset_launches()
     (state, J_hist), times = timed_runs(run, warm=False)
-    pd = dict(_lib.launches)
+    pd, pd_class = dict(_lib.launches), dict(_lib.class_launches)
     sec = statistics.median(times)
     print(f"path F path D under a push of {PUSH_N:g} N on the trunk: Bm={BD} "
           f"H={HH} iters={ITERS_H} alphas={ALPHAS_H} f32 fused_feedback=True:"
@@ -2222,13 +2232,16 @@ def push_path(q32, q64, h32, h64, smi: str) -> dict:
         (J_hist[-1] < J0).all()), "path F path D: J not finite or not "
         "falling")
 
-    hy = hybrid_parity(h64, smi, f_ext=push_wrenches(
-        h64, HH, newtons=PUSH_HYBRID_N), sigmas=(SIGMA_H,),
-        tag="path F hybrid", floor=True)
-    require(hy["feedback_rollout_fext"] == ITERS_H
-            and hy["feedback_rollout"] == 0,
-            f"path F hybrid: K2 launches {hy}")
-    return ex, q3, pd, hy
+    for newtons, floor_times in ((PUSH_HYBRID_N, None),
+                                 (PUSH_N, FLOOR_TIMES)):
+        hy, hy_class = hybrid_parity(
+            h64, smi, f_ext=push_wrenches(h64, HH, newtons=newtons),
+            sigmas=(SIGMA_H,), tag=f"path F hybrid {newtons:g} N",
+            floor_times=floor_times)
+        require(hy["feedback_rollout_fext"] == ITERS_H
+                and hy["feedback_rollout"] == 0,
+                f"path F hybrid {newtons:g} N: K2 launches {hy}")
+    return q3_class, pd_class, hy_class
 
 
 def main() -> int:
@@ -2426,19 +2439,31 @@ def main() -> int:
           f"{grown} B after them ({smi})")
     require(grown == limit, f"K2 or K9 with wrenches raised the stack limit "
             f"from {limit} to {grown} B a thread")
-    ex, q3, pd, hy = push_path(q32, q64, h32, h64, smi)
-    rows["feedback_rollout_fext_fb16"]["launches"] = (
-        ex["feedback_rollout_fext"] + q3["feedback_rollout_fext"])
-    rows["feedback_chunked_fext_fb32"]["launches"] = pd[
-        "feedback_chunked_fext"]
-    rows["feedback_rollout_fext_fb32"]["launches"] = hy[
-        "feedback_rollout_fext"]
-    # arm7's (n8) K2 and K9 with wrenches and the quadruped's K9 with
-    # wrenches: held against their plain versions above, launched by no
-    # path of this script (the quadruped's line searches take K2)
-    for k in ("feedback_rollout_fext", "feedback_chunked_fext",
-              "feedback_chunked_fext_fb16"):
-        rows[k]["launches"] = 0
+    # each row's launches from one path run counted from 0, by size class:
+    # K2 with wrenches at fb16 from configs[3]'s solves under the push, at
+    # fb32 from the hybrid's under PUSH_N, K9 with wrenches at fb32 from
+    # path D's; arm7's (n8) K2 and K9 with wrenches and the quadruped's K9
+    # with wrenches, held against their plain versions above, are launched
+    # by no path (the quadruped's line search takes K2): configs[3]'s run
+    # reads them
+    q3_class, pd_class, hy_class = push_path(q32, q64, h32, h64, smi)
+    for row, kname, cls, run in (
+            ("feedback_rollout_fext_fb16", "feedback_rollout_fext", "fb16",
+             q3_class),
+            ("feedback_rollout_fext_fb32", "feedback_rollout_fext", "fb32",
+             hy_class),
+            ("feedback_chunked_fext_fb32", "feedback_chunked_fext", "fb32",
+             pd_class),
+            ("feedback_rollout_fext", "feedback_rollout_fext", "n8",
+             q3_class),
+            ("feedback_chunked_fext", "feedback_chunked_fext", "n8",
+             q3_class),
+            ("feedback_chunked_fext_fb16", "feedback_chunked_fext", "fb16",
+             q3_class)):
+        rows[row]["launches"] = run.get((kname, cls), 0)
+    for row in ("feedback_rollout_fext_fb16", "feedback_rollout_fext_fb32",
+                "feedback_chunked_fext_fb32"):
+        require(rows[row]["launches"] > 0, f"{row} was not launched on path F")
 
     print(f"chip_smoke: phases 1-19 took {time.perf_counter() - clock:.1f} s")
     print(smi)

@@ -11,6 +11,7 @@ raises on a nonzero code and only then counts the launch in ``launches``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -430,6 +431,9 @@ launches = {"fd_step": 0, "feedback_rollout": 0, "linearize_parts": 0,
             "rollout_multi": 0, "riccati_chunk": 0, "riccati_small": 0,
             "riccati_fused": 0, "feedback_chunked": 0,
             "feedback_rollout_fext": 0, "feedback_chunked_fext": 0}
+# the same launches of the kernels that take a model, by (kernel, size
+# class): one kernel's instantiations apart
+class_launches = collections.Counter()
 
 # C signatures: p pointer, i int, s scalar of the kernel's dtype; every
 # function ends with the stream.  The tree kernels' signatures follow a
@@ -467,6 +471,7 @@ _CTYPE = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
 def reset_launches():
     for k in launches:
         launches[k] = 0
+    class_launches.clear()
 
 
 def _sources():
@@ -695,10 +700,11 @@ def launch(kernel: str, model, ref: torch.Tensor, *args, count_as=None):
     ints and floats.  The launch counts under ``count_as`` (default: the
     kernel's name)."""
     _check_dtype(kernel, ref)
-    lead = []
+    lead, cls = [], None
     symbol = f"rbd_{kernel}"
     if model is not None:
-        symbol += "_" + model_class(kernel, model)
+        cls = model_class(kernel, model)
+        symbol += "_" + cls
         tab, itab = model_tables(model, ref.device, ref.dtype)
         lead = [tab.data_ptr(), itab.data_ptr(), model.nb]
     fn = getattr(library(), f"{symbol}_{_SUFFIX[ref.dtype]}")
@@ -710,3 +716,5 @@ def launch(kernel: str, model, ref: torch.Tensor, *args, count_as=None):
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
                            f"cudaError {err}")
     launches[count_as or kernel] += 1
+    if cls is not None:
+        class_launches[count_as or kernel, cls] += 1

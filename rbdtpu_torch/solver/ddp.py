@@ -160,28 +160,18 @@ def _flat(t):
 
 
 def _make_step(model, config):
+    """One step ``step(x, u, fe=None)``, fe a knot's wrench set (nb, 6) or
+    None: with ``fused`` the ``fd_step`` kernel (its wrench variant under
+    fe) at any batch."""
     if config.fused:
-        def step(x, u):
-            xn = fd_step_fused(model, _flat(x), _flat(u), config.dt,
-                               config.gravity)
-            return xn.reshape(x.shape)
-        return step
-    return lambda x, u: _step_plain(model, x, u, config.dt, config.gravity,
-                                    config.rollout_route)
-
-
-def _make_step_fext(model, config):
-    """``_make_step``'s step under one knot's wrench set fe (nb, 6): with
-    ``fused`` the ``fd_step`` kernel's wrench variant at any batch."""
-    if config.fused:
-        def step(x, u, fe):
+        def step(x, u, fe=None):
             xn = fd_step_fused(model, _flat(x), _flat(u), config.dt,
                                config.gravity, f_ext=fe)
             return xn.reshape(x.shape)
         return step
-    return lambda x, u, fe: _step_plain(model, x, u, config.dt,
-                                        config.gravity, config.rollout_route,
-                                        f_ext=fe)
+    return lambda x, u, fe=None: _step_plain(
+        model, x, u, config.dt, config.gravity, config.rollout_route,
+        f_ext=fe)
 
 
 def _make_linearize(model, config):
@@ -252,8 +242,8 @@ def forward_pass(model: RobotModel, cost: Cost, X, U, k, K, alphas, dt,
     """Closed-loop rollouts for every alpha of the ladder, in parallel, for
     every problem.  X (..., H+1, nx), U/k (..., H, nv), K (..., H, nv, nx),
     alphas (n_alpha,).  f_ext: None or (H, nb, 6) per-knot wrenches, each
-    knot's passed to ``step_fn(x, u, fe)`` (the default step takes either
-    arity).  Returns (Xs, Us, Js) with a leading n_alpha axis."""
+    knot's passed to ``step_fn(x, u, fe)`` (fe None without them).
+    Returns (Xs, Us, Js) with a leading n_alpha axis."""
     if step_fn is None:
         step_fn = lambda x, u, fe=None: _step_plain(model, x, u, dt, gravity,
                                                     f_ext=fe)
@@ -267,7 +257,7 @@ def forward_pass(model: RobotModel, cost: Cost, X, U, k, K, alphas, dt,
             K[..., t, :, :], state_diff(model, x, X[..., t, :]))
         if u_clip is not None:
             u = torch.clamp(u, -u_clip, u_clip)
-        x = step_fn(x, u) if f_ext is None else step_fn(x, u, f_ext[t])
+        x = step_fn(x, u, None if f_ext is None else f_ext[t])
         xs.append(x)
         us.append(u)
     X_new = torch.stack(xs, dim=-2)
@@ -323,7 +313,6 @@ def ddp_solve(model: RobotModel, cost: Cost, x0, U0,
     F = normalize_f_ext(model, f_ext, U0.shape[-2], x0.dtype)
     if F is not None:
         F = F.to(x0.device).contiguous()
-        step_fe = _make_step_fext(model, config)
     step_fn = _make_step(model, config)
     lin_fn = _make_linearize(model, config)
     batch_total = config.n_alphas
@@ -341,8 +330,8 @@ def ddp_solve(model: RobotModel, cost: Cost, x0, U0,
 
     xs = [x0]
     for t in range(U0.shape[-2]):
-        xs.append(step_fn(xs[-1], U0[..., t, :]) if F is None
-                  else step_fe(xs[-1], U0[..., t, :], F[t]))
+        xs.append(step_fn(xs[-1], U0[..., t, :],
+                          None if F is None else F[t]))
     X0 = torch.stack(xs, dim=-2)
     state = DDPState(
         X=X0, U=U0, J=trajectory_cost(cost, X0, U0),
@@ -366,7 +355,7 @@ def ddp_solve(model: RobotModel, cost: Cost, x0, U0,
         else:
             Xs, Us, Js = forward_pass(
                 model, cost, state.X, state.U, k, K, alphas, dt, gravity,
-                step_fn if F is None else step_fe, u_clip, F)
+                step_fn, u_clip, F)
         Js = torch.where(torch.isfinite(Js), Js, float("inf"))
         best = torch.argmin(Js, dim=0)  # first index on ties
         J_best = Js.amin(dim=0)

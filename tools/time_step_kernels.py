@@ -49,6 +49,7 @@ change, change, parent).
 float32 and float64, K1 at 1, 16 and 256 states and at the path's batch,
 K2 at the path's shape in both walks of the step's root->leaf recursions,
 K9 (two chunks) at the same shape in the walk ``_lib.level_walk`` picks,
+K2 and K9 (two chunks) with per-knot (H, nb, 6) wrenches at that shape,
 K3 at the path's knots, K5 on arm7 at 4096 x 50 on each route, with
 and without (H, nb, 6) wrenches, and K10 and K6 at the shapes above
 (graph replay): the measurements ``_lib.TEAM`` and ``_lib.level_walk``
@@ -320,6 +321,14 @@ def sweep(cs) -> dict:
                 out[f"{team} {key} {sfx} K9 {B}x{H} nchunks={NCHUNKS}"] = (
                     cs.graph_ms(lambda: fused.feedback_rollout_fused_chunked(
                         m, *k2, DT, GRAVITY, nchunks=NCHUNKS)))
+                F = cs.push_wrenches(m, H, 0.5, cs.SEED + 110)
+                out[f"{team} {key} {sfx} K2 f_ext {B}x{H}"] = cs.graph_ms(
+                    lambda: fused.feedback_rollout_fused(
+                        m, *k2, DT, GRAVITY, f_ext=F))
+                out[f"{team} {key} {sfx} K9 f_ext {B}x{H} nchunks="
+                    f"{NCHUNKS}"] = cs.graph_ms(
+                        lambda: fused.feedback_rollout_fused_chunked(
+                            m, *k2, DT, GRAVITY, nchunks=NCHUNKS, f_ext=F))
                 k3 = tuple(t.to(dtype).contiguous() for t in k3_64)
                 out[f"{team} {key} {sfx} K3 B={k3[0].shape[0]}"] = (
                     cs.graph_ms(lambda: colvec.linearize_parts_fused(
