@@ -10,9 +10,11 @@ Phases, each ending the run with a nonzero exit when it fails:
    kernels K1 (``fd_step``), K2 (``feedback_rollout``), K3
    (``linearize_parts``), K5 (``rollout_multi``), K6 (``fd_step_minv``),
    K9 (``feedback_chunked``) and K10 (``rnea``), of the end-effector
-   kernels K4 (``ee_gn``, ``ee_err``) and of the Riccati sweeps
-   (``riccati``, K7/K8, and ``riccati_fused``, K11) in the build with a
-   ptxas stack frame under 1,024 bytes;
+   kernels K4 (``ee_gn``, ``ee_err``, and their rpy- and quaternion-root
+   kernels) and of the Riccati sweeps (``riccati``, K7/K8, and
+   ``riccati_fused``, K11) in the build with a ptxas stack frame under
+   1,024 bytes, K1-K4's quaternion-root instantiations ("fq32") among
+   them;
 2. hold each kernel of the DDP path against its plain PyTorch version on
    the card, at that path's shapes: max abs error <= 1e-9 in float64, and
    a relative bound in float32; time both (CUDA events around one call
@@ -89,7 +91,8 @@ Phases, each ending the run with a nonzero exit when it fails:
    nonincreasing and falling; its profile; float64 control parity against
    the plain route at Bm=4, H=20 and H=100 (< 1e-6);
 14. path B: the closed-loop MPC loop of examples/mpc_reaching.py with the
-   kernels (``mpc_run``: configs[2]'s cost and dt, H=100, 50 ticks,
+   kernels (``mpc_run``: configs[2]'s cost and dt, H=100, 50 ticks under
+   K11 and 20 under the host-bound references,
    ``DDPConfig(iters=3, n_alphas=4, fused=True)``, float32) at Bm=1
    under the plain sweep, K11 and the parallel-in-time scan, and at
    Bm=128 under K11 and the plain sweep: ms per tick, the end effector's
@@ -150,7 +153,25 @@ Phases, each ending the run with a nonzero exit when it fails:
    once an iteration, no wrench-free K9 or K2); and the hybrid at path C's
    shapes under a 20 N trunk push in float64, kernels against plain on the
    same normals (|dU| < 1e-6, relative |dJ| < 1e-9), beside the plain
-   route's own parting when its start moves by 1e-13.
+   route's own parting when its start moves by 1e-13;
+20. paths G and H, the quaternion root (humanoid30 with ``root_quat=True``,
+   K1-K4's "fq32" instantiations): K1 at path G's 2,048 sampled states,
+   K2 at its 64 line-search trajectories x 32 knots, K3 at its 512 knots,
+   ee_gn at 512 knots and 16 terminal states and ee_err at 2,048 and 64
+   (path H's) against their plain versions (float64 <= 1e-9, float32
+   relative), timed by one call and by graph replay beside their bounds,
+   K1/K2's extra checks, the stack limit unchanged across them; path G,
+   configs[4]'s hybrid on the quaternion root (bench.py:539-590 with
+   root_quat=True: path C's shapes and solver, the identity quaternion at
+   0.9 retracted by 0.02 N(0,1)), with path C's launch and J checks and a
+   profile; path H, humanoid hand reaching (bench.py:640-672: 16
+   problems, H=32, 5 iterations of 4 line-search steps, the left wrist
+   toward [0.35, 0.25, 1.1], float32): per solve K1 32, K2, K3 and K8 5,
+   ee_gn 10, ee_err 12, J finite, nonincreasing and falling, a profile;
+   then both in float64 at Bm=4, H=32 through the kernels and through the
+   plain route (|dU| < 1e-6, relative |dJ| < 1e-9 over the J history, or
+   phase 19's rule against the plain route's own floor where |dJ| passes
+   1e-9).
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON summary and the result line.  Without a CUDA
@@ -191,14 +212,16 @@ PARITY_H = (100, 20)
 # walks, K10 with and without qdd, K6 on both routes with and without
 # wrenches; K5 on n8 in 2 dtypes x 2 routes x with and without wrenches; K4
 # and each sweep in 2 dtypes; K4 on the rpy root and K2 and K9 with
-# wrenches at every class in both walks), and K1/K2's extra checks run these
-# batches
+# wrenches at every class in both walks; K1-K4 on the quaternion root's
+# class fq32 too, K1 with and without wrenches, K2 in both walks), and
+# K1/K2's extra checks run these batches
 TEAM_KERNELS = ("fd_step", "feedback_rollout")
-STACK_INSTANCES = {"fd_step": 12, "feedback_rollout": 12,
-                   "linearize_parts": 6, "feedback_chunked": 12,
+STACK_INSTANCES = {"fd_step": 16, "feedback_rollout": 16,
+                   "linearize_parts": 8, "feedback_chunked": 12,
                    "rollout_multi": 8, "ee_gn": 2, "ee_err": 2,
                    "riccati": 2, "riccati_fused": 2, "rnea": 12,
                    "fd_step_minv": 24, "ee_gn_rpy": 2, "ee_err_rpy": 2,
+                   "ee_gn_quat": 2, "ee_err_quat": 2,
                    "feedback_rollout_fext": 12, "feedback_chunked_fext": 12}
 # the kernels whose rows add graph_ms, the device's time by graph replay
 GRAPH_KERNELS = ("fd_step", "feedback_rollout", "linearize_parts",
@@ -253,6 +276,9 @@ RICCATI_FUSED_CASES = (("configs[2]", 128, 100, 14, 7, False),
 # ticks, iterations and line-search steps a tick, and the K11-vs-plain
 # check (problems, knots, ticks)
 MPC_H, MPC_TICKS, MPC_ITERS, MPC_ALPHAS = 100, 50, 3, 4
+# the plain sweep's and the parallel scan's runs, host-bound at 120-470 ms a
+# tick, take fewer ticks (the script's time; K11's runs keep MPC_TICKS)
+MPC_TICKS_REF = 20
 MPC_PARITY = (2, 20, 5)
 # path E, quadruped foot reaching (bench.py:509-537): configs[3]'s problems
 # and solver, the first leaf joint's target and weights; its float64
@@ -270,6 +296,14 @@ PARITY_E = (50, 20)
 # wrong wrench moves J by far more (the push raises it 180-fold).
 PUSH_N, PUSH_KNOTS, PUSH_HYBRID_N, FLOOR_TIMES = 80.0, (5, 15), 20.0, 100.0
 NCHUNKS_F = (1, 2, 3)
+# paths G and H, the quaternion root (humanoid30 with root_quat=True, the
+# "fq32" size class of K1-K4): path G is configs[4] on it (path C's
+# shapes, bench.py:539-590 with root_quat=True), path H humanoid hand
+# reaching (bench.py:640-672): the left wrist toward TARGET_Q, ITERS_Q
+# iterations, path C's problems, knots and line-search steps, weights WE.
+# Their float64 parity runs at BQ_PARITY problems over HH knots.
+TARGET_Q, EE_Q, ITERS_Q, BQ_PARITY = ((0.35, 0.25, 1.1),
+                                      ("left_arm_wrist_roll",), 5, 4)
 
 
 def require(ok: bool, msg: str):
@@ -561,12 +595,14 @@ def start_problems(model, Bm: int, H: int, rng):
 
 
 _TEMPLATE_ARG = re.compile(
-    r"N3rbd4DimsILi(\d+)ELb([01])EEE|Lb([01])E|([fd])|Li(\d+)E")
+    r"N3rbd4DimsILi(\d+)ELb([01])EEE|Lb([01])E|([fd])|Li(\d+)E"
+    r"|N3rbd8DimsQuatILi(\d+)EEE")
 
 
 def template_args(tail: str) -> list:
     """The template arguments of a mangled kernel name's tail
-    (``I...E``): the scalar type, the size class ``Dims<NB, FB>``, the
+    (``I...E``): the scalar type, the size class ``Dims<NB, FB>`` or
+    ``DimsQuat<NB>``, the
     bools (GN, HAS_QDD, DENSE, MINV or FEXT) and the ints (a team's
     lanes)."""
     args, pos = [], 1
@@ -577,6 +613,8 @@ def template_args(tail: str) -> list:
         if m.group(1):
             args.append(f"Dims<{m.group(1)}, "
                         f"{'true' if m.group(2) == '1' else 'false'}>")
+        elif m.group(6):
+            args.append(f"DimsQuat<{m.group(6)}>")
         elif m.group(3):
             args.append("true" if m.group(3) == "1" else "false")
         elif m.group(5):
@@ -1401,7 +1439,8 @@ def ee_distance(model, x):
 
 def mpc_path(m32, m64, smi: str):
     """Path B, the closed-loop MPC loop (examples/mpc_reaching.py:57-63
-    with the kernels) in float32 at H=MPC_H for MPC_TICKS ticks: at Bm=1
+    with the kernels) in float32 at H=MPC_H for MPC_TICKS ticks under K11
+    and MPC_TICKS_REF under the plain sweep and the parallel scan: at Bm=1
     under the plain sweep, K11 and the parallel scan, and at Bm=128 under
     K11 and the plain sweep, each from configs[2]'s start (at rest,
     gravity compensation) with the counts set to 0 just before.  Every
@@ -1433,11 +1472,12 @@ def mpc_path(m32, m64, smi: str):
             ("K11", 128, {"fused_riccati": True}, "backward_pass_fused"),
             ("plain sweep", 128, {}, "backward_pass"))
     for label, Bm, options, sweep in runs:
+        ticks = MPC_TICKS if "fused_riccati" in options else MPC_TICKS_REF
         x0, U0 = start_problems(m32, Bm, H, np.random.default_rng(SEED + 70))
         torch.cuda.synchronize()
         _lib.reset_launches()
-        carry, U_app, J_hist, ms, calls = mpc_run_timed(m32, x0, U0,
-                                                        MPC_TICKS, **options)
+        carry, U_app, J_hist, ms, calls = mpc_run_timed(m32, x0, U0, ticks,
+                                                        **options)
         torch.cuda.synchronize()
         counts = dict(_lib.launches)
         d0, d1 = ee_distance(m32, x0), ee_distance(m32, carry.x)
@@ -1445,8 +1485,8 @@ def mpc_path(m32, m64, smi: str):
         first_bad = {b: int((~J_hist[:, b].isfinite()).nonzero()[0]) + 1
                      for b in bad}
         med = statistics.median(ms[1:])
-        print(f"path B {label} Bm={Bm} H={H} f32: {MPC_TICKS} ticks, "
-              f"{med:.2f} ms per tick (median of ticks 2-{MPC_TICKS}; first "
+        print(f"path B {label} Bm={Bm} H={H} f32: {ticks} ticks, "
+              f"{med:.2f} ms per tick (median of ticks 2-{ticks}; first "
               f"{ms[0]:.1f}, range {min(ms[1:]):.2f}-{max(ms[1:]):.2f}, CUDA "
               f"events) = {1e3 / med:.1f} ticks/s, {Bm * 1e3 / med:.1f} "
               f"robot-ticks/s; EE distance mean {d0.mean().item():.4f} -> "
@@ -1456,8 +1496,8 @@ def mpc_path(m32, m64, smi: str):
               f"{J_hist[-1][J_hist[-1].isfinite()].mean().item():.4f}; J "
               f"non-finite for robot: first tick {first_bad}; sweeps {calls};"
               f" launches {counts} on {smi}")
-        n = MPC_TICKS * MPC_ITERS
-        require(tuple(U_app.shape) == (MPC_TICKS, Bm, m32.nv),
+        n = ticks * MPC_ITERS
+        require(tuple(U_app.shape) == (ticks, Bm, m32.nv),
                 f"path B {label}: U_applied {tuple(U_app.shape)}")
         require(bool(U_app.isfinite().all()) and bool(carry.x.isfinite().all()),
                 f"path B {label} Bm={Bm}: non-finite controls or state")
@@ -1648,9 +1688,14 @@ def timed_runs(fn, reps: int = 3, warm: bool = True):
     return out, times
 
 
-def hybrid_path(m32, smi: str) -> dict:
+def hybrid_path(m32, smi: str, problems=None, cost_fn=None,
+                tag: str = "path C",
+                label: str = "configs[4] humanoid30 rpy hybrid"):
     """Phase 16, path C: BASELINE.json configs[4] as bench.py:539-590 runs
-    it, through ``hybrid_solve``: BH humanoid problems, HH knots, float32,
+    it, through ``hybrid_solve`` (``problems`` and ``cost_fn`` in place of
+    ``humanoid_problems`` and ``humanoid_cost`` when given: path G, the
+    same task on the quaternion root; ``tag`` and ``label`` name the run in
+    its lines): BH humanoid problems, HH knots, float32,
     MPPI_ITERS_H MPPI iterations of SAMPLES_H samples then ITERS_H DDP
     iterations of ALPHAS_H line-search steps, every kernel on, noise from a
     seeded generator on the card.  One warm-up solve, then three timed ones
@@ -1659,7 +1704,8 @@ def hybrid_path(m32, smi: str) -> dict:
     never; then the MPPI and DDP stages timed apart.  Both J histories must
     be finite and fall (MPPI's within 1e-6 relative: its guard compares
     costs of separately batched rollouts), the final J below the initial.
-    Returns the counts of the three solves."""
+    Returns the counts of the three solves, by kernel and by (kernel, size
+    class), and one solve as a function."""
     import torch
     from rbdtpu_torch.kernels import _lib
     from rbdtpu_torch.solver import (
@@ -1667,8 +1713,9 @@ def hybrid_path(m32, smi: str) -> dict:
         trajectory_cost,
     )
 
-    x0, U0 = humanoid_problems(m32, BH, HH, np.random.default_rng(SEED + 91))
-    cost = humanoid_cost(m32)
+    x0, U0 = (problems or humanoid_problems)(m32, BH, HH,
+                                             np.random.default_rng(SEED + 91))
+    cost = (cost_fn or humanoid_cost)(m32)
     mcfg = MPPIConfig(n_samples=SAMPLES_H, sigma=SIGMA_H, dt=DT,
                       gravity=GRAVITY, fused=True)
     dcfg = DDPConfig(iters=ITERS_H, dt=DT, gravity=GRAVITY,
@@ -1691,40 +1738,40 @@ def hybrid_path(m32, smi: str) -> dict:
     _lib.reset_launches()
     (state, (mh, dh)), times = timed_runs(solve, warm=False)
     torch.cuda.synchronize()
-    counts = dict(_lib.launches)
-    print(f"path C launches (3 solves): {counts}")
+    counts, by_class = dict(_lib.launches), dict(_lib.class_launches)
+    print(f"{tag} launches (3 solves): {counts}")
     (U_warm, _), t_mppi = timed_runs(sample)
     _, t_ddp = timed_runs(lambda: ddp_solve(m32, cost, x0, U_warm, dcfg))
     n = 3 * ITERS_H
     for k, v in {"feedback_rollout": n, "linearize_parts": n,
                  "riccati_small": n, "feedback_chunked": 0,
                  "riccati_chunk": 0}.items():
-        require(counts[k] == v, f"path C: {k} launched {counts[k]} times in "
+        require(counts[k] == v, f"{tag}: {k} launched {counts[k]} times in "
                 f"3 solves, expected {v}")
-    require(counts["fd_step"] > 0, "path C: no fd_step launch")
+    require(counts["fd_step"] > 0, f"{tag}: no fd_step launch")
     for name, h in (("MPPI", mh), ("DDP", dh)):
         require(tuple(h.shape) == (MPPI_ITERS_H if name == "MPPI"
-                                   else ITERS_H, BH), f"path C {name} J "
+                                   else ITERS_H, BH), f"{tag} {name} J "
                 f"history {tuple(h.shape)}")
-        require(bool(h.isfinite().all()), f"path C: non-finite {name} J")
+        require(bool(h.isfinite().all()), f"{tag}: non-finite {name} J")
     require(bool((mh[1:] <= mh[:-1] * (1 + 1e-6)).all())
             and bool((mh[0] <= J0 * (1 + 1e-6)).all()),
-            "path C: MPPI's J increased")
+            f"{tag}: MPPI's J increased")
     require(bool((dh[1:] <= dh[:-1]).all())
             and bool((dh[0] <= mh[-1] * (1 + 1e-6)).all()),
-            "path C: DDP's J increased")
-    require(bool((dh[-1] < J0).all()), "path C: J did not fall")
-    require(bool(state.U.isfinite().all()), "path C: non-finite controls")
+            f"{tag}: DDP's J increased")
+    require(bool((dh[-1] < J0).all()), f"{tag}: J did not fall")
+    require(bool(state.U.isfinite().all()), f"{tag}: non-finite controls")
     sec, sm, sd = (statistics.median(t) for t in (times, t_mppi, t_ddp))
     fmt = lambda h: " ".join(f"{v:.6g}" for v in h.mean(-1).tolist())
-    print(f"path C: configs[4] humanoid30 rpy hybrid, Bm={BH} H={HH} "
+    print(f"{tag}: {label}, Bm={BH} H={HH} "
           f"MPPI {MPPI_ITERS_H} x {SAMPLES_H} samples, DDP {ITERS_H} iters x "
           f"{ALPHAS_H} alphas, f32 fused: mean J {J0.mean().item():.6g}, "
           f"MPPI {fmt(mh)}, DDP {fmt(dh)}; solve {sec * 1e3:.1f} ms (median "
           f"of 3: {' '.join(f'{t * 1e3:.1f}' for t in times)}, CUDA events) "
           f"= {BH / sec:.1f} solves/s; MPPI stage {sm * 1e3:.1f} ms, DDP "
           f"stage {sd * 1e3:.1f} ms (medians of 3) on {smi}")
-    return counts
+    return counts, by_class, solve
 
 
 def mppi_moved(J0, hist, rel: float = 1e-9) -> int:
@@ -2244,6 +2291,280 @@ def push_path(q32, q64, h32, h64, smi: str) -> dict:
     return q3_class, pd_class, hy_class
 
 
+def quat_problems(model, Bm: int, H: int, rng):
+    """Paths G and H's start (bench.py:555-566 with root_quat=True and
+    bench.py:655-658): the identity quaternion at height 0.9 retracted by
+    0.02 N(0,1) through ``config_retract``, at rest, gravity compensation
+    at every knot."""
+    import torch
+    from rbdtpu_torch.dynamics import rnea
+    from rbdtpu_torch.solver import config_retract
+
+    kw = dict(dtype=model.dtype, device=model.device)
+    q0 = torch.zeros(Bm, model.nq, **kw)
+    q0[:, 2], q0[:, 3] = 0.9, 1.0
+    q0 = config_retract(model, q0, torch.tensor(
+        0.02 * rng.standard_normal((Bm, model.nv)), **kw))
+    z = torch.zeros(Bm, model.nv, **kw)
+    U0 = rnea(model, q0, z, z)[0][:, None].expand(Bm, H, model.nv)
+    return torch.cat([q0, z], -1), U0.contiguous()
+
+
+def quat_cost(model):
+    """Path G's tracking cost (bench.py:566-572): standing height 0.95 with
+    the identity quaternion, weights WH, the attitude error the log map's."""
+    from rbdtpu_torch.solver import quadratic_tracking_cost
+
+    goal = np.zeros(model.nx)
+    goal[2], goal[3] = 0.95, 1.0
+    return quadratic_tracking_cost(model, goal, **WH)
+
+
+def hand_cost(model, fused: bool = True):
+    """Path H's cost (bench.py:659-663): ``ee_reaching_cost`` toward
+    TARGET_Q at the left wrist, weights WE, in the body-twist tangent
+    chart; ``fused=False`` takes K4's plain version."""
+    from rbdtpu_torch.solver import ee_reaching_cost
+
+    return ee_reaching_cost(model, TARGET_Q, ee_names=EE_Q,
+                            fused=None if fused else False, **WE)
+
+
+def quat_kernel_inputs(m64, rng):
+    """Float64 CUDA inputs of K1-K4 on the quaternion humanoid at paths G
+    and H's shapes: K1 at path G's BH x SAMPLES_H sampled states, K2 at
+    BH x ALPHAS_H trajectories over HH knots, K3 at BH x HH knots, K4's
+    configurations at the knots and terminal states (ee_gn) and at the
+    line search's (ee_err).  K2's gains pull each trajectory, started 0.02
+    N(0,1) away in the tangent, back to its nominals 0.01 N(0,1) from x0:
+    u = U + K (x (-) X_t) with K = -M(q0) [400 I, 40 I] perturbed by 10%
+    per knot (``floating_kernel_inputs``'s, on the tangent difference)."""
+    import torch
+    from rbdtpu_torch.dynamics import minv
+    from rbdtpu_torch.solver import state_diff, state_retract
+
+    n, nq = m64.nv, m64.nq
+    T = lambda a: torch.tensor(a, dtype=torch.float64, device=m64.device)
+
+    def states(B):
+        x0, U0 = quat_problems(m64, B, 1, rng)
+        qd = T(0.5 * rng.standard_normal((B, n)))
+        return (x0[:, :nq].contiguous(), qd,
+                (U0[:, 0] + T(rng.standard_normal((B, n)))).contiguous())
+
+    q, qd, u = states(BH * SAMPLES_H)
+    B = BH * ALPHAS_H
+    x0, U0 = quat_problems(m64, B, HH, rng)
+    Xn = state_retract(m64, x0[:, None].expand(B, HH, m64.nx),
+                       T(0.01 * rng.standard_normal((B, HH, 2 * n))))
+    pd = np.concatenate([400.0 * np.eye(n), 40.0 * np.eye(n)], 1)
+    gains = T(pd * (1 + 0.1 * rng.standard_normal((B, HH, n, 2 * n))))
+    Kf = -(torch.linalg.inv(minv(m64, x0[:, :nq]))[:, None] @ gains)
+    kf = -(Kf @ state_diff(m64, x0[:, None], Xn)[..., None])[..., 0]
+    x_start = state_retract(m64, x0, T(0.02 * rng.standard_normal((B, 2 * n))))
+    fb = (x_start, Xn.contiguous(), U0, kf.contiguous(), Kf.contiguous())
+
+    def configs(Bq):
+        from rbdtpu_torch.solver import config_retract
+
+        x, _ = quat_problems(m64, Bq, 1, rng)
+        return config_retract(m64, x[:, :nq], T(
+            0.1 * rng.standard_normal((Bq, n)))).contiguous()
+
+    return {"fd_step": (torch.cat([q, qd], -1), u), "feedback_rollout": fb,
+            "linearize_parts": states(BH * HH),
+            "ee_gn": (configs(BH * HH), configs(BH)),
+            "ee_err": (configs(ALPHAS_H * BH * HH), configs(ALPHAS_H * BH))}
+
+
+def quat_kernels(h64, h32, smi: str, rows: dict, ptxas: list):
+    """Phase 20's kernel checks: K1-K4 at the quaternion root's class
+    "fq32" against their plain versions at paths G and H's shapes
+    (``quat_kernel_inputs``), each timed by one call and by graph replay
+    beside its bound, with the per-thread stack limit before and after
+    them (none may move it); then K1/K2's extra checks and launch
+    geometry."""
+    from rbdtpu_torch.kernels import _lib
+
+    for line in ptxas:
+        if "DimsQuat" in line or "quat_kernel" in line:
+            print(f"phase 20 {line}")
+    qin = quat_kernel_inputs(h64, np.random.default_rng(SEED + 110))
+    states = {"fd_step": BH * SAMPLES_H, "feedback_rollout": BH * ALPHAS_H * HH,
+              "linearize_parts": BH * HH}
+    checks = [(f"{k} quat", k, qin[k], {}, k, states[k]) for k in states]
+    for kname, sizes in (("ee_gn", ("knots", "terminal")),
+                         ("ee_err", ("line search", "terminal"))):
+        for size, q in zip(sizes, qin[kname]):
+            checks.append((f"{kname} quat {size}", kname, (q,),
+                           {"ee_names": EE_Q}, kname, q.shape[0]))
+    limit = _lib.stack_limit(h64.device)
+    check_kernels(checks, h64, h32, smi, rows, row_tag="_fq32",
+                  ee_names=EE_Q)
+    check_kernels(team_checks(h64, qin["fd_step"], qin["feedback_rollout"],
+                              "quat"), h64, h32, smi, rows,
+                  row_tag="_fq32", time_all=False)
+    grown = _lib.stack_limit(h64.device)
+    print(f"stack limit {limit} B a thread before K1-K4 at fq32, {grown} B "
+          f"after them ({smi})")
+    require(grown == limit, f"K1-K4 at fq32 raised the stack limit from "
+            f"{limit} to {grown} B a thread")
+    team_report("quaternion humanoid", h64, h32, qin["fd_step"],
+                qin["feedback_rollout"])
+
+
+def hand_path(m32, smi: str):
+    """Phase 20, path H (bench.py:640-672) through the port's entry points:
+    ``ddp_solve`` of BH quaternion humanoids (``quat_problems``) reaching
+    TARGET_Q with the left wrist, HH knots, ITERS_Q iterations, ALPHAS_H
+    line-search steps, float32, ``fused=True``.  One warm-up solve, then
+    three timed ones with the counts set to 0 just before: per solve K1 HH
+    times, K2, K3 and the small-batch sweep (K8) once an iteration, ee_gn
+    twice an iteration, ee_err twice for J0 and twice an iteration, the
+    plain sweep and the large-batch site never.  J finite, nonincreasing
+    and falling; its profile.  Returns the counts of the three solves by
+    kernel and by (kernel, size class)."""
+    import torch
+    from rbdtpu_torch.kernels import _lib
+    from rbdtpu_torch.solver import DDPConfig, ddp, ddp_solve, rollout, \
+        trajectory_cost
+
+    x0, U0 = quat_problems(m32, BH, HH, np.random.default_rng(SEED + 111))
+    cost = hand_cost(m32)
+    J0 = trajectory_cost(cost, rollout(m32, x0, U0, DT, GRAVITY, fused=True),
+                         U0)
+    cfg = DDPConfig(iters=ITERS_Q, dt=DT, gravity=GRAVITY, n_alphas=ALPHAS_H,
+                    fused=True)
+    run = lambda: ddp_solve(m32, cost, x0, U0, cfg)
+    run()
+    torch.cuda.synchronize()
+    plain_sweeps = []
+    plain = ddp.backward_pass
+    ddp.backward_pass = lambda *a, **kw: plain_sweeps.append(1) or plain(
+        *a, **kw)
+    _lib.reset_launches()
+    try:
+        (state, J_hist), times = timed_runs(run, warm=False)
+    finally:
+        ddp.backward_pass = plain
+    counts, by_class = dict(_lib.launches), dict(_lib.class_launches)
+    per_solve = {"fd_step": HH, "feedback_rollout": ITERS_Q,
+                 "linearize_parts": ITERS_Q, "riccati_small": ITERS_Q,
+                 "ee_gn": 2 * ITERS_Q, "ee_err": 2 + 2 * ITERS_Q,
+                 "riccati_chunk": 0, "feedback_chunked": 0}
+    print(f"path H launches (3 solves): {counts}; per solve "
+          f"{ {k: counts[k] / 3 for k in per_solve} }; plain sweeps "
+          f"{len(plain_sweeps)}")
+    for k, v in per_solve.items():
+        require(counts[k] == 3 * v, f"path H: {k} launched {counts[k]} times "
+                f"in 3 solves, expected {3 * v}")
+    require(not plain_sweeps, "path H: the plain sweep ran")
+    require(tuple(J_hist.shape) == (ITERS_Q, BH), f"J_hist {J_hist.shape}")
+    require(bool(J_hist.isfinite().all()), "path H: non-finite J")
+    require(bool((J_hist[1:] <= J_hist[:-1]).all()) and bool(
+        (J_hist[0] <= J0 * (1 + 1e-6)).all()), "path H: J increased")
+    require(bool((J_hist[-1] < J0).all()), "path H: J did not fall")
+    sec = statistics.median(times)
+    print(f"path H: humanoid30 quaternion root hand reaching {EE_Q[0]} -> "
+          f"{TARGET_Q}, Bm={BH} H={HH} iters={ITERS_Q} alphas={ALPHAS_H} f32 "
+          f"fused: mean J {J0.mean().item():.6g} -> "
+          f"{J_hist[-1].mean().item():.6g}; solve {sec * 1e3:.1f} ms (median "
+          f"of 3: {' '.join(f'{t * 1e3:.1f}' for t in times)}, CUDA events) "
+          f"= {BH / sec:.1f} solves/s on {smi}")
+    profile_main_path(run)
+    return counts, by_class
+
+
+def quat_parity(m64, smi: str):
+    """Paths G and H in float64 at BQ_PARITY problems and HH knots, through
+    the kernels and through the plain route on the card: path G's hybrid
+    fed the same standard normals (MPPI_ITERS_H iterations of SAMPLES_H
+    samples at SIGMA_H, then ITERS_H DDP iterations), path H's ITERS_Q DDP
+    iterations (K4's plain version in the plain route).  Both require
+    |dU| < U_PARITY and relative |dJ| < TOL64 over the J history; where
+    |dJ| passes TOL64, the plain route's own floor (its parting from itself
+    when x0 moves by 1e-13 relative) is measured in the same run and, as
+    phase 19 does, |dJ| must stay under FLOOR_TIMES times it.  The line
+    says which bound held."""
+    import torch
+    from rbdtpu_torch.solver import (
+        DDPConfig, MPPIConfig, ddp_solve, hybrid_solve,
+    )
+
+    rng = np.random.default_rng(SEED + 112)
+    gen = torch.Generator(device=m64.device).manual_seed(SEED + 113)
+    noise = torch.randn((MPPI_ITERS_H, BQ_PARITY, SAMPLES_H, HH, m64.nv),
+                        generator=gen, dtype=m64.dtype, device=m64.device)
+
+    def path_g(kernels, x0, U0):
+        state, (mh, dh) = hybrid_solve(
+            m64, quat_cost(m64), x0, U0, None,
+            MPPIConfig(n_samples=SAMPLES_H, sigma=SIGMA_H, dt=DT,
+                       gravity=GRAVITY, fused=kernels),
+            DDPConfig(iters=ITERS_H, dt=DT, gravity=GRAVITY,
+                      n_alphas=ALPHAS_H, fused=kernels),
+            mppi_iters=MPPI_ITERS_H, noise=noise)
+        return state.U, torch.cat([mh, dh])
+
+    def path_h(kernels, x0, U0):
+        state, hist = ddp_solve(
+            m64, hand_cost(m64, kernels), x0, U0,
+            DDPConfig(iters=ITERS_Q, dt=DT, gravity=GRAVITY,
+                      n_alphas=ALPHAS_H, fused=kernels))
+        return state.U, hist
+
+    for tag, fn in (("path G", path_g), ("path H", path_h)):
+        x0, U0 = quat_problems(m64, BQ_PARITY, HH, rng)
+        moved = x0 * (1 + 1e-13 * torch.tensor(
+            rng.standard_normal(x0.shape), dtype=x0.dtype, device=x0.device))
+        (Uk, Jk), (Up, Jp) = fn(True, x0, U0), fn(False, x0, U0)
+        torch.cuda.synchronize()
+        rel = lambda a, b: ((a - b).abs() / b.abs()).max().item()
+        du, dj = (Uk - Up).abs().max().item(), rel(Jk, Jp)
+        bound, rule = TOL64, f"{TOL64:g}"
+        if dj >= TOL64:
+            Uf, Jf = fn(False, moved, U0)
+            bound = FLOOR_TIMES * rel(Jf, Jp)
+            rule = (f"{bound:.3g} = {FLOOR_TIMES:g} x the plain route's floor"
+                    f", which parts by max|dU| "
+                    f"{(Uf - Up).abs().max().item():.3e} from x0 x (1 + "
+                    f"1e-13 N(0,1))")
+        print(f"{tag} parity f64 Bm={BQ_PARITY} H={HH}: kernels vs plain "
+              f"route: max|dU| {du:.3e} (bound {U_PARITY:g}), max rel |dJ| "
+              f"over the J history {dj:.3e} (bound {rule}) ({smi})")
+        require(du < U_PARITY and dj < bound, f"{tag}: the kernels' solve "
+                "departs from the plain route's")
+
+
+def quat_phase(smi: str, rows: dict, ptxas: list):
+    """Phase 20: K1-K4 on the quaternion root (``quat_kernels``), path G
+    (``hybrid_path`` on ``quat_problems`` and ``quat_cost``, then its
+    profile), path H (``hand_path``) and their float64 parity
+    (``quat_parity``).  Each "fq32" row's launches are read by size class
+    from one path's three solves: K1-K3 from path G's, K4 from path H's."""
+    import torch
+    from rbdtpu_torch.model import load_asset
+
+    h64, h32 = (load_asset("humanoid30", device="cuda", dtype=dt,
+                           floating_base=True, root_quat=True)
+                for dt in (torch.float64, torch.float32))
+    quat_kernels(h64, h32, smi, rows, ptxas)
+    _, g_class, solve_g = hybrid_path(
+        h32, smi, quat_problems, quat_cost, "path G",
+        "configs[4] humanoid30 quaternion-root hybrid")
+    profile_main_path(solve_g)
+    for k in ("fd_step", "feedback_rollout", "linearize_parts"):
+        rows[f"{k}_fq32"]["launches"] = g_class.get((k, "fq32"), 0)
+    _, h_class = hand_path(h32, smi)
+    for k in ("ee_gn", "ee_err"):
+        rows[f"{k}_fq32"]["launches"] = h_class.get((k, "fq32"), 0)
+    for k in ("fd_step", "feedback_rollout", "linearize_parts", "ee_gn",
+              "ee_err"):
+        require(rows[f"{k}_fq32"]["launches"] > 0,
+                f"{k} was not launched at fq32 on path G or H")
+    quat_parity(h64, smi)
+
+
 def main() -> int:
     import torch
 
@@ -2403,7 +2724,7 @@ def main() -> int:
 
     mark(16)
     # ---- 16. path C: configs[4], the humanoid MPPI -> DDP hybrid ----
-    counts = hybrid_path(h32, smi)
+    counts = hybrid_path(h32, smi)[0]
     rows["fd_step_fb32"]["launches"] = counts["fd_step"]
     rows["feedback_rollout_fb32"]["launches"] = counts["feedback_rollout"]
     hybrid_parity(h64, smi)
@@ -2465,7 +2786,11 @@ def main() -> int:
                 "feedback_chunked_fext_fb32"):
         require(rows[row]["launches"] > 0, f"{row} was not launched on path F")
 
-    print(f"chip_smoke: phases 1-19 took {time.perf_counter() - clock:.1f} s")
+    mark(20)
+    # ---- 20. paths G and H: the quaternion root, K1-K4 at fq32 ----
+    quat_phase(smi, rows, ptxas)
+
+    print(f"chip_smoke: phases 1-20 took {time.perf_counter() - clock:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [
         {k: rows[n_][k] for k in (

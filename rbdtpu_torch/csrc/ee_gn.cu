@@ -1,8 +1,9 @@
 // ee_gn / ee_err: end-effector position error and its Gauss-Newton terms.
 // Replaces rbdtpu kernels/fk_lane.py ee_gn_fused (Pallas, fk_lane.py:203),
 // both its gn=True and gn=False variants.  Fixed-base trees of up to 8
-// bodies (N8), and rpy floating-base trees of up to 16 (FB16, the kernels
-// at the end of this file).
+// bodies (N8), rpy floating-base trees of up to 16 (FB16) and
+// quaternion-root trees of up to 32 (FQ32, the kernels at the end of this
+// file).
 //
 // A state's chain (the EE joint and its ancestors, ``chain``, and which of
 // them are prismatic, ``prism``: one bit a body each, from the host) is
@@ -177,19 +178,27 @@ RBD_HD void ee_gn_team(const Team<8>& tm, int n, const T* rows, unsigned chain, 
       H0[c * n + j] = col[0] * J[3 * j] + col[1] * J[3 * j + 1] + col[2] * J[3 * j + 2];
 }
 
-// ---- the rpy floating root (FB16) ----
+// ---- the floating roots (FB16, FQ32) ----
 //
-// The same functions on an rpy-root tree (rbdtpu fk_lane.py ee_chain_lane's
-// root branch): body 0's transform is Ttree0 [[Rz(y) Ry(p) Rx(r), xyz],
-// [0, 1]] with q[0:6] = [x, y, z, roll, pitch, yaw], and body k > 0 reads
-// q[k + 5] and owns column k + 5 of J.  The root's six columns are those of
-// the configuration coordinates: the translations' are the columns of
-// Ttree0's rotation Rt (the same for every state), the Euler angles' are
+// The same functions on a floating-root tree (rbdtpu fk_lane.py
+// ee_chain_lane's root branch), templated on the class D.  On the rpy root
+// (FB16) body 0's transform is Ttree0 [[Rz(y) Ry(p) Rx(r), xyz], [0, 1]]
+// with q[0:6] = [x, y, z, roll, pitch, yaw], and body k > 0 reads q[k + 5]
+// and owns column k + 5 of J.  The root's six columns are those of the
+// configuration coordinates: the translations' are the columns of Ttree0's
+// rotation Rt (the same for every state), the Euler angles' are
 // a x (p_ee - o_root) with a_roll = Rt Rz Ry e_x, a_pitch = Rt Rz e_y,
-// a_yaw = Rt e_z and o_root = Rt xyz + pt.
+// a_yaw = Rt e_z and o_root = Rt xyz + pt.  On the quaternion root (FQ32)
+// body 0's transform is Ttree0 [[R(quat), xyz], [0, 1]] with q[0:7] = [x,
+// y, z, qw, qx, qy, qz], body k > 0 reads q[k + 6] and still owns column
+// k + 5, and the root's six columns are the solver chart's body-twist
+// tangent ones (rbdtpu fk_lane.py:137-149): with a_i the columns of
+// Rt R(quat), rotation column i is a_i x (p_ee - o_root) and translation
+// column 3 + i is a_i.
 //
 //   - ee_gn: a team of 8 lanes a state (four states a warp), lane c
-//     columns c, c + 8 and c + 16 (every column of FB16's 21).  Eight lanes
+//     columns c + 8 s (c, c + 8 and c + 16: every column of FB16's 21;
+//     up to c + 32 on FQ32's 37).  Eight lanes
 //     and not one a column: every lane walks the whole chain, so a lane a
 //     column would repeat the walk 21 times for the 9 columns a quadruped
 //     foot's chain (root, hip, thigh, knee) has, and H0's rows (nv values
@@ -200,34 +209,48 @@ RBD_HD void ee_gn_team(const Team<8>& tm, int n, const T* rows, unsigned chain, 
 //     barrier forms its rows of H0, the zero rows of the columns off the
 //     chain included.
 //   - ee_err: one thread a state.
-// Rows are staged through shared memory as on the fixed base (at FB16's
-// bounds: EE_FIXED_RPY ahead of the states, ee_rpy_state_values a state).
-// The root's block is a real call: nvcc 12.9 miscompiled two inlined rpy
-// root bodies (rbd_team.cuh).
+// Rows are staged through shared memory as on the fixed base (at the
+// class's bounds: ee_fixed_values ahead of the states, ee_root_state_values
+// a state; FQ32's four states in double pass 48 KB and are opted in).  The
+// root's block is a real call: nvcc 12.9 miscompiled two inlined rpy root
+// bodies (rbd_team.cuh).
 
-// A block's shared values ahead of its states on the rpy root (kernels/
-// _lib.py ee_fixed("fb16")): a walk row a body of FB16 and the mount.
-constexpr int EE_FIXED_RPY = EE_ROW * FB16::NB + 12;
-// ee_gn's columns a lane on the rpy root (lane c: c + 8 s)
-constexpr int EE_RPY_SLOTS = (FB16::NV + 7) / 8;
-
-// Shared-memory values a state takes in a block on the rpy root
-// (kernels/_lib.py ee_values(kernel, "fb16")): the q row and e; with GN
-// also g0, H0 and J's columns, at FB16's bound NV.
-template <bool GN>
-RBD_HD constexpr int ee_rpy_state_values() {
-  constexpr int NV = FB16::NV;
-  return GN ? 2 * NV + 3 + NV * NV + 3 * NV : NV + 3;
+// A block's shared values ahead of its states on a floating root
+// (kernels/_lib.py ee_fixed("fb16"), ee_fixed("fq32")): a walk row a body
+// of the class D and the mount.
+template <class D>
+RBD_HD constexpr int ee_fixed_values() {
+  return EE_ROW * D::NB + 12;
+}
+// ee_gn's columns a lane on a floating root (lane c: c + 8 s)
+template <class D>
+RBD_HD constexpr int ee_slots() {
+  return (D::NV + 7) / 8;
 }
 
-// Joint k > 0's sine and cosine (its coordinate q[k + 5]) into sc[k] and
-// sc[NB + k] where it is a revolute joint of ``chain`` (0 and 1
-// elsewhere).
-template <typename T>
-RBD_HD void ee_sincos_rpy(unsigned chain, unsigned prism, const T* q, int k, T* sc) {
+// Shared-memory values a state takes in a block on a floating root
+// (kernels/_lib.py ee_values(kernel, cls)): the q row (NQ) and e; with GN
+// also g0, H0 and J's columns, at the class D's bound NV.
+template <class D, bool GN>
+RBD_HD constexpr int ee_root_state_values() {
+  constexpr int NV = D::NV, NQ = D::NQ;
+  return GN ? NQ + NV + 3 + NV * NV + 3 * NV : NQ + 3;
+}
+
+// The coordinate of body k > 0 in q on the class D's floating root.
+template <class D>
+RBD_HD constexpr int ee_qoff() {
+  return D::QUAT ? 6 : 5;
+}
+
+// Joint k > 0's sine and cosine (its coordinate q[k + 5], or q[k + 6] on
+// the quaternion root) into sc[k] and sc[NB + k] where it is a revolute
+// joint of ``chain`` (0 and 1 elsewhere).
+template <class D, typename T>
+RBD_HD void ee_sincos_root(unsigned chain, unsigned prism, const T* q, int k, T* sc) {
   const bool rev = ((chain & ~prism) >> k) & 1u;
-  sc[k] = rev ? rsin(q[k + 5]) : T(0);
-  sc[FB16::NB + k] = rev ? rcos(q[k + 5]) : T(1);
+  sc[k] = rev ? rsin(q[k + ee_qoff<D>()]) : T(0);
+  sc[D::NB + k] = rev ? rcos(q[k + ee_qoff<D>()]) : T(1);
 }
 
 // The rpy root's world pose (R, p = o_root) from its walk row b (Rt
@@ -254,20 +277,41 @@ RBD_HD_CALL void ee_root_rpy(const T* b, const T* q, T* R, T* p, T* ax) {
   }
 }
 
-// ee_walk on the rpy root: the EE joint frame's world pose (R, p) for the
-// state q, walked root -> tip over ``chain`` (rows, prism and sc as ee_walk
-// takes them, sc from ee_sincos_rpy).  With SLOTS > 0 it keeps the world
-// axis and origin of columns c + 8 s, s < SLOTS, as the walk passes them
-// (ac, oc: 3 values a slot); bit s of ``on`` says the column is on the
-// chain, bit s of ``lin`` that it is a translation's (a root translation or
-// a prismatic joint: the column is the axis itself).
-template <int SLOTS, typename T>
-RBD_HD void ee_walk_rpy(const T* rows, unsigned chain, unsigned prism, const T* q, const T* sc,
-                        int c, T* R, T* p, T* ac, T* oc, unsigned& on, unsigned& lin) {
-  constexpr int NB = FB16::NB;
+// The quaternion root's world pose (R = Rt R(quat), p = o_root = Rt xyz +
+// pt) from its walk row b (Rt row-major, pt) and q[0:7], and its six
+// columns' axes: ax[3 c + r] for c < 3 the rotation columns' a_c (R's
+// column c), for c >= 3 the translation columns' a_{c - 3}.
+template <typename T>
+RBD_HD_CALL void ee_root_quat(const T* b, const T* q, T* R, T* p, T* ax) {
+  T Rq[9];
+  quat_R(q + 3, Rq);
+  mm3(b, Rq, R);
+  mv3(b, q, p);
+  for (int r = 0; r < 3; ++r) {
+    p[r] += b[9 + r];
+    for (int c = 0; c < 3; ++c) ax[3 * c + r] = ax[9 + 3 * c + r] = R[3 * r + c];
+  }
+}
+
+// ee_walk on the class D's floating root: the EE joint frame's world pose
+// (R, p) for the state q, walked root -> tip over ``chain`` (rows, prism
+// and sc as ee_walk takes them, sc from ee_sincos_root).  With SLOTS > 0
+// it keeps the world axis and origin of columns c + 8 s, s < SLOTS, as the
+// walk passes them (ac, oc: 3 values a slot); bit s of ``on`` says the
+// column is on the chain, bit s of ``lin`` that it is a translation's (a
+// root translation, columns 0-2 on the rpy root and 3-5 on the quaternion
+// root, or a prismatic joint: the column is the axis itself).
+template <class D, int SLOTS, typename T>
+RBD_HD void ee_walk_root(const T* rows, unsigned chain, unsigned prism, const T* q, const T* sc,
+                         int c, T* R, T* p, T* ac, T* oc, unsigned& on, unsigned& lin) {
+  constexpr int NB = D::NB;
   {
     T rax[18];
-    ee_root_rpy(rows, q, R, p, rax);
+    if constexpr (D::QUAT) {
+      ee_root_quat(rows, q, R, p, rax);
+    } else {
+      ee_root_rpy(rows, q, R, p, rax);
+    }
 #pragma unroll
     for (int s = 0; s < SLOTS; ++s) {
       const int col = c + 8 * s;
@@ -277,7 +321,7 @@ RBD_HD void ee_walk_rpy(const T* rows, unsigned chain, unsigned prism, const T* 
           oc[3 * s + r] = p[r];
         }
         on |= 1u << s;
-        if (col < 3) lin |= 1u << s;
+        if (D::QUAT ? col >= 3 : col < 3) lin |= 1u << s;
       }
     }
   }
@@ -304,7 +348,7 @@ RBD_HD void ee_walk_rpy(const T* rows, unsigned chain, unsigned prism, const T* 
       }
     }
     if (pri) {
-      for (int r = 0; r < 3; ++r) p[r] += q[k + 5] * ax[r];
+      for (int r = 0; r < 3; ++r) p[r] += q[k + ee_qoff<D>()] * ax[r];
       for (int r = 0; r < 9; ++r) R[r] = R1[r];
     } else {
       T RJ[9];
@@ -314,35 +358,36 @@ RBD_HD void ee_walk_rpy(const T* rows, unsigned chain, unsigned prism, const T* 
   }
 }
 
-// ee_err of one state on the rpy root by one thread: q (nq) -> e (3).
-template <typename T>
-RBD_HD void ee_err_one_rpy(const T* rows, unsigned chain, unsigned prism, const T* ee,
-                           const T* q, const T* target, T* e) {
-  T R[9], p[3], pe[3], sc[2 * FB16::NB];
+// ee_err of one state on the class D's floating root by one thread: q (nq)
+// -> e (3).
+template <class D, typename T>
+RBD_HD void ee_err_one_root(const T* rows, unsigned chain, unsigned prism, const T* ee,
+                            const T* q, const T* target, T* e) {
+  T R[9], p[3], pe[3], sc[2 * D::NB];
   unsigned on = 0, lin = 0;
 #pragma unroll
-  for (int k = 1; k < FB16::NB; ++k) ee_sincos_rpy(chain, prism, q, k, sc);
-  ee_walk_rpy<0>(rows, chain, prism, q, sc, 0, R, p, static_cast<T*>(nullptr),
-                 static_cast<T*>(nullptr), on, lin);
+  for (int k = 1; k < D::NB; ++k) ee_sincos_root<D>(chain, prism, q, k, sc);
+  ee_walk_root<D, 0>(rows, chain, prism, q, sc, 0, R, p, static_cast<T*>(nullptr),
+                     static_cast<T*>(nullptr), on, lin);
   ee_tip(R, p, ee, target, pe, e);
 }
 
-// ee_gn of one state on the rpy root by the team ``tm`` of 8 lanes, lane c
-// columns c + 8 s of J: q (nq) -> e (3), g0 (n), H0 (n x n), through J (3
-// values a column, the team's shared memory, which first holds the joints'
-// sines and cosines).
-template <typename T>
-RBD_HD void ee_gn_team_rpy(const Team<8>& tm, int n, const T* rows, unsigned chain,
-                           unsigned prism, const T* ee, const T* q, const T* target, T* e,
-                           T* g0, T* H0, T* J) {
-  constexpr int S = EE_RPY_SLOTS;
+// ee_gn of one state on the class D's floating root by the team ``tm`` of 8
+// lanes, lane c columns c + 8 s of J: q (nq) -> e (3), g0 (n), H0 (n x n),
+// through J (3 values a column, the team's shared memory, which first holds
+// the joints' sines and cosines).
+template <class D, typename T>
+RBD_HD void ee_gn_team_root(const Team<8>& tm, int n, const T* rows, unsigned chain,
+                            unsigned prism, const T* ee, const T* q, const T* target, T* e,
+                            T* g0, T* H0, T* J) {
+  constexpr int S = ee_slots<D>();
   const int c = tm.lane;
   T R[9], p[3], ac[3 * S], oc[3 * S], pe[3], er[3], col[3 * S];
   unsigned on = 0, lin = 0;
-  for (int k = c; k < FB16::NB; k += 8)
-    if (k > 0) ee_sincos_rpy(chain, prism, q, k, J);
+  for (int k = c; k < D::NB; k += 8)
+    if (k > 0) ee_sincos_root<D>(chain, prism, q, k, J);
   tm.sync();
-  ee_walk_rpy<S>(rows, chain, prism, q, J, c, R, p, ac, oc, on, lin);
+  ee_walk_root<D, S>(rows, chain, prism, q, J, c, R, p, ac, oc, on, lin);
   tm.sync();  // every lane's walk has read J
   ee_tip(R, p, ee, target, pe, er);
 #pragma unroll
@@ -412,8 +457,8 @@ __device__ __forceinline__ void ee_stage(T* dst, const T* src, int count) {
 }
 
 // The block's walk rows and mount into ``rows`` (EE_FIXED values, or
-// EE_FIXED_RPY on the rpy root: a row a body of the class D, then the
-// mount) and its cnt states' q rows (nq = nv values) into sq.
+// ee_fixed_values<D> on a floating root: a row a body of the class D, then
+// the mount) and its cnt states' q rows (nq values) into sq.
 template <typename T, class D>
 __device__ __forceinline__ void ee_stage_in(const rbd::Model<T, D>& m,
                                             const T* __restrict__ ee, const T* q, int cnt,
@@ -422,7 +467,7 @@ __device__ __forceinline__ void ee_stage_in(const rbd::Model<T, D>& m,
   ee_pipe<T>(
       nr + 12, [&](int e) { return e < nr ? rbd::ee_row_value(m, e) : ee[e - nr]; },
       [&](int e, T v) { rows[e < nr ? e : rbd::EE_ROW * D::NB + e - nr] = v; });
-  ee_stage(sq, q, cnt * m.nv());
+  ee_stage(sq, q, cnt * m.nq());
 }
 
 // One block: states b0 .. b0 + spb - 1 (fewer in the last block).
@@ -503,36 +548,53 @@ static int launch_ee(const T* tab, const int* itab, int nb, const T* ee, int cha
   return (int)cudaGetLastError();
 }
 
-// The rpy-root kernels (FB16): as ee_gn_kernel and ee_err_kernel, with the
-// walk rows of FB16's 16 bodies and its states' rows of nq = nv values.
+// One block of the floating-root kernels: as ee_gn_kernel and
+// ee_err_kernel, with the walk rows of the class D's bodies and its
+// states' rows of nq values.
+template <typename T, class D, bool GN>
+__device__ __forceinline__ void ee_root_block(const rbd::Model<T, D>& m, const T* ee,
+                                              unsigned chain, unsigned prism, const T* q, T tx,
+                                              T ty, T tz, T* e, T* g0, T* H0, int B, int spb) {
+  constexpr int NV = D::NV, NQ = D::NQ;
+  extern __shared__ __align__(16) unsigned char ee_smem[];
+  T* rows = reinterpret_cast<T*>(ee_smem);
+  T* sq = rows + rbd::ee_fixed_values<D>();
+  T* se = sq + spb * NQ;
+  T* sg = se + spb * 3;
+  T* sH = sg + spb * NV;
+  T* sJ = sH + spb * NV * NV;
+  const int n = m.nv(), nq = m.nq(), b0 = blockIdx.x * spb, cnt = min(spb, B - b0);
+  ee_stage_in(m, ee, q + (size_t)b0 * nq, cnt, rows, sq);
+  __syncthreads();
+  const T target[3] = {tx, ty, tz};
+  if constexpr (GN) {
+    const int st = (int)threadIdx.x / 8;
+    if (st < cnt)
+      rbd::ee_gn_team_root<D>(this_team<8>(), n, rows, chain, prism, rows + rbd::EE_ROW * D::NB,
+                              sq + st * nq, target, se + 3 * st, sg + st * n, sH + st * n * n,
+                              sJ + 3 * NV * st);
+  } else {
+    const int st = (int)threadIdx.x;
+    if (st < cnt)
+      rbd::ee_err_one_root<D>(rows, chain, prism, rows + rbd::EE_ROW * D::NB, sq + st * nq,
+                              target, se + 3 * st);
+  }
+  __syncthreads();
+  ee_stage(e + (size_t)b0 * 3, se, cnt * 3);
+  if constexpr (GN) {
+    ee_stage(g0 + (size_t)b0 * n, sg, cnt * n);
+    ee_stage(H0 + (size_t)b0 * n * n, sH, cnt * n * n);
+  }
+}
+
+// The rpy-root kernels (FB16).
 template <typename T>
 __global__ void __launch_bounds__(256)
     ee_gn_rpy_kernel(rbd::Model<T, rbd::FB16> m, const T* __restrict__ ee, unsigned chain,
                      unsigned prism, const T* __restrict__ q, T tx, T ty, T tz,
                      T* __restrict__ e, T* __restrict__ g0, T* __restrict__ H0, int B,
                      int spb) {
-  constexpr int NV = rbd::FB16::NV;
-  extern __shared__ __align__(16) unsigned char ee_smem[];
-  T* rows = reinterpret_cast<T*>(ee_smem);
-  T* sq = rows + rbd::EE_FIXED_RPY;
-  T* se = sq + spb * NV;
-  T* sg = se + spb * 3;
-  T* sH = sg + spb * NV;
-  T* sJ = sH + spb * NV * NV;
-  const int n = m.nv(), b0 = blockIdx.x * spb, cnt = min(spb, B - b0);
-  ee_stage_in(m, ee, q + (size_t)b0 * n, cnt, rows, sq);
-  __syncthreads();
-  const int st = (int)threadIdx.x / 8;
-  if (st < cnt) {
-    const T target[3] = {tx, ty, tz};
-    rbd::ee_gn_team_rpy(this_team<8>(), n, rows, chain, prism,
-                        rows + rbd::EE_ROW * rbd::FB16::NB, sq + st * n, target, se + 3 * st,
-                        sg + st * n, sH + st * n * n, sJ + 3 * NV * st);
-  }
-  __syncthreads();
-  ee_stage(e + (size_t)b0 * 3, se, cnt * 3);
-  ee_stage(g0 + (size_t)b0 * n, sg, cnt * n);
-  ee_stage(H0 + (size_t)b0 * n * n, sH, cnt * n * n);
+  ee_root_block<T, rbd::FB16, true>(m, ee, chain, prism, q, tx, ty, tz, e, g0, H0, B, spb);
 }
 
 template <typename T>
@@ -540,49 +602,88 @@ __global__ void __launch_bounds__(128)
     ee_err_rpy_kernel(rbd::Model<T, rbd::FB16> m, const T* __restrict__ ee, unsigned chain,
                       unsigned prism, const T* __restrict__ q, T tx, T ty, T tz,
                       T* __restrict__ e, int B, int spb) {
-  extern __shared__ __align__(16) unsigned char ee_smem[];
-  T* rows = reinterpret_cast<T*>(ee_smem);
-  T* sq = rows + rbd::EE_FIXED_RPY;
-  T* se = sq + spb * rbd::FB16::NV;
-  const int n = m.nv(), b0 = blockIdx.x * spb, cnt = min(spb, B - b0);
-  ee_stage_in(m, ee, q + (size_t)b0 * n, cnt, rows, sq);
-  __syncthreads();
-  const int st = (int)threadIdx.x;
-  if (st < cnt) {
-    const T target[3] = {tx, ty, tz};
-    rbd::ee_err_one_rpy(rows, chain, prism, rows + rbd::EE_ROW * rbd::FB16::NB, sq + st * n,
-                        target, se + 3 * st);
-  }
-  __syncthreads();
-  ee_stage(e + (size_t)b0 * 3, se, cnt * 3);
+  ee_root_block<T, rbd::FB16, false>(m, ee, chain, prism, q, tx, ty, tz, e,
+                                     static_cast<T*>(nullptr), static_cast<T*>(nullptr), B,
+                                     spb);
 }
 
-// launch_ee on the rpy root: the same refusals at FB16's bounds, and the
-// chain must start at the root (body 0).
-template <typename T, bool GN>
-static int launch_ee_rpy(const T* tab, const int* itab, int nb, const T* ee, int chain,
-                         int prism, const T* q, T tx, T ty, T tz, T* e, T* g0, T* H0, int B,
-                         int spb, int smem, void* stream) {
+// The quaternion-root kernels (FQ32).
+template <typename T>
+__global__ void __launch_bounds__(256)
+    ee_gn_quat_kernel(rbd::Model<T, rbd::FQ32> m, const T* __restrict__ ee, unsigned chain,
+                      unsigned prism, const T* __restrict__ q, T tx, T ty, T tz,
+                      T* __restrict__ e, T* __restrict__ g0, T* __restrict__ H0, int B,
+                      int spb) {
+  ee_root_block<T, rbd::FQ32, true>(m, ee, chain, prism, q, tx, ty, tz, e, g0, H0, B, spb);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(128)
+    ee_err_quat_kernel(rbd::Model<T, rbd::FQ32> m, const T* __restrict__ ee, unsigned chain,
+                       unsigned prism, const T* __restrict__ q, T tx, T ty, T tz,
+                       T* __restrict__ e, int B, int spb) {
+  ee_root_block<T, rbd::FQ32, false>(m, ee, chain, prism, q, tx, ty, tz, e,
+                                     static_cast<T*>(nullptr), static_cast<T*>(nullptr), B,
+                                     spb);
+}
+
+// launch_ee on a floating root of the class D: the same refusals at the
+// class's bounds, and the chain must start at the root (body 0); above
+// 48 KB (FQ32 only) the kernel is opted in.
+template <typename T, class D, bool GN>
+static int launch_ee_root(const T* tab, const int* itab, int nb, const T* ee, int chain,
+                          int prism, const T* q, T tx, T ty, T tz, T* e, T* g0, T* H0, int B,
+                          int spb, int smem, void* stream) {
   if (B <= 0) return 0;
   const int lanes = GN ? 8 : 1, most = GN ? 256 : 128;
   const size_t values =
-      (size_t)rbd::EE_FIXED_RPY + (size_t)spb * rbd::ee_rpy_state_values<GN>();
-  if (nb > rbd::FB16::NB || (chain & 1) == 0 || (chain >> nb) != 0 || (prism & ~chain) != 0 ||
-      (prism & 1) != 0 || spb < 4 || spb % 4 != 0 || spb * lanes > most ||
-      (size_t)smem != values * sizeof(T) || smem > 48 * 1024)
+      (size_t)rbd::ee_fixed_values<D>() + (size_t)spb * rbd::ee_root_state_values<D, GN>();
+  const unsigned uc = (unsigned)chain, up = (unsigned)prism;
+  if (nb > D::NB || (uc & 1u) == 0 || (nb < 32 && (uc >> nb) != 0) || (up & ~uc) != 0 ||
+      (up & 1u) != 0 || spb < 4 || spb % 4 != 0 || spb * lanes > most ||
+      (size_t)smem != values * sizeof(T) || smem > (D::QUAT ? 232448 : 48 * 1024))
     return (int)cudaErrorInvalidValue;
-  const rbd::Model<T, rbd::FB16> m{tab, itab, nb};
+  const rbd::Model<T, D> m{tab, itab, nb};
   const int blocks = (B + spb - 1) / spb;
   cudaStream_t st = (cudaStream_t)stream;
+  auto kernel = GN ? (D::QUAT ? (void*)ee_gn_quat_kernel<T> : (void*)ee_gn_rpy_kernel<T>)
+                   : (D::QUAT ? (void*)ee_err_quat_kernel<T> : (void*)ee_err_rpy_kernel<T>);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   if constexpr (GN) {
-    ee_gn_rpy_kernel<T><<<blocks, spb * lanes, smem, st>>>(
-        m, ee, (unsigned)chain, (unsigned)prism, q, tx, ty, tz, e, g0, H0, B, spb);
+    if constexpr (D::QUAT) {
+      ee_gn_quat_kernel<T><<<blocks, spb * lanes, smem, st>>>(m, ee, uc, up, q, tx, ty, tz, e,
+                                                             g0, H0, B, spb);
+    } else {
+      ee_gn_rpy_kernel<T><<<blocks, spb * lanes, smem, st>>>(m, ee, uc, up, q, tx, ty, tz, e, g0,
+                                                            H0, B, spb);
+    }
   } else {
-    ee_err_rpy_kernel<T><<<blocks, spb, smem, st>>>(m, ee, (unsigned)chain, (unsigned)prism, q,
-                                                    tx, ty, tz, e, B, spb);
+    if constexpr (D::QUAT) {
+      ee_err_quat_kernel<T><<<blocks, spb, smem, st>>>(m, ee, uc, up, q, tx, ty, tz, e, B, spb);
+    } else {
+      ee_err_rpy_kernel<T><<<blocks, spb, smem, st>>>(m, ee, uc, up, q, tx, ty, tz, e, B, spb);
+    }
   }
   return (int)cudaGetLastError();
 }
+
+#define RBD_EE_ROOT(CLS, D, T, SFX)                                                            \
+  int rbd_ee_gn_##CLS##_##SFX(const T* tab, const int* itab, int nb, const T* ee, int chain,   \
+                              int prism, const T* q, T tx, T ty, T tz, T* e, T* g0, T* H0,    \
+                              int B, int spb, int smem, void* stream) {                       \
+    return launch_ee_root<T, rbd::D, true>(tab, itab, nb, ee, chain, prism, q, tx, ty, tz, e, \
+                                           g0, H0, B, spb, smem, stream);                     \
+  }                                                                                            \
+  int rbd_ee_err_##CLS##_##SFX(const T* tab, const int* itab, int nb, const T* ee, int chain,  \
+                               int prism, const T* q, T tx, T ty, T tz, T* e, int B, int spb, \
+                               int smem, void* stream) {                                      \
+    return launch_ee_root<T, rbd::D, false>(tab, itab, nb, ee, chain, prism, q, tx, ty, tz,   \
+                                            e, nullptr, nullptr, B, spb, smem, stream);       \
+  }
 
 extern "C" {
 int rbd_ee_gn_n8_f32(const float* tab, const int* itab, int nb, const float* ee, int chain,
@@ -609,30 +710,9 @@ int rbd_ee_err_n8_f64(const double* tab, const int* itab, int nb, const double* 
   return launch_ee<double, false>(tab, itab, nb, ee, chain, prism, q, tx, ty, tz, e, nullptr,
                                   nullptr, B, spb, smem, stream);
 }
-int rbd_ee_gn_fb16_f32(const float* tab, const int* itab, int nb, const float* ee, int chain,
-                       int prism, const float* q, float tx, float ty, float tz, float* e,
-                       float* g0, float* H0, int B, int spb, int smem, void* stream) {
-  return launch_ee_rpy<float, true>(tab, itab, nb, ee, chain, prism, q, tx, ty, tz, e, g0, H0,
-                                    B, spb, smem, stream);
-}
-int rbd_ee_gn_fb16_f64(const double* tab, const int* itab, int nb, const double* ee,
-                       int chain, int prism, const double* q, double tx, double ty, double tz,
-                       double* e, double* g0, double* H0, int B, int spb, int smem,
-                       void* stream) {
-  return launch_ee_rpy<double, true>(tab, itab, nb, ee, chain, prism, q, tx, ty, tz, e, g0, H0,
-                                     B, spb, smem, stream);
-}
-int rbd_ee_err_fb16_f32(const float* tab, const int* itab, int nb, const float* ee, int chain,
-                        int prism, const float* q, float tx, float ty, float tz, float* e,
-                        int B, int spb, int smem, void* stream) {
-  return launch_ee_rpy<float, false>(tab, itab, nb, ee, chain, prism, q, tx, ty, tz, e,
-                                     nullptr, nullptr, B, spb, smem, stream);
-}
-int rbd_ee_err_fb16_f64(const double* tab, const int* itab, int nb, const double* ee,
-                        int chain, int prism, const double* q, double tx, double ty,
-                        double tz, double* e, int B, int spb, int smem, void* stream) {
-  return launch_ee_rpy<double, false>(tab, itab, nb, ee, chain, prism, q, tx, ty, tz, e,
-                                      nullptr, nullptr, B, spb, smem, stream);
-}
+RBD_EE_ROOT(fb16, FB16, float, f32)
+RBD_EE_ROOT(fb16, FB16, double, f64)
+RBD_EE_ROOT(fq32, FQ32, float, f32)
+RBD_EE_ROOT(fq32, FQ32, double, f64)
 }
 #endif

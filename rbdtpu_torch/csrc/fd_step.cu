@@ -1,15 +1,18 @@
 // fd_step: one ABA + semi-implicit Euler step per batch element, with
 // optional world-frame wrenches.
 // Replaces rbdtpu kernels/fused.py fd_step_fused (Pallas, fused.py:450).
-// Instantiated for fixed-base trees (N8) and the rpy floating root (FB16,
-// FB32), with and without wrenches, each class and dtype at one team size
-// fixed at build time (RBD_TEAM_fd_step_<class>_<f32|f64>, which
-// kernels/_lib.py defines from its TEAM table).
+// Instantiated for fixed-base trees (N8), the rpy floating root (FB16,
+// FB32) and the quaternion root (FQ32), with and without wrenches, each
+// class and dtype at one team size fixed at build time
+// (RBD_TEAM_fd_step_<class>_<f32|f64>, which kernels/_lib.py defines from
+// its TEAM table).
 //
 // One team of NL lanes per element runs the step of rbd_team.cuh with the
 // element's state, controls and per-body ABA state in the team's shared
-// memory: x (B, 2nv) and u (B, nv) rows are read with consecutive lanes on
-// consecutive addresses, x' (B, 2nv) written the same way.  fext is null
+// memory: x (B, nq + nv) and u (B, nv) rows are read with consecutive lanes
+// on consecutive addresses, x' (B, nq + nv) written the same way (nq = nv,
+// or nv + 1 on the quaternion root, whose pose the step retracts on the
+// manifold).  fext is null
 // (no wrenches) or (nb, 6) rows read at fext + b * fext_stride (stride 0:
 // one wrench set shared by the batch; nb * 6: one per element).
 //
@@ -37,7 +40,7 @@ using FdLayout = TeamLayout<D, true, false>;
 // element's x and u; padded so the teams of a warp start on different banks.
 template <class D, int NL>
 RBD_HD constexpr int fd_step_team_stride() {
-  return (FdLayout<D>::VALUES + 3 * D::NV + 31) / 32 * 32 + NL % 32;
+  return (FdLayout<D>::VALUES + D::NQ + 2 * D::NV + 31) / 32 * 32 + NL % 32;
 }
 
 }  // namespace rbd
@@ -56,13 +59,23 @@ __global__ void __launch_bounds__(32)
   const int n = m.nv();
   T* s = reinterpret_cast<T*>(fd_smem) + (size_t)tix * rbd::fd_step_team_stride<D, NL>();
   T* xs = s + rbd::FdLayout<D>::VALUES;
-  T* us = xs + 2 * D::NV;
-  for (int k = tm.lane; k < 2 * n; k += NL) xs[k] = x[(size_t)b * 2 * n + k];
-  for (int k = tm.lane; k < n; k += NL) us[k] = u[(size_t)b * n + k];
-  tm.sync();
-  rbd::team_fd_step<NL, FEXT, false, rbd::FdLayout<D>>(tm, m, s, xs, us, dt, gravity,
-                              FEXT ? fext + (size_t)b * fext_stride : nullptr,
-                              static_cast<T*>(nullptr), xo + (size_t)b * 2 * n);
+  T* us = xs + D::NQ + D::NV;
+  if constexpr (D::QUAT) {  // x rows of nq + nv values
+    const int nx = m.nq() + n;
+    for (int k = tm.lane; k < nx; k += NL) xs[k] = x[(size_t)b * nx + k];
+    for (int k = tm.lane; k < n; k += NL) us[k] = u[(size_t)b * n + k];
+    tm.sync();
+    rbd::team_fd_step<NL, FEXT, false, rbd::FdLayout<D>>(tm, m, s, xs, us, dt, gravity,
+                                FEXT ? fext + (size_t)b * fext_stride : nullptr,
+                                static_cast<T*>(nullptr), xo + (size_t)b * nx);
+  } else {
+    for (int k = tm.lane; k < 2 * n; k += NL) xs[k] = x[(size_t)b * 2 * n + k];
+    for (int k = tm.lane; k < n; k += NL) us[k] = u[(size_t)b * n + k];
+    tm.sync();
+    rbd::team_fd_step<NL, FEXT, false, rbd::FdLayout<D>>(tm, m, s, xs, us, dt, gravity,
+                                FEXT ? fext + (size_t)b * fext_stride : nullptr,
+                                static_cast<T*>(nullptr), xo + (size_t)b * 2 * n);
+  }
 }
 
 template <int NL, typename T, class D>
@@ -96,5 +109,7 @@ RBD_FD_STEP(fb16, FB16, float, f32)
 RBD_FD_STEP(fb16, FB16, double, f64)
 RBD_FD_STEP(fb32, FB32, float, f32)
 RBD_FD_STEP(fb32, FB32, double, f64)
+RBD_FD_STEP(fq32, FQ32, float, f32)
+RBD_FD_STEP(fq32, FQ32, double, f64)
 }
 #endif

@@ -2,15 +2,18 @@
 // Replaces rbdtpu kernels/fused.py feedback_rollout_fused (Pallas,
 // fused.py:611), which launched once per knot inside lax.scan.
 //
-// Per knot t:  dx = x - Xn_t (the rpy root's dx is the flat difference, as
-// rbdtpu's);  u = Un_t + kf_t + Kf_t dx  (alpha is already folded into kf);
-// u clamped to [-uclip, uclip] when uclip is given (torch.clamp: NaN stays
-// NaN);  then ABA and semi-implicit Euler.  Writes states 1..H and the
-// applied u.  Layouts (row-major): x0 (B, nx), Xn/Xo (B, H, nx), Un/kf/Uo
-// (B, H, n), Kf (B, H, n, nx), n = nv and nx = 2 nv.  Instantiated for N8,
-// FB16 and FB32 in both walks, each class and dtype at one team size fixed
-// at build time (RBD_TEAM_feedback_rollout_<class>_<f32|f64>, which
-// kernels/_lib.py defines from its TEAM table).
+// Per knot t:  dx = x (-) Xn_t, the tangent difference (the rpy root's is
+// the flat difference, as rbdtpu's; the quaternion root's takes its root
+// rows from the quaternion log, rbdtpu fused.py _dx_rows);  u = Un_t + kf_t
+// + Kf_t dx  (alpha is already folded into kf); u clamped to [-uclip,
+// uclip] when uclip is given (torch.clamp: NaN stays NaN);  then ABA and
+// semi-implicit Euler.  Writes states 1..H and the applied u.  Layouts
+// (row-major): x0 (B, nx), Xn/Xo (B, H, nx), Un/kf/Uo (B, H, n), Kf (B, H,
+// n, ndx), n = nv, ndx = 2 nv and nx = nq + nv (ndx + 1 on the quaternion
+// root).  Instantiated for N8, FB16, FB32 and FQ32 in both walks, each
+// class and dtype at one team size fixed at build time
+// (RBD_TEAM_feedback_rollout_<class>_<f32|f64>, which kernels/_lib.py
+// defines from its TEAM table).
 //
 // One team of NL lanes per trajectory runs feedback_team.cuh's
 // feedback_rollout_team (shared with K9, csrc/feedback_chunked.cu): its
@@ -48,11 +51,11 @@ __global__ void __launch_bounds__(32)
   const int tix = (int)threadIdx.x / NL;
   const int b = blockIdx.x * tpb + tix;
   if (b >= B) return;
-  const int n = m.nv(), nx = 2 * n;
+  const int n = m.nv(), nx = m.nq() + n, ndx = 2 * n;
   const size_t bx = (size_t)b * H * nx, bu = (size_t)b * H * n;
   T* s = reinterpret_cast<T*>(fb_smem) + (size_t)tix * rbd::feedback_team_stride<D, NL>();
   rbd::feedback_rollout_team<NL, LV>(tm, m, s, x0 + (size_t)b * nx, Xn + bx, Un + bu, kf + bu,
-                             Kf + bu * nx, uclip, Xo + bx, Uo + bu, H, dt, gravity);
+                             Kf + bu * ndx, uclip, Xo + bx, Uo + bu, H, dt, gravity);
 }
 
 // The wrench variant: fext (H, nb, 6), one set a knot shared by the batch,
@@ -70,14 +73,14 @@ __global__ void __launch_bounds__(32)
   const rbd::Team<NL> tm = this_team<NL>();
   const int tix = (int)threadIdx.x / NL;
   const int b = blockIdx.x * tpb + tix, bb = b < B ? b : B - 1;
-  const int n = m.nv(), nx = 2 * n;
+  const int n = m.nv(), nx = m.nq() + n, ndx = 2 * n;
   const size_t bx = (size_t)bb * H * nx, bu = (size_t)bb * H * n;
   T* stage = reinterpret_cast<T*>(fbw_smem);
   T* s = stage + rbd::feedback_wrench_values<D>() +
          (size_t)tix * rbd::feedback_team_stride<D, NL, true>();
   const rbd::BlockWrench<T, D> w{fext, stage, (int)threadIdx.x, (int)blockDim.x, m.nb, b < B};
   rbd::feedback_rollout_team<NL, LV>(tm, m, s, x0 + (size_t)bb * nx, Xn + bx, Un + bu, kf + bu,
-                                     Kf + bu * nx, uclip, Xo + bx, Uo + bu, H, dt, gravity,
+                                     Kf + bu * ndx, uclip, Xo + bx, Uo + bu, H, dt, gravity,
                                      rbd::RowSum{}, w);
 }
 
@@ -149,6 +152,8 @@ RBD_FEEDBACK_ROLLOUT(fb16, FB16, float, f32)
 RBD_FEEDBACK_ROLLOUT(fb16, FB16, double, f64)
 RBD_FEEDBACK_ROLLOUT(fb32, FB32, float, f32)
 RBD_FEEDBACK_ROLLOUT(fb32, FB32, double, f64)
+RBD_FEEDBACK_ROLLOUT(fq32, FQ32, float, f32)
+RBD_FEEDBACK_ROLLOUT(fq32, FQ32, double, f64)
 RBD_FEEDBACK_ROLLOUT_FEXT(n8, N8, float, f32)
 RBD_FEEDBACK_ROLLOUT_FEXT(n8, N8, double, f64)
 RBD_FEEDBACK_ROLLOUT_FEXT(fb16, FB16, float, f32)

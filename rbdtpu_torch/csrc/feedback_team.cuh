@@ -3,13 +3,15 @@
 // in the order of the feedback sum (the policy S: RowSum, one run over the
 // row, or ChunkSum, rbdtpu's column chunks).
 //
-// Per knot t:  dx = x - Xn_t (the rpy root's dx is the flat difference, as
-// rbdtpu's);  u = Un_t + kf_t + Kf_t dx in S's order (alpha is already
-// folded into kf);  u clamped to [-uclip, uclip] when uclip is given
-// (torch.clamp: NaN stays NaN);  then ABA and semi-implicit Euler.  Writes
-// states 1..H and the applied u.  Layouts (row-major): x0 (nx), Xn/Xo
-// (H, nx), Un/kf/Uo (H, n), Kf (H, n, nx) of the trajectory, n = nv and
-// nx = 2 nv.
+// Per knot t:  dx = x (-) Xn_t, the tangent difference (flat on the fixed
+// base and the rpy root, as rbdtpu's; on the quaternion root its six root
+// rows are quat_root_dx's, on lane 0, and the rest flat);  u = Un_t + kf_t
+// + Kf_t dx in S's order (alpha is already folded into kf);  u clamped to
+// [-uclip, uclip] when uclip is given (torch.clamp: NaN stays NaN);  then
+// ABA and semi-implicit Euler.  Writes states 1..H and the applied u.
+// Layouts (row-major): x0 (nx), Xn/Xo (H, nx), Un/kf/Uo (H, n), Kf (H, n,
+// ndx) of the trajectory, n = nv, ndx = 2 nv the tangent's width and
+// nx = nq + nv the state's (ndx, or ndx + 1 on the quaternion root).
 //
 // The team's state, the knot's gains and the ABA state live in the team's
 // shared memory:
@@ -53,12 +55,14 @@ template <class D, bool W = false>
 using FbLayout = TeamLayout<D, W, true, false, W>;
 
 // Shared-memory values a team of NL lanes takes: the step's scratch, x, dx
-// and u, and the knot buffer (K with rows of nx + 1, Xn, Un, kf); padded so
-// the teams of a warp start on different banks.
+// and u, and the knot buffer (K with rows of ndx + 1, Xn, Un, kf); padded
+// so the teams of a warp start on different banks.
 template <class D, int NL, bool W = false>
 RBD_HD constexpr int feedback_team_stride() {
-  constexpr int NV = D::NV;
-  return (FbLayout<D, W>::VALUES + 5 * NV + NV * (2 * NV + 1) + 4 * NV + 31) / 32 * 32 + NL % 32;
+  constexpr int NV = D::NV, NX = D::NQ + D::NV;
+  return (FbLayout<D, W>::VALUES + NX + 3 * NV + NV * (2 * NV + 1) + NX + 2 * NV + 31) / 32 *
+             32 +
+         NL % 32;
 }
 
 // Shared-memory values a block of the wrench kernels keeps ahead of its
@@ -148,16 +152,16 @@ struct ChunkSum {
 };
 
 // Knot t's gains and nominals of one trajectory (pointers at its knot 0)
-// into the buffer: K rows of ld values, then Xn, Un, kf; the wrench
-// policy's copies of the knot join the same group.
+// into the buffer: K rows of ld = ndx + 1 values, then Xn (nx values), Un,
+// kf; the wrench policy's copies of the knot join the same group.
 template <int NL, typename T, class W>
-RBD_HD void feedback_load_knot(const Team<NL>& tm, int n, int t, const T* Xn, const T* Un,
-                               const T* kf, const T* Kf, T* bK, T* bXn, T* bUn, T* bkf,
-                               const W& w) {
-  const int nx = 2 * n, ld = nx + 1;
-  const T* K = Kf + (size_t)t * n * nx;
+RBD_HD void feedback_load_knot(const Team<NL>& tm, int n, int nx, int t, const T* Xn,
+                               const T* Un, const T* kf, const T* Kf, T* bK, T* bXn, T* bUn,
+                               T* bkf, const W& w) {
+  const int ndx = 2 * n, ld = ndx + 1;
+  const T* K = Kf + (size_t)t * n * ndx;
   for (int i = 0; i < n; ++i)
-    for (int j = tm.lane; j < nx; j += NL) copy_async(bK + i * ld + j, K + i * nx + j);
+    for (int j = tm.lane; j < ndx; j += NL) copy_async(bK + i * ld + j, K + i * ndx + j);
   for (int k = tm.lane; k < nx; k += NL) copy_async(bXn + k, Xn + (size_t)t * nx + k);
   for (int k = tm.lane; k < n; k += NL) {
     copy_async(bUn + k, Un + (size_t)t * n + k);
@@ -176,30 +180,36 @@ RBD_HD void feedback_rollout_team(const Team<NL>& tm, const Model<T, D>& m, T* s
                                   const T* Xn, const T* Un, const T* kf, const T* Kf,
                                   const T* uclip, T* Xo, T* Uo, int H, T dt, T gravity,
                                   const S& sum = S{}, const W& w = W{}) {
-  constexpr int NV = D::NV;
-  const int n = m.nv(), nx = 2 * n, ld = nx + 1;
+  constexpr int NV = D::NV, NX = D::NQ + D::NV;
+  const int n = m.nv(), nx = m.nq() + n, ndx = 2 * n, ld = ndx + 1;
   T* xs = s + FbLayout<D, W::ON>::VALUES;
-  T* dx = xs + 2 * NV;
+  T* dx = xs + NX;
   T* us = dx + 2 * NV;
   T* bK = us + NV;
   T* bXn = bK + NV * (2 * NV + 1);
-  T* bUn = bXn + 2 * NV;
+  T* bUn = bXn + NX;
   T* bkf = bUn + NV;
   for (int k = tm.lane; k < nx; k += NL) xs[k] = x0[k];
-  feedback_load_knot(tm, n, 0, Xn, Un, kf, Kf, bK, bXn, bUn, bkf, w);
+  feedback_load_knot(tm, n, nx, 0, Xn, Un, kf, Kf, bK, bXn, bUn, bkf, w);
+  // the flat rows of dx: all of them, or on the quaternion root the rows
+  // past the root's six, at x's index + 1
+  constexpr int J0 = D::QUAT ? 6 : 0, JX = D::QUAT ? 1 : 0;
   for (int t = 0; t < H; ++t) {
     copy_async_wait();
     w.sync(tm);
-    for (int k = tm.lane; k < nx; k += NL) dx[k] = xs[k] - bXn[k];
+    if constexpr (D::QUAT) {
+      if (tm.lane == 0) quat_root_dx(xs, bXn, dx);
+    }
+    for (int k = J0 + tm.lane; k < ndx; k += NL) dx[k] = xs[k + JX] - bXn[k + JX];
     tm.sync();
     for (int i = tm.lane; i < n; i += NL) {
-      T acc = sum(bK + i * ld, dx, nx, bUn[i] + bkf[i]);
+      T acc = sum(bK + i * ld, dx, ndx, bUn[i] + bkf[i]);
       if (uclip != nullptr) acc = acc < -uclip[i] ? -uclip[i] : (acc > uclip[i] ? uclip[i] : acc);
       us[i] = acc;
       if (w.live()) Uo[(size_t)t * n + i] = acc;
     }
     tm.sync();
-    if (t + 1 < H) feedback_load_knot(tm, n, t + 1, Xn, Un, kf, Kf, bK, bXn, bUn, bkf, w);
+    if (t + 1 < H) feedback_load_knot(tm, n, nx, t + 1, Xn, Un, kf, Kf, bK, bXn, bUn, bkf, w);
     team_fd_step<NL, W::ON, LV, FbLayout<D, W::ON>>(
         tm, m, s, xs, us, dt, gravity, w.at(t, static_cast<const T*>(nullptr)), xs,
         w.live() ? Xo + (size_t)t * nx : static_cast<T*>(nullptr));

@@ -42,8 +42,16 @@
 // seed a_0 = X_0 a_grav (v_0 = qd[0:6], the child transforms do not depend
 // on it), so the position columns vanish and rotation column 3 + j seeds
 // da_0 = [0; (dR/drpy_j)^T g_l], g_l the linear part of Xtree_0 a_grav.
-// The root's 6x6 inverse (chol6) and the root transform (floating_xc) stay
-// real calls (nvcc 12.9 miscompiled inlined root bodies, rbd_common.cuh).
+// The quaternion root's columns are the solver chart's tangent ones
+// (rbdtpu colvec.py:154-170): its pose enters tau only through the gravity
+// seed a0_lin = exp(-dtheta^) E g_l, so rotation column j < 3 seeds
+// da_0 = [0; w x e_j] with w the linear part of X_0 a_grav, and its
+// translation columns vanish; its dqd columns are the identity block, as on
+// the rpy root.  Its q has nq = nv + 1 values, a joint's coordinate at
+// q[i + 6].
+// The root's 6x6 inverse (chol6) and the root transforms (floating_xc,
+// floating_quat_xc) stay real calls (nvcc 12.9 miscompiled inlined root
+// bodies, rbd_common.cuh).
 #include "rbd_team.cuh"
 
 namespace rbd {
@@ -70,7 +78,7 @@ struct LinLayout {
   static constexpr int NB = D::NB, NV = D::NV, LV = lin_levels<D>(), LDM = NV + 1;
   static constexpr int BX = 0, BV = BX + 12 * NB, BA = BV + 6 * NB, BU = BA + 6 * NB,
                        BINVD = BU + 6 * NB, BQDD = BINVD + NB, IV = BQDD + NV, F = IV + 6 * NB,
-                       FBI = F + 6 * NB, XQ = FBI + 36, US = XQ + 2 * NV, PATH = US + NV,
+                       FBI = F + 6 * NB, XQ = FBI + 36, US = XQ + D::NQ + NV, PATH = US + NV,
                        SHARED = PATH + LV * NL, TEAM = SHARED, COL = SHARED,
                        END = SHARED + (TL::VALUES > 18 * LV * NL ? TL::VALUES : 18 * LV * NL),
                        // M^-1 beside the M^-1 columns' slots where it fits (every
@@ -80,14 +88,14 @@ struct LinLayout {
                        STRIDE = (VALUES + 31) / 32 * 32 + NL % 32;
 };
 
-// One knot by the team ``tm``: q (nq = nv), qd, u in global memory; outputs
-// as the kernel's, at this knot's offsets.
+// One knot by the team ``tm``: q (nq), qd, u (nv) in global memory;
+// outputs as the kernel's, at this knot's offsets.
 template <int NL, typename T, class D>
 RBD_HD void linearize_team(const Team<NL>& tm, const Model<T, D>& m, T* sm, const T* q,
                            const T* qd, const T* u, T gravity, T* Minv, T* dcq, T* dcd, T* qddo) {
   using LL = LinLayout<D, NL>;
   using TL = typename LL::TL;
-  const int nb = m.nb, n = m.nv(), lane = tm.lane;
+  const int nb = m.nb, n = m.nv(), nq = m.nq(), lane = tm.lane;
   const int* pre = m.itab + 3 * nb + 2 + m.itab[3 * nb];  // preorder, then depths
   const int* dep = pre + nb;
   T* s = sm + LL::TEAM;
@@ -107,9 +115,9 @@ RBD_HD void linearize_team(const Team<NL>& tm, const Model<T, D>& m, T* sm, cons
     for (int e = lane; e < n; e += NL) qddo[e] = nan_q<T>();
     return;
   }
+  for (int k = lane; k < nq; k += NL) xq[k] = q[k];
   for (int k = lane; k < n; k += NL) {
-    xq[k] = q[k];
-    xq[n + k] = qd[k];
+    xq[nq + k] = qd[k];
     us[k] = u[k];
   }
   tm.sync();
@@ -225,7 +233,15 @@ RBD_HD void linearize_team(const Team<NL>& tm, const Model<T, D>& m, T* sm, cons
           dvi[k] = !wrt_q && k == j ? T(1) : T(0);
           dai[k] = T(0);
         }
-        if (wrt_q && j >= 3 && j < 6) {
+        if constexpr (D::QUAT) {
+          if (wrt_q && j < 3) {  // w x e_j, w the linear part of X_0 a_grav
+            T a0[6];
+            xc_mv(X[0], ag, a0);
+            const int j1 = j == 2 ? 0 : j + 1, j2 = j == 0 ? 2 : j - 1;
+            dai[3 + j1] = a0[3 + j2];
+            dai[3 + j2] = -a0[3 + j1];
+          }
+        } else if (wrt_q && j >= 3 && j < 6) {
           T g6[6], dR[9];
           Xc<T> Xt;
           for (int k = 0; k < 9; ++k) Xt.E[k] = b[OFF_E + k];
@@ -262,7 +278,7 @@ RBD_HD void linearize_team(const Team<NL>& tm, const Model<T, D>& m, T* sm, cons
         }
         T cm[6];
         cross_motion(dvi, S, cm);
-        for (int k = 0; k < 6; ++k) dai[k] = dab[k] + xq[n + vi] * cm[k];
+        for (int k = 0; k < 6; ++k) dai[k] = dab[k] + xq[nq + vi] * cm[k];
         if (vi == j) {
           T inj[6];
           cross_motion(wrt_q ? Xa : v[i], S, inj);
@@ -367,7 +383,8 @@ __global__ void __launch_bounds__(32)
   const int n = m.nv();
   const size_t o1 = (size_t)b * n, o2 = (size_t)b * n * n;
   T* sm = reinterpret_cast<T*>(smem_raw) + (size_t)team * rbd::LinLayout<D, NL>::STRIDE;
-  rbd::linearize_team(this_team<NL>(), m, sm, q + o1, qd + o1, u + o1, gravity, Minv + o2,
+  rbd::linearize_team(this_team<NL>(), m, sm, q + (size_t)b * m.nq(), qd + o1, u + o1, gravity,
+                      Minv + o2,
                       dcq + o2, dcd + o2, qdd + o1);
 }
 
@@ -403,5 +420,7 @@ RBD_LINEARIZE_PARTS(fb16, FB16, float, f32)
 RBD_LINEARIZE_PARTS(fb16, FB16, double, f64)
 RBD_LINEARIZE_PARTS(fb32, FB32, float, f32)
 RBD_LINEARIZE_PARTS(fb32, FB32, double, f64)
+RBD_LINEARIZE_PARTS(fq32, FQ32, float, f32)
+RBD_LINEARIZE_PARTS(fq32, FQ32, double, f64)
 }
 #endif

@@ -1,7 +1,8 @@
 // Shared device code of the rbdtpu_torch kernels: the per-model tables and
 // size classes, compact spatial transforms and their 3x3 and 6-vector
-// algebra, the joint and rpy-root transforms and the root block's 6x6
-// Cholesky solve.  The tree sweeps are rbd_team.cuh's (a team of lanes a
+// algebra, the joint transforms, the rpy and quaternion roots' transforms,
+// the quaternion root's manifold step and tangent difference, and the root
+// block's 6x6 Cholesky solve.  The tree sweeps are rbd_team.cuh's (a team of lanes a
 // state, the per-body arrays in shared memory).
 //
 // The model arrives as tables (kernels/_lib.py: model_tables), not as
@@ -16,6 +17,12 @@
 // body i > 0 owns DoF i + 5.  Its transform is plux(R^T, xyz) Xtree[0], its
 // articulated 6x6 block is solved by an unrolled Cholesky factorisation
 // (NaN, never a trap, when it is not positive definite).
+//
+// The quaternion floating root (rbdtpu's root_quat=True) is the same
+// six-DoF body 0 with q[0:7] = [x, y, z, qw, qx, qy, qz] (nq = nv + 1) and
+// body i > 0 at q[i + 6]; its transform is plux(R(quat)^T, xyz) Xtree[0]
+// with the norm-robust R of rbdtpu's lane kernels, and its Euler step the
+// manifold retraction (quat_root_step).
 //
 // Everything here is templated on the scalar type T (float or double) and
 // compiles for the host too (RBD_HD), which lets a host build check the
@@ -38,16 +45,27 @@ namespace rbd {
 constexpr int PRISMATIC = 1;
 
 // A size class (kernels/_lib.py SIZE_CLASSES): at most NB bodies; FB marks
-// the rpy floating root, whose six DoFs make NV = NB + 5.
+// the rpy floating root, whose six DoFs make NV = NB + 5; NQ = NV values of
+// q.  QUAT is false.
 template <int NB_, bool FB_>
 struct Dims {
   static constexpr int NB = NB_;
-  static constexpr bool FB = FB_;
-  static constexpr int NV = FB_ ? NB_ + 5 : NB_;
+  static constexpr bool FB = FB_, QUAT = false;
+  static constexpr int NV = FB_ ? NB_ + 5 : NB_, NQ = NV;
 };
 using N8 = Dims<8, false>;    // fixed-base trees of up to 8 bodies
 using FB16 = Dims<16, true>;  // rpy floating-base trees of up to 16 bodies
 using FB32 = Dims<32, true>;  // rpy floating-base trees of up to 32 bodies
+
+// A size class of the quaternion root (kernels/_lib.py QUAT_CLASSES): the
+// six-DoF root (FB) whose q has one value more, NQ = NV + 1.
+template <int NB_>
+struct DimsQuat {
+  static constexpr int NB = NB_;
+  static constexpr bool FB = true, QUAT = true;
+  static constexpr int NV = NB_ + 5, NQ = NV + 1;
+};
+using FQ32 = DimsQuat<32>;  // quaternion-root trees of up to 32 bodies
 
 // per-body table layout (kernels/_lib.py STRIDE): compact Xtree (E, r),
 // joint axis, 6x6 inertia, motion subspace S, Ttree rotation and translation
@@ -70,8 +88,11 @@ struct Model {
   RBD_HD int parent(int i) const { return itab[i]; }
   RBD_HD int jtype(int i) const { return itab[nb + i]; }
   RBD_HD int nv() const { return D::FB ? nb + 5 : nb; }
+  RBD_HD int nq() const { return D::QUAT ? nb + 6 : nv(); }
   // the DoF of a 1-DoF body i (not the floating root)
   RBD_HD int vi(int i) const { return D::FB ? i + 5 : i; }
+  // the coordinate of a 1-DoF body i in q (not the floating root)
+  RBD_HD int qi(int i) const { return D::QUAT ? i + 6 : vi(i); }
   // body i is the six-DoF rpy root
   RBD_HD bool root6(int i) const { return D::FB && i == 0; }
 };
@@ -264,6 +285,94 @@ RBD_HD_CALL void floating_xc(const Model<T, D>& m, const T* q6, Xc<T>& X) {
   mm3(Rt, b + OFF_E, X.E);
   mtv3(b + OFF_E, q6, d);
   for (int k = 0; k < 3; ++k) X.r[k] = b[OFF_R + k] + d[k];
+}
+
+// Active rotation of a quaternion (w, x, y, z), row-major, in the
+// norm-robust form s = 2 / |q|^2 (rbdtpu kernels/lanescalar.py quat_R): a
+// quaternion that drifts off unit norm stays a rotation.
+template <typename T>
+RBD_HD void quat_R(const T* qt, T* R) {
+  const T w = qt[0], x = qt[1], y = qt[2], z = qt[3];
+  const T s = T(2) / (w * w + x * x + y * y + z * z);
+  const T xx = s * x * x, yy = s * y * y, zz = s * z * z;
+  const T xy = s * x * y, xz = s * x * z, yz = s * y * z;
+  const T wx = s * w * x, wy = s * w * y, wz = s * w * z;
+  R[0] = T(1) - (yy + zz), R[1] = xy - wz, R[2] = xz + wy;
+  R[3] = xy + wz, R[4] = T(1) - (xx + zz), R[5] = yz - wx;
+  R[6] = xz - wy, R[7] = yz + wx, R[8] = T(1) - (xx + yy);
+}
+
+// The quaternion root's X = plux(R^T, p) Xtree[0] = plux(R^T Et, rt + Et^T
+// p) for q7 = [p; quat]: floating_xc's twin, a real call like it.
+template <typename T, class D>
+RBD_HD_CALL void floating_quat_xc(const Model<T, D>& m, const T* q7, Xc<T>& X) {
+  const T* b = m.body(0);
+  T R[9], Rt[9], d[3];
+  quat_R(q7 + 3, R);
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) Rt[3 * i + j] = R[3 * j + i];
+  mm3(Rt, b + OFF_E, X.E);
+  mtv3(b + OFF_E, q7, d);
+  for (int k = 0; k < 3; ++k) X.r[k] = b[OFF_R + k] + d[k];
+}
+
+RBD_HD float rsqrt_r(float x) { return 1.0f / sqrtf(x); }
+RBD_HD double rsqrt_r(double x) { return 1.0 / sqrt(x); }
+RBD_HD float atan2_r(float y, float x) { return atan2f(y, x); }
+RBD_HD double atan2_r(double y, double x) { return atan2(y, x); }
+
+// The quaternion root's semi-implicit Euler step on the manifold (rbdtpu
+// kernels/fused.py _integrate_q_lane, lanescalar.py quat_step): from q7 =
+// [p; quat] and the post-step twist qdn = [w'; v'] (6 values),
+// p' = p + dt R(quat) v' and quat' = normalize(quat (x) exp(dt w')), the
+// exponential's sinc on its Taylor branch below a squared angle of 1e-12.
+// Writes the seven values of the new pose.  A real call.
+template <typename T>
+RBD_HD_CALL void quat_root_step(const T* q7, const T* qdn, T dt, T* out) {
+  T R[9], dv[3];
+  quat_R(q7 + 3, R);
+  mv3(R, qdn + 3, dv);
+  for (int k = 0; k < 3; ++k) out[k] = q7[k] + dt * dv[k];
+  const T ax = dt * qdn[0], ay = dt * qdn[1], az = dt * qdn[2];
+  const T n2 = ax * ax + ay * ay + az * az;
+  const bool small = n2 < T(1e-12);
+  const T nn = sqrt_r(n2 > T(1e-24) ? n2 : T(1e-24)), half = T(0.5) * nn;
+  const T ew = small ? T(1) - n2 / T(8) : rcos(half);
+  const T es = small ? T(0.5) - n2 / T(48) : rsin(half) / nn;
+  const T ex = es * ax, ey = es * ay, ez = es * az;
+  const T qw = q7[3], qx = q7[4], qy = q7[5], qz = q7[6];
+  const T nw = qw * ew - qx * ex - qy * ey - qz * ez;
+  const T nx = qw * ex + qx * ew + qy * ez - qz * ey;
+  const T ny = qw * ey - qx * ez + qy * ew + qz * ex;
+  const T nz = qw * ez + qx * ey - qy * ex + qz * ew;
+  const T inv = rsqrt_r(nw * nw + nx * nx + ny * ny + nz * nz);
+  out[3] = inv * nw, out[4] = inv * nx, out[5] = inv * ny, out[6] = inv * nz;
+}
+
+// The quaternion root's six rows of the tangent difference x (-) xn
+// (rbdtpu kernels/fused.py _dx_rows, lanescalar.py quat_log_rel): the
+// rotation vector log(conj(quat_n) (x) quat) with the sign fix at w < 0
+// and the Taylor branch below a squared angle of 1e-12, then R(quat_n)^T
+// (p - p_n).  x and xn hold q7 = [p; quat] first.  A real call.
+template <typename T>
+RBD_HD_CALL void quat_root_dx(const T* x, const T* xn, T* dx) {
+  const T aw = xn[3], ax = xn[4], ay = xn[5], az = xn[6];
+  const T bw = x[3], bx = x[4], by = x[5], bz = x[6];
+  T rw = aw * bw + ax * bx + ay * by + az * bz;
+  T rx = aw * bx - ax * bw - ay * bz + az * by;
+  T ry = aw * by + ax * bz - ay * bw - az * bx;
+  T rz = aw * bz - ax * by + ay * bx - az * bw;
+  if (rw < T(0)) rw = -rw, rx = -rx, ry = -ry, rz = -rz;
+  const T w = rw > T(1) ? T(1) : rw;
+  const T n2 = rx * rx + ry * ry + rz * rz;
+  const bool small = n2 < T(1e-12);
+  const T nn = sqrt_r(small ? T(1e-12) : n2);
+  const T scale = small ? T(2) / (w > T(0.5) ? w : T(0.5)) : T(2) * atan2_r(nn, w) / nn;
+  dx[0] = scale * rx, dx[1] = scale * ry, dx[2] = scale * rz;
+  T R0[9], d[3];
+  quat_R(xn + 3, R0);
+  for (int k = 0; k < 3; ++k) d[k] = x[k] - xn[k];
+  mtv3(R0, d, dx + 3);
 }
 
 // Cholesky factor L (row-major, lower) of a symmetric 6x6 A, unrolled

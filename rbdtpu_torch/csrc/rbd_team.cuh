@@ -281,7 +281,9 @@ RBD_HD_CALL void root_accel(const Xc<T>& X0, const T* IA0, const T* pA0, const T
 
 // The joint transforms X, the lower-left blocks BL of the dense X, the
 // motion subspaces and the parents of the state x = [q; qd] into the
-// scratch ``s`` of layout L, one lane a body (no barrier).
+// scratch ``s`` of layout L, one lane a body (no barrier).  A floating
+// root's transform is a real call (floating_xc, or floating_quat_xc on the
+// quaternion root).
 template <int NL, class L, typename T, class D>
 RBD_HD void team_transforms(const Team<NL>& tm, const Model<T, D>& m, T* s, const T* x) {
   Xc<T>* X = reinterpret_cast<Xc<T>*>(s + L::X);
@@ -290,9 +292,13 @@ RBD_HD void team_transforms(const Team<NL>& tm, const Model<T, D>& m, T* s, cons
   int* par = reinterpret_cast<int*>(s + L::PAR);
   for (int i = tm.lane; i < m.nb; i += NL) {
     if (m.root6(i)) {
-      floating_xc(m, x, X[0]);
+      if constexpr (D::QUAT) {
+        floating_quat_xc(m, x, X[0]);
+      } else {
+        floating_xc(m, x, X[0]);
+      }
     } else {
-      joint_xc(m, i, x[m.vi(i)], X[i]);
+      joint_xc(m, i, x[m.qi(i)], X[i]);
     }
     for (int k = 0; k < 6; ++k) Sp[6 * i + k] = m.body(i)[OFF_S + k];
     par[i] = m.parent(i);
@@ -300,8 +306,10 @@ RBD_HD void team_transforms(const Team<NL>& tm, const Model<T, D>& m, T* s, cons
   }
 }
 
-// One ABA + semi-implicit Euler step of the state x = [q; qd] (2 nv values
-// in shared memory) under the joint forces tau (nv), by the team ``tm``,
+// One ABA + semi-implicit Euler step of the state x = [q; qd] (nq + nv
+// values in shared memory: on the quaternion root q has nv + 1 and its
+// pose steps on the manifold, quat_root_step on lane 0) under the joint
+// forces tau (nv), by the team ``tm``,
 // with the wrenches fext (nb, 6; global or shared memory) when FEXT.  ``s``
 // is the team's scratch of layout L (a TeamLayout<D, W, LEV>: W holds the
 // wrenches' chain, LEV the level order).  LV walks the root->leaf
@@ -345,7 +353,7 @@ RBD_HD void team_fd_step(const Team<NL>& tm, const Model<T, D>& m, T* s, const T
   T* part = s + L::PART;
   T* qdd = s + L::QDD;
   int* ord = reinterpret_cast<int*>(s + L::ORD);
-  const T* qd = x + n;
+  const T* qd = x + (D::QUAT ? m.nq() : n);
 
   // joint transforms, motion subspaces and parents, one lane a body
   if constexpr (!MINV) team_transforms<NL, L>(tm, m, s, x);
@@ -616,16 +624,46 @@ RBD_HD void team_fd_step(const Team<NL>& tm, const Model<T, D>& m, T* s, const T
     }
   }
   tm.sync();
-  // semi-implicit Euler, one lane a coordinate
-  for (int k = lane; k < n; k += NL) {
-    const T qdn = x[n + k] + dt * qdd[k], qn = x[k] + dt * qdn;
-    if (xg != nullptr) {
-      xg[k] = qn;
-      xg[n + k] = qdn;
+  // semi-implicit Euler, one lane a coordinate; on the quaternion root its
+  // pose and twist on lane 0 (whose reads and writes touch no other lane's)
+  // and joint k at q[k + 1]
+  if constexpr (D::QUAT) {
+    const int nq = m.nq();
+    if (lane == 0) {
+      T qdn[6], pose[7];
+      for (int k = 0; k < 6; ++k) qdn[k] = x[nq + k] + dt * qdd[k];
+      quat_root_step(x, qdn, dt, pose);
+      for (int k = 0; k < 7; ++k) {
+        if (xg != nullptr) xg[k] = pose[k];
+        if (xs != nullptr) xs[k] = pose[k];
+      }
+      for (int k = 0; k < 6; ++k) {
+        if (xg != nullptr) xg[nq + k] = qdn[k];
+        if (xs != nullptr) xs[nq + k] = qdn[k];
+      }
     }
-    if (xs != nullptr) {
-      xs[k] = qn;
-      xs[n + k] = qdn;
+    for (int k = 6 + lane; k < n; k += NL) {
+      const T qdn = x[nq + k] + dt * qdd[k], qn = x[k + 1] + dt * qdn;
+      if (xg != nullptr) {
+        xg[k + 1] = qn;
+        xg[nq + k] = qdn;
+      }
+      if (xs != nullptr) {
+        xs[k + 1] = qn;
+        xs[nq + k] = qdn;
+      }
+    }
+  } else {
+    for (int k = lane; k < n; k += NL) {
+      const T qdn = x[n + k] + dt * qdd[k], qn = x[k] + dt * qdn;
+      if (xg != nullptr) {
+        xg[k] = qn;
+        xg[n + k] = qdn;
+      }
+      if (xs != nullptr) {
+        xs[k] = qn;
+        xs[n + k] = qdn;
+      }
     }
   }
 }

@@ -1,5 +1,5 @@
-"""Dynamics algorithms on torch tensors (fixed-base models and the rpy
-floating root)."""
+"""Dynamics algorithms on torch tensors (fixed-base models and both
+floating roots, rpy and quaternion)."""
 from .xforms import joint_transforms_list, joint_transforms_hom_list
 from .rnea import (
     rnea, rnea_fpass, rnea_bpass, gravity_accel, apply_external_forces,

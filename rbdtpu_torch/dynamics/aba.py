@@ -1,9 +1,9 @@
 """ABA — articulated-body forward dynamics, O(NB) per state
 (``rbdtpu.dynamics.aba``), with world-frame external wrenches (``f_ext``)
-subtracted from the bias forces between sweeps 1 and 2.  The rpy floating
-root is a 6-wide joint (S = I) whose 6x6 articulated block is solved by an
-unrolled Cholesky factorisation: a block that is not positive definite
-gives NaN, never an error."""
+subtracted from the bias forces between sweeps 1 and 2.  A floating root
+(rpy or quaternion) is a 6-wide joint (S = I) whose 6x6 articulated block
+is solved by an unrolled Cholesky factorisation: a block that is not
+positive definite gives NaN, never an error."""
 from __future__ import annotations
 
 import torch

@@ -1,6 +1,6 @@
 """Minv — direct analytical inverse of the joint-space inertia matrix
 (``rbdtpu.dynamics.minv``): a batched up-down tree sweep whose dense
-zero-initialised F rows make the subtree restriction implicit.  The rpy
+zero-initialised F rows make the subtree restriction implicit.  A
 floating root is one 6-wide block, inverted through its Cholesky factor,
 whose rows span all nv columns."""
 from __future__ import annotations

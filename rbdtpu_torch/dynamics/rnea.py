@@ -2,7 +2,8 @@
 with world-frame external wrenches (``f_ext``).
 
 Batched over arbitrary leading dims; the two tree sweeps loop over bodies.
-Fixed-base models and the rpy floating root (a 6-DoF joint with S = I).
+Fixed-base models and the floating roots (a 6-DoF joint with S = I, its
+pose from rpy angles or a quaternion: ``xforms``).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ def gravity_accel(gravity: float, dtype=torch.float32, device="cpu"):
 
 
 def joint_motion(model: RobotModel, i: int, u):
-    """S_i * u_i: (..., nv) -> (..., 6); the rpy root's S is the identity,
+    """S_i * u_i: (..., nv) -> (..., 6); a floating root's S is the identity,
     so its motion is u[..., 0:6]."""
     if model.floating_base and i == 0:
         return u[..., 0:6]
@@ -30,7 +31,7 @@ def joint_motion(model: RobotModel, i: int, u):
 
 
 def joint_force(model: RobotModel, i: int, f):
-    """S_i^T f: (..., 6) -> (..., k), the k = 6 rows of the rpy root or the
+    """S_i^T f: (..., 6) -> (..., k), the k = 6 rows of a floating root or the
     one row of a 1-DoF joint."""
     if model.floating_base and i == 0:
         return f

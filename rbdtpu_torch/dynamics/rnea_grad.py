@@ -2,10 +2,11 @@
 both forward derivative sweeps fused in one pass over bodies, each body's
 block a (..., 6, n) tensor over all derivative columns.
 
-The rpy floating root's dqd columns are the identity block through the
-same sweeps; its six root-pose dq columns are filled, as rbdtpu fills them,
-by forward-mode derivatives of RNEA (``torch.func.jvp``, one tangent per
-root coordinate)."""
+A floating root's dqd columns are the identity block through the same
+sweeps; its six root-pose dq columns are filled, as rbdtpu fills them, by
+forward-mode derivatives of RNEA (``torch.func.jvp``, one tangent per
+column): the rpy root's coordinates, or the quaternion root's body-twist
+tangent."""
 from __future__ import annotations
 
 import torch
@@ -115,15 +116,32 @@ def rnea_grad(model: RobotModel, q, qd, qdd=None, gravity: float = -9.81,
 
 
 def _root_pose_columns(model: RobotModel, q, qd, qdd, gravity):
-    """d tau / d q[0:6] of the rpy root by forward-mode AD through RNEA:
-    (..., nv, 6)."""
-    rest = q[..., 6:]
-    tau_of_root = lambda r6: rnea(model, torch.cat([r6, rest], -1), qd, qdd,
-                                  gravity)[0]
+    """d tau / d (root pose) by forward-mode AD through RNEA, one tangent a
+    column: (..., nv, 6).  On the rpy root the columns are those of
+    q[0:6]; on the quaternion root they are the solver chart's tangent
+    columns [dtheta; dp_body] through the retraction (rbdtpu
+    dynamics/rnea_grad.py:215-228): quat (x) exp(dtheta), p + R(quat) dp."""
+    if model.root_quat:
+        from ..spatial.quat import quat_exp, quat_mul, quat_to_R
+
+        root, rest = q[..., 0:7], q[..., 7:]
+        R = quat_to_R(root[..., 3:7])
+
+        def tau_of_root(d6):
+            quat = quat_mul(root[..., 3:7], quat_exp(d6[..., 0:3]))
+            p = root[..., 0:3] + (R * d6[..., None, 3:6]).sum(-1)
+            return rnea(model, torch.cat([p, quat, rest], -1), qd, qdd,
+                        gravity)[0]
+
+        at = torch.zeros_like(q[..., 0:6])
+    else:
+        rest = q[..., 6:]
+        tau_of_root = lambda r6: rnea(model, torch.cat([r6, rest], -1), qd,
+                                      qdd, gravity)[0]
+        at = q[..., 0:6]
     cols = []
     for j in range(6):
-        tangent = torch.zeros_like(q[..., 0:6])
+        tangent = torch.zeros_like(at)
         tangent[..., j] = 1.0
-        cols.append(torch.func.jvp(tau_of_root, (q[..., 0:6],),
-                                   (tangent,))[1])
+        cols.append(torch.func.jvp(tau_of_root, (at,), (tangent,))[1])
     return torch.stack(cols, dim=-1)

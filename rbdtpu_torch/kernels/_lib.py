@@ -39,7 +39,10 @@ STRIDE = 69
 # instantiated for it; C symbols are rbd_<kernel>_<class>_<f32|f64>.
 # ``size_class`` takes the smallest class that fits.  K2 and K9 with world
 # wrenches are kernels of their own (``feedback_rollout_fext``,
-# ``feedback_chunked_fext``), beside the wrench-free ones.
+# ``feedback_chunked_fext``), beside the wrench-free ones.  The quaternion
+# root has classes of its own (QUAT_CLASSES: "fq32", trees of up to 32
+# bodies, the humanoid and the quadruped), whose q has one coordinate more
+# than its tangent (nq = nv + 1); CLASSES holds every class.
 FEEDBACK_KERNELS = ("feedback_rollout", "feedback_chunked",
                     "feedback_rollout_fext", "feedback_chunked_fext")
 SIZE_CLASSES = {
@@ -55,6 +58,20 @@ SIZE_CLASSES = {
                         "feedback_chunked", "rnea", "fd_step_minv",
                         "feedback_rollout_fext", "feedback_chunked_fext")),
 }
+QUAT_CLASSES = {
+    "fq32": (32, True, ("fd_step", "feedback_rollout", "linearize_parts",
+                        "ee_gn", "ee_err")),
+}
+CLASSES = {**SIZE_CLASSES, **QUAT_CLASSES}
+
+
+def class_dims(cls: str):
+    """(bodies, nv, nq) at size class ``cls``'s bound: a floating root's
+    six DoFs make nv = NB + 5, the quaternion root's q nv + 1."""
+    nb, fb, _ = CLASSES[cls]
+    nv = nb + 5 if fb else nb
+    return nb, nv, nv + (cls in QUAT_CLASSES)
+
 
 # Lanes a team of the team kernels (csrc/rbd_team.cuh: one team of one warp
 # runs one state's step in fd_step and fd_step_minv, its RNEA in rnea, one
@@ -69,6 +86,9 @@ TEAM = {(k, cls, sfx): 32 for k in ("fd_step", "linearize_parts",
 TEAM.update({("rollout_multi", "n8", "f32"): 16,
              ("rollout_multi", "n8", "f64"): 32})
 TEAM[("fd_step", "fb32", "f32")] = 16
+# the quaternion root's, as the humanoid's rpy class (fb32)
+TEAM.update({(k, "fq32", sfx): TEAM[(k, "fb32", sfx)]
+             for k in ("fd_step", "feedback_rollout") for sfx in ("f32", "f64")})
 # K6's by its factorised route, K5's step (the dense route, off the paths,
 # would take 8 lanes on n8 and 16 on fb32: PERF.md §6)
 TEAM.update({("rnea", "n8", "f32"): 16, ("rnea", "n8", "f64"): 16,
@@ -85,7 +105,9 @@ TEAM.update({("linearize_parts", "n8", "f32"): 8,
              ("linearize_parts", "fb16", "f32"): 8,
              ("linearize_parts", "fb16", "f64"): 16,
              ("linearize_parts", "fb32", "f32"): 16,
-             ("linearize_parts", "fb32", "f64"): 16})
+             ("linearize_parts", "fb32", "f64"): 16,
+             ("linearize_parts", "fq32", "f32"): 16,
+             ("linearize_parts", "fq32", "f64"): 16})
 # the team sizes rbd_team.cuh takes
 TEAM_SIZES = (8, 16, 32)
 # shared memory a block may take on an H100 (above 48 KB by opt-in)
@@ -112,18 +134,20 @@ def team_values(kernel: str, cls: str, team: int, dense: bool = False) -> int:
     nx + 1; their _fext twins keep the wrenches' chain in IA's values, so
     they take as much); rnea's is its
     own (rnea.cu RneaLayout: transform, lower-left block, v, a, I v, f, S
-    and the parent, 52 a body; then q, qd and qdd).  Rounded up to 32 and
-    offset by ``team`` % 32 as the sources pad them.  The launch refuses
-    any other count (with ``block_values`` ahead of the teams)."""
-    nb, fb, kernels = SIZE_CLASSES[cls]
+    and the parent, 52 a body; then q, qd and qdd).  On the quaternion root
+    x is one value wider (nq = nv + 1): fd_step's x and the line search's
+    x and nominal.  Rounded up to 32 and offset by ``team`` % 32 as the
+    sources pad them.  The launch refuses any other count (with
+    ``block_values`` ahead of the teams)."""
+    nb, fb, kernels = CLASSES[cls]
     if kernel not in kernels:
         raise ValueError(f"{kernel} has no instantiation in class {cls}")
-    nv = nb + 5 if fb else nb
+    _, nv, nq = class_dims(cls)
     values = 90 * nb + 54 + nv
     if kernel == "rnea":
         values = 52 * nb + 3 * nv
     elif kernel == "fd_step":
-        values += 12 * nb + 12 + 3 * nv
+        values += 12 * nb + 12 + 2 * nv + nq
     elif kernel == "fd_step_minv":
         values += 12 * nb + 12 + 4 * nv
         if dense:
@@ -131,7 +155,7 @@ def team_values(kernel: str, cls: str, team: int, dense: bool = False) -> int:
     elif kernel == "rollout_multi":
         values += 12 * nb + 12 + 5 * nv + 12 * nb
     elif kernel in FEEDBACK_KERNELS:
-        values += 8 * nb + 2 + 9 * nv + nv * (2 * nv + 1)
+        values += 8 * nb + 2 + 7 * nv + 2 * nq + nv * (2 * nv + 1)
     else:
         raise ValueError(f"{kernel} is not a team kernel")
     return -(-values // 32) * 32 + team % 32
@@ -144,13 +168,13 @@ def block_values(kernel: str, cls: str) -> int:
     (csrc/feedback_team.cuh feedback_wrench_values); none for the others."""
     if not kernel.endswith("_fext"):
         return 0
-    return -(-12 * SIZE_CLASSES[cls][0] // 32) * 32
+    return -(-12 * CLASSES[cls][0] // 32) * 32
 
 
 # The most tree levels linearize_parts and fd_step_minv take per size
 # class: their column sweeps (K3's derivatives and M^-1, K6's dense M^-1)
 # keep one slot a level (csrc/rbd_team.cuh lin_levels).
-LIN_LEVELS = {"n8": 8, "fb16": 8, "fb32": 12}
+LIN_LEVELS = {"n8": 8, "fb16": 8, "fb32": 12, "fq32": 12}
 LEVEL_KERNELS = ("linearize_parts", "fd_step_minv")
 
 
@@ -158,18 +182,17 @@ def linearize_values(cls: str, team: int) -> int:
     """Shared-memory values of one team of linearize_parts in size class
     ``cls`` (csrc/linearize.cu LinLayout STRIDE): what the columns read of
     the ABA step (31 a body and qdd), I v and the RNEA forces (12 a body),
-    the rpy root's 6x6 inverse, q, qd and u, the walk's path (a level a
+    the root's 6x6 inverse, q (nq), qd and u, the walk's path (a level a
     lane), then one region for the team step's scratch (96 a body, 66 and
     qdd) that the columns' slots (18 a level a lane, M^-1 among them)
     reuse; rounded up to 32 and offset by ``team`` % 32 so the teams of a
     warp start on different banks; M^-1 (rows of nv + 1) sits beside the
     M^-1 columns' slots where it fits, else after the region.  The launch
     refuses any other count."""
-    nb, fb, _ = SIZE_CLASSES[cls]
-    nv = nb + 5 if fb else nb
+    nb, nv, nq = class_dims(cls)
     levels = LIN_LEVELS[cls]
     minv = nv * (nv + 1)  # M^-1, beside the slots where it fits
-    values = (31 * nb + nv + 12 * nb + 36 + 3 * nv + levels * team
+    values = (31 * nb + nv + 12 * nb + 36 + nq + 2 * nv + levels * team
               + max(96 * nb + 66 + nv, 18 * levels * team)
               + (0 if 12 * levels * team >= minv else minv))
     return -(-values // 32) * 32 + team % 32
@@ -296,22 +319,25 @@ def team_geometry(kernel: str, cls: str, dtype, B: int, nsm: int = H100_SMS,
 
 # The end-effector kernels' blocks (csrc/ee_gn.cu): ee_gn runs a team of 8
 # lanes a state (on the fixed base one lane a column of J, four states a
-# warp; on the rpy root lane c columns c, c + 8 and c + 16), ee_err one
-# thread a state; per kernel the lanes a state and the most and fewest
-# states a block (n8; the rpy root's ee_gn: EE_STATES_RPY).  A block's
-# shared memory stays within EE_SMEM_MAX (no opt-in).
+# warp; on a floating root lane c columns c + 8 s), ee_err one thread a
+# state; per kernel the lanes a state and the most and fewest states a
+# block (n8; a floating root's ee_gn: EE_STATES_RPY).  A block's shared
+# memory stays within EE_SMEM_MAX (no opt-in) on n8 and fb16; the
+# quaternion root's fq32, whose H0 rows of 37 values take 4 states past it
+# in double, opts in up to SMEM_MAX (EE_SMEM).
 EE_LANES = {"ee_gn": 8, "ee_err": 1}
 EE_STATES = {"ee_gn": (32, 4), "ee_err": (128, 32)}
 EE_STATES_RPY = {"ee_gn": (16, 4), "ee_err": (128, 32)}
 EE_SMEM_MAX = 48 * 1024
+EE_SMEM = {"n8": EE_SMEM_MAX, "fb16": EE_SMEM_MAX, "fq32": SMEM_MAX}
 
 
 def ee_fixed(cls: str = "n8") -> int:
     """A block's shared values ahead of its states (csrc/ee_gn.cu EE_FIXED,
-    EE_FIXED_RPY): the walk's row of each body of the class (Ttree's
+    ee_fixed_values): the walk's row of each body of the class (Ttree's
     rotation and translation, the joint axis: 15 values) and the EE mount
     (12)."""
-    return 15 * SIZE_CLASSES[cls][0] + 12
+    return 15 * CLASSES[cls][0] + 12
 
 
 EE_FIXED = ee_fixed("n8")
@@ -320,15 +346,14 @@ EE_FIXED = ee_fixed("n8")
 def ee_values(kernel: str, cls: str = "n8") -> int:
     """Shared-memory values a state takes in a block of ``kernel`` at the
     class's bound of nv coordinates (csrc/ee_gn.cu ee_state_values, 8 on
-    n8, and ee_rpy_state_values, 21 on fb16): the staged q row (nq = nv)
-    and e (3); ee_gn also g0 (nv), H0 (nv x nv) and the state's columns of
-    J (3 x nv)."""
-    nb, fb, _ = SIZE_CLASSES[cls]
-    nv = nb + 5 if fb else nb
+    n8, and ee_root_state_values, 21 on fb16 and 37 on fq32): the staged q
+    row (nq: nv, or nv + 1 on the quaternion root) and e (3); ee_gn also
+    g0 (nv), H0 (nv x nv) and the state's columns of J (3 x nv)."""
+    _, nv, nq = class_dims(cls)
     if kernel == "ee_err":
-        return nv + 3
+        return nq + 3
     if kernel == "ee_gn":
-        return 2 * nv + 3 + nv * nv + 3 * nv
+        return nq + nv + 3 + nv * nv + 3 * nv
     raise ValueError(f"{kernel} is not an end-effector kernel")
 
 
@@ -336,17 +361,16 @@ def ee_geometry(kernel: str, dtype, B: int, nsm: int = H100_SMS,
                 cls: str = "n8"):
     """(states a block, threads a block, shared bytes a block, blocks) of
     an ``ee_gn`` or ``ee_err`` launch over B states in size class ``cls``:
-    the most states of EE_STATES (EE_STATES_RPY on fb16) a block, halved
-    down to its fewest while the batch would leave SMs without a block or
-    the block would pass EE_SMEM_MAX; its shared memory holds
-    ``ee_fixed(cls)`` values and ``ee_values`` a state.  Every count is a
-    multiple of four, which keeps each staged row's range of a block
-    16-byte aligned."""
-    spb, least = (EE_STATES_RPY if SIZE_CLASSES[cls][1] else EE_STATES)[
-        kernel]
+    the most states of EE_STATES (EE_STATES_RPY on a floating root) a
+    block, halved down to its fewest while the batch would leave SMs
+    without a block or the block would pass the class's EE_SMEM; its
+    shared memory holds ``ee_fixed(cls)`` values and ``ee_values`` a
+    state.  Every count is a multiple of four, which keeps each staged
+    row's range of a block 16-byte aligned."""
+    spb, least = (EE_STATES_RPY if CLASSES[cls][1] else EE_STATES)[kernel]
     size = torch.finfo(dtype).bits // 8
     smem = lambda k: (ee_fixed(cls) + k * ee_values(kernel, cls)) * size
-    while spb > least and (-(-B // spb) < nsm or smem(spb) > EE_SMEM_MAX):
+    while spb > least and (-(-B // spb) < nsm or smem(spb) > EE_SMEM[cls]):
         spb //= 2
     return spb, spb * EE_LANES[kernel], smem(spb), -(-B // spb)
 
@@ -537,7 +561,7 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     model_args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
     bind = [(f"rbd_{k}_{cls}", model_args, _SIGNATURES[k])
-            for cls, (_, _, kernels) in SIZE_CLASSES.items() for k in kernels]
+            for cls, (_, _, kernels) in CLASSES.items() for k in kernels]
     bind += [(f"rbd_{k}", [], sig) for k, sig in _MODEL_FREE.items()]
     for prefix, lead, sig in bind:
         for dtype, suffix in _SUFFIX.items():
@@ -581,15 +605,16 @@ def set_stack_limit(device, nbytes: int):
 def size_class(kernel: str, model) -> str:
     """The size class whose instantiation of ``kernel`` takes ``model``;
     raises NotImplementedError for a root the kernel does not cover and
-    ValueError for a tree larger than every instantiation."""
-    if model.floating_base and model.root_quat:
-        raise NotImplementedError(
-            f"{kernel}: the CUDA kernels do not cover the quaternion "
-            "floating root yet")
-    fits = [(nmax, cls) for cls, (nmax, fb, kernels) in SIZE_CLASSES.items()
-            if fb == model.floating_base and kernel in kernels]
+    ValueError for a tree larger than every instantiation.  The quaternion
+    root takes QUAT_CLASSES, the fixed base and the rpy root SIZE_CLASSES."""
+    quat = model.floating_base and model.root_quat
+    fits = [(nmax, cls) for cls, (nmax, fb, kernels) in (
+        QUAT_CLASSES if quat else SIZE_CLASSES).items()
+        if fb == model.floating_base and kernel in kernels]
     if not fits:
         raise NotImplementedError(
+            f"{kernel}: the CUDA kernel does not cover the quaternion "
+            "floating root" if quat else
             f"{kernel}: the CUDA kernel covers fixed-base models only; the "
             "rpy floating root is not ported to it yet")
     levels = max(tree_depths(model)) + 1

@@ -17,9 +17,10 @@ from . import _lib
 
 def linearize_parts_plain(model: RobotModel, q, qd, u,
                           gravity: float = -9.81):
-    """q, qd, u (B, n) -> (Minv (B, n, n) symmetric, dc/dq, dc/dqd (B, n, n)
-    indexed [b, row, col], qdd (B, n)); the bias-force gradients are taken
-    at the ABA acceleration."""
+    """q (B, nq), qd, u (B, n) -> (Minv (B, n, n) symmetric, dc/dq, dc/dqd
+    (B, n, n) indexed [b, row, col], qdd (B, n)); the bias-force gradients
+    are taken at the ABA acceleration, dc/dq in the solver's chart (the
+    quaternion root's tangent columns)."""
     qdd = aba(model, q, qd, u, gravity=gravity)
     dcq, dcd = rnea_grad(model, q, qd, qdd, gravity, split=True)
     return minv(model, q), dcq, dcd, qdd
@@ -28,7 +29,7 @@ def linearize_parts_plain(model: RobotModel, q, qd, u,
 def linearize_parts_fused(model: RobotModel, q, qd, u,
                           gravity: float = -9.81):
     """The pieces of ``linearize_parts_plain`` in one launch, for
-    fixed-base models and the rpy floating root.
+    fixed-base models and both floating roots.
 
     Kernel ``linearize_parts`` (csrc/linearize.cu) replaces rbdtpu's
     ``kernels.colvec.linearize_parts_fused`` (Pallas, colvec.py:289): one
@@ -41,9 +42,11 @@ def linearize_parts_fused(model: RobotModel, q, qd, u,
     up to ``_lib.LIN_LEVELS`` levels).  Bound on the H100: latency (a
     column's walk over the tree is one dependent chain).  On the rpy root
     the kernel seeds the six root-pose columns of dc/dq analytically (the
-    pose enters only through the gravity seed, as in rbdtpu's kernel); the
-    plain version takes them by forward-mode AD, so the two agree to
-    rounding.
+    pose enters only through the gravity seed, as in rbdtpu's kernel); on
+    the quaternion root ("fq32") its three rotation columns seed w x e_j,
+    w the linear part of X_0 a_grav, and its translation columns vanish
+    (rbdtpu colvec.py:154-170).  The plain version takes them by
+    forward-mode AD, so the two agree to rounding.
     """
     if not q.is_cuda:
         return linearize_parts_plain(model, q, qd, u, gravity)
@@ -66,7 +69,10 @@ def linearize_parts_fused(model: RobotModel, q, qd, u,
 def linearize_fused(model: RobotModel, q, qd, u, dt: float,
                     gravity: float = -9.81):
     """Discrete-step Jacobians from the kernel's pieces:
-    q/qd/u (B, n) -> A (B, 2n, 2n), B (B, 2n, n).  The assembly
-    (dqdd/dq = -Minv dc/dq, then step_jacobians) is plain torch."""
-    Mi, dcq, dcd, _ = linearize_parts_fused(model, q, qd, u, gravity)
-    return step_jacobians(model, Mi, -(Mi @ dcq), -(Mi @ dcd), dt)
+    q (B, nq), qd/u (B, n) -> A (B, 2n, 2n), B (B, 2n, n).  The assembly
+    (dqdd/dq = -Minv dc/dq, then step_jacobians, which on the quaternion
+    root takes the post-step twist qd + dt qdd) is plain torch."""
+    Mi, dcq, dcd, qdd = linearize_parts_fused(model, q, qd, u, gravity)
+    qd_new = qd + dt * qdd if model.root_quat else None
+    return step_jacobians(model, Mi, -(Mi @ dcq), -(Mi @ dcd), dt,
+                          qd_new=qd_new)

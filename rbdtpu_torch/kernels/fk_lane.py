@@ -25,7 +25,7 @@ def _single_ee(model: RobotModel, ee_names):
 def ee_chain(model: RobotModel, jid: int):
     """(chain, prismatic): the bodies from the root to joint ``jid`` and
     those of them whose joint is prismatic, one bit a body each: what the
-    end-effector kernels walk (an rpy root is body 0's bit; the kernel
+    end-effector kernels walk (a floating root is body 0's bit; the kernel
     expands it into the root's six columns).  Worked out once per (model,
     jid)."""
     key = ("ee_chain", jid)
@@ -71,7 +71,10 @@ def ee_gn_fused(model: RobotModel, q, target, *, ee_names=None,
     search's states, writes e alone and never forms J.  On the rpy root,
     whose chart is the configuration coordinates, the root's columns are
     its translations' (Ttree0's rotation) and its Euler angles' (rbdtpu
-    ``ee_chain_lane``).  A block stages its states' rows through shared
+    ``ee_chain_lane``); on the quaternion root ("fq32", up to 32 bodies, 8
+    lanes a state, lane c columns c + 8 s) they are the body-twist
+    tangent's: a_i x (p - o_root) and a_i, a_i the columns of Ttree0's
+    rotation times R(quat) (rbdtpu fk_lane.py:137-149).  A block stages its states' rows through shared
     memory, so every global access is contiguous (``_lib.ee_geometry``).
     The cost weights stay outside.  Bound on the H100: the bytes at the
     large batches (H0 is n*n values a state: 0.00101 ms for 12,800 arm7

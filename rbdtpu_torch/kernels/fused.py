@@ -6,8 +6,9 @@ between K2 and K9 in the line search.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises.  K1, K2, K6, K9 and K10 take fixed-base models and the rpy floating
-root; K5 fixed-base models only (``_lib.size_class``).  K1, K2, K5, K6 and
-K9 take world-frame wrenches.
+root, K1 and K2 the quaternion root too; K5 fixed-base models only
+(``_lib.size_class``).  K1, K2, K5, K6 and K9 take world-frame wrenches (K2
+not on the quaternion root).
 """
 from __future__ import annotations
 
@@ -56,7 +57,10 @@ def fd_step_fused(model: RobotModel, x, u, dt: float, gravity: float = -9.81,
                   f_ext=None):
     """One forward-dynamics step x (B, nx), u (B, nv) -> x' (B, nx), with
     optional world-frame wrenches f_ext, (nb, 6) shared by the batch or
-    (B, nb, 6).
+    (B, nb, 6).  On the quaternion root (nx = 2 nv + 1) the step retracts
+    the root's pose on the manifold (rbdtpu fused.py _integrate_q_lane):
+    p' = p + dt R(quat) v', quat' = normalize(quat (x) exp(dt w')), on one
+    lane as a real call (csrc/rbd_common.cuh quat_root_step).
 
     Kernel ``fd_step`` (csrc/fd_step.cu) replaces rbdtpu's
     ``kernels.fused.fd_step_fused`` (Pallas, fused.py:450): one team of
@@ -230,12 +234,13 @@ def rollout_fused_multi(model: RobotModel, x0, U, dt: float,
 def feedback_rollout_plain(model: RobotModel, x0, X_nom, U_nom, k_ff, K_fb,
                            dt: float, gravity: float = -9.81, u_clip=None,
                            f_ext=None):
-    """Closed-loop rollout: per knot u = U_t + k_t + K_t (x - X_t), clamped
+    """Closed-loop rollout: per knot u = U_t + k_t + K_t (x (-) X_t), clamped
     to [-u_clip, u_clip] when given, then one ABA + Euler step under the
     knot's world-frame wrenches f_ext[t] when given.
 
     x0 (B, nx); X_nom (B, H, nx); U_nom, k_ff (B, H, nv) with the line-search
-    step already folded into k_ff; K_fb (B, H, nv, nx); f_ext None or
+    step already folded into k_ff; K_fb (B, H, nv, ntan) acting on the
+    tangent difference ``state_diff`` (2 nv wide); f_ext None or
     (H, nb, 6), shared by the batch (``dynamics.aba(f_ext)`` semantics).
     Returns (X (B, H, nx) — states 1..H, U (B, H, nv) — applied controls)."""
     x = x0
@@ -272,7 +277,12 @@ def feedback_rollout_fused(model: RobotModel, x0, X_nom, U_nom, k_ff, K_fb,
     Team size and teams a block are ``_lib.team_geometry``'s; any B >= 1
     and H >= 1 are taken as they are.  The lanes stay independent and alpha
     stays folded into k_ff (rbdtpu's contract), so the line search's
-    n_alpha candidates of one problem each read their own copy of K.
+    n_alpha candidates of one problem each read their own copy of K.  On
+    the quaternion root the gains act on the tangent difference, whose six
+    root rows lane 0 forms as a real call (csrc/rbd_common.cuh
+    quat_root_dx: the quaternion log and R0^T dp, rbdtpu fused.py
+    _dx_rows), and the step is K1's manifold one; its wrench variant is
+    not instantiated there (NotImplementedError).
 
     With ``f_ext`` ((H, nb, 6) world-frame wrenches shared by the batch,
     rbdtpu's contract) the kernel ``feedback_rollout_fext`` runs the same
@@ -302,7 +312,7 @@ def _feedback_launch_args(kernel: str, model: RobotModel, x0, X_nom, U_nom,
     _lib.check(X_nom, "X_nom", (B, H, nx), x0)
     _lib.check(U_nom, "U_nom", (B, H, nv), x0)
     _lib.check(k_ff, "k_ff", (B, H, nv), x0)
-    _lib.check(K_fb, "K_fb", (B, H, nv, nx), x0)
+    _lib.check(K_fb, "K_fb", (B, H, nv, model.ntan), x0)
     if u_clip is not None:
         _lib.check(u_clip, "u_clip", (nv,), x0)
     if f_ext is not None:

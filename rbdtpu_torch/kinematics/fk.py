@@ -1,13 +1,15 @@
 """Forward kinematics: world transforms, end-effector pose and the position
 Jacobian in the solver's chart (``rbdtpu.kinematics.fk``), for fixed-base
-models and the rpy floating root (the quaternion root raises
-``NotImplementedError``).
+models and both floating roots.
 
-The Jacobian is the position rows of rbdtpu's analytic ``ee_pose_gradient``:
-one prefix and one suffix product per chain, column k = prefix[k] @ dT_k @
-suffix[k] applied to the EE offset; on the rpy root, whose chart is the
-configuration coordinates, the root's six columns are its transform's exact
-derivatives (``_root_hom_derivs``) applied through suffix[0].
+On the fixed base and the rpy root the Jacobian is the position rows of
+rbdtpu's analytic ``ee_pose_gradient``: one prefix and one suffix product
+per chain, column k = prefix[k] @ dT_k @ suffix[k] applied to the EE
+offset; on the rpy root, whose chart is the configuration coordinates, the
+root's six columns are its transform's exact derivatives
+(``_root_hom_derivs``) applied through suffix[0].  On the quaternion root
+the chart is the body-twist tangent of ``solver.integrate.config_retract``
+and the Jacobian is geometric (rbdtpu ``kinematics/fk.py:217-260``).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 
 from ..dynamics.xforms import joint_transforms_hom_list, q_per_joint
 from ..model.robot import RobotModel
-from ..spatial.transforms import drot_axis, joint_hom_dT, rot_axis
+from ..spatial.transforms import PRISMATIC, drot_axis, joint_hom_dT, rot_axis
 
 
 def fk_world_hom(model: RobotModel, q):
@@ -109,24 +111,51 @@ def _root_hom_derivs(model: RobotModel, q):
 
 def _check_fb_chain(model: RobotModel, chain) -> bool:
     """True when the chain starts at a floating rpy root, whose columns
-    ``_root_hom_derivs`` gives; the quaternion root raises (its chart is
-    the body-twist tangent, ROADMAP.md modules item 4)."""
-    if not (model.floating_base and chain[0] == 0):
-        return False
-    if model.root_quat:
-        raise NotImplementedError(
-            "ee_position_jacobian_tangent: the quaternion root's tangent "
-            "columns are not ported yet (ROADMAP.md, modules to port, item "
-            "4)")
-    return True
+    ``_root_hom_derivs`` gives."""
+    return model.floating_base and chain[0] == 0
+
+
+def _quat_jacobian_tangent(model: RobotModel, q, ee_names, offset):
+    """The quaternion root's Jacobian in the body-twist tangent
+    xi = [body rotation vector; body translation; joint deltas]: with a_i
+    the world images of the root body's axes (columns of its world
+    rotation) and o_root its origin, d p_ee / d xi_rot,i = a_i x (p_ee -
+    o_root) and d p_ee / d xi_trans,i = a_i; joint columns are the
+    geometric revolute (a_k x (p_ee - o_k)) and prismatic (a_k) ones."""
+    Tw = fk_world_hom(model, q)
+    jacs = []
+    for jid, fid in resolve_ee(model, ee_names):
+        T = Tw[..., jid, :, :]
+        if fid is not None:
+            T = T @ model.T_fixed[fid]
+        p_ee = (T @ offset)[..., :3]
+        J = torch.zeros(p_ee.shape[:-1] + (3, model.nv), dtype=q.dtype,
+                        device=q.device)
+        chain = model.chain(jid)
+        R0, o0 = Tw[..., 0, :3, :3], Tw[..., 0, :3, 3]
+        for i in range(3):
+            a = R0[..., :, i]
+            J[..., :, i] = torch.linalg.cross(a, p_ee - o0)
+            J[..., :, 3 + i] = a
+        for k in chain[1:]:
+            a = Tw[..., k, :3, :3] @ model.axis[k].to(q.dtype)
+            J[..., :, model.v_index(k)] = (
+                a if model.joint_type[k] == PRISMATIC
+                else torch.linalg.cross(a, p_ee - Tw[..., k, :3, 3]))
+        jacs.append(J)
+    return torch.stack(jacs, dim=-3)
 
 
 def ee_position_jacobian_tangent(model: RobotModel, q, ee_names=None,
                                  offset=None):
-    """d(EE position)/dq: (..., nq) -> (..., n_ee, 3, nv).  For fixed-base
-    models and the rpy root the solver chart is the configuration
-    coordinates; columns of joints off the EE's chain are zero."""
+    """d(EE position)/d(solver tangent): (..., nq) -> (..., n_ee, 3, nv).
+    For fixed-base models and the rpy root the solver chart is the
+    configuration coordinates; on the quaternion root it is the body-twist
+    tangent (``_quat_jacobian_tangent``).  Columns of joints off the EE's
+    chain are zero."""
     offset = _offset(model, offset)
+    if model.floating_base and model.root_quat:
+        return _quat_jacobian_tangent(model, q, ee_names, offset)
     T = joint_transforms_hom_list(model, q)
     qj = q_per_joint(model, q)
     eye = torch.eye(4, dtype=q.dtype, device=q.device).expand(

@@ -72,12 +72,28 @@ class RobotModel:
         return self.nq + self.nv
 
     @property
+    def ntan(self) -> int:
+        """The state's tangent dimension 2 nv: the width of the solver's
+        state differences, gains and Jacobians (nx unless quaternion root,
+        whose q has one coordinate more than its tangent)."""
+        return 2 * self.nv
+
+    @property
     def device(self) -> torch.device:
         return self.I.device
 
     @property
     def dtype(self) -> torch.dtype:
         return self.I.dtype
+
+    def q_index(self, i: int):
+        """q slice/index of joint i: the root's [x, y, z, roll, pitch, yaw]
+        or [x, y, z, qw, qx, qy, qz], then one coordinate a joint."""
+        if self.floating_base:
+            if self.root_quat:
+                return slice(0, 7) if i == 0 else i + 6
+            return slice(0, 6) if i == 0 else i + 5
+        return i
 
     def v_index(self, i: int):
         if self.floating_base:

@@ -27,6 +27,12 @@ The rpy floating root (body 0, six DoFs, S = I) costs its rotation from
 three angles, its 6x6 articulated block's Cholesky factorisation and
 solves, and in the linearisation its three rotation columns of dc/dq
 (seeded analytically, as the kernel does; the position columns are zero).
+The quaternion root (q one value wider) costs its rotation from the
+quaternion in the kernels' norm-robust form, its manifold Euler step (the
+exponential, the product, the renormalisation), in the line search the
+six rows of the tangent difference (the quaternion log), in the
+linearisation its three rotation columns (w x e_j on the gravity seed) and
+in K4 its body-twist columns.
 
 ``riccati_knot`` counts one knot of the iLQR Riccati sweep: the products
 whose results are symmetric (Q_xx, Q_uu, the new V_xx) are formed on and
@@ -144,6 +150,14 @@ def sin(x):
 
 def cos(x):
     return _unary(x, math.cos)
+
+
+def sqrt(x):
+    return _unary(x, math.sqrt)
+
+
+def atan2(y, x):
+    return _fold(y, x, math.atan2)
 
 
 # ---- 3-vectors, 3x3 and 6x6 matrices as lists ----
@@ -271,13 +285,12 @@ class Model:
     (m, h, I_o)), Ttree; the EE mount of a fixed frame."""
 
     def __init__(self, model):
-        if model.floating_base and model.root_quat:
-            raise NotImplementedError("opcount: the quaternion root is not "
-                                      "counted")
         hd = model.host_data
         self.nb = model.nb
         self.fb = model.floating_base
+        self.quat = model.floating_base and model.root_quat
         self.nv = model.nv
+        self.nq = model.nq
         self.parent = model.parent
         self.jtype = model.joint_type
         self.E, self.r, self.I, self.rbi, self.TR, self.Tp = ([] for _ in
@@ -305,6 +318,10 @@ class Model:
     def vi(self, i: int) -> int:
         """The DoF of a 1-DoF body."""
         return i + 5 if self.fb else i
+
+    def qi(self, i: int) -> int:
+        """The coordinate of a 1-DoF body in q."""
+        return i + 6 if self.quat else self.vi(i)
 
 
 def rbi_mv(I, v):
@@ -357,19 +374,34 @@ def rpy_dR(trig, j):
             [0.0, 0.0, 0.0]]
 
 
+def quat_R(qt):
+    """The active rotation of a quaternion in the norm-robust form
+    s = 2 / |q|^2 (csrc/rbd_common.cuh quat_R)."""
+    w, x, y, z = qt
+    s = 2.0 / (w * w + x * x + y * y + z * z)
+    xx, yy, zz = s * x * x, s * y * y, s * z * z
+    xy, xz, yz = s * x * y, s * x * z, s * y * z
+    wx, wy, wz = s * w * x, s * w * y, s * w * z
+    return [[1.0 - (yy + zz), xy - wz, xz + wy],
+            [xy + wz, 1.0 - (xx + zz), yz - wx],
+            [xz - wy, yz + wx, 1.0 - (xx + yy)]]
+
+
 def joint_transforms(md: Model, q, trig=None):
     """X_i = XJ(q_i) Xtree_i as (E, r): revolute E = R(q)^T Et, r = rt;
-    prismatic E = Et, r = rt + Et^T axis q; the rpy root
-    plux(R^T, p) Xtree_0 = (R^T Et, rt + Et^T p), from ``trig`` (the root
-    angles' rpy_trig) when the caller already has it."""
+    prismatic E = Et, r = rt + Et^T axis q; a floating root
+    plux(R^T, p) Xtree_0 = (R^T Et, rt + Et^T p), R from the quaternion
+    q[3:7] or the rpy angles (``trig``: their rpy_trig, when the caller
+    already has it)."""
     X = []
     for i in range(md.nb):
         if md.root6(i):
-            R = rpy_R(trig or rpy_trig(q[3:6]))
+            R = (quat_R(q[3:7]) if md.quat
+                 else rpy_R(trig or rpy_trig(q[3:6])))
             X.append((mm3([col(R, j) for j in range(3)], md.E[0]),
                       vadd(md.r[0], mtv(md.E[0], q[0:3]))))
             continue
-        qi = q[md.vi(i)]
+        qi = q[md.qi(i)]
         if md.jtype[i] == 1:
             d = mtv(md.E[i], md.axis[i])
             X.append((md.E[i], vadd(md.r[i], scale(qi, d))))
@@ -583,35 +615,78 @@ def minv_dense(md: Model, X):
     return [[M[min(i, c)][max(i, c)] for c in range(n)] for i in range(n)]
 
 
-def euler(x, qdd, dt):
-    n = len(qdd)
-    qd = [x[n + i] + dt * qdd[i] for i in range(n)]
+def quat_step(q7, qdn, dt):
+    """The quaternion root's manifold step (csrc/rbd_common.cuh
+    quat_root_step): p' = p + dt R(quat) v', quat' = normalize(quat (x)
+    exp(dt w')), the exponential away from its Taylor branch."""
+    R = quat_R(q7[3:7])
+    p = vadd(q7[0:3], scale(dt, mv(R, qdn[3:6])))
+    a = scale(dt, qdn[0:3])
+    n = sqrt(dot(a, a))
+    s = sin(0.5 * n) / n
+    e = [cos(0.5 * n)] + scale(s, a)
+    (qw, qx, qy, qz), (ew, ex, ey, ez) = q7[3:7], e
+    r = [qw * ew - qx * ex - qy * ey - qz * ez,
+         qw * ex + qx * ew + qy * ez - qz * ey,
+         qw * ey - qx * ez + qy * ew + qz * ex,
+         qw * ez + qx * ey - qy * ex + qz * ew]
+    return p + scale(1.0 / sqrt(dot(r, r)), r)
+
+
+def euler(md: Model, x, qdd, dt):
+    """Semi-implicit Euler: flat, or the quaternion root's pose on the
+    manifold (``quat_step``) and its joints at q[k + 1]."""
+    n, nq = md.nv, md.nq
+    qd = [x[nq + i] + dt * qdd[i] for i in range(n)]
+    if md.quat:
+        return (quat_step(x[0:7], qd[0:6], dt)
+                + [x[k + 1] + dt * qd[k] for k in range(6, n)] + qd)
     return [x[i] + dt * qd[i] for i in range(n)] + qd
 
 
 def fd_step(md: Model, x, u, dt, gravity, fext=None):
-    n = md.nv
-    X = joint_transforms(md, x[:n])
-    return euler(x, aba(md, X, x[n:], u, gravity, fext), dt)
+    nq = md.nq
+    X = joint_transforms(md, x[:nq])
+    return euler(md, x, aba(md, X, x[nq:], u, gravity, fext), dt)
 
 
 def fd_step_minv(md: Model, x, u, dt, gravity, dense=False, fext=None):
     """Bias RNEA, then qdd = M^-1 (u - c), then Euler."""
-    n = md.nv
-    X = joint_transforms(md, x[:n])
-    rhs = vsub(u, rnea(md, X, x[n:], None, gravity, fext))
+    nq = md.nq
+    X = joint_transforms(md, x[:nq])
+    rhs = vsub(u, rnea(md, X, x[nq:], None, gravity, fext))
     qdd = mv(minv_dense(md, X), rhs) if dense else minv_apply(md, X, rhs)
-    return euler(x, qdd, dt)
+    return euler(md, x, qdd, dt)
 
 
 def rnea_state(md: Model, q, qd, qdd, gravity):
     return rnea(md, joint_transforms(md, q), qd, qdd, gravity)
 
 
+def state_diff(md: Model, x, xn):
+    """The tangent difference x (-) xn: flat, or on the quaternion root its
+    six root rows (csrc/rbd_common.cuh quat_root_dx: the log of
+    conj(quat_n) (x) quat away from its Taylor branch, then R(quat_n)^T
+    (p - p_n)) and the rest flat."""
+    if not md.quat:
+        return vsub(x, xn)
+    (aw, ax, ay, az), (bw, bx, by, bz) = xn[3:7], x[3:7]
+    r = [aw * bw + ax * bx + ay * by + az * bz,
+         aw * bx - ax * bw - ay * bz + az * by,
+         aw * by + ax * bz - ay * bw - az * bx,
+         aw * bz - ax * by + ay * bx - az * bw]
+    if value(r[0]) < 0:
+        r = [-v for v in r]
+    n = sqrt(dot(r[1:], r[1:]))
+    dth = scale(2.0 * atan2(n, r[0]) / n, r[1:])
+    dp = mtv(quat_R(xn[3:7]), vsub(x[0:3], xn[0:3]))
+    return dth + dp + vsub(x[7:], xn[7:])
+
+
 def feedback_knot(md: Model, x, xn, un, kf, K, dt, gravity, fext=None):
-    """u = Un + kf + K (x - Xn), then one ABA step (under the wrenches
+    """u = Un + kf + K (x (-) Xn), then one ABA step (under the wrenches
     fext when given)."""
-    dx = vsub(x, xn)
+    dx = state_diff(md, x, xn)
     u = [un[i] + kf[i] + dot(K[i], dx) for i in range(md.nv)]
     return fd_step(md, x, u, dt, gravity, fext), u
 
@@ -621,7 +696,7 @@ def feedback_knot_chunked(md: Model, x, xn, un, kf, K, dt, gravity,
     """K9's knot: u = Un + kf, then per column chunk u += its partial sum
     (rbdtpu's order; as many operations as ``feedback_knot``), then one ABA
     step (under fext when given)."""
-    dx = vsub(x, xn)
+    dx = state_diff(md, x, xn)
     ndx = len(dx)
     cw = chunk_geometry(ndx, nchunks)[0]
     u = [un[i] + kf[i] for i in range(md.nv)]
@@ -637,11 +712,14 @@ def rnea_derivatives(md: Model, X, qd, st, f, trig=None, gravity=-9.81):
     The rpy root's dqd columns seed dv_0 = e_j; its rotation columns of
     dc/dq seed da_0 = [0; (dR/drpy_j)^T g_l] (``trig``: the root angles'
     rpy_trig; g_l the linear part of Xtree_0 a_grav); its position columns
-    are zero."""
+    are zero.  The quaternion root's rotation columns j < 3 seed da_0 =
+    [0; w x e_j] with w the linear part of X_0 a_grav; its translation
+    columns are zero."""
     nb, n = md.nb, md.nv
     out = {True: [[None] * n for _ in range(n)],
            False: [[None] * n for _ in range(n)]}
     g_l = xmv((md.E[0], md.r[0]), gravity_accel(gravity))[3:]
+    w0 = xmv(X[0], gravity_accel(gravity))[3:] if md.quat else None
     for wrt_q in (True, False):
         for j in range(n):
             dv, da, df = [None] * nb, [None] * nb, [None] * nb
@@ -651,7 +729,10 @@ def rnea_derivatives(md: Model, X, qd, st, f, trig=None, gravity=-9.81):
                     dv[0], da[0] = [0.0] * 6, [0.0] * 6
                     if not wrt_q and j < 6:
                         dv[0][j] = 1.0
-                    elif wrt_q and 3 <= j < 6:
+                    elif wrt_q and md.quat and j < 3:
+                        e_j = [float(k == j) for k in range(3)]
+                        da[0] = [0.0] * 3 + cross3(w0, e_j)
+                    elif wrt_q and not md.quat and 3 <= j < 6:
                         da[0] = [0.0] * 3 + mtv(rpy_dR(trig, j - 3), g_l)
                     df[0] = vadd(vadd(rbi_mv(md.rbi[0], da[0]),
                                       crf(dv[0], st["Iv"][0])),
@@ -690,7 +771,7 @@ def rnea_derivatives(md: Model, X, qd, st, f, trig=None, gravity=-9.81):
 def linearize_parts(md: Model, q, qd, u, gravity):
     """(M^-1, dc/dq, dc/dqd, qdd) of one knot; the RNEA forces at the ABA
     acceleration reuse ABA's velocities, accelerations and v x* I v."""
-    trig = rpy_trig(q[3:6]) if md.fb else None
+    trig = rpy_trig(q[3:6]) if md.fb and not md.quat else None
     X = joint_transforms(md, q, trig)
     st = {}
     qdd = aba(md, X, qd, u, gravity, keep=st)
@@ -710,7 +791,10 @@ def ee(md: Model, jid: int, fid, q, target, gn: bool):
     root -> jid chain; q holds nq coordinates.  An rpy root's pose is
     Ttree0 [[Rz Ry Rx, xyz], [0, 1]] and its six columns are its
     translations' (Ttree0's rotation: no operations) and its Euler angles'
-    (Rt Rz Ry e_x, Rt Rz e_y, Rt e_z crossed with p_ee - o_root)."""
+    (Rt Rz Ry e_x, Rt Rz e_y, Rt e_z crossed with p_ee - o_root); a
+    quaternion root's pose is Ttree0 [[R(quat), xyz], [0, 1]] and its
+    columns the body-twist tangent's (a_i = the columns of Rt R(quat):
+    rotation a_i x (p_ee - o_root), translation a_i)."""
     mount = np.eye(4) if fid is None else md.T_fixed[fid]
     ee_p = mount[:3, 3].tolist()
     chain = [jid]
@@ -720,6 +804,13 @@ def ee(md: Model, jid: int, fid, q, target, gn: bool):
     R = np.eye(3).tolist()
     p, axw, org, lin = [0.0] * 3, {}, {}, set()
     for idx, k in enumerate(chain):
+        if md.root6(k) and md.quat:
+            R = mm3(md.TR[0], quat_R(q[3:7]))
+            p = vadd(mv(md.TR[0], q[0:3]), md.Tp[0])
+            for t in range(3):
+                axw[t], axw[3 + t] = col(R, t), col(R, t)
+                org[t], lin = p, lin | {3 + t}
+            continue
         if md.root6(k):
             sr, cr, sp, cp, sy, cy = rpy_trig(q[3:6])
             Rt = md.TR[0]
@@ -734,14 +825,14 @@ def ee(md: Model, jid: int, fid, q, target, gn: bool):
             for c in (3, 4, 5):
                 org[c] = p
             continue
-        c = md.vi(k)
+        c, qk = md.vi(k), q[md.qi(k)]
         p = vadd(p, mv(R, md.Tp[k]))
         R1 = mm3(R, md.TR[k])
         axw[c], org[c] = mv(R1, md.axis[k]), p
         if md.jtype[k] == 1:
-            p, R, lin = vadd(p, scale(q[c], axw[c])), R1, lin | {c}
+            p, R, lin = vadd(p, scale(qk, axw[c])), R1, lin | {c}
         elif idx < len(chain) - 1 or any(ee_p):
-            R = mm3(R1, rot_axis(md.axis[k], q[c]))
+            R = mm3(R1, rot_axis(md.axis[k], qk))
     pe = vadd(p, mv(R, ee_p))
     e = vsub(pe, [float(t) for t in target])
     if not gn:
@@ -821,24 +912,24 @@ def per_state(model, target, ee_names=None) -> dict:
     from .kernels.fk_lane import _single_ee
 
     md = Model(model)
-    n = md.nv
+    n, nq = md.nv, md.nq
     rng = np.random.default_rng(0)
     nums = lambda *s: np.vectorize(Num, otypes=[object])(
         rng.standard_normal(s)).tolist()
-    x, u, qdd, w = nums(2 * n), nums(n), nums(n), nums(md.nb, 6)
-    q, qd = x[:n], x[n:]
+    x, u, qdd, w = nums(nq + n), nums(n), nums(n), nums(md.nb, 6)
+    q, qd = x[:nq], x[nq:]
     dt, g = 0.01, -9.81
     ops = lambda fn, *a, **kw: counted(fn, md, *a, **kw)[1]
     out = {
         "fd_step": ops(fd_step, x, u, dt, g),
         "fd_step+fext": ops(fd_step, x, u, dt, g, fext=w),
-        "feedback_rollout": ops(feedback_knot, x, nums(2 * n), u, nums(n),
+        "feedback_rollout": ops(feedback_knot, x, nums(nq + n), u, nums(n),
                                 nums(n, 2 * n), dt, g),
-        "feedback_chunked": ops(feedback_knot_chunked, x, nums(2 * n), u,
+        "feedback_chunked": ops(feedback_knot_chunked, x, nums(nq + n), u,
                                 nums(n), nums(n, 2 * n), dt, g),
-        "feedback_rollout+fext": ops(feedback_knot, x, nums(2 * n), u,
+        "feedback_rollout+fext": ops(feedback_knot, x, nums(nq + n), u,
                                      nums(n), nums(n, 2 * n), dt, g, fext=w),
-        "feedback_chunked+fext": ops(feedback_knot_chunked, x, nums(2 * n),
+        "feedback_chunked+fext": ops(feedback_knot_chunked, x, nums(nq + n),
                                      u, nums(n), nums(n, 2 * n), dt, g,
                                      fext=w),
 

@@ -3,7 +3,8 @@ rollouts, linearisation and backward-pass strategies, MPPI and the
 MPPI -> DDP hybrid, and the receding-horizon MPC loop with solver-state
 checkpoints."""
 from .integrate import (
-    pack_state, split_state, state_diff, euler_semi_implicit, step_jacobians,
+    pack_state, split_state, state_diff, state_retract, config_diff,
+    config_retract, euler_semi_implicit, step_jacobians,
 )
 from .costs import (
     Cost, ee_reaching_cost, quadratic_tracking_cost, trajectory_cost,
@@ -22,7 +23,8 @@ from .mpc import (
 )
 
 __all__ = [
-    "pack_state", "split_state", "state_diff", "euler_semi_implicit",
+    "pack_state", "split_state", "state_diff", "state_retract",
+    "config_diff", "config_retract", "euler_semi_implicit",
     "step_jacobians", "Cost", "ee_reaching_cost", "quadratic_tracking_cost",
     "trajectory_cost",
     "quadratize_trajectory", "linearize_trajectory", "normalize_f_ext",

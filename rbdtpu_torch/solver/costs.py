@@ -28,15 +28,73 @@ def _sq(v):
     return (v * v).sum(-1)
 
 
+def _quat_tracking_cost(model: RobotModel, x_goal, w_q, w_qd, w_u, w_q_f,
+                        w_qd_f) -> Cost:
+    """The tracking cost on the quaternion root (rbdtpu
+    solver/costs.py:54-112): the distance is the tangent d =
+    state_diff(x, x_goal) (2 nv), the root's attitude error its log-map
+    rotation vector; lx = J^T W d through the tangent Jacobian of the diff
+    (Jr^-1(d_rot) on the rotation block, exp(d_rot^) on the translation
+    block) and lxx its Gauss-Newton form J^T W J."""
+    from ..spatial.quat import quat_exp, quat_to_R, so3_right_jacobian_inv
+    from .integrate import state_diff
+
+    nv = model.nv
+    ndim = 2 * nv
+
+    def weights(wq, wqd, ref):
+        kw = dict(dtype=ref.dtype, device=ref.device)
+        return torch.cat([torch.full((nv,), wq, **kw),
+                          torch.full((nv,), wqd, **kw)])
+
+    def diff(x):
+        return state_diff(model, x, torch.as_tensor(
+            x_goal, dtype=x.dtype, device=x.device))
+
+    def derivs(x, W):
+        d = diff(x)
+        drot = d[..., 0:3]
+        Jri = so3_right_jacobian_inv(drot)
+        Rd = quat_to_R(quat_exp(drot))  # R_goal^T R_x = exp(d_rot^)
+        g = W * d
+        g_rot = (Jri * g[..., 0:3, None]).sum(-2)  # Jri^T g
+        g_p = (Rd * g[..., 3:6, None]).sum(-2)  # Rd^T g
+        lx = torch.cat([g_rot, g_p, g[..., 6:]], dim=-1)
+        Hd = torch.diag(W).expand(x.shape[:-1] + (ndim, ndim)).clone()
+        Hd[..., 0:3, 0:3] = Jri.transpose(-1, -2) @ (W[0:3, None] * Jri)
+        Hd[..., 3:6, 3:6] = Rd.transpose(-1, -2) @ (W[3:6, None] * Rd)
+        return lx, Hd
+
+    def stage(x, u, t):
+        d = diff(x)
+        return 0.5 * ((weights(w_q, w_qd, x) * d * d).sum(-1) + w_u * _sq(u))
+
+    def terminal(x):
+        d = diff(x)
+        return 0.5 * (weights(w_q_f, w_qd_f, x) * d * d).sum(-1)
+
+    def stage_derivs(x, u, t):
+        lx, lxx = derivs(x, weights(w_q, w_qd, x))
+        kw = dict(dtype=x.dtype, device=x.device)
+        return (lx, w_u * u, lxx, w_u * torch.eye(nv, **kw),
+                torch.zeros(nv, ndim, **kw))
+
+    def terminal_derivs(x):
+        return derivs(x, weights(w_q_f, w_qd_f, x))
+
+    return Cost(stage, terminal, stage_derivs, terminal_derivs)
+
+
 def quadratic_tracking_cost(
     model: RobotModel, x_goal, *, w_q=1.0, w_qd=0.1, w_u=1e-4,
     w_q_f=100.0, w_qd_f=10.0,
 ) -> Cost:
     """0.5 * weighted squared distance to a goal state plus control effort,
-    with its exact quadratisation (flat chart; the quaternion-root tangent
-    form is not ported yet)."""
+    with its exact quadratisation: the flat difference, or on the
+    quaternion root the tangent one (``_quat_tracking_cost``)."""
     if model.floating_base and model.root_quat:
-        raise NotImplementedError("quaternion-root tracking cost not ported")
+        return _quat_tracking_cost(model, x_goal, w_q, w_qd, w_u, w_q_f,
+                                   w_qd_f)
     nq, nv = model.nq, model.nv
     nx = nq + nv
 
@@ -79,9 +137,11 @@ def ee_reaching_cost(
     plus velocity and effort terms, with the Gauss-Newton quadratisation
     through the position Jacobian.  One end effector: ``ee_names`` names
     it, and None means the model's single leaf (a floating model's feet are
-    several leaves: name one).  Fixed-base models and the rpy root, whose
-    chart is the configuration coordinates (nq = nv, so J^T J fills the
-    q-block of lxx as it is).
+    several leaves: name one).  Every root quadratises in the solver's
+    chart (``ee_position_jacobian_tangent``): the configuration coordinates
+    on the fixed base and the rpy root, the body-twist tangent on the
+    quaternion root, whose lx and lxx are therefore 2 nv wide (rbdtpu
+    solver/costs.py:158-236).
 
     ``fused``: compute (e, J^T e, J^T J) through the ``ee_gn`` kernel's
     wrapper (``kernels.fk_lane.ee_gn_fused``), which follows the tensor's
@@ -90,7 +150,8 @@ def ee_reaching_cost(
     """
     target = tuple(float(t) for t in target_xyz)
     nq, nv = model.nq, model.nv
-    nx = nq + nv
+    nb_q = nv  # the configuration block in the solver chart
+    ndim = nb_q + nv
 
     def _ee_gn(x, gn):
         """(e, J^T e, J^T J) at the states x (..., nx); with gn=False,
@@ -123,18 +184,18 @@ def ee_reaching_cost(
         batch = x.shape[:-1]
         kw = dict(dtype=x.dtype, device=x.device)
         lx = torch.cat([g_q, w_qd_blk * x[..., nq:]], dim=-1)
-        lxx = torch.zeros(batch + (nx, nx), **kw)
-        lxx[..., :nq, :nq] = H_qq
-        lxx[..., nq:, nq:] = w_qd_blk * torch.eye(nv, **kw)
+        lxx = torch.zeros(batch + (ndim, ndim), **kw)
+        lxx[..., :nb_q, :nb_q] = H_qq
+        lxx[..., nb_q:, nb_q:] = w_qd_blk * torch.eye(nv, **kw)
         return lx, lxx
 
     def stage_derivs(x, u, t):
         g_q, H_qq = _ee_terms(x, w_ee)
         lx, lxx = _assemble(g_q, H_qq, w_qd, x)
         kw = dict(dtype=x.dtype, device=x.device)
-        # constant blocks stay unbatched (nv, nv) / (nv, nx)
+        # constant blocks stay unbatched (nv, nv) / (nv, ndim)
         return (lx, w_u * u, lxx, w_u * torch.eye(nv, **kw),
-                torch.zeros(nv, nx, **kw))
+                torch.zeros(nv, ndim, **kw))
 
     def terminal_derivs(x):
         g_q, H_qq = _ee_terms(x, w_ee_f)

@@ -123,14 +123,17 @@ def _check_config(config: DDPConfig):
 def _backward_route(model: RobotModel, config: DDPConfig, on_card: bool):
     """rbdtpu's backward-pass routing (solver/ddp.py:475-586), its
     ``_on_tpu()`` read as "the tensors are on the card": "parallel",
-    "fused" (the lane-scalar sweep), "chunked" or "plain"."""
+    "fused" (the lane-scalar sweep), "chunked" or "plain".  The sweep's
+    state is the tangent (``model.ntan``: 2 nv, one less than nx on the
+    quaternion root), as rbdtpu sizes it (solver/ddp.py:535)."""
     if config.parallel_riccati:
         return "parallel"
     if config.fused_riccati is None:
-        return "chunked" if on_card and model.nx >= CHUNK_NX_MIN else "plain"
+        return ("chunked" if on_card and model.ntan >= CHUNK_NX_MIN
+                else "plain")
     if not config.fused_riccati:
         return "plain"
-    return "fused" if model.nx <= LANE_SCALAR_NX_MAX else "chunked"
+    return "fused" if model.ntan <= LANE_SCALAR_NX_MAX else "chunked"
 
 
 def _feedback_route(model: RobotModel, config: DDPConfig,
@@ -197,7 +200,8 @@ def _at(t, arr, rank):
 
 
 def backward_pass(A, B, lx, lu, lxx, luu, lux, lfx, lfxx, reg):
-    """Riccati sweep over the horizon.  A (..., H, nx, nx), B (..., H, nx, nu),
+    """Riccati sweep over the horizon in the tangent chart (nx here is its
+    width, ``model.ntan``).  A (..., H, nx, nx), B (..., H, nx, nu),
     lx/lu (..., H, n), lxx/luu/lux per knot (..., H, r, c) or constant (r, c),
     lfx (..., nx), lfxx (..., nx, nx), reg (...).
 
@@ -240,7 +244,8 @@ def backward_pass(A, B, lx, lu, lxx, luu, lux, lfx, lfxx, reg):
 def forward_pass(model: RobotModel, cost: Cost, X, U, k, K, alphas, dt,
                  gravity, step_fn=None, u_clip=None, f_ext=None):
     """Closed-loop rollouts for every alpha of the ladder, in parallel, for
-    every problem.  X (..., H+1, nx), U/k (..., H, nv), K (..., H, nv, nx),
+    every problem.  X (..., H+1, nx), U/k (..., H, nv), K (..., H, nv, ntan)
+    acting on the tangent difference ``state_diff(x, X_t)``,
     alphas (n_alpha,).  f_ext: None or (H, nb, 6) per-knot wrenches, each
     knot's passed to ``step_fn(x, u, fe)`` (fe None without them).
     Returns (Xs, Us, Js) with a leading n_alpha axis."""

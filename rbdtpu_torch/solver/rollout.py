@@ -65,7 +65,9 @@ def rollout(model: RobotModel, x0, U, dt: float, gravity: float = -9.81,
 def linearize_trajectory(model: RobotModel, X, U, dt: float,
                          gravity: float = -9.81):
     """Per-knot discrete Jacobians: X (..., H+1, nx), U (..., H, nv) ->
-    A (..., H, nx, nx), B (..., H, nx, nv), all knots in one batched sweep."""
+    A (..., H, ntan, ntan), B (..., H, ntan, nv), all knots in one batched
+    sweep (the quaternion root's transport takes the post-step twist)."""
     q, qd = split_state(model, X[..., :-1, :])
-    _, Mi, dq, dqd = forward_dynamics_full(model, q, qd, U, gravity)
-    return step_jacobians(model, Mi, dq, dqd, dt)
+    qdd, Mi, dq, dqd = forward_dynamics_full(model, q, qd, U, gravity)
+    qd_new = qd + dt * qdd if model.root_quat else None
+    return step_jacobians(model, Mi, dq, dqd, dt, qd_new=qd_new)

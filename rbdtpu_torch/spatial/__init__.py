@@ -7,7 +7,12 @@ from .ops import (
 from .transforms import (
     REVOLUTE, PRISMATIC, FLOATING, FIXED, rot_axis, drot_axis,
     joint_spatial_x, joint_hom_T, joint_hom_dT, x_force_inv_T, rpy_to_R,
-    plux, hom, floating_spatial_x, floating_hom_T,
+    plux, hom, floating_spatial_x, floating_hom_T, floating_quat_spatial_x,
+    floating_quat_hom_T,
+)
+from .quat import (
+    quat_identity, quat_normalize, quat_mul, quat_conj, quat_to_R, quat_exp,
+    quat_log, quat_from_rpy, so3_right_jacobian, so3_right_jacobian_inv,
 )
 
 __all__ = [
@@ -15,5 +20,9 @@ __all__ = [
     "REVOLUTE", "PRISMATIC", "FLOATING", "FIXED", "rot_axis", "drot_axis",
     "joint_spatial_x", "joint_hom_T", "joint_hom_dT", "x_force_inv_T",
     "rpy_to_R", "plux", "hom", "floating_spatial_x", "floating_hom_T",
+    "floating_quat_spatial_x", "floating_quat_hom_T", "quat_identity",
+    "quat_normalize", "quat_mul", "quat_conj", "quat_to_R", "quat_exp",
+    "quat_log", "quat_from_rpy", "so3_right_jacobian",
+    "so3_right_jacobian_inv",
     "cholesky_small", "cholesky_solve_small", "solve_small",
 ]

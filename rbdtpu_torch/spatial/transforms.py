@@ -5,7 +5,8 @@ Conventions (as in rbdtpu): the spatial motion transform ``X`` maps motion
 vectors from PARENT to CHILD coordinates, ``X = XJ(q) @ Xtree``; the
 homogeneous ``T`` maps points from CHILD to PARENT, ``T = Ttree @ TJ(q)``.
 Joint types: 0 revolute, 1 prismatic, 2 floating root, 3 fixed.  The
-floating root here is the rpy one: q6 = [x, y, z, roll, pitch, yaw].
+floating root is the rpy one, q6 = [x, y, z, roll, pitch, yaw], or the
+quaternion one, q7 = [x, y, z, qw, qx, qy, qz].
 """
 from __future__ import annotations
 
@@ -104,6 +105,22 @@ def floating_spatial_x(Xtree, q6):
 def floating_hom_T(Ttree, q6):
     """Body->world homogeneous transform of the rpy floating root."""
     return Ttree @ hom(rpy_to_R(q6[..., 3:6]), q6[..., 0:3])
+
+
+def floating_quat_spatial_x(Xtree, q7):
+    """World->body motion transform of the quaternion floating root,
+    plux(R^T, xyz) @ Xtree with q7 = [x, y, z, qw, qx, qy, qz]."""
+    from .quat import quat_to_R
+
+    R = quat_to_R(q7[..., 3:7])
+    return plux(R.transpose(-1, -2), q7[..., 0:3]) @ Xtree
+
+
+def floating_quat_hom_T(Ttree, q7):
+    """Body->world homogeneous transform of the quaternion floating root."""
+    from .quat import quat_to_R
+
+    return Ttree @ hom(quat_to_R(q7[..., 3:7]), q7[..., 0:3])
 
 
 def _hom_zero_row(R):

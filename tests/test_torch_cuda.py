@@ -343,7 +343,8 @@ def test_wrappers_refuse_bad_input(card):
     with pytest.raises(ValueError):  # integer tensors have no kernel
         fd_step_fused(m, x.int(), u.int(), DT)
     # the rpy root reaches K1-K4 (K4 up to 16 bodies), K6, K9 and K10
-    # (each launches its kernel) but not K5; the quaternion root no kernel
+    # (each launches its kernel) but not K5; the quaternion root K1-K4 but
+    # not K6 or K10
     fb = load_asset("quadruped12", device=card, dtype=torch.float64,
                     floating_base=True)
     q = torch.zeros(8, fb.nq, dtype=torch.float64, device=card)
@@ -372,14 +373,18 @@ def test_wrappers_refuse_bad_input(card):
     qq = torch.zeros(8, quat.nq, dtype=torch.float64, device=card)
     vq = torch.zeros(8, quat.nv, dtype=torch.float64, device=card)
     xq = torch.cat([qq, vq], -1)
+    qq[:, 3] = 1.0
+    xq = torch.cat([qq, vq], -1)
     before = dict(_lib.launches)
     for refused in (lambda: rnea_fused(quat, qq, vq),
-                    lambda: fd_step_minv_fused(quat, xq, vq, DT),
-                    lambda: _lib.launch("linearize_parts", quat, qq, qq, vq,
-                                        vq, vq, vq, vq, vq, 8, -9.81)):
+                    lambda: fd_step_minv_fused(quat, xq, vq, DT)):
         with pytest.raises(NotImplementedError):
             refused()
     assert _lib.launches == before
+    got = _launched("linearize_parts",
+                    lambda: linearize_parts_fused(quat, qq, vq, vq))
+    for a, b in zip(got, colvec.linearize_parts_plain(quat, qq, vq, vq)):
+        _close(a, b, 1e-9)
 
 
 def test_ddp_kernels_match_plain(card):
@@ -1069,3 +1074,166 @@ def test_ddp_fext_kernels_match_plain(card):
     assert counts["feedback_rollout_fext"] == 3 and counts["fd_step"] == H
     assert counts["feedback_rollout"] == counts["feedback_chunked"] == 0
     assert (sk.U - sp.U).abs().max().item() < 1e-6
+
+
+def _quat(name, dtype):
+    return load_asset(name, device="cuda", dtype=dtype, floating_base=True,
+                      root_quat=True)
+
+
+def _quat_states(m, B, seed=21):
+    """B quaternion-root states (the identity pose 0.5 high retracted by
+    0.3 N(0,1), velocities 0.5 N(0,1)) and controls N(0,1), on the card."""
+    from rbdtpu_torch.solver.integrate import config_retract
+
+    rng = np.random.default_rng(seed)
+    q = torch.zeros(B, m.nq, dtype=torch.float64)
+    q[:, 2], q[:, 3] = 0.5, 1.0
+    q = config_retract(m, q, torch.tensor(0.3 * rng.standard_normal((B, m.nv))))
+    x = torch.cat([q, torch.tensor(0.5 * rng.standard_normal((B, m.nv)))], -1)
+    u = torch.tensor(rng.standard_normal((B, m.nv)))
+    return (x.to(device=m.device, dtype=m.dtype),
+            u.to(device=m.device, dtype=m.dtype))
+
+
+QUAT_MODELS = ("quadruped12", "humanoid30")
+DTYPES = [torch.float64, torch.float32]
+
+
+@pytest.mark.parametrize("B", TEAM_BATCHES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+@pytest.mark.parametrize("name", QUAT_MODELS)
+def test_quat_fd_step(card, name, dtype, B):
+    """K1 on the quaternion root ("fq32": the manifold Euler step) against
+    its plain version."""
+    m = _quat(name, dtype)
+    x, u = _quat_states(m, B)
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    _close(_launched("fd_step", lambda: fd_step_fused(m, x, u, DT)),
+           fused.fd_step_plain(m, x, u, DT), tol)
+
+
+@pytest.mark.parametrize("B,H", [(1, 1), (37, 1), (37, 8)])
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+@pytest.mark.parametrize("name", QUAT_MODELS)
+def test_quat_feedback_rollout(card, name, dtype, clip, B, H):
+    """K2 on the quaternion root: the gains (nv x 2 nv) act on the tangent
+    difference, whose root rows are the quaternion log; nominals near the
+    start, stabilising gains -M(q0) [400 I, 40 I], with and without a clamp
+    at 0.8 of the largest unclamped control."""
+    from rbdtpu_torch.dynamics import minv
+    from rbdtpu_torch.solver.integrate import state_diff, state_retract
+
+    m64 = _quat(name, torch.float64)
+    x0, _ = _quat_states(m64, B, seed=22)
+    rng = np.random.default_rng(23)
+    n = m64.nv
+    T = lambda *s: torch.tensor(rng.standard_normal(s), device=card)
+    Xn = torch.stack([state_retract(m64, x0, 0.01 * T(B, 2 * n))
+                      for _ in range(H)], 1)
+    Un = T(B, H, n)
+    pd = torch.cat([400.0 * torch.eye(n), 40.0 * torch.eye(n)], 1).to(
+        device=card, dtype=torch.float64)
+    Kf = -(torch.linalg.inv(minv(m64, x0[:, :m64.nq]))[:, None] @ pd).expand(
+        B, H, n, 2 * n).contiguous()
+    kf = -(Kf @ state_diff(m64, x0[:, None], Xn)[..., None])[..., 0]
+    xs = state_retract(m64, x0, 0.02 * T(B, 2 * n))
+    args64 = (xs, Xn.contiguous(), Un, kf.contiguous(), Kf)
+    kw = {}
+    if clip:
+        applied = fused.feedback_rollout_plain(m64, *args64, DT)[1]
+        kw["u_clip"] = (0.8 * applied.abs().amax(dim=(0, 1))).contiguous()
+    m = _quat(name, dtype)
+    args = tuple(a.to(dtype) for a in args64)
+    kw = {k: v.to(dtype) for k, v in kw.items()}
+    got = _launched("feedback_rollout",
+                    lambda: feedback_rollout_fused(m, *args, DT, **kw))
+    tol = 1e-9 if dtype == torch.float64 else 1e-3
+    for a, b in zip(got, fused.feedback_rollout_plain(m, *args, DT, **kw)):
+        _close(a, b, tol)
+
+
+@pytest.mark.parametrize("B", [1, 37, 70])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+@pytest.mark.parametrize("name", QUAT_MODELS)
+def test_quat_linearize_parts(card, name, dtype, B):
+    """K3 on the quaternion root: M^-1, dc/dq with the root's tangent
+    columns, dc/dqd and qdd against the plain version."""
+    m = _quat(name, dtype)
+    x, u = _quat_states(m, B, seed=24)
+    q, qd = x[:, :m.nq].contiguous(), x[:, m.nq:].contiguous()
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    got = _launched("linearize_parts",
+                    lambda: linearize_parts_fused(m, q, qd, u))
+    for a, b in zip(got, colvec.linearize_parts_plain(m, q, qd, u)):
+        _close(a, b, tol)
+
+
+@pytest.mark.parametrize("B", [1, 37, 512, 2049])
+@pytest.mark.parametrize("gn", [True, False], ids=["ee_gn", "ee_err"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+@pytest.mark.parametrize("name", QUAT_MODELS)
+def test_quat_ee_gn(card, name, dtype, gn, B):
+    """K4 on the quaternion root: the humanoid's left wrist (path H's end
+    effector) and a quadruped foot's fixed frame, the root's body-twist
+    columns, against ``ee_gn_plain``."""
+    m = _quat(name, dtype)
+    ee = (("left_arm_wrist_roll",) if name == "humanoid30"
+          else ("RL_foot_fixed",))
+    q = _quat_states(m, B, seed=25)[0][:, :m.nq].contiguous()
+    target = (0.35, 0.25, 1.1)
+    got = _launched("ee_gn" if gn else "ee_err",
+                    lambda: ee_gn_fused(m, q, target, ee_names=ee, gn=gn))
+    want = fk_lane.ee_gn_plain(m, q, target, ee_names=ee, gn=gn)
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    for a, b in zip(got, want):
+        if b is not None:
+            _close(a, b, tol)
+
+
+@pytest.mark.parametrize("path", ["hybrid", "ee"])
+def test_quat_paths_match_plain(card, path):
+    """Paths G and H cut to B = 2, H = 8, 2 iterations in float64: the
+    kernels (K1-K4 at fq32) against the plain route on the card, |dU|
+    < 1e-6; the quaternion root's K2 with wrenches is refused."""
+    from rbdtpu_torch.dynamics import rnea
+    from rbdtpu_torch.solver import (
+        DDPConfig, MPPIConfig, ddp_solve, ee_reaching_cost, hybrid_solve,
+        quadratic_tracking_cost,
+    )
+
+    m = _quat("humanoid30", torch.float64)
+    x0, _ = _quat_states(m, 2, seed=26)
+    x0[:, m.nq:] = 0.0
+    z = torch.zeros(2, m.nv, dtype=m.dtype, device=card)
+    U0 = rnea(m, x0[:, :m.nq], z, z)[0][:, None].expand(2, 8, m.nv)
+    U0 = U0.contiguous()
+    goal = torch.zeros(m.nx, dtype=m.dtype)
+    goal[2], goal[3] = 0.95, 1.0
+    noise = torch.tensor(np.random.default_rng(27).standard_normal(
+        (2, 2, 8, 8, m.nv)), device=card)
+    out = {}
+    for fused_ in (True, False):
+        cfg = DDPConfig(iters=2, n_alphas=4, fused=fused_)
+        if path == "hybrid":
+            cost = quadratic_tracking_cost(m, goal, w_q=2.0, w_qd=0.05,
+                                           w_u=1e-5)
+            st, _ = hybrid_solve(m, cost, x0, U0, None,
+                                 MPPIConfig(n_samples=8, sigma=0.3,
+                                            fused=fused_), cfg, mppi_iters=2,
+                                 noise=noise)
+        else:
+            cost = ee_reaching_cost(m, (0.35, 0.25, 1.1),
+                                    ee_names=("left_arm_wrist_roll",),
+                                    fused=None if fused_ else False,
+                                    w_ee=10.0, w_ee_f=500.0, w_qd=1e-2,
+                                    w_u=1e-5)
+            st, _ = ddp_solve(m, cost, x0, U0, cfg)
+        out[fused_] = st.U
+    assert (out[True] - out[False]).abs().max().item() < 1e-6
+    if path == "hybrid":
+        fe = torch.zeros(m.nb, 6, dtype=m.dtype, device=card)
+        with pytest.raises(NotImplementedError):
+            ddp_solve(m, cost, x0, U0, DDPConfig(iters=1, fused=True),
+                      f_ext=fe)

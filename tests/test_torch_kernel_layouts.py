@@ -208,9 +208,9 @@ def test_c_layouts_fext_and_rpy_match_python(tmp_path):
          for c, t in lin]
         + [show(f"rbd::feedback_wrench_values<rbd::{dims[c]}>()")
            for c in dims]
-        + [show(f"rbd::ee_rpy_state_values<{gn}>()")
+        + [show(f"rbd::ee_root_state_values<rbd::FB16, {gn}>()")
            for gn in ("true", "false")]
-        + [show("rbd::EE_FIXED_RPY")])
+        + [show("rbd::ee_fixed_values<rbd::FB16>()")])
     (tmp_path / "layouts.cpp").write_text(src)
     exe = tmp_path / "layouts"
     subprocess.run([cxx, "-std=c++17", "-x", "c++", "-I", _lib.CSRC,
@@ -454,6 +454,9 @@ struct HostBarrier {
 static HostBarrier* g_bar;
 #define RBD_TEAM_HOST_SYNC() g_bar->wait()
 #include "feedback_chunked.cu"
+#include "feedback_rollout.cu"
+#include "fd_step.cu"
+#include "linearize.cu"
 #include "riccati_fused.cu"
 #include "rollout_multi.cu"
 #include "ee_gn.cu"
@@ -672,13 +675,95 @@ extern "C" void host_k4_fb16(const double* tab, const int* itab, int nb, const d
     const double* qb = q + (size_t)b * n;
     if (gn) {
       run_team<8>([&](const rbd::Team<8>& tm) {
-        rbd::ee_gn_team_rpy(tm, n, rows.data(), (unsigned)chain, (unsigned)prism, ee, qb,
-                            target, e + 3 * b, g0 + (size_t)b * n, H0 + (size_t)b * n * n,
-                            J.data());
+        rbd::ee_gn_team_root<rbd::FB16>(tm, n, rows.data(), (unsigned)chain, (unsigned)prism,
+                                        ee, qb, target, e + 3 * b, g0 + (size_t)b * n,
+                                        H0 + (size_t)b * n * n, J.data());
       });
     } else {
-      rbd::ee_err_one_rpy(rows.data(), (unsigned)chain, (unsigned)prism, ee, qb, target,
-                          e + 3 * b);
+      rbd::ee_err_one_root<rbd::FB16>(rows.data(), (unsigned)chain, (unsigned)prism, ee, qb,
+                                      target, e + 3 * b);
+    }
+  }
+}
+
+// The quaternion root (FQ32), each on a team of 8 threads: K1's step, K2's
+// line search (walk lv), K3's knot, and K4 (ee_gn by the team, ee_err by
+// one thread)
+extern "C" void host_k1_fq32(const double* tab, const int* itab, int nb, const double* x,
+                             const double* u, double* xo, int B, double dt, double g) {
+  using L = rbd::FdLayout<rbd::FQ32>;
+  const rbd::Model<double, rbd::FQ32> m{tab, itab, nb};
+  const int n = m.nv(), nx = m.nq() + n;
+  std::vector<double> s(rbd::fd_step_team_stride<rbd::FQ32, 8>());
+  double* xs = s.data() + L::VALUES;
+  double* us = xs + rbd::FQ32::NQ + rbd::FQ32::NV;
+  for (int b = 0; b < B; ++b) {
+    for (int k = 0; k < nx; ++k) xs[k] = x[(size_t)b * nx + k];
+    for (int k = 0; k < n; ++k) us[k] = u[(size_t)b * n + k];
+    run_team<8>([&](const rbd::Team<8>& tm) {
+      rbd::team_fd_step<8, false, false, L>(tm, m, s.data(), xs, us, dt, g,
+                                            static_cast<const double*>(nullptr),
+                                            static_cast<double*>(nullptr), xo + (size_t)b * nx);
+    });
+  }
+}
+
+extern "C" void host_k2_fq32(const double* tab, const int* itab, int nb, const double* x0,
+                             const double* Xn, const double* Un, const double* kf,
+                             const double* Kf, const double* uclip, double* Xo, double* Uo,
+                             int B, int H, int lv, double dt, double g) {
+  const rbd::Model<double, rbd::FQ32> m{tab, itab, nb};
+  const int n = m.nv(), nx = m.nq() + n;
+  std::vector<double> s(rbd::feedback_team_stride<rbd::FQ32, 8>());
+  for (int b = 0; b < B; ++b) {
+    const size_t bx = (size_t)b * H * nx, bu = (size_t)b * H * n;
+    run_team<8>([&](const rbd::Team<8>& tm) {
+      if (lv)
+        rbd::feedback_rollout_team<8, true>(tm, m, s.data(), x0 + (size_t)b * nx, Xn + bx,
+                                            Un + bu, kf + bu, Kf + bu * 2 * n, uclip, Xo + bx,
+                                            Uo + bu, H, dt, g);
+      else
+        rbd::feedback_rollout_team<8, false>(tm, m, s.data(), x0 + (size_t)b * nx, Xn + bx,
+                                             Un + bu, kf + bu, Kf + bu * 2 * n, uclip, Xo + bx,
+                                             Uo + bu, H, dt, g);
+    });
+  }
+}
+
+extern "C" void host_k3_fq32(const double* tab, const int* itab, int nb, const double* q,
+                             const double* qd, const double* u, double* Minv, double* dcq,
+                             double* dcd, double* qdd, int B, double g) {
+  const rbd::Model<double, rbd::FQ32> m{tab, itab, nb};
+  const int n = m.nv(), nq = m.nq();
+  std::vector<double> s(rbd::LinLayout<rbd::FQ32, 8>::STRIDE);
+  for (int b = 0; b < B; ++b) {
+    const size_t o1 = (size_t)b * n, o2 = (size_t)b * n * n;
+    run_team<8>([&](const rbd::Team<8>& tm) {
+      rbd::linearize_team(tm, m, s.data(), q + (size_t)b * nq, qd + o1, u + o1, g, Minv + o2,
+                          dcq + o2, dcd + o2, qdd + o1);
+    });
+  }
+}
+
+extern "C" void host_k4_fq32(const double* tab, const int* itab, int nb, const double* ee,
+                             int chain, int prism, const double* q, double tx, double ty,
+                             double tz, double* e, double* g0, double* H0, int B, int gn) {
+  const rbd::Model<double, rbd::FQ32> m{tab, itab, nb};
+  const int n = m.nv(), nq = m.nq();
+  const double target[3] = {tx, ty, tz};
+  std::vector<double> J(3 * rbd::FQ32::NV), rows(rbd::EE_ROW * rbd::FQ32::NB);
+  for (int k = 0; k < rbd::EE_ROW * nb; ++k) rows[k] = rbd::ee_row_value(m, k);
+  for (int b = 0; b < B; ++b) {
+    const double* qb = q + (size_t)b * nq;
+    if (gn) {
+      run_team<8>([&](const rbd::Team<8>& tm) {
+        rbd::ee_gn_team_root<rbd::FQ32>(tm, n, rows.data(), (unsigned)chain, (unsigned)prism,
+                                        ee, qb, target, e + 3 * b, g0 + (size_t)b * n,
+                                        H0 + (size_t)b * n * n, J.data());
+      });
+    } else {
+      rbd::ee_err_one_root<rbd::FQ32>(rows.data(), (unsigned)chain, (unsigned)prism, ee, qb,
+                                      target, e + 3 * b);
     }
   }
 }
@@ -711,6 +796,10 @@ def host_kernels(tmp_path_factory):
     lib.host_k5.argtypes = [P, P, I, P, P, P, P, I, I, I, D, D]
     lib.host_k4.argtypes = [P, P, I, P, I, I, P, D, D, D, P, P, P, I, I]
     lib.host_k4_fb16.argtypes = lib.host_k4.argtypes
+    lib.host_k4_fq32.argtypes = lib.host_k4.argtypes
+    lib.host_k1_fq32.argtypes = [P, P, I, P, P, P, I, D, D]
+    lib.host_k2_fq32.argtypes = [P, P, I] + [P] * 8 + [I, I, I, D, D]
+    lib.host_k3_fq32.argtypes = [P, P, I] + [P] * 7 + [I, D]
     for cls in ("n8", "fb16"):
         getattr(lib, f"host_k10_{cls}").argtypes = [P, P, I, P, P, P, P, I, D]
         getattr(lib, f"host_k6_{cls}").argtypes = [P, P, I, P, P, P, I, P, I,
@@ -1039,3 +1128,206 @@ def test_host_fd_step_minv(host_kernels, name, dense, wrench):
        _ptr(xo), B, int(dense), 0.01, -9.81)
     want = fused.fd_step_minv_plain(m, x, u, 0.01, f_ext=F)
     torch.testing.assert_close(xo, want, rtol=0, atol=1e-9)
+
+
+# ---- the quaternion root (the "fq32" class of K1-K4) ----
+
+def _quat_model(name):
+    from rbdtpu_torch.model import load_asset
+
+    return load_asset(name, device="cpu", dtype=torch.float64,
+                      floating_base=True, root_quat=True)
+
+
+def _quat_states(m, rng, B, up=0.4):
+    """B float64 quaternion-root states (the identity pose ``up`` high,
+    retracted by 0.3 N(0,1); velocities 0.5 N(0,1)) and controls N(0,1)."""
+    from rbdtpu_torch.solver.integrate import config_retract
+
+    q = torch.zeros(B, m.nq, dtype=torch.float64)
+    q[:, 2], q[:, 3] = up, 1.0
+    q = config_retract(m, q, torch.tensor(0.3 * rng.standard_normal((B, m.nv))))
+    qd = torch.tensor(0.5 * rng.standard_normal((B, m.nv)))
+    return torch.cat([q, qd], -1), torch.tensor(rng.standard_normal((B, m.nv)))
+
+
+def test_c_layouts_quat_match_python(tmp_path):
+    """The quaternion root's team strides (K1's, K2's, K3's at every team
+    size: x one value wider) and K4's staging (its fixed values and a
+    state's of each kernel), compiled for the host from csrc/, give the
+    counts _lib computes for "fq32"."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    show = lambda expr: f'std::printf("%d\\n", {expr});'
+    teams = _lib.TEAM_SIZES
+    src = ('#include <cstdio>\n#include "fd_step.cu"\n'
+           '#include "feedback_rollout.cu"\n#include "linearize.cu"\n'
+           '#include "ee_gn.cu"\nint main() {\n  ' + "\n  ".join(
+               [show(f"rbd::fd_step_team_stride<rbd::FQ32, {t}>()")
+                for t in teams]
+               + [show(f"rbd::feedback_team_stride<rbd::FQ32, {t}>()")
+                  for t in teams]
+               + [show(f"rbd::LinLayout<rbd::FQ32, {t}>::STRIDE")
+                  for t in teams]
+               + [show(f"rbd::ee_root_state_values<rbd::FQ32, {gn}>()")
+                  for gn in ("true", "false")]
+               + [show("rbd::ee_fixed_values<rbd::FQ32>()")])
+           + "\n  return 0;\n}\n")
+    (tmp_path / "layouts.cpp").write_text(src)
+    exe = tmp_path / "layouts"
+    subprocess.run([cxx, "-std=c++17", "-x", "c++", "-I", _lib.CSRC,
+                    "-o", str(exe), str(tmp_path / "layouts.cpp")],
+                   check=True, capture_output=True, timeout=120)
+    got = [int(v) for v in subprocess.run(
+        [str(exe)], check=True, capture_output=True, text=True,
+        timeout=60).stdout.split()]
+    want = ([_lib.team_values("fd_step", "fq32", t) for t in teams]
+            + [_lib.team_values("feedback_rollout", "fq32", t) for t in teams]
+            + [_lib.linearize_values("fq32", t) for t in teams]
+            + [_lib.ee_values("ee_gn", "fq32"), _lib.ee_values("ee_err", "fq32"),
+               _lib.ee_fixed("fq32")])
+    assert got == want
+
+
+@pytest.mark.parametrize("kernel", ["fd_step", "feedback_rollout",
+                                    "linearize_parts", "ee_gn", "ee_err"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "float64"])
+def test_quat_geometry(kernel, dtype):
+    """The quaternion root's class "fq32" (32 bodies, nv = 37, nq = 38)
+    lists K1-K4 only; each launch's blocks cover every batch of paths G and
+    H (2,048 sampled states, 64 line-search trajectories, 512 knots, 16
+    terminal states), and a batch that could give every SM a block at the
+    launch's fewest states a block does; a
+    block's shared memory stays within the H100's 232,448 bytes (K4 opts
+    in past 48 KB: four states of ee_gn in float64 take more)."""
+    assert set(_lib.CLASSES["fq32"][2]) == {
+        "fd_step", "feedback_rollout", "linearize_parts", "ee_gn", "ee_err"}
+    assert _lib.class_dims("fq32") == (32, 37, 38)
+    size = torch.finfo(dtype).bits // 8
+    for B in (1, 16, 64, 512, 2048, 2049):
+        if kernel in ("ee_gn", "ee_err"):
+            spb, threads, smem, blocks = _lib.ee_geometry(kernel, dtype, B,
+                                                          cls="fq32")
+            assert spb % 4 == 0 and threads == spb * _lib.EE_LANES[kernel]
+            assert smem == (_lib.ee_fixed("fq32") + spb * _lib.ee_values(
+                kernel, "fq32")) * size <= _lib.SMEM_MAX
+            tpb, least = spb, _lib.EE_STATES_RPY[kernel][1]
+        elif kernel == "linearize_parts":
+            _, tpb, smem, blocks = _lib.linearize_geometry("fq32", dtype, B)
+            assert smem == tpb * _lib.linearize_values(
+                "fq32", _lib.TEAM[(kernel, "fq32", _lib._SUFFIX[dtype])]) * size
+        else:
+            team, tpb, smem, blocks = _lib.team_geometry(kernel, "fq32",
+                                                         dtype, B)
+            assert smem == tpb * _lib.team_values(kernel, "fq32", team) * size
+        if kernel not in ("ee_gn", "ee_err"):
+            least = 1
+        assert smem <= _lib.SMEM_MAX
+        assert blocks * tpb >= B > (blocks - 1) * tpb
+        assert blocks >= min(_lib.H100_SMS, -(-B // least))
+
+
+@pytest.mark.parametrize("name", ["quadruped12", "humanoid30"])
+def test_host_fd_step_quat(host_kernels, name):
+    """K1's team step on the quaternion root (fq32) built for the host and
+    run by a team of 8 threads, against ``fd_step_plain`` (ABA, then the
+    manifold Euler step) in float64 (1e-9), on a step small enough for the
+    rotation's Taylor branch too."""
+    from rbdtpu_torch.kernels import fused
+
+    m = _quat_model(name)
+    tab, itab = _lib.model_tables(m, "cpu", torch.float64)
+    x, u = _quat_states(m, np.random.default_rng(11), 4)
+    x[0, m.nq:m.nq + 3] = 1e-5  # dt w' under 1e-6: the Taylor branch
+    for dt in (0.01, 0.001):
+        xo = torch.empty_like(x)
+        host_kernels.host_k1_fq32(_ptr(tab), _ptr(itab), m.nb, _ptr(x),
+                                  _ptr(u), _ptr(xo), 4, dt, -9.81)
+        torch.testing.assert_close(xo, fused.fd_step_plain(m, x, u, dt),
+                                   rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("lv", [True, False], ids=["levels", "bodies"])
+def test_host_feedback_rollout_quat(host_kernels, lv):
+    """K2's team body on the quaternion root built for the host, against
+    ``feedback_rollout_plain`` in float64 (1e-9) with and without a clamp,
+    in both walks: the gains act on the tangent difference (the root's
+    quaternion log, one nominal turned past w < 0)."""
+    from rbdtpu_torch.kernels import fused
+    from rbdtpu_torch.solver.integrate import state_retract
+
+    m = _quat_model("quadruped12")
+    tab, itab = _lib.model_tables(m, "cpu", torch.float64)
+    rng = np.random.default_rng(12)
+    B, H, n = 3, 4, m.nv
+    x0, _ = _quat_states(m, rng, B)
+    Xn = torch.stack([state_retract(m, x0, torch.tensor(
+        0.05 * rng.standard_normal((B, 2 * n)))) for _ in range(H)], 1)
+    Xn[1, 2, 3:7] = -Xn[1, 2, 3:7]  # the same rotation, w < 0
+    T = lambda *s: torch.tensor(0.1 * rng.standard_normal(s))
+    args = (x0, Xn.contiguous(), T(B, H, n), T(B, H, n), T(B, H, n, 2 * n))
+    for clip in (None, torch.full((n,), 0.05, dtype=torch.float64)):
+        Xo = torch.empty(B, H, m.nx, dtype=torch.float64)
+        Uo = torch.empty(B, H, n, dtype=torch.float64)
+        host_kernels.host_k2_fq32(_ptr(tab), _ptr(itab), m.nb,
+                                  *[_ptr(a) for a in args], _ptr(clip),
+                                  _ptr(Xo), _ptr(Uo), B, H, int(lv), 0.01,
+                                  -9.81)
+        Xp, Up = fused.feedback_rollout_plain(m, *args, 0.01, u_clip=clip)
+        torch.testing.assert_close(Xo, Xp, rtol=0, atol=1e-9)
+        torch.testing.assert_close(Uo, Up, rtol=0, atol=1e-9)
+
+
+def test_host_linearize_quat(host_kernels):
+    """K3's knot on the quaternion root built for the host, against
+    ``linearize_parts_plain`` in float64 (1e-9): the root's tangent columns
+    of dc/dq (w x e_j on the gravity seed, by forward-mode AD in the plain
+    version), its identity dqd block, M^-1 and qdd."""
+    from rbdtpu_torch.kernels import colvec
+
+    m = _quat_model("quadruped12")
+    tab, itab = _lib.model_tables(m, "cpu", torch.float64)
+    B, n = 3, m.nv
+    x, u = _quat_states(m, np.random.default_rng(13), B)
+    q, qd = x[:, :m.nq].contiguous(), x[:, m.nq:].contiguous()
+    outs = [torch.empty(B, n, n, dtype=torch.float64) for _ in range(3)]
+    qdd = torch.empty(B, n, dtype=torch.float64)
+    host_kernels.host_k3_fq32(_ptr(tab), _ptr(itab), m.nb, _ptr(q), _ptr(qd),
+                              _ptr(u), *[_ptr(o) for o in outs], _ptr(qdd),
+                              B, -9.81)
+    for got, want in zip((*outs, qdd),
+                         colvec.linearize_parts_plain(m, q, qd, u)):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("gn", [True, False], ids=["ee_gn", "ee_err"])
+@pytest.mark.parametrize("name", ["humanoid30", "quadruped12"])
+def test_host_ee_gn_quat(host_kernels, name, gn):
+    """K4's bodies on the quaternion root (fq32) built for the host, ee_gn
+    by a team of 8 threads and ee_err by one, against ``ee_gn_plain`` in
+    float64 (1e-9): the humanoid's left wrist (path H's end effector) and
+    a quadruped foot's fixed frame; the root's columns are the body-twist
+    tangent's."""
+    from rbdtpu_torch.kernels import fk_lane
+
+    m = _quat_model(name)
+    ee_names = (("left_arm_wrist_roll",) if name == "humanoid30"
+                else ("RL_foot_fixed",))
+    jid, fid = fk_lane._single_ee(m, ee_names)
+    tab, itab = _lib.model_tables(m, "cpu", torch.float64)
+    table = _lib.ee_table(m, fid, "cpu", torch.float64)
+    B, n = 5, m.nv
+    q = _quat_states(m, np.random.default_rng(14), B)[0][:, :m.nq].contiguous()
+    target = (0.35, 0.25, 1.1)
+    e = torch.empty(B, 3, dtype=torch.float64)
+    g0 = torch.empty(B, n, dtype=torch.float64)
+    H0 = torch.empty(B, n, n, dtype=torch.float64)
+    host_kernels.host_k4_fq32(_ptr(tab), _ptr(itab), m.nb, _ptr(table),
+                              *fk_lane.ee_chain(m, jid), _ptr(q), *target,
+                              _ptr(e), _ptr(g0), _ptr(H0), B, int(gn))
+    want = fk_lane.ee_gn_plain(m, q, target, ee_names=ee_names, gn=gn)
+    torch.testing.assert_close(e, want[0], rtol=0, atol=1e-9)
+    if gn:
+        torch.testing.assert_close(g0, want[1], rtol=0, atol=1e-9)
+        torch.testing.assert_close(H0, want[2], rtol=0, atol=1e-9)

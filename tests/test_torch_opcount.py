@@ -313,3 +313,63 @@ def test_riccati_knot():
     assert ok.item()
     ops = [oc.riccati_knot_ops(n, n // 2) for n in (16, 32)]
     assert 7.0 < ops[1] / ops[0] < 8.0
+
+
+def _quat_case(rng):
+    """The quaternion quadruped, its counting model and a float64 state
+    (the identity pose 0.4 high retracted by 0.3 N(0,1), velocities 0.5
+    N(0,1)) and controls N(0,1)."""
+    from rbdtpu_torch.solver.integrate import config_retract
+
+    m = load_asset("quadruped12", device="cpu", dtype=torch.float64,
+                   floating_base=True, root_quat=True)
+    q = torch.zeros(1, m.nq, dtype=torch.float64)
+    q[:, 2], q[:, 3] = 0.4, 1.0
+    q = config_retract(m, q, torch.tensor(0.3 * rng.standard_normal((1, m.nv))))
+    x = torch.cat([q, torch.tensor(0.5 * rng.standard_normal((1, m.nv)))], -1)
+    return m, oc.Model(m), x[0].numpy(), rng.standard_normal(m.nv)
+
+
+@pytest.mark.parametrize("fn", ["fd_step", "feedback_rollout",
+                                "linearize_parts", "ee_gn", "ee_err"])
+def test_quat_root(fn):
+    """The quaternion root's counted functions (K1-K4 on "fq32") against
+    the plain versions: the manifold Euler step, the tangent difference
+    (quaternion log) of the line search, the root's tangent columns of
+    dc/dq, and the body-twist EE columns at a foot's fixed frame."""
+    from rbdtpu_torch.solver.integrate import state_retract
+
+    rng = np.random.default_rng(9)
+    m, md, x, u = _quat_case(rng)
+    X, U = torch.tensor(x)[None], torch.tensor(u)[None]
+    nq, n = m.nq, m.nv
+    if fn == "fd_step":
+        _close(oc.fd_step(md, _nums(x), _nums(u), DT, G),
+               fd_step_plain(m, X, U, DT)[0])
+    elif fn == "feedback_rollout":
+        xn = state_retract(m, X, torch.tensor(
+            0.1 * rng.standard_normal((1, 2 * n))))[0].numpy()
+        kf, K = rng.standard_normal(n), 0.1 * rng.standard_normal((n, 2 * n))
+        (xo, uo) = oc.feedback_knot(md, _nums(x), _nums(xn), _nums(u),
+                                    _nums(kf), _nums(K), DT, G)
+        T = lambda a: torch.tensor(a)[None, None]
+        Xp, Up = feedback_rollout_plain(m, X, T(xn), T(u), T(kf), T(K), DT)
+        _close(xo, Xp[0, 0])
+        _close(uo, Up[0, 0])
+    elif fn == "linearize_parts":
+        out = oc.linearize_parts(md, _nums(x[:nq]), _nums(x[nq:]), _nums(u),
+                                 G)
+        for got, want in zip(out, linearize_parts_plain(
+                m, X[:, :nq], X[:, nq:], U)):
+            _close(got, want[0])
+    else:
+        names = ("RL_foot_fixed",)
+        jid, fid = _single_ee(m, names)
+        gn = fn == "ee_gn"
+        out = oc.ee(md, jid, fid, _nums(x[:nq]), TARGET, gn)
+        want = ee_gn_plain(m, X[:, :nq], TARGET, ee_names=names, gn=gn)
+        for got, w in zip(out, want):
+            if w is not None:
+                _close(got, w[0])
+    assert set(oc.per_state(m, TARGET, ee_names=("RL_foot_fixed",))) >= {
+        "fd_step", "feedback_rollout", "linearize_parts", "ee_gn", "ee_err"}

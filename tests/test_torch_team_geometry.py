@@ -55,7 +55,9 @@ def test_team_defines_fix_every_instantiation(kernel):
     point of the kernel's source takes its lanes from a define, and the
     build defines each of them once, from TEAM; the same holds for the
     kernel's wrench variant where its source has one (K2's
-    ``feedback_rollout_fext``)."""
+    ``feedback_rollout_fext``).  The entry points are those of the classes
+    that list the kernel (the quaternion root's "fq32" lists K1 and K2,
+    not their wrench variants, K6 or K10)."""
     import os
     import re
 
@@ -68,9 +70,10 @@ def test_team_defines_fix_every_instantiation(kernel):
         entries = re.findall(
             rf"^RBD_{k.upper()}\((\w+), \w+, \w+, (f32|f64)\)$", src, re.M)
         assert sorted(entries) == sorted(
-            (cls, sfx) for cls in _lib.SIZE_CLASSES for sfx in ("f32", "f64"))
+            (cls, sfx) for cls, (_, _, ks) in _lib.CLASSES.items() if k in ks
+            for sfx in ("f32", "f64"))
         assert f"RBD_TEAM_{k}_##CLS##_##SFX" in src
-        classes = "|".join(_lib.SIZE_CLASSES)
+        classes = "|".join(_lib.CLASSES)
         defines = [d for d in _lib.team_defines()
                    if re.match(rf"-DRBD_TEAM_{k}_({classes})_f(32|64)=", d)]
         assert sorted(defines) == sorted(
@@ -155,7 +158,8 @@ def test_fd_step_minv_size_class_counts_levels():
     """K6's dense M^-1 columns keep one slot a tree level, as K3's do, so
     K6 takes the class K3 takes: the humanoid (11 levels) fb32, the rpy
     quadruped fb16; K10 needs no level slots and goes by bodies alone; the
-    quaternion root is refused by both."""
+    quaternion root is refused by both, while K1-K4 map its quadruped and
+    humanoid to its own class "fq32"."""
     from rbdtpu_torch.model import load_asset
 
     load = lambda name, **kw: load_asset(name, device="cpu",
@@ -169,5 +173,10 @@ def test_fd_step_minv_size_class_counts_levels():
         with pytest.raises(NotImplementedError):
             _lib.size_class(kernel, load("quadruped12", floating_base=True,
                                          root_quat=True))
+    for name in ("quadruped12", "humanoid30"):
+        quat = load(name, floating_base=True, root_quat=True)
+        for kernel in ("fd_step", "feedback_rollout", "linearize_parts",
+                       "ee_gn", "ee_err"):
+            assert _lib.size_class(kernel, quat) == "fq32"
     assert "fd_step_minv" in _lib.LEVEL_KERNELS
     assert "rnea" not in _lib.LEVEL_KERNELS
