@@ -171,7 +171,25 @@ Phases, each ending the run with a nonzero exit when it fails:
    then both in float64 at Bm=4, H=32 through the kernels and through the
    plain route (|dU| < 1e-6, relative |dJ| < 1e-9 over the J history, or
    phase 19's rule against the plain route's own floor where |dJ| passes
-   1e-9).
+   1e-9);
+21. second order: IDSVA-SO's native sweep against forward-mode AD in
+   float64 on arm7, the rpy and the quaternion quadruped (4 states each)
+   and the quaternion humanoid (1 state), max |native - AD| <= 1e-9; path
+   I, exact-Hessian ("full") DDP on the rpy quadruped
+   (tools/bench_fbddp.py: Bm=64, H=32, 10 iterations, 6 line-search
+   steps, configs[3]'s start and cost), first in float64 at Bm=4, H=8
+   through the kernels against the plain route (|dU| < 1e-6, relative
+   |dJ| < 1e-9, J finite and nonincreasing, K1, K2 and K3 each launched),
+   then in float32 beside iLQR on the same problems: ms a solve, mean J an
+   iteration, the iteration within 0.1% of each floor, K1/K2/K3 launches
+   by size class, a profile with the FDSVA-SO assembly and the backward
+   sweep apart; then the IDSVA cells in float32, native against AD in
+   eval/s by CUDA events (arm7 at 2,048 states x 8 calls, bench.py:674-707;
+   the quaternion humanoid at 256 x 4 natively and 4 x 1 by AD,
+   bench.py:593-638).  Each step of phase 21 prints its peak device
+   memory.  Phase 21 also holds K1-K3 at path I's own shapes (K1 at 64
+   states, K2 at 6 x 64 trajectories over 32 knots, K3 at 2,048 knots)
+   against their plain versions, float64 <= 1e-9 and float32 at TOL32.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON summary and the result line.  Without a CUDA
@@ -304,6 +322,16 @@ NCHUNKS_F = (1, 2, 3)
 # Their float64 parity runs at BQ_PARITY problems over HH knots.
 TARGET_Q, EE_Q, ITERS_Q, BQ_PARITY = ((0.35, 0.25, 1.1),
                                       ("left_arm_wrist_roll",), 5, 4)
+# path I, exact-Hessian ("full") DDP on the rpy quadruped at
+# tools/bench_fbddp.py's shapes: BI problems, HI knots, ITERS_I iterations,
+# configs[3]'s start, tracking cost and line-search steps, beside iLQR on
+# the same problems; its float64 kernels-vs-plain check at BI_PARITY
+# problems over HI_PARITY knots.  The IDSVA cells: arm7 at B_SO states x
+# R_SO calls (bench.py:674-707), the quaternion humanoid at B_SO_H x
+# R_SO_H natively and B_SO_AD x 1 by AD (bench.py:593-638); the float64
+# native-vs-AD checks at B_SO_CHECK states (the humanoid at 1).
+BI, HI, ITERS_I, BI_PARITY, HI_PARITY = 64, 32, 10, 4, 8
+B_SO, R_SO, B_SO_H, R_SO_H, B_SO_AD, B_SO_CHECK = 2048, 8, 256, 4, 4, 4
 
 
 def require(ok: bool, msg: str):
@@ -646,12 +674,15 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
-def profile_main_path(solve_once, extra=()):
+def profile_main_path(solve_once, extra=(), cpu: bool = True):
     """Where one solve (``solve_once()``) spends its time: per-phase wall
     time (each phase synchronised, so the total exceeds an unsynchronised
     solve; ``extra`` names further phases of ``solver.ddp``), then
     torch.profiler's device time per kernel, the kernels launched per solve
-    and the device's idle share against an unprofiled solve."""
+    and the device's idle share against an unprofiled solve.  ``cpu=False``
+    traces the CUDA activity alone (kernels and runtime calls, no torch
+    operators): for a solve of tens of thousands of operators, whose
+    trace would take a minute."""
     import collections
 
     import torch
@@ -698,8 +729,8 @@ def profile_main_path(solve_once, extra=()):
     t = time.perf_counter()
     run()
     wall = (time.perf_counter() - t) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         run()
     events = prof.key_averages()
     dev_ms = lambda e: getattr(e, "self_device_time_total",
@@ -1148,14 +1179,17 @@ def quadruped_cost(model):
 
 
 def quadruped_solve(model, x0, U0, iters: int, kernels: bool, cost=None,
-                    f_ext=None):
+                    f_ext=None, **options):
     """configs[3]'s ``ddp_solve`` (with ``cost`` in place of its tracking
-    cost, and under the wrenches ``f_ext``, when given); ``kernels=False``
-    takes every plain version (the plain sweep included)."""
+    cost, and under the wrenches ``f_ext``, when given; ``options`` are
+    further DDPConfig fields: path I's ``exact_hessians``);
+    ``kernels=False`` takes every plain version (the plain sweep
+    included)."""
     from rbdtpu_torch.solver import DDPConfig, ddp_solve
 
     cfg = DDPConfig(iters=iters, dt=DT, gravity=GRAVITY, n_alphas=ALPHAS3,
-                    fused=kernels, fused_riccati=None if kernels else False)
+                    fused=kernels, fused_riccati=None if kernels else False,
+                    **options)
     return ddp_solve(model, quadruped_cost(model) if cost is None else cost,
                      x0, U0, cfg, f_ext=f_ext)
 
@@ -2565,6 +2599,272 @@ def quat_phase(smi: str, rows: dict, ptxas: list):
     quat_parity(h64, smi)
 
 
+def peak_mb(label: str, fn):
+    """``fn()`` with the device's peak allocated memory, printed on a line
+    of its own beside what fn added to what the process held before it;
+    returns fn's result."""
+    import torch
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 21 memory: {label}: peak {peak / 2 ** 20:.1f} MiB "
+          f"allocated, {(peak - held) / 2 ** 20:.1f} MiB above the "
+          f"{held / 2 ** 20:.1f} MiB held before it")
+    return out
+
+
+def so_states(model, B: int, rng):
+    """CUDA states (q, qd, qdd) in the model's dtype for the native-vs-AD
+    checks (tests/test_idsva.py's draws): uniform in [-1, 1], a quaternion
+    root's q[3:7] a normalised N(0, I_4)."""
+    import torch
+
+    q = rng.uniform(-1.0, 1.0, (B, model.nq))
+    if model.root_quat:
+        r = rng.standard_normal((B, 4))
+        q[:, 3:7] = r / np.linalg.norm(r, axis=-1, keepdims=True)
+    T = lambda a: torch.tensor(a, dtype=model.dtype, device=model.device)
+    return (T(q), T(rng.uniform(-1.0, 1.0, (B, model.nv))),
+            T(rng.uniform(-1.0, 1.0, (B, model.nv))))
+
+
+def second_order_checks(models: dict, smi: str):
+    """Phase 21's float64 checks of IDSVA-SO on the card: the native sweep
+    against forward-mode AD (``idsva_so_ad``) on each model of ``models``
+    (label -> (model, states)), max |native - AD| <= TOL64 on all four
+    tensors, as rbdtpu's tests/test_idsva.py holds them."""
+    import torch
+    from rbdtpu_torch.dynamics import idsva_so_ad, idsva_so_native
+
+    rng = np.random.default_rng(SEED + 120)
+    for label, (m, B) in models.items():
+        args = so_states(m, B, rng)
+        nat = peak_mb(f"idsva_so_native f64 {label} B={B}",
+                      lambda: idsva_so_native(m, *args))
+        ad = peak_mb(f"idsva_so_ad f64 {label} B={B}",
+                     lambda: idsva_so_ad(m, *args))
+        errs = [(a - b).abs().max().item() for a, b in zip(nat, ad)]
+        scale = max(t.abs().max().item() for t in ad)
+        print(f"phase 21 IDSVA-SO f64 {label} B={B}: max|native - AD| "
+              f"d2q/d2qd/dvdq/dM {' '.join(f'{e:.3e}' for e in errs)} "
+              f"(largest entry {scale:.4g}; bound {TOL64:g}) ({smi})")
+        require(all(t.shape == (B, m.nv, m.nv, m.nv) and
+                    bool(t.isfinite().all()) for t in nat),
+                f"IDSVA-SO {label}: native tensors of the wrong shape or "
+                "not finite")
+        require(max(errs) <= TOL64, f"IDSVA-SO {label}: native and AD "
+                f"differ by {max(errs):.3e} > {TOL64:g}")
+        del nat, ad
+        torch.cuda.empty_cache()
+
+
+def full_ddp_parity(q64, smi: str):
+    """Path I in float64 at BI_PARITY problems over HI_PARITY knots,
+    ITERS_I iterations: the kernels (K1 in the initial rollout, K3 in the
+    linearisation, K2 in the line search) against the plain route on the
+    card, |dU| < U_PARITY, relative |dJ| < TOL64 over the J history, J
+    finite and nonincreasing; the kernel solve, its counts set to 0 just
+    before, must launch each of K1, K2 and K3."""
+    from rbdtpu_torch.kernels import _lib
+
+    x0, U0 = quadruped_problems(q64, BI_PARITY, HI_PARITY,
+                                np.random.default_rng(SEED + 121))
+    _lib.reset_launches()
+    sk, hk = quadruped_solve(q64, x0, U0, ITERS_I, True, exact_hessians=True)
+    counts = dict(_lib.launches)
+    sp, hp = quadruped_solve(q64, x0, U0, ITERS_I, False,
+                             exact_hessians=True)
+    du = (sk.U - sp.U).abs().max().item()
+    dj = ((hk - hp).abs() / hp.abs().clamp(min=1)).max().item()
+    print(f"path I parity f64 Bm={BI_PARITY} H={HI_PARITY} iters={ITERS_I}"
+          f": max|U_kernel - U_plain| {du:.3e} (bound {U_PARITY:g}); max "
+          f"rel |dJ| over the J history {dj:.3e} (bound {TOL64:g}); kernel "
+          f"launches a solve: fd_step {counts['fd_step']}, "
+          f"feedback_rollout {counts['feedback_rollout']}, linearize_parts "
+          f"{counts['linearize_parts']} ({smi})")
+    for h in (hk, hp):
+        require(bool(h.isfinite().all()), "path I parity: non-finite J")
+        require(bool((h[1:] <= h[:-1]).all()), "path I parity: J increased")
+    require(du < U_PARITY and dj < TOL64, "path I: the kernels' full-DDP "
+            "solve departs from the plain route's")
+    for k in ("fd_step", "feedback_rollout", "linearize_parts"):
+        require(counts[k] > 0, f"path I: {k} was not launched under "
+                "exact_hessians=True")
+
+
+def full_ddp_path(q32, smi: str):
+    """Path I in float32 (tools/bench_fbddp.py): ``ddp_solve`` of BI rpy
+    quadrupeds, HI knots, ITERS_I iterations, ALPHAS3 line-search steps,
+    ``fused=True``, ``exact_hessians=True``, beside the same solve with
+    ``exact_hessians=False`` (iLQR).  Per solve: ms (median of 3 after a
+    warm-up, CUDA events), the mean J each iteration and the iteration that
+    first comes within 0.1% of the solve's own floor.  The three timed
+    full-DDP solves, counts set to 0 just before, launch K1 HI times and
+    K2 and K3 once an iteration each at fb16 (``_lib.class_launches``);
+    both J histories finite, nonincreasing and falling.  Then the full-DDP
+    solve's profile, the ``fdsva_so`` assembly and the backward sweep
+    apart."""
+    import torch
+    from rbdtpu_torch.kernels import _lib
+    from rbdtpu_torch.kernels.fused import fd_step_fused
+    from rbdtpu_torch.solver import trajectory_cost
+
+    x0, U0 = quadruped_problems(q32, BI, HI, np.random.default_rng(SEED + 122))
+    xs = [x0]
+    for t in range(HI):
+        xs.append(fd_step_fused(q32, xs[-1], U0[:, t].contiguous(), DT,
+                                GRAVITY))
+    J0 = trajectory_cost(quadruped_cost(q32), torch.stack(xs, dim=-2), U0)
+    out = {}
+    for name, exact in (("full DDP", True), ("iLQR", False)):
+        solve = lambda e=exact: quadruped_solve(q32, x0, U0, ITERS_I, True,
+                                                exact_hessians=e)
+        peak_mb(f"path I {name} solve", solve)  # also the warm-up
+        _lib.reset_launches()
+        (state, hist), times = timed_runs(solve, warm=False)
+        by_class = dict(_lib.class_launches)
+        Jm = hist.double().mean(-1).cpu().numpy()
+        floor = Jm[-1]
+        k = int(np.argmax(Jm <= floor * 1.001)) + 1
+        sec = statistics.median(times)
+        print(f"path I {name}: quadruped12 rpy tracking, Bm={BI} H={HI} "
+              f"iters={ITERS_I} alphas={ALPHAS3} f32 fused: solve "
+              f"{sec * 1e3:.1f} ms (median of 3: "
+              f"{' '.join(f'{t * 1e3:.1f}' for t in times)}, CUDA events) = "
+              f"{BI / sec:.1f} solves/s, {sec * 1e3 / ITERS_I:.2f} ms an "
+              f"iteration; mean J {J0.mean().item():.6g} then per iteration "
+              f"{' '.join(f'{v:.6g}' for v in Jm)}; within 0.1% of its floor "
+              f"({floor:.6g}) at iteration {k} ({smi})")
+        print(f"path I {name} launches by (kernel, size class), 3 solves: "
+              f"{by_class}")
+        require(bool(hist.isfinite().all()), f"path I {name}: non-finite J")
+        require(bool((hist[1:] <= hist[:-1]).all()) and bool(
+            (hist[0] <= J0 * (1 + 1e-6)).all()), f"path I {name}: J "
+                "increased")
+        require(hist[-1].mean() < J0.mean(), f"path I {name}: mean J did "
+                "not fall")
+        out[name] = by_class
+    full = out["full DDP"]
+    for k, v in (("fd_step", HI), ("feedback_rollout", ITERS_I),
+                 ("linearize_parts", ITERS_I)):
+        require(full.get((k, "fb16"), 0) == 3 * v, f"path I: {k} at fb16 "
+                f"launched {full.get((k, 'fb16'), 0)} times in 3 solves, "
+                f"expected {3 * v}")
+    profile_main_path(lambda: quadruped_solve(q32, x0, U0, ITERS_I, True,
+                                              exact_hessians=True),
+                      extra=("fdsva_so",), cpu=False)
+
+
+def path_i_kernels(q64, q32, smi: str):
+    """K1-K3 on the rpy root (class fb16) against their plain versions at
+    path I's own shapes (``floating_kernel_inputs``): K1 at BI states (the
+    initial rollout's step), K2 at ALPHAS3 * BI trajectories over HI knots
+    (the line search), K3 at BI * HI knots (the linearisation); float64
+    within TOL64, float32 within TOL32, each timed beside its bound."""
+    qin = floating_kernel_inputs(q64, np.random.default_rng(SEED + 124),
+                                 quadruped_problems, BI, ALPHAS3 * BI, HI,
+                                 BI * HI)
+    states = {"fd_step": BI, "feedback_rollout": ALPHAS3 * BI * HI,
+              "linearize_parts": BI * HI}
+    check_kernels([(f"{k} path I", k, qin[k], {}, k, states[k])
+                   for k in states], q64, q32, smi)
+
+
+def idsva_cells(a32, h32, smi: str):
+    """The two IDSVA cells in float32, native sweep against AD, eval/s by
+    CUDA events: arm7 at B_SO states x R_SO calls on q, qd, qdd drawn
+    0.5 N(0,1) apart (bench.py:674-707), and the quaternion humanoid with
+    states retracted from the identity by 0.3 N(0,1), qd and qdd
+    0.5 N(0,1) (bench.py:593-638), natively at B_SO_H x R_SO_H and by
+    retraction AD at B_SO_AD x 1.  Each output must be finite.  The native
+    rows take the best of 3 timed runs, the AD rows (seconds a run) of 2,
+    each after the warm-up call that reads its peak memory."""
+    import torch
+    from rbdtpu_torch.dynamics import idsva_so_ad, idsva_so_native
+    from rbdtpu_torch.solver import config_retract
+
+    rng = np.random.default_rng(SEED + 123)
+    T = lambda m, a: torch.tensor(a, dtype=m.dtype, device=m.device)
+
+    def humanoid_states(B):
+        q = torch.zeros(B, h32.nq, dtype=h32.dtype, device=h32.device)
+        q[:, 3] = 1.0
+        q = config_retract(h32, q, T(h32, 0.3 * rng.standard_normal(
+            (B, h32.nv))))
+        return (q, T(h32, 0.5 * rng.standard_normal((B, h32.nv))),
+                T(h32, 0.5 * rng.standard_normal((B, h32.nv))))
+
+    arm = tuple(T(a32, 0.5 * rng.standard_normal((B_SO, a32.nv)))
+                for _ in range(3))
+    hum, hum_ad = humanoid_states(B_SO_H), humanoid_states(B_SO_AD)
+    for label, m, fn, args, R, reps in (
+            ("arm7 native", a32, idsva_so_native, arm, R_SO, 3),
+            ("arm7 AD", a32, idsva_so_ad, arm, R_SO, 2),
+            ("humanoid30 quat native", h32, idsva_so_native, hum, R_SO_H, 3),
+            ("humanoid30 quat retraction-AD", h32, idsva_so_ad, hum_ad, 1,
+             2)):
+        outs = peak_mb(f"IDSVA cell {label} B={args[0].shape[0]}",
+                       lambda: fn(m, *args))
+        require(all(bool(t.isfinite().all()) for t in outs),
+                f"IDSVA cell {label}: non-finite tensors")
+        del outs
+        B = args[0].shape[0]
+        _, times = timed_runs(lambda: [fn(m, *args) for _ in range(R)],
+                              reps, warm=False)
+        rate = B * R / min(times)
+        print(f"IDSVA cell {label}: B={B} x {R} calls f32: {rate:,.1f} "
+              f"eval/s (best of {reps}: "
+              f"{' '.join(f'{t * 1e3:.2f}' for t in times)} ms for {R} "
+              f"calls, CUDA events) ({smi})")
+        torch.cuda.empty_cache()
+
+
+def second_order_phase(smi: str):
+    """Phase 21: the float64 IDSVA-SO checks (``second_order_checks``),
+    path I's float64 parity (``full_ddp_parity``), K1-K3 at path I's
+    shapes against their plain versions (``path_i_kernels``), then path I
+    timed (``full_ddp_path``) and the IDSVA cells (``idsva_cells``) in
+    float32."""
+    import torch
+    from rbdtpu_torch.model import load_asset
+
+    load = lambda name, dt, **kw: load_asset(name, device="cuda", dtype=dt,
+                                             **kw)
+    f64 = torch.float64
+    clock = time.perf_counter()
+
+    def took(step: str):
+        nonlocal clock
+        print(f"phase 21: {step} took {time.perf_counter() - clock:.1f} s")
+        clock = time.perf_counter()
+
+    second_order_checks({
+        "arm7": (load("arm7", f64), B_SO_CHECK),
+        "quadruped12 rpy": (load("quadruped12", f64, floating_base=True),
+                            B_SO_CHECK),
+        "quadruped12 quat": (load("quadruped12", f64, floating_base=True,
+                                  root_quat=True), B_SO_CHECK),
+        "humanoid30 quat": (load("humanoid30", f64, floating_base=True,
+                                 root_quat=True), 1)}, smi)
+    took("the float64 IDSVA-SO checks")
+    q64 = load("quadruped12", f64, floating_base=True)
+    q32 = load("quadruped12", torch.float32, floating_base=True)
+    full_ddp_parity(q64, smi)
+    took("path I's float64 parity")
+    path_i_kernels(q64, q32, smi)
+    took("K1-K3 at path I's shapes")
+    full_ddp_path(q32, smi)
+    took("path I")
+    idsva_cells(load("arm7", torch.float32),
+                load("humanoid30", torch.float32, floating_base=True,
+                     root_quat=True), smi)
+    took("the IDSVA cells")
+
+
 def main() -> int:
     import torch
 
@@ -2790,7 +3090,13 @@ def main() -> int:
     # ---- 20. paths G and H: the quaternion root, K1-K4 at fq32 ----
     quat_phase(smi, rows, ptxas)
 
-    print(f"chip_smoke: phases 1-20 took {time.perf_counter() - clock:.1f} s")
+    mark(21)
+    # ---- 21. second order: IDSVA-SO, path I (full DDP), the IDSVA cells --
+    t21 = time.perf_counter()
+    second_order_phase(smi)
+    print(f"chip_smoke: phase 21 took {time.perf_counter() - t21:.1f} s")
+
+    print(f"chip_smoke: phases 1-21 took {time.perf_counter() - clock:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [
         {k: rows[n_][k] for k in (

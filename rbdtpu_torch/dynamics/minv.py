@@ -76,10 +76,12 @@ def minv_fpass(model: RobotModel, Xs, rows, F, U_l, Dinv_l):
     return rows
 
 
-def minv(model: RobotModel, q, output_dense: bool = True):
+def minv(model: RobotModel, q, output_dense: bool = True, *, Xs=None):
     """Analytical M^-1(q): (..., nq) -> (..., nv, nv).  With output_dense the
-    upper triangle is authoritative and mirrored into the lower one."""
-    Xs = joint_transforms_list(model, q)
+    upper triangle is authoritative and mirrored into the lower one.
+    ``Xs``: q's joint transforms, when the caller has them."""
+    if Xs is None:
+        Xs = joint_transforms_list(model, q)
     rows, F, U_l, Dinv_l = minv_bpass(model, Xs)
     Minv = torch.stack(minv_fpass(model, Xs, rows, F, U_l, Dinv_l), dim=-2)
     if output_dense:

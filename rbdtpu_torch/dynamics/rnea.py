@@ -90,13 +90,21 @@ def rnea_bpass(model: RobotModel, Xs, f_list):
 
 
 def rnea(model: RobotModel, q, qd, qdd=None, gravity: float = -9.81,
-         f_ext=None):
+         f_ext=None, *, Xs=None):
     """Inverse dynamics with optional world-frame wrenches f_ext (..., NB, 6).
+    ``Xs``: q's joint transforms, when the caller has them.
     Returns (c (..., nv), v, a, f (..., NB, 6))."""
-    Xs = joint_transforms_list(model, q)
+    if Xs is None:
+        Xs = joint_transforms_list(model, q)
     v_l, a_l, f_l = rnea_fpass(model, Xs, qd, qdd, gravity)
     if f_ext is not None:
         f_l = apply_external_forces(model, Xs, f_l, f_ext)
     c, f_l = rnea_bpass(model, Xs, f_l)
     stack = lambda xs: torch.stack(xs, dim=-2)
     return c, stack(v_l), stack(a_l), stack(f_l)
+
+
+def inverse_dynamics(model: RobotModel, q, qd, qdd=None,
+                     gravity: float = -9.81, f_ext=None):
+    """The joint forces of ``rnea`` alone: (..., nv)."""
+    return rnea(model, q, qd, qdd, gravity, f_ext)[0]

@@ -112,6 +112,17 @@ class RobotModel:
         """Root-to-i path including i."""
         return self.ancestors(i) + (i,)
 
+    def ancestor_mask(self) -> np.ndarray:
+        """(NB, NB) bool; [i, j] True iff j is a strict ancestor of i."""
+        m = np.zeros((self.nb, self.nb), dtype=bool)
+        for i in range(self.nb):
+            m[i, list(self.ancestors(i))] = True
+        return m
+
+    def subtree_mask(self) -> np.ndarray:
+        """(NB, NB) bool; [i, j] True iff j is in subtree(i) (including i)."""
+        return self.ancestor_mask().T | np.eye(self.nb, dtype=bool)
+
     def leaves(self) -> Tuple[int, ...]:
         has_child = set(self.parent)
         return tuple(i for i in range(self.nb) if i not in has_child)

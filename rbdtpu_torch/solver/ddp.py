@@ -1,4 +1,4 @@
-"""DDP / iLQR trajectory optimiser (``rbdtpu.solver.ddp``, iLQR branch).
+"""DDP / iLQR trajectory optimiser (``rbdtpu.solver.ddp``: iLQR and full DDP).
 
 Natively batched over arbitrary leading dims of (x0, U0), with a fixed
 iteration count and masked accept/reject, as in rbdtpu:
@@ -8,7 +8,9 @@ iteration count and masked accept/reject, as in rbdtpu:
   - linearisation: one batched sweep over all knots (``linearize_parts``
     kernel when fused);
   - backward pass: the Riccati recursion, with a Cholesky of Quu whose
-    non-PD result is NaN (the PD guard), routed as rbdtpu routes it
+    non-PD result is NaN (the PD guard); under ``exact_hessians`` (full
+    DDP) the plain sweep with the ``fdsva_so`` tensors folded in;
+    otherwise routed as rbdtpu routes it
     (``_backward_route``): one knot at a time in plain torch, the whole
     horizon in one launch of the ``riccati_fused`` kernel at nx <= 16
     (``kernels.riccati``) or of the ``riccati`` kernel above
@@ -40,6 +42,7 @@ import torch
 
 from ..dynamics.aba import aba
 from ..dynamics.fd import forward_dynamics
+from ..dynamics.idsva import fdsva_so
 from ..kernels.colvec import linearize_fused
 from ..kernels.fused import (
     fd_step_fused, feedback_chunks, feedback_fused_ok,
@@ -58,8 +61,10 @@ from .rollout import linearize_trajectory, normalize_f_ext
 
 @dataclasses.dataclass(frozen=True)
 class DDPConfig:
-    """rbdtpu's DDPConfig fields.  Not ported yet (raises when set):
-    ``exact_hessians=True``.  The backward pass (``_backward_route``):
+    """rbdtpu's DDPConfig fields.  ``exact_hessians=True`` is full DDP: the
+    second-order forward-dynamics tensors (``dynamics.fdsva_so``) enter the
+    plain sweep every iteration (with ``parallel_riccati=True`` it raises
+    ValueError, as in rbdtpu).  The backward pass (``_backward_route``):
     ``parallel_riccati=True`` runs the parallel-in-time scan (None and
     False: off; rbdtpu's auto gate for it is TPU-only).  Otherwise
     ``fused_riccati``: None runs the chunked sweep kernel on CUDA tensors
@@ -114,8 +119,10 @@ CHUNK_NX_MIN = 24
 
 
 def _check_config(config: DDPConfig):
-    if config.exact_hessians:
-        raise NotImplementedError("DDPConfig.exact_hessians is not ported yet")
+    if config.exact_hessians and config.parallel_riccati:
+        raise ValueError(
+            "parallel_riccati solves the LQR subproblem and cannot fold "
+            "the exact-Hessian fxx terms; use the sequential sweep")
     if config.rollout_route not in ("aba", "minv"):
         raise ValueError(f"unknown rollout_route {config.rollout_route!r}")
 
@@ -125,7 +132,11 @@ def _backward_route(model: RobotModel, config: DDPConfig, on_card: bool):
     ``_on_tpu()`` read as "the tensors are on the card": "parallel",
     "fused" (the lane-scalar sweep), "chunked" or "plain".  The sweep's
     state is the tangent (``model.ntan``: 2 nv, one less than nx on the
-    quaternion root), as rbdtpu sizes it (solver/ddp.py:535)."""
+    quaternion root), as rbdtpu sizes it (solver/ddp.py:535).  Under
+    ``exact_hessians`` only the plain sweep folds the fxx terms (rbdtpu
+    solver/ddp.py:538)."""
+    if config.exact_hessians:
+        return "plain"
     if config.parallel_riccati:
         return "parallel"
     if config.fused_riccati is None:
@@ -199,22 +210,33 @@ def _at(t, arr, rank):
     return arr if arr.dim() == rank else arr[..., t, :, :]
 
 
-def backward_pass(A, B, lx, lu, lxx, luu, lux, lfx, lfxx, reg):
+def backward_pass(A, B, lx, lu, lxx, luu, lux, lfx, lfxx, reg, fxx=None,
+                  dt=None):
     """Riccati sweep over the horizon in the tangent chart (nx here is its
     width, ``model.ntan``).  A (..., H, nx, nx), B (..., H, nx, nu),
     lx/lu (..., H, n), lxx/luu/lux per knot (..., H, r, c) or constant (r, c),
     lfx (..., nx), lfxx (..., nx, nx), reg (...).
 
+    ``fxx``: optional (Hq, Hvq, Hvv, Htq) second-order forward-dynamics
+    tensors, each (..., H, n, n, n) (``dynamics.fdsva_so``), for full DDP:
+    Qxx and Qux gain the Vx-contracted dynamics curvature of the
+    semi-implicit Euler step of length ``dt``, and the gains come from the
+    state-regularised Vxx + reg I (Tassa 2012) while the value recursion
+    keeps the exact quantities.
+
     Returns (k (..., H, nu), K (..., H, nu, nx), dV1 (...), ok (...)); ok is
-    False where some Quu + reg I was not positive definite."""
+    False where the regularised Quu was not positive definite."""
     H = A.shape[-3]
     nu = lu.shape[-1]
-    eye_u = torch.eye(nu, dtype=lu.dtype, device=lu.device)
-    reg_I = reg[..., None, None] * eye_u
+    reg_I = reg[..., None, None] * torch.eye(nu, dtype=lu.dtype,
+                                             device=lu.device)
     Vx, Vxx = lfx, lfxx
     ok = torch.ones(lfx.shape[:-1], dtype=torch.bool, device=lfx.device)
     dV1 = torch.zeros(lfx.shape[:-1], dtype=lfx.dtype, device=lfx.device)
     ks, Ks = [None] * H, [None] * H
+    if fxx is not None:
+        n = fxx[0].shape[-1]
+        fxx = torch.stack(fxx, dim=-4)  # (..., H, 4, n, n, n)
     for t in range(H - 1, -1, -1):
         A_s, B_s = A[..., t, :, :], B[..., t, :, :]
         At, Bt = A_s.transpose(-1, -2), B_s.transpose(-1, -2)
@@ -224,13 +246,33 @@ def backward_pass(A, B, lx, lu, lxx, luu, lux, lfx, lfxx, reg):
         Qxx = _at(t, lxx, 2) + At @ VxxA
         Quu = _at(t, luu, 2) + Bt @ (Vxx @ B_s)
         Qux = _at(t, lux, 2) + Bt @ VxxA
-        # non-PD Quu + reg I -> NaN factor -> pd False (the PD guard)
-        L, info = torch.linalg.cholesky_ex(Quu + reg_I)
+        if fxx is None:
+            Quu_hat, Qux_hat = Quu + reg_I, Qux
+        else:
+            # Vx . d2(step)/dz2: the semi-implicit Euler step has
+            # qd' = qd + dt qdd, q' = q + dt qd', so every second derivative
+            # of x' is (dt^2 Vq'_r + dt Vqd'_r) d2qdd_r, one weight vector
+            # contracted against the fdsva_so tensors
+            w = dt * dt * Vx[..., :n] + dt * Vx[..., n:]
+            Wqq, Wvq, Wvv, Wtq = torch.einsum(
+                "...r,...crjk->...cjk", w, fxx[..., t, :, :, :, :]).unbind(-3)
+            Qxx = Qxx + torch.cat([
+                torch.cat([Wqq, Wvq.transpose(-1, -2)], dim=-1),
+                torch.cat([Wvq, Wvv], dim=-1)], dim=-2)
+            Qux = Qux + torch.cat([Wtq, torch.zeros_like(Wtq)], dim=-1)
+            # the exact curvature can make Vxx and Quu indefinite far from
+            # the optimum: the gains take the state-regularised Vxx + reg I,
+            # which adds reg B^T B to Quu and reg B^T A to Qux
+            reg_ = reg[..., None, None]
+            Quu_hat = Quu + reg_I + reg_ * (Bt @ B_s)
+            Qux_hat = Qux + reg_ * (Bt @ A_s)
+        # non-PD Quu_hat -> NaN factor -> pd False (the PD guard)
+        L, info = torch.linalg.cholesky_ex(Quu_hat)
         L = torch.where((info != 0)[..., None, None],
                         torch.full_like(L, float("nan")), L)
         pd = torch.isfinite(L).all(-1).all(-1)
         k = -torch.cholesky_solve(Qu[..., None], L)[..., 0]
-        K = -torch.cholesky_solve(Qux, L)
+        K = -torch.cholesky_solve(Qux_hat, L)
         Kt, QuxT = K.transpose(-1, -2), Qux.transpose(-1, -2)
         Vx = Qx + mv(Kt, mv(Quu, k)) + mv(Kt, Qu) + mv(QuxT, k)
         Vxx = Qxx + Kt @ (Quu @ K) + Kt @ Qux + QuxT @ K
@@ -351,8 +393,12 @@ def ddp_solve(model: RobotModel, cost: Cost, x0, U0,
         if route in ("fused", "chunked"):
             A, B, lx, lu, lxx, luu, lux = (t.contiguous() for t in (
                 A, B, lx, lu, lxx, luu, lux))
+        extra = {}
+        if config.exact_hessians:
+            q, qd = split_state(model, state.X[..., :-1, :])
+            extra = dict(fxx=fdsva_so(model, q, qd, state.U, gravity), dt=dt)
         k, K, _, ok = backward(A, B, lx, lu, lxx, luu, lux, lfx, lfxx,
-                               state.reg)
+                               state.reg, **extra)
         if fwd_route != "plain":
             Xs, Us, Js = forward_pass_fused(model, cost, state.X, state.U, k,
                                             K, alphas, dt, gravity, u_clip,

@@ -1,9 +1,10 @@
 """Spatial-vector algebra (Featherstone 6-D motion/force operators) on
-``(..., 6)`` / ``(..., 6, 6)`` tensors — the parts of ``rbdtpu.spatial.ops``
-that the transforms and tree sweeps use.
+``(..., 6)`` / ``(..., 6, 6)`` tensors — ``rbdtpu.spatial.ops``, with the
+second-order factors (``icrf``, ``factor_inertia``, ``dot_inertia``).
 
 Conventions: motion v = [omega; v_lin], force f = [n; f_lin];
-crm(v) m == v x m, crf(v) f == v x* f, crf(v) = -crm(v)^T.
+crm(v) m == v x m, crf(v) f == v x* f, crf(v) = -crm(v)^T,
+icrf(f) v == crf(v) f.
 """
 from __future__ import annotations
 
@@ -39,6 +40,16 @@ def crf(v):
     return -crm(v).transpose(-1, -2)
 
 
+def icrf(f):
+    """Inverse force cross operator: icrf(f) @ v == crf(v) @ f for every
+    motion vector v.  (..., 6) -> (..., 6, 6)."""
+    nx = skew(f[..., :3])
+    fx = skew(f[..., 3:])
+    top = torch.cat([nx, fx], dim=-1)
+    bot = torch.cat([fx, torch.zeros_like(nx)], dim=-1)
+    return -torch.cat([top, bot], dim=-2)
+
+
 def _cross3(a, b):
     return torch.linalg.cross(*torch.broadcast_tensors(a, b), dim=-1)
 
@@ -59,6 +70,36 @@ def cross_force(v, f):
     top = _cross3(w, fn) + _cross3(vl, fl)
     bot = _cross3(w, fl)
     return torch.cat([top, bot], dim=-1)
+
+
+def vxIv(v, I):
+    """crf(v) @ (I @ v), the velocity-product bias force: (..., 6),
+    (..., 6, 6) -> (..., 6)."""
+    return cross_force(v, mv(I, v))
+
+
+def factor_inertia(I, v):
+    """The factor B(I, v) = 1/2 (crf(v) I + icrf(I v) - I crm(v)) of the
+    second-order derivatives: (..., 6, 6), (..., 6) -> (..., 6, 6)."""
+    return 0.5 * (crf(v) @ I + icrf(mv(I, v)) - I @ crm(v))
+
+
+def dot_inertia(I, v):
+    """crf(v) I - I crm(v): (..., 6, 6), (..., 6) -> (..., 6, 6)."""
+    return crf(v) @ I - I @ crm(v)
+
+
+def mcI(m, c, Ic):
+    """Spatial inertia from mass m (...,), COM offset c (..., 3) and the
+    rotational inertia about the COM Ic (..., 3, 3):
+    [[Ic + m cx cx^T, m cx], [m cx^T, m 1]] -> (..., 6, 6)."""
+    cx = skew(c)
+    m_ = m[..., None, None]
+    cxt = cx.transpose(-1, -2)
+    eye3 = torch.eye(3, dtype=Ic.dtype, device=Ic.device).expand(cx.shape)
+    top = torch.cat([Ic + m_ * cx @ cxt, m_ * cx], dim=-1)
+    bot = torch.cat([m_ * cxt, m_ * eye3], dim=-1)
+    return torch.cat([top, bot], dim=-2)
 
 
 def mv(A, x):

@@ -37,6 +37,14 @@ def drot_axis(axis, q):
     return c * k + s * (k @ k)
 
 
+def d2rot_axis(axis, q):
+    """d2/dq2 of rot_axis."""
+    k = skew(axis)
+    s = torch.sin(q)[..., None, None]
+    c = torch.cos(q)[..., None, None]
+    return -s * k + c * (k @ k)
+
+
 def _blocks(tl, tr, bl, br):
     return torch.cat([torch.cat([tl, tr], -1), torch.cat([bl, br], -1)], -2)
 
@@ -153,3 +161,14 @@ def joint_hom_dT(jtype: int, axis, Ttree, q):
     else:
         raise NotImplementedError(f"joint type {jtype} has no 1-DoF transform")
     return Ttree @ dTJ
+
+
+def joint_hom_d2T(jtype: int, axis, Ttree, q):
+    """d2/dq2 of joint_hom_T (zero for a prismatic joint)."""
+    if jtype == PRISMATIC:
+        d2TJ = torch.zeros(q.shape + (4, 4), dtype=q.dtype, device=q.device)
+    elif jtype == REVOLUTE:
+        d2TJ = _hom_zero_row(d2rot_axis(axis, q))
+    else:
+        raise NotImplementedError(f"joint type {jtype} has no 1-DoF transform")
+    return Ttree @ d2TJ

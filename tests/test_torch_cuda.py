@@ -1237,3 +1237,65 @@ def test_quat_paths_match_plain(card, path):
         with pytest.raises(NotImplementedError):
             ddp_solve(m, cost, x0, U0, DDPConfig(iters=1, fused=True),
                       f_ext=fe)
+
+
+SECOND_ORDER_MODELS = {
+    "arm7": lambda: load_asset("arm7", device="cuda", dtype=torch.float64),
+    "quad_rpy": lambda: load_asset("quadruped12", device="cuda",
+                                   dtype=torch.float64, floating_base=True),
+    "quad_quat": lambda: _quat("quadruped12", torch.float64),
+}
+
+
+@pytest.mark.parametrize("name", list(SECOND_ORDER_MODELS))
+def test_idsva_native_matches_ad(card, name):
+    """IDSVA-SO on the card in float64: the native sweep against
+    forward-mode AD on every root, max |native - AD| <= 1e-9."""
+    from rbdtpu_torch.dynamics import idsva_so_ad, idsva_so_native
+
+    m = SECOND_ORDER_MODELS[name]()
+    rng = np.random.default_rng(28)
+    q = rng.uniform(-1.0, 1.0, (3, m.nq))
+    if m.root_quat:
+        r = rng.standard_normal((3, 4))
+        q[:, 3:7] = r / np.linalg.norm(r, axis=-1, keepdims=True)
+    args = [torch.tensor(a, device=card) for a in (
+        q, rng.uniform(-1, 1, (3, m.nv)), rng.uniform(-1, 1, (3, m.nv)))]
+    for a, b in zip(idsva_so_native(m, *args), idsva_so_ad(m, *args)):
+        assert a.is_cuda and a.shape == (3, m.nv, m.nv, m.nv)
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-9)
+
+
+def test_full_ddp_matches_plain(card):
+    """Path I (exact-Hessian DDP on the rpy quadruped) cut to B = 2, H = 8,
+    3 iterations in float64: the kernels (K1, K2, K3, each launched)
+    against the plain route on the card, |dU| < 1e-6, J nonincreasing."""
+    from rbdtpu_torch.dynamics import rnea
+    from rbdtpu_torch.solver import (
+        DDPConfig, ddp_solve, quadratic_tracking_cost,
+    )
+
+    m = load_asset("quadruped12", device="cuda", dtype=torch.float64,
+                   floating_base=True)
+    rng = np.random.default_rng(29)
+    q0 = np.zeros((2, m.nq))
+    q0[:, 2] = 0.35
+    q0 = torch.tensor(q0 + 0.05 * rng.standard_normal(q0.shape), device=card)
+    z = torch.zeros(2, m.nv, dtype=m.dtype, device=card)
+    x0 = torch.cat([q0, z], -1)
+    U0 = rnea(m, q0, z, z)[0][:, None].expand(2, 8, m.nv).contiguous()
+    goal = np.zeros(m.nx)
+    goal[2] = 0.4
+    cost = quadratic_tracking_cost(m, goal, w_q=2.0, w_qd=0.05, w_u=1e-5)
+    out = {}
+    for fused_ in (True, False):
+        before = dict(_lib.launches)
+        st, hist = ddp_solve(m, cost, x0, U0, DDPConfig(
+            iters=3, n_alphas=6, fused=fused_, exact_hessians=True))
+        torch.cuda.synchronize()
+        ran = {k: _lib.launches[k] - before[k] for k in before}
+        for k in ("fd_step", "feedback_rollout", "linearize_parts"):
+            assert (ran[k] > 0) == fused_, (k, ran[k])
+        assert hist.isfinite().all() and (hist[1:] <= hist[:-1]).all()
+        out[fused_] = st.U
+    assert (out[True] - out[False]).abs().max().item() < 1e-6

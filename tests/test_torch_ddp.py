@@ -130,11 +130,17 @@ def test_tracking_cost_matches_rbdtpu(arm7, tm, rng):
 
 @pytest.mark.parametrize("field", ["exact_hessians"])
 def test_unported_options_raise(tm, field):
+    """Every DDPConfig option of rbdtpu is ported now: exact_hessians=True
+    (full DDP) runs on this arm problem, J finite and nonincreasing (the
+    port's parity with rbdtpu's full DDP is in test_torch_second_order)."""
     x0 = torch.zeros(1, tm.nx, dtype=torch.float64)
     U0 = torch.zeros(1, 2, tm.nv, dtype=torch.float64)
     cost = ts.ee_reaching_cost(tm, TARGET)
-    with pytest.raises(NotImplementedError):
-        ts.ddp_solve(tm, cost, x0, U0, ts.DDPConfig(**{field: True}))
+    J0 = ts.trajectory_cost(cost, ts.rollout(tm, x0, U0, 0.01), U0)
+    _, hist = ts.ddp_solve(tm, cost, x0, U0,
+                           ts.DDPConfig(iters=3, **{field: True}))
+    assert torch.isfinite(hist).all()
+    assert (hist[0] <= J0).all() and (hist[1:] <= hist[:-1]).all()
 
 
 @pytest.mark.parametrize("option,ran", [
