@@ -13,8 +13,8 @@ Phases, each ending the run with a nonzero exit when it fails:
    kernels K4 (``ee_gn``, ``ee_err``, and their rpy- and quaternion-root
    kernels) and of the Riccati sweeps (``riccati``, K7/K8, and
    ``riccati_fused``, K11) in the build with a ptxas stack frame under
-   1,024 bytes, K1-K4's quaternion-root instantiations ("fq32") among
-   them;
+   1,024 bytes, the quaternion root's instantiations ("fq32": every tree
+   kernel but K5) among them;
 2. hold each kernel of the DDP path against its plain PyTorch version on
    the card, at that path's shapes: max abs error <= 1e-9 in float64, and
    a relative bound in float32; time both (CUDA events around one call
@@ -39,7 +39,8 @@ Phases, each ending the run with a nonzero exit when it fails:
    at H=20, and require max |U_kernel - U_plain| < 1e-6 (the repository's
    control-parity tolerance) at both;
 5. profile one DDP solve: per-phase wall time, torch.profiler's device time
-   per kernel, the kernels a solve launches and the device's idle share;
+   per kernel (a trace of the CUDA activity alone), the kernels a solve
+   launches and the device's idle share;
 6. the same checks for the rollout path's kernels at its shapes (after
    the DDP phases, which therefore run as they did before these kernels):
    K10 (bias and with qdd) and K6 (both routes, without wrenches, under
@@ -189,7 +190,29 @@ Phases, each ending the run with a nonzero exit when it fails:
    bench.py:593-638).  Each step of phase 21 prints its peak device
    memory.  Phase 21 also holds K1-K3 at path I's own shapes (K1 at 64
    states, K2 at 6 x 64 trajectories over 32 knots, K3 at 2,048 knots)
-   against their plain versions, float64 <= 1e-9 and float32 at TOL32.
+   against their plain versions, float64 <= 1e-9 and float32 at TOL32;
+22. paths J and K, the quaternion root's remaining kernels ("fq32": K9,
+   K2 and K9 with wrenches, K6, K10): K9 at path J's 1,024 trajectories x
+   32 knots at nchunks 2, 1, 3 and 100 and at 1, 37 and 1,000
+   trajectories, K2 with wrenches at path G's 64 x 32 and K9 with
+   wrenches (two chunks) at 1,024 x 32 under a trunk push over 0.5
+   N(0,1) wrenches (and under zero wrenches bit for bit the wrench-free
+   kernels), K10 with and without qdd and K6 on both routes with and
+   without wrenches at path G's 2,048 states, against their plain versions
+   (float64 <= 1e-9, float32 relative), timed beside their bounds, the
+   stack limit unchanged across them; path J, path D's DDP at fleet batch
+   (256 problems, H=32, 4 iterations of 4 steps, float32) on the
+   quaternion humanoid from path G's start with its cost, on the K9
+   (``fused_feedback=True``, two chunks), K2 and plain line-search tiers:
+   ms a solve, launches by size class, J finite, nonincreasing and
+   falling, a profile of the K9 tier; its float64 tier parity (K9 against
+   the plain pass, |dU| < 1e-6, relative |dJ| < 1e-9) at the smallest
+   batch the port's rule sends to K9 with two chunks; path K, path G's
+   hybrid and path J's K9 tier under path F's 80 N trunk push (K1, K2 and
+   K9 only with wrenches), then float64 parity of the hybrid at 4
+   problems, kernels against plain on the same normals, under 20 N
+   (relative |dJ| < 1e-9) and under 80 N (below 100 times the plain
+   route's own floor where it passes 1e-9), and of the K9 tier under 80 N.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON summary and the result line.  Without a CUDA
@@ -230,17 +253,18 @@ PARITY_H = (100, 20)
 # walks, K10 with and without qdd, K6 on both routes with and without
 # wrenches; K5 on n8 in 2 dtypes x 2 routes x with and without wrenches; K4
 # and each sweep in 2 dtypes; K4 on the rpy root and K2 and K9 with
-# wrenches at every class in both walks; K1-K4 on the quaternion root's
-# class fq32 too, K1 with and without wrenches, K2 in both walks), and
-# K1/K2's extra checks run these batches
+# wrenches at every class in both walks; on the quaternion root's class
+# fq32 K1-K4, K9, K6 and K10 too, K1 with and without wrenches, K2, K9 and
+# K2/K9 with wrenches in both walks), and K1/K2's extra checks run these
+# batches
 TEAM_KERNELS = ("fd_step", "feedback_rollout")
 STACK_INSTANCES = {"fd_step": 16, "feedback_rollout": 16,
-                   "linearize_parts": 8, "feedback_chunked": 12,
+                   "linearize_parts": 8, "feedback_chunked": 16,
                    "rollout_multi": 8, "ee_gn": 2, "ee_err": 2,
-                   "riccati": 2, "riccati_fused": 2, "rnea": 12,
-                   "fd_step_minv": 24, "ee_gn_rpy": 2, "ee_err_rpy": 2,
+                   "riccati": 2, "riccati_fused": 2, "rnea": 16,
+                   "fd_step_minv": 32, "ee_gn_rpy": 2, "ee_err_rpy": 2,
                    "ee_gn_quat": 2, "ee_err_quat": 2,
-                   "feedback_rollout_fext": 12, "feedback_chunked_fext": 12}
+                   "feedback_rollout_fext": 16, "feedback_chunked_fext": 16}
 # the kernels whose rows add graph_ms, the device's time by graph replay
 GRAPH_KERNELS = ("fd_step", "feedback_rollout", "linearize_parts",
                  "feedback_chunked", "rollout_multi", "ee_gn", "ee_err",
@@ -332,6 +356,15 @@ TARGET_Q, EE_Q, ITERS_Q, BQ_PARITY = ((0.35, 0.25, 1.1),
 # native-vs-AD checks at B_SO_CHECK states (the humanoid at 1).
 BI, HI, ITERS_I, BI_PARITY, HI_PARITY = 64, 32, 10, 4, 8
 B_SO, R_SO, B_SO_H, R_SO_H, B_SO_AD, B_SO_CHECK = 2048, 8, 256, 4, 4, 4
+# paths J and K, the quaternion humanoid at fleet batch and under a push:
+# path J is path D's DDP stage (BD problems, HH knots, ITERS_H iterations,
+# ALPHAS_H line-search steps) from path G's start with path G's cost on the
+# line search's three tiers (fused_feedback True: K9 at fq32, None: K2,
+# False: the plain pass); path K is path G's hybrid and path J's K9 tier
+# under path F's trunk push.  Their float64 tier parity runs at the
+# smallest batch whose line search the port's rule sends to K9 with
+# NCHUNKS_D chunks (``quat_parity_batch``), the hybrid's at BQ_PARITY.
+J_TIERS = (True, None, False)
 
 
 def require(ok: bool, msg: str):
@@ -548,8 +581,8 @@ def minv_rnea_checks(model64, fd, tag: str, qdd, wrenches) -> list:
     (B, nb, 6)), the first on the factorised route, the second on the
     dense one."""
     x, u = fd
-    B, n = x.shape[0], model64.nv
-    q, qd = x[:, :n].contiguous(), x[:, n:].contiguous()
+    B, nq = x.shape[0], model64.nq
+    q, qd = x[:, :nq].contiguous(), x[:, nq:].contiguous()
     F1, FB = wrenches
     sp = " " if tag else ""
     return [
@@ -1724,7 +1757,7 @@ def timed_runs(fn, reps: int = 3, warm: bool = True):
 
 def hybrid_path(m32, smi: str, problems=None, cost_fn=None,
                 tag: str = "path C",
-                label: str = "configs[4] humanoid30 rpy hybrid"):
+                label: str = "configs[4] humanoid30 rpy hybrid", f_ext=None):
     """Phase 16, path C: BASELINE.json configs[4] as bench.py:539-590 runs
     it, through ``hybrid_solve`` (``problems`` and ``cost_fn`` in place of
     ``humanoid_problems`` and ``humanoid_cost`` when given: path G, the
@@ -1732,10 +1765,12 @@ def hybrid_path(m32, smi: str, problems=None, cost_fn=None,
     its lines): BH humanoid problems, HH knots, float32,
     MPPI_ITERS_H MPPI iterations of SAMPLES_H samples then ITERS_H DDP
     iterations of ALPHAS_H line-search steps, every kernel on, noise from a
-    seeded generator on the card.  One warm-up solve, then three timed ones
+    seeded generator on the card, under the wrenches ``f_ext`` in every
+    rollout when given (path K).  One warm-up solve, then three timed ones
     with the counts set to 0 just before: K1 in the sampling, K2, K3 and
     the small-batch sweep once a DDP iteration, K9 and the plain sweep
-    never; then the MPPI and DDP stages timed apart.  Both J histories must
+    never (under ``f_ext`` K1 only with wrenches, and K2's wrench kernel in
+    place of K2); then the MPPI and DDP stages timed apart.  Both J histories must
     be finite and fall (MPPI's within 1e-6 relative: its guard compares
     costs of separately batched rollouts), the final J below the initial.
     Returns the counts of the three solves, by kernel and by (kernel, size
@@ -1754,35 +1789,46 @@ def hybrid_path(m32, smi: str, problems=None, cost_fn=None,
                       gravity=GRAVITY, fused=True)
     dcfg = DDPConfig(iters=ITERS_H, dt=DT, gravity=GRAVITY,
                      n_alphas=ALPHAS_H, fused=True)
-    J0 = trajectory_cost(cost, rollout(m32, x0, U0, DT, GRAVITY, fused=True),
-                         U0)
+    J0 = trajectory_cost(cost, rollout(m32, x0, U0, DT, GRAVITY, fused=True,
+                                       f_ext=f_ext), U0)
     gen = torch.Generator(device=m32.device)
 
     def solve():
         gen.manual_seed(SEED)
         return hybrid_solve(m32, cost, x0, U0, gen, mcfg, dcfg,
-                            mppi_iters=MPPI_ITERS_H)
+                            mppi_iters=MPPI_ITERS_H, f_ext=f_ext)
 
     def sample():
         gen.manual_seed(SEED)
-        return mppi_solve(m32, cost, x0, U0, gen, MPPI_ITERS_H, mcfg)
+        return mppi_solve(m32, cost, x0, U0, gen, MPPI_ITERS_H, mcfg,
+                          f_ext=f_ext)
 
     solve()
     torch.cuda.synchronize()
     _lib.reset_launches()
-    (state, (mh, dh)), times = timed_runs(solve, warm=False)
+    with WrenchSpy() as spy:
+        (state, (mh, dh)), times = timed_runs(solve, warm=False)
     torch.cuda.synchronize()
     counts, by_class = dict(_lib.launches), dict(_lib.class_launches)
-    print(f"{tag} launches (3 solves): {counts}")
+    print(f"{tag} launches (3 solves): {counts}; K1 calls with wrenches "
+          f"{spy.calls['with']}, without {spy.calls['without']}")
     (U_warm, _), t_mppi = timed_runs(sample)
-    _, t_ddp = timed_runs(lambda: ddp_solve(m32, cost, x0, U_warm, dcfg))
+    _, t_ddp = timed_runs(lambda: ddp_solve(m32, cost, x0, U_warm, dcfg,
+                                            f_ext=f_ext))
     n = 3 * ITERS_H
-    for k, v in {"feedback_rollout": n, "linearize_parts": n,
+    k2, k2_other = (("feedback_rollout_fext", "feedback_rollout")
+                    if f_ext is not None else
+                    ("feedback_rollout", "feedback_rollout_fext"))
+    for k, v in {k2: n, k2_other: 0, "linearize_parts": n,
                  "riccati_small": n, "feedback_chunked": 0,
-                 "riccati_chunk": 0}.items():
+                 "feedback_chunked_fext": 0, "riccati_chunk": 0}.items():
         require(counts[k] == v, f"{tag}: {k} launched {counts[k]} times in "
                 f"3 solves, expected {v}")
     require(counts["fd_step"] > 0, f"{tag}: no fd_step launch")
+    wrenched = spy.calls["with"] if f_ext is not None else spy.calls[
+        "without"]
+    require(wrenched > 0 and spy.calls["with"] + spy.calls["without"]
+            == wrenched, f"{tag}: K1 calls {spy.calls}")
     for name, h in (("MPPI", mh), ("DDP", dh)):
         require(tuple(h.shape) == (MPPI_ITERS_H if name == "MPPI"
                                    else ITERS_H, BH), f"{tag} {name} J "
@@ -2372,10 +2418,8 @@ def quat_kernel_inputs(m64, rng):
     line search's (ee_err).  K2's gains pull each trajectory, started 0.02
     N(0,1) away in the tangent, back to its nominals 0.01 N(0,1) from x0:
     u = U + K (x (-) X_t) with K = -M(q0) [400 I, 40 I] perturbed by 10%
-    per knot (``floating_kernel_inputs``'s, on the tangent difference)."""
+    per knot (``quat_feedback_inputs``)."""
     import torch
-    from rbdtpu_torch.dynamics import minv
-    from rbdtpu_torch.solver import state_diff, state_retract
 
     n, nq = m64.nv, m64.nq
     T = lambda a: torch.tensor(a, dtype=torch.float64, device=m64.device)
@@ -2387,16 +2431,7 @@ def quat_kernel_inputs(m64, rng):
                 (U0[:, 0] + T(rng.standard_normal((B, n)))).contiguous())
 
     q, qd, u = states(BH * SAMPLES_H)
-    B = BH * ALPHAS_H
-    x0, U0 = quat_problems(m64, B, HH, rng)
-    Xn = state_retract(m64, x0[:, None].expand(B, HH, m64.nx),
-                       T(0.01 * rng.standard_normal((B, HH, 2 * n))))
-    pd = np.concatenate([400.0 * np.eye(n), 40.0 * np.eye(n)], 1)
-    gains = T(pd * (1 + 0.1 * rng.standard_normal((B, HH, n, 2 * n))))
-    Kf = -(torch.linalg.inv(minv(m64, x0[:, :nq]))[:, None] @ gains)
-    kf = -(Kf @ state_diff(m64, x0[:, None], Xn)[..., None])[..., 0]
-    x_start = state_retract(m64, x0, T(0.02 * rng.standard_normal((B, 2 * n))))
-    fb = (x_start, Xn.contiguous(), U0, kf.contiguous(), Kf.contiguous())
+    fb = quat_feedback_inputs(m64, rng, BH * ALPHAS_H, HH)
 
     def configs(Bq):
         from rbdtpu_torch.solver import config_retract
@@ -2409,6 +2444,30 @@ def quat_kernel_inputs(m64, rng):
             "linearize_parts": states(BH * HH),
             "ee_gn": (configs(BH * HH), configs(BH)),
             "ee_err": (configs(ALPHAS_H * BH * HH), configs(ALPHAS_H * BH))}
+
+
+def quat_feedback_inputs(m64, rng, B: int, H: int):
+    """Float64 CUDA inputs of the line-search kernels (K2, K9 and their
+    wrench twins) on the quaternion root: B trajectories over H knots
+    started 0.02 N(0,1) away in the tangent from ``quat_problems``' x0,
+    nominals 0.01 N(0,1) from it, u = U + K (x (-) X_t) with K = -M(q0)
+    [400 I, 40 I] perturbed by 10% per knot and k cancelling K (x0 (-)
+    X_t)."""
+    import torch
+    from rbdtpu_torch.dynamics import minv
+    from rbdtpu_torch.solver import state_diff, state_retract
+
+    n, nq = m64.nv, m64.nq
+    T = lambda a: torch.tensor(a, dtype=torch.float64, device=m64.device)
+    x0, U0 = quat_problems(m64, B, H, rng)
+    Xn = state_retract(m64, x0[:, None].expand(B, H, m64.nx),
+                       T(0.01 * rng.standard_normal((B, H, 2 * n))))
+    pd = np.concatenate([400.0 * np.eye(n), 40.0 * np.eye(n)], 1)
+    gains = T(pd * (1 + 0.1 * rng.standard_normal((B, H, n, 2 * n))))
+    Kf = -(torch.linalg.inv(minv(m64, x0[:, :nq]))[:, None] @ gains)
+    kf = -(Kf @ state_diff(m64, x0[:, None], Xn)[..., None])[..., 0]
+    x_start = state_retract(m64, x0, T(0.02 * rng.standard_normal((B, 2 * n))))
+    return (x_start, Xn.contiguous(), U0, kf.contiguous(), Kf.contiguous())
 
 
 def quat_kernels(h64, h32, smi: str, rows: dict, ptxas: list):
@@ -2597,6 +2656,376 @@ def quat_phase(smi: str, rows: dict, ptxas: list):
         require(rows[f"{k}_fq32"]["launches"] > 0,
                 f"{k} was not launched at fq32 on path G or H")
     quat_parity(h64, smi)
+
+
+def quat_ext_kernels(h64, h32, smi: str, rows: dict, ptxas: list) -> dict:
+    """Phase 22's kernel checks, the kernels the quaternion root's class
+    "fq32" adds to K1-K4, against their plain versions at the paths'
+    shapes (float64 <= TOL64, float32 at TOL32), each row's first check
+    timed by one call and by graph replay beside its bound: K9 at path J's
+    BD x ALPHAS_H trajectories over HH knots at every count of
+    NCHUNKS_CHECKS and at TEAM_BATCHES trajectories; K2 with wrenches at
+    path G's BH x ALPHAS_H trajectories and K9 with wrenches (NCHUNKS_D
+    chunks) at path J's, under ``push_wrenches`` over 0.5 N(0,1); both
+    under all-zero
+    wrenches equal to the wrench-free kernels bit for bit; K10 (bias and
+    with qdd) and K6 (both routes, without wrenches, under one set shared
+    by the batch and one a state) at path G's BH x SAMPLES_H states, each
+    of those timed.  The
+    per-thread stack limit must not move across them.  Returns path J's
+    float64 line-search inputs."""
+    import torch
+    from rbdtpu_torch.kernels import _lib, fused
+
+    new = ("feedback_chunked", "feedback_rollout_fext", "fd_step_minv",
+           "rnea")
+    for line in ptxas:
+        if "DimsQuat" in line and any(f"ptxas {k}" in line for k in new):
+            print(f"phase 22 {line}")
+    rng = np.random.default_rng(SEED + 120)
+    fbj = quat_feedback_inputs(h64, rng, BD * ALPHAS_H, HH)
+    fbg = quat_feedback_inputs(h64, rng, BH * ALPHAS_H, HH)
+    x0, U0 = quat_problems(h64, BH * SAMPLES_H, 1, rng)
+    fd = (torch.cat([x0[:, :h64.nq], torch.tensor(
+        0.5 * rng.standard_normal((BH * SAMPLES_H, h64.nv)),
+        dtype=torch.float64, device=h64.device)], -1).contiguous(),
+        (U0[:, 0] + torch.tensor(rng.standard_normal(U0[:, 0].shape),
+                                 dtype=torch.float64,
+                                 device=h64.device)).contiguous())
+    traj = BD * ALPHAS_H * HH
+    checks = [(f"feedback_chunked quat nchunks={c}", "feedback_chunked",
+               fbj, {"nchunks": c}, "feedback_chunked", traj)
+              for c in NCHUNKS_CHECKS]
+    cut = lambda t, B: t[:B].contiguous()
+    checks += [(f"feedback_chunked quat B={B}", "feedback_chunked",
+                tuple(cut(t, B) for t in fbj), {"nchunks": NCHUNKS_D},
+                "feedback_chunked", B * HH) for B in TEAM_BATCHES]
+    FG = push_wrenches(h64, HH, 0.5, SEED + 121)
+    checks.append(("feedback_rollout f_ext quat", "feedback_rollout_fext",
+                   fbg, {"f_ext": FG}, "feedback_rollout+fext",
+                   BH * ALPHAS_H * HH))
+    checks.append((f"feedback_chunked f_ext quat nchunks={NCHUNKS_D}",
+                   "feedback_chunked_fext", fbj,
+                   {"f_ext": FG, "nchunks": NCHUNKS_D},
+                   "feedback_chunked+fext", traj))
+    limit = _lib.stack_limit(h64.device)
+    check_kernels(checks, h64, h32, smi, rows, row_tag="_fq32",
+                  time_all=False)
+    check_kernels(minv_rnea_checks(h64, fd, "quat", *step_extras(
+        h64, BH * SAMPLES_H, SEED + 122)), h64, h32, smi, rows,
+        row_tag="_fq32")
+    for m in (h64, h32):
+        pairs = []
+        for args in (fbg, fbj):
+            a = tuple(t.to(m.dtype) for t in args)
+            Z = torch.zeros(HH, m.nb, 6, dtype=m.dtype, device=m.device)
+            pairs += [(fused.feedback_rollout_fused(m, *a, DT, GRAVITY,
+                                                    f_ext=Z),
+                       fused.feedback_rollout_fused(m, *a, DT, GRAVITY)),
+                      (fused.feedback_rollout_fused_chunked(
+                          m, *a, DT, GRAVITY, nchunks=NCHUNKS_D, f_ext=Z),
+                       fused.feedback_rollout_fused_chunked(
+                           m, *a, DT, GRAVITY, nchunks=NCHUNKS_D))]
+        same = all(torch.equal(a, b) for w, z in pairs
+                   for a, b in zip(w, z))
+        print(f"kernel feedback_rollout/feedback_chunked f_ext=0 quat "
+              f"{str(m.dtype)[6:]}: equal to the wrench-free kernels bit "
+              f"for bit: {same}")
+        require(same, "K2/K9 with zero wrenches at fq32 differ from the "
+                "wrench-free kernels")
+    grown = _lib.stack_limit(h64.device)
+    print(f"stack limit {limit} B a thread before K9, K2/K9 with wrenches, "
+          f"K6 and K10 at fq32, {grown} B after them ({smi})")
+    require(grown == limit, f"a kernel at fq32 raised the stack limit from "
+            f"{limit} to {grown} B a thread")
+    for kernel, B in (("feedback_chunked", BD * ALPHAS_H),
+                      ("feedback_chunked_fext", BD * ALPHAS_H),
+                      ("feedback_rollout_fext", BH * ALPHAS_H),
+                      ("fd_step_minv", BH * SAMPLES_H),
+                      ("rnea", BH * SAMPLES_H)):
+        for m in (h32, h64):
+            for dense in ((False, True) if kernel == "fd_step_minv"
+                          else (False,)):
+                team, tpb, smem, blocks = _lib.team_geometry(
+                    kernel, "fq32", m.dtype, B, _lib.sm_count(m.device),
+                    dense)
+                print(f"team quaternion humanoid {kernel}"
+                      f"{' dense' if dense else ''} fq32 "
+                      f"{_lib._SUFFIX[m.dtype]}: B={B} team {team} lanes, "
+                      f"{tpb} teams a block, {smem} B of shared memory a "
+                      f"block, {blocks} blocks")
+    return fbj
+
+
+def quat_solve(m, x0, U0, fused_feedback, f_ext=None):
+    """Path J's ``ddp_solve``: path D's solver (ITERS_H iterations,
+    ALPHAS_H line-search steps, every kernel on, the line search's tier
+    from ``fused_feedback``) on path G's tracking cost, under ``f_ext``
+    when given."""
+    from rbdtpu_torch.solver import DDPConfig, ddp_solve
+
+    return ddp_solve(m, quat_cost(m), x0, U0, DDPConfig(
+        iters=ITERS_H, dt=DT, gravity=GRAVITY, n_alphas=ALPHAS_H, fused=True,
+        fused_feedback=fused_feedback), f_ext=f_ext)
+
+
+def quat_parity_batch(m) -> int:
+    """The smallest problem count whose ALPHAS_H-step line search the
+    port's rule (``solver.ddp._feedback_route``: ``feedback_fused_ok``
+    refuses K2, ``feedback_chunks`` gives the count) sends to K9 with
+    NCHUNKS_D chunks on model ``m``."""
+    from rbdtpu_torch.solver import DDPConfig, ddp
+
+    cfg = DDPConfig(fused=True, fused_feedback=True, n_alphas=ALPHAS_H)
+    for B in range(1, BD + 1):
+        if ddp._feedback_route(m, cfg, B * ALPHAS_H) == ("chunked",
+                                                         NCHUNKS_D):
+            return B
+    raise SystemExit(f"chip_smoke FAILED: no batch up to {BD} takes K9 "
+                     f"with {NCHUNKS_D} chunks")
+
+
+def quat_ddp_path(m32, smi: str, f_ext=None, tag: str = "path J",
+                  tiers=J_TIERS) -> dict:
+    """Path J (and, under ``f_ext``, path K's DDP run): ``quat_solve`` of
+    BD quaternion humanoids (``quat_problems``) over HH knots, float32, on
+    each line-search tier of ``tiers``.  Per tier one warm-up, then three
+    timed solves with the counts set to 0 just before: the tier True
+    launches K9 (its wrench kernel under ``f_ext``) once an iteration at
+    fq32, None K2 and False the plain pass, none of them anything else of
+    the three (no wrench-free line-search kernel under ``f_ext``; K1 with
+    wrenches only); K3 and the chunked sweep once an iteration; J finite,
+    nonincreasing and falling.  Without ``f_ext`` the K9 tier's profile.
+    Returns the K9 tier's launches by (kernel, size class)."""
+    import torch
+    from rbdtpu_torch.kernels import _lib
+    from rbdtpu_torch.solver import DDPConfig, ddp, rollout, trajectory_cost
+
+    cfg = DDPConfig(fused=True, fused_feedback=True, n_alphas=ALPHAS_H)
+    route = ddp._feedback_route(m32, cfg, BD * ALPHAS_H)
+    require(route == ("chunked", NCHUNKS_D), f"{tag}: {BD} problems take the "
+            f"line-search tier {route}")
+    x0, U0 = quat_problems(m32, BD, HH, np.random.default_rng(SEED + 130))
+    J0 = trajectory_cost(quat_cost(m32), rollout(
+        m32, x0, U0, DT, GRAVITY, fused=True, f_ext=f_ext), U0)
+    sfx = "_fext" if f_ext is not None else ""
+    k9, k2 = "feedback_chunked" + sfx, "feedback_rollout" + sfx
+    others = [k for k in _lib.FEEDBACK_KERNELS if k not in (k9, k2)]
+    plain_passes = []
+    plain = ddp.forward_pass
+    ddp.forward_pass = lambda *a, **kw: plain_passes.append(1) or plain(
+        *a, **kw)
+    results = {}
+    try:
+        for fb in tiers:
+            quat_solve(m32, x0, U0, fb, f_ext)
+            torch.cuda.synchronize()
+            plain_passes.clear()
+            _lib.reset_launches()
+            with WrenchSpy() as spy:
+                (state, J_hist), times = timed_runs(
+                    lambda: quat_solve(m32, x0, U0, fb, f_ext), warm=False)
+            torch.cuda.synchronize()
+            results[fb] = (J_hist, times, dict(_lib.launches),
+                           dict(_lib.class_launches), len(plain_passes),
+                           dict(spy.calls))
+    finally:
+        ddp.forward_pass = plain
+    n = 3 * ITERS_H
+    expect = {True: (n, 0, 0), None: (0, n, 0), False: (0, 0, n)}
+    for fb, (J_hist, times, counts, by_class, passes, calls) in \
+            results.items():
+        sec = statistics.median(times)
+        print(f"{tag} fused_feedback={fb}: humanoid30 quaternion-root "
+              f"tracking{' under a push' if f_ext is not None else ''}, "
+              f"Bm={BD} H={HH} iters={ITERS_H} alphas={ALPHAS_H} f32: mean J "
+              f"{J0.mean().item():.6g} -> {J_hist[-1].mean().item():.6g}; "
+              f"solve {sec * 1e3:.1f} ms (median of 3: "
+              f"{' '.join(f'{t * 1e3:.1f}' for t in times)}, CUDA events) = "
+              f"{BD / sec:.1f} solves/s; launches (3 solves) {counts}; by "
+              f"size class {by_class}; plain line-search passes {passes}; K1 "
+              f"calls with wrenches {calls['with']}, without "
+              f"{calls['without']} on {smi}")
+        got = (by_class.get((k9, "fq32"), 0), by_class.get((k2, "fq32"), 0),
+               passes)
+        require(got == expect[fb] and counts[k9] == got[0]
+                and counts[k2] == got[1]
+                and not any(counts[k] for k in others),
+                f"{tag} fused_feedback={fb}: {k9}, {k2} at fq32 and plain "
+                f"passes {got}, expected {expect[fb]}; launches {counts}")
+        require(counts["riccati_chunk"] == n and counts["linearize_parts"]
+                == n, f"{tag} fused_feedback={fb}: launches {counts}")
+        wrenched = calls["with"] if f_ext is not None else calls["without"]
+        require(wrenched >= 3 * HH and calls["with"] + calls["without"]
+                == wrenched, f"{tag} fused_feedback={fb}: K1 calls {calls}")
+        require(bool(J_hist.isfinite().all()), f"{tag} {fb}: non-finite J")
+        require(bool((J_hist[1:] <= J_hist[:-1]).all()) and bool(
+            (J_hist[0] <= J0 * (1 + 1e-6)).all()), f"{tag} {fb}: J increased")
+        require(J_hist[-1].mean() < J0.mean(), f"{tag} {fb}: J did not fall")
+    if f_ext is None:
+        profile_main_path(lambda: quat_solve(m32, x0, U0, True),
+                          extra=("forward_pass",))
+    return results[tiers[0]][3]
+
+
+def quat_tier_parity(m64, smi: str, tag: str, newtons=None):
+    """Path J's (or, under a trunk push of ``newtons``, path K's) float64
+    tier parity at ``quat_parity_batch`` problems: the K9 tier (one K9
+    launch an iteration at fq32, its wrench kernel under the push) against
+    the plain line-search pass (every other kernel alike), |dU| < U_PARITY
+    and relative |dJ| < TOL64 over the J history; under the push the plain
+    pass also solves from x0 moved by 1e-13 N(0,1) relative, and |dJ| may
+    reach FLOOR_TIMES times that floor where it passes TOL64 (phase 19's
+    rule)."""
+    import torch
+    from rbdtpu_torch.kernels import _lib
+
+    Bp = quat_parity_batch(m64)
+    rng = np.random.default_rng(SEED + 132)
+    x0, U0 = quat_problems(m64, Bp, HH, rng)
+    F = None if newtons is None else push_wrenches(m64, HH, newtons=newtons)
+    k9 = "feedback_chunked" + ("" if F is None else "_fext")
+    _lib.reset_launches()
+    sk, hk = quat_solve(m64, x0, U0, True, F)
+    torch.cuda.synchronize()
+    launched = _lib.class_launches[(k9, "fq32")]
+    sp, hp = quat_solve(m64, x0, U0, False, F)
+    rel = lambda a, b: ((a - b).abs() / b.abs().clamp(min=1)).max().item()
+    du, dj = (sk.U - sp.U).abs().max().item(), rel(hk, hp)
+    bound, rule = TOL64, f"{TOL64:g}"
+    if F is not None:
+        moved = x0 * (1 + 1e-13 * torch.tensor(
+            rng.standard_normal(x0.shape), dtype=x0.dtype, device=x0.device))
+        sf, hf = quat_solve(m64, moved, U0, False, F)
+        floor = rel(hf, hp)
+        bound = max(TOL64, FLOOR_TIMES * floor)
+        rule = (f"{bound:.3g}: {TOL64:g} or {FLOOR_TIMES:g} x the plain "
+                f"pass's floor {floor:.3e} (max|dU| "
+                f"{(sf.U - sp.U).abs().max().item():.3e} from x0 x (1 + "
+                f"1e-13 N(0,1)))")
+    print(f"{tag} tier parity f64 Bm={Bp} H={HH} iters={ITERS_H}"
+          f"{'' if F is None else f' under {newtons:g} N'}: K9 tier "
+          f"({launched} {k9} launches at fq32) vs the plain line-search pass "
+          f"max|dU| {du:.3e} (bound {U_PARITY:g}), max rel |dJ| over the J "
+          f"history {dj:.3e} (bound {rule}) ({smi})")
+    require(launched == ITERS_H and du < U_PARITY and dj < bound,
+            f"{tag}: the K9 tier departs from the plain pass")
+
+
+def quat_push_parity(m64, smi: str):
+    """Path K's hybrid in float64 at BQ_PARITY problems over HH knots
+    (path G's start, cost and MPPI normals), through the kernels and
+    through the plain route under a trunk push: at PUSH_HYBRID_N relative
+    |dJ| < TOL64 over both J histories, at PUSH_N beside the plain route's
+    own parting when x0 moves by 1e-13 N(0,1) relative (|dJ| under the
+    larger of TOL64 and FLOOR_TIMES times it); |dU| < U_PARITY at both.
+    The kernel route launches K2 with wrenches once a DDP iteration and
+    K2 never."""
+    import torch
+    from rbdtpu_torch.kernels import _lib
+    from rbdtpu_torch.solver import DDPConfig, MPPIConfig, hybrid_solve
+
+    rng = np.random.default_rng(SEED + 133)
+    gen = torch.Generator(device=m64.device).manual_seed(SEED + 134)
+    noise = torch.randn((MPPI_ITERS_H, BQ_PARITY, SAMPLES_H, HH, m64.nv),
+                        generator=gen, dtype=m64.dtype, device=m64.device)
+    x0, U0 = quat_problems(m64, BQ_PARITY, HH, rng)
+    moved = x0 * (1 + 1e-13 * torch.tensor(
+        rng.standard_normal(x0.shape), dtype=x0.dtype, device=x0.device))
+
+    def path_k(kernels, x, F):
+        state, (mh, dh) = hybrid_solve(
+            m64, quat_cost(m64), x, U0, None,
+            MPPIConfig(n_samples=SAMPLES_H, sigma=SIGMA_H, dt=DT,
+                       gravity=GRAVITY, fused=kernels),
+            DDPConfig(iters=ITERS_H, dt=DT, gravity=GRAVITY,
+                      n_alphas=ALPHAS_H, fused=kernels),
+            mppi_iters=MPPI_ITERS_H, f_ext=F, noise=noise)
+        return state.U, torch.cat([mh, dh])
+
+    rel = lambda a, b: ((a - b).abs() / b.abs()).max().item()
+    for newtons in (PUSH_HYBRID_N, PUSH_N):
+        F = push_wrenches(m64, HH, newtons=newtons)
+        _lib.reset_launches()
+        Uk, Jk = path_k(True, x0, F)
+        torch.cuda.synchronize()
+        counts, by_class = dict(_lib.launches), dict(_lib.class_launches)
+        Up, Jp = path_k(False, x0, F)
+        du, dj = (Uk - Up).abs().max().item(), rel(Jk, Jp)
+        bound, rule = TOL64, f"{TOL64:g}"
+        if newtons == PUSH_N:
+            Uf, Jf = path_k(False, moved, F)
+            floor = rel(Jf, Jp)
+            bound = max(TOL64, FLOOR_TIMES * floor)
+            rule = (f"{bound:.3g}: {TOL64:g} or {FLOOR_TIMES:g} x the plain "
+                    f"route's floor {floor:.3e} (max|dU| "
+                    f"{(Uf - Up).abs().max().item():.3e} from x0 x (1 + "
+                    f"1e-13 N(0,1)))")
+        print(f"path K parity f64 {newtons:g} N: hybrid Bm={BQ_PARITY} "
+              f"H={HH} MPPI {MPPI_ITERS_H} x {SAMPLES_H} samples, DDP "
+              f"{ITERS_H} iters, kernels vs plain route, same noise: max|dU| "
+              f"{du:.3e} (bound {U_PARITY:g}), max rel |dJ| over both J "
+              f"histories {dj:.3e} (bound {rule}); kernel-route launches "
+              f"{counts} ({smi})")
+        require(du < U_PARITY and dj < bound, f"path K {newtons:g} N: the "
+                "kernels' hybrid departs from the plain route's")
+        require(by_class.get(("feedback_rollout_fext", "fq32"), 0) == ITERS_H
+                and counts["feedback_rollout"] == 0, f"path K {newtons:g} "
+                f"N: K2 launches {counts}")
+
+
+def quat_ext_phase(smi: str, rows: dict, ptxas: list):
+    """Phase 22: the kernels "fq32" adds (``quat_ext_kernels``); path J,
+    the quaternion humanoid's DDP at fleet batch on its three line-search
+    tiers (``quat_ddp_path``) with its float64 tier parity
+    (``quat_tier_parity``); path K, path G's hybrid under PUSH_N
+    (``hybrid_path`` with wrenches) and path J's K9 tier under it, with
+    the float64 parity of both (``quat_push_parity``, ``quat_tier_parity``
+    under PUSH_N).  Each new row's launches are read by size class from
+    one path's three solves: K9 from path J's K9 tier, K2 with wrenches
+    from path K's hybrid, K9 with wrenches from path K's K9 tier; K6 and
+    K10 from path J's K9 tier (no path launches them: 0)."""
+    import torch
+    from rbdtpu_torch.model import load_asset
+
+    clock = time.perf_counter()
+
+    def took(step: str):
+        nonlocal clock
+        print(f"phase 22: {step} took {time.perf_counter() - clock:.1f} s")
+        clock = time.perf_counter()
+
+    h64, h32 = (load_asset("humanoid30", device="cuda", dtype=dt,
+                           floating_base=True, root_quat=True)
+                for dt in (torch.float64, torch.float32))
+    quat_ext_kernels(h64, h32, smi, rows, ptxas)
+    took("the kernel checks")
+    j_class = quat_ddp_path(h32, smi)
+    took("path J")
+    quat_tier_parity(h64, smi, "path J")
+    took("path J's float64 parity")
+    F = push_wrenches(h32, HH)
+    _, k_class, _ = hybrid_path(
+        h32, smi, quat_problems, quat_cost, "path K",
+        "configs[4] humanoid30 quaternion-root hybrid under a push", f_ext=F)
+    kj_class = quat_ddp_path(h32, smi, f_ext=F, tag="path K",
+                             tiers=(True,))
+    took("path K")
+    quat_push_parity(h64, smi)
+    quat_tier_parity(h64, smi, "path K", newtons=PUSH_N)
+    took("path K's float64 parity")
+    for row, kname, run in (
+            ("feedback_chunked_fq32", "feedback_chunked", j_class),
+            ("feedback_rollout_fext_fq32", "feedback_rollout_fext", k_class),
+            ("feedback_chunked_fext_fq32", "feedback_chunked_fext",
+             kj_class),
+            ("fd_step_minv_fq32", "fd_step_minv", j_class),
+            ("rnea_fq32", "rnea", j_class)):
+        rows[row]["launches"] = run.get((kname, "fq32"), 0)
+    for row in ("feedback_chunked_fq32", "feedback_rollout_fext_fq32",
+                "feedback_chunked_fext_fq32"):
+        require(rows[row]["launches"] > 0, f"{row} was not launched on path "
+                "J or K")
 
 
 def peak_mb(label: str, fn):
@@ -2934,7 +3363,10 @@ def main() -> int:
 
     mark(5)
     # ---- 5. where the main path's time goes ----
-    profile_main_path(lambda: solve(m32, x0, U0, fused=True, iters=iters))
+    # the default solve's ~60k operators: a trace of the CUDA activity
+    # alone (a CPU trace takes about a minute)
+    profile_main_path(lambda: solve(m32, x0, U0, fused=True, iters=iters),
+                      cpu=False)
 
     mark(6)
     # ---- 6. the rollout path's kernels against their plain versions, after
@@ -3096,7 +3528,13 @@ def main() -> int:
     second_order_phase(smi)
     print(f"chip_smoke: phase 21 took {time.perf_counter() - t21:.1f} s")
 
-    print(f"chip_smoke: phases 1-21 took {time.perf_counter() - clock:.1f} s")
+    mark(22)
+    # ---- 22. paths J and K: K9, K2/K9 with wrenches, K6 and K10 at fq32 --
+    t22 = time.perf_counter()
+    quat_ext_phase(smi, rows, ptxas)
+    print(f"chip_smoke: phase 22 took {time.perf_counter() - t22:.1f} s")
+
+    print(f"chip_smoke: phases 1-22 took {time.perf_counter() - clock:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [
         {k: rows[n_][k] for k in (

@@ -1,10 +1,11 @@
 // fd_step_minv: one forward-dynamics step on the M^-1 + RNEA route.
 // Replaces rbdtpu kernels/fused.py fd_step_minv_fused (Pallas,
 // fused.py:1267; its step is _step_lane's route "minv").  Instantiated for
-// fixed-base trees (N8) and the rpy floating root (FB16, FB32), with and
-// without wrenches, on both routes, each class and dtype at one team size
-// fixed at build time (RBD_TEAM_fd_step_minv_<class>_<f32|f64>, which
-// kernels/_lib.py defines from its TEAM table).
+// fixed-base trees (N8), the rpy floating root (FB16, FB32) and the
+// quaternion root (FQ32), with and without wrenches, on both routes, each
+// class and dtype at one team size fixed at build time
+// (RBD_TEAM_fd_step_minv_<class>_<f32|f64>, which kernels/_lib.py defines
+// from its TEAM table).
 //
 // One team of NL lanes per element, with the element's state, controls and
 // per-body state in the team's shared memory (rbd_team.cuh):
@@ -18,7 +19,11 @@
 //     root's IA0^-1, the explicit M^-1 one column a lane
 //     (team_minv_columns, as K3 builds it: one 6-value slot a tree level a
 //     lane), then qdd = M^-1 rhs one lane a row and Euler.
-// x (B, 2nv) -> xo (B, 2nv); u (B, nv); fext (nb, 6) rows at
+// On the quaternion root q has nq = nv + 1 values, the bias's root
+// transform is floating_quat_xc's and Euler is the manifold step (the
+// root's pose by quat_root_step on lane 0, as K1's; on the dense route
+// after qdd is gathered in the step's qdd slots).
+// x (B, nq + nv) -> xo (B, nq + nv); u (B, nv); fext (nb, 6) rows at
 // fext + b * fext_stride (stride 0: shared by the batch).  Rows are read
 // and written with consecutive lanes on consecutive addresses.
 //
@@ -33,7 +38,8 @@
 namespace rbd {
 
 // K6's shared memory per team, in values of T: the step's scratch with the
-// wrenches' chain (TL, bodies in order), the element's x, u and u - c; with
+// wrenches' chain (TL, bodies in order), the element's x (nq + nv), u and
+// u - c; with
 // DENSE the rpy root's IA0^-1, the M^-1 columns' slots (6 values a tree
 // level a lane) and M^-1 (NV rows of LDM).  STRIDE pads a team so the teams
 // of a warp start on different banks (kernels/_lib.py team_values).
@@ -41,7 +47,7 @@ template <class D, int NL, bool DENSE>
 struct MinvStepLayout {
   using TL = TeamLayout<D, true, false>;
   static constexpr int NV = D::NV, LV = lin_levels<D>(), LDM = NV + 1;
-  static constexpr int XS = TL::VALUES, US = XS + 2 * NV, RHS = US + NV, FBI = RHS + NV,
+  static constexpr int XS = TL::VALUES, US = XS + D::NQ + NV, RHS = US + NV, FBI = RHS + NV,
                        COL = FBI + 36, MS = COL + 6 * LV * NL,
                        VALUES = DENSE ? MS + NV * LDM : FBI,
                        STRIDE = (VALUES + 31) / 32 * 32 + NL % 32;
@@ -56,7 +62,7 @@ RBD_HD void fd_step_minv_team(const Team<NL>& tm, const Model<T, D>& m, T* s, co
                               const T* u, const T* fext, T* xo, T dt, T gravity) {
   using K = MinvStepLayout<D, NL, DENSE>;
   using TL = typename K::TL;
-  const int n = m.nv(), nb = m.nb, lane = tm.lane;
+  const int n = m.nv(), nq = m.nq(), nb = m.nb, lane = tm.lane;
   // the preorder and each body's depth (_lib.model_tables), which the dense
   // route's columns walk
   [[maybe_unused]] const int* pre = m.itab + 3 * nb + 2 + m.itab[3 * nb];
@@ -65,17 +71,23 @@ RBD_HD void fd_step_minv_team(const Team<NL>& tm, const Model<T, D>& m, T* s, co
     bool deep = false;
     for (int i = 0; i < nb; ++i) deep |= dep[i] >= K::LV;
     if (deep) {
-      for (int e = lane; e < 2 * n; e += NL) xo[e] = T(0) / T(0);
+      for (int e = lane; e < nq + n; e += NL) xo[e] = T(0) / T(0);
       return;
     }
   }
   T* xs = s + K::XS;
   T* us = s + K::US;
   T* rhs = s + K::RHS;
-  for (int k = lane; k < n; k += NL) {
-    xs[k] = x[k];
-    xs[n + k] = x[n + k];
-    us[k] = u[k];
+  // (the other classes keep their own loops, which compile as before)
+  if constexpr (D::QUAT) {
+    for (int k = lane; k < nq + n; k += NL) xs[k] = x[k];
+    for (int k = lane; k < n; k += NL) us[k] = u[k];
+  } else {
+    for (int k = lane; k < n; k += NL) {
+      xs[k] = x[k];
+      xs[n + k] = x[n + k];
+      us[k] = u[k];
+    }
   }
   tm.sync();
   team_rnea_bias<NL, FEXT, TL>(tm, m, s, xs, us, gravity, fext, rhs);
@@ -99,14 +111,39 @@ RBD_HD void fd_step_minv_team(const Team<NL>& tm, const Model<T, D>& m, T* s, co
         reinterpret_cast<const T(*)[6]>(s + TL::U), s + TL::INVD, fbi, s + K::COL, Ms);
     tm.sync();
     // qdd = M^-1 (u - c) one lane a row (the upper triangle mirrored), then
-    // semi-implicit Euler of that coordinate
-    for (int r = lane; r < n; r += NL) {
-      T acc = 0;
-      for (int c = 0; c < n; ++c)
-        acc += (r <= c ? Ms[r * K::LDM + c] : Ms[c * K::LDM + r]) * rhs[c];
-      const T qdn = xs[n + r] + dt * acc, qn = xs[r] + dt * qdn;
-      xo[r] = qn;
-      xo[n + r] = qdn;
+    // semi-implicit Euler of that coordinate; on the quaternion root qdd
+    // goes to the step's qdd slots first, and the root's six rows step on
+    // the manifold on lane 0 (team_fd_step's Euler)
+    if constexpr (D::QUAT) {
+      T* qdd = s + TL::QDD;
+      for (int r = lane; r < n; r += NL) {
+        T acc = 0;
+        for (int c = 0; c < n; ++c)
+          acc += (r <= c ? Ms[r * K::LDM + c] : Ms[c * K::LDM + r]) * rhs[c];
+        qdd[r] = acc;
+      }
+      tm.sync();
+      if (lane == 0) {
+        T qdn[6], pose[7];
+        for (int k = 0; k < 6; ++k) qdn[k] = xs[nq + k] + dt * qdd[k];
+        quat_root_step(xs, qdn, dt, pose);
+        for (int k = 0; k < 7; ++k) xo[k] = pose[k];
+        for (int k = 0; k < 6; ++k) xo[nq + k] = qdn[k];
+      }
+      for (int k = 6 + lane; k < n; k += NL) {
+        const T qdn = xs[nq + k] + dt * qdd[k];
+        xo[k + 1] = xs[k + 1] + dt * qdn;
+        xo[nq + k] = qdn;
+      }
+    } else {
+      for (int r = lane; r < n; r += NL) {
+        T acc = 0;
+        for (int c = 0; c < n; ++c)
+          acc += (r <= c ? Ms[r * K::LDM + c] : Ms[c * K::LDM + r]) * rhs[c];
+        const T qdn = xs[n + r] + dt * acc, qn = xs[r] + dt * qdn;
+        xo[r] = qn;
+        xo[n + r] = qdn;
+      }
     }
   }
 }
@@ -127,11 +164,13 @@ __global__ void __launch_bounds__(32)
   const int b = blockIdx.x * tpb + tix;
   if (b >= B) return;
   const int n = m.nv();
+  // x's row: 2 nv values, nq + nv on the quaternion root
+  const size_t o = D::QUAT ? (size_t)b * (m.nq() + n) : (size_t)b * 2 * n;
   T* s = reinterpret_cast<T*>(k6_smem) +
          (size_t)tix * rbd::MinvStepLayout<D, NL, DENSE>::STRIDE;
-  rbd::fd_step_minv_team<NL, DENSE, FEXT>(tm, m, s, x + (size_t)b * 2 * n, u + (size_t)b * n,
+  rbd::fd_step_minv_team<NL, DENSE, FEXT>(tm, m, s, x + o, u + (size_t)b * n,
                                           FEXT ? fext + (size_t)b * fext_stride : nullptr,
-                                          xo + (size_t)b * 2 * n, dt, gravity);
+                                          xo + o, dt, gravity);
 }
 
 template <int NL, typename T, class D>
@@ -171,5 +210,7 @@ RBD_FD_STEP_MINV(fb16, FB16, float, f32)
 RBD_FD_STEP_MINV(fb16, FB16, double, f64)
 RBD_FD_STEP_MINV(fb32, FB32, float, f32)
 RBD_FD_STEP_MINV(fb32, FB32, double, f64)
+RBD_FD_STEP_MINV(fq32, FQ32, float, f32)
+RBD_FD_STEP_MINV(fq32, FQ32, double, f64)
 }
 #endif

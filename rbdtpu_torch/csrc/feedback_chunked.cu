@@ -7,8 +7,9 @@
 // humanoid-size gain block did not fit the TPU's VMEM in one piece.
 //
 // Per knot t (rbdtpu's order of sums, so the float32 results agree to
-// rounding):  dx = x - Xn_t (flat; the rpy root's dx is the flat
-// difference);  u = Un_t + kf_t (alpha folded into kf);  then for each chunk
+// rounding):  dx = x (-) Xn_t, the tangent difference (flat, the rpy root's
+// too; on the quaternion root its six root rows are quat_root_dx's, on lane
+// 0, as K2's);  u = Un_t + kf_t (alpha folded into kf);  then for each chunk
 // c in order, u += (K_t[:, j0..j0+w) dx[j0..j0+w), summed over ascending
 // columns from the first product);  u clamped to [-uclip, uclip] when
 // uclip is given (NaN stays NaN);  ABA and semi-implicit Euler.  The caller
@@ -31,10 +32,15 @@
 // from kernels/_lib.py TEAM); a block is one warp or less, halved until the
 // batch gives every SM a block, and the grid covers any B down to 1.
 // Layouts (row-major): x0 (B, nx), Xn/Xo (B, H, nx), Un/kf/Uo (B, H, n),
-// Kf (B, H, n, nx), n = nv, nx = 2 nv.  Instantiated for N8, FB16 and FB32
-// in both walks.  feedback_chunked_fext takes world-frame wrenches, fext
-// (H, nb, 6), as feedback_rollout_fext does (feedback_team.cuh
-// BlockWrench), under its own C symbols.
+// Kf (B, H, n, ndx), n = nv, ndx = 2 nv (the chunks split these columns)
+// and nx = nq + nv (ndx + 1 on the quaternion root).  Instantiated for N8,
+// FB16, FB32 and FQ32 in both walks.  feedback_chunked_fext takes
+// world-frame wrenches, fext (H, nb, 6), as feedback_rollout_fext does
+// (feedback_team.cuh BlockWrench), under its own C symbols, at the same
+// classes.  rbdtpu pads its lanes with w = 1 quaternions
+// (kernels/fused.py:854-858); here a team past the batch returns before it
+// reads a state (the wrench kernel's runs the block's last trajectory), so
+// quat_root_dx never sees a zero quaternion.
 #include "feedback_team.cuh"
 
 #ifdef __CUDACC__
@@ -51,11 +57,11 @@ __global__ void __launch_bounds__(32)
   const int tix = (int)threadIdx.x / NL;
   const int b = blockIdx.x * tpb + tix;
   if (b >= B) return;
-  const int n = m.nv(), nx = 2 * n;
+  const int n = m.nv(), nx = D::QUAT ? m.nq() + n : 2 * n, ndx = 2 * n;
   const size_t bx = (size_t)b * H * nx, bu = (size_t)b * H * n;
   T* s = reinterpret_cast<T*>(fbc_smem) + (size_t)tix * rbd::feedback_team_stride<D, NL>();
   rbd::feedback_rollout_team<NL, LV>(tm, m, s, x0 + (size_t)b * nx, Xn + bx, Un + bu, kf + bu,
-                                     Kf + bu * nx, uclip, Xo + bx, Uo + bu, H, dt, gravity,
+                                     Kf + bu * ndx, uclip, Xo + bx, Uo + bu, H, dt, gravity,
                                      rbd::ChunkSum{cw});
 }
 
@@ -74,14 +80,14 @@ __global__ void __launch_bounds__(32)
   const rbd::Team<NL> tm = this_team<NL>();
   const int tix = (int)threadIdx.x / NL;
   const int b = blockIdx.x * tpb + tix, bb = b < B ? b : B - 1;
-  const int n = m.nv(), nx = 2 * n;
+  const int n = m.nv(), nx = D::QUAT ? m.nq() + n : 2 * n, ndx = 2 * n;
   const size_t bx = (size_t)bb * H * nx, bu = (size_t)bb * H * n;
   T* stage = reinterpret_cast<T*>(fbw_smem);
   T* s = stage + rbd::feedback_wrench_values<D>() +
          (size_t)tix * rbd::feedback_team_stride<D, NL, true>();
   const rbd::BlockWrench<T, D> w{fext, stage, (int)threadIdx.x, (int)blockDim.x, m.nb, b < B};
   rbd::feedback_rollout_team<NL, LV>(tm, m, s, x0 + (size_t)bb * nx, Xn + bx, Un + bu, kf + bu,
-                                     Kf + bu * nx, uclip, Xo + bx, Uo + bu, H, dt, gravity,
+                                     Kf + bu * ndx, uclip, Xo + bx, Uo + bu, H, dt, gravity,
                                      rbd::ChunkSum{cw}, w);
 }
 
@@ -160,12 +166,16 @@ RBD_FEEDBACK_CHUNKED(fb16, FB16, float, f32)
 RBD_FEEDBACK_CHUNKED(fb16, FB16, double, f64)
 RBD_FEEDBACK_CHUNKED(fb32, FB32, float, f32)
 RBD_FEEDBACK_CHUNKED(fb32, FB32, double, f64)
+RBD_FEEDBACK_CHUNKED(fq32, FQ32, float, f32)
+RBD_FEEDBACK_CHUNKED(fq32, FQ32, double, f64)
 RBD_FEEDBACK_CHUNKED_FEXT(n8, N8, float, f32)
 RBD_FEEDBACK_CHUNKED_FEXT(n8, N8, double, f64)
 RBD_FEEDBACK_CHUNKED_FEXT(fb16, FB16, float, f32)
 RBD_FEEDBACK_CHUNKED_FEXT(fb16, FB16, double, f64)
 RBD_FEEDBACK_CHUNKED_FEXT(fb32, FB32, float, f32)
 RBD_FEEDBACK_CHUNKED_FEXT(fb32, FB32, double, f64)
+RBD_FEEDBACK_CHUNKED_FEXT(fq32, FQ32, float, f32)
+RBD_FEEDBACK_CHUNKED_FEXT(fq32, FQ32, double, f64)
 
 // The current device's per-thread stack limit (cudaLimitStackSize).  The
 // driver raises it to the largest stack frame launched so far and keeps

@@ -35,7 +35,7 @@
 // block keeps one copy of the knot's set in two stages ahead of its teams,
 // filled in the cp.async group of the knot's gains (feedback_team.cuh
 // BlockWrench).  Own C symbols, instantiated beside the wrench-free ones
-// for N8, FB16 and FB32 in both walks.
+// for N8, FB16, FB32 and FQ32 in both walks.
 #include "feedback_team.cuh"
 
 #ifdef __CUDACC__
@@ -160,5 +160,7 @@ RBD_FEEDBACK_ROLLOUT_FEXT(fb16, FB16, float, f32)
 RBD_FEEDBACK_ROLLOUT_FEXT(fb16, FB16, double, f64)
 RBD_FEEDBACK_ROLLOUT_FEXT(fb32, FB32, float, f32)
 RBD_FEEDBACK_ROLLOUT_FEXT(fb32, FB32, double, f64)
+RBD_FEEDBACK_ROLLOUT_FEXT(fq32, FQ32, float, f32)
+RBD_FEEDBACK_ROLLOUT_FEXT(fq32, FQ32, double, f64)
 }
 #endif

@@ -669,7 +669,9 @@ RBD_HD void team_fd_step(const Team<NL>& tm, const Model<T, D>& m, T* s, const T
 }
 
 // RNEA (rbdtpu dynamics/rnea.py; kernels/fused.py rnea_lane) of the state
-// x = [q; qd] (shared) at the joint accelerations qdd (nv values, shared)
+// x = [q; qd] (shared; on the quaternion root q has nv + 1 values and the
+// root's transform is floating_quat_xc's) at the joint accelerations qdd
+// (nv values, shared)
 // with QDD, at zero without, with gravity and, with FEXT, the world-frame
 // wrenches fext (nb, 6), by the team ``tm``: tau = S^T f, the rpy root's
 // six rows f_0 (S = I).  With BIAS it writes out = tau_in - tau (K5's and
@@ -696,7 +698,7 @@ RBD_HD void team_rnea(const Team<NL>& tm, const Model<T, D>& m, T* s, const T* x
                       const T* tau, T gravity, const T* fext, T* out) {
   static_assert(L::NB == D::NB && (L::WRENCH || !FEXT), "the layout holds the RNEA");
   const int nb = m.nb, lane = tm.lane;
-  const T* qd = x + m.nv();
+  const T* qd = x + m.nq();
   const Xc<T>* X = reinterpret_cast<const Xc<T>*>(s + L::X);
   const T* Sp = s + L::SP;
   const int* par = reinterpret_cast<const int*>(s + L::PAR);

@@ -1,17 +1,20 @@
 // rnea: inverse-dynamics joint forces, with or without joint accelerations.
 // Replaces rbdtpu kernels/fused.py rnea_fused (Pallas, fused.py:358).
-// Instantiated for fixed-base trees (N8) and the rpy floating root (FB16,
-// FB32), with and without qdd, each class and dtype at one team size fixed
-// at build time (RBD_TEAM_rnea_<class>_<f32|f64>, which kernels/_lib.py
-// defines from its TEAM table).
+// Instantiated for fixed-base trees (N8), the rpy floating root (FB16,
+// FB32) and the quaternion root (FQ32), with and without qdd, each class
+// and dtype at one team size fixed at build time
+// (RBD_TEAM_rnea_<class>_<f32|f64>, which kernels/_lib.py defines from its
+// TEAM table).
 //
 // One team of NL lanes per state runs rbd_team.cuh's team_rnea with the
 // state's q, qd (and qdd) and the per-body transforms, velocities,
 // accelerations and forces in the team's shared memory: the transforms one
 // lane a body, the root->leaf recursions one lane a component, the body
 // forces one lane a value, the leaf->root sum one lane a component, and tau
-// (B, nv) written one lane a row.  q, qd, qdd, tau are (B, nv) row-major,
-// read and written with consecutive lanes on consecutive addresses.  Without
+// (B, nv) written one lane a row.  q (B, nq), qd, qdd, tau (B, nv) are
+// row-major (nq = nv, or nv + 1 on the quaternion root, whose root
+// transform is floating_quat_xc's), read and written with consecutive lanes
+// on consecutive addresses.  Without
 // qdd the acceleration term is compiled out rather than read as zeros.
 //
 // Bound on the H100: latency and instruction issue, not bytes or operations
@@ -36,12 +39,12 @@ struct RneaLayout {
                        VALUES = PAR + NB;
 };
 
-// Shared-memory values a team of NL lanes takes: the scratch, then q, qd
-// and qdd; padded so the teams of a warp start on different banks
-// (kernels/_lib.py team_values).
+// Shared-memory values a team of NL lanes takes: the scratch, then q (nq
+// values), qd and qdd; padded so the teams of a warp start on different
+// banks (kernels/_lib.py team_values).
 template <class D, int NL>
 RBD_HD constexpr int rnea_team_stride() {
-  return (RneaLayout<D>::VALUES + 3 * D::NV + 31) / 32 * 32 + NL % 32;
+  return (RneaLayout<D>::VALUES + D::NQ + 2 * D::NV + 31) / 32 * 32 + NL % 32;
 }
 
 // One state by the team ``tm`` with shared scratch ``s``
@@ -52,11 +55,22 @@ RBD_HD void rnea_team(const Team<NL>& tm, const Model<T, D>& m, T* s, const T* q
   using L = RneaLayout<D>;
   const int n = m.nv();
   T* xs = s + L::VALUES;
-  T* qdds = xs + 2 * D::NV;
-  for (int k = tm.lane; k < n; k += NL) {
-    xs[k] = q[k];
-    xs[n + k] = qd[k];
-    if constexpr (QDD) qdds[k] = qdd[k];
+  T* qdds = xs + D::NQ + D::NV;
+  // x = [q (nq values); qd]; the other classes keep their own loop, which
+  // compiles as before
+  if constexpr (D::QUAT) {
+    const int nq = m.nq();
+    for (int k = tm.lane; k < nq; k += NL) xs[k] = q[k];
+    for (int k = tm.lane; k < n; k += NL) {
+      xs[nq + k] = qd[k];
+      if constexpr (QDD) qdds[k] = qdd[k];
+    }
+  } else {
+    for (int k = tm.lane; k < n; k += NL) {
+      xs[k] = q[k];
+      xs[n + k] = qd[k];
+      if constexpr (QDD) qdds[k] = qdd[k];
+    }
   }
   tm.sync();
   team_rnea<NL, false, QDD, false, L>(tm, m, s, xs, qdds, static_cast<const T*>(nullptr), gravity,
@@ -75,9 +89,9 @@ __global__ void __launch_bounds__(32)
   const int tix = (int)threadIdx.x / NL;
   const int b = blockIdx.x * tpb + tix;
   if (b >= B) return;
-  const size_t o = (size_t)b * m.nv();
+  const size_t o = (size_t)b * m.nv(), oq = D::QUAT ? (size_t)b * m.nq() : o;
   T* s = reinterpret_cast<T*>(rnea_smem) + (size_t)tix * rbd::rnea_team_stride<D, NL>();
-  rbd::rnea_team<NL, QDD>(tm, m, s, q + o, qd + o, QDD ? qdd + o : nullptr, tau + o, gravity);
+  rbd::rnea_team<NL, QDD>(tm, m, s, q + oq, qd + o, QDD ? qdd + o : nullptr, tau + o, gravity);
 }
 
 template <int NL, typename T, class D>
@@ -109,5 +123,7 @@ RBD_RNEA(fb16, FB16, float, f32)
 RBD_RNEA(fb16, FB16, double, f64)
 RBD_RNEA(fb32, FB32, float, f32)
 RBD_RNEA(fb32, FB32, double, f64)
+RBD_RNEA(fq32, FQ32, float, f32)
+RBD_RNEA(fq32, FQ32, double, f64)
 }
 #endif

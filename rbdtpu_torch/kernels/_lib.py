@@ -41,8 +41,9 @@ STRIDE = 69
 # wrenches are kernels of their own (``feedback_rollout_fext``,
 # ``feedback_chunked_fext``), beside the wrench-free ones.  The quaternion
 # root has classes of its own (QUAT_CLASSES: "fq32", trees of up to 32
-# bodies, the humanoid and the quadruped), whose q has one coordinate more
-# than its tangent (nq = nv + 1); CLASSES holds every class.
+# bodies, the humanoid and the quadruped, every tree kernel but K5), whose
+# q has one coordinate more than its tangent (nq = nv + 1); CLASSES holds
+# every class.
 FEEDBACK_KERNELS = ("feedback_rollout", "feedback_chunked",
                     "feedback_rollout_fext", "feedback_chunked_fext")
 SIZE_CLASSES = {
@@ -60,7 +61,9 @@ SIZE_CLASSES = {
 }
 QUAT_CLASSES = {
     "fq32": (32, True, ("fd_step", "feedback_rollout", "linearize_parts",
-                        "ee_gn", "ee_err")),
+                        "ee_gn", "ee_err", "feedback_chunked",
+                        "feedback_rollout_fext", "feedback_chunked_fext",
+                        "fd_step_minv", "rnea")),
 }
 CLASSES = {**SIZE_CLASSES, **QUAT_CLASSES}
 
@@ -86,9 +89,10 @@ TEAM = {(k, cls, sfx): 32 for k in ("fd_step", "linearize_parts",
 TEAM.update({("rollout_multi", "n8", "f32"): 16,
              ("rollout_multi", "n8", "f64"): 32})
 TEAM[("fd_step", "fb32", "f32")] = 16
-# the quaternion root's, as the humanoid's rpy class (fb32)
+# the quaternion root's K1, K2, K9 and K2/K9 with wrenches, as the
+# humanoid's rpy class (fb32)
 TEAM.update({(k, "fq32", sfx): TEAM[(k, "fb32", sfx)]
-             for k in ("fd_step", "feedback_rollout") for sfx in ("f32", "f64")})
+             for k in ("fd_step", *FEEDBACK_KERNELS) for sfx in ("f32", "f64")})
 # K6's by its factorised route, K5's step (the dense route, off the paths,
 # would take 8 lanes on n8 and 16 on fb32: PERF.md §6)
 TEAM.update({("rnea", "n8", "f32"): 16, ("rnea", "n8", "f64"): 16,
@@ -99,7 +103,10 @@ TEAM.update({("rnea", "n8", "f32"): 16, ("rnea", "n8", "f64"): 16,
              ("fd_step_minv", "fb16", "f32"): 32,
              ("fd_step_minv", "fb16", "f64"): 32,
              ("fd_step_minv", "fb32", "f32"): 8,
-             ("fd_step_minv", "fb32", "f64"): 32})
+             ("fd_step_minv", "fb32", "f64"): 32,
+             ("rnea", "fq32", "f32"): 16, ("rnea", "fq32", "f64"): 32,
+             ("fd_step_minv", "fq32", "f32"): 8,
+             ("fd_step_minv", "fq32", "f64"): 32})
 TEAM.update({("linearize_parts", "n8", "f32"): 8,
              ("linearize_parts", "n8", "f64"): 8,
              ("linearize_parts", "fb16", "f32"): 8,
@@ -135,8 +142,8 @@ def team_values(kernel: str, cls: str, team: int, dense: bool = False) -> int:
     they take as much); rnea's is its
     own (rnea.cu RneaLayout: transform, lower-left block, v, a, I v, f, S
     and the parent, 52 a body; then q, qd and qdd).  On the quaternion root
-    x is one value wider (nq = nv + 1): fd_step's x and the line search's
-    x and nominal.  Rounded up to 32 and offset by ``team`` % 32 as the
+    x is one value wider (nq = nv + 1): fd_step's and fd_step_minv's x,
+    the line search's x and nominal, and rnea's q.  Rounded up to 32 and offset by ``team`` % 32 as the
     sources pad them.  The launch refuses any other count (with
     ``block_values`` ahead of the teams)."""
     nb, fb, kernels = CLASSES[cls]
@@ -145,11 +152,11 @@ def team_values(kernel: str, cls: str, team: int, dense: bool = False) -> int:
     _, nv, nq = class_dims(cls)
     values = 90 * nb + 54 + nv
     if kernel == "rnea":
-        values = 52 * nb + 3 * nv
+        values = 52 * nb + nq + 2 * nv
     elif kernel == "fd_step":
         values += 12 * nb + 12 + 2 * nv + nq
     elif kernel == "fd_step_minv":
-        values += 12 * nb + 12 + 4 * nv
+        values += 12 * nb + 12 + nq + 3 * nv
         if dense:
             values += 36 + 6 * LIN_LEVELS[cls] * team + nv * (nv + 1)
     elif kernel == "rollout_multi":

@@ -5,10 +5,10 @@ whole-horizon rollout (K5); and rbdtpu's budget arithmetic that picks
 between K2 and K9 in the line search.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
-raises.  K1, K2, K6, K9 and K10 take fixed-base models and the rpy floating
-root, K1 and K2 the quaternion root too; K5 fixed-base models only
-(``_lib.size_class``).  K1, K2, K5, K6 and K9 take world-frame wrenches (K2
-not on the quaternion root).
+raises.  K1, K2, K6, K9 and K10 take fixed-base models, the rpy floating
+root and the quaternion root; K5 fixed-base models only
+(``_lib.size_class``).  K1, K2, K5, K6 and K9 take world-frame wrenches
+(K5 on the fixed base only).
 """
 from __future__ import annotations
 
@@ -111,11 +111,14 @@ def rnea_fused(model: RobotModel, q, qd, qdd=None, gravity: float = -9.81):
     ``kernels.fused.rnea_fused`` (Pallas, fused.py:358): one team of lanes
     of a warp per state (csrc/rbd_team.cuh ``team_rnea``) builds the
     transforms one lane a body and runs both RNEA sweeps one lane a
-    component, with the per-body state in shared memory; the rpy root's six
-    rows are its body force.  Without qdd the kernel is instantiated with
-    the acceleration term compiled out.  Bound on the H100: the latency of
-    the sweeps' chain along the tree; the traffic is the inputs once and tau
-    once.  Team size and teams a block are ``_lib.team_geometry``'s.
+    component, with the per-body state in shared memory; a floating root's
+    six rows are its body force.  On the quaternion root q is (B, nv + 1)
+    and the root's transform comes from its quaternion (csrc/rbd_common.cuh
+    floating_quat_xc, a real call on one lane).  Without qdd the kernel is
+    instantiated with the acceleration term compiled out.  Bound on the
+    H100: the latency of the sweeps' chain along the tree; the traffic is
+    the inputs once and tau once.  Team size and teams a block are
+    ``_lib.team_geometry``'s.
     """
     if not q.is_cuda:
         return rnea_plain(model, q, qd, qdd, gravity)
@@ -155,9 +158,12 @@ def fd_step_minv_fused(model: RobotModel, x, u, dt: float,
     wrenches), then qdd = M^-1 (u - c) by the articulated sweeps at zero
     velocity and gravity (K5's minv step), or with ``dense_minv=True``
     builds the explicit analytical M^-1 one column a lane and applies it,
-    then Euler.  Bound on the H100: the latency of the sweeps' chain along
-    the tree.  Team size and teams a block (per route) are
-    ``_lib.team_geometry``'s.
+    then Euler.  On the quaternion root (nx = 2 nv + 1) the bias's root
+    transform comes from the quaternion and Euler retracts the root's pose
+    on the manifold (csrc/rbd_common.cuh quat_root_step on one lane, as
+    ``fd_step_fused``), on both routes.  Bound on the H100: the latency of
+    the sweeps' chain along the tree.  Team size and teams a block (per
+    route) are ``_lib.team_geometry``'s.
     """
     if not x.is_cuda:
         return fd_step_minv_plain(model, x, u, dt, gravity, dense_minv,
@@ -281,8 +287,8 @@ def feedback_rollout_fused(model: RobotModel, x0, X_nom, U_nom, k_ff, K_fb,
     the quaternion root the gains act on the tangent difference, whose six
     root rows lane 0 forms as a real call (csrc/rbd_common.cuh
     quat_root_dx: the quaternion log and R0^T dp, rbdtpu fused.py
-    _dx_rows), and the step is K1's manifold one; its wrench variant is
-    not instantiated there (NotImplementedError).
+    _dx_rows), and the step is K1's manifold one, with or without
+    wrenches.
 
     With ``f_ext`` ((H, nb, 6) world-frame wrenches shared by the batch,
     rbdtpu's contract) the kernel ``feedback_rollout_fext`` runs the same
@@ -379,9 +385,14 @@ def feedback_rollout_fused_chunked(model: RobotModel, x0, X_nom, U_nom, k_ff,
     card the chunk is only the order of the sum.  Bound on the H100: the
     latency of H dependent steps per trajectory, as K2.  Team size, teams a
     block and walk are ``_lib.team_args``'; any B >= 1 and any nchunks >= 1
-    are taken (``chunk_geometry``).  No quaternion root.  With ``f_ext``
-    ((H, nb, 6), shared by the batch) the kernel ``feedback_chunked_fext``
-    takes the wrenches as ``feedback_rollout_fused`` does.
+    are taken (``chunk_geometry``: the chunks split the 2 nv tangent
+    columns).  On the quaternion root the gains act on the tangent
+    difference as K2's do (its root rows by ``quat_root_dx``); a team past
+    the batch returns before it reads a state, so unlike rbdtpu's padded
+    lanes (w = 1 quaternions, fused.py:854-858) none is formed.  With
+    ``f_ext`` ((H, nb, 6), shared by the batch) the kernel
+    ``feedback_chunked_fext`` takes the wrenches as
+    ``feedback_rollout_fused`` does.
     """
     cw, nc = chunk_geometry(model.nv * 2, nchunks)
     if not x0.is_cuda:

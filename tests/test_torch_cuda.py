@@ -343,8 +343,8 @@ def test_wrappers_refuse_bad_input(card):
     with pytest.raises(ValueError):  # integer tensors have no kernel
         fd_step_fused(m, x.int(), u.int(), DT)
     # the rpy root reaches K1-K4 (K4 up to 16 bodies), K6, K9 and K10
-    # (each launches its kernel) but not K5; the quaternion root K1-K4 but
-    # not K6 or K10
+    # (each launches its kernel) but not K5; the quaternion root K1-K4, K6
+    # and K10 (each launches its kernel) but not K5
     fb = load_asset("quadruped12", device=card, dtype=torch.float64,
                     floating_base=True)
     q = torch.zeros(8, fb.nq, dtype=torch.float64, device=card)
@@ -375,11 +375,13 @@ def test_wrappers_refuse_bad_input(card):
     xq = torch.cat([qq, vq], -1)
     qq[:, 3] = 1.0
     xq = torch.cat([qq, vq], -1)
+    for name, launched in (
+            ("rnea", lambda: rnea_fused(quat, qq, vq)),
+            ("fd_step_minv", lambda: fd_step_minv_fused(quat, xq, vq, DT))):
+        assert bool(_launched(name, launched).isfinite().all())
     before = dict(_lib.launches)
-    for refused in (lambda: rnea_fused(quat, qq, vq),
-                    lambda: fd_step_minv_fused(quat, xq, vq, DT)):
-        with pytest.raises(NotImplementedError):
-            refused()
+    with pytest.raises(NotImplementedError):
+        rollout_fused_multi(quat, xq, vq[None], DT)
     assert _lib.launches == before
     got = _launched("linearize_parts",
                     lambda: linearize_parts_fused(quat, qq, vq, vq))
@@ -1113,6 +1115,30 @@ def test_quat_fd_step(card, name, dtype, B):
            fused.fd_step_plain(m, x, u, DT), tol)
 
 
+def _quat_line_search(m64, B, H):
+    """Float64 line-search inputs (x0, Xn, Un, kf, Kf) on the quaternion
+    root, on the card: nominals near the start, stabilising gains -M(q0)
+    [400 I, 40 I] acting on the tangent difference, k cancelling K (x0 (-)
+    X_t), the start 0.02 N(0,1) away in the tangent."""
+    from rbdtpu_torch.dynamics import minv
+    from rbdtpu_torch.solver.integrate import state_diff, state_retract
+
+    x0, _ = _quat_states(m64, B, seed=22)
+    rng = np.random.default_rng(23)
+    n = m64.nv
+    T = lambda *s: torch.tensor(rng.standard_normal(s), device=m64.device)
+    Xn = torch.stack([state_retract(m64, x0, 0.01 * T(B, 2 * n))
+                      for _ in range(H)], 1)
+    Un = T(B, H, n)
+    pd = torch.cat([400.0 * torch.eye(n), 40.0 * torch.eye(n)], 1).to(
+        device=m64.device, dtype=torch.float64)
+    Kf = -(torch.linalg.inv(minv(m64, x0[:, :m64.nq]))[:, None] @ pd).expand(
+        B, H, n, 2 * n).contiguous()
+    kf = -(Kf @ state_diff(m64, x0[:, None], Xn)[..., None])[..., 0]
+    xs = state_retract(m64, x0, 0.02 * T(B, 2 * n))
+    return (xs, Xn.contiguous(), Un, kf.contiguous(), Kf)
+
+
 @pytest.mark.parametrize("B,H", [(1, 1), (37, 1), (37, 8)])
 @pytest.mark.parametrize("clip", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
@@ -1122,24 +1148,8 @@ def test_quat_feedback_rollout(card, name, dtype, clip, B, H):
     difference, whose root rows are the quaternion log; nominals near the
     start, stabilising gains -M(q0) [400 I, 40 I], with and without a clamp
     at 0.8 of the largest unclamped control."""
-    from rbdtpu_torch.dynamics import minv
-    from rbdtpu_torch.solver.integrate import state_diff, state_retract
-
     m64 = _quat(name, torch.float64)
-    x0, _ = _quat_states(m64, B, seed=22)
-    rng = np.random.default_rng(23)
-    n = m64.nv
-    T = lambda *s: torch.tensor(rng.standard_normal(s), device=card)
-    Xn = torch.stack([state_retract(m64, x0, 0.01 * T(B, 2 * n))
-                      for _ in range(H)], 1)
-    Un = T(B, H, n)
-    pd = torch.cat([400.0 * torch.eye(n), 40.0 * torch.eye(n)], 1).to(
-        device=card, dtype=torch.float64)
-    Kf = -(torch.linalg.inv(minv(m64, x0[:, :m64.nq]))[:, None] @ pd).expand(
-        B, H, n, 2 * n).contiguous()
-    kf = -(Kf @ state_diff(m64, x0[:, None], Xn)[..., None])[..., 0]
-    xs = state_retract(m64, x0, 0.02 * T(B, 2 * n))
-    args64 = (xs, Xn.contiguous(), Un, kf.contiguous(), Kf)
+    args64 = _quat_line_search(m64, B, H)
     kw = {}
     if clip:
         applied = fused.feedback_rollout_plain(m64, *args64, DT)[1]
@@ -1196,7 +1206,8 @@ def test_quat_ee_gn(card, name, dtype, gn, B):
 def test_quat_paths_match_plain(card, path):
     """Paths G and H cut to B = 2, H = 8, 2 iterations in float64: the
     kernels (K1-K4 at fq32) against the plain route on the card, |dU|
-    < 1e-6; the quaternion root's K2 with wrenches is refused."""
+    < 1e-6; then the hybrid's DDP stage under a trunk push (K1 and K2 with
+    wrenches at fq32) against the plain route likewise."""
     from rbdtpu_torch.dynamics import rnea
     from rbdtpu_torch.solver import (
         DDPConfig, MPPIConfig, ddp_solve, ee_reaching_cost, hybrid_solve,
@@ -1233,10 +1244,103 @@ def test_quat_paths_match_plain(card, path):
         out[fused_] = st.U
     assert (out[True] - out[False]).abs().max().item() < 1e-6
     if path == "hybrid":
-        fe = torch.zeros(m.nb, 6, dtype=m.dtype, device=card)
-        with pytest.raises(NotImplementedError):
-            ddp_solve(m, cost, x0, U0, DDPConfig(iters=1, fused=True),
-                      f_ext=fe)
+        fe = torch.zeros(8, m.nb, 6, dtype=m.dtype, device=card)
+        fe[2:5, 0, 4] = 40.0
+        out = {}
+        for fused_ in (True, False):
+            before = _lib.launches["feedback_rollout_fext"]
+            st, _ = ddp_solve(m, cost, x0, U0, DDPConfig(
+                iters=2, n_alphas=4, fused=fused_), f_ext=fe)
+            torch.cuda.synchronize()
+            assert _lib.launches["feedback_rollout_fext"] - before == (
+                2 if fused_ else 0)
+            out[fused_] = st.U
+        assert (out[True] - out[False]).abs().max().item() < 1e-6
+
+
+@pytest.mark.parametrize("B", TEAM_BATCHES)
+@pytest.mark.parametrize("nchunks", [1, 2, 3, 100])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+@pytest.mark.parametrize("name", QUAT_MODELS)
+def test_quat_feedback_chunked(card, name, dtype, nchunks, B):
+    """K9 on the quaternion root ("fq32") against its plain version over 8
+    knots: the chunks split the 2 nv tangent columns (100 chunks: one a
+    column), the root's rows of dx are the quaternion log."""
+    m64 = _quat(name, torch.float64)
+    args = tuple(a.to(dtype) for a in _quat_line_search(m64, B, 8))
+    m = _quat(name, dtype)
+    got = _launched("feedback_chunked", lambda: feedback_rollout_fused_chunked(
+        m, *args, DT, nchunks=nchunks))
+    tol = 1e-9 if dtype == torch.float64 else 1e-3
+    for a, b in zip(got, fused.feedback_rollout_chunked_plain(
+            m, *args, DT, nchunks=nchunks)):
+        _close(a, b, tol)
+
+
+@pytest.mark.parametrize("B", TEAM_BATCHES)
+@pytest.mark.parametrize("kernel", ["feedback_rollout_fext",
+                                    "feedback_chunked_fext"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+@pytest.mark.parametrize("name", QUAT_MODELS)
+def test_quat_feedback_fext(card, name, dtype, kernel, B):
+    """K2 and K9 (two chunks) with wrenches on the quaternion root against
+    their plain versions over 8 knots under a per-knot (H, nb, 6) set: 0.5
+    N(0,1) on every body and a 40 N push along +y on the trunk for knots
+    2-4."""
+    m64 = _quat(name, torch.float64)
+    args = tuple(a.to(dtype) for a in _quat_line_search(m64, B, 8))
+    m = _quat(name, dtype)
+    F = torch.tensor(0.5 * np.random.default_rng(24).standard_normal(
+        (8, m.nb, 6)), dtype=dtype, device=card)
+    F[2:5, 0, 4] += 40.0
+    if kernel == "feedback_rollout_fext":
+        kern, plain, kw = (feedback_rollout_fused,
+                           fused.feedback_rollout_plain, {})
+    else:
+        kern, plain, kw = (feedback_rollout_fused_chunked,
+                           fused.feedback_rollout_chunked_plain,
+                           {"nchunks": 2})
+    got = _launched(kernel, lambda: kern(m, *args, DT, f_ext=F, **kw))
+    tol = 1e-9 if dtype == torch.float64 else 1e-3
+    for a, b in zip(got, plain(m, *args, DT, f_ext=F, **kw)):
+        _close(a, b, tol)
+
+
+@pytest.mark.parametrize("B", TEAM_BATCHES)
+@pytest.mark.parametrize("with_qdd", [True, False], ids=["qdd", "bias"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+@pytest.mark.parametrize("name", QUAT_MODELS)
+def test_quat_rnea(card, name, dtype, with_qdd, B):
+    """K10 on the quaternion root (q one value wider) against its plain
+    version, with and without qdd."""
+    m = _quat(name, dtype)
+    x, qdd = _quat_states(m, B, seed=28)
+    q, qd = x[:, :m.nq].contiguous(), x[:, m.nq:].contiguous()
+    a = qdd if with_qdd else None
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    _close(_launched("rnea", lambda: rnea_fused(m, q, qd, a)),
+           fused.rnea_plain(m, q, qd, a), tol)
+
+
+@pytest.mark.parametrize("B", TEAM_BATCHES)
+@pytest.mark.parametrize("wrench", ["free", "shared", "batched"])
+@pytest.mark.parametrize("dense", [False, True], ids=["fact", "dense"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+@pytest.mark.parametrize("name", QUAT_MODELS)
+def test_quat_fd_step_minv(card, name, dtype, dense, wrench, B):
+    """K6 on the quaternion root against its plain version on both routes
+    (the manifold Euler step after M^-1), without wrenches and under 10
+    N(0,1) wrenches, one set shared by the batch or one an element."""
+    m = _quat(name, dtype)
+    x, u = _quat_states(m, B, seed=29)
+    fe = torch.tensor(10.0 * np.random.default_rng(30).standard_normal(
+        ((B,) if wrench == "batched" else ()) + (m.nb, 6)), dtype=dtype,
+        device=card)
+    fe = None if wrench == "free" else fe
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    _close(_launched("fd_step_minv", lambda: fd_step_minv_fused(
+        m, x, u, DT, dense_minv=dense, f_ext=fe)),
+        fused.fd_step_minv_plain(m, x, u, DT, f_ext=fe), tol)
 
 
 SECOND_ORDER_MODELS = {

@@ -482,7 +482,7 @@ static void k9(const double* tab, const int* itab, int nb, const double* x0,
                double g) {
   constexpr int NL = 8;
   const rbd::Model<double, D> m{tab, itab, nb};
-  const int n = m.nv(), nx = 2 * n;
+  const int n = m.nv(), nx = m.nq() + n, ndx = 2 * n;
   std::vector<double> s(rbd::feedback_team_stride<D, NL>());
   for (int b = 0; b < B; ++b) {
     HostBarrier bar;
@@ -495,12 +495,12 @@ static void k9(const double* tab, const int* itab, int nb, const double* x0,
         if (cw > 0)
           rbd::feedback_rollout_team<NL, LV>(rbd::Team<NL>{lane, 0u}, m, s.data(),
                                              x0 + (size_t)b * nx, Xn + bx, Un + bu, kf + bu,
-                                             Kf + bu * nx, uclip, Xo + bx, Uo + bu, H, dt, g,
+                                             Kf + bu * ndx, uclip, Xo + bx, Uo + bu, H, dt, g,
                                              rbd::ChunkSum{cw});
         else
           rbd::feedback_rollout_team<NL, LV>(rbd::Team<NL>{lane, 0u}, m, s.data(),
                                              x0 + (size_t)b * nx, Xn + bx, Un + bu, kf + bu,
-                                             Kf + bu * nx, uclip, Xo + bx, Uo + bu, H, dt, g);
+                                             Kf + bu * ndx, uclip, Xo + bx, Uo + bu, H, dt, g);
       });
     for (auto& t : th) t.join();
   }
@@ -517,6 +517,7 @@ static void k9(const double* tab, const int* itab, int nb, const double* x0,
   }
 HOST_K9(n8, N8)
 HOST_K9(fb16, FB16)
+HOST_K9(fq32, FQ32)
 
 // K2 (cw = 0: one run over a row) and K9 with the wrenches of a block of
 // one team: the block's two wrench stages, its threads the team's lanes
@@ -527,7 +528,7 @@ static void k9_fext(const double* tab, const int* itab, int nb, const double* x0
                     int H, int cw, double dt, double g) {
   constexpr int NL = 8;
   const rbd::Model<double, D> m{tab, itab, nb};
-  const int n = m.nv(), nx = 2 * n;
+  const int n = m.nv(), nx = m.nq() + n, ndx = 2 * n;
   std::vector<double> s(rbd::feedback_team_stride<D, NL, true>()),
       stage(rbd::feedback_wrench_values<D>());
   for (int b = 0; b < B; ++b) {
@@ -536,11 +537,11 @@ static void k9_fext(const double* tab, const int* itab, int nb, const double* x0
       const rbd::BlockWrench<double, D> w{fext, stage.data(), tm.lane, NL, nb, true};
       if (cw > 0)
         rbd::feedback_rollout_team<NL, LV>(tm, m, s.data(), x0 + (size_t)b * nx, Xn + bx,
-                                           Un + bu, kf + bu, Kf + bu * nx, uclip, Xo + bx,
+                                           Un + bu, kf + bu, Kf + bu * ndx, uclip, Xo + bx,
                                            Uo + bu, H, dt, g, rbd::ChunkSum{cw}, w);
       else
         rbd::feedback_rollout_team<NL, LV>(tm, m, s.data(), x0 + (size_t)b * nx, Xn + bx,
-                                           Un + bu, kf + bu, Kf + bu * nx, uclip, Xo + bx,
+                                           Un + bu, kf + bu, Kf + bu * ndx, uclip, Xo + bx,
                                            Uo + bu, H, dt, g, rbd::RowSum{}, w);
     });
   }
@@ -557,6 +558,7 @@ static void k9_fext(const double* tab, const int* itab, int nb, const double* x0
   }
 HOST_K9_FEXT(n8, N8)
 HOST_K9_FEXT(fb16, FB16)
+HOST_K9_FEXT(fq32, FQ32)
 
 extern "C" void host_k11(const double* A, const double* Bm, const double* lx,
                          const double* lu, const double* lxx, int lxx_sb, int lxx_st,
@@ -600,11 +602,11 @@ template <class D, bool QDD>
 static void k10(const rbd::Model<double, D>& m, const double* q, const double* qd,
                 const double* qdd, double* tau, int B, double g) {
   constexpr int NL = 8;
-  const int n = m.nv();
+  const int n = m.nv(), nq = m.nq();
   std::vector<double> s(rbd::rnea_team_stride<D, NL>());
   for (int b = 0; b < B; ++b)
     run_team<NL>([&](const rbd::Team<NL>& tm) {
-      rbd::rnea_team<NL, QDD>(tm, m, s.data(), q + (size_t)b * n, qd + (size_t)b * n,
+      rbd::rnea_team<NL, QDD>(tm, m, s.data(), q + (size_t)b * nq, qd + (size_t)b * n,
                               QDD ? qdd + (size_t)b * n : nullptr, tau + (size_t)b * n, g);
     });
 }
@@ -613,14 +615,14 @@ template <class D, bool DENSE, bool FEXT>
 static void k6(const rbd::Model<double, D>& m, const double* x, const double* u,
                const double* fext, int fext_stride, double* xo, int B, double dt, double g) {
   constexpr int NL = 8;
-  const int n = m.nv();
+  const int n = m.nv(), nx = m.nq() + n;
   std::vector<double> s(rbd::MinvStepLayout<D, NL, DENSE>::STRIDE);
   for (int b = 0; b < B; ++b)
     run_team<NL>([&](const rbd::Team<NL>& tm) {
-      rbd::fd_step_minv_team<NL, DENSE, FEXT>(tm, m, s.data(), x + (size_t)b * 2 * n,
+      rbd::fd_step_minv_team<NL, DENSE, FEXT>(tm, m, s.data(), x + (size_t)b * nx,
                                               u + (size_t)b * n,
                                               FEXT ? fext + (size_t)b * fext_stride : nullptr,
-                                              xo + (size_t)b * 2 * n, dt, g);
+                                              xo + (size_t)b * nx, dt, g);
     });
 }
 
@@ -641,6 +643,7 @@ static void k6(const rbd::Model<double, D>& m, const double* x, const double* u,
   }
 HOST_K6_K10(n8, N8)
 HOST_K6_K10(fb16, FB16)
+HOST_K6_K10(fq32, FQ32)
 
 extern "C" void host_k4(const double* tab, const int* itab, int nb, const double* ee,
                         int chain, int prism, const double* q, double tx, double ty, double tz,
@@ -787,9 +790,10 @@ def host_kernels(tmp_path_factory):
                     "-lpthread"], check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(so))
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    for fn in (lib.host_k9_n8, lib.host_k9_fb16):
+    for fn in (lib.host_k9_n8, lib.host_k9_fb16, lib.host_k9_fq32):
         fn.argtypes = [P, P, I] + [P] * 8 + [I, I, I, I, D, D]
-    for fn in (lib.host_k9_fext_n8, lib.host_k9_fext_fb16):
+    for fn in (lib.host_k9_fext_n8, lib.host_k9_fext_fb16,
+               lib.host_k9_fext_fq32):
         fn.argtypes = [P, P, I] + [P] * 9 + [I, I, I, I, D, D]
     lib.host_k11.argtypes = ([P] * 5 + [I, I, P, I, I, P, I, I] + [P] * 7
                              + [I] * 4)
@@ -800,7 +804,7 @@ def host_kernels(tmp_path_factory):
     lib.host_k1_fq32.argtypes = [P, P, I, P, P, P, I, D, D]
     lib.host_k2_fq32.argtypes = [P, P, I] + [P] * 8 + [I, I, I, D, D]
     lib.host_k3_fq32.argtypes = [P, P, I] + [P] * 7 + [I, D]
-    for cls in ("n8", "fb16"):
+    for cls in ("n8", "fb16", "fq32"):
         getattr(lib, f"host_k10_{cls}").argtypes = [P, P, I, P, P, P, P, I, D]
         getattr(lib, f"host_k6_{cls}").argtypes = [P, P, I, P, P, P, I, P, I,
                                                    I, D, D]
@@ -1152,10 +1156,12 @@ def _quat_states(m, rng, B, up=0.4):
 
 
 def test_c_layouts_quat_match_python(tmp_path):
-    """The quaternion root's team strides (K1's, K2's, K3's at every team
-    size: x one value wider) and K4's staging (its fixed values and a
-    state's of each kernel), compiled for the host from csrc/, give the
-    counts _lib computes for "fq32"."""
+    """The quaternion root's team strides (K1's, K2's, K3's, K2's and K9's
+    with the wrenches' chain, K6's on both routes and K10's at every team
+    size: x or q one value wider), the line search's block of wrench
+    stages, and K4's staging (its fixed values and a state's of each
+    kernel), compiled for the host from csrc/, give the counts _lib
+    computes for "fq32"."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler (g++)")
@@ -1163,7 +1169,8 @@ def test_c_layouts_quat_match_python(tmp_path):
     teams = _lib.TEAM_SIZES
     src = ('#include <cstdio>\n#include "fd_step.cu"\n'
            '#include "feedback_rollout.cu"\n#include "linearize.cu"\n'
-           '#include "ee_gn.cu"\nint main() {\n  ' + "\n  ".join(
+           '#include "ee_gn.cu"\n#include "rnea.cu"\n'
+           '#include "fd_step_minv.cu"\nint main() {\n  ' + "\n  ".join(
                [show(f"rbd::fd_step_team_stride<rbd::FQ32, {t}>()")
                 for t in teams]
                + [show(f"rbd::feedback_team_stride<rbd::FQ32, {t}>()")
@@ -1172,7 +1179,14 @@ def test_c_layouts_quat_match_python(tmp_path):
                   for t in teams]
                + [show(f"rbd::ee_root_state_values<rbd::FQ32, {gn}>()")
                   for gn in ("true", "false")]
-               + [show("rbd::ee_fixed_values<rbd::FQ32>()")])
+               + [show("rbd::ee_fixed_values<rbd::FQ32>()")]
+               + [show(f"rbd::feedback_team_stride<rbd::FQ32, {t}, true>()")
+                  for t in teams]
+               + [show("rbd::feedback_wrench_values<rbd::FQ32>()")]
+               + [show(f"rbd::rnea_team_stride<rbd::FQ32, {t}>()")
+                  for t in teams]
+               + [show(f"rbd::MinvStepLayout<rbd::FQ32, {t}, {d}>::STRIDE")
+                  for t in teams for d in ("false", "true")])
            + "\n  return 0;\n}\n")
     (tmp_path / "layouts.cpp").write_text(src)
     exe = tmp_path / "layouts"
@@ -1186,26 +1200,38 @@ def test_c_layouts_quat_match_python(tmp_path):
             + [_lib.team_values("feedback_rollout", "fq32", t) for t in teams]
             + [_lib.linearize_values("fq32", t) for t in teams]
             + [_lib.ee_values("ee_gn", "fq32"), _lib.ee_values("ee_err", "fq32"),
-               _lib.ee_fixed("fq32")])
+               _lib.ee_fixed("fq32")]
+            + [_lib.team_values("feedback_chunked_fext", "fq32", t)
+               for t in teams]
+            + [_lib.block_values("feedback_rollout_fext", "fq32")]
+            + [_lib.team_values("rnea", "fq32", t) for t in teams]
+            + [_lib.team_values("fd_step_minv", "fq32", t, d) for t in teams
+               for d in (False, True)])
     assert got == want
 
 
-@pytest.mark.parametrize("kernel", ["fd_step", "feedback_rollout",
-                                    "linearize_parts", "ee_gn", "ee_err"])
+QUAT_KERNELS = ["fd_step", "feedback_rollout", "linearize_parts", "ee_gn",
+                "ee_err", "feedback_chunked", "feedback_rollout_fext",
+                "feedback_chunked_fext", "fd_step_minv", "rnea"]
+
+
+@pytest.mark.parametrize("kernel", QUAT_KERNELS)
 @pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "float64"])
 def test_quat_geometry(kernel, dtype):
     """The quaternion root's class "fq32" (32 bodies, nv = 37, nq = 38)
-    lists K1-K4 only; each launch's blocks cover every batch of paths G and
-    H (2,048 sampled states, 64 line-search trajectories, 512 knots, 16
-    terminal states), and a batch that could give every SM a block at the
-    launch's fewest states a block does; a
-    block's shared memory stays within the H100's 232,448 bytes (K4 opts
-    in past 48 KB: four states of ee_gn in float64 take more)."""
-    assert set(_lib.CLASSES["fq32"][2]) == {
-        "fd_step", "feedback_rollout", "linearize_parts", "ee_gn", "ee_err"}
+    lists every tree kernel but K5 (K1-K4, K9, K2 and K9 with wrenches, K6
+    and K10); each launch's blocks cover every batch of paths G, H, J and
+    K (2,048 sampled states, 64 and 1,024 line-search trajectories, 512
+    knots, 16 terminal states), and a batch that could give every SM a
+    block at the launch's fewest states a block does; a block's shared
+    memory (K6's on both routes; the wrench kernels' with the block's
+    wrench stages) stays within the H100's 232,448 bytes (K4 opts in past
+    48 KB: four states of ee_gn in float64 take more)."""
+    assert set(_lib.CLASSES["fq32"][2]) == set(QUAT_KERNELS)
+    assert "rollout_multi" not in _lib.CLASSES["fq32"][2]
     assert _lib.class_dims("fq32") == (32, 37, 38)
     size = torch.finfo(dtype).bits // 8
-    for B in (1, 16, 64, 512, 2048, 2049):
+    for B in (1, 16, 64, 512, 1024, 2048, 2049):
         if kernel in ("ee_gn", "ee_err"):
             spb, threads, smem, blocks = _lib.ee_geometry(kernel, dtype, B,
                                                           cls="fq32")
@@ -1218,9 +1244,13 @@ def test_quat_geometry(kernel, dtype):
             assert smem == tpb * _lib.linearize_values(
                 "fq32", _lib.TEAM[(kernel, "fq32", _lib._SUFFIX[dtype])]) * size
         else:
-            team, tpb, smem, blocks = _lib.team_geometry(kernel, "fq32",
-                                                         dtype, B)
-            assert smem == tpb * _lib.team_values(kernel, "fq32", team) * size
+            extra = _lib.block_values(kernel, "fq32") * size
+            for dense in ((False, True) if kernel == "fd_step_minv"
+                          else (False,)):
+                team, tpb, smem, blocks = _lib.team_geometry(
+                    kernel, "fq32", dtype, B, dense=dense)
+                assert smem == tpb * _lib.team_values(
+                    kernel, "fq32", team, dense) * size + extra
         if kernel not in ("ee_gn", "ee_err"):
             least = 1
         assert smem <= _lib.SMEM_MAX
@@ -1331,3 +1361,126 @@ def test_host_ee_gn_quat(host_kernels, name, gn):
     if gn:
         torch.testing.assert_close(g0, want[1], rtol=0, atol=1e-9)
         torch.testing.assert_close(H0, want[2], rtol=0, atol=1e-9)
+
+
+# K9, K2 and K9 with wrenches: (nchunks, wrenches); nchunks 0 is K2's sum
+QUAT_LINE_SEARCH = [(1, False), (2, False), (3, False), ("ndx", False),
+                    (0, True), (2, True), ("ndx", True)]
+
+
+@pytest.mark.parametrize("nchunks,wrench", QUAT_LINE_SEARCH,
+                         ids=[f"{'k9-' if c else 'k2'}{c or ''}"
+                              f"{'-fext' if w else ''}"
+                              for c, w in QUAT_LINE_SEARCH])
+def test_host_feedback_chunked_quat(host_kernels, nchunks, wrench):
+    """K9's team body on the quaternion root (fq32), and K2's and K9's with
+    the wrenches of a block of one team, built for the host and run by a
+    team of 8 threads, against ``feedback_rollout_chunked_plain`` (K2's:
+    ``feedback_rollout_plain``) under the same (H, nb, 6) wrenches in
+    float64 (1e-9), with and without a clamp: the chunks split the 2 nv
+    tangent columns, the root's rows of dx are the quaternion log (one
+    nominal turned past w < 0); all-zero wrenches give the wrench-free
+    body's result bit for bit."""
+    from rbdtpu_torch.kernels import fused
+    from rbdtpu_torch.solver.integrate import state_retract
+
+    m = _quat_model("quadruped12")
+    tab, itab = _lib.model_tables(m, "cpu", torch.float64)
+    rng = np.random.default_rng(15)
+    B, H, n = 3, 4, m.nv
+    nch = 2 * n if nchunks == "ndx" else nchunks
+    cw = fused.chunk_geometry(2 * n, nch)[0] if nch else 0
+    x0, _ = _quat_states(m, rng, B)
+    Xn = torch.stack([state_retract(m, x0, torch.tensor(
+        0.05 * rng.standard_normal((B, 2 * n)))) for _ in range(H)], 1)
+    Xn[1, 2, 3:7] = -Xn[1, 2, 3:7]
+    T = lambda sc, *s: torch.tensor(sc * rng.standard_normal(s))
+    args = (x0, Xn.contiguous(), T(0.1, B, H, n), T(0.1, B, H, n),
+            T(0.1, B, H, n, 2 * n))
+    lv = int(_lib.level_walk(m))
+    out = lambda: (torch.empty(B, H, m.nx, dtype=torch.float64),
+                   torch.empty(B, H, n, dtype=torch.float64))
+    Fs = ((T(5.0, H, m.nb, 6), torch.zeros(H, m.nb, 6, dtype=torch.float64))
+          if wrench else (None,))
+    for clip in (None, torch.full((n,), 0.05, dtype=torch.float64)):
+        for F in Fs:
+            Xo, Uo = out()
+            if F is None:
+                host_kernels.host_k9_fq32(
+                    _ptr(tab), _ptr(itab), m.nb, *[_ptr(a) for a in args],
+                    _ptr(clip), _ptr(Xo), _ptr(Uo), B, H, cw, lv, 0.01, -9.81)
+            else:
+                host_kernels.host_k9_fext_fq32(
+                    _ptr(tab), _ptr(itab), m.nb, *[_ptr(a) for a in args],
+                    _ptr(F), _ptr(clip), _ptr(Xo), _ptr(Uo), B, H, cw, lv,
+                    0.01, -9.81)
+            if nch:
+                Xp, Up = fused.feedback_rollout_chunked_plain(
+                    m, *args, 0.01, u_clip=clip, nchunks=nch, f_ext=F)
+            else:
+                Xp, Up = fused.feedback_rollout_plain(m, *args, 0.01,
+                                                      u_clip=clip, f_ext=F)
+            torch.testing.assert_close(Xo, Xp, rtol=0, atol=1e-9)
+            torch.testing.assert_close(Uo, Up, rtol=0, atol=1e-9)
+            if F is not None and not F.any():
+                X0, U0 = out()
+                host_kernels.host_k9_fq32(
+                    _ptr(tab), _ptr(itab), m.nb, *[_ptr(a) for a in args],
+                    _ptr(clip), _ptr(X0), _ptr(U0), B, H, cw, lv, 0.01, -9.81)
+                assert torch.equal(Xo, X0) and torch.equal(Uo, U0)
+
+
+@pytest.mark.parametrize("qdd", [True, False], ids=["qdd", "bias"])
+@pytest.mark.parametrize("name", ["quadruped12", "humanoid30"])
+def test_host_rnea_quat(host_kernels, name, qdd):
+    """K10's team body on the quaternion root (fq32: q one value wider, the
+    root's transform from the quaternion) built for the host and run by a
+    team of 8 threads a state, against ``rnea_plain`` in float64 (1e-9
+    relative to tau's scale), with and without qdd."""
+    from rbdtpu_torch.kernels import fused
+
+    m = _quat_model(name)
+    assert _lib.size_class("rnea", m) == "fq32"
+    tab, itab = _lib.model_tables(m, "cpu", torch.float64)
+    B = 3
+    rng = np.random.default_rng(16)
+    x, a = _quat_states(m, rng, B)
+    q, qd = x[:, :m.nq].contiguous(), x[:, m.nq:].contiguous()
+    a = a if qdd else None
+    tau = torch.empty(B, m.nv, dtype=torch.float64)
+    host_kernels.host_k10_fq32(_ptr(tab), _ptr(itab), m.nb, _ptr(q), _ptr(qd),
+                               _ptr(a), _ptr(tau), B, -9.81)
+    want = fused.rnea_plain(m, q, qd, a)
+    torch.testing.assert_close(tau, want, rtol=0,
+                               atol=1e-9 * max(1.0, want.abs().max().item()))
+
+
+@pytest.mark.parametrize("wrench", ["free", "shared", "batched"])
+@pytest.mark.parametrize("dense", [False, True], ids=["fact", "dense"])
+@pytest.mark.parametrize("name", ["quadruped12", "humanoid30"])
+def test_host_fd_step_minv_quat(host_kernels, name, dense, wrench):
+    """K6's team body on the quaternion root (fq32) built for the host and
+    run by a team of 8 threads an element, against ``fd_step_minv_plain``
+    in float64 (1e-9): the bias with the quaternion root's transform, the
+    M^-1 sweeps (factorised) or M^-1 one column a lane (dense), then the
+    manifold Euler step, without wrenches, under one set shared by the
+    batch and under one set an element."""
+    from rbdtpu_torch.kernels import fused
+
+    m = _quat_model(name)
+    assert _lib.size_class("fd_step_minv", m) == "fq32"
+    tab, itab = _lib.model_tables(m, "cpu", torch.float64)
+    rng = np.random.default_rng(17)
+    B = 3
+    x, u = _quat_states(m, rng, B)
+    F = {"free": None,
+         "shared": torch.tensor(5.0 * rng.standard_normal((m.nb, 6))),
+         "batched": torch.tensor(5.0 * rng.standard_normal((B, m.nb, 6)))}[
+        wrench]
+    stride = 6 * m.nb if wrench == "batched" else 0
+    xo = torch.empty(B, m.nx, dtype=torch.float64)
+    host_kernels.host_k6_fq32(_ptr(tab), _ptr(itab), m.nb, _ptr(x), _ptr(u),
+                              _ptr(F), stride, _ptr(xo), B, int(dense), 0.01,
+                              -9.81)
+    want = fused.fd_step_minv_plain(m, x, u, 0.01, f_ext=F)
+    torch.testing.assert_close(xo, want, rtol=0, atol=1e-9)

@@ -72,12 +72,13 @@ REFUSED = [("dynamics", "quat")] + [
                          ids=[f"{w}-{r}" for w, r in REFUSED])
 def test_floating_base_dynamics_refuse(what, root):
     """What the port does not cover raises NotImplementedError rather than
-    computing a wrong answer: the quaternion root in K5, K6 and K10 (its
-    dynamics, EE Jacobian and K1-K4 are covered: those cases require the
-    dynamics to run and the kernels to map it to its class "fq32"), the
-    rpy root in K5, which has no floating-base instantiation, and K4 on an
-    rpy tree past its fb16 instantiation's 16 bodies (the humanoid's 31).
-    The CUDA kernels refuse before launching, so this needs no card."""
+    computing a wrong answer: the quaternion root and the rpy root in K5,
+    which has no floating-base instantiation, and K4 on an rpy tree past
+    its fb16 instantiation's 16 bodies (the humanoid's 31).  The
+    quaternion root's dynamics, EE Jacobian, K1-K4, K6 and K10 are
+    covered: those cases require the dynamics to run and the kernels to
+    map it to its class "fq32".  The CUDA kernels refuse before launching,
+    so this needs no card."""
     from rbdtpu_torch.dynamics import aba
     from rbdtpu_torch.kernels import _lib
     from rbdtpu_torch.kinematics import ee_position_jacobian_tangent
@@ -91,8 +92,7 @@ def test_floating_base_dynamics_refuse(what, root):
         with pytest.raises(ValueError, match="31 bodies"):
             _lib.size_class(what, big)
         return
-    if root == "quat" and what not in ("rnea", "fd_step_minv",
-                                       "rollout_multi"):
+    if root == "quat" and what != "rollout_multi":
         q = torch.zeros(2, m.nq, dtype=torch.float64)
         q[:, 3] = 1.0
         v = torch.zeros(2, m.nv, dtype=torch.float64)

@@ -330,32 +330,64 @@ def _quat_case(rng):
     return m, oc.Model(m), x[0].numpy(), rng.standard_normal(m.nv)
 
 
-@pytest.mark.parametrize("fn", ["fd_step", "feedback_rollout",
-                                "linearize_parts", "ee_gn", "ee_err"])
+QUAT_FNS = ["fd_step", "feedback_rollout", "linearize_parts", "ee_gn",
+            "ee_err", "feedback_chunked", "feedback_rollout+fext",
+            "feedback_chunked+fext", "rnea", "rnea+qdd", "fd_step_minv",
+            "fd_step_minv+dense", "fd_step_minv+fext",
+            "fd_step_minv+dense+fext"]
+
+
+@pytest.mark.parametrize("fn", QUAT_FNS)
 def test_quat_root(fn):
-    """The quaternion root's counted functions (K1-K4 on "fq32") against
-    the plain versions: the manifold Euler step, the tangent difference
-    (quaternion log) of the line search, the root's tangent columns of
-    dc/dq, and the body-twist EE columns at a foot's fixed frame."""
+    """The quaternion root's counted functions (every kernel on "fq32")
+    against the plain versions: the manifold Euler step, the tangent
+    difference (quaternion log) of the line search, K9's chunked sum and
+    both under a wrench set, the root's tangent columns of dc/dq, the
+    body-twist EE columns at a foot's fixed frame, RNEA with q one value
+    wider (with and without qdd), and the M^-1 + RNEA step on both routes
+    with and without wrenches."""
     from rbdtpu_torch.solver.integrate import state_retract
 
     rng = np.random.default_rng(9)
     m, md, x, u = _quat_case(rng)
     X, U = torch.tensor(x)[None], torch.tensor(u)[None]
     nq, n = m.nq, m.nv
+    w = 0.5 * rng.standard_normal((m.nb, 6))
+    fext = fn.endswith("+fext")
     if fn == "fd_step":
         _close(oc.fd_step(md, _nums(x), _nums(u), DT, G),
                fd_step_plain(m, X, U, DT)[0])
-    elif fn == "feedback_rollout":
+    elif fn.startswith("feedback_"):
         xn = state_retract(m, X, torch.tensor(
             0.1 * rng.standard_normal((1, 2 * n))))[0].numpy()
         kf, K = rng.standard_normal(n), 0.1 * rng.standard_normal((n, 2 * n))
-        (xo, uo) = oc.feedback_knot(md, _nums(x), _nums(xn), _nums(u),
-                                    _nums(kf), _nums(K), DT, G)
         T = lambda a: torch.tensor(a)[None, None]
-        Xp, Up = feedback_rollout_plain(m, X, T(xn), T(u), T(kf), T(K), DT)
+        F = torch.tensor(w)[None] if fext else None
+        args = (_nums(x), _nums(xn), _nums(u), _nums(kf), _nums(K), DT, G)
+        if fn.startswith("feedback_chunked"):
+            (xo, uo) = oc.feedback_knot_chunked(
+                md, *args, nchunks=2, fext=_nums(w) if fext else None)
+            Xp, Up = feedback_rollout_chunked_plain(
+                m, X, T(xn), T(u), T(kf), T(K), DT, nchunks=2, f_ext=F)
+        else:
+            (xo, uo) = oc.feedback_knot(md, *args,
+                                        fext=_nums(w) if fext else None)
+            Xp, Up = feedback_rollout_plain(m, X, T(xn), T(u), T(kf), T(K),
+                                            DT, f_ext=F)
         _close(xo, Xp[0, 0])
         _close(uo, Up[0, 0])
+    elif fn.startswith("rnea"):
+        qdd = rng.standard_normal(n) if fn == "rnea+qdd" else None
+        out = oc.rnea_state(md, _nums(x[:nq]), _nums(x[nq:]),
+                            None if qdd is None else _nums(qdd), G)
+        _close(out, rnea_plain(m, X[:, :nq], X[:, nq:], None if qdd is None
+                               else torch.tensor(qdd)[None], G)[0])
+    elif fn.startswith("fd_step_minv"):
+        dense = "+dense" in fn
+        out = oc.fd_step_minv(md, _nums(x), _nums(u), DT, G, dense,
+                              _nums(w) if fext else None)
+        _close(out, fd_step_minv_plain(
+            m, X, U, DT, G, f_ext=torch.tensor(w) if fext else None)[0])
     elif fn == "linearize_parts":
         out = oc.linearize_parts(md, _nums(x[:nq]), _nums(x[nq:]), _nums(u),
                                  G)
@@ -372,4 +404,4 @@ def test_quat_root(fn):
             if w is not None:
                 _close(got, w[0])
     assert set(oc.per_state(m, TARGET, ee_names=("RL_foot_fixed",))) >= {
-        "fd_step", "feedback_rollout", "linearize_parts", "ee_gn", "ee_err"}
+        f for f in QUAT_FNS}

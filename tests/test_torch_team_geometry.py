@@ -157,9 +157,10 @@ def test_fd_step_minv_dense_geometry(cls, dtype):
 def test_fd_step_minv_size_class_counts_levels():
     """K6's dense M^-1 columns keep one slot a tree level, as K3's do, so
     K6 takes the class K3 takes: the humanoid (11 levels) fb32, the rpy
-    quadruped fb16; K10 needs no level slots and goes by bodies alone; the
-    quaternion root is refused by both, while K1-K4 map its quadruped and
-    humanoid to its own class "fq32"."""
+    quadruped fb16; K10 needs no level slots and goes by bodies alone; on
+    the quaternion root both, like K1-K4 and K9 (with and without
+    wrenches) and K2 with wrenches, map its quadruped and humanoid to its
+    own class "fq32", whose 12 level slots hold the humanoid's 11 levels."""
     from rbdtpu_torch.model import load_asset
 
     load = lambda name, **kw: load_asset(name, device="cpu",
@@ -170,13 +171,15 @@ def test_fd_step_minv_size_class_counts_levels():
         assert _lib.size_class(kernel, hum) == "fb32"
         assert _lib.size_class(kernel, quad) == "fb16"
         assert _lib.size_class(kernel, load("arm7")) == "n8"
-        with pytest.raises(NotImplementedError):
-            _lib.size_class(kernel, load("quadruped12", floating_base=True,
-                                         root_quat=True))
+        assert _lib.size_class(kernel, load("quadruped12", floating_base=True,
+                                            root_quat=True)) == "fq32"
     for name in ("quadruped12", "humanoid30"):
         quat = load(name, floating_base=True, root_quat=True)
         for kernel in ("fd_step", "feedback_rollout", "linearize_parts",
-                       "ee_gn", "ee_err"):
+                       "ee_gn", "ee_err", "fd_step_minv", "rnea",
+                       "feedback_chunked", "feedback_rollout_fext",
+                       "feedback_chunked_fext"):
             assert _lib.size_class(kernel, quat) == "fq32"
+    assert max(_lib.tree_depths(hum)) + 1 <= _lib.LIN_LEVELS["fq32"]
     assert "fd_step_minv" in _lib.LEVEL_KERNELS
     assert "rnea" not in _lib.LEVEL_KERNELS

@@ -8,7 +8,7 @@ the whole-horizon rollout K5 (``rollout_multi``), the M^-1 + RNEA step K6
 card, float32, at each path's shapes:
 
     python3 tools/time_step_kernels.py [--root DIR] [--label NAME]
-    python3 tools/time_step_kernels.py --sweep
+    python3 tools/time_step_kernels.py --sweep [--models KEY ...]
 
 Shapes: arm7 K1 at 128 and 1 states, K2 at 1024 trajectories x 100 knots,
 K3 at 12,800 knots (BASELINE.json configs[2]); the rpy quadruped K1 at
@@ -32,7 +32,11 @@ quadruped's 1024 and the humanoid's 2048 (``chip_smoke.minv_rnea_checks``
 on K1's states; a root whose kernel has no instantiation there is
 reported as such); on each model K2 and K9 (two chunks) under per-knot
 world wrenches (``chip_smoke.push_wrenches``, a trunk push over
-0.5 N(0,1)) at K2's shape, and on the rpy quadruped K4 at path E's shapes
+0.5 N(0,1)) at K2's shape; the quaternion humanoid (class fq32) K1 at
+2048 states, K2, K9 and their wrench twins at path J's 1024 x 32, K3 at
+path G's 512 knots, K10 and K6 at K1's states (``chip_smoke.
+quat_kernel_inputs``, ``quat_feedback_inputs``); and on the rpy quadruped
+K4 at path E's shapes
 (ee_gn at 51,200 knots and 1,024 terminal states, ee_err at the line
 search's 307,200 and 6,144; the first leaf's target, ``chip_smoke.
 TARGET_E``); a tree whose entry points take no wrenches reports that.  Each time is ``chip_smoke.graph_ms``
@@ -53,8 +57,9 @@ K2 and K9 (two chunks) with per-knot (H, nb, 6) wrenches at that shape,
 K3 at the path's knots, K5 on arm7 at 4096 x 50 on each route, with
 and without (H, nb, 6) wrenches, and K10 and K6 at the shapes above
 (graph replay): the measurements ``_lib.TEAM`` and ``_lib.level_walk``
-were fixed from.  Prints one JSON
-line with the card's name and power limit.
+were fixed from.  ``--models`` restricts either run to some of the
+models (keys of MODELS: "arm7", "rpy quadruped", "humanoid", "quaternion
+humanoid").  Prints one JSON line with the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -72,8 +77,11 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DT, GRAVITY = 0.01, -9.81
-MODELS = (("arm7", "arm7", False), ("rpy quadruped", "quadruped12", True),
-          ("humanoid", "humanoid30", True))
+# (key, asset, floating base, quaternion root)
+MODELS = (("arm7", "arm7", False, False),
+          ("rpy quadruped", "quadruped12", True, False),
+          ("humanoid", "humanoid30", True, False),
+          ("quaternion humanoid", "humanoid30", True, True))
 SWEEP_STATES = (1, 16, 256)
 # the Riccati sweep's shapes: (label, problems, knots, nx, nu)
 RICCATI_SHAPES = (("configs[3]", 1024, 50, 36, 18), ("B=4", 4, 50, 36, 18),
@@ -103,6 +111,11 @@ def path_inputs(cs, key, m64):
     elif key == "rpy quadruped":
         inp = cs.quadruped_kernel_inputs(m64,
                                          np.random.default_rng(cs.SEED + 5))
+    elif key == "quaternion humanoid":
+        rng = np.random.default_rng(cs.SEED + 110)
+        inp = cs.quat_kernel_inputs(m64, rng)
+        return inp["fd_step"], cs.quat_feedback_inputs(
+            m64, rng, cs.BD * cs.ALPHAS_H, cs.HH), inp["linearize_parts"]
     else:
         inp = cs.floating_kernel_inputs(
             m64, np.random.default_rng(cs.SEED + 90), cs.humanoid_problems,
@@ -147,7 +160,8 @@ def minv_rnea_cases(cs, key, m64, fd):
         return [c for c in cs.rollout_inputs(
             m64, np.random.default_rng(cs.SEED + 3))
             if c[1] in ("rnea", "fd_step_minv")]
-    seed = cs.SEED + (6 if key == "rpy quadruped" else 91)
+    seed = cs.SEED + {"rpy quadruped": 6, "humanoid": 91,
+                      "quaternion humanoid": 122}[key]
     return cs.minv_rnea_checks(m64, fd, "", *cs.step_extras(
         m64, fd[0].shape[0], seed))
 
@@ -166,20 +180,25 @@ def minv_rnea_calls(cs, m, checks):
     return out
 
 
-def compare(cs, label: str) -> dict:
+def load(name, fb, quat, dtype):
+    from rbdtpu_torch.model import load_asset
+
+    kw = {"root_quat": True} if quat else {}
+    return load_asset(name, device="cuda", dtype=dtype, floating_base=fb,
+                      **kw)
+
+
+def compare(cs, label: str, models=MODELS) -> dict:
     from rbdtpu_torch.kernels import colvec, fk_lane, fused
     from rbdtpu_torch.kernels.riccati import backward_pass_fused
     from rbdtpu_torch.kernels.riccati_chunk import backward_pass_chunked
-    from rbdtpu_torch.model import load_asset
 
     out = {}
     timed = lambda fn: {"graph": cs.graph_ms(fn),
                         "call": cs.cuda_ms(fn, reps=20), "host": host_ms(fn)}
-    for key, name, fb in MODELS:
-        m64 = load_asset(name, device="cuda", dtype=torch.float64,
-                         floating_base=fb)
-        m32 = load_asset(name, device="cuda", dtype=torch.float32,
-                         floating_base=fb)
+    for key, name, fb, quat in models:
+        m64 = load(name, fb, quat, torch.float64)
+        m32 = load(name, fb, quat, torch.float32)
         fd64, k2, k3 = path_inputs(cs, key, m64)
         x, u = (t.float().contiguous() for t in fd64)
         k2 = tuple(t.float().contiguous() for t in k2)
@@ -272,7 +291,7 @@ def compare(cs, label: str) -> dict:
     return {"label": label, "ms": out}
 
 
-def sweep(cs) -> dict:
+def sweep(cs, models=MODELS) -> dict:
     from rbdtpu_torch.kernels import _lib, colvec, fused
     from rbdtpu_torch.model import load_asset
 
@@ -284,14 +303,12 @@ def sweep(cs) -> dict:
             _lib.TEAM[k] = team
         _lib.library.cache_clear()
         _lib.library()
-        for key, name, fb in MODELS:
-            m64 = load_asset(name, device="cuda", dtype=torch.float64,
-                             floating_base=fb)
+        for key, name, fb, quat in models:
+            m64 = load(name, fb, quat, torch.float64)
             (x64, u64), k2_64, k3_64 = path_inputs(cs, key, m64)
             k6 = minv_rnea_cases(cs, key, m64, (x64, u64))
             for dtype in (torch.float32, torch.float64):
-                m = load_asset(name, device="cuda", dtype=dtype,
-                               floating_base=fb)
+                m = load(name, fb, quat, dtype)
                 sfx = _lib._SUFFIX[dtype]
                 x, u = x64.to(dtype), u64.to(dtype)
                 k2 = tuple(t.to(dtype).contiguous() for t in k2_64)
@@ -357,6 +374,9 @@ def main() -> int:
     ap.add_argument("--label", default=None)
     ap.add_argument("--sweep", action="store_true",
                     help="time every team size of this checkout")
+    ap.add_argument("--models", nargs="+", default=None,
+                    choices=[k for k, *_ in MODELS],
+                    help="time these models only")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_step_kernels: no CUDA device", file=sys.stderr)
@@ -368,8 +388,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.splitlines()[0]
-    out = sweep(cs) if a.sweep else compare(
-        cs, a.label or os.path.basename(root))
+    models = [m for m in MODELS if a.models is None or m[0] in a.models]
+    out = sweep(cs, models) if a.sweep else compare(
+        cs, a.label or os.path.basename(root), models)
     print(json.dumps({**out, "card": smi.strip()}))
     return 0
 
