@@ -10,11 +10,12 @@ Phases, each ending the run with a nonzero exit when it fails:
    kernels K1 (``fd_step``), K2 (``feedback_rollout``), K3
    (``linearize_parts``), K5 (``rollout_multi``), K6 (``fd_step_minv``),
    K9 (``feedback_chunked``) and K10 (``rnea``), of the end-effector
-   kernels K4 (``ee_gn``, ``ee_err``, and their rpy- and quaternion-root
-   kernels) and of the Riccati sweeps (``riccati``, K7/K8, and
+   kernels K4 (``ee_gn``, ``ee_err``, and their floating-root kernel
+   ``ee_root``) and of the Riccati sweeps (``riccati``, K7/K8, and
    ``riccati_fused``, K11) in the build with a ptxas stack frame under
-   1,024 bytes, the quaternion root's instantiations ("fq32": every tree
-   kernel but K5) among them;
+   1,024 bytes, the floating roots' instantiations of K5 (fb16, fb32,
+   fq32) and the quaternion root's ("fq32": every tree kernel) among
+   them;
 2. hold each kernel of the DDP path against its plain PyTorch version on
    the card, at that path's shapes: max abs error <= 1e-9 in float64, and
    a relative bound in float32; time both (CUDA events around one call
@@ -212,7 +213,28 @@ Phases, each ending the run with a nonzero exit when it fails:
    K9 only with wrenches), then float64 parity of the hybrid at 4
    problems, kernels against plain on the same normals, under 20 N
    (relative |dJ| < 1e-9) and under 80 N (below 100 times the plain
-   route's own floor where it passes 1e-9), and of the K9 tier under 80 N.
+   route's own floor where it passes 1e-9), and of the K9 tier under 80 N;
+23. paths L and M, the last kernel gaps (K5 at fb16, fb32 and fq32; K4 at
+   fb32): K5 against its plain version in float64 on the rpy quadruped,
+   the rpy humanoid and the quaternion humanoid at 512 trajectories x 50
+   steps, both routes, with and without path F's trunk push (<= 1e-9;
+   zero wrenches bit for bit the wrench-free kernel in both dtypes), K4
+   at fb32 at path M's shapes (ee_gn at 512 and 16 states, ee_err at
+   2,048 and 64), the stack limit unchanged across them and K4 fb32's
+   stack within 288 B; path L, ``rollout_fused_multi`` at 4,096 x 50 in
+   float32 on the three models, both routes, with and without the push
+   (four launches of K5 at the model's class, none of K1 or K6, final
+   states finite and within 1e-3 relative of ``rollout_multi_plain``'s
+   on the same inputs), beside the K1 scan (``solver.rollout(fused=True)
+   ``), whose final state the aba route's equals bit for bit, each timed
+   (steps/s, median of 7, and device time by graph replay); path M, path
+   H on the rpy root (bench.py:640-672 with root_quat=False: 16
+   humanoids, H=32, 5 iterations, float32) with path H's launch, J and
+   profile checks, one solve of its cost inside ``add_limit_barrier``
+   from a start pushed past three of the arm's limits, and float64 parity
+   kernels against plain at 4 problems over 16 knots with and without the
+   barrier (|dU| < 1e-6, relative |dJ| < 1e-9 or phase 19's floor rule),
+   the barrier's hinges active after the first knot.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON summary and the result line.  Without a CUDA
@@ -251,19 +273,19 @@ PARITY_H = (100, 20)
 # every instantiation (3 classes x 2 dtypes at the team size of
 # kernels/_lib.py TEAM, K1 with and without wrenches, K2 and K9 in both
 # walks, K10 with and without qdd, K6 on both routes with and without
-# wrenches; K5 on n8 in 2 dtypes x 2 routes x with and without wrenches; K4
-# and each sweep in 2 dtypes; K4 on the rpy root and K2 and K9 with
-# wrenches at every class in both walks; on the quaternion root's class
-# fq32 K1-K4, K9, K6 and K10 too, K1 with and without wrenches, K2, K9 and
-# K2/K9 with wrenches in both walks), and K1/K2's extra checks run these
-# batches
+# wrenches; K5 at n8, fb16, fb32 and fq32 in 2 dtypes x 2 routes x with
+# and without wrenches; K4 and each sweep in 2 dtypes; K4 on the floating
+# roots (ee_root: fb16, fb32 and fq32, both modes, 2 dtypes) and K2 and K9
+# with wrenches at every class in both walks; on the quaternion root's
+# class fq32 K1-K4, K9, K6 and K10 too, K1 with and without wrenches, K2,
+# K9 and K2/K9 with wrenches in both walks), and K1/K2's extra checks run
+# these batches
 TEAM_KERNELS = ("fd_step", "feedback_rollout")
 STACK_INSTANCES = {"fd_step": 16, "feedback_rollout": 16,
                    "linearize_parts": 8, "feedback_chunked": 16,
-                   "rollout_multi": 8, "ee_gn": 2, "ee_err": 2,
+                   "rollout_multi": 32, "ee_gn": 2, "ee_err": 2,
                    "riccati": 2, "riccati_fused": 2, "rnea": 16,
-                   "fd_step_minv": 32, "ee_gn_rpy": 2, "ee_err_rpy": 2,
-                   "ee_gn_quat": 2, "ee_err_quat": 2,
+                   "fd_step_minv": 32, "ee_root": 12,
                    "feedback_rollout_fext": 16, "feedback_chunked_fext": 16}
 # the kernels whose rows add graph_ms, the device's time by graph replay
 GRAPH_KERNELS = ("fd_step", "feedback_rollout", "linearize_parts",
@@ -365,6 +387,16 @@ B_SO, R_SO, B_SO_H, R_SO_H, B_SO_AD, B_SO_CHECK = 2048, 8, 256, 4, 4, 4
 # smallest batch whose line search the port's rule sends to K9 with
 # NCHUNKS_D chunks (``quat_parity_batch``), the hybrid's at BQ_PARITY.
 J_TIERS = (True, None, False)
+# path L, whole-horizon legged rollouts: BL trajectories of HL steps on the
+# rpy quadruped (configs[3]'s start), the rpy humanoid (path C's) and the
+# quaternion humanoid (path G's) under hold controls plus SIGMA_L N(0,1),
+# with and without path F's trunk push; K5's checks at BL_CHECK x HL.
+# Path M, the rpy humanoid's hand reaching: path H's shapes, cost and
+# solver on the rpy root (bench.py:640-672 with root_quat=False), its
+# float64 parity at BQ_PARITY problems over HM_PARITY knots; K4 at fb32
+# keeps its stack within EE_STACK_MAX bytes.
+BL, HL, BL_CHECK, SIGMA_L = 4096, 50, 512, 0.2
+HM_PARITY, EE_STACK_MAX = 16, 288
 
 
 def require(ok: bool, msg: str):
@@ -389,6 +421,19 @@ def cuda_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed_call(fn):
+    """(fn(), the milliseconds of that one call by CUDA events)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def graph_ms(fn, reps: int = 20) -> float:
@@ -781,7 +826,8 @@ def profile_main_path(solve_once, extra=(), cpu: bool = True):
 
 
 def check_kernels(checks, m64, m32, smi: str, rows=None, row_tag: str = "",
-                  time_all: bool = True, ee_names=None) -> dict:
+                  time_all: bool = True, ee_names=None,
+                  float32: bool = True) -> dict:
     """Hold each kernel against its plain version (float64 max abs error
     <= TOL64, float32 relative error <= TOL32), time both in float32 and
     compute the bound.  ``checks``: (label, kernel name, float64 args,
@@ -790,9 +836,14 @@ def check_kernels(checks, m64, m32, smi: str, rows=None, row_tag: str = "",
     the row's max_abs_err is the largest over the kernel's checks.  With
     ``time_all=False`` only that first check is timed.  ``ms`` is one
     call's time with its launch (``cuda_ms``) for every kernel; the rows
-    of GRAPH_KERNELS add the device's time alone (``graph_ms``).  Fails
+    of GRAPH_KERNELS add the device's time alone (``graph_ms``); the
+    plain version's is its float32 check's own call (``timed_call``, after
+    its float64 call has run the same code).  Fails
     after printing every check.  ``ee_names`` names K4's end effector on a
-    model of several leaves (for its operation count)."""
+    model of several leaves (for its operation count).  With
+    ``float32=False`` only the float64 check runs: the caller holds and
+    times the float32 kernel at its path's shape and completes the row
+    (ms, plain_ms, bound_ms, bound_by)."""
     import torch
     from rbdtpu_torch import opcount
 
@@ -808,25 +859,36 @@ def check_kernels(checks, m64, m32, smi: str, rows=None, row_tag: str = "",
                 for k, v in kw.items()}
         p64 = plain(m64, *a64, **kw)
         e64 = errors(kern(m64, *a64, **kw), p64, relative=False)
-        k32, p32 = kern(m32, *a32, **kw32), plain(m32, *a32, **kw32)
-        e32 = errors(k32, p32, relative=True)
-        torch.cuda.synchronize()
-        err64, err32 = max(e64), max(e32)
+        err64 = max(e64)
         if err64 > TOL64:
             failures.append(f"{label}: float64 max abs error {err64:.3e} > "
                             f"{TOL64:g}")
+        shapes = " ".join(str(tuple(a.shape)) for a in a64)
+        fmt = lambda es: "[" + " ".join(f"{e:.2e}" for e in es) + "]"
+        if not float32:
+            print(f"kernel {label}: inputs {shapes}  f64 max|err| "
+                  f"{fmt(e64)} (float32 held and timed at its path's shape; "
+                  f"{smi})")
+            rows.setdefault(row, dict(name=row, route="cuda", source=source,
+                                      replaces=replaces, max_abs_err=err64,
+                                      library_ms=None))
+            rows[row]["max_abs_err"] = max(rows[row]["max_abs_err"], err64)
+            continue
+        timed = time_all or row not in rows
+        k32 = kern(m32, *a32, **kw32)
+        p32, plain_ms = timed_call(lambda: plain(m32, *a32, **kw32))
+        e32 = errors(k32, p32, relative=True)
+        torch.cuda.synchronize()
+        err32 = max(e32)
         if err32 > TOL32[kname]:
             failures.append(f"{label}: float32 relative error {err32:.3e} > "
                             f"{TOL32[kname]:g}")
         ops = flops[ops_key] * states
         bound_ms, bound_by = bound((*a32, *kw32.values()), k32, m32, ops,
                                    "float32")
-        shapes = " ".join(str(tuple(a.shape)) for a in a64)
-        fmt = lambda es: "[" + " ".join(f"{e:.2e}" for e in es) + "]"
         timing, gms = "not timed", None
-        if time_all or row not in rows:
+        if timed:
             ms = cuda_ms(lambda: kern(m32, *a32, **kw32), reps=20)
-            plain_ms = cuda_ms(lambda: plain(m32, *a32, **kw32), reps=3)
             timing = f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
             if kname in GRAPH_KERNELS:
                 gms = graph_ms(lambda: kern(m32, *a32, **kw32))
@@ -2173,15 +2235,19 @@ def foot_parity(q64):
 
 
 def push_wrenches(model, H: int, noise: float = 0.0, seed: int = 0,
-                  newtons: float = PUSH_N):
-    """(H, nb, 6) world-frame wrenches on ``model``'s device and dtype:
-    ``newtons`` along +y on the trunk (body 0) for the knots of
-    PUSH_KNOTS, over ``noise`` N(0,1) on every body (from ``seed``)."""
+                  newtons: float = PUSH_N, height: float = 0.0):
+    """(H, nb, 6) world-frame wrenches [n; f] on ``model``'s device and
+    dtype: ``newtons`` along +y on the trunk (body 0) for the knots of
+    PUSH_KNOTS, over ``noise`` N(0,1) on every body (from ``seed``).  The
+    push's line of action passes through the world origin, or with
+    ``height`` through the point ``height`` above it (its moment about the
+    origin, n_x = -height newtons)."""
     import torch
 
     rng = np.random.default_rng(seed)
     F = noise * rng.standard_normal((H, model.nb, 6))
     F[PUSH_KNOTS[0]:PUSH_KNOTS[1], 0, 4] += newtons
+    F[PUSH_KNOTS[0]:PUSH_KNOTS[1], 0, 0] -= height * newtons
     return torch.tensor(F, dtype=model.dtype, device=model.device)
 
 
@@ -2480,7 +2546,7 @@ def quat_kernels(h64, h32, smi: str, rows: dict, ptxas: list):
     from rbdtpu_torch.kernels import _lib
 
     for line in ptxas:
-        if "DimsQuat" in line or "quat_kernel" in line:
+        if "DimsQuat" in line:
             print(f"phase 20 {line}")
     qin = quat_kernel_inputs(h64, np.random.default_rng(SEED + 110))
     states = {"fd_step": BH * SAMPLES_H, "feedback_rollout": BH * ALPHAS_H * HH,
@@ -2506,7 +2572,8 @@ def quat_kernels(h64, h32, smi: str, rows: dict, ptxas: list):
                 qin["feedback_rollout"])
 
 
-def hand_path(m32, smi: str):
+def hand_path(m32, smi: str, problems=None, tag: str = "path H",
+              seed: int = SEED + 111, root: str = "quaternion root"):
     """Phase 20, path H (bench.py:640-672) through the port's entry points:
     ``ddp_solve`` of BH quaternion humanoids (``quat_problems``) reaching
     TARGET_Q with the left wrist, HH knots, ITERS_Q iterations, ALPHAS_H
@@ -2515,14 +2582,16 @@ def hand_path(m32, smi: str):
     times, K2, K3 and the small-batch sweep (K8) once an iteration, ee_gn
     twice an iteration, ee_err twice for J0 and twice an iteration, the
     plain sweep and the large-batch site never.  J finite, nonincreasing
-    and falling; its profile.  Returns the counts of the three solves by
-    kernel and by (kernel, size class)."""
+    and falling; its profile.  Phase 23's path M runs it on the rpy
+    humanoid (``problems``: ``humanoid_problems``).  Returns the counts of
+    the three solves by kernel and by (kernel, size class)."""
     import torch
     from rbdtpu_torch.kernels import _lib
     from rbdtpu_torch.solver import DDPConfig, ddp, ddp_solve, rollout, \
         trajectory_cost
 
-    x0, U0 = quat_problems(m32, BH, HH, np.random.default_rng(SEED + 111))
+    x0, U0 = (problems or quat_problems)(m32, BH, HH,
+                                         np.random.default_rng(seed))
     cost = hand_cost(m32)
     J0 = trajectory_cost(cost, rollout(m32, x0, U0, DT, GRAVITY, fused=True),
                          U0)
@@ -2545,20 +2614,21 @@ def hand_path(m32, smi: str):
                  "linearize_parts": ITERS_Q, "riccati_small": ITERS_Q,
                  "ee_gn": 2 * ITERS_Q, "ee_err": 2 + 2 * ITERS_Q,
                  "riccati_chunk": 0, "feedback_chunked": 0}
-    print(f"path H launches (3 solves): {counts}; per solve "
+    print(f"{tag} launches (3 solves): {counts}; by size class "
+          f"{ {f'{k}/{c}': v for (k, c), v in by_class.items()} }; per solve "
           f"{ {k: counts[k] / 3 for k in per_solve} }; plain sweeps "
           f"{len(plain_sweeps)}")
     for k, v in per_solve.items():
-        require(counts[k] == 3 * v, f"path H: {k} launched {counts[k]} times "
+        require(counts[k] == 3 * v, f"{tag}: {k} launched {counts[k]} times "
                 f"in 3 solves, expected {3 * v}")
-    require(not plain_sweeps, "path H: the plain sweep ran")
+    require(not plain_sweeps, f"{tag}: the plain sweep ran")
     require(tuple(J_hist.shape) == (ITERS_Q, BH), f"J_hist {J_hist.shape}")
-    require(bool(J_hist.isfinite().all()), "path H: non-finite J")
+    require(bool(J_hist.isfinite().all()), f"{tag}: non-finite J")
     require(bool((J_hist[1:] <= J_hist[:-1]).all()) and bool(
-        (J_hist[0] <= J0 * (1 + 1e-6)).all()), "path H: J increased")
-    require(bool((J_hist[-1] < J0).all()), "path H: J did not fall")
+        (J_hist[0] <= J0 * (1 + 1e-6)).all()), f"{tag}: J increased")
+    require(bool((J_hist[-1] < J0).all()), f"{tag}: J did not fall")
     sec = statistics.median(times)
-    print(f"path H: humanoid30 quaternion root hand reaching {EE_Q[0]} -> "
+    print(f"{tag}: humanoid30 {root} hand reaching {EE_Q[0]} -> "
           f"{TARGET_Q}, Bm={BH} H={HH} iters={ITERS_Q} alphas={ALPHAS_H} f32 "
           f"fused: mean J {J0.mean().item():.6g} -> "
           f"{J_hist[-1].mean().item():.6g}; solve {sec * 1e3:.1f} ms (median "
@@ -2607,26 +2677,38 @@ def quat_parity(m64, smi: str):
         return state.U, hist
 
     for tag, fn in (("path G", path_g), ("path H", path_h)):
-        x0, U0 = quat_problems(m64, BQ_PARITY, HH, rng)
-        moved = x0 * (1 + 1e-13 * torch.tensor(
-            rng.standard_normal(x0.shape), dtype=x0.dtype, device=x0.device))
-        (Uk, Jk), (Up, Jp) = fn(True, x0, U0), fn(False, x0, U0)
-        torch.cuda.synchronize()
-        rel = lambda a, b: ((a - b).abs() / b.abs()).max().item()
-        du, dj = (Uk - Up).abs().max().item(), rel(Jk, Jp)
-        bound, rule = TOL64, f"{TOL64:g}"
-        if dj >= TOL64:
-            Uf, Jf = fn(False, moved, U0)
-            bound = FLOOR_TIMES * rel(Jf, Jp)
-            rule = (f"{bound:.3g} = {FLOOR_TIMES:g} x the plain route's floor"
-                    f", which parts by max|dU| "
-                    f"{(Uf - Up).abs().max().item():.3e} from x0 x (1 + "
-                    f"1e-13 N(0,1))")
-        print(f"{tag} parity f64 Bm={BQ_PARITY} H={HH}: kernels vs plain "
-              f"route: max|dU| {du:.3e} (bound {U_PARITY:g}), max rel |dJ| "
-              f"over the J history {dj:.3e} (bound {rule}) ({smi})")
-        require(du < U_PARITY and dj < bound, f"{tag}: the kernels' solve "
-                "departs from the plain route's")
+        route_parity(tag, fn, *quat_problems(m64, BQ_PARITY, HH, rng), rng,
+                     smi)
+
+
+def route_parity(tag: str, fn, x0, U0, rng, smi: str):
+    """``fn(kernels, x0, U0)`` -> (U, J history) through the kernels and
+    through the plain route, float64: |dU| < U_PARITY and relative |dJ| <
+    TOL64 over the J history; where |dJ| passes TOL64, the plain route's own
+    floor (its parting from itself when x0 moves by 1e-13 relative) is
+    measured in the same run and |dJ| must stay under FLOOR_TIMES times it.
+    The line says which bound held."""
+    import torch
+
+    moved = x0 * (1 + 1e-13 * torch.tensor(
+        rng.standard_normal(x0.shape), dtype=x0.dtype, device=x0.device))
+    (Uk, Jk), (Up, Jp) = fn(True, x0, U0), fn(False, x0, U0)
+    torch.cuda.synchronize()
+    rel = lambda a, b: ((a - b).abs() / b.abs()).max().item()
+    du, dj = (Uk - Up).abs().max().item(), rel(Jk, Jp)
+    bound, rule = TOL64, f"{TOL64:g}"
+    if dj >= TOL64:
+        Uf, Jf = fn(False, moved, U0)
+        bound = FLOOR_TIMES * rel(Jf, Jp)
+        rule = (f"{bound:.3g} = {FLOOR_TIMES:g} x the plain route's floor"
+                f", which parts by max|dU| "
+                f"{(Uf - Up).abs().max().item():.3e} from x0 x (1 + "
+                f"1e-13 N(0,1))")
+    print(f"{tag} parity f64 Bm={x0.shape[0]} H={U0.shape[1]}: kernels vs "
+          f"plain route: max|dU| {du:.3e} (bound {U_PARITY:g}), max rel |dJ| "
+          f"over the J history {dj:.3e} (bound {rule}) ({smi})")
+    require(du < U_PARITY and dj < bound, f"{tag}: the kernels' solve "
+            "departs from the plain route's")
 
 
 def quat_phase(smi: str, rows: dict, ptxas: list):
@@ -3026,6 +3108,361 @@ def quat_ext_phase(smi: str, rows: dict, ptxas: list):
                 "feedback_chunked_fext_fq32"):
         require(rows[row]["launches"] > 0, f"{row} was not launched on path "
                 "J or K")
+
+
+def legged_models():
+    """Path L's models, each (tag, float64, float32, its start's maker, K5's
+    size class): the rpy quadruped (configs[3]'s start), the rpy humanoid
+    (path C's) and the quaternion humanoid (path G's)."""
+    import torch
+    from rbdtpu_torch.model import load_asset
+
+    out = []
+    for tag, name, quat, problems, cls in (
+            ("rpy quadruped", "quadruped12", False, quadruped_problems,
+             "fb16"),
+            ("rpy humanoid", "humanoid30", False, humanoid_problems, "fb32"),
+            ("quaternion humanoid", "humanoid30", True, quat_problems,
+             "fq32")):
+        m64, m32 = (load_asset(name, device="cuda", dtype=dt,
+                               floating_base=True, root_quat=quat)
+                    for dt in (torch.float64, torch.float32))
+        out.append((tag, m64, m32, problems, cls))
+    return out
+
+
+def legged_inputs(m, problems, B: int, H: int, seed: int):
+    """Path L's inputs on ``m`` (its device and dtype): x0 (B, nx) from the
+    path's start, U (H, B, nv) scan-major, the start's hold controls
+    (gravity compensation) plus SIGMA_L N(0,1), and path F's trunk push
+    (H, nb, 6) along a line through the trunk's mean start height: pushed
+    through the world origin, a free trunk 0.9 m above it takes a 72 N m
+    moment too, which spins the open-loop humanoid (plain route and kernel
+    alike) to inf within the 50 steps."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x0, U0 = problems(m, B, H, rng)
+    U = U0.transpose(0, 1) + torch.tensor(
+        SIGMA_L * rng.standard_normal((H, B, m.nv)), dtype=m.dtype,
+        device=m.device)
+    return x0.contiguous(), U.contiguous(), push_wrenches(
+        m, H, height=float(x0[:, 2].mean()))
+
+
+def gap_kernels(models, smi: str, rows: dict, ptxas: list):
+    """Phase 23's kernel checks: K5 at each floating root's class against
+    ``rollout_multi_plain`` in float64 at BL_CHECK x HL (path L's inputs),
+    both routes, with and without the push, <= TOL64 (``path_l`` holds and
+    times the float32 kernel at path L's own BL x HL), and with zero
+    wrenches bit for bit the wrench-free kernel in both dtypes; K4 at fb32 (the rpy humanoid's left wrist) at path M's shapes
+    (ee_gn at its 512 knots and 16 terminal states, ee_err at its 2,048 and
+    64 line-search states); the per-thread stack limit unchanged across
+    them, and K4 fb32's stack within EE_STACK_MAX."""
+    import torch
+    from rbdtpu_torch.kernels import _lib, fused
+
+    k5 = [ln for ln in ptxas if ln.startswith("ptxas rollout_multi_kernel<")
+          and "Dims<8, false>" not in ln]
+    k4 = [ln for ln in ptxas if ln.startswith("ptxas ee_root_kernel<")
+          and "Dims<32, true>" in ln]
+    for line in k5 + k4:
+        print(f"phase 23 {line}")
+    stacks = [int(re.search(r"(\d+) bytes stack frame", ln).group(1))
+              for ln in k4]
+    require(len(stacks) == 4 and max(stacks) <= EE_STACK_MAX,
+            f"ee_root fb32: stack frames {stacks} B a thread (limit "
+            f"{EE_STACK_MAX})")
+    limit = _lib.stack_limit(models[0][1].device)
+    for tag, m64, m32, problems, cls in models:
+        x0, U, F = legged_inputs(m64, problems, BL_CHECK, HL, SEED + 130)
+        checks = [(f"rollout_multi {tag} {route}{wr}", "rollout_multi",
+                   (x0, U), {"route": route, **kw}, key + plus, BL_CHECK * HL)
+                  for route, key in (("aba", "fd_step"),
+                                     ("minv", "fd_step_minv"))
+                  for wr, kw, plus in (("", {}, ""),
+                                       (" push", {"f_ext": F}, "+fext"))]
+        check_kernels(checks, m64, m32, smi, rows, row_tag=f"_{cls}",
+                      float32=False)
+        for m in (m64, m32):
+            xm, Um = x0.to(m.dtype), U.to(m.dtype)
+            zero = torch.zeros(HL, m.nb, 6, dtype=m.dtype, device=m.device)
+            for route in ("aba", "minv"):
+                require(torch.equal(
+                    fused.rollout_fused_multi(m, xm, Um, DT, GRAVITY,
+                                              route=route, f_ext=zero),
+                    fused.rollout_fused_multi(m, xm, Um, DT, GRAVITY,
+                                              route=route)),
+                    f"rollout_multi {tag} {route}: zero wrenches part from "
+                    f"the wrench-free kernel in {m.dtype}")
+        print(f"rollout_multi {tag} ({cls}): zero wrenches give the "
+              "wrench-free kernel's states bit for bit, both routes, both "
+              "dtypes")
+    _, h64, h32, _, _ = models[1]
+    rng = np.random.default_rng(SEED + 131)
+
+    def configs(B):
+        x, _ = humanoid_problems(h64, B, 1, rng)
+        return (x[:, :h64.nq] + torch.tensor(
+            0.1 * rng.standard_normal((B, h64.nq)), dtype=torch.float64,
+            device=h64.device)).contiguous()
+
+    checks = [(f"{kname} fb32 {size}", kname, (configs(B),),
+               {"ee_names": EE_Q}, kname, B)
+              for kname, sizes in (("ee_gn", (("knots", BH * HH),
+                                              ("terminal", BH))),
+                                   ("ee_err", (("line search",
+                                                ALPHAS_H * BH * HH),
+                                               ("terminal", ALPHAS_H * BH))))
+              for size, B in sizes]
+    check_kernels(checks, h64, h32, smi, rows, row_tag="_fb32",
+                  ee_names=EE_Q)
+    grown = _lib.stack_limit(h64.device)
+    print(f"stack limit {limit} B a thread before K5 at fb16/fb32/fq32 and "
+          f"K4 at fb32, {grown} B after them ({smi})")
+    require(grown == limit, f"K5 or K4 fb32 raised the stack limit from "
+            f"{limit} to {grown} B a thread")
+    for cls in ("fb16", "fb32", "fq32"):
+        team, tpb, smem, blocks = _lib.team_geometry(
+            "rollout_multi", cls, torch.float32, BL, _lib.sm_count("cuda"))
+        print(f"team rollout_multi {cls} f32: B={BL} team {team} lanes, "
+              f"{tpb} teams a block, {smem} B of shared memory a block, "
+              f"{blocks} blocks")
+
+
+def path_l(models, smi: str, rows: dict) -> dict:
+    """Phase 23, path L: ``rollout_fused_multi`` at BL x HL in float32 on
+    each legged model (``legged_inputs``), both routes, with and without
+    the push: with the counts set to 0 just before, the four rollouts are
+    four launches of K5 at the model's class and none of K1 or K6; their
+    final states, finite, are held against ``rollout_multi_plain`` on the
+    same inputs (TOL32 relative), and the aba route's must equal the K1
+    scan's (``solver.rollout(fused=True)``) bit for bit; then each timed
+    (median of 7 after a warm-up, CUDA events, and by graph replay).
+    Completes each class's K5 row (``gap_kernels``) at this shape: ms and
+    graph_ms of the aba route without the push, plain_ms of its plain
+    version (the comparison's own call, ``timed_call``; gap_kernels ran
+    the same plain code in float64 before), bound_ms from the step's operation
+    count.  Returns the launches of the four rollouts of each model by
+    (kernel, size class)."""
+    import collections
+
+    import torch
+    from rbdtpu_torch import opcount
+    from rbdtpu_torch.kernels import _lib, fused
+    from rbdtpu_torch.solver import rollout
+
+    counts = collections.Counter()
+    for tag, _, m32, problems, cls in models:
+        x0, U, F = legged_inputs(m32, problems, BL, HL, SEED + 132)
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        finals = {(route, wr): fused.rollout_fused_multi(
+            m32, x0, U, DT, GRAVITY, route=route, f_ext=fe)
+            for route in ("aba", "minv") for wr, fe in (("", None),
+                                                        (" push", F))}
+        torch.cuda.synchronize()
+        launched = dict(_lib.launches)
+        require(launched["rollout_multi"] == 4 and launched["fd_step"] == 0
+                and launched["fd_step_minv"] == 0,
+                f"path L {tag}: four rollouts launched {launched}")
+        counts.update(_lib.class_launches)
+        require(counts[("rollout_multi", cls)] == 4,
+                f"path L {tag}: K5 at {cls} launched "
+                f"{counts[('rollout_multi', cls)]} times, expected 4")
+        row = rows[f"rollout_multi_{cls}"]
+        for (route, wr), xf in finals.items():
+            require(tuple(xf.shape) == (BL, m32.nx),
+                    f"path L {tag}: final state {tuple(xf.shape)}")
+            require(bool(xf.isfinite().all()),
+                    f"path L {tag} {route}{wr}: non-finite final state")
+            plain = lambda route=route, fe=F if wr else None: (
+                fused.rollout_multi_plain(m32, x0, U, DT, GRAVITY,
+                                          route=route, f_ext=fe))
+            xp, plain_ms = timed_call(plain)
+            if (route, wr) == ("aba", ""):
+                row["plain_ms"] = plain_ms
+            err = errors(xf, xp, relative=True)[0]
+            print(f"path L {tag} ({cls}) {route}{wr}: B={BL} H={HL} f32 K5 "
+                  f"vs rollout_multi_plain: rel max|err| {err:.3e} (bound "
+                  f"{TOL32['rollout_multi']:g}) ({smi})")
+            require(err <= TOL32["rollout_multi"],
+                    f"path L {tag} {route}{wr}: K5 and its plain version "
+                    f"part by {err:.3e}")
+        row["bound_ms"], row["bound_by"] = bound(
+            (x0, U), finals[("aba", "")], m32,
+            opcount.per_state(m32, TARGET)["fd_step"] * BL * HL, "float32")
+        Ub = U.transpose(0, 1).contiguous()
+        for wr, fe in (("", None), (" push", F)):
+            scan = lambda fe=fe: rollout(m32, x0, Ub, DT, GRAVITY,
+                                         fused=True, f_ext=fe)
+            xs = scan()[:, -1]
+            xk = finals[("aba", wr)]
+            err = (xk - xs).abs().max().item()
+            require(torch.equal(xk, xs),
+                    f"path L {tag}{wr}: K5 and the K1 scan part by {err:.3e}")
+            scan_ms = cuda_ms(scan, reps=7)
+            print(f"path L {tag}{wr}: the K1 scan (solver.rollout(fused="
+                  f"True), {HL} launches) {scan_ms:.4f} ms = "
+                  f"{BL * HL / (scan_ms / 1e3):.6g} steps/s; K5 aba's final "
+                  f"state equals the scan's bit for bit ({smi})")
+            for route in ("aba", "minv"):
+                fn = lambda route=route, fe=fe: fused.rollout_fused_multi(
+                    m32, x0, U, DT, GRAVITY, route=route, f_ext=fe)
+                ms, gms = cuda_ms(fn, reps=7), graph_ms(fn, reps=5)
+                if (route, wr) == ("aba", ""):
+                    row["ms"], row["graph_ms"] = ms, gms
+                print(f"path L {tag} ({cls}) {route}{wr}: B={BL} H={HL} f32: "
+                      f"{ms:.4f} ms a rollout (median of 7, CUDA events) = "
+                      f"{BL * HL / (ms / 1e3):.6g} steps/s, device "
+                      f"{gms:.4f} ms by graph replay, one launch; max|x_H| "
+                      f"{finals[(route, wr)].abs().max().item():.4g} ({smi})")
+    return counts
+
+
+def past_limits(model, x0):
+    """x0 with the left arm's shoulder pitch 0.05 rad above its upper
+    position limit, its elbow 0.05 rad below its lower one and its wrist
+    pitch 0.5 rad/s past its velocity limit: ``add_limit_barrier``'s
+    three kinds of hinge act on the wrist's chain, beside K4's
+    derivatives, from the first knot."""
+    lo, hi = model.q_limit_vectors()
+    qd_lim = model.qd_limit_vector()
+    body = lambda n: model.body_names.index(f"left_arm_{n}_link")
+    i, j, k = (body(n) for n in ("shoulder_pitch", "elbow", "wrist_pitch"))
+    x = x0.clone()
+    x[:, model.q_index(i)] = hi[model.q_index(i)] + 0.05
+    x[:, model.q_index(j)] = lo[model.q_index(j)] - 0.05
+    x[:, model.nq + model.v_index(k)] = qd_lim[model.v_index(k)] + 0.5
+    return x
+
+
+def active_hinges(model, X) -> int:
+    """How many of ``add_limit_barrier``'s hinges are active over the
+    states X (..., nx): coordinates past a position limit plus speeds past
+    a velocity limit."""
+    lo, hi = model.q_limit_vectors()
+    q, qd = X[..., :model.nq], X[..., model.nq:]
+    return int(((q > hi) | (q < lo)).sum().item()
+               + (qd.abs() > model.qd_limit_vector()).sum().item())
+
+
+def path_m(h32, smi: str) -> dict:
+    """Phase 23, path M: ``hand_path`` on the rpy humanoid (16 problems,
+    H=32, 5 iterations of 4 line-search steps, float32, the left wrist
+    toward TARGET_Q), with its launch, J and profile checks; then one solve
+    of its cost wrapped in ``add_limit_barrier`` at the same shapes through
+    the kernels, from the start pushed past three of the arm's limits
+    (``past_limits``): ms, J, K4 at fb32 launched, hinges active on the
+    solved trajectory after its first knot.  Returns path M's three
+    solves' launches by (kernel, size class)."""
+    import torch
+    from rbdtpu_torch.kernels import _lib
+    from rbdtpu_torch.solver import DDPConfig, add_limit_barrier, ddp_solve
+
+    _, by_class = hand_path(h32, smi, humanoid_problems, "path M",
+                            SEED + 133, "rpy root")
+    x0, U0 = humanoid_problems(h32, BH, HH, np.random.default_rng(SEED + 133))
+    x0 = past_limits(h32, x0)
+    cost = add_limit_barrier(h32, hand_cost(h32))
+    cfg = DDPConfig(iters=ITERS_Q, dt=DT, gravity=GRAVITY, n_alphas=ALPHAS_H,
+                    fused=True)
+    ddp_solve(h32, cost, x0, U0, cfg)
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    (state, J_hist), times = timed_runs(lambda: ddp_solve(h32, cost, x0, U0,
+                                                          cfg), reps=1,
+                                        warm=False)
+    barrier = dict(_lib.class_launches)
+    active = active_hinges(h32, state.X[:, 1:])
+    require(bool(J_hist.isfinite().all()), "path M barrier: non-finite J")
+    require(active > 0, "path M barrier: no hinge active after knot 0")
+    require(barrier.get(("ee_gn", "fb32"), 0) == 2 * ITERS_Q and barrier.get(
+        ("ee_err", "fb32"), 0) == 2 + 2 * ITERS_Q,
+        f"path M barrier: K4 at fb32 launched {barrier}")
+    print(f"path M with add_limit_barrier: Bm={BH} H={HH} iters={ITERS_Q} "
+          f"f32 fused, from past the limits: {active} active hinges over "
+          f"knots 1-{HH}; mean J {J_hist[0].mean().item():.6g} -> "
+          f"{J_hist[-1].mean().item():.6g}; solve {times[0] * 1e3:.1f} ms "
+          f"(CUDA events); launches by size class "
+          f"{ {f'{k}/{c}': v for (k, c), v in barrier.items()} } ({smi})")
+    return by_class
+
+
+def path_m_parity(h64, smi: str):
+    """Path M in float64 at BQ_PARITY problems over HM_PARITY knots, ITERS_Q
+    iterations, through the kernels and through the plain route (K4's plain
+    version there), with and without ``add_limit_barrier`` around the cost
+    (``route_parity``); with the barrier from the start pushed past three
+    of the arm's limits (``past_limits``), whose hinges must be active on
+    the kernels' solved trajectory after its first knot."""
+    from rbdtpu_torch.solver import DDPConfig, add_limit_barrier, ddp_solve
+
+    rng = np.random.default_rng(SEED + 134)
+    for barrier in (False, True):
+        solved = {}
+
+        def fn(kernels, x0, U0, barrier=barrier):
+            cost = hand_cost(h64, kernels)
+            if barrier:
+                cost = add_limit_barrier(h64, cost)
+            state, hist = ddp_solve(h64, cost, x0, U0, DDPConfig(
+                iters=ITERS_Q, dt=DT, gravity=GRAVITY, n_alphas=ALPHAS_H,
+                fused=kernels))
+            solved.setdefault(kernels, state.X)
+            return state.U, hist
+
+        x0, U0 = humanoid_problems(h64, BQ_PARITY, HM_PARITY, rng)
+        if barrier:
+            x0 = past_limits(h64, x0)
+        route_parity("path M" + (" with add_limit_barrier" if barrier
+                                 else ""), fn, x0, U0, rng, smi)
+        if barrier:
+            active = active_hinges(h64, solved[True][:, 1:])
+            print(f"path M with add_limit_barrier parity: {active} active "
+                  f"hinges over knots 1-{HM_PARITY} of the kernels' solve "
+                  f"({smi})")
+            require(active > 0, "path M barrier parity: no hinge active "
+                    "after knot 0")
+
+
+def gaps_phase(smi: str, rows: dict, ptxas: list):
+    """Phase 23: K5 at fb16, fb32 and fq32 and K4 at fb32 against their
+    plain versions (``gap_kernels``); path L, whole-horizon legged
+    rollouts (``path_l``); path M, the rpy humanoid's hand reaching
+    (``path_m``) and its float64 parity with and without the limit barrier
+    (``path_m_parity``).  K5's rows take their launches, times and bound
+    from path L's rollouts, K4 fb32's launches from path M's three solves,
+    by size class."""
+    clock = time.perf_counter()
+
+    def took(step: str):
+        nonlocal clock
+        print(f"phase 23: {step} took {time.perf_counter() - clock:.1f} s")
+        clock = time.perf_counter()
+
+    models = legged_models()
+    gap_kernels(models, smi, rows, ptxas)
+    took("the kernel checks")
+    l_class = path_l(models, smi, rows)
+    took("path L")
+    _, h64, h32, _, _ = models[1]
+    m_class = path_m(h32, smi)
+    took("path M")
+    path_m_parity(h64, smi)
+    took("path M's float64 parity")
+    for row, kname, cls, run in (
+            ("rollout_multi_fb16", "rollout_multi", "fb16", l_class),
+            ("rollout_multi_fb32", "rollout_multi", "fb32", l_class),
+            ("rollout_multi_fq32", "rollout_multi", "fq32", l_class),
+            ("ee_gn_fb32", "ee_gn", "fb32", m_class),
+            ("ee_err_fb32", "ee_err", "fb32", m_class)):
+        rows[row]["launches"] = run.get((kname, cls), 0)
+        require(rows[row]["launches"] > 0,
+                f"{row} was not launched on path L or M")
+        require(all(k in rows[row] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "graph_ms")),
+                f"{row} lacks a time or its bound")
 
 
 def peak_mb(label: str, fn):
@@ -3534,7 +3971,13 @@ def main() -> int:
     quat_ext_phase(smi, rows, ptxas)
     print(f"chip_smoke: phase 22 took {time.perf_counter() - t22:.1f} s")
 
-    print(f"chip_smoke: phases 1-22 took {time.perf_counter() - clock:.1f} s")
+    mark(23)
+    # ---- 23. paths L and M: K5 at fb16, fb32 and fq32, K4 at fb32 ----
+    t23 = time.perf_counter()
+    gaps_phase(smi, rows, ptxas)
+    print(f"chip_smoke: phase 23 took {time.perf_counter() - t23:.1f} s")
+
+    print(f"chip_smoke: phases 1-23 took {time.perf_counter() - clock:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [
         {k: rows[n_][k] for k in (

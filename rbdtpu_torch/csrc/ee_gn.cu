@@ -1,9 +1,9 @@
 // ee_gn / ee_err: end-effector position error and its Gauss-Newton terms.
 // Replaces rbdtpu kernels/fk_lane.py ee_gn_fused (Pallas, fk_lane.py:203),
 // both its gn=True and gn=False variants.  Fixed-base trees of up to 8
-// bodies (N8), rpy floating-base trees of up to 16 (FB16) and
-// quaternion-root trees of up to 32 (FQ32, the kernels at the end of this
-// file).
+// bodies (N8), rpy floating-base trees of up to 16 (FB16) and 32 (FB32, the
+// humanoid) and quaternion-root trees of up to 32 (FQ32, the kernels at the
+// end of this file).
 //
 // A state's chain (the EE joint and its ancestors, ``chain``, and which of
 // them are prismatic, ``prism``: one bit a body each, from the host) is
@@ -178,11 +178,11 @@ RBD_HD void ee_gn_team(const Team<8>& tm, int n, const T* rows, unsigned chain, 
       H0[c * n + j] = col[0] * J[3 * j] + col[1] * J[3 * j + 1] + col[2] * J[3 * j + 2];
 }
 
-// ---- the floating roots (FB16, FQ32) ----
+// ---- the floating roots (FB16, FB32, FQ32) ----
 //
 // The same functions on a floating-root tree (rbdtpu fk_lane.py
 // ee_chain_lane's root branch), templated on the class D.  On the rpy root
-// (FB16) body 0's transform is Ttree0 [[Rz(y) Ry(p) Rx(r), xyz], [0, 1]]
+// (FB16, FB32) body 0's transform is Ttree0 [[Rz(y) Ry(p) Rx(r), xyz], [0, 1]]
 // with q[0:6] = [x, y, z, roll, pitch, yaw], and body k > 0 reads q[k + 5]
 // and owns column k + 5 of J.  The root's six columns are those of the
 // configuration coordinates: the translations' are the columns of Ttree0's
@@ -198,7 +198,7 @@ RBD_HD void ee_gn_team(const Team<8>& tm, int n, const T* rows, unsigned chain, 
 //
 //   - ee_gn: a team of 8 lanes a state (four states a warp), lane c
 //     columns c + 8 s (c, c + 8 and c + 16: every column of FB16's 21;
-//     up to c + 32 on FQ32's 37).  Eight lanes
+//     up to c + 32 on FB32's and FQ32's 37).  Eight lanes
 //     and not one a column: every lane walks the whole chain, so a lane a
 //     column would repeat the walk 21 times for the 9 columns a quadruped
 //     foot's chain (root, hip, thigh, knee) has, and H0's rows (nv values
@@ -211,7 +211,8 @@ RBD_HD void ee_gn_team(const Team<8>& tm, int n, const T* rows, unsigned chain, 
 //   - ee_err: one thread a state.
 // Rows are staged through shared memory as on the fixed base (at the
 // class's bounds: ee_fixed_values ahead of the states, ee_root_state_values
-// a state; FQ32's four states in double pass 48 KB and are opted in).  The
+// a state; at FB32 and FQ32 four states in double pass 48 KB and are opted
+// in).  The
 // root's block is a real call: nvcc 12.9 miscompiled two inlined rpy root
 // bodies (rbd_team.cuh).
 
@@ -587,49 +588,20 @@ __device__ __forceinline__ void ee_root_block(const rbd::Model<T, D>& m, const T
   }
 }
 
-// The rpy-root kernels (FB16).
-template <typename T>
-__global__ void __launch_bounds__(256)
-    ee_gn_rpy_kernel(rbd::Model<T, rbd::FB16> m, const T* __restrict__ ee, unsigned chain,
-                     unsigned prism, const T* __restrict__ q, T tx, T ty, T tz,
-                     T* __restrict__ e, T* __restrict__ g0, T* __restrict__ H0, int B,
-                     int spb) {
-  ee_root_block<T, rbd::FB16, true>(m, ee, chain, prism, q, tx, ty, tz, e, g0, H0, B, spb);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(128)
-    ee_err_rpy_kernel(rbd::Model<T, rbd::FB16> m, const T* __restrict__ ee, unsigned chain,
-                      unsigned prism, const T* __restrict__ q, T tx, T ty, T tz,
-                      T* __restrict__ e, int B, int spb) {
-  ee_root_block<T, rbd::FB16, false>(m, ee, chain, prism, q, tx, ty, tz, e,
-                                     static_cast<T*>(nullptr), static_cast<T*>(nullptr), B,
-                                     spb);
-}
-
-// The quaternion-root kernels (FQ32).
-template <typename T>
-__global__ void __launch_bounds__(256)
-    ee_gn_quat_kernel(rbd::Model<T, rbd::FQ32> m, const T* __restrict__ ee, unsigned chain,
-                      unsigned prism, const T* __restrict__ q, T tx, T ty, T tz,
-                      T* __restrict__ e, T* __restrict__ g0, T* __restrict__ H0, int B,
-                      int spb) {
-  ee_root_block<T, rbd::FQ32, true>(m, ee, chain, prism, q, tx, ty, tz, e, g0, H0, B, spb);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(128)
-    ee_err_quat_kernel(rbd::Model<T, rbd::FQ32> m, const T* __restrict__ ee, unsigned chain,
-                       unsigned prism, const T* __restrict__ q, T tx, T ty, T tz,
-                       T* __restrict__ e, int B, int spb) {
-  ee_root_block<T, rbd::FQ32, false>(m, ee, chain, prism, q, tx, ty, tz, e,
-                                     static_cast<T*>(nullptr), static_cast<T*>(nullptr), B,
-                                     spb);
+// The floating-root kernels at the class D (FB16; FB32, FB16's walk over
+// the class's 37 columns, five a lane; FQ32): ee_gn with GN, else ee_err
+// (g0 and H0 unused).
+template <typename T, class D, bool GN>
+__global__ void __launch_bounds__(GN ? 256 : 128)
+    ee_root_kernel(rbd::Model<T, D> m, const T* __restrict__ ee, unsigned chain,
+                   unsigned prism, const T* __restrict__ q, T tx, T ty, T tz,
+                   T* __restrict__ e, T* __restrict__ g0, T* __restrict__ H0, int B, int spb) {
+  ee_root_block<T, D, GN>(m, ee, chain, prism, q, tx, ty, tz, e, g0, H0, B, spb);
 }
 
 // launch_ee on a floating root of the class D: the same refusals at the
 // class's bounds, and the chain must start at the root (body 0); above
-// 48 KB (FQ32 only) the kernel is opted in.
+// 48 KB (the 32-body classes FB32 and FQ32 only) the kernel is opted in.
 template <typename T, class D, bool GN>
 static int launch_ee_root(const T* tab, const int* itab, int nb, const T* ee, int chain,
                           int prism, const T* q, T tx, T ty, T tz, T* e, T* g0, T* H0, int B,
@@ -641,33 +613,17 @@ static int launch_ee_root(const T* tab, const int* itab, int nb, const T* ee, in
   const unsigned uc = (unsigned)chain, up = (unsigned)prism;
   if (nb > D::NB || (uc & 1u) == 0 || (nb < 32 && (uc >> nb) != 0) || (up & ~uc) != 0 ||
       (up & 1u) != 0 || spb < 4 || spb % 4 != 0 || spb * lanes > most ||
-      (size_t)smem != values * sizeof(T) || smem > (D::QUAT ? 232448 : 48 * 1024))
+      (size_t)smem != values * sizeof(T) || smem > (D::NB > 16 ? 232448 : 48 * 1024))
     return (int)cudaErrorInvalidValue;
   const rbd::Model<T, D> m{tab, itab, nb};
-  const int blocks = (B + spb - 1) / spb;
-  cudaStream_t st = (cudaStream_t)stream;
-  auto kernel = GN ? (D::QUAT ? (void*)ee_gn_quat_kernel<T> : (void*)ee_gn_rpy_kernel<T>)
-                   : (D::QUAT ? (void*)ee_err_quat_kernel<T> : (void*)ee_err_rpy_kernel<T>);
+  const int blocks = (B + spb - 1) / spb, threads = spb * lanes;
   if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t err = cudaFuncSetAttribute(
+        ee_root_kernel<T, D, GN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  if constexpr (GN) {
-    if constexpr (D::QUAT) {
-      ee_gn_quat_kernel<T><<<blocks, spb * lanes, smem, st>>>(m, ee, uc, up, q, tx, ty, tz, e,
-                                                             g0, H0, B, spb);
-    } else {
-      ee_gn_rpy_kernel<T><<<blocks, spb * lanes, smem, st>>>(m, ee, uc, up, q, tx, ty, tz, e, g0,
-                                                            H0, B, spb);
-    }
-  } else {
-    if constexpr (D::QUAT) {
-      ee_err_quat_kernel<T><<<blocks, spb, smem, st>>>(m, ee, uc, up, q, tx, ty, tz, e, B, spb);
-    } else {
-      ee_err_rpy_kernel<T><<<blocks, spb, smem, st>>>(m, ee, uc, up, q, tx, ty, tz, e, B, spb);
-    }
-  }
+  ee_root_kernel<T, D, GN><<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      m, ee, uc, up, q, tx, ty, tz, e, g0, H0, B, spb);
   return (int)cudaGetLastError();
 }
 
@@ -712,6 +668,8 @@ int rbd_ee_err_n8_f64(const double* tab, const int* itab, int nb, const double* 
 }
 RBD_EE_ROOT(fb16, FB16, float, f32)
 RBD_EE_ROOT(fb16, FB16, double, f64)
+RBD_EE_ROOT(fb32, FB32, float, f32)
+RBD_EE_ROOT(fb32, FB32, double, f64)
 RBD_EE_ROOT(fq32, FQ32, float, f32)
 RBD_EE_ROOT(fq32, FQ32, double, f64)
 }

@@ -84,9 +84,11 @@ def rnea_grad_fpass(model: RobotModel, Xs, qd, v, a, gravity=-9.81):
     return df_q, df_d
 
 
-def rnea_grad_bpass(model: RobotModel, Xs, f, df_q, df_d):
+def rnea_grad_bpass(model: RobotModel, Xs, f, df_q, df_d,
+                    use_damping: bool = False):
     """Backward derivative sweeps.  f: (..., NB, 6) accumulated forces.
-    Returns (dc_dq, dc_dqd), each (..., n, n)."""
+    Returns (dc_dq, dc_dqd), each (..., n, n); with ``use_damping`` dc_dqd
+    adds the joints' damping on its diagonal (``damping_diagonal``)."""
     nb = model.nb
     df_q, df_d = list(df_q), list(df_d)
     rows_q, rows_d = [None] * nb, [None] * nb
@@ -105,19 +107,32 @@ def rnea_grad_bpass(model: RobotModel, Xs, f, df_q, df_d):
                 mtv(Xs[i], cross_force(S, f[..., i, :]))[..., None],
                 model.v_index(i), df_q[p].shape[-1])
             df_d[p] = Xt @ df_d[i] + df_d[p]
-    return torch.cat(rows_q, dim=-2), torch.cat(rows_d, dim=-2)
+    dc_dqd = torch.cat(rows_d, dim=-2)
+    if use_damping:
+        dc_dqd = dc_dqd + torch.diag(damping_diagonal(model))
+    return torch.cat(rows_q, dim=-2), dc_dqd
+
+
+def damping_diagonal(model: RobotModel):
+    """The joints' damping by velocity coordinate (nv,): a floating root's
+    damping on its six rows (rbdtpu dynamics/rnea_grad.py:179-187)."""
+    d = model.damping
+    if model.floating_base:
+        return torch.cat([d[:1].expand(6), d[1:]])
+    return d
 
 
 def rnea_grad(model: RobotModel, q, qd, qdd=None, gravity: float = -9.81,
-              split: bool = False, *, Xs=None):
+              use_damping: bool = False, split: bool = False, *, Xs=None):
     """d(tau)/d(q, qd) of inverse dynamics: (..., n, 2n), or the
-    (dc_dq, dc_dqd) pair when split=True.  ``Xs``: q's joint transforms,
-    when the caller has them."""
+    (dc_dq, dc_dqd) pair when split=True; ``use_damping`` adds the joints'
+    damping to dc_dqd's diagonal (rbdtpu's signature).  ``Xs``: q's joint
+    transforms, when the caller has them."""
     if Xs is None:
         Xs = joint_transforms_list(model, q)
     _, v, a, f = rnea(model, q, qd, qdd, gravity, Xs=Xs)
     df_q, df_d = rnea_grad_fpass(model, Xs, qd, v, a, gravity)
-    dc_dq, dc_dqd = rnea_grad_bpass(model, Xs, f, df_q, df_d)
+    dc_dq, dc_dqd = rnea_grad_bpass(model, Xs, f, df_q, df_d, use_damping)
     if model.floating_base:
         root = torch.einsum("...ik,...kj->...ij", root_inertia_columns(
             model, Xs), gravity_seed_derivs(model, q, gravity)[0])

@@ -1,10 +1,9 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version.  ``_lib.launches`` counts the launches of each kernel (K2 and K9
-with wrenches apart).  The tree kernels K1-K3, K6, K9 and K10 cover
-fixed-base models and the rpy floating root (up to 32 bodies); K4 the
-fixed base and the rpy root up to 16 bodies; K1-K4 (K2 without wrenches)
-the quaternion root up to 32 bodies; K5 fixed-base models only; the
-Riccati sweeps (K7/K8 chunked, K11 at nx <= 16) take no model."""
+with wrenches apart).  The tree kernels K1-K6, K9 and K10 cover
+fixed-base models (up to 8 bodies), the rpy floating root and the
+quaternion root (up to 32 bodies); the Riccati sweeps (K7/K8 chunked, K11
+at nx <= 16) take no model."""
 from ._lib import launches, reset_launches
 from .fused import (
     fd_step_fused, fd_step_plain, feedback_rollout_fused,

@@ -41,9 +41,9 @@ STRIDE = 69
 # wrenches are kernels of their own (``feedback_rollout_fext``,
 # ``feedback_chunked_fext``), beside the wrench-free ones.  The quaternion
 # root has classes of its own (QUAT_CLASSES: "fq32", trees of up to 32
-# bodies, the humanoid and the quadruped, every tree kernel but K5), whose
-# q has one coordinate more than its tangent (nq = nv + 1); CLASSES holds
-# every class.
+# bodies, the humanoid and the quadruped), whose q has one coordinate more
+# than its tangent (nq = nv + 1); CLASSES holds every class.  Every class
+# instantiates every tree kernel.
 FEEDBACK_KERNELS = ("feedback_rollout", "feedback_chunked",
                     "feedback_rollout_fext", "feedback_chunked_fext")
 SIZE_CLASSES = {
@@ -54,16 +54,17 @@ SIZE_CLASSES = {
     "fb16": (16, True, ("fd_step", "feedback_rollout", "linearize_parts",
                         "feedback_chunked", "rnea", "fd_step_minv",
                         "ee_gn", "ee_err", "feedback_rollout_fext",
-                        "feedback_chunked_fext")),
+                        "feedback_chunked_fext", "rollout_multi")),
     "fb32": (32, True, ("fd_step", "feedback_rollout", "linearize_parts",
                         "feedback_chunked", "rnea", "fd_step_minv",
-                        "feedback_rollout_fext", "feedback_chunked_fext")),
+                        "feedback_rollout_fext", "feedback_chunked_fext",
+                        "ee_gn", "ee_err", "rollout_multi")),
 }
 QUAT_CLASSES = {
     "fq32": (32, True, ("fd_step", "feedback_rollout", "linearize_parts",
                         "ee_gn", "ee_err", "feedback_chunked",
                         "feedback_rollout_fext", "feedback_chunked_fext",
-                        "fd_step_minv", "rnea")),
+                        "fd_step_minv", "rnea", "rollout_multi")),
 }
 CLASSES = {**SIZE_CLASSES, **QUAT_CLASSES}
 
@@ -86,8 +87,16 @@ def class_dims(cls: str):
 TEAM = {(k, cls, sfx): 32 for k in ("fd_step", "linearize_parts",
                                      *FEEDBACK_KERNELS)
         for cls in ("n8", "fb16", "fb32") for sfx in ("f32", "f64")}
+# K5: on the floating roots the fastest over path L's four rollouts at
+# 4096 x 50 (both routes, with and without the push)
 TEAM.update({("rollout_multi", "n8", "f32"): 16,
-             ("rollout_multi", "n8", "f64"): 32})
+             ("rollout_multi", "n8", "f64"): 32,
+             ("rollout_multi", "fb16", "f32"): 32,
+             ("rollout_multi", "fb16", "f64"): 16,
+             ("rollout_multi", "fb32", "f32"): 32,
+             ("rollout_multi", "fb32", "f64"): 32,
+             ("rollout_multi", "fq32", "f32"): 32,
+             ("rollout_multi", "fq32", "f64"): 32})
 TEAM[("fd_step", "fb32", "f32")] = 16
 # the quaternion root's K1, K2, K9 and K2/K9 with wrenches, as the
 # humanoid's rpy class (fb32)
@@ -142,8 +151,8 @@ def team_values(kernel: str, cls: str, team: int, dense: bool = False) -> int:
     they take as much); rnea's is its
     own (rnea.cu RneaLayout: transform, lower-left block, v, a, I v, f, S
     and the parent, 52 a body; then q, qd and qdd).  On the quaternion root
-    x is one value wider (nq = nv + 1): fd_step's and fd_step_minv's x,
-    the line search's x and nominal, and rnea's q.  Rounded up to 32 and offset by ``team`` % 32 as the
+    x is one value wider (nq = nv + 1): fd_step's, fd_step_minv's and
+    rollout_multi's x, the line search's x and nominal, and rnea's q.  Rounded up to 32 and offset by ``team`` % 32 as the
     sources pad them.  The launch refuses any other count (with
     ``block_values`` ahead of the teams)."""
     nb, fb, kernels = CLASSES[cls]
@@ -160,7 +169,7 @@ def team_values(kernel: str, cls: str, team: int, dense: bool = False) -> int:
         if dense:
             values += 36 + 6 * LIN_LEVELS[cls] * team + nv * (nv + 1)
     elif kernel == "rollout_multi":
-        values += 12 * nb + 12 + 5 * nv + 12 * nb
+        values += 12 * nb + 12 + nq + 4 * nv + 12 * nb
     elif kernel in FEEDBACK_KERNELS:
         values += 8 * nb + 2 + 7 * nv + 2 * nq + nv * (2 * nv + 1)
     else:
@@ -336,7 +345,8 @@ EE_LANES = {"ee_gn": 8, "ee_err": 1}
 EE_STATES = {"ee_gn": (32, 4), "ee_err": (128, 32)}
 EE_STATES_RPY = {"ee_gn": (16, 4), "ee_err": (128, 32)}
 EE_SMEM_MAX = 48 * 1024
-EE_SMEM = {"n8": EE_SMEM_MAX, "fb16": EE_SMEM_MAX, "fq32": SMEM_MAX}
+EE_SMEM = {"n8": EE_SMEM_MAX, "fb16": EE_SMEM_MAX, "fb32": SMEM_MAX,
+           "fq32": SMEM_MAX}
 
 
 def ee_fixed(cls: str = "n8") -> int:
@@ -353,7 +363,7 @@ EE_FIXED = ee_fixed("n8")
 def ee_values(kernel: str, cls: str = "n8") -> int:
     """Shared-memory values a state takes in a block of ``kernel`` at the
     class's bound of nv coordinates (csrc/ee_gn.cu ee_state_values, 8 on
-    n8, and ee_root_state_values, 21 on fb16 and 37 on fq32): the staged q
+    n8, and ee_root_state_values, 21 on fb16 and 37 on fb32 and fq32): the staged q
     row (nq: nv, or nv + 1 on the quaternion root) and e (3); ee_gn also
     g0 (nv), H0 (nv x nv) and the state's columns of J (3 x nv)."""
     _, nv, nq = class_dims(cls)
@@ -620,10 +630,7 @@ def size_class(kernel: str, model) -> str:
         if fb == model.floating_base and kernel in kernels]
     if not fits:
         raise NotImplementedError(
-            f"{kernel}: the CUDA kernel does not cover the quaternion "
-            "floating root" if quat else
-            f"{kernel}: the CUDA kernel covers fixed-base models only; the "
-            "rpy floating root is not ported to it yet")
+            f"{kernel}: no CUDA instantiation covers this model's root")
     levels = max(tree_depths(model)) + 1
     for nmax, cls in sorted(fits):
         if model.nb <= nmax and (kernel not in LEVEL_KERNELS

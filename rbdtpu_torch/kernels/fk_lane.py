@@ -66,9 +66,9 @@ def ee_gn_fused(model: RobotModel, q, target, *, ee_names=None,
     for revolute joints and a_k for prismatic ones), by a team of 8 lanes a
     state for ``ee_gn`` (on the fixed base one lane a column of J, which
     forms g0's entry and H0's row; on the rpy root, instantiated for the
-    "fb16" class, lane c columns c, c + 8 and c + 16, the root's six among
-    them) and by one thread a state for ``ee_err``, which scores the line
-    search's states, writes e alone and never forms J.  On the rpy root,
+    "fb16" and "fb32" classes, lane c columns c + 8 s, the root's six
+    among them) and by one thread a state for ``ee_err``, which scores the
+    line search's states, writes e alone and never forms J.  On the rpy root,
     whose chart is the configuration coordinates, the root's columns are
     its translations' (Ttree0's rotation) and its Euler angles' (rbdtpu
     ``ee_chain_lane``); on the quaternion root ("fq32", up to 32 bodies, 8

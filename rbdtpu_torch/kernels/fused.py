@@ -5,10 +5,9 @@ whole-horizon rollout (K5); and rbdtpu's budget arithmetic that picks
 between K2 and K9 in the line search.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
-raises.  K1, K2, K6, K9 and K10 take fixed-base models, the rpy floating
-root and the quaternion root; K5 fixed-base models only
-(``_lib.size_class``).  K1, K2, K5, K6 and K9 take world-frame wrenches
-(K5 on the fixed base only).
+raises.  Every kernel here takes fixed-base models, the rpy floating root
+and the quaternion root (``_lib.size_class``).  K1, K2, K5, K6 and K9 take
+world-frame wrenches.
 """
 from __future__ import annotations
 
@@ -216,8 +215,11 @@ def rollout_fused_multi(model: RobotModel, x0, U, dt: float,
     team ABA step of ``fd_step_fused`` ("aba"), or the team's RNEA bias
     followed by the step's articulated sweeps at zero velocity and gravity
     ("minv"); the next step's controls and wrenches arrive by cp.async
-    while the team computes.  Bound on the H100: the latency and issue of H
-    dependent team steps; at B=4096 the batch fills the SMs in one wave.
+    while the team computes.  On a floating root the rpy root's six-DoF
+    block is solved inside the step, and on the quaternion root (x rows of
+    nq + nv values) Euler is the manifold step of ``fd_step_fused``, on
+    both routes.  Bound on the H100: the latency and issue of H dependent
+    team steps; at B=4096 the arm7 batch fills the SMs in one wave.
     Team size and teams a block are ``_lib.team_geometry``'s; any B >= 1
     and H >= 0 are taken as they are.
     """

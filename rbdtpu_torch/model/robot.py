@@ -135,6 +135,27 @@ class RobotModel:
             out[self.v_index(i)] = self.effort_limit[i]
         return out
 
+    def qd_limit_vector(self) -> torch.Tensor:
+        """Per-velocity-coordinate |qd| bound (nv,) from URDF <limit
+        velocity> (``solver.costs.add_limit_barrier``)."""
+        out = torch.full((self.nv,), float("inf"), dtype=self.dtype,
+                         device=self.device)
+        for i in range(self.nb):
+            out[self.v_index(i)] = self.velocity_limit[i]
+        return out
+
+    def q_limit_vectors(self) -> tuple:
+        """Per-configuration-coordinate position bounds (lo (nq,), hi (nq,))
+        from URDF <limit lower/upper>; a floating root's coordinates are
+        unbounded (``solver.costs.add_limit_barrier``)."""
+        kw = dict(dtype=self.dtype, device=self.device)
+        lo = torch.full((self.nq,), -float("inf"), **kw)
+        hi = torch.full((self.nq,), float("inf"), **kw)
+        for i in range(1 if self.floating_base else 0, self.nb):
+            lo[self.q_index(i)] = self.q_lower[i]
+            hi[self.q_index(i)] = self.q_upper[i]
+        return lo, hi
+
 
 def make_model(
     *,

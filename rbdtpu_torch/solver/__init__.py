@@ -7,8 +7,8 @@ from .integrate import (
     config_retract, euler_semi_implicit, step_jacobians,
 )
 from .costs import (
-    Cost, ee_reaching_cost, quadratic_tracking_cost, trajectory_cost,
-    quadratize_trajectory,
+    Cost, add_limit_barrier, ee_reaching_cost, quadratic_tracking_cost,
+    trajectory_cost, quadratize_trajectory,
 )
 from .rollout import linearize_trajectory, normalize_f_ext, rollout
 from .ddp import (
@@ -25,7 +25,8 @@ from .mpc import (
 __all__ = [
     "pack_state", "split_state", "state_diff", "state_retract",
     "config_diff", "config_retract", "euler_semi_implicit",
-    "step_jacobians", "Cost", "ee_reaching_cost", "quadratic_tracking_cost",
+    "step_jacobians", "Cost", "add_limit_barrier", "ee_reaching_cost",
+    "quadratic_tracking_cost",
     "trajectory_cost",
     "quadratize_trajectory", "linearize_trajectory", "normalize_f_ext",
     "rollout", "DDPConfig", "DDPState",

@@ -2,8 +2,10 @@
 
 Costs are batch-closed callables ``stage(x, u, t)`` / ``terminal(x)`` on
 arbitrary leading dims, with analytic quadratisations ``stage_derivs`` /
-``terminal_derivs``.  The AD quadratisation of rbdtpu (for costs without
-analytic derivatives) is not ported yet.
+``terminal_derivs``; a cost without them is quadratised by ``torch.func``
+(``quadratize_trajectory``), on the quaternion root in the solver's
+tangent chart.  ``add_limit_barrier`` adds the URDF's joint limits to any
+cost.
 """
 from __future__ import annotations
 
@@ -204,6 +206,83 @@ def ee_reaching_cost(
     return Cost(stage, terminal, stage_derivs, terminal_derivs)
 
 
+def add_limit_barrier(model: RobotModel, cost: Cost, *, w_q=100.0,
+                      w_qd=10.0) -> Cost:
+    """``cost`` plus quadratic hinges on the model's URDF position and
+    velocity limits (rbdtpu solver/costs.py:277-380):
+
+        0.5 w_q  sum relu(q - q_hi)^2 + relu(q_lo - q)^2
+      + 0.5 w_qd sum relu(|qd| - qd_lim)^2
+
+    with their exact piecewise derivatives (the Hessian is the active set's
+    diagonal) added to the base cost's quadratisation, so an EE cost keeps
+    its kernel route.  Unbounded coordinates (continuous joints, the
+    floating root) add nothing.  On the quaternion root the terms live in
+    the tangent chart: the joints' rows v_index(i) with a unit Jacobian
+    (their retraction is additive), the root's six rows zero.  A base cost
+    without analytic derivatives gives one without them (AD quadratises
+    both)."""
+    nq, nv = model.nq, model.nv
+    quat_root = model.floating_base and model.root_quat
+    ndim = 2 * nv if quat_root else nq + nv
+    q_lo, q_hi = model.q_limit_vectors()
+    qd_lim = model.qd_limit_vector()
+    # finite limits only: an infinite one gives a zero hinge and gradient
+    q_lo_f, q_hi_f, qd_f = (torch.isfinite(v) for v in (q_lo, q_hi, qd_lim))
+    q_lo_s, q_hi_s, qd_s = (torch.where(f, v, torch.zeros_like(v)) for f, v in
+                            ((q_lo_f, q_lo), (q_hi_f, q_hi), (qd_f, qd_lim)))
+
+    def _hinges(x):
+        q, qd = x[..., :nq], x[..., nq:]
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        h_hi = torch.where(q_hi_f, torch.clamp(q - q_hi_s, min=0.0), zero)
+        h_lo = torch.where(q_lo_f, torch.clamp(q_lo_s - q, min=0.0), zero)
+        h_qd = torch.where(qd_f, torch.clamp(qd.abs() - qd_s, min=0.0), zero)
+        return h_hi, h_lo, h_qd, qd
+
+    def _penalty(x):
+        h_hi, h_lo, h_qd, _ = _hinges(x)
+        return 0.5 * (w_q * (_sq(h_hi) + _sq(h_lo)) + w_qd * _sq(h_qd))
+
+    def _grad_diag(x):
+        """(lx, diagonal of lxx) of the penalty in the solver's chart."""
+        h_hi, h_lo, h_qd, qd = _hinges(x)
+        g_q = w_q * (h_hi - h_lo)
+        d_q = w_q * ((h_hi > 0) | (h_lo > 0)).to(x.dtype)
+        g_qd = w_qd * h_qd * torch.sign(qd)
+        d_qd = w_qd * (h_qd > 0).to(x.dtype)
+        if quat_root:  # [root twist (6) | joints (nv - 6) | qd (nv)]
+            zroot = torch.zeros(x.shape[:-1] + (6,), dtype=x.dtype,
+                                device=x.device)
+            return (torch.cat([zroot, g_q[..., 7:], g_qd], dim=-1),
+                    torch.cat([zroot, d_q[..., 7:], d_qd], dim=-1))
+        return (torch.cat([g_q, g_qd], dim=-1), torch.cat([d_q, d_qd], dim=-1))
+
+    def stage(x, u, t):
+        return cost.stage(x, u, t) + _penalty(x)
+
+    def terminal(x):
+        return cost.terminal(x) + _penalty(x)
+
+    if cost.stage_derivs is None or cost.terminal_derivs is None:
+        return Cost(stage, terminal)
+
+    def _addx(lx, lxx, x):
+        g, d = _grad_diag(x)
+        lxx = lxx.expand(x.shape[:-1] + (ndim, ndim))
+        return lx + g, lxx + torch.diag_embed(d)
+
+    def stage_derivs(x, u, t):
+        lx, lu, lxx, luu, lux = cost.stage_derivs(x, u, t)
+        lx, lxx = _addx(lx, lxx, x)
+        return lx, lu, lxx, luu, lux
+
+    def terminal_derivs(x):
+        return _addx(*cost.terminal_derivs(x), x)
+
+    return Cost(stage, terminal, stage_derivs, terminal_derivs)
+
+
 def trajectory_cost(cost: Cost, X, U):
     """Total cost: X (..., H+1, nx), U (..., H, nv) -> (...)."""
     ts = torch.arange(U.shape[-2], device=U.device)
@@ -211,14 +290,50 @@ def trajectory_cost(cost: Cost, X, U):
         X[..., -1, :])
 
 
-def quadratize_trajectory(cost: Cost, X, U):
-    """Per-knot analytic cost expansions:
-    (lx, lu, lxx, luu, lux, lfx, lfxx) with (..., H, ...) stage terms."""
-    if cost.stage_derivs is None or cost.terminal_derivs is None:
-        raise NotImplementedError(
-            "AD quadratisation is not ported; give the cost analytic "
-            "stage_derivs and terminal_derivs")
+def quadratize_trajectory(cost: Cost, X, U, model: RobotModel | None = None):
+    """Per-knot cost expansions (lx, lu, lxx, luu, lux, lfx, lfxx) with
+    (..., H, ...) stage terms: the cost's analytic forms when it has them,
+    else ``torch.func``'s gradients and Hessians under ``vmap`` over the
+    flattened batch and knots (rbdtpu solver/costs.py:381-449).  On the
+    quaternion root (pass ``model``) AD differentiates in the tangent chart,
+    c(xi, u) = cost(state_retract(x, xi), u) at xi = 0, so lx and lxx are
+    2 nv wide; analytic forms are taken to be in that chart already (the
+    built-in costs' are)."""
     ts = torch.arange(U.shape[-2], device=U.device)
-    lx, lu, lxx, luu, lux = cost.stage_derivs(X[..., :-1, :], U, ts)
-    lfx, lfxx = cost.terminal_derivs(X[..., -1, :])
-    return lx, lu, lxx, luu, lux, lfx, lfxx
+    if cost.stage_derivs is not None and cost.terminal_derivs is not None:
+        lx, lu, lxx, luu, lux = cost.stage_derivs(X[..., :-1, :], U, ts)
+        lfx, lfxx = cost.terminal_derivs(X[..., -1, :])
+        return lx, lu, lxx, luu, lux, lfx, lfxx
+    from torch.func import grad, hessian, jacfwd, vmap
+
+    H, nx, nu = U.shape[-2], X.shape[-1], U.shape[-1]
+    batch = U.shape[:-2]
+    Xf = X[..., :-1, :].reshape(-1, nx)
+    Uf = U.reshape(-1, nu)
+    tf = ts.expand(batch + (H,)).reshape(-1)
+    st = cost.stage
+    if model is not None and model.floating_base and model.root_quat:
+        from .integrate import state_retract
+
+        ndim = 2 * model.nv
+        z = torch.zeros(ndim, dtype=X.dtype, device=X.device)
+        stage_t = lambda xi, x, u, t: st(state_retract(model, x, xi), u, t)
+        term_t = lambda xi, x: cost.terminal(state_retract(model, x, xi))
+        gx = vmap(lambda x, u, t: grad(stage_t)(z, x, u, t))
+        hxx = vmap(lambda x, u, t: hessian(stage_t)(z, x, u, t))
+        hux = vmap(lambda x, u, t: jacfwd(
+            lambda xi: grad(stage_t, argnums=2)(xi, x, u, t))(z))
+        gfx = vmap(lambda x: grad(term_t)(z, x))
+        hfxx = vmap(lambda x: hessian(term_t)(z, x))
+    else:
+        ndim = nx
+        gx, hxx = vmap(grad(st)), vmap(hessian(st))
+        hux = vmap(jacfwd(grad(st, argnums=1)))
+        gfx, hfxx = vmap(grad(cost.terminal)), vmap(hessian(cost.terminal))
+    gu, huu = vmap(grad(st, argnums=1)), vmap(hessian(st, argnums=1))
+    rs = lambda a: a.reshape(batch + (H,) + a.shape[1:])
+    XT = X[..., -1, :].reshape(-1, nx)
+    return (rs(gx(Xf, Uf, tf)), rs(gu(Xf, Uf, tf)), rs(hxx(Xf, Uf, tf)),
+            rs(huu(Xf, Uf, tf)), rs(hux(Xf, Uf, tf)),
+            gfx(XT).reshape(batch + (ndim,)),
+            hfxx(XT).reshape(batch + (ndim, ndim)))

@@ -389,7 +389,7 @@ def ddp_solve(model: RobotModel, cost: Cost, x0, U0,
     for _ in range(config.iters):
         A, B = lin_fn(state.X, state.U)
         lx, lu, lxx, luu, lux, lfx, lfxx = quadratize_trajectory(
-            cost, state.X, state.U)
+            cost, state.X, state.U, model=model)
         if route in ("fused", "chunked"):
             A, B, lx, lu, lxx, luu, lux = (t.contiguous() for t in (
                 A, B, lx, lu, lxx, luu, lux))

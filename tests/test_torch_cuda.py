@@ -342,9 +342,8 @@ def test_wrappers_refuse_bad_input(card):
         fd_step_fused(m, x, u.cpu(), DT)
     with pytest.raises(ValueError):  # integer tensors have no kernel
         fd_step_fused(m, x.int(), u.int(), DT)
-    # the rpy root reaches K1-K4 (K4 up to 16 bodies), K6, K9 and K10
-    # (each launches its kernel) but not K5; the quaternion root K1-K4, K6
-    # and K10 (each launches its kernel) but not K5
+    # the rpy root reaches K1-K6, K9 and K10 (each launches its kernel; K4
+    # the 31-body humanoid too); the quaternion root K1-K6 and K10
     fb = load_asset("quadruped12", device=card, dtype=torch.float64,
                     floating_base=True)
     q = torch.zeros(8, fb.nq, dtype=torch.float64, device=card)
@@ -361,13 +360,13 @@ def test_wrappers_refuse_bad_input(card):
                                            gn=False)[0]),
             ("ee_gn", lambda: ee_gn_fused(fb, q, TARGET, ee_names=ee)[2])):
         assert bool(_launched(name, launched).isfinite().all())
-    with pytest.raises(NotImplementedError):
-        rollout_fused_multi(fb, x, v[None], DT)
+    assert bool(_launched("rollout_multi", lambda: rollout_fused_multi(
+        fb, x, v[None], DT)).isfinite().all())
     hum = _humanoid(torch.float64)
-    with pytest.raises(ValueError, match="31 bodies"):
-        ee_gn_fused(hum, torch.zeros(8, hum.nq, dtype=torch.float64,
-                                     device=card), TARGET,
-                    ee_names=(hum.joint_names[hum.leaves()[0]],))
+    qh = torch.zeros(8, hum.nq, dtype=torch.float64, device=card)
+    assert bool(_launched("ee_gn", lambda: ee_gn_fused(
+        hum, qh, TARGET, ee_names=(hum.joint_names[hum.leaves()[0]],))[2])
+        .isfinite().all())
     quat = load_asset("quadruped12", device=card, dtype=torch.float64,
                       floating_base=True, root_quat=True)
     qq = torch.zeros(8, quat.nq, dtype=torch.float64, device=card)
@@ -379,10 +378,8 @@ def test_wrappers_refuse_bad_input(card):
             ("rnea", lambda: rnea_fused(quat, qq, vq)),
             ("fd_step_minv", lambda: fd_step_minv_fused(quat, xq, vq, DT))):
         assert bool(_launched(name, launched).isfinite().all())
-    before = dict(_lib.launches)
-    with pytest.raises(NotImplementedError):
-        rollout_fused_multi(quat, xq, vq[None], DT)
-    assert _lib.launches == before
+    assert bool(_launched("rollout_multi", lambda: rollout_fused_multi(
+        quat, xq, vq[None], DT)).isfinite().all())
     got = _launched("linearize_parts",
                     lambda: linearize_parts_fused(quat, qq, vq, vq))
     for a, b in zip(got, colvec.linearize_parts_plain(quat, qq, vq, vq)):
@@ -1403,3 +1400,145 @@ def test_full_ddp_matches_plain(card):
         assert hist.isfinite().all() and (hist[1:] <= hist[:-1]).all()
         out[fused_] = st.U
     assert (out[True] - out[False]).abs().max().item() < 1e-6
+
+
+# ---- K5 on the floating roots and K4 at fb32 (paths L and M) ----
+
+ROOT_MODELS = {"quad_rpy": ("quadruped12", False),
+               "humanoid_rpy": ("humanoid30", False),
+               "humanoid_quat": ("humanoid30", True)}
+
+
+def _root_start(m, B, seed=31):
+    """B floating-root states at rest, standing (q[2] = 0.9, the quaternion
+    the identity) moved by 0.05 N(0,1) in the tangent, with velocities
+    0.3 N(0,1)."""
+    from rbdtpu_torch.solver import state_retract
+
+    rng = np.random.default_rng(seed)
+    x = torch.zeros(B, m.nx, dtype=m.dtype, device=m.device)
+    x[:, 2] = 0.9
+    if m.root_quat:
+        x[:, 3] = 1.0
+    return state_retract(m, x, torch.tensor(
+        np.concatenate([0.05 * rng.standard_normal((B, m.nv)),
+                        0.3 * rng.standard_normal((B, m.nv))], -1),
+        dtype=m.dtype, device=m.device))
+
+
+@pytest.mark.parametrize("B,H", [(1, 1), (37, 8), (512, 50)])
+@pytest.mark.parametrize("wrench", [False, True], ids=["free", "fext"])
+@pytest.mark.parametrize("route", ["aba", "minv"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+@pytest.mark.parametrize("name", list(ROOT_MODELS))
+def test_rollout_multi_roots(card, name, dtype, route, wrench, B, H):
+    """K5 at the floating roots' classes (fb16, fb32, fq32) in one launch
+    against ``rollout_multi_plain``, both routes, with and without per-step
+    wrenches, from a standing start under hold controls plus 0.2 N(0,1):
+    float64 1e-9 absolute, float32 1e-3 relative (50 open-loop steps);
+    zero wrenches give the wrench-free kernel's result bit for bit.  The
+    wrenches are 0.5 N(0,1) on every body (5 N(0,1) over one step), and
+    over 50 steps path L's 80 N trunk push (through the trunk's start
+    height) over 0.05 N(0,1): under 0.5 N(0,1) for 50 steps, or a push
+    through the world origin, the open-loop humanoid spins the plain
+    route itself to inf."""
+    from rbdtpu_torch.dynamics import rnea
+
+    asset, quat = ROOT_MODELS[name]
+    m = load_asset(asset, device=card, dtype=dtype, floating_base=True,
+                   root_quat=quat)
+    x0 = _root_start(m, B)
+    q0, z = x0[:, :m.nq], torch.zeros(B, m.nv, dtype=dtype, device=card)
+    (noise, F) = _inputs(m, (H, B, m.nv), (H, m.nb, 6))
+    U = (rnea(m, q0, z, z)[0][None] + 0.4 * noise).contiguous()
+    if H == 1:
+        F = 10.0 * F
+    elif H == 50:
+        F = 0.1 * F
+        F[5:15, 0, 4] += 80.0
+        F[5:15, 0, 0] -= 0.9 * 80.0
+    F = F if wrench else None
+    out = _launched("rollout_multi", lambda: rollout_fused_multi(
+        m, x0, U, DT, route=route, f_ext=F))
+    want = fused.rollout_multi_plain(m, x0, U, DT, route=route, f_ext=F)
+    assert bool(want.isfinite().all())
+    _close(out, want, 1e-9 if dtype == torch.float64 else 1e-3)
+    if wrench:
+        zero = rollout_fused_multi(m, x0, U, DT, route=route,
+                                   f_ext=torch.zeros_like(F))
+        free = rollout_fused_multi(m, x0, U, DT, route=route)
+        assert torch.equal(zero, free)
+
+
+@pytest.mark.parametrize("B", [1, 16, 512, 2048])
+@pytest.mark.parametrize("gn", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+def test_ee_gn_fb32(card, dtype, gn, B):
+    """K4 at the rpy humanoid's class (fb32) against ``ee_gn_plain`` at the
+    left wrist, at one state, path M's 16 terminal states, 512 knots and
+    2,048 line-search states: float64 1e-9, float32 1e-4 relative."""
+    m = _humanoid(dtype)
+    (q,) = _inputs(m, (B, m.nq), scale=0.5)
+    ee = ("left_arm_wrist_roll",)
+    out = _launched("ee_gn" if gn else "ee_err", lambda: ee_gn_fused(
+        m, q, (0.35, 0.25, 1.1), ee_names=ee, gn=gn))
+    assert _lib.class_launches["ee_gn" if gn else "ee_err", "fb32"] > 0
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    for a, b in zip(out, fk_lane.ee_gn_plain(m, q, (0.35, 0.25, 1.1),
+                                             ee_names=ee, gn=gn)):
+        if b is None:
+            assert a is None
+        else:
+            _close(a, b, tol)
+
+
+@pytest.mark.parametrize("barrier", [False, True], ids=["ee", "barrier"])
+def test_path_m_kernels_match_plain(card, barrier):
+    """Path M cut to Bm = 2, H = 8, 3 iterations, float64: the rpy
+    humanoid's hand-reaching DDP (left wrist, bench.py:640-672's weights)
+    through the kernels (K4 at fb32 among them) against the plain route;
+    with ``add_limit_barrier`` around the cost too, from a start with the
+    left shoulder pitch above its position limit, the elbow below its own
+    and the wrist pitch past its velocity limit, whose hinges must still
+    be active after the first knot: |dU| < 1e-6."""
+    from rbdtpu_torch.dynamics import rnea
+    from rbdtpu_torch.solver import (
+        DDPConfig, add_limit_barrier, ddp_solve, ee_reaching_cost,
+    )
+
+    m = _humanoid(torch.float64)
+    rng = np.random.default_rng(41)
+    q0 = np.zeros((2, m.nq))
+    q0[:, 2] = 0.9
+    q0 = torch.tensor(q0 + 0.02 * rng.standard_normal(q0.shape),
+                      dtype=m.dtype, device=card)
+    z = torch.zeros(2, m.nv, dtype=m.dtype, device=card)
+    x0 = torch.cat([q0, z], -1)
+    U0 = rnea(m, q0, z, z)[0][:, None].expand(2, 8, m.nv).contiguous()
+    lo, hi = m.q_limit_vectors()
+    qd_lim = m.qd_limit_vector()
+    if barrier:
+        i, j, k = (m.q_index(m.body_names.index(f"left_arm_{n}_link"))
+                   for n in ("shoulder_pitch", "elbow", "wrist_pitch"))
+        x0[:, i], x0[:, j] = hi[i] + 0.05, lo[j] - 0.05
+        x0[:, m.nq + k] = qd_lim[k] + 0.5
+    us = []
+    for kernels in (True, False):
+        cost = ee_reaching_cost(m, (0.35, 0.25, 1.1),
+                                ee_names=("left_arm_wrist_roll",),
+                                fused=None if kernels else False, w_ee=10.0,
+                                w_ee_f=500.0, w_qd=1e-2, w_u=1e-5)
+        if barrier:
+            cost = add_limit_barrier(m, cost)
+        before = dict(_lib.class_launches)
+        state, _ = ddp_solve(m, cost, x0, U0, DDPConfig(
+            iters=3, dt=DT, n_alphas=4, fused=kernels))
+        torch.cuda.synchronize()
+        if kernels:
+            assert _lib.class_launches["ee_gn", "fb32"] > before.get(
+                ("ee_gn", "fb32"), 0)
+        if barrier:
+            q, qd = state.X[:, 1:, :m.nq], state.X[:, 1:, m.nq:]
+            assert bool(((q > hi) | (q < lo) | (qd.abs() > qd_lim)).any())
+        us.append(state.U)
+    assert (us[0] - us[1]).abs().max().item() < 1e-6

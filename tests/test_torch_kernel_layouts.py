@@ -139,8 +139,8 @@ def test_c_layouts_match_python(tmp_path):
     """riccati_layout, LinLayout, K5's, K6's and K10's team strides and
     K4's staging, compiled for the host from the sources in csrc/, give the
     shared-memory counts that _lib computes: the sweep's at every shape
-    above, K3's, K6's (both routes) and K10's at every class and team size,
-    K5's at every team size, K4's a state of each kernel."""
+    above, K3's, K5's, K6's (both routes) and K10's at every class and
+    team size, K4's a state of each kernel."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler (g++)")
@@ -152,8 +152,8 @@ def test_c_layouts_match_python(tmp_path):
         "\n  ".join(
             [show(f"rbd::LinLayout<rbd::{dims[c]}, {t}>::STRIDE")
              for c, t in lin]
-            + [show(f"rbd::rollout_multi_team_stride<{t}>()")
-               for t in _lib.TEAM_SIZES]
+            + [show(f"rbd::rollout_multi_team_stride<rbd::{dims[c]}, {t}>()")
+               for c, t in lin]
             + [show(f"rbd::ee_state_values<{gn}>()")
                for gn in ("true", "false")]
             + [show("rbd::EE_FIXED")]
@@ -171,8 +171,7 @@ def test_c_layouts_match_python(tmp_path):
         timeout=60).stdout.split()]
     want = ([_lib.riccati_values(n, m) for n, m in SWEEP_SHAPES]
             + [_lib.linearize_values(c, t) for c, t in lin]
-            + [_lib.team_values("rollout_multi", "n8", t)
-               for t in _lib.TEAM_SIZES]
+            + [_lib.team_values("rollout_multi", c, t) for c, t in lin]
             + [_lib.ee_values("ee_gn"), _lib.ee_values("ee_err"),
                _lib.EE_FIXED]
             + [_lib.team_values("rnea", c, t) for c, t in lin]
@@ -195,8 +194,9 @@ int main() {
 def test_c_layouts_fext_and_rpy_match_python(tmp_path):
     """K2's and K9's team stride with the wrenches' chain at every class and
     team size, the block's wrench stages at every class, and K4's rpy-root
-    staging (its fixed values and a state's of each kernel), compiled for
-    the host from csrc/, give the counts _lib computes."""
+    staging at fb16 and fb32 (its fixed values and a state's of each
+    kernel), compiled for the host from csrc/, give the counts _lib
+    computes."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler (g++)")
@@ -208,9 +208,10 @@ def test_c_layouts_fext_and_rpy_match_python(tmp_path):
          for c, t in lin]
         + [show(f"rbd::feedback_wrench_values<rbd::{dims[c]}>()")
            for c in dims]
-        + [show(f"rbd::ee_root_state_values<rbd::FB16, {gn}>()")
-           for gn in ("true", "false")]
-        + [show("rbd::ee_fixed_values<rbd::FB16>()")])
+        + [show(f"rbd::ee_root_state_values<rbd::{dims[c]}, {gn}>()")
+           for c in ("fb16", "fb32") for gn in ("true", "false")]
+        + [show(f"rbd::ee_fixed_values<rbd::{dims[c]}>()")
+           for c in ("fb16", "fb32")])
     (tmp_path / "layouts.cpp").write_text(src)
     exe = tmp_path / "layouts"
     subprocess.run([cxx, "-std=c++17", "-x", "c++", "-I", _lib.CSRC,
@@ -221,8 +222,9 @@ def test_c_layouts_fext_and_rpy_match_python(tmp_path):
         timeout=60).stdout.split()]
     want = ([_lib.team_values("feedback_rollout_fext", c, t) for c, t in lin]
             + [_lib.block_values("feedback_chunked_fext", c) for c in dims]
-            + [_lib.ee_values("ee_gn", "fb16"), _lib.ee_values("ee_err", "fb16"),
-               _lib.ee_fixed("fb16")])
+            + [_lib.ee_values(k, c) for c in ("fb16", "fb32")
+               for k in ("ee_gn", "ee_err")]
+            + [_lib.ee_fixed(c) for c in ("fb16", "fb32")])
     assert got == want
 
 
@@ -287,6 +289,35 @@ def test_ee_rpy_geometry(kernel, dtype):
         top == _lib.EE_STATES_RPY[kernel][0])
 
 
+@pytest.mark.parametrize("kernel", ["ee_gn", "ee_err"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "float64"])
+def test_ee_fb32_geometry(kernel, dtype):
+    """K4 on the rpy root at the humanoid's class (fb32): a multiple of
+    four states a block, 8 lanes a state for ee_gn and one for ee_err,
+    within the launch bounds; a block stages the walk rows of the class's
+    32 bodies and the mount, then a state's q (nv = 37 at the bound) and e,
+    and for ee_gn g0, H0 and J, within the H100's 232,448 bytes (four
+    states of ee_gn in float64 pass 48 KB: the launch opts in); the grid
+    covers every batch, and path M's batches (512 knots, 16 terminal
+    states, 2,048 and 64 line-search states) give every SM a block where
+    their fewest states a block can."""
+    per = _lib.ee_values(kernel, "fb32")
+    assert per == (2 * 37 + 3 + 37 * 37 + 3 * 37 if kernel == "ee_gn"
+                   else 37 + 3)
+    lanes, most = (8, 256) if kernel == "ee_gn" else (1, 128)
+    size = torch.finfo(dtype).bits // 8
+    fixed = _lib.ee_fixed("fb32")
+    assert fixed == 15 * 32 + 12 and fixed % 4 == 0
+    least = _lib.EE_STATES_RPY[kernel][1]
+    for B in (*EE_BATCHES, 16, 64, 512, 2048):
+        spb, threads, smem, blocks = _lib.ee_geometry(kernel, dtype, B,
+                                                      cls="fb32")
+        assert spb % 4 == 0 and threads == spb * lanes <= most
+        assert smem == (fixed + spb * per) * size <= _lib.SMEM_MAX
+        assert blocks * spb >= B > (blocks - 1) * spb
+        assert blocks >= min(_lib.H100_SMS, -(-B // least))
+
+
 # K5's and K4's batches: one state, an odd batch, the rollout path's 4096
 # and one more; K4 also the paths' terminal (128), knot (12,800) and line
 # search (1,024, 102,400) counts and one past the last
@@ -297,33 +328,34 @@ EE_BATCHES = (*ROLLOUT_BATCHES, 128, 1024, 12800, 102400, 102401)
 @pytest.mark.parametrize("team", _lib.TEAM_SIZES)
 @pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "float64"])
 def test_rollout_multi_geometry(dtype, team, monkeypatch):
-    """K5 is n8 only; at every team size (the table's own among them) one
-    team a trajectory, at most one warp of teams a block; a team holds the
-    step's scratch with the wrenches' chain (102 values a body), x, two
-    stages of u and of the wrench set and u - c, padded to the teams' bank
-    offset; the block's memory is its teams', within 232,448 bytes; the
-    grid covers every batch exactly, and the path's 4096 fill every SM."""
+    """K5 is instantiated in every class; at every team size (the table's
+    own among them) one team a trajectory, at most one warp of teams a
+    block; a team holds the step's scratch with the wrenches' chain (102
+    values a body), x (nq + nv), two stages of u and of the wrench set and
+    u - c, padded to the teams' bank offset; the block's memory is its
+    teams', within 232,448 bytes; the grid covers every batch exactly, and
+    the path's 4096 fill every SM."""
     sfx = _lib._SUFFIX[dtype]
-    assert _lib.TEAM[("rollout_multi", "n8", sfx)] in _lib.TEAM_SIZES
-    assert [c for c, (_, _, ks) in _lib.SIZE_CLASSES.items()
-            if "rollout_multi" in ks] == ["n8"]
-    with pytest.raises(ValueError):
-        _lib.team_values("rollout_multi", "fb16", team)
-    monkeypatch.setitem(_lib.TEAM, ("rollout_multi", "n8", sfx), team)
-    values = _lib.team_values("rollout_multi", "n8", team)
-    assert values >= 102 * 8 + 54 + 8 + 12 + 5 * 8 + 12 * 8
-    assert values % 32 == team % 32
-    per = values * torch.finfo(dtype).bits // 8
-    for B in ROLLOUT_BATCHES:
-        t, tpb, smem, blocks = _lib.team_geometry("rollout_multi", "n8",
-                                                  dtype, B)
-        assert t == team and 1 <= tpb and tpb * team <= 32
-        assert smem == tpb * per <= _lib.SMEM_MAX
-        assert blocks * tpb >= B > (blocks - 1) * tpb
-        if B >= 4096:
-            assert blocks >= _lib.H100_SMS
-    assert _lib.team_geometry("rollout_multi", "n8", dtype, 1)[1:] == (
-        1, per, 1)
+    assert [c for c, (_, _, ks) in _lib.CLASSES.items()
+            if "rollout_multi" in ks] == ["n8", "fb16", "fb32", "fq32"]
+    for cls in _lib.CLASSES:
+        assert _lib.TEAM[("rollout_multi", cls, sfx)] in _lib.TEAM_SIZES
+        monkeypatch.setitem(_lib.TEAM, ("rollout_multi", cls, sfx), team)
+        nb, nv, nq = _lib.class_dims(cls)
+        values = _lib.team_values("rollout_multi", cls, team)
+        assert values >= 102 * nb + 54 + nv + 12 + nq + 4 * nv + 12 * nb
+        assert values % 32 == team % 32
+        per = values * torch.finfo(dtype).bits // 8
+        for B in ROLLOUT_BATCHES:
+            t, tpb, smem, blocks = _lib.team_geometry("rollout_multi", cls,
+                                                      dtype, B)
+            assert t == team and 1 <= tpb and tpb * team <= 32
+            assert smem == tpb * per <= _lib.SMEM_MAX
+            assert blocks * tpb >= B > (blocks - 1) * tpb
+            if B >= 4096:
+                assert blocks >= _lib.H100_SMS
+        assert _lib.team_geometry("rollout_multi", cls, dtype, 1)[1:] == (
+            1, per, 1)
 
 
 @pytest.mark.parametrize("kernel", ["ee_gn", "ee_err"])
@@ -575,27 +607,44 @@ extern "C" void host_k11(const double* A, const double* Bm, const double* lx,
 
 extern "C" int host_k11_values(int nx, int nu) { return rbd::k11::smem_values(nx, nu); }
 
-template <bool MINV, bool FEXT>
-static void k5(const rbd::Model<double, rbd::N8>& m, const double* x0, const double* U,
+template <class D, bool MINV, bool FEXT>
+static void k5(const rbd::Model<double, D>& m, const double* x0, const double* U,
                const double* fext, double* xo, int B, int H, double dt, double g) {
   constexpr int NL = 8;
-  const int nx = 2 * m.nb;
-  std::vector<double> s(rbd::rollout_multi_team_stride<NL>());
+  const int n = m.nv(), nx = m.nq() + n;
+  std::vector<double> s(rbd::rollout_multi_team_stride<D, NL>());
   for (int b = 0; b < B; ++b)
     run_team<NL>([&](const rbd::Team<NL>& tm) {
       rbd::rollout_team<NL, MINV, FEXT>(tm, m, s.data(), x0 + (size_t)b * nx,
-                                        U + (size_t)b * m.nb, (size_t)B * m.nb, fext,
+                                        U + (size_t)b * n, (size_t)B * n, fext,
                                         xo + (size_t)b * nx, H, dt, g);
     });
 }
 
+template <class D>
+static void k5_run(const double* tab, const int* itab, int nb, const double* x0,
+                   const double* U, const double* fext, double* xo, int B, int H, int minv,
+                   double dt, double g) {
+  const rbd::Model<double, D> m{tab, itab, nb};
+  auto run = minv ? (fext ? k5<D, true, true> : k5<D, true, false>)
+                  : (fext ? k5<D, false, true> : k5<D, false, false>);
+  run(m, x0, U, fext, xo, B, H, dt, g);
+}
+
+#define HOST_K5(CLS, D)                                                                    \
+  extern "C" void host_k5_##CLS(const double* tab, const int* itab, int nb, const double* x0, \
+                                const double* U, const double* fext, double* xo, int B,      \
+                                int H, int minv, double dt, double g) {                      \
+    k5_run<rbd::D>(tab, itab, nb, x0, U, fext, xo, B, H, minv, dt, g);                       \
+  }
+HOST_K5(fb16, FB16)
+HOST_K5(fb32, FB32)
+HOST_K5(fq32, FQ32)
+
 extern "C" void host_k5(const double* tab, const int* itab, int nb, const double* x0,
                         const double* U, const double* fext, double* xo, int B, int H,
                         int minv, double dt, double g) {
-  const rbd::Model<double, rbd::N8> m{tab, itab, nb};
-  auto run = minv ? (fext ? k5<true, true> : k5<true, false>)
-                  : (fext ? k5<false, true> : k5<false, false>);
-  run(m, x0, U, fext, xo, B, H, dt, g);
+  k5_run<rbd::N8>(tab, itab, nb, x0, U, fext, xo, B, H, minv, dt, g);
 }
 
 template <class D, bool QDD>
@@ -665,33 +714,45 @@ extern "C" void host_k4(const double* tab, const int* itab, int nb, const double
   }
 }
 
-// K4 on the rpy root (FB16): ee_gn by a team of 8, ee_err by one thread
-extern "C" void host_k4_fb16(const double* tab, const int* itab, int nb, const double* ee,
-                             int chain, int prism, const double* q, double tx, double ty,
-                             double tz, double* e, double* g0, double* H0, int B, int gn) {
-  const rbd::Model<double, rbd::FB16> m{tab, itab, nb};
-  const int n = m.nv();
+// K4 on a floating root (FB16, FB32, FQ32): ee_gn by a team of 8, ee_err
+// by one thread
+template <class D>
+static void k4_root(const double* tab, const int* itab, int nb, const double* ee, int chain,
+                    int prism, const double* q, double tx, double ty, double tz, double* e,
+                    double* g0, double* H0, int B, int gn) {
+  const rbd::Model<double, D> m{tab, itab, nb};
+  const int n = m.nv(), nq = m.nq();
   const double target[3] = {tx, ty, tz};
-  std::vector<double> J(3 * rbd::FB16::NV), rows(rbd::EE_ROW * rbd::FB16::NB);
+  std::vector<double> J(3 * D::NV), rows(rbd::EE_ROW * D::NB);
   for (int k = 0; k < rbd::EE_ROW * nb; ++k) rows[k] = rbd::ee_row_value(m, k);
   for (int b = 0; b < B; ++b) {
-    const double* qb = q + (size_t)b * n;
+    const double* qb = q + (size_t)b * nq;
     if (gn) {
       run_team<8>([&](const rbd::Team<8>& tm) {
-        rbd::ee_gn_team_root<rbd::FB16>(tm, n, rows.data(), (unsigned)chain, (unsigned)prism,
-                                        ee, qb, target, e + 3 * b, g0 + (size_t)b * n,
-                                        H0 + (size_t)b * n * n, J.data());
+        rbd::ee_gn_team_root<D>(tm, n, rows.data(), (unsigned)chain, (unsigned)prism, ee, qb,
+                                target, e + 3 * b, g0 + (size_t)b * n, H0 + (size_t)b * n * n,
+                                J.data());
       });
     } else {
-      rbd::ee_err_one_root<rbd::FB16>(rows.data(), (unsigned)chain, (unsigned)prism, ee, qb,
-                                      target, e + 3 * b);
+      rbd::ee_err_one_root<D>(rows.data(), (unsigned)chain, (unsigned)prism, ee, qb, target,
+                              e + 3 * b);
     }
   }
 }
 
+#define HOST_K4(CLS, D)                                                                      \
+  extern "C" void host_k4_##CLS(const double* tab, const int* itab, int nb, const double* ee, \
+                                int chain, int prism, const double* q, double tx, double ty,  \
+                                double tz, double* e, double* g0, double* H0, int B,          \
+                                int gn) {                                                     \
+    k4_root<rbd::D>(tab, itab, nb, ee, chain, prism, q, tx, ty, tz, e, g0, H0, B, gn);        \
+  }
+HOST_K4(fb16, FB16)
+HOST_K4(fb32, FB32)
+HOST_K4(fq32, FQ32)
+
 // The quaternion root (FQ32), each on a team of 8 threads: K1's step, K2's
-// line search (walk lv), K3's knot, and K4 (ee_gn by the team, ee_err by
-// one thread)
+// line search (walk lv) and K3's knot
 extern "C" void host_k1_fq32(const double* tab, const int* itab, int nb, const double* x,
                              const double* u, double* xo, int B, double dt, double g) {
   using L = rbd::FdLayout<rbd::FQ32>;
@@ -747,29 +808,6 @@ extern "C" void host_k3_fq32(const double* tab, const int* itab, int nb, const d
     });
   }
 }
-
-extern "C" void host_k4_fq32(const double* tab, const int* itab, int nb, const double* ee,
-                             int chain, int prism, const double* q, double tx, double ty,
-                             double tz, double* e, double* g0, double* H0, int B, int gn) {
-  const rbd::Model<double, rbd::FQ32> m{tab, itab, nb};
-  const int n = m.nv(), nq = m.nq();
-  const double target[3] = {tx, ty, tz};
-  std::vector<double> J(3 * rbd::FQ32::NV), rows(rbd::EE_ROW * rbd::FQ32::NB);
-  for (int k = 0; k < rbd::EE_ROW * nb; ++k) rows[k] = rbd::ee_row_value(m, k);
-  for (int b = 0; b < B; ++b) {
-    const double* qb = q + (size_t)b * nq;
-    if (gn) {
-      run_team<8>([&](const rbd::Team<8>& tm) {
-        rbd::ee_gn_team_root<rbd::FQ32>(tm, n, rows.data(), (unsigned)chain, (unsigned)prism,
-                                        ee, qb, target, e + 3 * b, g0 + (size_t)b * n,
-                                        H0 + (size_t)b * n * n, J.data());
-      });
-    } else {
-      rbd::ee_err_one_root<rbd::FQ32>(rows.data(), (unsigned)chain, (unsigned)prism, ee, qb,
-                                      target, e + 3 * b);
-    }
-  }
-}
 """
 
 
@@ -799,8 +837,9 @@ def host_kernels(tmp_path_factory):
                              + [I] * 4)
     lib.host_k5.argtypes = [P, P, I, P, P, P, P, I, I, I, D, D]
     lib.host_k4.argtypes = [P, P, I, P, I, I, P, D, D, D, P, P, P, I, I]
-    lib.host_k4_fb16.argtypes = lib.host_k4.argtypes
-    lib.host_k4_fq32.argtypes = lib.host_k4.argtypes
+    for cls in ("fb16", "fb32", "fq32"):
+        getattr(lib, f"host_k4_{cls}").argtypes = lib.host_k4.argtypes
+        getattr(lib, f"host_k5_{cls}").argtypes = lib.host_k5.argtypes
     lib.host_k1_fq32.argtypes = [P, P, I, P, P, P, I, D, D]
     lib.host_k2_fq32.argtypes = [P, P, I] + [P] * 8 + [I, I, I, D, D]
     lib.host_k3_fq32.argtypes = [P, P, I] + [P] * 7 + [I, D]
@@ -987,6 +1026,55 @@ def test_host_rollout_multi(host_kernels, name, route, wrench, H):
     torch.testing.assert_close(xo, want, rtol=0, atol=1e-9)
 
 
+ROOT_MODELS = {"quad_rpy": ("quadruped12", False, "fb16"),
+               "humanoid_rpy": ("humanoid30", False, "fb32"),
+               "quad_quat": ("quadruped12", True, "fq32"),
+               "humanoid_quat": ("humanoid30", True, "fq32")}
+
+
+def _root_model(name):
+    """A floating-root model of ROOT_MODELS in float64 on the CPU, and its
+    size class."""
+    from rbdtpu_torch.model import load_asset
+
+    asset, quat, cls = ROOT_MODELS[name]
+    return load_asset(asset, device="cpu", dtype=torch.float64,
+                      floating_base=True, root_quat=quat), cls
+
+
+@pytest.mark.parametrize("wrench", [False, True], ids=["free", "fext"])
+@pytest.mark.parametrize("route", ["aba", "minv"])
+@pytest.mark.parametrize("name", list(ROOT_MODELS))
+def test_host_rollout_multi_root(host_kernels, name, route, wrench):
+    """K5's team body at the floating roots' classes (fb16, fb32, fq32),
+    built for the host and run by a team of 8 threads a trajectory over 3
+    steps, against ``rollout_multi_plain`` in float64 (1e-9) on the rpy and
+    quaternion quadruped and humanoid, on both routes, with and without
+    per-step wrenches: the rpy root's block in the step, the quaternion
+    root's manifold Euler step."""
+    from rbdtpu_torch.kernels import fused
+
+    m, cls = _root_model(name)
+    assert _lib.size_class("rollout_multi", m) == cls
+    tab, itab = _lib.model_tables(m, "cpu", torch.float64)
+    rng = np.random.default_rng(17)
+    B, H = 2, 3
+    if m.root_quat:
+        x0 = _quat_states(m, rng, B, up=0.9)[0]
+    else:
+        x0 = torch.tensor(0.1 * rng.standard_normal((B, m.nx)))
+        x0[:, 2] += 0.9
+    U = torch.tensor(0.5 * rng.standard_normal((H, B, m.nv)))
+    F = (torch.tensor(5.0 * rng.standard_normal((H, m.nb, 6))) if wrench
+         else None)
+    xo = torch.empty(B, m.nx, dtype=torch.float64)
+    getattr(host_kernels, f"host_k5_{cls}")(
+        _ptr(tab), _ptr(itab), m.nb, _ptr(x0), _ptr(U), _ptr(F), _ptr(xo), B,
+        H, int(route == "minv"), 0.01, -9.81)
+    want = fused.rollout_multi_plain(m, x0, U, 0.01, route=route, f_ext=F)
+    torch.testing.assert_close(xo, want, rtol=0, atol=1e-9)
+
+
 @pytest.mark.parametrize("gn", [True, False], ids=["ee_gn", "ee_err"])
 @pytest.mark.parametrize("name", ["arm7", "mixed"])
 def test_host_ee_gn(host_kernels, name, gn):
@@ -1045,6 +1133,39 @@ def test_host_ee_gn_rpy(host_kernels, ee, gn):
     g0 = torch.empty(B, n, dtype=torch.float64)
     H0 = torch.empty(B, n, n, dtype=torch.float64)
     host_kernels.host_k4_fb16(_ptr(tab), _ptr(itab), m.nb, _ptr(table),
+                              *fk_lane.ee_chain(m, jid), _ptr(q), *target,
+                              _ptr(e), _ptr(g0), _ptr(H0), B, int(gn))
+    want = fk_lane.ee_gn_plain(m, q, target, ee_names=ee_names, gn=gn)
+    torch.testing.assert_close(e, want[0], rtol=0, atol=1e-9)
+    if gn:
+        torch.testing.assert_close(g0, want[1], rtol=0, atol=1e-9)
+        torch.testing.assert_close(H0, want[2], rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("gn", [True, False], ids=["ee_gn", "ee_err"])
+@pytest.mark.parametrize("ee", ["wrist", "foot"])
+def test_host_ee_gn_fb32(host_kernels, ee, gn):
+    """K4's rpy-root bodies at the humanoid's class (fb32: 37 columns, five
+    a lane), built for the host, ee_gn by a team of 8 threads a state and
+    ee_err by one thread, against ``ee_gn_plain`` in float64 (1e-9) on the
+    31-body rpy humanoid at the left wrist (path M's end effector) and at
+    a foot's leaf joint."""
+    from rbdtpu_torch.kernels import fk_lane
+
+    m, cls = _root_model("humanoid_rpy")
+    assert _lib.size_class("ee_gn", m) == "fb32"
+    ee_names = (("left_arm_wrist_roll",) if ee == "wrist"
+                else (m.joint_names[m.leaves()[0]],))
+    jid, fid = fk_lane._single_ee(m, ee_names)
+    tab, itab = _lib.model_tables(m, "cpu", torch.float64)
+    table = _lib.ee_table(m, fid, "cpu", torch.float64)
+    B, n = 4, m.nv
+    q = torch.tensor(np.random.default_rng(9).uniform(-1.0, 1.0, (B, m.nq)))
+    target = (0.35, 0.25, 1.1)
+    e = torch.empty(B, 3, dtype=torch.float64)
+    g0 = torch.empty(B, n, dtype=torch.float64)
+    H0 = torch.empty(B, n, n, dtype=torch.float64)
+    host_kernels.host_k4_fb32(_ptr(tab), _ptr(itab), m.nb, _ptr(table),
                               *fk_lane.ee_chain(m, jid), _ptr(q), *target,
                               _ptr(e), _ptr(g0), _ptr(H0), B, int(gn))
     want = fk_lane.ee_gn_plain(m, q, target, ee_names=ee_names, gn=gn)
@@ -1212,26 +1333,26 @@ def test_c_layouts_quat_match_python(tmp_path):
 
 QUAT_KERNELS = ["fd_step", "feedback_rollout", "linearize_parts", "ee_gn",
                 "ee_err", "feedback_chunked", "feedback_rollout_fext",
-                "feedback_chunked_fext", "fd_step_minv", "rnea"]
+                "feedback_chunked_fext", "fd_step_minv", "rnea",
+                "rollout_multi"]
 
 
 @pytest.mark.parametrize("kernel", QUAT_KERNELS)
 @pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "float64"])
 def test_quat_geometry(kernel, dtype):
     """The quaternion root's class "fq32" (32 bodies, nv = 37, nq = 38)
-    lists every tree kernel but K5 (K1-K4, K9, K2 and K9 with wrenches, K6
-    and K10); each launch's blocks cover every batch of paths G, H, J and
-    K (2,048 sampled states, 64 and 1,024 line-search trajectories, 512
-    knots, 16 terminal states), and a batch that could give every SM a
+    lists every tree kernel (K1-K6, K9, K2 and K9 with wrenches and K10);
+    each launch's blocks cover every batch of paths G, H, J, K and L
+    (2,048 sampled states, 64 and 1,024 line-search trajectories, 512
+    knots, 16 terminal states, 4,096 rollouts), and a batch that could give every SM a
     block at the launch's fewest states a block does; a block's shared
     memory (K6's on both routes; the wrench kernels' with the block's
     wrench stages) stays within the H100's 232,448 bytes (K4 opts in past
     48 KB: four states of ee_gn in float64 take more)."""
     assert set(_lib.CLASSES["fq32"][2]) == set(QUAT_KERNELS)
-    assert "rollout_multi" not in _lib.CLASSES["fq32"][2]
     assert _lib.class_dims("fq32") == (32, 37, 38)
     size = torch.finfo(dtype).bits // 8
-    for B in (1, 16, 64, 512, 1024, 2048, 2049):
+    for B in (1, 16, 64, 512, 1024, 2048, 2049, 4096):
         if kernel in ("ee_gn", "ee_err"):
             spb, threads, smem, blocks = _lib.ee_geometry(kernel, dtype, B,
                                                           cls="fq32")

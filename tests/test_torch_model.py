@@ -68,60 +68,61 @@ REFUSED = [("dynamics", "quat")] + [
                            "rnea", "fd_step_minv")]
 
 
+def _floating_chain(n: int):
+    """An rpy floating root heading a chain of n revolute joints (n + 1
+    bodies), float64 on the CPU."""
+    from test_torch_kernel_layouts import _chain_urdf
+
+    return parse_urdf(_chain_urdf(n), device="cpu", dtype=torch.float64,
+                      floating_base=True)
+
+
 @pytest.mark.parametrize("what,root", REFUSED,
                          ids=[f"{w}-{r}" for w, r in REFUSED])
 def test_floating_base_dynamics_refuse(what, root):
-    """What the port does not cover raises NotImplementedError rather than
-    computing a wrong answer: the quaternion root and the rpy root in K5,
-    which has no floating-base instantiation, and K4 on an rpy tree past
-    its fb16 instantiation's 16 bodies (the humanoid's 31).  The
-    quaternion root's dynamics, EE Jacobian, K1-K4, K6 and K10 are
-    covered: those cases require the dynamics to run and the kernels to
-    map it to its class "fq32".  The CUDA kernels refuse before launching,
-    so this needs no card."""
+    """What the port does not cover raises rather than computing a wrong
+    answer, and what it covers maps to its class: K4 and K5 take the rpy
+    root (the quadruped at "fb16", K4 the 31-body humanoid at "fb32") and
+    refuse a tree past their largest instantiation's 32 bodies by name;
+    the quaternion root's dynamics, EE Jacobian and every tree kernel
+    (K1-K6, K9, K10) run or map to its class "fq32".  The CUDA kernels
+    refuse before launching, so this needs no card."""
     from rbdtpu_torch.dynamics import aba
     from rbdtpu_torch.kernels import _lib
     from rbdtpu_torch.kinematics import ee_position_jacobian_tangent
 
     m = load_asset("quadruped12", device="cpu", dtype=torch.float64,
                    floating_base=True, root_quat=root == "quat")
-    if what.startswith("ee_") and root == "rpy":
+    if root == "rpy":
         assert _lib.size_class(what, m) == "fb16"
-        big = load_asset("humanoid30", device="cpu", dtype=torch.float64,
-                         floating_base=True)
-        with pytest.raises(ValueError, match="31 bodies"):
-            _lib.size_class(what, big)
-        return
-    if root == "quat" and what != "rollout_multi":
-        q = torch.zeros(2, m.nq, dtype=torch.float64)
-        q[:, 3] = 1.0
-        v = torch.zeros(2, m.nv, dtype=torch.float64)
-        if what == "dynamics":
-            assert bool(aba(m, q, v, v).isfinite().all())
-        else:
-            assert _lib.size_class(what, m) == "fq32"
         if what.startswith("ee_"):
-            J = ee_position_jacobian_tangent(m, q, ee_names=("RL_foot_fixed",))
-            assert tuple(J.shape) == (2, 1, 3, m.nv)
+            big = load_asset("humanoid30", device="cpu", dtype=torch.float64,
+                             floating_base=True)
+            assert big.nb == 31 and _lib.size_class(what, big) == "fb32"
+        with pytest.raises(ValueError, match="33 bodies"):
+            _lib.size_class(what, _floating_chain(32))
         return
-    with pytest.raises(NotImplementedError):
-        if what == "dynamics":
-            q = torch.zeros(2, m.nq, dtype=torch.float64)
-            v = torch.zeros(2, m.nv, dtype=torch.float64)
-            aba(m, q, v, v)
-        else:
-            _lib.size_class(what, m)
+    q = torch.zeros(2, m.nq, dtype=torch.float64)
+    q[:, 3] = 1.0
+    v = torch.zeros(2, m.nv, dtype=torch.float64)
+    if what == "dynamics":
+        assert bool(aba(m, q, v, v).isfinite().all())
+    else:
+        assert _lib.size_class(what, m) == "fq32"
+    if what.startswith("ee_"):
+        J = ee_position_jacobian_tangent(m, q, ee_names=("RL_foot_fixed",))
+        assert tuple(J.shape) == (2, 1, 3, m.nv)
 
 
 def test_rpy_root_reaches_its_kernels():
-    """K1-K3, K6 and K10 take the rpy root in their floating-base
+    """K1-K3, K5, K6 and K10 take the rpy root in their floating-base
     instantiation."""
     from rbdtpu_torch.kernels import _lib
 
     m = load_asset("quadruped12", device="cpu", dtype=torch.float64,
                    floating_base=True)
     for k in ("fd_step", "feedback_rollout", "linearize_parts", "rnea",
-              "fd_step_minv"):
+              "fd_step_minv", "rollout_multi"):
         assert _lib.size_class(k, m) == "fb16"
     arm = load_asset("arm7", device="cpu", dtype=torch.float64)
     assert _lib.size_class("rollout_multi", arm) == "n8"

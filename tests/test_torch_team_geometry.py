@@ -1,5 +1,6 @@
 """Launch geometry of the team kernels K1 (``fd_step``), K2
-(``feedback_rollout``), K6 (``fd_step_minv``) and K10 (``rnea``):
+(``feedback_rollout``), K5 (``rollout_multi``), K6 (``fd_step_minv``) and
+K10 (``rnea``):
 ``rbdtpu_torch.kernels._lib`` picks each size class and dtype's team size,
 the teams a block and the dynamic shared memory a block, which the CUDA
 launch checks again.  Needs no card, no compiler and no JAX."""
@@ -8,7 +9,8 @@ import torch
 
 from rbdtpu_torch.kernels import _lib
 
-KERNELS = ("fd_step", "feedback_rollout", "fd_step_minv", "rnea")
+KERNELS = ("fd_step", "feedback_rollout", "fd_step_minv", "rnea",
+           "rollout_multi")
 CASES = [(k, cls, dt) for k in KERNELS
          for cls, (_, _, kernels) in _lib.SIZE_CLASSES.items() if k in kernels
          for dt in (torch.float32, torch.float64)]
@@ -21,7 +23,7 @@ def _id(case):
 
 
 def test_every_class_has_both_team_kernels():
-    """K1, K2, K6 and K10 are instantiated in every size class."""
+    """K1, K2, K5, K6 and K10 are instantiated in every size class."""
     assert {(k, cls) for k, cls, _ in CASES} == {
         (k, cls) for k in KERNELS for cls in _lib.SIZE_CLASSES}
 
@@ -56,8 +58,7 @@ def test_team_defines_fix_every_instantiation(kernel):
     build defines each of them once, from TEAM; the same holds for the
     kernel's wrench variant where its source has one (K2's
     ``feedback_rollout_fext``).  The entry points are those of the classes
-    that list the kernel (the quaternion root's "fq32" lists K1 and K2,
-    not their wrench variants, K6 or K10)."""
+    that list the kernel."""
     import os
     import re
 
@@ -87,12 +88,13 @@ def test_team_values_hold_the_step(kernel, team):
     """Every class's shared memory holds the step's per-body arrays (at
     least 90 values a body: transform, the dense transform's lower-left
     block, v, c, pA, U, S, IA, 1/d, u, parent; K1's and K6's wrench chain,
-    12 more; K2's level order and U.a partial sums, 8 more; K10's RNEA
-    alone 52: transform, lower-left block, v, a, I v, f, S, parent), is
+    12 more; K5's wrench chain and two stages of wrench sets, 24 more; K2's
+    level order and U.a partial sums, 8 more; K10's RNEA alone 52:
+    transform, lower-left block, v, a, I v, f, S, parent), is
     padded to the kernels' bank offset, and the largest team of the largest
     class in double fits a block."""
     per_body = {"fd_step": 102, "fd_step_minv": 102, "feedback_rollout": 98,
-                "rnea": 52}[kernel]
+                "rnea": 52, "rollout_multi": 114}[kernel]
     for cls, (nb, fb, _) in _lib.SIZE_CLASSES.items():
         nv = nb + 5 if fb else nb
         values = _lib.team_values(kernel, cls, team)

@@ -25,7 +25,9 @@ on arm7, ee_gn at 12,800 (the knots of configs[2]) and 128 states (its
 terminal cost) and ee_err at 102,400 (its line search) and 1,024; K5 on
 arm7 at 4096 trajectories x 50 steps (configs[1],
 ``chip_smoke.rollout_inputs``) on each route, and on each route with
-(H, nb, 6) wrenches; K10 (bias and with qdd) and K6 (factorised and
+(H, nb, 6) wrenches, and on the floating-root models at path L's 4096 x 50
+(``chip_smoke.legged_inputs``) on each route with and without its trunk
+push; K10 (bias and with qdd) and K6 (factorised and
 dense, each without wrenches and with one set shared by the batch or one
 a state) at arm7's 4096 states (``chip_smoke.rollout_inputs``), the rpy
 quadruped's 1024 and the humanoid's 2048 (``chip_smoke.minv_rnea_checks``
@@ -54,12 +56,13 @@ float32 and float64, K1 at 1, 16 and 256 states and at the path's batch,
 K2 at the path's shape in both walks of the step's root->leaf recursions,
 K9 (two chunks) at the same shape in the walk ``_lib.level_walk`` picks,
 K2 and K9 (two chunks) with per-knot (H, nb, 6) wrenches at that shape,
-K3 at the path's knots, K5 on arm7 at 4096 x 50 on each route, with
-and without (H, nb, 6) wrenches, and K10 and K6 at the shapes above
-(graph replay): the measurements ``_lib.TEAM`` and ``_lib.level_walk``
-were fixed from.  ``--models`` restricts either run to some of the
-models (keys of MODELS: "arm7", "rpy quadruped", "humanoid", "quaternion
-humanoid").  Prints one JSON line with the card's name and power limit.
+K3 at the path's knots, K5 at 4096 x 50 on each route, with and without
+(H, nb, 6) wrenches (arm7's or path L's inputs), and K10 and K6 at the
+shapes above (graph replay): the measurements ``_lib.TEAM`` and
+``_lib.level_walk`` were fixed from.  ``--models`` restricts either run
+to some of the models (keys of MODELS: "arm7", "rpy quadruped",
+"humanoid", "quaternion humanoid").  Prints one JSON line with the card's
+name and power limit.
 """
 from __future__ import annotations
 
@@ -152,6 +155,37 @@ def rollout_args(cs, m64):
     return f32(x0), {"minv": f32(U_minv), "aba": f32(U_aba)}, f32(kw["f_ext"])
 
 
+# path L's start of each floating-root model (chip_smoke's makers)
+LEGGED = {"rpy quadruped": "quadruped_problems", "humanoid": "humanoid_problems",
+          "quaternion humanoid": "quat_problems"}
+
+
+def k5_args(cs, key, m64):
+    """K5's float64 inputs at its path's shape: (x0, {route: U}, wrenches)
+    from ``rollout_args`` on arm7, from ``chip_smoke.legged_inputs`` (the
+    same controls on both routes, path F's trunk push) on the floating
+    roots."""
+    if key == "arm7":
+        return rollout_args(cs, m64)
+    x0, U, F = cs.legged_inputs(m64, getattr(cs, LEGGED[key]), cs.BL, cs.HL,
+                                cs.SEED + 132)
+    return x0, {"aba": U, "minv": U}, F
+
+
+def k5_calls(m, k5):
+    """(label, call) of K5 on model ``m`` in m's dtype on each route, with
+    and without the wrenches (``k5_args``' inputs)."""
+    from rbdtpu_torch.kernels import fused
+
+    x0, Us, F = k5
+    x0, F = x0.to(m.dtype), F.to(m.dtype)
+    Us = {route: U.to(m.dtype) for route, U in Us.items()}
+    return [(f"K5 {route}{wr} {x0.shape[0]}x{Us[route].shape[0]}",
+             functools.partial(fused.rollout_fused_multi, m, x0, Us[route],
+                               DT, GRAVITY, route=route, f_ext=fe))
+            for route in ROUTES for wr, fe in (("", None), (" f_ext", F))]
+
+
 def minv_rnea_cases(cs, key, m64, fd):
     """K10's and K6's checks (``chip_smoke.check_kernels``' form, float64)
     at ``key``'s step shape: arm7 the rollout path's 4096 states, the rpy
@@ -240,15 +274,8 @@ def compare(cs, label: str, models=MODELS) -> dict:
                     cases.append((f"K4 {kernel} B={B}", functools.partial(
                         fk_lane.ee_gn_fused, m32, q, cs.TARGET_E, gn=gn,
                         ee_names=ee)))
+        cases += k5_calls(m32, k5_args(cs, key, m64))
         if key == "arm7":
-            x0, Us, F = rollout_args(cs, m64)
-            for route in ROUTES:
-                for wr, fe in (("", None), (" f_ext (H,nb,6)", F)):
-                    cases.append((f"K5 {route}{wr} {x0.shape[0]}x"
-                                  f"{Us[route].shape[0]}", functools.partial(
-                                      fused.rollout_fused_multi, m32, x0,
-                                      Us[route], DT, GRAVITY, route=route,
-                                      f_ext=fe)))
             rng = np.random.default_rng(cs.SEED + 11)
             for kernel, gn, batches in (("ee_gn", True, (12800, 128)),
                                         ("ee_err", False, (102400, 1024))):
@@ -293,11 +320,8 @@ def compare(cs, label: str, models=MODELS) -> dict:
 
 def sweep(cs, models=MODELS) -> dict:
     from rbdtpu_torch.kernels import _lib, colvec, fused
-    from rbdtpu_torch.model import load_asset
 
     out = {}
-    arm64 = load_asset("arm7", device="cuda", dtype=torch.float64)
-    k5_in = rollout_args(cs, arm64)
     for team in _lib.TEAM_SIZES:
         for k in _lib.TEAM:
             _lib.TEAM[k] = team
@@ -305,6 +329,7 @@ def sweep(cs, models=MODELS) -> dict:
         _lib.library()
         for key, name, fb, quat in models:
             m64 = load(name, fb, quat, torch.float64)
+            k5 = k5_args(cs, key, m64)
             (x64, u64), k2_64, k3_64 = path_inputs(cs, key, m64)
             k6 = minv_rnea_cases(cs, key, m64, (x64, u64))
             for dtype in (torch.float32, torch.float64):
@@ -350,17 +375,8 @@ def sweep(cs, models=MODELS) -> dict:
                 out[f"{team} {key} {sfx} K3 B={k3[0].shape[0]}"] = (
                     cs.graph_ms(lambda: colvec.linearize_parts_fused(
                         m, *k3, GRAVITY)))
-                if key == "arm7":
-                    x0, Us, F = k5_in
-                    for route in ROUTES:
-                        U = Us[route].to(dtype)
-                        for wr, fe in (("", None), (" f_ext", F.to(dtype))):
-                            out[f"{team} {key} {sfx} K5 {route}{wr} "
-                                f"{x0.shape[0]}x{U.shape[0]}"] = cs.graph_ms(
-                                    functools.partial(
-                                        fused.rollout_fused_multi, m,
-                                        x0.to(dtype), U, DT, GRAVITY,
-                                        route=route, f_ext=fe))
+                for case, fn in k5_calls(m, k5):
+                    out[f"{team} {key} {sfx} {case}"] = cs.graph_ms(fn)
                 for case, fn in minv_rnea_calls(cs, m, k6):
                     out[f"{team} {key} {sfx} {case}"] = cs.graph_ms(fn)
             torch.cuda.empty_cache()
