@@ -234,7 +234,25 @@ Phases, each ending the run with a nonzero exit when it fails:
    from a start pushed past three of the arm's limits, and float64 parity
    kernels against plain at 4 problems over 16 knots with and without the
    barrier (|dU| < 1e-6, relative |dJ| < 1e-9 or phase 19's floor rule),
-   the barrier's hinges active after the first knot.
+   the barrier's hinges active after the first knot;
+24. path N, the sharded fleet (``rbdtpu_torch.distrib``): configs[2]'s
+   solve (Bm=128, H=100, 10 iterations, 8 steps, float32, ``fused=True``)
+   through ``sharded_ddp_solve`` on two ranks sharing the card over gloo,
+   started by ``python -m rbdtpu_torch.distrib.launch`` (each rank
+   launching K1-K4 and holding its rows to its process-local solve of
+   them bit for bit), then at world size 1 over NCCL in this process
+   (``make_mesh`` from the torchrun environment; K1-K4 launched; bit for
+   bit the unsharded ``ddp_solve``, whose J is finite and
+   nonincreasing); the ranks' J against the unsharded solve's within the
+   larger of 1e-4 and 100 times its own floor measured in the same run,
+   and in float64 at Bm=8, H=20 (|dU| < 1e-6, relative |dJ| < 1e-9);
+   configs[4]'s population-sharded MPPI update (``sharded_mppi_step``,
+   the rpy humanoid, 2,048 samples, H=32, sigma 0.3, float64) on the two
+   ranks against one rank on the same normals (<= 1e-9); the compat
+   mirror (``RBDReferenceTorch``) on the card against the CPU in float64
+   on arm7, the rpy quadruped and the quaternion humanoid (<= 1e-9).
+   Ranks that share one card check the harness; their times are no
+   scaling result.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON summary and the result line.  Without a CUDA
@@ -397,6 +415,23 @@ J_TIERS = (True, None, False)
 # keeps its stack within EE_STACK_MAX bytes.
 BL, HL, BL_CHECK, SIGMA_L = 4096, 50, 512, 0.2
 HM_PARITY, EE_STACK_MAX = 16, 288
+# path N, the sharded fleet: configs[2]'s solve (the main path's problems
+# and solver) through ``distrib.sharded_ddp_solve``, at world size 1 over
+# NCCL in this process and on N_RANKS ranks sharing the card over gloo
+# (``distrib.launch``, entry ``path_n_rank``), its float64 check at
+# BN_CHECK problems over HN_CHECK knots; configs[4]'s population-sharded
+# MPPI update (path C's BH x SAMPLES_H samples, HH knots, SIGMA_H) on the
+# rpy humanoid in float64, the ranks held against one rank on the same
+# normals within MPPI_N_TOL (relative).  Each rank's rows must equal its
+# process-local solve of them bit for bit.  A few of configs[2]'s problems
+# part from themselves by O(1) in J when x0 moves by 1e-13, so the ranks
+# are held to the unsharded solve in float64 at configs[2]'s own shapes by
+# phase 19's floor rule (TOL64, or FLOOR_TIMES times the unsharded solve's
+# parting from itself at that move) on the upper quartile over the
+# problems; their float32 parting is printed, and ``path_n_split`` finds
+# which operators round by batch size.
+N_RANKS, BN, HN, ITERS_N, BN_CHECK, HN_CHECK = 2, 128, 100, 10, 8, 20
+MPPI_N_TOL = 1e-9
 
 
 def require(ok: bool, msg: str):
@@ -3731,6 +3766,422 @@ def second_order_phase(smi: str):
     took("the IDSVA cells")
 
 
+def path_n_solves(mesh, m32, m64) -> dict:
+    """Path N's sharded solves on ``mesh`` (over all its axes): configs[2]
+    in float32 (one warm-up, then one solve timed by CUDA events with the
+    counts set to 0 just before and read just after), then ``ddp_solve``
+    of this rank's rows alone (the process-local solve; at world size 1
+    the unsharded one), timed likewise; then in float64 the same problems
+    and the check at BN_CHECK x HN_CHECK.  Returns the gathered results on
+    the host, whether this rank's rows equal the local solve's bit for
+    bit, the local solve's J history, both solves' ms, the sharded solve's
+    launches and the peak memory."""
+    import torch
+    from rbdtpu_torch.distrib import shard_batch, sharded_ddp_solve
+    from rbdtpu_torch.kernels import _lib
+    from rbdtpu_torch.solver import DDPConfig, ee_reaching_cost
+
+    axis = mesh.axis_names
+    cfg = DDPConfig(iters=ITERS_N, dt=DT, gravity=GRAVITY, n_alphas=8,
+                    fused=True)
+    x0, U0 = start_problems(m32, BN, HN, np.random.default_rng(SEED + 1))
+    cost = ee_reaching_cost(m32, TARGET, **WEIGHTS)
+    solve_n = lambda: sharded_ddp_solve(mesh, m32, cost, x0, U0, cfg, axis)
+    solve_n()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    (J, U, mean_J), ms = timed_call(solve_n)
+    launches = {k: _lib.launches[k] for k in DDP_KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    (local, J_hist), local_ms = timed_call(lambda: solve(
+        m32, shard_batch(mesh, x0, axis), shard_batch(mesh, U0, axis), True,
+        ITERS_N))
+    same = (torch.equal(shard_batch(mesh, J, axis), local.J)
+            and torch.equal(shard_batch(mesh, U, axis), local.U))
+    cost64 = ee_reaching_cost(m64, TARGET, **WEIGHTS)
+    x64, U64 = start_problems(m64, BN, HN, np.random.default_rng(SEED + 1))
+    Jf, Uf, mean_f = sharded_ddp_solve(mesh, m64, cost64, x64, U64, cfg,
+                                       axis)
+    x8, U8 = start_problems(m64, BN_CHECK, HN_CHECK,
+                            np.random.default_rng(SEED + 2))
+    J8, U8, _ = sharded_ddp_solve(mesh, m64, cost64, x8, U8, cfg, axis)
+    host = lambda t: t.cpu().numpy()
+    return dict(J=host(J), U=host(U), mean_J=mean_J.item(), ms=ms,
+                local_ms=local_ms, launches=launches, peak_mib=peak,
+                local_equal=bool(same),
+                J_local=host(local.J), U_local=host(local.U),
+                J_hist=host(J_hist), J64=host(Jf), U64=host(Uf),
+                mean_J64=mean_f.item(), J8=host(J8), U8=host(U8))
+
+
+def path_n_mppi(mesh, h64):
+    """configs[4]'s population-sharded MPPI update on ``mesh``: one rpy
+    humanoid problem (path C's start), BH x SAMPLES_H standard normals
+    from one seed on the card, this rank's share by its shard index.
+    Returns (U_new, J_mean) on the host and the update's ms."""
+    import torch
+    from rbdtpu_torch.distrib import sharded_mppi_step
+    from rbdtpu_torch.solver import MPPIConfig
+
+    axis = mesh.axis_names
+    S = BH * SAMPLES_H
+    x0, U0 = humanoid_problems(h64, 1, HH, np.random.default_rng(SEED + 40))
+    gen = torch.Generator(device=h64.device).manual_seed(SEED + 41)
+    noise = torch.randn((S, HH, h64.nv), generator=gen, dtype=h64.dtype,
+                        device=h64.device)
+    per, k = S // mesh.axis_size(axis), mesh.axis_index(axis)
+    cfg = MPPIConfig(n_samples=S, sigma=SIGMA_H, dt=DT, gravity=GRAVITY)
+    (U1, J1), ms = timed_call(lambda: sharded_mppi_step(
+        mesh, h64, humanoid_cost(h64), x0[0], U0[0], config=cfg, axis=axis,
+        noise=noise[k * per:(k + 1) * per]))
+    return U1.cpu().numpy(), J1.item(), ms
+
+
+def path_n_rank(mesh, argv) -> int:
+    """``distrib.launch``'s entry for path N's ranks: the sharded solves
+    and the MPPI update on this rank; writes its launches, times and peak
+    memory to ``argv[0]``/rank<r>.json, and rank 0 the gathered results
+    to ``argv[0]``/ranks.npz."""
+    import torch
+    from rbdtpu_torch.model import load_asset
+
+    t0 = time.perf_counter()
+    load = lambda name, dt, **kw: load_asset(name, device=mesh.device,
+                                             dtype=dt, **kw)
+    r = path_n_solves(mesh, load("arm7", torch.float32),
+                      load("arm7", torch.float64))
+    U_m, J_m, mppi_ms = path_n_mppi(
+        mesh, load("humanoid30", torch.float64, floating_base=True))
+    with open(f"{argv[0]}/rank{mesh.rank}.json", "w") as f:
+        json.dump({
+            "device": str(mesh.device), "backend": mesh.backend,
+            "launches": r["launches"], "local_equal": r["local_equal"],
+            "solve_ms": r["ms"], "local_solve_ms": r["local_ms"],
+            "mppi_ms": mppi_ms, "peak_mib": r["peak_mib"],
+            "s": time.perf_counter() - t0}, f)
+    if mesh.rank == 0:
+        np.savez(f"{argv[0]}/ranks.npz", mppi_U=U_m, mppi_J=J_m,
+                 **{k: r[k] for k in ("J", "U", "mean_J", "J64", "U64",
+                                      "mean_J64", "J8", "U8")})
+    return 0
+
+
+def path_n_split(m64, m32, J_ref, smi: str):
+    """Where configs[2]'s float32 solve parts by batch size, in one
+    process: each piece of an iteration called once on the whole batch
+    and once on its first 1/N_RANKS of the rows, at the main path's
+    shapes (K1-K4 and their plain versions on ``kernel_inputs``; the
+    Riccati sweep ``backward_pass`` over BN problems and HN knots, and its
+    batched products, Cholesky factor and Cholesky solve alone); then the BN
+    problems solved as N_RANKS row blocks, on the plain route
+    (``fused=False``) for one iteration against its whole batch, and
+    through the kernels for ITERS_N iterations against ``J_ref``, the
+    whole batch's J.  Prints, per piece and per route, how many rows are
+    not bit for bit the same.  Requires K1-K4 to be row for row the same
+    at both batches (each state, trajectory or knot is computed alone).
+    Returns the kernel route's block J on the host."""
+    import torch
+    from rbdtpu_torch.solver.ddp import backward_pass
+
+    differ = lambda whole, part, n: sum(
+        int((w[:n] != p).reshape(n, -1).any(-1).sum())
+        for w, p in zip(whole, part))
+    outs = lambda o: [t for t in (o if isinstance(o, tuple) else (o,))
+                      if t is not None]
+    table = kernel_table()
+    inputs = kernel_inputs(m64, np.random.default_rng(SEED + 4))
+    kernel_rows = {}
+    for kname in DDP_KERNELS:
+        kern, plain = table[kname][:2]
+        a = tuple(t.float() for t in inputs[kname])
+        B = a[0].shape[0]
+        half = B // N_RANKS
+        cut = tuple(t[:half].contiguous() for t in a)
+        for route, fn in (("kernel", kern), ("plain", plain)):
+            n = differ(outs(fn(m32, *a)), outs(fn(m32, *cut)), half)
+            if route == "kernel":
+                kernel_rows[kname] = n
+            print(f"phase 24 path N split: {kname} {route} B={B} against "
+                  f"its first {half} rows, float32: {n} rows not bit for bit")
+    rng = np.random.default_rng(SEED + 5)
+    nx, nu = 2 * m32.nv, m32.nv
+    T = lambda *sh: torch.tensor(rng.standard_normal(sh), dtype=torch.float32,
+                                 device=m32.device)
+    eye = lambda n: torch.eye(n, dtype=torch.float32, device=m32.device)
+    M = T(BN, nx, nx)
+    S = M[:, :nu, :nu] @ M[:, :nu, :nu].transpose(-1, -2) + eye(nu)
+    ops = {
+        # A, B, lx, lu, lxx, luu, lux (constant), lfx, lfxx, reg
+        "backward_pass": (backward_pass, (
+            eye(nx) + 0.01 * T(BN, HN, nx, nx), 0.01 * T(BN, HN, nx, nu),
+            T(BN, HN, nx), T(BN, HN, nu), eye(nx), 1e-2 * eye(nu),
+            0 * T(nu, nx), T(BN, nx), 10 * eye(nx),
+            torch.full((BN,), 1e-6, device=m32.device))),
+        # the sweep's products: A^T (Vxx A), B^T (Vxx B), A^T Vx
+        "matmul": (torch.matmul, (M, M)),
+        "matmul A^T M": (lambda a, m: a.transpose(-1, -2) @ m, (M, M)),
+        "matmul B^T M B": (lambda b, m: b.transpose(-1, -2) @ (m @ b),
+                           (M[..., :nu], M)),
+        "mv A^T x": (lambda a, x: (a.transpose(-1, -2) @ x[..., None]),
+                     (M, M[..., 0])),
+        "cholesky_ex": (lambda s: torch.linalg.cholesky_ex(s)[0], (S,)),
+        "cholesky_solve": (torch.cholesky_solve,
+                           (T(BN, nu, nx), torch.linalg.cholesky(S))),
+    }
+    half = BN // N_RANKS
+    for op, (fn, a) in ops.items():
+        cut = tuple(t[:half] if t.shape[0] == BN else t for t in a)
+        n = differ(outs(fn(*a)), outs(fn(*cut)), half)
+        print(f"phase 24 path N split: {op} plain B={BN} against its first "
+              f"{half} rows, float32: {n} rows not bit for bit")
+    x0, U0 = start_problems(m32, BN, HN, np.random.default_rng(SEED + 1))
+    blocks = [slice(r * half, (r + 1) * half) for r in range(N_RANKS)]
+    for fused, iters in ((False, 1), (True, ITERS_N)):
+        J = torch.cat([solve(m32, x0[b], U0[b], fused, iters)[0].J
+                       for b in blocks]).cpu().numpy()
+        whole = (solve(m32, x0, U0, fused, iters)[0].J.cpu().numpy()
+                 if not fused else J_ref)
+        print(f"phase 24 path N split: solve on the "
+              f"{'kernel' if fused else 'plain'} route, float32, {iters} "
+              f"iteration(s): {int((J != whole).sum())} of {BN} J not bit "
+              f"for bit as {N_RANKS} blocks, max rel |dJ| "
+              f"{np.max(np.abs(J - whole) / np.abs(whole)):.3e} ({smi})")
+    for kname, n in kernel_rows.items():
+        require(n == 0, f"path N: {kname}'s kernel depends on the batch in "
+                f"{n} rows")
+    return J
+
+
+def compat_on_card(smi: str):
+    """The compat mirror's calls (``rbdtpu_torch.oracle.compat_calls``,
+    the CPU tests' list) on the card against the CPU in float64, on arm7,
+    the rpy quadruped and the quaternion humanoid: <= 1e-9 (relative
+    where a value exceeds 1); a call the mirror refuses on the CPU must be
+    refused on the card."""
+    import torch
+    from rbdtpu_torch.compat import RBDReferenceTorch
+    from rbdtpu_torch.model import load_asset
+    from rbdtpu_torch.oracle.compat_calls import MODELS, calls, state
+
+    for tag, (name, kw) in MODELS.items():
+        m = load_asset(name, device="cpu", dtype=torch.float64, **kw)
+        s = state(tag, m.nq, m.nv, m.nb)
+        cpu = dict(calls(RBDReferenceTorch(m), tag, s))
+        worst, n = 0.0, 0
+        for call, fn in calls(RBDReferenceTorch(m, device="cuda"), tag, s):
+            try:
+                want = cpu[call]()
+            except ValueError:
+                try:
+                    fn()
+                except ValueError:
+                    continue
+                raise SystemExit(f"chip_smoke FAILED: compat {tag} {call} "
+                                 "refused on the CPU, not on the card")
+            for got, ref in zip(fn(), want):
+                scale = max(1.0, float(np.abs(ref).max()))
+                err = float(np.abs(np.asarray(got) - ref).max()) / scale
+                require(np.shape(got) == np.shape(ref) and err <= 1e-9,
+                        f"compat {tag} {call}: card against CPU {err:.3e}")
+                worst = max(worst, err)
+            n += 1
+        print(f"phase 24 compat {tag}: {n} calls on the card against the "
+              f"CPU, float64, max rel err {worst:.3e} (bound 1e-9) on {smi}")
+
+
+def sharded_phase(smi: str):
+    """Phase 24, path N: the sharded fleet.  First N_RANKS ranks sharing
+    the card over gloo, started by ``python -m
+    rbdtpu_torch.distrib.launch`` (entry ``path_n_rank``), each launching
+    K1-K4 and holding its rows to its process-local solve of them bit for
+    bit; then world size 1 over NCCL in this process (``make_mesh`` from
+    the torchrun environment), whose configs[2] solve must equal the
+    unsharded ``ddp_solve`` bit for bit, its J finite and nonincreasing.
+    The ranks' float32 parting from the unsharded solve is printed;
+    ``path_n_split`` finds where it comes from, requires K1-K4 to be row
+    for row the same at the ranks' batch, and the ranks' J must equal this
+    process's solve of their row blocks bit for bit.  In float64 at
+    configs[2]'s shapes the sharded solves are held to the unsharded one
+    by phase 19's floor rule on the upper quartile over the problems (J,
+    U) and on the mean J, which must also be its gathered J's; the float64
+    check at BN_CHECK x HN_CHECK (|dU| < 1e-6, relative |dJ| < 1e-9); the
+    ranks' MPPI update against one rank's on the same normals
+    (MPPI_N_TOL); the compat mirror on the card.  Ranks that share one
+    card check the harness; their times are no scaling result."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from rbdtpu_torch.distrib import make_mesh
+    from rbdtpu_torch.model import load_asset
+
+    clock = time.perf_counter()
+
+    def took(step: str):
+        nonlocal clock
+        print(f"phase 24: {step} took {time.perf_counter() - clock:.1f} s")
+        clock = time.perf_counter()
+
+    out_dir = tempfile.mkdtemp(prefix="path_n_")
+    saved = {k: os.environ.get(k) for k in (
+        "RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    try:
+        # ---- N_RANKS ranks sharing the card over gloo ----
+        proc = subprocess.run(
+            [sys.executable, "-m", "rbdtpu_torch.distrib.launch",
+             "--num-processes", str(N_RANKS), "--backend", "gloo",
+             "--device", "cuda", "--entry", "chip_smoke:path_n_rank", "--",
+             out_dir], capture_output=True, text=True, timeout=900,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        require(proc.returncode == 0, f"path N: distrib.launch exited "
+                f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                f"{proc.stderr[-3000:]}")
+        for r in range(N_RANKS):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                rank = json.load(f)
+            print(f"phase 24 path N rank {r}: {json.dumps(rank)} ({smi})")
+            for kname in DDP_KERNELS:
+                require(rank["launches"][kname] > 0,
+                        f"path N: {kname} was not launched on rank {r}")
+            require(rank["local_equal"], f"path N: rank {r}'s rows are not "
+                    "its process-local solve of them bit for bit")
+        with np.load(os.path.join(out_dir, "ranks.npz")) as f:
+            ranks = {k: f[k] for k in f.files}
+        took(f"{N_RANKS} ranks over gloo")
+
+        # ---- world size 1 over NCCL ----
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        mesh = make_mesh()
+        require(mesh.backend == "nccl" and mesh.device.type == "cuda",
+                f"make_mesh on the card gave {mesh.backend} on {mesh.device}")
+        m32 = load_asset("arm7", device=mesh.device, dtype=torch.float32)
+        m64 = load_asset("arm7", device=mesh.device, dtype=torch.float64)
+        one = path_n_solves(mesh, m32, m64)
+        for kname in DDP_KERNELS:
+            require(one["launches"][kname] > 0,
+                    f"path N: {kname} was not launched at world size 1")
+        print(f"phase 24 path N world size 1 (nccl): launches "
+              f"{one['launches']}; sharded solve {one['ms']:.1f} ms, the "
+              f"unsharded one {one['local_ms']:.1f} ms (CUDA events); peak "
+              f"{one['peak_mib']:.1f} MiB allocated in this process (with "
+              f"what the earlier phases hold) on {smi}")
+        took("world size 1 over NCCL")
+
+        # ---- the unsharded solve of the same problems: world size 1's
+        # process-local solve ----
+        J_hist = one["J_hist"]
+        require(np.isfinite(J_hist).all()
+                and bool((J_hist[1:] <= J_hist[:-1]).all()),
+                "path N: the unsharded J is not finite and nonincreasing")
+        J_ref, U_ref = one["J_local"], one["U_local"]
+        require(one["local_equal"], "path N: the world-size-1 sharded solve "
+                "is not the unsharded one bit for bit")
+        require(abs(one["mean_J"] - J_ref.mean()) <= 1e-6 * abs(
+            J_ref.mean()), "path N: mean J")
+        dj32 = np.abs(ranks["J"] - J_ref) / np.abs(J_ref)
+        print(f"phase 24 path N {N_RANKS} ranks against unsharded, float32 "
+              f"Bm={BN} H={HN} (measured; held in float64 below): max rel "
+              f"|dJ| {dj32.max():.3e}, median {np.median(dj32):.3e}, "
+              f"{int((dj32 > 0).sum())} of {BN} problems not bit for bit, "
+              f"max |dU| {np.abs(ranks['U'] - U_ref).max():.3e}, rel |d "
+              f"mean J| {abs(ranks['mean_J'] - J_ref.mean()) / J_ref.mean():.3e}"
+              f"; mean J {J_ref.mean():.4f}")
+        took("world size 1's checks")
+        J_blocks = path_n_split(m64, m32, J_ref, smi)
+        require(np.array_equal(ranks["J"], J_blocks), f"path N: the "
+                f"{N_RANKS} ranks' J is not this process's solve of their "
+                "row blocks bit for bit")
+        took("the batch split")
+        # float64 at configs[2]'s shapes.  A few problems part from
+        # themselves by O(1) in J when x0 moves by 1e-13, so phase 19's
+        # floor rule is applied to the upper quartile over the problems
+        rng = np.random.default_rng(SEED + 3)
+        x64, U64 = start_problems(m64, BN, HN, np.random.default_rng(SEED + 1))
+        moved = x64 * (1 + 1e-13 * torch.tensor(
+            rng.standard_normal(x64.shape), dtype=x64.dtype,
+            device=x64.device))
+        host = lambda st: (st.J.cpu().numpy(), st.U.cpu().numpy())
+        J64, U64r = host(solve(m64, x64, U64, True, ITERS_N)[0])
+        parts = lambda J, U: (np.abs(J - J64) / np.abs(J64), np.abs(
+            U - U64r).reshape(BN, -1).max(1))
+        q = lambda v: float(np.quantile(v, 0.75))
+        Jm, Um = host(solve(m64, moved, U64, True, ITERS_N)[0])
+        fj, fu = parts(Jm, Um)
+        d_mean = lambda m: abs(float(m) - J64.mean()) / J64.mean()
+        bj = max(TOL64, FLOOR_TIMES * q(fj))
+        bu = max(U_PARITY, FLOOR_TIMES * q(fu))
+        bm = max(TOL64, FLOOR_TIMES * d_mean(Jm.mean()))
+        print(f"phase 24 path N float64 Bm={BN} H={HN} floor: the unsharded "
+              f"solve from x0 x (1 + 1e-13 N(0,1)): rel |dJ| upper quartile "
+              f"{q(fj):.3e}, max {fj.max():.3e}; |dU| upper quartile "
+              f"{q(fu):.3e}, max {fu.max():.3e}; rel |d mean J| "
+              f"{d_mean(Jm.mean()):.3e}")
+        for tag, r in (("world size 1", one), (f"{N_RANKS} ranks", ranks)):
+            dj, du = parts(r["J64"], r["U64"])
+            mean = float(r["mean_J64"])
+            gathered = abs(mean - r["J64"].mean()) / r["J64"].mean()
+            print(f"phase 24 path N {tag} against unsharded, float64 Bm={BN}"
+                  f" H={HN}: rel |dJ| upper quartile {q(dj):.3e} (bound "
+                  f"{bj:.3g}), max {dj.max():.3e}; |dU| upper quartile "
+                  f"{q(du):.3e} (bound {bu:.3g}), max {du.max():.3e}; rel "
+                  f"|d mean J| {d_mean(mean):.3e} (bound {bm:.3g}) (bounds: "
+                  f"{TOL64:g}, {U_PARITY:g} and {TOL64:g}, or "
+                  f"{FLOOR_TIMES:g} x the floor's); mean J {mean:.9g} "
+                  f"against its gathered J {gathered:.3e} (bound 1e-12)")
+            require(q(dj) <= bj and q(du) <= bu and d_mean(mean) <= bm
+                    and gathered <= 1e-12, f"path N {tag}: the float64 "
+                    "sharded solve departs from the unsharded one")
+        x8, U8 = start_problems(m64, BN_CHECK, HN_CHECK,
+                                np.random.default_rng(SEED + 2))
+        J8, U8r = host(solve(m64, x8, U8, True, ITERS_N)[0])
+        for tag, r in (("world size 1", one), (f"{N_RANKS} ranks", ranks)):
+            du8 = float(np.abs(r["U8"] - U8r).max())
+            dj8 = float(np.max(np.abs(r["J8"] - J8) / np.maximum(
+                1.0, np.abs(J8))))
+            print(f"phase 24 path N {tag} float64 Bm={BN_CHECK} "
+                  f"H={HN_CHECK}: max |dU| {du8:.3e} (bound 1e-6), max rel "
+                  f"|dJ| {dj8:.3e} (bound 1e-9)")
+            require(du8 < 1e-6 and dj8 < 1e-9,
+                    f"path N {tag}: float64 check |dU| {du8:.3e}, "
+                    f"|dJ| {dj8:.3e}")
+        took("the float64 solves")
+
+        # ---- the MPPI update: one rank on the ranks' normals ----
+        U_m, J_m, mppi_ms = path_n_mppi(mesh, load_asset(
+            "humanoid30", device=mesh.device, dtype=torch.float64,
+            floating_base=True))
+        err_u = float(np.abs(ranks["mppi_U"] - U_m).max()) / max(
+            1.0, float(np.abs(U_m).max()))
+        err_j = abs(float(ranks["mppi_J"]) - J_m) / max(1.0, abs(J_m))
+        print(f"phase 24 path N MPPI, rpy humanoid, {BH * SAMPLES_H} "
+              f"samples, H={HH}, sigma={SIGMA_H}, float64: {N_RANKS} ranks "
+              f"against one on the same normals, rel |dU| {err_u:.3e}, "
+              f"|dJ| {err_j:.3e} (bound {MPPI_N_TOL:g}); one rank "
+              f"{mppi_ms:.1f} ms (CUDA events)")
+        require(np.isfinite(U_m).all() and err_u <= MPPI_N_TOL
+                and err_j <= MPPI_N_TOL, "path N: the sharded MPPI update")
+        took("the MPPI update")
+        compat_on_card(smi)
+        took("the compat mirror")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -3977,7 +4428,13 @@ def main() -> int:
     gaps_phase(smi, rows, ptxas)
     print(f"chip_smoke: phase 23 took {time.perf_counter() - t23:.1f} s")
 
-    print(f"chip_smoke: phases 1-23 took {time.perf_counter() - clock:.1f} s")
+    mark(24)
+    # ---- 24. path N: the sharded fleet (distrib, compat) ----
+    t24 = time.perf_counter()
+    sharded_phase(smi)
+    print(f"chip_smoke: phase 24 took {time.perf_counter() - t24:.1f} s")
+
+    print(f"chip_smoke: phases 1-24 took {time.perf_counter() - clock:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [
         {k: rows[n_][k] for k in (

@@ -16,10 +16,14 @@ def _outer(u, v):
     return u[..., :, None] * v[..., None, :]
 
 
-def minv_bpass(model: RobotModel, Xs):
+def minv_bpass(model: RobotModel, Xs, return_fb_Dinv: bool = False):
     """Leaf->root sweep: articulated inertias and the upper rows of M^-1.
     Returns (rows of M^-1: list of (..., n), F list of (..., 6, n), U list,
-    Dinv list); the rpy root's six rows are rows[0:6]."""
+    Dinv list); a floating root's six rows are rows[0:6].  With
+    ``return_fb_Dinv`` a fifth item follows, the inverse of the root's
+    articulated inertia (..., 6, 6), or None on a fixed base (rbdtpu's
+    ``fb_Dinv``, which the reference-compatible ``compat.minv_bpass``
+    reports)."""
     nb, n = model.nb, model.nv
     batch = Xs[0].shape[:-2]
     kw = dict(dtype=Xs[0].dtype, device=Xs[0].device)
@@ -27,6 +31,7 @@ def minv_bpass(model: RobotModel, Xs):
     F = [torch.zeros(batch + (6, n), **kw) for _ in range(nb)]
     U_l, Dinv_l = [None] * nb, [None] * nb
     IA = [model.I[i] for i in range(nb)]
+    fb_Dinv = None
     for i in range(nb - 1, -1, -1):
         p = model.parent[i]
         if model.floating_base and i == 0:
@@ -53,6 +58,8 @@ def minv_bpass(model: RobotModel, Xs):
             F[p] = F[p] + Xs[i].transpose(-1, -2) @ F[i]
             Ia = IA[i] - Dinv[..., None, None] * _outer(U, U)
             IA[p] = IA[p] + xtax(Xs[i], Ia)
+    if return_fb_Dinv:
+        return rows, F, U_l, Dinv_l, fb_Dinv
     return rows, F, U_l, Dinv_l
 
 

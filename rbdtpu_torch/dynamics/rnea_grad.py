@@ -33,9 +33,14 @@ def _col(x, j: int, n: int):
     return F.pad(x, (j, n - j - x.shape[-1]))
 
 
-def rnea_grad_fpass(model: RobotModel, Xs, qd, v, a, gravity=-9.81):
+def rnea_grad_fpass(model: RobotModel, Xs, qd, v, a, gravity=-9.81,
+                    full: bool = False):
     """Forward derivative sweeps.  v, a: (..., NB, 6) from rnea.
-    Returns (df_dq, df_dqd): lists of (..., 6, n) per body."""
+    Returns (df_dq, df_dqd): lists of (..., 6, n) per body; with ``full``
+    all six lists (dv_dq, da_dq, df_dq, dv_dqd, da_dqd, df_dqd), rbdtpu's
+    ``full=True`` (the reference's separate fpass intermediates, which
+    ``compat`` reports).  A floating root's dq columns are zero here
+    (``rnea_grad`` fills them)."""
     nb, n = model.nb, model.nv
     batch = Xs[0].shape[:-2]
     kw = dict(dtype=Xs[0].dtype, device=Xs[0].device)
@@ -81,6 +86,8 @@ def rnea_grad_fpass(model: RobotModel, Xs, qd, v, a, gravity=-9.81):
             lambda m, w: cross_force(w, m), Ii @ dvd, vi_c)
         dv_q[i], da_q[i], df_q[i] = dvq, daq, dfq
         dv_d[i], da_d[i], df_d[i] = dvd, dad, dfd
+    if full:
+        return dv_q, da_q, df_q, dv_d, da_d, df_d
     return df_q, df_d
 
 

@@ -86,6 +86,17 @@ class RobotModel:
     def dtype(self) -> torch.dtype:
         return self.I.dtype
 
+    def to(self, device) -> "RobotModel":
+        """This model with its tensors on ``device`` (the same model when
+        they are there already)."""
+        device = torch.device(device)
+        if device.index is None and device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device == self.device:
+            return self
+        return dataclasses.replace(
+            self, **{k: getattr(self, k).to(device) for k in LEAVES})
+
     def q_index(self, i: int):
         """q slice/index of joint i: the root's [x, y, z, roll, pitch, yaw]
         or [x, y, z, qw, qx, qy, qz], then one coordinate a joint."""
@@ -122,6 +133,11 @@ class RobotModel:
     def subtree_mask(self) -> np.ndarray:
         """(NB, NB) bool; [i, j] True iff j is in subtree(i) (including i)."""
         return self.ancestor_mask().T | np.eye(self.nb, dtype=bool)
+
+    def subtree(self, i: int) -> Tuple[int, ...]:
+        """Descendants of i including i, ascending (the reference's
+        ``get_subtree_by_id``)."""
+        return tuple(int(j) for j in np.flatnonzero(self.subtree_mask()[i]))
 
     def leaves(self) -> Tuple[int, ...]:
         has_child = set(self.parent)

@@ -17,7 +17,7 @@ from .ops import skew
 _EPS2 = 1e-12  # squared-angle threshold of the Taylor branches
 
 
-def quat_identity(dtype=torch.float32, device="cpu"):
+def quat_identity(dtype=torch.float32, device="cuda"):
     return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
 
 

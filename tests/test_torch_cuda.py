@@ -1542,3 +1542,126 @@ def test_path_m_kernels_match_plain(card, barrier):
             assert bool(((q > hi) | (q < lo) | (qd.abs() > qd_lim)).any())
         us.append(state.U)
     assert (us[0] - us[1]).abs().max().item() < 1e-6
+
+
+# ---- path N: distrib, compat and the examples on the card ----
+
+def test_quat_identity_defaults_to_the_card(card):
+    from rbdtpu_torch.spatial import quat_identity
+
+    assert quat_identity().device.type == "cuda"
+
+
+@pytest.mark.parametrize("tag", ["arm7", "quad", "hum_q"])
+def test_compat_on_the_card_matches_the_cpu(card, tag):
+    """Every call of the compat mirror
+    (``rbdtpu_torch.oracle.compat_calls.calls``) with the model on the
+    card against the CPU, float64: <= 1e-9 relative to the value's scale;
+    refusals alike."""
+    from rbdtpu_torch.compat import RBDReferenceTorch
+    from rbdtpu_torch.oracle.compat_calls import MODELS, calls, state
+
+    name, kw = MODELS[tag]
+    m = load_asset(name, device="cpu", dtype=torch.float64, **kw)
+    s = state(tag, m.nq, m.nv, m.nb)
+    gpu = RBDReferenceTorch(m, device=card)
+    assert gpu.model.device.type == "cuda"
+    cpu = dict(calls(RBDReferenceTorch(m), tag, s))
+    for call, fn in calls(gpu, tag, s):
+        try:
+            want = cpu[call]()
+        except ValueError:
+            with pytest.raises(ValueError):
+                fn()
+            continue
+        for got, ref in zip(fn(), want):
+            _close(torch.tensor(got), torch.tensor(ref), 1e-9)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_sharded_ddp_world_one_over_nccl(card, monkeypatch):
+    """``make_mesh`` from the torchrun environment on the card takes NCCL;
+    configs[2]'s EE reaching cut to Bm = 8, H = 20, 3 iterations, float32,
+    ``fused=True``: the sharded solve launches K1-K4 and equals the
+    unsharded ``ddp_solve`` bit for bit."""
+    import torch.distributed as dist
+    from rbdtpu_torch.distrib import make_mesh, sharded_ddp_solve
+    from rbdtpu_torch.dynamics import rnea
+    from rbdtpu_torch.solver import DDPConfig, ddp_solve, ee_reaching_cost
+
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                     MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(_free_port())).items():
+        monkeypatch.setenv(k, v)
+    mesh = make_mesh()
+    try:
+        assert mesh.backend == "nccl" and mesh.device.type == "cuda"
+        m = load_asset("arm7", device=mesh.device, dtype=torch.float32)
+        rng = np.random.default_rng(61)
+        q0 = torch.tensor(0.3 * rng.standard_normal((8, m.nq)),
+                          dtype=m.dtype, device=card)
+        z = torch.zeros_like(q0)
+        U0 = rnea(m, q0, z, z)[0][:, None].expand(8, 20, m.nv).contiguous()
+        x0 = torch.cat([q0, z], -1)
+        cost = ee_reaching_cost(m, TARGET, w_ee=10.0, w_ee_f=2000.0,
+                                w_u=1e-6, w_qd=1e-3, w_qd_f=0.1)
+        cfg = DDPConfig(iters=3, dt=DT, n_alphas=8, fused=True)
+        _lib.reset_launches()
+        J, U, mean_J = sharded_ddp_solve(mesh, m, cost, x0, U0, cfg)
+        torch.cuda.synchronize()
+        for k in ("fd_step", "feedback_rollout", "linearize_parts", "ee_gn",
+                  "ee_err"):
+            assert _lib.launches[k] > 0, k
+        state, _ = ddp_solve(m, cost, x0, U0, cfg)
+        assert torch.equal(J, state.J) and torch.equal(U, state.U)
+        assert abs(mean_J.item() - state.J.mean().item()) <= 1e-5 * abs(
+            state.J.mean().item())
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, timeout=600):
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return subprocess.run([sys.executable, "-m", *args], cwd=repo,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_launch_two_gloo_ranks_share_the_card(card):
+    """``python -m rbdtpu_torch.distrib.launch`` with two ranks on one card
+    over gloo: the self-check (arm7, float64, the batch over ("host",
+    "batch")) passes on both ranks."""
+    out = _run(["rbdtpu_torch.distrib.launch", "--num-processes", "2",
+                "--backend", "gloo", "--device", "cuda"])
+    assert out.returncode == 0, (out.stdout[-2000:], out.stderr[-2000:])
+    assert '"multihost": "ok"' in out.stdout
+    assert '"device": "cuda:0"' in out.stdout
+
+
+def test_sharded_fleet_example_on_the_card(card):
+    """The sharded-fleet example through the launcher, two ranks sharing
+    the card over gloo, at a small fan: its own check (|dJ| < 1e-5)
+    passes."""
+    out = _run(["rbdtpu_torch.examples.sharded_fleet", "--backend", "gloo",
+                "--per-rank", "4", "--horizon", "10", "--iters", "2"])
+    assert out.returncode == 0, (out.stdout[-2000:], out.stderr[-2000:])
+    assert "OK" in out.stdout.splitlines()
+
+
+def test_mpc_reaching_example_on_the_card(card):
+    """The MPC reaching example at a small size: the solve lowers the
+    cost and the loop approaches the target (its own checks)."""
+    from rbdtpu_torch.examples import mpc_reaching
+
+    assert mpc_reaching.main(["--batch", "4", "--horizon", "20", "--iters",
+                              "3", "--ticks", "3"]) == 0

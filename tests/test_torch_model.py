@@ -14,6 +14,7 @@ from rbdtpu.model import load_asset as jax_load_asset
 from rbdtpu_torch.model import (
     LEAVES, STATIC, load_asset, make_model, model_from_numpy, parse_urdf,
 )
+from rbdtpu_torch.spatial import quat_identity
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODELS = [
@@ -149,11 +150,12 @@ def test_bundled_urdfs_are_copies_of_rbdtpus(name):
 
 
 @pytest.mark.parametrize("fn", [load_asset, parse_urdf, make_model,
-                                model_from_numpy])
+                                model_from_numpy, quat_identity])
 def test_entry_points_default_to_the_card(fn):
-    """Every model entry point builds on the card unless given a device;
-    without a card the default raises (no silent CPU fallback)."""
+    """Every model entry point (and ``quat_identity``) builds on the card
+    unless given a device; without a card the default raises (no silent
+    CPU fallback)."""
     assert inspect.signature(fn).parameters["device"].default == "cuda"
-    if not torch.cuda.is_available() and fn is load_asset:
+    if not torch.cuda.is_available() and fn in (load_asset, quat_identity):
         with pytest.raises((AssertionError, RuntimeError)):
-            load_asset("arm7")
+            load_asset("arm7") if fn is load_asset else fn()
