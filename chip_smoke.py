@@ -153,9 +153,10 @@ Phases, each ending the run with a nonzero exit when it fails:
    launches, J falling); float64 kernels against plain under the push at
    Bm=4, H=50 (|dU| < 1e-6); path D under a trunk push (K9 with wrenches
    once an iteration, no wrench-free K9 or K2); and the hybrid at path C's
-   shapes under a 20 N trunk push in float64, kernels against plain on the
-   same normals (|dU| < 1e-6, relative |dJ| < 1e-9), beside the plain
-   route's own parting when its start moves by 1e-13;
+   shapes (2 MPPI and 2 DDP iterations) under a 20 N trunk push in
+   float64, kernels against plain on the same normals (|dU| < 1e-6,
+   relative |dJ| < 1e-9), beside the plain route's own parting when its
+   start moves by 1e-13;
 20. paths G and H, the quaternion root (humanoid30 with ``root_quat=True``,
    K1-K4's "fq32" instantiations): K1 at path G's 2,048 sampled states,
    K2 at its 64 line-search trajectories x 32 knots, K3 at its 512 knots,
@@ -211,7 +212,8 @@ Phases, each ending the run with a nonzero exit when it fails:
    batch the port's rule sends to K9 with two chunks; path K, path G's
    hybrid and path J's K9 tier under path F's 80 N trunk push (K1, K2 and
    K9 only with wrenches), then float64 parity of the hybrid at 4
-   problems, kernels against plain on the same normals, under 20 N
+   problems (2 MPPI and 2 DDP iterations), kernels against plain on the
+   same normals, under 20 N
    (relative |dJ| < 1e-9) and under 80 N (below 100 times the plain
    route's own floor where it passes 1e-9), and of the K9 tier under 80 N;
 23. paths L and M, the last kernel gaps (K5 at fb16, fb32 and fq32; K4 at
@@ -252,7 +254,29 @@ Phases, each ending the run with a nonzero exit when it fails:
    mirror (``RBDReferenceTorch``) on the card against the CPU in float64
    on arm7, the rpy quadruped and the quaternion humanoid (<= 1e-9).
    Ranks that share one card check the harness; their times are no
-   scaling result.
+   scaling result;
+25. path O, the model-specialised kernels (K0, ``specialize=True``,
+   ``rbdtpu_torch/kernels/codegen.py``): build the generated libraries of
+   arm7 and the rpy quadruped in float32 and float64 (one nvcc a source,
+   all at once; each source's build seconds and each function's ptxas
+   registers, stack and spills printed); hold ``rnea_static`` (bias, with
+   qdd), ``fd_step_static`` (bare, (nb, 6) and (B, nb, 6) wrenches),
+   ``fd_step_minv_static`` (both routes, with and without wrenches) and
+   ``rollout_multi_static`` (both routes, with and without per-knot
+   wrenches, 10 steps) against their plain lane versions and their table
+   twins on the same inputs (float64 <= 1e-9, float32 the twin's
+   relative bound; each call launching its kernel alone), arm7's K1 at
+   128 states and K6 and K10 at 4,096, the quadruped's at 1,024, each
+   timed beside its twin; then path O: ``rollout_fused_multi(...,
+   specialize=True)`` at 4,096 x 50 in float32 on arm7 (the rollout
+   path's inputs, with and without per-knot wrenches) and on the
+   quadruped (path L's, with and without the push), 10 steps of the
+   specialised K1 and K6 (both routes) against the specialised K5 and the
+   hold torques at the final states by the specialised K10, launching
+   only the specialised kernels; each rollout held against its plain lane
+   rollout and the table K5 (1e-3 relative), its final state finite,
+   timed (steps/s, median of 7, and by graph replay) beside the table K5.
+   ``chip_smoke.static_phase(smi, {})`` runs it alone after ``_lib.build()``.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON summary and the result line.  Without a CUDA
@@ -378,6 +402,10 @@ PARITY_E = (50, 20)
 # wrong wrench moves J by far more (the push raises it 180-fold).
 PUSH_N, PUSH_KNOTS, PUSH_HYBRID_N, FLOOR_TIMES = 80.0, (5, 15), 20.0, 100.0
 NCHUNKS_F = (1, 2, 3)
+# the float64 hybrid parities under a push (paths F and K) run this many
+# MPPI and DDP iterations (path C's shapes otherwise; 4 and 4 before phase
+# 25 took their time)
+MPPI_ITERS_PUSH, ITERS_PUSH = 2, 2
 # paths G and H, the quaternion root (humanoid30 with root_quat=True, the
 # "fq32" size class of K1-K4): path G is configs[4] on it (path C's
 # shapes, bench.py:539-590 with root_quat=True), path H humanoid hand
@@ -1962,10 +1990,11 @@ def mppi_moved(J0, hist, rel: float = 1e-9) -> int:
 
 
 def hybrid_parity(m64, smi: str, f_ext=None, sigmas=(SIGMA_H, SIGMA_MOVE),
-                  tag: str = "path C", floor_times=None):
+                  tag: str = "path C", floor_times=None,
+                  mppi_iters: int = MPPI_ITERS_H, iters: int = ITERS_H):
     """Phase 16's check of the hybrid at path C's shapes (BH problems, HH
-    knots, MPPI_ITERS_H iterations of SAMPLES_H samples, then ITERS_H DDP
-    iterations) in float64: ``hybrid_solve`` through the kernels and
+    knots, ``mppi_iters`` iterations of SAMPLES_H samples, then ``iters``
+    DDP iterations) in float64: ``hybrid_solve`` through the kernels and
     through the plain route (``fused=False`` in both stages), fed the same
     standard normals through ``noise``, at configs[4]'s sigma and at
     SIGMA_MOVE, where MPPI replaces its nominal plan.  |dU| < U_PARITY and
@@ -1989,7 +2018,7 @@ def hybrid_parity(m64, smi: str, f_ext=None, sigmas=(SIGMA_H, SIGMA_MOVE),
     J0 = trajectory_cost(cost, rollout(m64, x0, U0, DT, GRAVITY,
                                        f_ext=f_ext), U0)
     gen = torch.Generator(device=m64.device).manual_seed(SEED + 95)
-    noise = torch.randn((MPPI_ITERS_H, BH, SAMPLES_H, HH, m64.nv),
+    noise = torch.randn((mppi_iters, BH, SAMPLES_H, HH, m64.nv),
                         generator=gen, dtype=m64.dtype, device=m64.device)
     counts = None
     rng = np.random.default_rng(SEED + 96)
@@ -2005,9 +2034,9 @@ def hybrid_parity(m64, smi: str, f_ext=None, sigmas=(SIGMA_H, SIGMA_MOVE),
                 m64, cost, x, U0, None,
                 MPPIConfig(n_samples=SAMPLES_H, sigma=sigma, dt=DT,
                            gravity=GRAVITY, fused=bool(fused)),
-                DDPConfig(iters=ITERS_H, dt=DT, gravity=GRAVITY,
+                DDPConfig(iters=iters, dt=DT, gravity=GRAVITY,
                           n_alphas=ALPHAS_H, fused=bool(fused)),
-                mppi_iters=MPPI_ITERS_H, f_ext=f_ext, noise=noise)
+                mppi_iters=mppi_iters, f_ext=f_ext, noise=noise)
             torch.cuda.synchronize()
             if fused:
                 counts = dict(_lib.launches)
@@ -2028,7 +2057,7 @@ def hybrid_parity(m64, smi: str, f_ext=None, sigmas=(SIGMA_H, SIGMA_MOVE),
         du, dj = parts(Uk, mk, dk)
         moved = (mppi_moved(J0, mk), mppi_moved(J0, mp))
         print(f"{tag} parity f64 sigma={sigma:g}: hybrid Bm={BH} H={HH} "
-              f"MPPI {MPPI_ITERS_H} x {SAMPLES_H} samples, DDP {ITERS_H} "
+              f"MPPI {mppi_iters} x {SAMPLES_H} samples, DDP {iters} "
               f"iters, kernels vs plain route, same noise: max|dU| "
               f"{du:.3e} (bound {U_PARITY:g}), max rel |dJ| over both J "
               f"histories {dj:.3e} (bound {bound:.3g}"
@@ -2361,7 +2390,8 @@ def push_path(q32, q64, h32, h64, smi: str) -> dict:
     wrenches once an iteration, no wrench-free K9 or K2, J falling); and
     the hybrid at path C's shapes and configs[4]'s sigma, float64 kernels
     against plain on hybrid_parity's normals, under a push of
-    PUSH_HYBRID_N and under PUSH_N (there beside the plain route's floor).
+    PUSH_HYBRID_N and under PUSH_N (there beside the plain route's floor),
+    each over MPPI_ITERS_PUSH MPPI and ITERS_PUSH DDP iterations.
     Returns the launches by (kernel, size class) of three path runs, each
     counted from 0: configs[3]'s three solves, path D's three solves and
     the hybrid's kernel route under PUSH_N."""
@@ -2465,8 +2495,9 @@ def push_path(q32, q64, h32, h64, smi: str) -> dict:
         hy, hy_class = hybrid_parity(
             h64, smi, f_ext=push_wrenches(h64, HH, newtons=newtons),
             sigmas=(SIGMA_H,), tag=f"path F hybrid {newtons:g} N",
-            floor_times=floor_times)
-        require(hy["feedback_rollout_fext"] == ITERS_H
+            floor_times=floor_times, mppi_iters=MPPI_ITERS_PUSH,
+            iters=ITERS_PUSH)
+        require(hy["feedback_rollout_fext"] == ITERS_PUSH
                 and hy["feedback_rollout"] == 0,
                 f"path F hybrid {newtons:g} N: K2 launches {hy}")
     return q3_class, pd_class, hy_class
@@ -3029,9 +3060,10 @@ def quat_tier_parity(m64, smi: str, tag: str, newtons=None):
             f"{tag}: the K9 tier departs from the plain pass")
 
 
-def quat_push_parity(m64, smi: str):
-    """Path K's hybrid in float64 at BQ_PARITY problems over HH knots
-    (path G's start, cost and MPPI normals), through the kernels and
+def quat_push_parity(m64, smi: str, mppi_iters: int, iters: int):
+    """Path K's hybrid in float64 at BQ_PARITY problems over HH knots,
+    ``mppi_iters`` MPPI and ``iters`` DDP iterations (path G's start,
+    cost and MPPI normals), through the kernels and
     through the plain route under a trunk push: at PUSH_HYBRID_N relative
     |dJ| < TOL64 over both J histories, at PUSH_N beside the plain route's
     own parting when x0 moves by 1e-13 N(0,1) relative (|dJ| under the
@@ -3044,7 +3076,7 @@ def quat_push_parity(m64, smi: str):
 
     rng = np.random.default_rng(SEED + 133)
     gen = torch.Generator(device=m64.device).manual_seed(SEED + 134)
-    noise = torch.randn((MPPI_ITERS_H, BQ_PARITY, SAMPLES_H, HH, m64.nv),
+    noise = torch.randn((mppi_iters, BQ_PARITY, SAMPLES_H, HH, m64.nv),
                         generator=gen, dtype=m64.dtype, device=m64.device)
     x0, U0 = quat_problems(m64, BQ_PARITY, HH, rng)
     moved = x0 * (1 + 1e-13 * torch.tensor(
@@ -3055,9 +3087,9 @@ def quat_push_parity(m64, smi: str):
             m64, quat_cost(m64), x, U0, None,
             MPPIConfig(n_samples=SAMPLES_H, sigma=SIGMA_H, dt=DT,
                        gravity=GRAVITY, fused=kernels),
-            DDPConfig(iters=ITERS_H, dt=DT, gravity=GRAVITY,
+            DDPConfig(iters=iters, dt=DT, gravity=GRAVITY,
                       n_alphas=ALPHAS_H, fused=kernels),
-            mppi_iters=MPPI_ITERS_H, f_ext=F, noise=noise)
+            mppi_iters=mppi_iters, f_ext=F, noise=noise)
         return state.U, torch.cat([mh, dh])
 
     rel = lambda a, b: ((a - b).abs() / b.abs()).max().item()
@@ -3079,15 +3111,16 @@ def quat_push_parity(m64, smi: str):
                     f"{(Uf - Up).abs().max().item():.3e} from x0 x (1 + "
                     f"1e-13 N(0,1)))")
         print(f"path K parity f64 {newtons:g} N: hybrid Bm={BQ_PARITY} "
-              f"H={HH} MPPI {MPPI_ITERS_H} x {SAMPLES_H} samples, DDP "
-              f"{ITERS_H} iters, kernels vs plain route, same noise: max|dU| "
+              f"H={HH} MPPI {mppi_iters} x {SAMPLES_H} samples, DDP "
+              f"{iters} iters, kernels vs plain route, same noise: max|dU| "
               f"{du:.3e} (bound {U_PARITY:g}), max rel |dJ| over both J "
               f"histories {dj:.3e} (bound {rule}); kernel-route launches "
               f"{counts} ({smi})")
         require(du < U_PARITY and dj < bound, f"path K {newtons:g} N: the "
                 "kernels' hybrid departs from the plain route's")
-        require(by_class.get(("feedback_rollout_fext", "fq32"), 0) == ITERS_H
-                and counts["feedback_rollout"] == 0, f"path K {newtons:g} "
+        require(by_class.get(("feedback_rollout_fext", "fq32"), 0) ==
+                iters and counts["feedback_rollout"] == 0,
+                f"path K {newtons:g} "
                 f"N: K2 launches {counts}")
 
 
@@ -3128,7 +3161,7 @@ def quat_ext_phase(smi: str, rows: dict, ptxas: list):
     kj_class = quat_ddp_path(h32, smi, f_ext=F, tag="path K",
                              tiers=(True,))
     took("path K")
-    quat_push_parity(h64, smi)
+    quat_push_parity(h64, smi, mppi_iters=MPPI_ITERS_PUSH, iters=ITERS_PUSH)
     quat_tier_parity(h64, smi, "path K", newtons=PUSH_N)
     took("path K's float64 parity")
     for row, kname, run in (
@@ -4182,6 +4215,460 @@ def sharded_phase(smi: str):
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
+# ---- phase 25: path O, the model-specialised kernels (K0) ----
+# each specialised kernel, its table twin and the TPU kernel both replace
+STATIC_TWINS = {"rnea_static": "rnea", "fd_step_static": "fd_step",
+                "fd_step_minv_static": "fd_step_minv",
+                "rollout_multi_static": "rollout_multi"}
+STATIC_SOURCE = "rbdtpu_torch/kernels/codegen.py"
+# path O on the rpy quadruped: path L's start and inputs at BL x HL
+_PTXAS_FN = re.compile(r"(?:Compiling entry function|Function properties "
+                       r"for) '?([A-Za-z0-9_]+)")
+_PTXAS_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def static_table():
+    """name -> (specialised kernel, its plain lane version, its table twin),
+    each fn(model, *args, **kw) on the args of ``check_kernels``' form."""
+    from rbdtpu_torch.kernels import fused
+
+    def minv_plain(m, x, u, dense_minv=False, f_ext=None):
+        return fused.fd_step_static_plain(m, x, u, DT, GRAVITY, f_ext,
+                                          "minv", dense_minv)
+
+    def rollout_plain(m, x0, U, route="aba", f_ext=None):
+        return fused.rollout_static_plain(m, x0, U, DT, GRAVITY, route, f_ext)
+
+    return {
+        "rnea_static": (
+            lambda m, *a: fused.rnea_fused(m, *a, gravity=GRAVITY,
+                                           specialize=True),
+            lambda m, *a: fused.rnea_static_plain(m, *a, gravity=GRAVITY),
+            lambda m, *a: fused.rnea_fused(m, *a, gravity=GRAVITY)),
+        "fd_step_static": (
+            lambda m, x, u, **kw: fused.fd_step_fused(
+                m, x, u, DT, GRAVITY, specialize=True, **kw),
+            lambda m, x, u, **kw: fused.fd_step_static_plain(
+                m, x, u, DT, GRAVITY, **kw),
+            lambda m, x, u, **kw: fused.fd_step_fused(m, x, u, DT, GRAVITY,
+                                                      **kw)),
+        "fd_step_minv_static": (
+            lambda m, x, u, **kw: fused.fd_step_minv_fused(
+                m, x, u, DT, GRAVITY, specialize=True, **kw),
+            minv_plain,
+            lambda m, x, u, **kw: fused.fd_step_minv_fused(
+                m, x, u, DT, GRAVITY, **kw)),
+        "rollout_multi_static": (
+            lambda m, x0, U, **kw: fused.rollout_fused_multi(
+                m, x0, U, DT, GRAVITY, specialize=True, **kw),
+            rollout_plain,
+            lambda m, x0, U, **kw: fused.rollout_fused_multi(
+                m, x0, U, DT, GRAVITY, **kw)),
+    }
+
+
+def only_launch(kname: str, fn):
+    """fn()'s result, requiring that it launched ``kname`` once and no other
+    kernel (a specialised call never falls back to a table kernel)."""
+    import torch
+    from rbdtpu_torch.kernels import _lib
+
+    before = dict(_lib.launches)
+    out = fn()
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in _lib.launches.items()
+             if v != before[k]}
+    require(moved == {kname: 1}, f"a {kname} call launched {moved}")
+    return out
+
+
+def static_ptxas(log: str) -> list:
+    """Per function of one library's ptxas report: (name, registers or
+    None, stack bytes, spill store bytes, spill load bytes, source)."""
+    out, fn, regs, source = [], None, {}, None
+    for ln in log.splitlines():
+        if ln.startswith("== "):
+            source = ln[3:].strip()
+            continue
+        m = _PTXAS_FN.search(ln)
+        if m:
+            fn = m.group(1)
+        m = _PTXAS_STACK.search(ln)
+        if m and fn:
+            out.append([fn, None, *map(int, m.groups()), source])
+        m = _PTXAS_REGS.search(ln)
+        if m and fn:
+            regs[fn] = int(m.group(1))
+    for row in out:
+        row[1] = regs.get(row[0])
+    return out
+
+
+def static_build(models, smi: str) -> dict:
+    """Build the specialised libraries of every (tag, float64 model,
+    float32 model) in one call (``_lib.prepare_static``: one nvcc a source,
+    all at once) and print each source's build seconds and each function's
+    ptxas line.  Returns {(tag, dtype name): build.json} with the ptxas
+    rows under "ptxas"."""
+    import os
+
+    from rbdtpu_torch.kernels import _lib
+
+    pairs = [(tag, m) for tag, m64, m32 in models for m in (m64, m32)]
+    t = time.perf_counter()
+    dirs = _lib.prepare_static([(m, m.dtype) for _, m in pairs])
+    print(f"phase 25 build: {2 * len(models)} specialised libraries, "
+          f"{sum(len(os.listdir(d)) for d in dirs)} files, "
+          f"{time.perf_counter() - t:.1f} s ({smi})")
+    info = {}
+    for (tag, m), d in zip(pairs, dirs):
+        dt = str(m.dtype)[6:]
+        with open(os.path.join(d, "build.json")) as f:
+            b = json.load(f)
+        with open(os.path.join(d, "ptxas.log")) as f:
+            b["ptxas"] = static_ptxas(f.read())
+        info[tag, dt] = b
+        print(f"phase 25 build {tag} {dt}: seconds a source (wall, "
+              f"{b['parallel']} compiles at once) " + ", ".join(
+                  f"{n} {s:.1f}" for n, s in b["seconds"].items())
+              + f"; link {b['link_seconds']:.1f}; operations a state "
+              + ", ".join(f"{n} {o}" for n, o in b["ops"].items()))
+        for fn, regs, stack, st, ld, src in b["ptxas"]:
+            print(f"phase 25 ptxas {tag} {dt} {src} {fn}: "
+                  f"{'-' if regs is None else regs} registers, {stack} bytes "
+                  f"stack frame, {st} bytes spill stores, {ld} bytes spill "
+                  f"loads")
+    return info
+
+
+def static_checks(checks, m64, m32, smi: str, rows: dict, tag: str):
+    """Hold each specialised kernel against its plain lane version and its
+    table twin on the same inputs (float64 max abs error <= TOL64, float32
+    relative error <= its twin's TOL32), each call launching its kernel
+    alone.  ``checks``: (label, specialised kernel name, float64 args,
+    keyword args, operations key, states), as ``check_kernels`` takes
+    them.  A kernel's first check gives its row (named kernel name + tag):
+    ms (one call with its launch) and graph_ms (graph replay) of the
+    float32 kernel, plain_ms (its plain lane version's one call), the
+    table twin's ms and graph_ms on the same inputs, and the bound of the
+    inputs and outputs alone (the kernel reads no model table).  Fails
+    after printing every check."""
+    import torch
+    from rbdtpu_torch import opcount
+
+    flops = opcount.per_state(m32, TARGET)
+    table = static_table()
+    failures = []
+    fmt = lambda es: "[" + " ".join(f"{e:.2e}" for e in es) + "]"
+    for label, kname, a64, kw, ops_key, states in checks:
+        kern, plain, twin = table[kname]
+        a32 = tuple(a.float() for a in a64)
+        kw32 = {k: v.float() if isinstance(v, torch.Tensor) else v
+                for k, v in kw.items()}
+        k64 = only_launch(kname, lambda: kern(m64, *a64, **kw))
+        e64 = (errors(k64, plain(m64, *a64, **kw), relative=False)
+               + errors(k64, twin(m64, *a64, **kw), relative=False))
+        k32 = only_launch(kname, lambda: kern(m32, *a32, **kw32))
+        p32, plain_ms = timed_call(lambda: plain(m32, *a32, **kw32))
+        e32 = (errors(k32, p32, relative=True)
+               + errors(k32, twin(m32, *a32, **kw32), relative=True))
+        tol32 = TOL32[STATIC_TWINS[kname]]
+        if max(e64) > TOL64:
+            failures.append(f"{label}: float64 max abs error {max(e64):.3e}")
+        if max(e32) > tol32:
+            failures.append(f"{label}: float32 relative error "
+                            f"{max(e32):.3e} > {tol32:g}")
+        row = kname + tag
+        timing = ""
+        if row not in rows:
+            fn = lambda: kern(m32, *a32, **kw32)
+            tw = lambda: twin(m32, *a32, **kw32)
+            ops = flops[ops_key] * states
+            bound_ms, bound_by = bound((*a32, *kw32.values()), k32, None,
+                                       ops, "float32")
+            rows[row] = dict(
+                name=row, route="cuda", source=STATIC_SOURCE,
+                replaces=kernel_table()[STATIC_TWINS[kname]][3],
+                max_abs_err=0.0, ms=cuda_ms(fn, reps=20), graph_ms=graph_ms(fn),
+                plain_ms=plain_ms, table_ms=cuda_ms(tw, reps=20),
+                table_graph_ms=graph_ms(tw), bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+            r = rows[row]
+            timing = (f"  kernel {r['ms']:.4f} ms ({r['graph_ms']:.4f} by "
+                      f"graph replay), plain lane {plain_ms:.4f} ms, table "
+                      f"kernel {r['table_ms']:.4f} ms ({r['table_graph_ms']:.4f}"
+                      f" by graph replay), bound {bound_ms:.6f} ms by "
+                      f"{bound_by} ({ops:.4g} operations)")
+        rows[row]["max_abs_err"] = max(rows[row]["max_abs_err"], max(e64[:1]))
+        print(f"phase 25 {label}: inputs "
+              f"{' '.join(str(tuple(a.shape)) for a in a64)}  f64 max|err| "
+              f"vs plain lane, vs table {fmt(e64)}  f32 rel err {fmt(e32)} "
+              f"(bounds {TOL64:g}, {tol32:g}){timing} (f32, {smi})")
+    require(not failures, "; ".join(failures))
+
+
+def static_step_checks(m64, tag: str, B_step: int, B_minv: int, seed: int):
+    """Phase 25's step checks on one model in float64: K1 at ``B_step``
+    states (bare, under one (nb, 6) wrench set and one a state), K10 (bias,
+    with qdd) and K6 (both routes, with and without wrenches) at ``B_minv``
+    states, as phases 2 and 6 hold their table twins: q 0.3 N(0,1) (the
+    floating root's at configs[3]'s start), qd 0.5 N(0,1), u the gravity
+    compensation plus N(0,1), wrenches and qdd 0.5 N(0,1)."""
+    import torch
+    from rbdtpu_torch.dynamics import rnea
+
+    rng = np.random.default_rng(seed)
+    T = lambda s, *sh: torch.tensor(s * rng.standard_normal(sh),
+                                    dtype=torch.float64, device=m64.device)
+
+    def step_states(B):
+        if m64.floating_base:
+            x, _ = quadruped_problems(m64, B, 1, rng)
+            q = x[:, :m64.nq].contiguous()
+        else:
+            q = T(0.3, B, m64.nq)
+        z = torch.zeros(B, m64.nv, dtype=torch.float64, device=m64.device)
+        u = rnea(m64, q, z, z)[0] + T(1.0, B, m64.nv)
+        return torch.cat([q, T(0.5, B, m64.nv)], -1), u
+
+    x, u = step_states(B_step)
+    checks = [(f"fd_step_static {tag}{lab} B={B_step}", "fd_step_static",
+               (x, u), kw, "fd_step" + ("+fext" if kw else ""), B_step)
+              for lab, kw in (("", {}),
+                              (" f_ext (nb,6)", {"f_ext": T(0.5, m64.nb, 6)}),
+                              (" f_ext (B,nb,6)",
+                               {"f_ext": T(0.5, B_step, m64.nb, 6)}))]
+    xm, um = step_states(B_minv)
+    for label, kname, args, kw, ops_key, states in minv_rnea_checks(
+            m64, (xm, um), tag, T(0.5, B_minv, m64.nv),
+            (T(0.5, m64.nb, 6), T(0.5, B_minv, m64.nb, 6))):
+        checks.append((label.replace(kname, kname + "_static", 1) +
+                       f" B={B_minv}", kname + "_static", args, kw, ops_key,
+                       states))
+    return checks
+
+
+def path_o(models, smi: str, rows: dict) -> dict:
+    """Path O, the model-specialised kernels through the entry points a user
+    calls: ``rollout_fused_multi(..., specialize=True)`` at B1 x H1 in
+    float32 on arm7 (``rollout_inputs``' distributions: x0 0.1 N(0,1), U
+    0.5 N(0,1) on "minv" and 0.2 N(0,1) on "aba", with and without per-knot
+    wrenches 0.5 N(0,1)) and on the rpy quadruped (path L's inputs at BL x
+    HL: configs[3]'s start, hold controls plus SIGMA_L N(0,1), with and
+    without path F's push); then, from the same states, HONEST_H steps of
+    ``fd_step_fused`` and ``fd_step_minv_fused`` (both routes) with
+    ``specialize=True`` held against the whole-horizon kernel, and the hold
+    torques at the final states by ``rnea_fused(..., specialize=True)``.
+    With the counts set to 0 just before, the run launches only the
+    specialised kernels.  Afterwards (uncounted) each rollout is held to
+    its plain lane rollout (``plain_lane_rollout``) and to the table K5
+    (TOL32 relative), its final state finite, and timed (median of 7, CUDA events, and by graph replay)
+    beside the table K5 on the same inputs.  Returns each model's launches
+    in the run."""
+    import torch
+    from rbdtpu_torch import opcount
+    from rbdtpu_torch.kernels import _lib, fused
+
+    runs = []
+    for tag, _, m32 in models:
+        if m32.floating_base:
+            x0, U, F = legged_inputs(m32, quadruped_problems, BL, HL,
+                                     SEED + 132)
+            cases = [(r, w, U, F if w else None) for r in ("aba", "minv")
+                     for w in ("", " push")]
+        else:
+            rng = np.random.default_rng(SEED + 140)
+            T = lambda sc, *s: torch.tensor(
+                sc * rng.standard_normal(s), dtype=torch.float32,
+                device=m32.device)
+            x0 = T(0.1, B1, m32.nx)
+            Us = {"minv": T(0.5, H1, B1, m32.nv),
+                  "aba": T(0.2, H1, B1, m32.nv)}
+            FH = T(0.5, H1, m32.nb, 6)
+            cases = [(r, w, Us[r], FH if w else None) for r in ("aba", "minv")
+                     for w in ("", " f_ext (H,nb,6)")]
+        runs.append((tag, m32, x0, cases))
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    finals, scans, holds, by_model = {}, {}, {}, {}
+    for tag, m32, x0, cases in runs:
+        before = dict(_lib.launches)
+        for route, w, U, F in cases:
+            finals[tag, route, w] = fused.rollout_fused_multi(
+                m32, x0, U, DT, GRAVITY, route=route, f_ext=F,
+                specialize=True)
+        for route, dense in (("aba", False), ("minv", False),
+                             ("minv", True)):
+            x, U = x0, cases[0 if route == "aba" else 2][2]
+            for t in range(HONEST_H):
+                x = (fused.fd_step_fused(m32, x, U[t], DT, GRAVITY,
+                                         specialize=True) if route == "aba"
+                     else fused.fd_step_minv_fused(
+                         m32, x, U[t], DT, GRAVITY, dense_minv=dense,
+                         specialize=True))
+            scans[tag, route, dense] = x
+        xf = finals[tag, "aba", ""]
+        holds[tag] = fused.rnea_fused(m32, xf[:, :m32.nq].contiguous(),
+                                      torch.zeros_like(xf[:, m32.nq:]),
+                                      gravity=GRAVITY, specialize=True)
+        by_model[tag] = {k: v - before[k] for k, v in _lib.launches.items()}
+    torch.cuda.synchronize()
+    counts = dict(_lib.launches)
+    steps = 3 * HONEST_H * len(runs)
+    require({k: v for k, v in counts.items() if v} == {
+        "rollout_multi_static": 4 * len(runs),
+        "fd_step_static": HONEST_H * len(runs),
+        "fd_step_minv_static": 2 * HONEST_H * len(runs),
+        "rnea_static": len(runs)}, f"path O launched {counts}")
+    print(f"path O launches: {counts} ({steps} step launches of the "
+          f"{HONEST_H}-step checks among them)")
+    counts = by_model
+    for tag, m32, x0, cases in runs:
+        B, H = x0.shape[0], cases[0][2].shape[0]
+        require(bool(holds[tag].isfinite().all()),
+                f"path O {tag}: non-finite hold torques")
+        for route, dense in (("aba", False), ("minv", False),
+                             ("minv", True)):
+            U = cases[0 if route == "aba" else 2][2]
+            xk = fused.rollout_fused_multi(m32, x0, U[:HONEST_H].contiguous(),
+                                           DT, GRAVITY, route=route,
+                                           specialize=True)
+            err = errors(scans[tag, route, dense], xk, relative=True)[0]
+            print(f"path O {tag} {route}{' dense' if dense else ''}: "
+                  f"{HONEST_H} specialised steps against the specialised "
+                  f"whole-horizon kernel rel max|err| {err:.3e} (bound "
+                  f"{HONEST_TOL:g})")
+            require(err < HONEST_TOL, f"path O {tag}: the specialised step "
+                    f"and rollout kernels part by {err:.3e}")
+        for route, w, U, F in cases:
+            xf = finals[tag, route, w]
+            require(tuple(xf.shape) == (B, m32.nx) and bool(
+                xf.isfinite().all()), f"path O {tag} {route}{w}: final "
+                f"state {tuple(xf.shape)} not finite")
+            xp, plain_ms = timed_call(lambda: plain_lane_rollout(
+                m32, x0, U, route, F))
+            xt = fused.rollout_fused_multi(m32, x0, U, DT, GRAVITY,
+                                           route=route, f_ext=F)
+            ep, et = (errors(xf, xp, relative=True)[0],
+                      errors(xf, xt, relative=True)[0])
+            fn = lambda: fused.rollout_fused_multi(
+                m32, x0, U, DT, GRAVITY, route=route, f_ext=F,
+                specialize=True)
+            tw = lambda: fused.rollout_fused_multi(
+                m32, x0, U, DT, GRAVITY, route=route, f_ext=F)
+            ms, tms = cuda_ms(fn, reps=7), cuda_ms(tw, reps=7)
+            gms, tgms = graph_ms(fn, reps=5), graph_ms(tw, reps=5)
+            print(f"path O {tag} {route}{w}: B={B} H={H} f32 specialised K5 "
+                  f"{ms:.4f} ms a rollout (median of 7, CUDA events) = "
+                  f"{B * H / (ms / 1e3):.6g} steps/s, device {gms:.4f} ms by "
+                  f"graph replay; table K5 {tms:.4f} ms = "
+                  f"{B * H / (tms / 1e3):.6g} steps/s, device {tgms:.4f} ms;"
+                  f" rel max|err| vs plain lane {ep:.3e}, vs table K5 "
+                  f"{et:.3e} (bound {TOL32['rollout_multi']:g}); plain lane "
+                  f"{plain_ms:.1f} ms; max|x_H| {xf.abs().max().item():.4g} "
+                  f"({smi})")
+            require(max(ep, et) <= TOL32["rollout_multi"],
+                    f"path O {tag} {route}{w}: the specialised K5 parts from "
+                    f"its plain lane version or the table K5 by "
+                    f"{max(ep, et):.3e}")
+            if (route, w) == ("aba", ""):
+                row = rows[f"rollout_multi_static{tag_suffix(tag)}"]
+                row.update(ms=ms, graph_ms=gms, plain_ms=plain_ms,
+                           table_ms=tms, table_graph_ms=tgms)
+                row["bound_ms"], row["bound_by"] = bound(
+                    (x0, U), xf, None, opcount.per_state(m32, TARGET)[
+                        "fd_step"] * B * H, "float32")
+    return counts
+
+
+def plain_lane_rollout(m, x0, U, route: str, F):
+    """``rollout_static_plain``'s result by the same operations, faster: one
+    plain lane step (``fd_step_static_plain``, its ~2-6k operators) captured
+    in a CUDA graph on fixed buffers and replayed for each of the H steps,
+    which spares the host's launch of every operator at every step."""
+    import torch
+    from rbdtpu_torch.kernels import fused
+
+    x, u = x0.clone(), U[0].clone()
+    f = None if F is None else F[0].clone()
+    step = lambda: fused.fd_step_static_plain(m, x, u, DT, GRAVITY, f, route)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = step()
+    for t in range(U.shape[0]):
+        u.copy_(U[t])
+        if f is not None:
+            f.copy_(F[t])
+        g.replay()
+        x.copy_(out)
+    return x
+
+
+def tag_suffix(tag: str) -> str:
+    """A model's suffix of its rows' names in phase 25."""
+    return "_" + tag.split()[-1]
+
+
+def static_phase(smi: str, rows: dict):
+    """Phase 25: build the specialised libraries (``static_build``); hold
+    K10, K1 and K6 specialised to arm7 and the rpy quadruped against their
+    plain lane versions and table twins at phases 2 and 6's shapes (arm7:
+    K1 at 128 states, K6 and K10 at B1; the quadruped all three at B3),
+    and K5 at HONEST_H steps of path O's inputs, in both dtypes; then path
+    O (``path_o``).  Every row's launches come from path O's run."""
+    import torch
+    from rbdtpu_torch.model import load_asset
+
+    clock = time.perf_counter()
+
+    def took(step: str):
+        nonlocal clock
+        print(f"phase 25: {step} took {time.perf_counter() - clock:.1f} s")
+        clock = time.perf_counter()
+
+    models = [(tag, *(load_asset(name, device="cuda", dtype=dt, **kw)
+                      for dt in (torch.float64, torch.float32)))
+              for tag, name, kw in (
+                  ("arm7", "arm7", {}),
+                  ("rpy quadruped", "quadruped12",
+                   {"floating_base": True}))]
+    static_build(models, smi)
+    took("the build")
+    for (tag, m64, m32), (B_step, B_minv), seed in zip(
+            models, ((128, B1), (B3, B3)), (SEED + 141, SEED + 142)):
+        checks = static_step_checks(m64, tag, B_step, B_minv, seed)
+        rng = np.random.default_rng(seed + 10)
+        T = lambda sc, *s: torch.tensor(sc * rng.standard_normal(s),
+                                        dtype=torch.float64,
+                                        device=m64.device)
+        x0 = checks[0][2][0][:64]
+        for route in ("aba", "minv"):
+            for lab, kw in (("", {}), (" f_ext (H,nb,6)",
+                                       {"f_ext": T(0.5, HONEST_H, m64.nb,
+                                                   6)})):
+                checks.append((f"rollout_multi_static {tag} {route}{lab} "
+                               f"B={len(x0)} H={HONEST_H}",
+                               "rollout_multi_static",
+                               (x0, T(0.2, HONEST_H, len(x0), m64.nv)),
+                               {"route": route, **kw},
+                               "fd_step" if route == "aba" else
+                               "fd_step_minv", len(x0) * HONEST_H))
+        static_checks(checks, m64, m32, smi, rows, tag_suffix(tag))
+    took("the kernel checks")
+    counts = path_o(models, smi, rows)
+    took("path O")
+    for tag, _, _ in models:
+        for kname in STATIC_TWINS:
+            rows[kname + tag_suffix(tag)]["launches"] = counts[tag][kname]
+
+
 def main() -> int:
     import torch
 
@@ -4434,13 +4921,19 @@ def main() -> int:
     sharded_phase(smi)
     print(f"chip_smoke: phase 24 took {time.perf_counter() - t24:.1f} s")
 
-    print(f"chip_smoke: phases 1-24 took {time.perf_counter() - clock:.1f} s")
+    mark(25)
+    # ---- 25. path O: the model-specialised kernels (K0) ----
+    t25 = time.perf_counter()
+    static_phase(smi, rows)
+    print(f"chip_smoke: phase 25 took {time.perf_counter() - t25:.1f} s")
+
+    print(f"chip_smoke: phases 1-25 took {time.perf_counter() - clock:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [
         {k: rows[n_][k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "graph_ms") if k in rows[n_]}
+            "graph_ms", "table_ms", "table_graph_ms") if k in rows[n_]}
         for n_ in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

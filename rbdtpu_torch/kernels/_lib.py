@@ -8,16 +8,25 @@ first use, from the sources in the package only, into ``rbdtpu_torch/_build``
 
 Every C entry point returns the ``cudaError_t`` of its launch; ``launch``
 raises on a nonzero code and only then counts the launch in ``launches``.
+
+The model-specialised kernels (K0, ``specialize=True``) are generated per
+model, dtype and gravity (``kernels/codegen.py``) and built by
+``model_library`` the same way into a library of their own under
+``rbdtpu_torch/_build/models/<hash of the sources and flags>/``;
+``launch_static`` launches them.
 """
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
+import json
 import os
 import shutil
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -466,12 +475,15 @@ def team_args(kernel: str, model, ref: torch.Tensor, B: int,
 # (batch >= 128 and < 128); riccati_fused is the arm-class sweep (nx <= 16);
 # feedback_chunked is the line search's chunked-gain kernel (K9), counted
 # apart from feedback_rollout (K2); feedback_rollout_fext and
-# feedback_chunked_fext are K2 and K9 with wrenches.
+# feedback_chunked_fext are K2 and K9 with wrenches; the *_static kernels
+# are K10, K1, K6 and K5 specialised to a model (class "static").
 launches = {"fd_step": 0, "feedback_rollout": 0, "linearize_parts": 0,
             "ee_gn": 0, "ee_err": 0, "rnea": 0, "fd_step_minv": 0,
             "rollout_multi": 0, "riccati_chunk": 0, "riccati_small": 0,
             "riccati_fused": 0, "feedback_chunked": 0,
-            "feedback_rollout_fext": 0, "feedback_chunked_fext": 0}
+            "feedback_rollout_fext": 0, "feedback_chunked_fext": 0,
+            "rnea_static": 0, "fd_step_static": 0, "fd_step_minv_static": 0,
+            "rollout_multi_static": 0}
 # the same launches of the kernels that take a model, by (kernel, size
 # class): one kernel's instantiations apart
 class_launches = collections.Counter()
@@ -757,3 +769,164 @@ def launch(kernel: str, model, ref: torch.Tensor, *args, count_as=None):
     launches[count_as or kernel] += 1
     if cls is not None:
         class_launches[count_as or kernel, cls] += 1
+
+
+# ----------------------------------------------------------------------- #
+# the model-specialised kernels (K0): one library per model, dtype and     #
+# gravity, generated by kernels/codegen.py                                 #
+# ----------------------------------------------------------------------- #
+
+STATIC_KERNELS = ("rnea_static", "fd_step_static", "fd_step_minv_static",
+                  "rollout_multi_static")
+# the C signatures of the table kernels they shadow, less the tables, the
+# shared memory and the gravity (folded into the code)
+_STATIC_SIGNATURES = {
+    "rnea_static": "ppppii",              # q qd qdd tau B tpb
+    "fd_step_static": "pppipiis",         # x u fext fext_stride xo B tpb dt
+    # x u fext fext_stride xo B dense tpb dt
+    "fd_step_minv_static": "pppipiiis",
+    "rollout_multi_static": "ppppiiiis",  # x0 U fext xo B H minv tpb dt
+}
+MODEL_BUILD_DIR = os.path.join(BUILD_DIR, "models")
+# threads a block of a specialised launch (the kernels' __launch_bounds__),
+# one thread a state: at the paths' 128-4,096 states 32 leaves the fewest
+# SMs without a block
+STATIC_THREADS = 32
+
+
+def static_dir(gen) -> str:
+    """The build directory of generated sources ``gen``
+    (``codegen.Generated``): named by the sha256 of the flags and of every
+    source's name and text, so a model whose data differ gets its own."""
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for name in sorted(gen.sources):
+        h.update(name.encode())
+        h.update(gen.sources[name].encode())
+    return os.path.join(MODEL_BUILD_DIR, h.hexdigest()[:32])
+
+
+def _timed(cmd):
+    """(return code, output, seconds) of one compiler run."""
+    start = time.perf_counter()
+    p = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True)
+    return p.returncode, p.stdout, time.perf_counter() - start
+
+
+def build_static(gens) -> list:
+    """Build the libraries of generated sources ``gens`` that are not built
+    yet: one nvcc per source of every library, all started together, then
+    one link a library.  Each library's directory keeps its sources,
+    ``lib.so``, the compiler's report (``ptxas.log``, one section a source)
+    and ``build.json`` (each source's build seconds, wall time with every
+    compile of the call running, the link's, and the operations each body
+    emits a state).  Returns the directories; raises if a build fails."""
+    dirs = [static_dir(g) for g in gens]
+    todo = {d: g for d, g in zip(dirs, gens)
+            if not os.path.exists(os.path.join(d, "lib.so"))}
+    if not todo:
+        return dirs
+    nvcc, flags = _nvcc(), COMPILE_FLAGS
+    jobs = []
+    for d, g in todo.items():
+        work = os.path.join(d, f"work.{os.getpid()}")
+        os.makedirs(work, exist_ok=True)
+        for name, text in g.sources.items():
+            src = os.path.join(d, name)
+            with open(src, "w") as f:
+                f.write(text)
+            jobs.append((d, name, [nvcc, *flags, "-o",
+                                   os.path.join(work, name[:-3] + ".o"),
+                                   src]))
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+            runs = list(pool.map(_timed, [cmd for _, _, cmd in jobs]))
+        failed = [f"{name}:\n{out}" for (_, name, _), (rc, out, _) in
+                  zip(jobs, runs) if rc]
+        if failed:
+            raise RuntimeError("nvcc failed on a generated source:\n"
+                               + "\n".join(failed))
+        links = {d: [nvcc, *LINK_FLAGS, "-o",
+                     os.path.join(d, f"work.{os.getpid()}", "lib.so"),
+                     *[os.path.join(d, f"work.{os.getpid()}", n[:-3] + ".o")
+                       for n in todo[d].sources]] for d in todo}
+        with concurrent.futures.ThreadPoolExecutor(len(links)) as pool:
+            linked = dict(zip(links, pool.map(_timed, links.values())))
+        for d, (rc, out, secs) in linked.items():
+            if rc:
+                raise RuntimeError(f"nvcc failed to link {d}:\n{out}")
+            mine = [(name, run) for (dd, name, _), run in zip(jobs, runs)
+                    if dd == d]
+            with open(os.path.join(d, "ptxas.log"), "w") as f:
+                f.write("".join(f"== {name}\n{out}" for name, (_, out, _)
+                                in mine))
+            with open(os.path.join(d, "build.json"), "w") as f:
+                json.dump({"seconds": {name: s for name, (_, _, s) in mine},
+                           "link_seconds": secs, "parallel": len(jobs),
+                           "ops": todo[d].ops}, f, indent=1)
+            os.replace(os.path.join(d, f"work.{os.getpid()}", "lib.so"),
+                       os.path.join(d, "lib.so"))
+    finally:
+        for d in todo:
+            shutil.rmtree(os.path.join(d, f"work.{os.getpid()}"),
+                          ignore_errors=True)
+    return dirs
+
+
+def bind_static(so: str, dtype) -> ctypes.CDLL:
+    """Load a specialised library generated in ``dtype`` and declare its
+    entry points (also for a host build of the sources, whose stream
+    argument is ignored)."""
+    lib = ctypes.CDLL(so)
+    codes = {"p": ctypes.c_void_p, "i": ctypes.c_int, "s": _CTYPE[dtype]}
+    for k, sig in _STATIC_SIGNATURES.items():
+        fn = getattr(lib, f"rbd_{k}")
+        fn.argtypes = [codes[c] for c in sig] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def prepare_static(pairs, gravity: float = -9.81) -> list:
+    """Generate, build (all together) and load the specialised libraries
+    of every (model, dtype) in ``pairs``; returns their build
+    directories."""
+    from . import codegen
+
+    need = [(m, dt) for m, dt in pairs
+            if ("static_lib", dt, float(gravity)) not in m._tables]
+    gens = [codegen.generate(m, dt, gravity) for m, dt in need]
+    dirs = build_static(gens)
+    for (m, dt), d in zip(need, dirs):
+        m._tables[("static_lib", dt, float(gravity))] = (
+            bind_static(os.path.join(d, "lib.so"), dt), d)
+    return [model_library(m, dt, gravity)[1] for m, dt in pairs]
+
+
+def model_library(model, dtype, gravity: float = -9.81):
+    """(the loaded library, its build directory) of ``model``'s specialised
+    kernels in ``dtype`` under ``gravity``, generated and built at first
+    use and kept in the model's table cache."""
+    key = ("static_lib", dtype, float(gravity))
+    if key not in model._tables:
+        prepare_static([(model, dtype)], gravity)
+    return model._tables[key]
+
+
+def launch_static(kernel: str, model, ref: torch.Tensor, gravity: float,
+                  *args):
+    """Launch the specialised ``kernel`` (STATIC_KERNELS) of ``model`` on
+    ref's device and dtype, on the current stream; ``args`` follow its C
+    signature.  Raises on a nonzero cudaError; counts the launch in
+    ``launches`` and ``class_launches`` (class "static")."""
+    _check_dtype(kernel, ref)
+    lib, _ = model_library(model, ref.dtype, gravity)
+    fn = getattr(lib, f"rbd_{kernel}")
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(ref.device):
+        stream = torch.cuda.current_stream(ref.device).cuda_stream
+        err = fn(*conv, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
+                           f"cudaError {err}")
+    launches[kernel] += 1
+    class_launches[kernel, "static"] += 1

@@ -11,6 +11,7 @@ world-frame wrenches.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..dynamics.aba import aba
@@ -19,7 +20,9 @@ from ..dynamics.rnea import rnea
 from ..model.robot import RobotModel
 from ..solver.integrate import euler_semi_implicit, split_state, state_diff
 from ..spatial.ops import mv
+from ..spatial.transforms import PRISMATIC
 from . import _lib
+from . import lanescalar as ls
 
 
 def _fext_arg(model: RobotModel, f_ext, B: int, ref: torch.Tensor):
@@ -53,10 +56,11 @@ def fd_step_plain(model: RobotModel, x, u, dt: float, gravity: float = -9.81,
 
 
 def fd_step_fused(model: RobotModel, x, u, dt: float, gravity: float = -9.81,
-                  f_ext=None):
+                  f_ext=None, specialize: bool = False):
     """One forward-dynamics step x (B, nx), u (B, nv) -> x' (B, nx), with
     optional world-frame wrenches f_ext, (nb, 6) shared by the batch or
-    (B, nb, 6).  On the quaternion root (nx = 2 nv + 1) the step retracts
+    (B, nb, 6).  ``specialize=True`` takes the model-specialised kernel
+    ``fd_step_static`` (``_static_step``).  On the quaternion root (nx = 2 nv + 1) the step retracts
     the root's pose on the manifold (rbdtpu fused.py _integrate_q_lane):
     p' = p + dt R(quat) v', quat' = normalize(quat (x) exp(dt w')), on one
     lane as a real call (csrc/rbd_common.cuh quat_root_step).
@@ -75,6 +79,8 @@ def fd_step_fused(model: RobotModel, x, u, dt: float, gravity: float = -9.81,
     small batch (the MPC plant's B=1, the solver's B=128) over as many SMs
     as it has teams.
     """
+    if specialize:
+        return _static_step("fd_step_static", model, x, u, dt, gravity, f_ext)
     if not x.is_cuda:
         return fd_step_plain(model, x, u, dt, gravity, f_ext)
     B = x.shape[0]
@@ -102,9 +108,11 @@ def rnea_plain(model: RobotModel, q, qd, qdd=None, gravity: float = -9.81):
     return rnea(model, q, qd, qdd, gravity)[0]
 
 
-def rnea_fused(model: RobotModel, q, qd, qdd=None, gravity: float = -9.81):
+def rnea_fused(model: RobotModel, q, qd, qdd=None, gravity: float = -9.81,
+               specialize: bool = False):
     """RNEA joint forces in one launch: q, qd and optional qdd (B, n) ->
-    tau (B, n).
+    tau (B, n).  ``specialize=True`` takes the model-specialised kernel
+    ``rnea_static`` (``_static_rnea``).
 
     Kernel ``rnea`` (csrc/rnea.cu) replaces rbdtpu's
     ``kernels.fused.rnea_fused`` (Pallas, fused.py:358): one team of lanes
@@ -119,6 +127,8 @@ def rnea_fused(model: RobotModel, q, qd, qdd=None, gravity: float = -9.81):
     the inputs once and tau once.  Team size and teams a block are
     ``_lib.team_geometry``'s.
     """
+    if specialize:
+        return _static_rnea(model, q, qd, qdd, gravity)
     if not q.is_cuda:
         return rnea_plain(model, q, qd, qdd, gravity)
     B, n = q.shape[0], model.nv
@@ -146,10 +156,11 @@ def fd_step_minv_plain(model: RobotModel, x, u, dt: float,
 
 def fd_step_minv_fused(model: RobotModel, x, u, dt: float,
                        gravity: float = -9.81, dense_minv: bool = False,
-                       f_ext=None):
+                       f_ext=None, specialize: bool = False):
     """One forward-dynamics step on the M^-1 + RNEA route (BASELINE.json
     configs[1]): x (B, nx), u (B, nv) -> x' (B, nx), with optional wrenches
-    f_ext, (nb, 6) or (B, nb, 6).
+    f_ext, (nb, 6) or (B, nb, 6).  ``specialize=True`` takes the
+    model-specialised kernel ``fd_step_minv_static`` (``_static_step``).
 
     Kernel ``fd_step_minv`` (csrc/fd_step_minv.cu) replaces rbdtpu's
     ``kernels.fused.fd_step_minv_fused`` (Pallas, fused.py:1267): one team
@@ -164,6 +175,9 @@ def fd_step_minv_fused(model: RobotModel, x, u, dt: float,
     the sweeps' chain along the tree.  Team size and teams a block (per
     route) are ``_lib.team_geometry``'s.
     """
+    if specialize:
+        return _static_step("fd_step_minv_static", model, x, u, dt, gravity,
+                            f_ext, dense_minv)
     if not x.is_cuda:
         return fd_step_minv_plain(model, x, u, dt, gravity, dense_minv,
                                   f_ext)
@@ -200,12 +214,13 @@ def rollout_multi_plain(model: RobotModel, x0, U, dt: float,
 
 def rollout_fused_multi(model: RobotModel, x0, U, dt: float,
                         gravity: float = -9.81, route: str = "aba",
-                        f_ext=None):
+                        f_ext=None, specialize: bool = False):
     """The whole horizon in one launch: x0 (B, nx), U (H, B, nv)
     scan-major -> final state (B, nx).  route "aba" (O(n) articulated
     step) or "minv" (bias RNEA + factorised M^-1 apply, BASELINE.json
     configs[1]); f_ext None or (H, nb, 6) per-knot world wrenches shared by
-    the batch.
+    the batch.  ``specialize=True`` takes the model-specialised kernel
+    ``rollout_multi_static`` (``_static_rollout``).
 
     Kernel ``rollout_multi`` (csrc/rollout_multi.cu) replaces rbdtpu's
     ``kernels.fused.rollout_fused_multi`` (Pallas, fused.py:1029), whose
@@ -223,6 +238,8 @@ def rollout_fused_multi(model: RobotModel, x0, U, dt: float,
     Team size and teams a block are ``_lib.team_geometry``'s; any B >= 1
     and H >= 0 are taken as they are.
     """
+    if specialize:
+        return _static_rollout(model, x0, U, dt, gravity, route, f_ext)
     if not x0.is_cuda:
         return rollout_multi_plain(model, x0, U, dt, gravity, route, f_ext)
     if route not in _ROUTES:
@@ -467,3 +484,527 @@ def feedback_chunks(model: RobotModel, batch_total: int,
         if VMEM_BUDGET // (rows * 8 * 4) >= min(BT, 128):
             return c
     return None
+
+
+# ----------------------------------------------------------------------- #
+# K0: the model's constants as Python floats, and the lane sweeps over     #
+# them (rbdtpu kernels/fused.py:37-310, 413-437, 982-1004, 1149-1266).     #
+# Run on (B,) tensors they are the plain versions of the model-specialised #
+# kernels (``specialize=True``); run on the generator's symbols            #
+# (kernels/codegen.py) they write those kernels out.                       #
+# ----------------------------------------------------------------------- #
+
+class ModelStatic:
+    """The model's constants as Python floats, built from the float64 copy
+    of its data (``RobotModel.host_data``, which the table kernels read
+    too), with rbdtpu's fields: nb, parent, jtype, fb, quat, axis, Xtree, I,
+    S, Ttree, T_fixed, nv, nq, and the index maps qi and vi."""
+
+    def __init__(self, parent, jtype, host_data, floating_base=False,
+                 root_quat=False):
+        self.nb = len(parent)
+        self.parent = tuple(parent)
+        self.jtype = tuple(jtype)
+        self.fb = bool(floating_base)
+        self.quat = bool(root_quat)
+        d = host_data
+        self.axis = np.asarray(d["axis"], dtype=np.float64).tolist()
+        self.Xtree = np.asarray(d["Xtree"], dtype=np.float64).tolist()
+        self.I = np.asarray(d["I"], dtype=np.float64).tolist()
+        self.S = np.asarray(d["S"], dtype=np.float64).tolist()
+        self.Ttree = (np.asarray(d["Ttree"], dtype=np.float64).tolist()
+                      if "Ttree" in d else None)
+        self.T_fixed = (np.asarray(d["T_fixed"], dtype=np.float64).tolist()
+                        if "T_fixed" in d else None)
+        self.nv = self.nb + 5 if self.fb else self.nb
+        self.nq = self.nv + 1 if self.quat else self.nv
+
+    def qi(self, i):
+        """q-list index of 1-DoF joint i (root handled separately for fb)."""
+        if self.quat:
+            return i + 6
+        return i + 5 if self.fb else i
+
+    def vi(self, i):
+        """velocity-list index of 1-DoF joint i."""
+        return i + 5 if self.fb else i
+
+
+def get_static(model: RobotModel) -> ModelStatic:
+    """The model's ``ModelStatic``, built once per model (its table
+    cache)."""
+    if not model.host_data:
+        raise ValueError("model has no host_data; build it with "
+                         "rbdtpu_torch.model.make_model")
+    key = ("static",)
+    if key not in model._tables:
+        model._tables[key] = ModelStatic(
+            model.parent, model.joint_type, model.host_data,
+            model.floating_base, model.root_quat)
+    return model._tables[key]
+
+
+def _joint_x(ms: ModelStatic, i: int, qi):
+    if ms.jtype[i] == PRISMATIC:
+        return ls.prismatic_x(ms.axis[i], ms.Xtree[i], qi)
+    s, c = ls.sin(qi), ls.cos(qi)
+    return ls.revolute_x(ms.axis[i], ms.Xtree[i], s, c)
+
+
+def _split_xtree(ms: ModelStatic):
+    """(E_t, r_t) static split of every Xtree, cached on the ModelStatic."""
+    if not hasattr(ms, "_xc_tree"):
+        ms._xc_tree = [ls.plux_split_static(X) for X in ms.Xtree]
+    return ms._xc_tree
+
+
+def _joint_xc(ms: ModelStatic, i: int, qi):
+    """Compact X = XJ(q) @ Xtree: plux(E1,r1)@plux(E2,r2) =
+    plux(E1 E2, r2 + E2^T r1).  Revolute: r1 = 0 -> r STATIC = r_t.
+    Prismatic: E1 = I -> E STATIC = E_t, r = r_t + E_t^T (axis q)."""
+    Et, rt = _split_xtree(ms)[i]
+    if ms.jtype[i] == PRISMATIC:
+        d = [ls._mul(float(a), qi) for a in ms.axis[i]]
+        return [row[:] for row in Et], ls.vadd(rt, ls.mtv3(Et, d))
+    s, c = ls.sin(qi), ls.cos(qi)
+    EJ = ls.rot3_coord(ms.axis[i], s, c)
+    return ls.matmat(EJ, Et), list(rt)
+
+
+def _root_R(ms: ModelStatic, q):
+    """The floating root's active rotation from the q scalar list: from its
+    quaternion, or from roll, pitch and yaw."""
+    if ms.quat:
+        return ls.quat_R(q[3], q[4], q[5], q[6])
+    sr, cr = ls.sin(q[3]), ls.cos(q[3])
+    sp, cp = ls.sin(q[4]), ls.cos(q[4])
+    sy, cy = ls.sin(q[5]), ls.cos(q[5])
+    return ls.rpy_R(sr, cr, sp, cp, sy, cy)
+
+
+def _body_xc(ms: ModelStatic, i: int, q):
+    """Compact per-body transform from the full q scalar list (fb root:
+    plux(R^T, p) @ Xtree -> E = R^T E_t, r = r_t + E_t^T p)."""
+    if ms.fb and i == 0:
+        Et, rt = _split_xtree(ms)[0]
+        R = _root_R(ms, q)
+        Rt = [[R[j][i] for j in range(3)] for i in range(3)]  # R^T
+        E = ls.matmat(Rt, Et)
+        r = ls.vadd(rt, ls.mtv3(Et, [q[0], q[1], q[2]]))
+        return E, r
+    return _joint_xc(ms, i, q[ms.qi(i)])
+
+
+def _body_x(ms: ModelStatic, i: int, q):
+    """Dense transform of body i from the full q scalar list (fb root =
+    6-DoF rpy+xyz joint, or xyz + wxyz on the quaternion root)."""
+    if ms.fb and i == 0:
+        return ls.floating_x(ms.Xtree[0], q[0], q[1], q[2], _root_R(ms, q))
+    return _joint_x(ms, i, q[ms.qi(i)])
+
+
+def _vj(ms: ModelStatic, i: int, u):
+    """Joint-space velocity/acceleration contribution from a full nv list."""
+    if ms.fb and i == 0:
+        return list(u[0:6])
+    return ls.vscale(u[ms.vi(i)], ms.S[i])
+
+
+def _xa_chain(ms: ModelStatic, X):
+    """World->body compact transforms down the tree: Xa[i] = X[i] o Xa[p]."""
+    Xa = [None] * ms.nb
+    for i in range(ms.nb):
+        p = ms.parent[i]
+        Xa[i] = X[i] if p == -1 else ls.xc_compose(X[i], Xa[p])
+    return Xa
+
+
+def _apply_fext_lane(ms: ModelStatic, X, f_list, f_ext):
+    """Subtract world-frame wrenches from per-body forces:
+    f[i] -= Xa[i]^{-T} f_ext[i], the lane twin of
+    dynamics.rnea.apply_external_forces.  f_ext: list of nb 6-lists."""
+    Xa = _xa_chain(ms, X)
+    return [
+        ls.vsub(f_list[i], ls.xc_fvT(Xa[i], f_ext[i]))
+        for i in range(ms.nb)
+    ]
+
+
+def rnea_lane(ms: ModelStatic, q, qd, qdd=None, gravity: float = -9.81,
+              f_ext=None):
+    """Lane-scalar RNEA: q/qd/qdd are lists of lane scalars; f_ext an
+    optional list of nb world-frame wrench 6-lists (dynamics.rnea(f_ext)
+    semantics).  Returns tau (list of nv lane scalars)."""
+    X = [_body_xc(ms, i, q) for i in range(ms.nb)]
+    return _rnea_sweeps_lane(ms, X, qd, qdd, gravity, f_ext)[3]
+
+
+def aba_lane(ms: ModelStatic, q, qd, tau, gravity: float = -9.81, X=None,
+             f_ext=None):
+    """Lane-scalar ABA: returns qdd (list of nv lane scalars).  Pass
+    precomputed COMPACT (E, r) transforms via ``X`` (``_body_xc``) to share
+    them with other sweeps.  f_ext: optional list of nb world-frame wrench
+    6-lists subtracted from the bias forces (dynamics.aba(f_ext))."""
+    nb = ms.nb
+    a_grav = [0.0, 0.0, 0.0, 0.0, 0.0, -gravity]
+    v, cb, pA = [None] * nb, [None] * nb, [None] * nb
+    X = list(X) if X is not None else [None] * nb
+    IA = [[row[:] for row in ms.I[i]] for i in range(nb)]
+    for i in range(nb):
+        p = ms.parent[i]
+        Xi = X[i] if X[i] is not None else _body_xc(ms, i, q)
+        vJ = _vj(ms, i, qd)
+        if p == -1:
+            vi = vJ
+            ci = ls.vec6(0.0)
+        else:
+            vi = ls.vadd(ls.xc_mv(Xi, v[p]), vJ)
+            ci = ls.cross_motion(vi, vJ)
+        Iv = ls.matvec(ms.I[i], vi)
+        X[i], v[i], cb[i] = Xi, vi, ci
+        pA[i] = ls.cross_force(vi, Iv)
+
+    if f_ext is not None:
+        pA = _apply_fext_lane(ms, X, pA, f_ext)
+
+    U, dinv, u_ = [None] * nb, [None] * nb, [None] * nb
+    for i in range(nb - 1, -1, -1):
+        p = ms.parent[i]
+        if ms.fb and i == 0:
+            # 6-wide root block: solved in the last sweep by cholesky6
+            u_[i] = [tau[k] - pA[0][k] for k in range(6)]
+            continue
+        S = ms.S[i]
+        Ui = ls.matvec(IA[i], S)
+        di = ls.dot(S, Ui)
+        dinv_i = 1.0 / di
+        ui = tau[ms.vi(i)] - ls.dot(S, pA[i])
+        U[i], dinv[i], u_[i] = Ui, dinv_i, ui
+        if p != -1:
+            Ia = ls.mat_combine_sym(IA[i], ls.outer_sym(Ui), -dinv_i)
+            pa = ls.vadd(
+                pA[i],
+                ls.vadd(ls.matvec(Ia, cb[i]), ls.vscale(ui * dinv_i, Ui)),
+            )
+            IA[p] = ls.mat_add_sym(IA[p], ls.xc_xtax_sym(X[i], Ia))
+            pA[p] = ls.vadd(pA[p], ls.xc_mtv(X[i], pa))
+
+    qdd = [None] * ms.nv
+    acc = [None] * nb
+    for i in range(nb):
+        p = ms.parent[i]
+        if p == -1:
+            ai = ls.xc_mv(X[i], a_grav)
+        else:
+            ai = ls.xc_mv(X[i], acc[p])
+        ai = ls.vadd(ai, cb[i])
+        if ms.fb and i == 0:
+            # S = eye(6): solve IA0 qdd_root = u - IA0 a
+            rhs = ls.vsub(u_[0], ls.matvec(IA[0], ai))
+            L6 = ls.cholesky6(IA[0])
+            qdd_root = ls.cholesky6_solve(L6, rhs)
+            for k in range(6):
+                qdd[k] = qdd_root[k]
+            acc[i] = ls.vadd(ai, qdd_root)
+        else:
+            qdd_i = (u_[i] - ls.dot(U[i], ai)) * dinv[i]
+            acc[i] = ls.vadd(ai, ls.vscale(qdd_i, ms.S[i]))
+            qdd[ms.vi(i)] = qdd_i
+    return qdd
+
+
+def _integrate_q_lane(ms: ModelStatic, q_s, qd_new, dt):
+    """Lane twin of the semi-implicit position update: flat q + dt*qd' for
+    1-DoF/rpy coordinates, manifold retraction for a quaternion root
+    (p' = p + dt R(quat) v', quat' = quat (x) exp(dt w'), as
+    solver.integrate).  Returns the nq-list q'."""
+    if not (ms.fb and ms.quat):
+        return [q_s[i] + dt * qd_new[i] for i in range(ms.nq)]
+    R = ls.quat_R(q_s[3], q_s[4], q_s[5], q_s[6])
+    w, v = qd_new[0:3], qd_new[3:6]
+    p_new = [
+        q_s[k] + dt * (R[k][0] * v[0] + R[k][1] * v[1] + R[k][2] * v[2])
+        for k in range(3)
+    ]
+    quat_new = ls.quat_step(q_s[3], q_s[4], q_s[5], q_s[6],
+                            w[0], w[1], w[2], dt)
+    joints = [q_s[7 + j] + dt * qd_new[6 + j] for j in range(ms.nb - 1)]
+    return p_new + list(quat_new) + joints
+
+
+def _fext_lists(ms: ModelStatic, fe):
+    """nb*6 packed wrench scalars -> list of nb wrench 6-lists."""
+    return [[fe[i * 6 + k] for k in range(6)] for i in range(ms.nb)]
+
+
+def _step_lane(ms: ModelStatic, q_s, qd_s, u_s, dt, gravity, route="aba",
+               dense_minv=False, f_ext=None):
+    """One forward-dynamics + semi-implicit-Euler step on lane scalars,
+    shared by the per-step and whole-horizon kernels.  Returns
+    (q_new, qd_new).  f_ext: optional list of nb wrench 6-lists (world
+    frame), with dynamics.aba/forward_dynamics semantics."""
+    n = ms.nv
+    if route == "minv":
+        X = [_body_xc(ms, i, q_s) for i in range(ms.nb)]
+        _, _, _, c = _rnea_sweeps_lane(ms, X, qd_s, None, gravity,
+                                       f_ext=f_ext)
+        uc = [u_s[j] - c[j] for j in range(n)]
+        if dense_minv:
+            Minv = minv_lane(ms, X)
+            qdd = [ls.dot(Minv[i], uc) for i in range(n)]
+        else:
+            qdd = aba_lane(ms, q_s, [0.0] * n, uc, gravity=0.0, X=X)
+    else:
+        qdd = aba_lane(ms, q_s, qd_s, u_s, gravity, f_ext=f_ext)
+    qd_new = [qd_s[i] + dt * qdd[i] for i in range(n)]
+    q_new = _integrate_q_lane(ms, q_s, qd_new, dt)
+    return q_new, qd_new
+
+
+def minv_lane(ms: ModelStatic, X):
+    """Lane-scalar direct M^-1 (dense, symmetrised).  X: COMPACT (E, r)
+    transform list from ``_body_xc``.  The subtree sparsity of the F
+    matrices comes from static-zero folding (columns outside a subtree stay
+    python 0.0 and generate no code).  Floating base: the root is one
+    6-wide block solved with the unrolled 6x6 lane Cholesky."""
+    nb = ms.nb
+    n = ms.nv
+    Minv = [[0.0] * n for _ in range(n)]
+    F = [[ls.vec6(0.0) for _ in range(n)] for _ in range(nb)]
+    IA = [[row[:] for row in ms.I[i]] for i in range(nb)]
+    U = [None] * nb
+    Dinv = [None] * nb
+    for i in range(nb - 1, -1, -1):
+        p = ms.parent[i]
+        if ms.fb and i == 0:
+            # root block: U = IA (S = eye), Dinv = IA^-1 via cholesky6
+            L6 = ls.cholesky6(IA[0])
+            eye_cols = [[1.0 if r == k else 0.0 for r in range(6)]
+                        for k in range(6)]
+            fbinv_cols = [ls.cholesky6_solve(L6, e) for e in eye_cols]
+            fbinv = [[fbinv_cols[k][r] for k in range(6)] for r in range(6)]
+            for r in range(6):
+                for k in range(6):
+                    Minv[r][k] = ls._add(Minv[r][k], fbinv[r][k])
+            # Minv[0:6, :] -= fbinv @ (S^T F[0]) with S^T F[0] = F[0]
+            for c in range(n):
+                col = [F[0][c][j] for j in range(6)]
+                corr = [ls.dot(fbinv[r], col) for r in range(6)]
+                for r in range(6):
+                    Minv[r][c] = ls._add(
+                        Minv[r][c], ls._mul(-1.0, corr[r])
+                    )
+            continue
+        S = ms.S[i]
+        mi = ms.vi(i)
+        Ui = ls.matvec(IA[i], S)
+        Dinv_i = 1.0 / ls.dot(S, Ui)
+        U[i], Dinv[i] = Ui, Dinv_i
+        for c in range(n):
+            sF = ls.dot(S, F[i][c])
+            if not (ls.is_static(sF) and sF == 0.0):
+                Minv[mi][c] = ls._add(Minv[mi][c], ls._mul(-1.0, Dinv_i * sF))
+        Minv[mi][mi] = ls._add(Minv[mi][mi], Dinv_i)
+        if p != -1:
+            for c in range(n):
+                Fic = F[i][c]
+                if not (ls.is_static(Minv[mi][c]) and Minv[mi][c] == 0.0):
+                    Fic = ls.axpy(Minv[mi][c], Ui, Fic)
+                F[i][c] = Fic
+                F[p][c] = ls.vadd(F[p][c], ls.xc_mtv(X[i], Fic))
+            Ia = ls.mat_combine_sym(IA[i], ls.outer_sym(Ui), -Dinv_i)
+            IA[p] = ls.mat_add_sym(IA[p], ls.xc_xtax_sym(X[i], Ia))
+    for i in range(nb):
+        p = ms.parent[i]
+        if p == -1:
+            if ms.fb and i == 0:
+                # S = eye(6): F[0][c] = Minv rows 0:6 at column c
+                for c in range(n):
+                    F[0][c] = [Minv[r][c] for r in range(6)]
+            else:
+                for c in range(n):
+                    F[i][c] = ls.vscale(Minv[i][c], ms.S[i])
+        else:
+            mi = ms.vi(i)
+            for c in range(n):
+                XF = ls.xc_mv(X[i], F[p][c])
+                delta = ls._mul(-1.0, ls._mul(Dinv[i], ls.dot(U[i], XF)))
+                Minv[mi][c] = ls._add(Minv[mi][c], delta)
+                F[i][c] = ls.axpy(Minv[mi][c], ms.S[i], XF)
+    # dense symmetrisation (upper triangle is authoritative)
+    return [
+        [Minv[i][j] if j >= i else Minv[j][i] for j in range(n)]
+        for i in range(n)
+    ]
+
+
+def _rnea_sweeps_lane(ms: ModelStatic, X, qd, qdd, gravity, f_ext=None):
+    """Forward+backward RNEA given precomputed transforms.  Returns
+    (v, a, f_acc, tau): per-body vec6 lists (f accumulated leaf->root),
+    tau a length-nv list.  Floating-base aware.  f_ext: optional list of nb
+    world-frame wrench 6-lists (subtracted before the backward sweep)."""
+    nb = ms.nb
+    a_grav = [0.0, 0.0, 0.0, 0.0, 0.0, -gravity]
+    v, a, f = [None] * nb, [None] * nb, [None] * nb
+    for i in range(nb):
+        p = ms.parent[i]
+        vJ = _vj(ms, i, qd)
+        if p == -1:
+            vi = vJ
+            ai = ls.xc_mv(X[i], a_grav)
+        else:
+            vi = ls.vadd(ls.xc_mv(X[i], v[p]), vJ)
+            ai = ls.xc_mv(X[i], a[p])
+        ai = ls.vadd(ai, ls.cross_motion(vi, vJ))
+        if qdd is not None:
+            ai = ls.vadd(ai, _vj(ms, i, qdd))
+        Iv = ls.matvec(ms.I[i], vi)
+        fi = ls.vadd(ls.matvec(ms.I[i], ai), ls.cross_force(vi, Iv))
+        v[i], a[i], f[i] = vi, ai, fi
+    if f_ext is not None:
+        f = _apply_fext_lane(ms, X, f, f_ext)
+    tau = [None] * ms.nv
+    for i in range(nb - 1, -1, -1):
+        p = ms.parent[i]
+        if ms.fb and i == 0:
+            for k in range(6):
+                tau[k] = f[0][k]
+        else:
+            tau[ms.vi(i)] = ls.dot(ms.S[i], f[i])
+        if p != -1:
+            f[p] = ls.vadd(f[p], ls.xc_mtv(X[i], f[i]))
+    return v, a, f, tau
+
+
+# ----------------------------------------------------------------------- #
+# the model-specialised kernels (``specialize=True``) and their plain      #
+# versions, the lane sweeps above on (B,) tensors                          #
+# ----------------------------------------------------------------------- #
+
+def _lanes(t):
+    """(B, n) -> list of n (B,) lane scalars."""
+    return list(t.unbind(-1))
+
+
+def _stack(vals, ref):
+    """List of lane scalars -> (B, n) in ref's dtype on ref's device (a
+    static entry filled in)."""
+    return torch.stack([v if isinstance(v, torch.Tensor)
+                        else ref.new_full((ref.shape[0],), v)
+                        for v in vals], -1)
+
+
+def _fext_lanes(ms: ModelStatic, f_ext, B: int):
+    """(nb, 6) or (B, nb, 6) world wrenches -> list of nb 6-lists of (B,)
+    lane scalars."""
+    return _fext_lists(ms, _lanes(f_ext.expand(B, ms.nb, 6)
+                                  .reshape(B, ms.nb * 6)))
+
+
+def rnea_static_plain(model: RobotModel, q, qd, qdd=None,
+                      gravity: float = -9.81):
+    """``rnea_lane`` on (B, n) tensors: the plain version of
+    ``rnea_static``."""
+    tau = rnea_lane(get_static(model), _lanes(q), _lanes(qd),
+                    None if qdd is None else _lanes(qdd), gravity)
+    return _stack(tau, q)
+
+
+def fd_step_static_plain(model: RobotModel, x, u, dt: float,
+                         gravity: float = -9.81, f_ext=None,
+                         route: str = "aba", dense_minv: bool = False):
+    """``_step_lane`` on (B, n) tensors: the plain version of
+    ``fd_step_static`` (route "aba") and ``fd_step_minv_static`` (route
+    "minv", factorised or ``dense_minv``)."""
+    ms = get_static(model)
+    xs = _lanes(x)
+    fe = None if f_ext is None else _fext_lanes(ms, f_ext, x.shape[0])
+    q_new, qd_new = _step_lane(ms, xs[:ms.nq], xs[ms.nq:], _lanes(u), dt,
+                               gravity, route, dense_minv, fe)
+    return _stack(q_new + qd_new, x)
+
+
+def rollout_static_plain(model: RobotModel, x0, U, dt: float,
+                         gravity: float = -9.81, route: str = "aba",
+                         f_ext=None):
+    """H ``_step_lane`` steps on (B, n) tensors, f_ext None or (H, nb, 6):
+    the plain version of ``rollout_multi_static``."""
+    if route not in _ROUTES:
+        raise ValueError(f"route must be one of {_ROUTES}, got {route!r}")
+    ms = get_static(model)
+    B = x0.shape[0]
+    xs = _lanes(x0)
+    q, qd = xs[:ms.nq], xs[ms.nq:]
+    for t in range(U.shape[0]):
+        fe = None if f_ext is None else _fext_lanes(ms, f_ext[t], B)
+        q, qd = _step_lane(ms, q, qd, _lanes(U[t]), dt, gravity, route,
+                           f_ext=fe)
+    return _stack(list(q) + list(qd), x0)
+
+
+def _static_rnea(model: RobotModel, q, qd, qdd, gravity: float):
+    """Kernel ``rnea_static``, K10 specialised to the model (kernels/
+    codegen.py): one thread a state runs ``rnea_lane``'s straight-line code
+    with the model's constants folded in, reading q, qd (and qdd) and
+    writing tau.  Replaces rbdtpu's ``rnea_fused`` body (fused.py:391).
+    A CPU tensor runs ``rnea_static_plain``."""
+    if not q.is_cuda:
+        return rnea_static_plain(model, q, qd, qdd, gravity)
+    B, n = q.shape[0], model.nv
+    _lib.check(q, "q", (B, model.nq), q)
+    _lib.check(qd, "qd", (B, n), q)
+    if qdd is not None:
+        _lib.check(qdd, "qdd", (B, n), q)
+    tau = torch.empty(B, n, dtype=q.dtype, device=q.device)
+    _lib.launch_static("rnea_static", model, q, gravity, q, qd, qdd, tau, B,
+                       _lib.STATIC_THREADS)
+    return tau
+
+
+def _static_step(kernel: str, model: RobotModel, x, u, dt: float,
+                 gravity: float, f_ext, dense_minv: bool = False):
+    """Kernels ``fd_step_static`` (K1) and ``fd_step_minv_static`` (K6, on
+    the factorised or the dense route) specialised to the model: one
+    thread a state runs ``_step_lane``'s straight-line code (kernels/
+    codegen.py), with f_ext (nb, 6) or (B, nb, 6).  Replace the bodies of
+    rbdtpu's ``fd_step_fused`` (fused.py:484) and ``fd_step_minv_fused``
+    (fused.py:1307).  A CPU tensor runs ``fd_step_static_plain``."""
+    minv = kernel == "fd_step_minv_static"
+    if not x.is_cuda:
+        return fd_step_static_plain(model, x, u, dt, gravity, f_ext,
+                                    "minv" if minv else "aba", dense_minv)
+    B = x.shape[0]
+    _lib.check(x, "x", (B, model.nx), x)
+    _lib.check(u, "u", (B, model.nv), x)
+    fe, stride = _fext_arg(model, f_ext, B, x)
+    xo = torch.empty_like(x)
+    _lib.launch_static(kernel, model, x, gravity, x, u, fe, stride, xo, B,
+                       *((int(dense_minv),) if minv else ()),
+                       _lib.STATIC_THREADS, dt)
+    return xo
+
+
+def _static_rollout(model: RobotModel, x0, U, dt: float, gravity: float,
+                    route: str, f_ext):
+    """Kernel ``rollout_multi_static``, K5 specialised to the model: one
+    thread a trajectory loops over the H steps, each the step body of
+    ``fd_step_static`` ("aba") or of ``fd_step_minv_static``'s factorised
+    route ("minv") under the knot's wrenches f_ext[t] ((H, nb, 6)), with
+    the body inlined and the state in registers between steps, and writes
+    the final state.  Replaces
+    rbdtpu's ``rollout_fused_multi`` body (fused.py:1111).  A CPU tensor
+    runs ``rollout_static_plain``."""
+    if not x0.is_cuda:
+        return rollout_static_plain(model, x0, U, dt, gravity, route, f_ext)
+    if route not in _ROUTES:
+        raise ValueError(f"route must be one of {_ROUTES}, got {route!r}")
+    H, B = U.shape[0], x0.shape[0]
+    _lib.check(x0, "x0", (B, model.nx), x0)
+    _lib.check(U, "U", (H, B, model.nv), x0)
+    if f_ext is not None:
+        _lib.check(f_ext, "f_ext", (H, model.nb, 6), x0)
+    xo = torch.empty_like(x0)
+    _lib.launch_static("rollout_multi_static", model, x0, gravity, x0, U,
+                       f_ext, xo, B, H, int(route == "minv"),
+                       _lib.STATIC_THREADS, dt)
+    return xo

@@ -1665,3 +1665,128 @@ def test_mpc_reaching_example_on_the_card(card):
 
     assert mpc_reaching.main(["--batch", "4", "--horizon", "20", "--iters",
                               "3", "--ticks", "3"]) == 0
+
+
+# ---- the model-specialised kernels (K0, ``specialize=True``) ----
+STATIC_MODELS = {"arm7": ("arm7", False), "quad_rpy": ("quadruped12", True)}
+
+
+@pytest.fixture(scope="module")
+def static_models(card):
+    """(name, dtype) -> model, every specialised library built in one
+    parallel build."""
+    models = {(n, dt): load_asset(a, device=card, dtype=dt, floating_base=fb)
+              for n, (a, fb) in STATIC_MODELS.items() for dt in DTYPES}
+    _lib.prepare_static([(m, dt) for (_, dt), m in models.items()])
+    return models
+
+
+def _static_launched(name, fn):
+    """fn()'s result, after requiring that it launched ``name`` once and no
+    other kernel."""
+    before = dict(_lib.launches)
+    out = fn()
+    torch.cuda.synchronize()
+    moved = {k: _lib.launches[k] - before[k] for k in before
+             if _lib.launches[k] != before[k]}
+    assert moved == {name: 1}, moved
+    return out
+
+
+def _static_tol(dtype, steps: int = 1):
+    return 1e-9 if dtype == torch.float64 else (1e-4 if steps == 1 else 1e-3)
+
+
+@pytest.mark.parametrize("B", TEAM_BATCHES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+@pytest.mark.parametrize("name", list(STATIC_MODELS))
+def test_static_rnea(static_models, name, dtype, B):
+    """``rnea_static`` (bias and with qdd) against its plain lane version
+    and the table kernel K10 on the same inputs."""
+    m, tol = static_models[name, dtype], _static_tol(dtype)
+    q, qd, qdd = _inputs(m, (B, m.nq), (B, m.nv), (B, m.nv))
+    for acc in (None, qdd):
+        out = _static_launched("rnea_static", lambda: rnea_fused(
+            m, q, qd, acc, specialize=True))
+        _close(out, fused.rnea_static_plain(m, q, qd, acc), tol)
+        _close(out, rnea_fused(m, q, qd, acc), tol)
+
+
+@pytest.mark.parametrize("wrench", ["free", "shared", "batched"])
+@pytest.mark.parametrize("B", TEAM_BATCHES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+@pytest.mark.parametrize("name", list(STATIC_MODELS))
+def test_static_fd_step(static_models, name, dtype, B, wrench):
+    """``fd_step_static`` (K1), bare or under (nb, 6) / (B, nb, 6)
+    wrenches, against its plain lane version and the table K1."""
+    m, tol = static_models[name, dtype], _static_tol(dtype)
+    x, u, F1, FB = _inputs(m, (B, m.nx), (B, m.nv), (m.nb, 6),
+                           (B, m.nb, 6))
+    F = {"free": None, "shared": F1, "batched": FB}[wrench]
+    out = _static_launched("fd_step_static", lambda: fd_step_fused(
+        m, x, u, DT, f_ext=F, specialize=True))
+    _close(out, fused.fd_step_static_plain(m, x, u, DT, f_ext=F), tol)
+    _close(out, fd_step_fused(m, x, u, DT, f_ext=F), tol)
+
+
+@pytest.mark.parametrize("wrench", ["free", "shared", "batched"])
+@pytest.mark.parametrize("dense", [False, True], ids=["fact", "dense"])
+@pytest.mark.parametrize("B", TEAM_BATCHES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+@pytest.mark.parametrize("name", list(STATIC_MODELS))
+def test_static_fd_step_minv(static_models, name, dtype, B, dense, wrench):
+    """``fd_step_minv_static`` (K6) on both routes, bare or under wrenches,
+    against its plain lane version and the table K6."""
+    m, tol = static_models[name, dtype], _static_tol(dtype)
+    x, u, F1, FB = _inputs(m, (B, m.nx), (B, m.nv), (m.nb, 6),
+                           (B, m.nb, 6))
+    F = {"free": None, "shared": F1, "batched": FB}[wrench]
+    out = _static_launched("fd_step_minv_static", lambda: fd_step_minv_fused(
+        m, x, u, DT, dense_minv=dense, f_ext=F, specialize=True))
+    _close(out, fused.fd_step_static_plain(m, x, u, DT, f_ext=F,
+                                           route="minv", dense_minv=dense),
+           tol)
+    _close(out, fd_step_minv_fused(m, x, u, DT, dense_minv=dense, f_ext=F),
+           tol)
+
+
+@pytest.mark.parametrize("B,H", [(1, 1), (37, 8), (512, 50)])
+@pytest.mark.parametrize("wrench", [False, True], ids=["free", "fext"])
+@pytest.mark.parametrize("route", ["aba", "minv"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+@pytest.mark.parametrize("name", list(STATIC_MODELS))
+def test_static_rollout(static_models, name, dtype, route, wrench, B, H):
+    """``rollout_multi_static`` (K5) in one launch against its plain lane
+    rollout and the table K5, both routes, with and without (H, nb, 6)
+    wrenches of 0.5 N(0,1): arm7 from x0 = 0.1 N(0,1) under 0.2 N(0,1)
+    controls, the quadruped from a standing start under hold controls plus
+    0.4 N(0,1); float64 1e-9 absolute, float32 1e-3 relative over more than
+    one step."""
+    from rbdtpu_torch.dynamics import rnea
+
+    m = static_models[name, dtype]
+    noise, F = _inputs(m, (H, B, m.nv), (H, m.nb, 6))
+    if m.floating_base:
+        x0 = _root_start(m, B)
+        z = torch.zeros(B, m.nv, dtype=dtype, device=m.device)
+        U = (rnea(m, x0[:, :m.nq], z, z)[0][None] + 0.8 * noise).contiguous()
+    else:
+        (x0,) = _inputs(m, (B, m.nx), scale=0.1)
+        U = (0.4 * noise).contiguous()
+    F = F if wrench else None
+    out = _static_launched("rollout_multi_static", lambda: rollout_fused_multi(
+        m, x0, U, DT, route=route, f_ext=F, specialize=True))
+    want = fused.rollout_static_plain(m, x0, U, DT, route=route, f_ext=F)
+    assert bool(want.isfinite().all())
+    tol = _static_tol(dtype, H)
+    _close(out, want, tol)
+    _close(out, rollout_fused_multi(m, x0, U, DT, route=route, f_ext=F), tol)
+
+
+def test_static_refuses_another_dtype(static_models):
+    """The specialised kernels take float32 and float64 only, and raise on
+    any other dtype, as the table kernels do."""
+    m = static_models["arm7", torch.float32]
+    x = torch.zeros(4, m.nx, dtype=torch.float16, device=m.device)
+    with pytest.raises(ValueError):
+        fd_step_fused(m, x, x[:, :m.nv].contiguous(), DT, specialize=True)
