@@ -142,15 +142,15 @@ Phases, each ending the run with a nonzero exit when it fails:
    solve (K1 50, K2, K3 and K7 5, ee_gn 10, ee_err 12; the plain sweep
    none), J finite, nonincreasing and falling, its profile; and float64
    kernels against plain at Bm=4, H=50 and H=20 (|dU| < 1e-6);
-19. path F, robust MPC under world wrenches: K2 and K9 (nchunks 1, 2, 3)
-   with a per-knot wrench set (a trunk push window on 0.5 N(0,1)) against
-   their plain versions on arm7 (1,024 x 100), the rpy quadruped
-   (configs[3]'s 6 x 1,024 x 50) and the humanoid (path D's 1,024 x 32),
-   each timed, and with all-zero wrenches equal to the wrench-free
-   kernels bit for bit; the port's push-recovery example on the card (the
-   aware plan must beat the oblivious one, K1 and K2 launched with
-   wrenches); configs[3]'s solve at full width under a push (ms a solve,
-   launches, J falling); float64 kernels against plain under the push at
+19. path F, robust MPC under world wrenches: K2 and K9 (nchunks 2; 1 and
+   3 at 37 trajectories) with a per-knot wrench set (a trunk push window
+   on 0.5 N(0,1)) against their plain versions on arm7 (1,024 x 100), the
+   rpy quadruped (configs[3]'s 6 x 1,024 x 50) and the humanoid (path D's
+   1,024 x 32), each timed, and with all-zero wrenches equal to the
+   wrench-free kernels bit for bit; the port's push-recovery example on
+   the card (the aware plan must beat the oblivious one, K1 and K2
+   launched with wrenches); configs[3]'s solve at full width under a push
+   (ms a solve, launches, J falling); float64 kernels against plain under the push at
    Bm=4, H=50 (|dU| < 1e-6); path D under a trunk push (K9 with wrenches
    once an iteration, no wrench-free K9 or K2); and the hybrid at path C's
    shapes (2 MPPI and 2 DDP iterations) under a 20 N trunk push in
@@ -195,8 +195,8 @@ Phases, each ending the run with a nonzero exit when it fails:
    against their plain versions, float64 <= 1e-9 and float32 at TOL32;
 22. paths J and K, the quaternion root's remaining kernels ("fq32": K9,
    K2 and K9 with wrenches, K6, K10): K9 at path J's 1,024 trajectories x
-   32 knots at nchunks 2, 1, 3 and 100 and at 1, 37 and 1,000
-   trajectories, K2 with wrenches at path G's 64 x 32 and K9 with
+   32 knots at nchunks 2 (1, 3 and 100 at 37 trajectories) and at 1, 37
+   and 1,000 trajectories, K2 with wrenches at path G's 64 x 32 and K9 with
    wrenches (two chunks) at 1,024 x 32 under a trunk push over 0.5
    N(0,1) wrenches (and under zero wrenches bit for bit the wrench-free
    kernels), K10 with and without qdd and K6 on both routes with and
@@ -277,6 +277,24 @@ Phases, each ending the run with a nonzero exit when it fails:
    rollout and the table K5 (1e-3 relative), its final state finite,
    timed (steps/s, median of 7, and by graph replay) beside the table K5.
    ``chip_smoke.static_phase(smi, {})`` runs it alone after ``_lib.build()``.
+   Its build also compiles phase 26's sources and the effector libraries,
+   every source at once;
+26. paths P and Q, the DDP solve on the model-specialised kernels:
+   ``feedback_rollout_static`` (K2·K0; bare, with a clamp, with the clamp
+   under per-knot wrenches), ``linearize_parts_static`` (K3·K0, one thread
+   a derivative column) and ``ee_gn_static`` / ``ee_err_static`` (K4·K0,
+   the effector folded in) on arm7 and the rpy quadruped, each against its
+   plain lane version and its table twin at the table rows' shapes
+   (float64 <= 1e-9, float32 the twin's relative bound), timed beside the
+   twin with its bound; path P, configs[2] (Bm=128, H=100, 10 iterations,
+   float32) through ``DDPConfig(fused=True, specialize=True)`` and
+   ``ee_reaching_cost(specialize=True)``: K1·K0-K4·K0 launched, no table
+   K1-K4, J finite, nonincreasing and falling, ms a solve beside the table
+   route's, a profile; path Q, configs[3] (Bm=1,024, H=50, 5 iterations)
+   likewise with K1·K0, K2·K0, K3·K0 and the table K7; each in float64 at
+   Bm=4, H=20 against the plain route and the table route (|dU| < 1e-6).
+   ``chip_smoke.solver_static_phase(smi, {})`` runs it alone after
+   ``_lib.build()`` (~95 s with its build).
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON summary and the result line.  Without a CUDA
@@ -402,6 +420,9 @@ PARITY_E = (50, 20)
 # wrong wrench moves J by far more (the push raises it 180-fold).
 PUSH_N, PUSH_KNOTS, PUSH_HYBRID_N, FLOOR_TIMES = 80.0, (5, 15), 20.0, 100.0
 NCHUNKS_F = (1, 2, 3)
+# the trajectories of phases 19 and 22's K9 checks at the chunk counts no
+# path takes
+CUT_B = 37
 # the float64 hybrid parities under a push (paths F and K) run this many
 # MPPI and DDP iterations (path C's shapes otherwise; 4 and 4 before phase
 # 25 took their time)
@@ -743,6 +764,7 @@ def solve(model, x0, U0, fused: bool, iters: int, **options):
     from rbdtpu_torch.solver import DDPConfig, ddp_solve, ee_reaching_cost
 
     cost = ee_reaching_cost(model, TARGET, fused=None if fused else False,
+                            specialize=options.get("specialize", False),
                             **WEIGHTS)
     cfg = DDPConfig(iters=iters, dt=DT, gravity=GRAVITY, n_alphas=8,
                     fused=fused, **options)
@@ -2319,9 +2341,10 @@ def fext_kernels(models, smi: str, rows: dict):
     """Phase 19's kernel checks: K2 and K9 (NCHUNKS_F) with per-knot
     wrenches (``push_wrenches`` over 0.5 N(0,1)) against their plain
     versions on each of ``models`` ((label, m64, m32, K2's float64 inputs,
-    row tag)): float64 within TOL64, float32 within TOL32, timed (K9's
-    first count); then, in both dtypes, K2 and K9 under all-zero wrenches
-    equal the wrench-free kernels bit for bit."""
+    row tag)), K9 over the whole batch at NCHUNKS_D chunks (its row's
+    timed check) and over CUT_B trajectories at the other counts: float64
+    within TOL64, float32 within TOL32; then, in both dtypes, K2 and K9
+    under all-zero wrenches equal the wrench-free kernels bit for bit."""
     import torch
     from rbdtpu_torch.kernels import fused
 
@@ -2330,9 +2353,15 @@ def fext_kernels(models, smi: str, rows: dict):
         F = push_wrenches(m64, H, 0.5, SEED + 110 + i)
         checks = [(f"feedback_rollout f_ext {label}", "feedback_rollout_fext",
                    fb, {"f_ext": F}, "feedback_rollout+fext", B * H)]
-        checks += [(f"feedback_chunked f_ext {label} nchunks={c}",
-                    "feedback_chunked_fext", fb, {"f_ext": F, "nchunks": c},
-                    "feedback_chunked+fext", B * H) for c in NCHUNKS_F]
+        # K9 at the paths' chunk count over the whole batch, at the others
+        # over CUT_B trajectories (phase 26's time)
+        for c in sorted(NCHUNKS_F, key=lambda c: c != NCHUNKS_D):
+            Bc = B if c == NCHUNKS_D else CUT_B
+            checks.append((f"feedback_chunked f_ext {label} nchunks={c} "
+                           f"B={Bc}", "feedback_chunked_fext",
+                           tuple(t[:Bc].contiguous() for t in fb),
+                           {"f_ext": F, "nchunks": c},
+                           "feedback_chunked+fext", Bc * H))
         check_kernels(checks, m64, m32, smi, rows, row_tag=tag,
                       time_all=False)
         for m in (m64, m32):
@@ -2811,8 +2840,9 @@ def quat_ext_kernels(h64, h32, smi: str, rows: dict, ptxas: list) -> dict:
     "fq32" adds to K1-K4, against their plain versions at the paths'
     shapes (float64 <= TOL64, float32 at TOL32), each row's first check
     timed by one call and by graph replay beside its bound: K9 at path J's
-    BD x ALPHAS_H trajectories over HH knots at every count of
-    NCHUNKS_CHECKS and at TEAM_BATCHES trajectories; K2 with wrenches at
+    BD x ALPHAS_H trajectories over HH knots at NCHUNKS_D chunks, at the
+    other counts of NCHUNKS_CHECKS over CUT_B trajectories, and at
+    TEAM_BATCHES trajectories; K2 with wrenches at
     path G's BH x ALPHAS_H trajectories and K9 with wrenches (NCHUNKS_D
     chunks) at path J's, under ``push_wrenches`` over 0.5 N(0,1); both
     under all-zero
@@ -2841,10 +2871,16 @@ def quat_ext_kernels(h64, h32, smi: str, rows: dict, ptxas: list) -> dict:
                                  dtype=torch.float64,
                                  device=h64.device)).contiguous())
     traj = BD * ALPHAS_H * HH
-    checks = [(f"feedback_chunked quat nchunks={c}", "feedback_chunked",
-               fbj, {"nchunks": c}, "feedback_chunked", traj)
-              for c in NCHUNKS_CHECKS]
     cut = lambda t, B: t[:B].contiguous()
+    # path J's chunk count over its whole batch, the other counts over
+    # CUT_B trajectories (phase 26's time)
+    checks = [(f"feedback_chunked quat nchunks={NCHUNKS_D}",
+               "feedback_chunked", fbj, {"nchunks": NCHUNKS_D},
+               "feedback_chunked", traj)]
+    checks += [(f"feedback_chunked quat nchunks={c} B={CUT_B}",
+                "feedback_chunked", tuple(cut(t, CUT_B) for t in fbj),
+                {"nchunks": c}, "feedback_chunked", CUT_B * HH)
+               for c in NCHUNKS_CHECKS if c != NCHUNKS_D]
     checks += [(f"feedback_chunked quat B={B}", "feedback_chunked",
                 tuple(cut(t, B) for t in fbj), {"nchunks": NCHUNKS_D},
                 "feedback_chunked", B * HH) for B in TEAM_BATCHES]
@@ -4232,7 +4268,7 @@ _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 def static_table():
     """name -> (specialised kernel, its plain lane version, its table twin),
     each fn(model, *args, **kw) on the args of ``check_kernels``' form."""
-    from rbdtpu_torch.kernels import fused
+    from rbdtpu_torch.kernels import colvec, fk_lane, fused
 
     def minv_plain(m, x, u, dense_minv=False, f_ext=None):
         return fused.fd_step_static_plain(m, x, u, DT, GRAVITY, f_ext,
@@ -4266,6 +4302,27 @@ def static_table():
             rollout_plain,
             lambda m, x0, U, **kw: fused.rollout_fused_multi(
                 m, x0, U, DT, GRAVITY, **kw)),
+        "feedback_rollout_static": (
+            lambda m, *a, **kw: fused.feedback_rollout_fused(
+                m, *a, DT, GRAVITY, specialize=True, **kw),
+            plain_lane_feedback,
+            lambda m, *a, **kw: fused.feedback_rollout_fused(
+                m, *a, DT, GRAVITY, **kw)),
+        "linearize_parts_static": (
+            lambda m, *a: colvec.linearize_parts_fused(m, *a, GRAVITY,
+                                                       specialize=True),
+            lambda m, *a: colvec.linearize_parts_static_plain(m, *a,
+                                                              GRAVITY),
+            lambda m, *a: colvec.linearize_parts_fused(m, *a, GRAVITY)),
+        **{f"ee_{'gn' if gn else 'err'}_static": (
+            lambda m, q, target, ee_names=None, gn=gn: fk_lane.ee_gn_fused(
+                m, q, target, ee_names=ee_names, gn=gn, specialize=True),
+            lambda m, q, target, ee_names=None, gn=gn:
+                fk_lane.ee_gn_static_plain(m, q, target, ee_names=ee_names,
+                                           gn=gn),
+            lambda m, q, target, ee_names=None, gn=gn: fk_lane.ee_gn_fused(
+                m, q, target, ee_names=ee_names, gn=gn))
+            for gn in (True, False)},
     }
 
 
@@ -4306,44 +4363,63 @@ def static_ptxas(log: str) -> list:
     return out
 
 
-def static_build(models, smi: str) -> dict:
+def static_ees(models) -> list:
+    """(tag, model, dtype, jid, fid) of each model's effector library: the
+    single leaf (arm7's configs[2] effector), or path E's foot
+    (``foot_ee``) on a model of several leaves."""
+    from rbdtpu_torch.kernels.fk_lane import _single_ee
+
+    return [(tag, m, m.dtype, *_single_ee(
+        m, foot_ee(m) if len(m.leaves()) > 1 else None))
+            for tag, m64, m32 in models for m in (m64, m32)]
+
+
+def static_build(models, smi: str, ees=(), phase: int = 25,
+                 sources=None) -> dict:
     """Build the specialised libraries of every (tag, float64 model,
-    float32 model) in one call (``_lib.prepare_static``: one nvcc a source,
-    all at once) and print each source's build seconds and each function's
-    ptxas line.  Returns {(tag, dtype name): build.json} with the ptxas
-    rows under "ptxas"."""
+    float32 model) and the effector libraries of ``ees`` (``static_ees``)
+    in one call (``_lib.prepare_static``: one nvcc a source, all at once)
+    and print each source's build seconds and each function's ptxas line
+    (of the sources named in ``sources`` alone, when given).  Returns
+    {(tag, dtype name): build.json} with the ptxas rows under "ptxas"
+    (an effector library's tag ends in " effector")."""
     import os
 
     from rbdtpu_torch.kernels import _lib
 
     pairs = [(tag, m) for tag, m64, m32 in models for m in (m64, m32)]
     t = time.perf_counter()
-    dirs = _lib.prepare_static([(m, m.dtype) for _, m in pairs])
-    print(f"phase 25 build: {2 * len(models)} specialised libraries, "
+    dirs = _lib.prepare_static([(m, m.dtype) for _, m in pairs],
+                               ees=[e[1:] for e in ees])
+    print(f"phase {phase} build: {len(dirs)} specialised libraries, "
           f"{sum(len(os.listdir(d)) for d in dirs)} files, "
           f"{time.perf_counter() - t:.1f} s ({smi})")
     info = {}
-    for (tag, m), d in zip(pairs, dirs):
+    named = pairs + [(f"{e[0]} effector", e[1]) for e in ees]
+    keep = lambda n: sources is None or n in sources
+    for (tag, m), d in zip(named, dirs):
         dt = str(m.dtype)[6:]
         with open(os.path.join(d, "build.json")) as f:
             b = json.load(f)
         with open(os.path.join(d, "ptxas.log")) as f:
             b["ptxas"] = static_ptxas(f.read())
         info[tag, dt] = b
-        print(f"phase 25 build {tag} {dt}: seconds a source (wall, "
+        print(f"phase {phase} build {tag} {dt}: seconds a source (wall, "
               f"{b['parallel']} compiles at once) " + ", ".join(
-                  f"{n} {s:.1f}" for n, s in b["seconds"].items())
+                  f"{n} {s:.1f}" for n, s in b["seconds"].items() if keep(n))
               + f"; link {b['link_seconds']:.1f}; operations a state "
               + ", ".join(f"{n} {o}" for n, o in b["ops"].items()))
         for fn, regs, stack, st, ld, src in b["ptxas"]:
-            print(f"phase 25 ptxas {tag} {dt} {src} {fn}: "
-                  f"{'-' if regs is None else regs} registers, {stack} bytes "
-                  f"stack frame, {st} bytes spill stores, {ld} bytes spill "
-                  f"loads")
+            if keep(src):
+                print(f"phase {phase} ptxas {tag} {dt} {src} {fn}: "
+                      f"{'-' if regs is None else regs} registers, {stack} "
+                      f"bytes stack frame, {st} bytes spill stores, {ld} "
+                      f"bytes spill loads")
     return info
 
 
-def static_checks(checks, m64, m32, smi: str, rows: dict, tag: str):
+def static_checks(checks, m64, m32, smi: str, rows: dict, tag: str,
+                  phase: int = 25):
     """Hold each specialised kernel against its plain lane version and its
     table twin on the same inputs (float64 max abs error <= TOL64, float32
     relative error <= its twin's TOL32), each call launching its kernel
@@ -4358,11 +4434,16 @@ def static_checks(checks, m64, m32, smi: str, rows: dict, tag: str):
     import torch
     from rbdtpu_torch import opcount
 
-    flops = opcount.per_state(m32, TARGET)
+    counted = {}
     table = static_table()
+    twins = {**STATIC_TWINS, **SOLVER_TWINS}
     failures = []
     fmt = lambda es: "[" + " ".join(f"{e:.2e}" for e in es) + "]"
     for label, kname, a64, kw, ops_key, states in checks:
+        ee = kw.get("ee_names")
+        if ee not in counted:
+            counted[ee] = opcount.per_state(m32, TARGET, ee_names=ee)
+        flops = counted[ee]
         kern, plain, twin = table[kname]
         a32 = tuple(a.float() for a in a64)
         kw32 = {k: v.float() if isinstance(v, torch.Tensor) else v
@@ -4374,7 +4455,7 @@ def static_checks(checks, m64, m32, smi: str, rows: dict, tag: str):
         p32, plain_ms = timed_call(lambda: plain(m32, *a32, **kw32))
         e32 = (errors(k32, p32, relative=True)
                + errors(k32, twin(m32, *a32, **kw32), relative=True))
-        tol32 = TOL32[STATIC_TWINS[kname]]
+        tol32 = TOL32[twins[kname]]
         if max(e64) > TOL64:
             failures.append(f"{label}: float64 max abs error {max(e64):.3e}")
         if max(e32) > tol32:
@@ -4390,7 +4471,7 @@ def static_checks(checks, m64, m32, smi: str, rows: dict, tag: str):
                                        ops, "float32")
             rows[row] = dict(
                 name=row, route="cuda", source=STATIC_SOURCE,
-                replaces=kernel_table()[STATIC_TWINS[kname]][3],
+                replaces=kernel_table()[twins[kname]][3],
                 max_abs_err=0.0, ms=cuda_ms(fn, reps=20), graph_ms=graph_ms(fn),
                 plain_ms=plain_ms, table_ms=cuda_ms(tw, reps=20),
                 table_graph_ms=graph_ms(tw), bound_ms=bound_ms,
@@ -4402,7 +4483,7 @@ def static_checks(checks, m64, m32, smi: str, rows: dict, tag: str):
                       f" by graph replay), bound {bound_ms:.6f} ms by "
                       f"{bound_by} ({ops:.4g} operations)")
         rows[row]["max_abs_err"] = max(rows[row]["max_abs_err"], max(e64[:1]))
-        print(f"phase 25 {label}: inputs "
+        print(f"phase {phase} {label}: inputs "
               f"{' '.join(str(tuple(a.shape)) for a in a64)}  f64 max|err| "
               f"vs plain lane, vs table {fmt(e64)}  f32 rel err {fmt(e32)} "
               f"(bounds {TOL64:g}, {tol32:g}){timing} (f32, {smi})")
@@ -4639,7 +4720,9 @@ def static_phase(smi: str, rows: dict):
                   ("arm7", "arm7", {}),
                   ("rpy quadruped", "quadruped12",
                    {"floating_base": True}))]
-    static_build(models, smi)
+    # phase 26's kernels (K2, K3 and K4 specialised) build here too, every
+    # source at once
+    static_build(models, smi, static_ees(models))
     took("the build")
     for (tag, m64, m32), (B_step, B_minv), seed in zip(
             models, ((128, B1), (B3, B3)), (SEED + 141, SEED + 142)):
@@ -4666,6 +4749,314 @@ def static_phase(smi: str, rows: dict):
     took("path O")
     for tag, _, _ in models:
         for kname in STATIC_TWINS:
+            rows[kname + tag_suffix(tag)]["launches"] = counts[tag][kname]
+
+
+# ---- phase 26: paths P and Q, the DDP solve on the model-specialised
+# kernels ----
+# each specialised solver kernel (K2, K3 and K4 through K0) and its table
+# twin
+SOLVER_TWINS = {"feedback_rollout_static": "feedback_rollout",
+                "linearize_parts_static": "linearize_parts",
+                "ee_gn_static": "ee_gn", "ee_err_static": "ee_err"}
+# the sources of phase 26's kernels in the specialised libraries
+SOLVER_SOURCES = ("feedback.cu", "feedback_fext.cu", "linearize.cu",
+                  "ee_gn.cu", "ee_err.cu")
+# the table kernels of K1-K4 that a specialised solve must not launch
+TABLE_SOLVER = ("fd_step", "feedback_rollout", "feedback_rollout_fext",
+                "linearize_parts", "ee_gn", "ee_err", "feedback_chunked",
+                "feedback_chunked_fext")
+# the float64 parities of paths P and Q: problems, knots; the knots of
+# arm7's clamped line-search checks
+PARITY_PQ, CLAMP_H = (4, 20), 20
+
+
+def plain_lane_feedback(m, x0, Xn, Un, kf, K, u_clip=None, f_ext=None):
+    """``feedback_rollout_static_plain``'s result by the same operations,
+    faster: one knot of ``feedback_lane`` on (B,) tensors (its ~2.4-7k
+    operators) captured in a CUDA graph on fixed buffers and replayed for
+    each of the H knots."""
+    import torch
+    from rbdtpu_torch.kernels import fused
+
+    ms = fused.get_static(m)
+    B, H = Un.shape[:2]
+    x = x0.clone()
+    xt, ut, kt = Xn[:, 0].clone(), Un[:, 0].clone(), kf[:, 0].clone()
+    Kt = K[:, 0].reshape(B, -1).clone()
+    fe = None if f_ext is None else f_ext[0].clone()
+    uc = None if u_clip is None else list(u_clip.unbind(0))
+    L = fused._lanes
+
+    def knot():
+        q_new, qd_new, u = fused.feedback_lane(
+            ms, L(x), L(xt), L(ut), L(kt), L(Kt), DT, GRAVITY, uc,
+            None if fe is None else fused._fext_lanes(ms, fe, B))
+        return fused._stack(list(q_new) + list(qd_new), x), fused._stack(u, x)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        knot()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        xo, uo = knot()
+    Xs, Us = torch.empty_like(Xn), torch.empty_like(Un)
+    for t in range(H):
+        xt.copy_(Xn[:, t])
+        ut.copy_(Un[:, t])
+        kt.copy_(kf[:, t])
+        Kt.copy_(K[:, t].reshape(B, -1))
+        if fe is not None:
+            fe.copy_(f_ext[t])
+        g.replay()
+        Xs[:, t].copy_(xo)
+        Us[:, t].copy_(uo)
+        x.copy_(xo)
+    return Xs, Us
+
+
+def solver_static_checks(models, smi: str, rows: dict):
+    """Phase 26's kernel checks, each specialised kernel against its plain
+    lane version and its table twin at the table rows' shapes (float64 <=
+    TOL64, float32 the twin's bound; ``static_checks``): K2 at 1,024 x 100
+    (arm7, ``kernel_inputs``' stabilising gains) and ALPHAS3 * B3 x H3
+    (the quadruped, ``quadruped_kernel_inputs``), bare, then with a clamp
+    at 0.8 of each joint's largest unclamped control (arm7 over CLAMP_H
+    knots), and with that clamp under 0.5 N(0,1) per-knot wrenches; K3 at 12,800 and B3 * H3 knots; K4 on
+    arm7's effector (``ee_gn`` at 12,800 and 128 states, ``ee_err`` at
+    102,400 and 1,024) and on the quadruped's FL_knee at path E's 51,200
+    and 307,200 states (``foot_kernels``' configurations)."""
+    import torch
+    from rbdtpu_torch.kernels import fused
+
+    for tag, m64, m32 in models:
+        if m64.floating_base:
+            inp = quadruped_kernel_inputs(m64, np.random.default_rng(
+                SEED + 151))
+            rng = np.random.default_rng(SEED + 152)
+
+            def qs(B):
+                x0, _ = quadruped_problems(m64, B, 1, rng)
+                q = x0[:, :m64.nq]
+                return (q + torch.tensor(0.1 * rng.standard_normal(q.shape),
+                                         dtype=q.dtype, device=q.device)
+                        ).contiguous()
+
+            ee = {"target": TARGET_E, "ee_names": foot_ee(m64)}
+            ees = [("ee_gn_static", qs(B3 * H3)),
+                   ("ee_err_static", qs(ALPHAS3 * B3 * H3))]
+        else:
+            inp = kernel_inputs(m64, np.random.default_rng(SEED + 150))
+            ee = {"target": TARGET}
+            (q_gn,), (q_err,) = inp["ee_gn"], inp["ee_err"]
+            ees = [("ee_gn_static", q_gn), ("ee_gn_static", q_gn[:128]),
+                   ("ee_err_static", q_err), ("ee_err_static", q_err[:1024])]
+        fb = inp["feedback_rollout"]
+        B, H = fb[2].shape[:2]
+        checks = [(f"feedback_rollout_static {tag} B={B} H={H}",
+                   "feedback_rollout_static", fb, {}, "feedback_rollout",
+                   B * H)]
+        # the clamp at 0.8 of each joint's largest unclamped control (1 N m
+        # at least: arm7's joints 0 and 6 carry no gravity load), over
+        # CLAMP_H knots on arm7, whose stiff clamped loop parts float32
+        # from float64 over 100
+        Hc = H if m64.floating_base else CLAMP_H
+        fbc = tuple(a[:, :Hc].contiguous() if a.dim() > 2 else a
+                    for a in fb)
+        applied = fused.feedback_rollout_fused(m64, *fbc, DT, GRAVITY)[1]
+        clip = (0.8 * applied.abs().amax((0, 1))).clamp(min=1.0)
+        F = push_wrenches(m64, Hc, 0.5, SEED + 153, newtons=0.0)
+        checks += [(f"feedback_rollout_static {tag}{lab} B={B} H={Hc}",
+                    "feedback_rollout_static", fbc, kw,
+                    "feedback_rollout" + ("+fext" if "f_ext" in kw else ""),
+                    B * Hc)
+                   for lab, kw in ((" clip", {"u_clip": clip.contiguous()}),
+                                   (" clip f_ext (H,nb,6)",
+                                    {"u_clip": clip.contiguous(),
+                                     "f_ext": F}))]
+        lin = inp["linearize_parts"]
+        checks.append((f"linearize_parts_static {tag} B={len(lin[0])}",
+                       "linearize_parts_static", lin, {}, "linearize_parts",
+                       len(lin[0])))
+        checks += [(f"{k} {tag} B={len(q)}", k, (q,), ee,
+                    k[:-len("_static")], len(q)) for k, q in ees]
+        static_checks(checks, m64, m32, smi, rows, tag_suffix(tag), phase=26)
+
+
+def static_solve_path(label: str, spec, table, J0, per_solve: dict,
+                      iters: int, Bm: int, smi: str) -> dict:
+    """One specialised solve path in float32: a warm-up solve, then three
+    timed ones (``spec``, CUDA events) with the counts set to 0 just
+    before; each kernel of ``per_solve`` launched that many times a solve,
+    no table kernel of K1-K4 (TABLE_SOLVER) and no plain sweep; J finite,
+    nonincreasing from J0 (the specialised route's own starting cost) and
+    falling on the mean.  Then the table route (``table``) timed the same
+    way in the same run, and the specialised solve's profile (device time
+    by kernel).  Returns the counts of the three specialised solves."""
+    import torch
+    from rbdtpu_torch.kernels import _lib
+    from rbdtpu_torch.solver import ddp
+
+    spec()
+    torch.cuda.synchronize()
+    plain_sweeps = []
+    plain = ddp.backward_pass
+    ddp.backward_pass = lambda *a, **kw: plain_sweeps.append(1) or plain(
+        *a, **kw)
+    _lib.reset_launches()
+    try:
+        (state, J_hist), times = timed_runs(spec, warm=False)
+    finally:
+        ddp.backward_pass = plain
+    counts = dict(_lib.launches)
+    print(f"{label} launches (3 solves): "
+          f"{ {k: v for k, v in counts.items() if v} }; plain sweeps "
+          f"{len(plain_sweeps)}")
+    for k, v in per_solve.items():
+        require(counts[k] == 3 * v if v else counts[k] > 0,
+                f"{label}: {k} launched {counts[k]} times in 3 solves, "
+                f"expected {3 * v if v else 'some'}")
+    table_runs = {k: counts[k] for k in TABLE_SOLVER if counts[k]}
+    require(not table_runs, f"{label}: table kernels launched {table_runs}")
+    require(tuple(J_hist.shape) == (iters, Bm), f"J_hist {J_hist.shape}")
+    require(bool(J_hist.isfinite().all()), f"{label}: non-finite J")
+    require(bool((J_hist[1:] <= J_hist[:-1]).all()) and bool(
+        (J_hist[0] <= J0 * (1 + 1e-6)).all()), f"{label}: J increased")
+    require(J_hist[-1].mean() < J0.mean(), f"{label}: mean J did not fall")
+    _, table_times = timed_runs(table)
+    sec, tsec = statistics.median(times), statistics.median(table_times)
+    print(f"{label}: Bm={Bm} iters={iters} f32 specialised: mean J "
+          f"{J0.mean().item():.6g} -> {J_hist[-1].mean().item():.6g}; solve "
+          f"{sec * 1e3:.1f} ms (median of 3: "
+          f"{' '.join(f'{t * 1e3:.1f}' for t in times)}, CUDA events) = "
+          f"{Bm / sec:.1f} solves/s; table route {tsec * 1e3:.1f} ms (median "
+          f"of 3: {' '.join(f'{t * 1e3:.1f}' for t in table_times)}) on "
+          f"{smi}")
+    profile_main_path(spec, cpu=False)
+    return counts
+
+
+def path_p(m32, smi: str) -> dict:
+    """Path P: configs[2] (the main path's problems, Bm=128, H=100, 10
+    iterations, 8 steps, float32) through ``ddp_solve`` with
+    ``DDPConfig(fused=True, specialize=True)`` and
+    ``ee_reaching_cost(specialize=True)``: K1·K0 100 times a solve, K2·K0
+    and K3·K0 once an iteration, K4·K0 (``ee_gn_static``,
+    ``ee_err_static``) every quadratisation and cost, the table K1-K4
+    never; beside the table route (``DDPConfig(fused=True)``)."""
+    from rbdtpu_torch.kernels.fused import fd_step_fused
+    from rbdtpu_torch.solver import ee_reaching_cost, trajectory_cost
+    import torch
+
+    Bm, H, iters = 128, 100, 10
+    x0, U0 = start_problems(m32, Bm, H, np.random.default_rng(SEED + 1))
+    xs = [x0]
+    for t in range(H):
+        xs.append(fd_step_fused(m32, xs[-1], U0[:, t].contiguous(), DT,
+                                GRAVITY, specialize=True))
+    J0 = trajectory_cost(ee_reaching_cost(m32, TARGET, specialize=True,
+                                          **WEIGHTS),
+                         torch.stack(xs, dim=-2), U0)
+    return static_solve_path(
+        "path P", lambda: solve(m32, x0, U0, True, iters, specialize=True),
+        lambda: solve(m32, x0, U0, True, iters), J0,
+        {"fd_step_static": H, "feedback_rollout_static": iters,
+         "linearize_parts_static": iters, "ee_gn_static": 0,
+         "ee_err_static": 0}, iters, Bm, smi)
+
+
+def path_q(q32, smi: str) -> dict:
+    """Path Q: configs[3] (B3 rpy quadrupeds, H3 knots, ITERS3 iterations,
+    ALPHAS3 steps, float32) with ``specialize=True``: K1·K0 H3 times a
+    solve, K2·K0, K3·K0 and the table K7 once an iteration, the table
+    K1-K3 never; beside the table route."""
+    from rbdtpu_torch.kernels.fused import fd_step_fused
+    from rbdtpu_torch.solver import trajectory_cost
+    import torch
+
+    x0, U0 = quadruped_problems(q32, B3, H3, np.random.default_rng(SEED + 30))
+    xs = [x0]
+    for t in range(H3):
+        xs.append(fd_step_fused(q32, xs[-1], U0[:, t].contiguous(), DT,
+                                GRAVITY, specialize=True))
+    J0 = trajectory_cost(quadruped_cost(q32), torch.stack(xs, dim=-2), U0)
+    return static_solve_path(
+        "path Q", lambda: quadruped_solve(q32, x0, U0, ITERS3, True,
+                                          specialize=True),
+        lambda: quadruped_solve(q32, x0, U0, ITERS3, True), J0,
+        {"fd_step_static": H3, "feedback_rollout_static": ITERS3,
+         "linearize_parts_static": ITERS3, "riccati_chunk": ITERS3},
+        ITERS3, B3, smi)
+
+
+def static_parity(label: str, spec, plain, table):
+    """Float64: the specialised solve against the plain route and the table
+    route on the same problems, max |dU| < U_PARITY each."""
+    sk, _ = spec()
+    for route, fn in (("plain", plain), ("table", table)):
+        so, _ = fn()
+        du = (sk.U - so.U).abs().max().item()
+        dj = ((sk.J - so.J).abs() / so.J.abs().clamp(min=1)).max().item()
+        print(f"{label} parity f64 Bm={PARITY_PQ[0]} H={PARITY_PQ[1]}: "
+              f"max|U_specialised - U_{route}| {du:.3e} (bound "
+              f"{U_PARITY:g}); max rel |dJ| {dj:.3e}")
+        require(du < U_PARITY, f"{label}: specialised against {route} "
+                f"route {du:.3e} >= {U_PARITY:g}")
+
+
+def solver_static_phase(smi: str, rows: dict):
+    """Phase 26: the specialised K2, K3 and K4 (built with phase 25's
+    libraries, or here when run alone; their sources' build seconds and
+    ptxas lines printed) held against their plain lane versions and table
+    twins (``solver_static_checks``); path P (``path_p``) and path Q
+    (``path_q``), each with its float64 parity at PARITY_PQ (configs[2]
+    ITERS of the main path, configs[3] ITERS3).  Every new row's launches
+    come from path P (arm7) or path Q (the quadruped; its effector kernels
+    run on no path)."""
+    import torch
+    from rbdtpu_torch.model import load_asset
+
+    clock = time.perf_counter()
+
+    def took(step: str):
+        nonlocal clock
+        print(f"phase 26: {step} took {time.perf_counter() - clock:.1f} s")
+        clock = time.perf_counter()
+
+    models = [(tag, *(load_asset(name, device="cuda", dtype=dt, **kw)
+                      for dt in (torch.float64, torch.float32)))
+              for tag, name, kw in (
+                  ("arm7", "arm7", {}),
+                  ("rpy quadruped", "quadruped12",
+                   {"floating_base": True}))]
+    static_build(models, smi, static_ees(models), phase=26,
+                 sources=SOLVER_SOURCES)
+    took("the build")
+    solver_static_checks(models, smi, rows)
+    took("the kernel checks")
+    (_, a64, a32), (_, q64, q32) = models
+    counts = {"arm7": path_p(a32, smi)}
+    took("path P")
+    x0, U0 = start_problems(a64, *PARITY_PQ, np.random.default_rng(SEED + 2))
+    static_parity(
+        "path P", lambda: solve(a64, x0, U0, True, 10, specialize=True),
+        lambda: solve(a64, x0, U0, False, 10),
+        lambda: solve(a64, x0, U0, True, 10))
+    took("path P's parity")
+    counts["rpy quadruped"] = path_q(q32, smi)
+    took("path Q")
+    x0, U0 = quadruped_problems(q64, *PARITY_PQ,
+                                np.random.default_rng(SEED + 40))
+    static_parity(
+        "path Q", lambda: quadruped_solve(q64, x0, U0, ITERS3, True,
+                                          specialize=True),
+        lambda: quadruped_solve(q64, x0, U0, ITERS3, False),
+        lambda: quadruped_solve(q64, x0, U0, ITERS3, True))
+    took("path Q's parity")
+    for tag, _, _ in models:
+        for kname in SOLVER_TWINS:
             rows[kname + tag_suffix(tag)]["launches"] = counts[tag][kname]
 
 
@@ -4927,7 +5318,13 @@ def main() -> int:
     static_phase(smi, rows)
     print(f"chip_smoke: phase 25 took {time.perf_counter() - t25:.1f} s")
 
-    print(f"chip_smoke: phases 1-25 took {time.perf_counter() - clock:.1f} s")
+    mark(26)
+    # ---- 26. paths P and Q: the solve on the model-specialised kernels ----
+    t26 = time.perf_counter()
+    solver_static_phase(smi, rows)
+    print(f"chip_smoke: phase 26 took {time.perf_counter() - t26:.1f} s")
+
+    print(f"chip_smoke: phases 1-26 took {time.perf_counter() - clock:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [
         {k: rows[n_][k] for k in (

@@ -3,9 +3,10 @@ version.  ``_lib.launches`` counts the launches of each kernel (K2 and K9
 with wrenches apart).  The tree kernels K1-K6, K9 and K10 cover
 fixed-base models (up to 8 bodies), the rpy floating root and the
 quaternion root (up to 32 bodies); the Riccati sweeps (K7/K8 chunked, K11
-at nx <= 16) take no model.  With ``specialize=True``, K10, K1, K6 and K5
-launch kernels generated for the model itself (K0: ``lanescalar``,
-``codegen``; their plain versions are the lane sweeps of ``fused``)."""
+at nx <= 16) take no model.  With ``specialize=True``, K10, K1, K6, K5,
+K2, K3 and K4 launch kernels generated for the model itself (K0:
+``lanescalar``, ``codegen``; their plain versions are the lane sweeps of
+``fused``, ``colvec`` and ``fk_lane``)."""
 from ._lib import launches, reset_launches
 from .fused import (
     fd_step_fused, fd_step_plain, feedback_rollout_fused,

@@ -476,14 +476,17 @@ def team_args(kernel: str, model, ref: torch.Tensor, B: int,
 # feedback_chunked is the line search's chunked-gain kernel (K9), counted
 # apart from feedback_rollout (K2); feedback_rollout_fext and
 # feedback_chunked_fext are K2 and K9 with wrenches; the *_static kernels
-# are K10, K1, K6 and K5 specialised to a model (class "static").
+# are K10, K1, K6, K5, K2 (with or without wrenches), K3 and K4 specialised
+# to a model (class "static").
 launches = {"fd_step": 0, "feedback_rollout": 0, "linearize_parts": 0,
             "ee_gn": 0, "ee_err": 0, "rnea": 0, "fd_step_minv": 0,
             "rollout_multi": 0, "riccati_chunk": 0, "riccati_small": 0,
             "riccati_fused": 0, "feedback_chunked": 0,
             "feedback_rollout_fext": 0, "feedback_chunked_fext": 0,
             "rnea_static": 0, "fd_step_static": 0, "fd_step_minv_static": 0,
-            "rollout_multi_static": 0}
+            "rollout_multi_static": 0, "feedback_rollout_static": 0,
+            "linearize_parts_static": 0, "ee_gn_static": 0,
+            "ee_err_static": 0}
 # the same launches of the kernels that take a model, by (kernel, size
 # class): one kernel's instantiations apart
 class_launches = collections.Counter()
@@ -777,7 +780,8 @@ def launch(kernel: str, model, ref: torch.Tensor, *args, count_as=None):
 # ----------------------------------------------------------------------- #
 
 STATIC_KERNELS = ("rnea_static", "fd_step_static", "fd_step_minv_static",
-                  "rollout_multi_static")
+                  "rollout_multi_static", "feedback_rollout_static",
+                  "linearize_parts_static", "ee_gn_static", "ee_err_static")
 # the C signatures of the table kernels they shadow, less the tables, the
 # shared memory and the gravity (folded into the code)
 _STATIC_SIGNATURES = {
@@ -786,6 +790,15 @@ _STATIC_SIGNATURES = {
     # x u fext fext_stride xo B dense tpb dt
     "fd_step_minv_static": "pppipiiis",
     "rollout_multi_static": "ppppiiiis",  # x0 U fext xo B H minv tpb dt
+    # x0 Xn Un kf Kf fext uclip Xo Uo B H tpb dt (fext, uclip may be null)
+    "feedback_rollout_static": "pppppppppiiis",
+    "linearize_parts_static": "pppppppii",  # q qd u Minv dcq dcd qdd B tpb
+}
+# the effector's library (one a model, dtype and effector): its chain, fixed
+# frame and offset are folded in, the target is read at run time
+_STATIC_EE_SIGNATURES = {
+    "ee_gn_static": "pssspppii",          # q tx ty tz e g0 H0 B tpb
+    "ee_err_static": "pssspii",           # q tx ty tz e B tpb
 }
 MODEL_BUILD_DIR = os.path.join(BUILD_DIR, "models")
 # threads a block of a specialised launch (the kernels' __launch_bounds__),
@@ -873,33 +886,37 @@ def build_static(gens) -> list:
     return dirs
 
 
-def bind_static(so: str, dtype) -> ctypes.CDLL:
-    """Load a specialised library generated in ``dtype`` and declare its
-    entry points (also for a host build of the sources, whose stream
-    argument is ignored)."""
+def bind_static(so: str, dtype, ee: bool = False) -> ctypes.CDLL:
+    """Load a specialised library generated in ``dtype`` (a model's, or
+    with ``ee`` an effector's) and declare its entry points (also for a
+    host build of the sources, whose stream argument is ignored)."""
     lib = ctypes.CDLL(so)
     codes = {"p": ctypes.c_void_p, "i": ctypes.c_int, "s": _CTYPE[dtype]}
-    for k, sig in _STATIC_SIGNATURES.items():
+    sigs = _STATIC_EE_SIGNATURES if ee else _STATIC_SIGNATURES
+    for k, sig in sigs.items():
         fn = getattr(lib, f"rbd_{k}")
         fn.argtypes = [codes[c] for c in sig] + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def prepare_static(pairs, gravity: float = -9.81) -> list:
+def prepare_static(pairs, gravity: float = -9.81, ees=()) -> list:
     """Generate, build (all together) and load the specialised libraries
-    of every (model, dtype) in ``pairs``; returns their build
-    directories."""
+    of every (model, dtype) in ``pairs`` and the effector libraries of
+    every (model, dtype, jid, fid) in ``ees``; returns their build
+    directories, the models' then the effectors'."""
     from . import codegen
 
-    need = [(m, dt) for m, dt in pairs
-            if ("static_lib", dt, float(gravity)) not in m._tables]
-    gens = [codegen.generate(m, dt, gravity) for m, dt in need]
+    keys = [(m, ("static_lib", dt, float(gravity))) for m, dt in pairs]
+    keys += [(m, ("static_ee", dt, jid, fid)) for m, dt, jid, fid in ees]
+    need = [(m, k) for m, k in keys if k not in m._tables]
+    gens = [codegen.generate(m, k[1], gravity) if k[0] == "static_lib"
+            else codegen.generate_ee(m, k[1], k[2], k[3]) for m, k in need]
     dirs = build_static(gens)
-    for (m, dt), d in zip(need, dirs):
-        m._tables[("static_lib", dt, float(gravity))] = (
-            bind_static(os.path.join(d, "lib.so"), dt), d)
-    return [model_library(m, dt, gravity)[1] for m, dt in pairs]
+    for (m, k), d in zip(need, dirs):
+        m._tables[k] = (bind_static(os.path.join(d, "lib.so"), k[1],
+                                    ee=k[0] == "static_ee"), d)
+    return [m._tables[k][1] for m, k in keys]
 
 
 def model_library(model, dtype, gravity: float = -9.81):
@@ -912,14 +929,27 @@ def model_library(model, dtype, gravity: float = -9.81):
     return model._tables[key]
 
 
-def launch_static(kernel: str, model, ref: torch.Tensor, gravity: float,
-                  *args):
+def ee_library(model, dtype, jid: int, fid):
+    """(the loaded library, its build directory) of the effector kernels
+    of ``model`` in ``dtype`` for the effector at joint ``jid`` and fixed
+    frame ``fid`` (or None), generated and built at first use."""
+    key = ("static_ee", dtype, jid, fid)
+    if key not in model._tables:
+        prepare_static([], ees=[(model, dtype, jid, fid)])
+    return model._tables[key]
+
+
+def launch_static(kernel: str, model, ref: torch.Tensor, gravity, *args,
+                  ee=None):
     """Launch the specialised ``kernel`` (STATIC_KERNELS) of ``model`` on
-    ref's device and dtype, on the current stream; ``args`` follow its C
-    signature.  Raises on a nonzero cudaError; counts the launch in
-    ``launches`` and ``class_launches`` (class "static")."""
+    ref's device and dtype, on the current stream, from the model's
+    library under ``gravity`` or, for K4, from the library of the effector
+    ``ee`` = (jid, fid); ``args`` follow its C signature.  Raises on a
+    nonzero cudaError; counts the launch in ``launches`` and
+    ``class_launches`` (class "static")."""
     _check_dtype(kernel, ref)
-    lib, _ = model_library(model, ref.dtype, gravity)
+    lib, _ = (model_library(model, ref.dtype, gravity) if ee is None
+              else ee_library(model, ref.dtype, *ee))
     fn = getattr(lib, f"rbd_{kernel}")
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(ref.device):

@@ -284,9 +284,10 @@ def feedback_rollout_plain(model: RobotModel, x0, X_nom, U_nom, k_ff, K_fb,
 
 def feedback_rollout_fused(model: RobotModel, x0, X_nom, U_nom, k_ff, K_fb,
                            dt: float, gravity: float = -9.81, u_clip=None,
-                           f_ext=None):
+                           f_ext=None, specialize: bool = False):
     """The line-search rollout of ``feedback_rollout_plain``, one launch for
-    the whole horizon.
+    the whole horizon.  ``specialize=True`` takes the model-specialised
+    kernel ``feedback_rollout_static`` (``_static_feedback``).
 
     Kernel ``feedback_rollout`` (csrc/feedback_rollout.cu) replaces rbdtpu's
     ``kernels.fused.feedback_rollout_fused`` (Pallas, fused.py:611, one
@@ -315,6 +316,9 @@ def feedback_rollout_fused(model: RobotModel, x0, X_nom, U_nom, k_ff, K_fb,
     once a block, in the cp.async group of the knot's gains, into two
     stages the block's teams share.
     """
+    if specialize:
+        return _static_feedback(model, x0, X_nom, U_nom, k_ff, K_fb, dt,
+                                gravity, u_clip, f_ext)
     if not x0.is_cuda:
         return feedback_rollout_plain(model, x0, X_nom, U_nom, k_ff, K_fb,
                                       dt, gravity, u_clip, f_ext)
@@ -876,6 +880,62 @@ def _rnea_sweeps_lane(ms: ModelStatic, X, qd, qdd, gravity, f_ext=None):
     return v, a, f, tau
 
 
+def _dx_rows(ms: ModelStatic, x, xn):
+    """The tangent difference dx (2 nv lane scalars) of the state x from the
+    nominal xn (nx-lists): x - xn, or on the quaternion root the manifold
+    difference [quat_log_rel, R0^T dp, the flat rows] (rbdtpu
+    fused.py:591-608, the lane twin of ``solver.integrate.state_diff``)."""
+    nx = ms.nq + ms.nv
+    if not (ms.fb and ms.quat):
+        return [x[i] - xn[i] for i in range(nx)]
+    dth = ls.quat_log_rel(
+        (xn[3], xn[4], xn[5], xn[6]), (x[3], x[4], x[5], x[6])
+    )
+    R0 = ls.quat_R(xn[3], xn[4], xn[5], xn[6])
+    d = [x[i] - xn[i] for i in range(3)]
+    dp = [
+        R0[0][k] * d[0] + R0[1][k] * d[1] + R0[2][k] * d[2]
+        for k in range(3)
+    ]  # R0^T (p - p_nom): the world delta in the nominal body frame
+    return list(dth) + dp + [x[i] - xn[i] for i in range(7, nx)]
+
+
+def _clamp_lane(u, c):
+    """u clamped to [-c, c] for a runtime bound c (a 0-d tensor beside (B,)
+    lanes, or the generator's symbolic bound): one operation, NaN staying
+    NaN (torch.clamp; rbdtpu's jnp.clip)."""
+    if isinstance(u, torch.Tensor):
+        return torch.clamp(u, -c, c)
+    return u.clamp_sym(c)
+
+
+def feedback_lane(ms: ModelStatic, x, Xt, Ut, kt, Kt, dt, gravity,
+                  u_clip=None, f_ext=None):
+    """One knot of the line-search rollout on lane scalars, rbdtpu's
+    kernel body (fused.py:695-709): u = U_t + k_t + K_t dx with dx the
+    tangent difference from X_t (``_dx_rows``), each u_i clamped to
+    [-u_clip_i, u_clip_i] when u_clip is given, then ABA under the
+    world wrenches f_ext (nb 6-lists) and the semi-implicit step.  x, Xt:
+    nx-lists; Ut, kt: nv-lists; Kt: the nv x 2 nv gain row-major.
+    Returns (q', qd', u)."""
+    nq, nv = ms.nq, ms.nv
+    ndx = 2 * nv
+    dx = _dx_rows(ms, x, Xt)
+    u = []
+    for i in range(nv):
+        acc = Ut[i] + kt[i]
+        for j in range(ndx):
+            acc = acc + Kt[i * ndx + j] * dx[j]
+        if u_clip is not None:
+            acc = _clamp_lane(acc, u_clip[i])
+        u.append(acc)
+    q_s, qd_s = x[:nq], x[nq:]
+    qdd = aba_lane(ms, q_s, qd_s, u, gravity, f_ext=f_ext)
+    qd_new = [qd_s[i] + dt * qdd[i] for i in range(nv)]
+    q_new = _integrate_q_lane(ms, q_s, qd_new, dt)
+    return q_new, qd_new, u
+
+
 # ----------------------------------------------------------------------- #
 # the model-specialised kernels (``specialize=True``) and their plain      #
 # versions, the lane sweeps above on (B,) tensors                          #
@@ -1008,3 +1068,48 @@ def _static_rollout(model: RobotModel, x0, U, dt: float, gravity: float,
                        f_ext, xo, B, H, int(route == "minv"),
                        _lib.STATIC_THREADS, dt)
     return xo
+
+
+def feedback_rollout_static_plain(model: RobotModel, x0, X_nom, U_nom, k_ff,
+                                  K_fb, dt: float, gravity: float = -9.81,
+                                  u_clip=None, f_ext=None):
+    """H ``feedback_lane`` knots on (B, n) tensors, shapes as
+    ``feedback_rollout_plain``: the plain version of
+    ``feedback_rollout_static``."""
+    ms = get_static(model)
+    B, H = U_nom.shape[0], U_nom.shape[1]
+    uc = None if u_clip is None else list(u_clip.unbind(0))
+    x = _lanes(x0)
+    xs, us = [], []
+    for t in range(H):
+        fe = None if f_ext is None else _fext_lanes(ms, f_ext[t], B)
+        q_new, qd_new, u = feedback_lane(
+            ms, x, _lanes(X_nom[:, t]), _lanes(U_nom[:, t]),
+            _lanes(k_ff[:, t]), _lanes(K_fb[:, t].reshape(B, -1)), dt,
+            gravity, uc, fe)
+        x = list(q_new) + list(qd_new)
+        xs.append(_stack(x, x0))
+        us.append(_stack(u, x0))
+    return torch.stack(xs, dim=1), torch.stack(us, dim=1)
+
+
+def _static_feedback(model: RobotModel, x0, X_nom, U_nom, k_ff, K_fb,
+                     dt: float, gravity: float, u_clip, f_ext):
+    """Kernel ``feedback_rollout_static``, K2 specialised to the model: one
+    thread a trajectory loops over the H knots, each ``feedback_lane``'s
+    straight-line code (kernels/codegen.py) with K1's ABA step body
+    inlined, so the state stays in registers from knot to knot; the gains,
+    nominals, the clamp (u_clip, (nv,), read at run time) and the knot's
+    world wrenches f_ext[t] ((H, nb, 6)) are read at run time.  Replaces
+    rbdtpu's ``feedback_rollout_fused`` body (fused.py:695-709).  A CPU
+    tensor runs ``feedback_rollout_static_plain``."""
+    if not x0.is_cuda:
+        return feedback_rollout_static_plain(model, x0, X_nom, U_nom, k_ff,
+                                             K_fb, dt, gravity, u_clip, f_ext)
+    _, B, H, Xo, Uo = _feedback_launch_args(
+        "feedback_rollout", model, x0, X_nom, U_nom, k_ff, K_fb, u_clip,
+        f_ext)
+    _lib.launch_static("feedback_rollout_static", model, x0, gravity, x0,
+                       X_nom, U_nom, k_ff, K_fb, f_ext, u_clip, Xo, Uo, B, H,
+                       _lib.STATIC_THREADS, dt)
+    return Xo, Uo

@@ -76,7 +76,7 @@ def clip(x, lo: float, hi: float):
 def where(cond, a, b):
     """a where cond else b, for a comparison ``cond`` of lane scalars (a
     bool tensor, a Python bool, or the generator's symbolic comparison);
-    a and b are lane scalars, not both static."""
+    a and b lane scalars or static constants."""
     if isinstance(cond, bool):
         return a if cond else b
     if _is_tensor(cond):
@@ -396,9 +396,9 @@ def quat_log_rel(q0, q1):
     rx = aw * bx - ax * bw - ay * bz + az * by
     ry = aw * by + ax * bz - ay * bw - az * bx
     rz = aw * bz - ax * by + ay * bx - az * bw
-    # rbdtpu multiplies by sign(rw) in {-1, 1}: negation, exactly
-    neg = rw < 0
-    rw, rx, ry, rz = (where(neg, -r, r) for r in (rw, rx, ry, rz))
+    # the minimal-rotation sign fix by a factor in {-1, 1}, as rbdtpu
+    sgn = where(rw < 0, -1.0, 1.0)
+    rw, rx, ry, rz = sgn * rw, sgn * rx, sgn * ry, sgn * rz
     w = clip(rw, -1.0, 1.0)
     n2 = rx * rx + ry * ry + rz * rz
     n = sqrt(maximum(n2, 1e-12))

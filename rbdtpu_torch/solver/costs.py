@@ -134,6 +134,7 @@ def quadratic_tracking_cost(
 def ee_reaching_cost(
     model: RobotModel, target_xyz, *, w_ee=1.0, w_qd=1e-2, w_u=1e-4,
     w_ee_f=100.0, w_qd_f=1.0, ee_names=None, fused: bool | None = None,
+    specialize: bool = False,
 ) -> Cost:
     """Reach a Cartesian end-effector target: 0.5 w_ee |p_ee(q) - target|^2
     plus velocity and effort terms, with the Gauss-Newton quadratisation
@@ -149,7 +150,15 @@ def ee_reaching_cost(
     wrapper (``kernels.fk_lane.ee_gn_fused``), which follows the tensor's
     device: the kernel for CUDA tensors, its plain version for CPU tensors.
     None and True both do that; False always takes the plain version.
+    ``specialize=True`` passes ``specialize`` to that wrapper for both of
+    its kernels (gn True and False): the effector's model-specialised
+    kernels ``ee_gn_static`` / ``ee_err_static`` (K4·K0) on CUDA tensors,
+    their plain lane version on CPU tensors; with ``fused=False`` it
+    raises ValueError.
     """
+    if specialize and fused is False:
+        raise ValueError("specialize=True takes the ee_gn kernel's "
+                         "model-specialised form: fused must not be False")
     target = tuple(float(t) for t in target_xyz)
     nq, nv = model.nq, model.nv
     nb_q = nv  # the configuration block in the solver chart
@@ -159,9 +168,13 @@ def ee_reaching_cost(
         """(e, J^T e, J^T J) at the states x (..., nx); with gn=False,
         (e, None, None)."""
         lead = x.shape[:-1]
-        fn = ee_gn_plain if fused is False else ee_gn_fused
-        e, g0, H0 = fn(model, x[..., :nq].reshape(-1, nq).contiguous(),
-                       target, ee_names=ee_names, gn=gn)
+        q = x[..., :nq].reshape(-1, nq).contiguous()
+        if fused is False:
+            e, g0, H0 = ee_gn_plain(model, q, target, ee_names=ee_names,
+                                    gn=gn)
+        else:
+            e, g0, H0 = ee_gn_fused(model, q, target, ee_names=ee_names,
+                                    gn=gn, specialize=specialize)
         if not gn:
             return e.reshape(lead + (3,)), None, None
         return (e.reshape(lead + (3,)), g0.reshape(lead + (nv,)),

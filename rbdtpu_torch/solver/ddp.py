@@ -82,7 +82,18 @@ class DDPConfig:
     the TPU's VMEM (``kernels.fused.feedback_fused_ok``,
     ``feedback_chunks``), not a limit of the H100: it keeps both packages on
     the same algorithm for the same configuration, and the port's own bench
-    decides later whether the tier pays on this card."""
+    decides later whether the tier pays on this card.
+
+    ``specialize=True`` (with ``fused=True``) runs each of the solve's
+    model kernels as its model-specialised form (K0, rbdtpu's kernels are
+    always specialised): the step ``fd_step_static`` (K1·K0), the
+    linearisation ``linearize_parts_static`` (K3·K0) and the line search
+    ``feedback_rollout_static`` (K2·K0); on CPU tensors their plain lane
+    versions.  The backward pass takes no model and keeps its route.  A
+    route with no specialised kernel raises ValueError and never falls
+    back to the table kernel: the K9 tier (``fused_feedback=True`` past
+    rbdtpu's budget).  The cost's kernel is the cost's own choice
+    (``ee_reaching_cost(specialize=True)``)."""
     iters: int = 20
     dt: float = 0.01
     gravity: float = -9.81
@@ -103,6 +114,7 @@ class DDPConfig:
     fused_feedback: bool | None = None  # None follows ``fused``
     fused_riccati: bool | None = None
     u_limits: bool = False  # clamp controls to the URDF effort limits
+    specialize: bool = False  # the model-specialised kernels (K0)
 
 
 class DDPState(NamedTuple):
@@ -125,6 +137,9 @@ def _check_config(config: DDPConfig):
             "the exact-Hessian fxx terms; use the sequential sweep")
     if config.rollout_route not in ("aba", "minv"):
         raise ValueError(f"unknown rollout_route {config.rollout_route!r}")
+    if config.specialize and not config.fused:
+        raise ValueError("specialize=True takes the model-specialised "
+                         "kernels of the fused solve: set fused=True")
 
 
 def _backward_route(model: RobotModel, config: DDPConfig, on_card: bool):
@@ -180,7 +195,8 @@ def _make_step(model, config):
     if config.fused:
         def step(x, u, fe=None):
             xn = fd_step_fused(model, _flat(x), _flat(u), config.dt,
-                               config.gravity, f_ext=fe)
+                               config.gravity, f_ext=fe,
+                               specialize=config.specialize)
             return xn.reshape(x.shape)
         return step
     return lambda x, u, fe=None: _step_plain(
@@ -199,7 +215,7 @@ def _make_linearize(model, config):
         q, qd = split_state(model, X[..., :-1, :])
         lead = q.shape[:-1]
         A, B = linearize_fused(model, _flat(q), _flat(qd), _flat(U),
-                               config.dt, config.gravity)
+                               config.dt, config.gravity, config.specialize)
         return A.reshape(lead + A.shape[1:]), B.reshape(lead + B.shape[1:])
     return lin
 
@@ -313,11 +329,16 @@ def forward_pass(model: RobotModel, cost: Cost, X, U, k, K, alphas, dt,
 
 
 def forward_pass_fused(model: RobotModel, cost: Cost, X, U, k, K, alphas, dt,
-                       gravity, u_clip=None, nchunks=None, f_ext=None):
+                       gravity, u_clip=None, nchunks=None, f_ext=None,
+                       specialize: bool = False):
     """forward_pass with the whole alpha ladder x problem batch flattened
     into one launch (alpha folded into k): ``feedback_rollout`` (K2), or
     with ``nchunks`` its chunked-gain form ``feedback_chunked`` (K9); with
-    ``f_ext`` ((H, nb, 6), contiguous) their wrench variants."""
+    ``f_ext`` ((H, nb, 6), contiguous) their wrench variants; with
+    ``specialize`` K2's model-specialised kernel (K9 has none: ValueError)."""
+    if specialize and nchunks is not None:
+        raise ValueError("the line search's chunked route (K9) has no "
+                         "model-specialised kernel; use fused_feedback=None")
     n_alpha = alphas.shape[0]
     batch = U.shape[:-2]
     lead = (n_alpha,) + batch
@@ -330,7 +351,8 @@ def forward_pass_fused(model: RobotModel, cost: Cost, X, U, k, K, alphas, dt,
             flat(K), dt, gravity)
     if nchunks is None:
         X_tail, U_new = feedback_rollout_fused(*args, u_clip=u_clip,
-                                               f_ext=f_ext)
+                                               f_ext=f_ext,
+                                               specialize=specialize)
     else:
         X_tail, U_new = feedback_rollout_fused_chunked(
             *args, u_clip=u_clip, nchunks=nchunks, f_ext=f_ext)
@@ -366,6 +388,10 @@ def ddp_solve(model: RobotModel, cost: Cost, x0, U0,
     for b in batch:
         batch_total *= b
     fwd_route, nchunks = _feedback_route(model, config, batch_total)
+    if config.specialize and fwd_route == "chunked":
+        raise ValueError("the line search's route is 'chunked' (K9), which "
+                         "has no model-specialised kernel; use "
+                         "fused_feedback=None or specialize=False")
     route = _backward_route(model, config, x0.is_cuda)
     backward = {"parallel": backward_pass_parallel,
                 "fused": backward_pass_fused,
@@ -402,7 +428,7 @@ def ddp_solve(model: RobotModel, cost: Cost, x0, U0,
         if fwd_route != "plain":
             Xs, Us, Js = forward_pass_fused(model, cost, state.X, state.U, k,
                                             K, alphas, dt, gravity, u_clip,
-                                            nchunks, F)
+                                            nchunks, F, config.specialize)
         else:
             Xs, Us, Js = forward_pass(
                 model, cost, state.X, state.U, k, K, alphas, dt, gravity,

@@ -4,9 +4,12 @@ kernel a loop over the states) and called through ctypes in float64, held
 against the lane sweeps' plain versions on tensors at 1e-12 (the same
 operations in the same order; g++ on x86-64 contracts no FMA here).  All
 four kernels on arm7; K1, K6 (both routes) and K5 (H = 3) on the rpy and
-the quaternion quadruped.  Also: a model whose data differ in one inertia
-gets other sources and another build directory, and so does another
-gravity; the new modules import neither JAX nor rbdtpu.  Skips without a host C++ compiler."""
+the quaternion quadruped; the solver's K2, K3 and K4 (the effector's own
+library) on all three.  A library is built when a test first calls it,
+with at most JOBS g++ processes at once.  Also: a model whose data differ
+in one inertia gets other sources and another build directory, and so
+does another gravity; the new modules import neither JAX nor rbdtpu.
+The host builds skip without a host C++ compiler."""
 import ast
 import concurrent.futures
 import os
@@ -17,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from rbdtpu_torch.kernels import _lib, codegen, fused
+from rbdtpu_torch.kernels import _lib, codegen, colvec, fk_lane, fused
 from rbdtpu_torch.model import load_asset, make_model
 
 DT, GRAVITY, TOL = 0.01, -9.81, 1e-12
@@ -26,9 +29,15 @@ MODELS = {"arm7": ("arm7", {}),
           "quad_rpy": ("quadruped12", dict(floating_base=True)),
           "quad_quat": ("quadruped12", dict(floating_base=True,
                                             root_quat=True))}
+# each model's effector (None: the single leaf)
+EFFECTORS = {"arm7": None, "quad_rpy": ("FL_knee",),
+             "quad_quat": ("FL_knee",)}
 CASES = [("arm7", "k10"), ("arm7", "k1"), ("arm7", "k6"), ("arm7", "k5"),
          ("quad_rpy", "k1"), ("quad_rpy", "k6"), ("quad_rpy", "k5"),
          ("quad_quat", "k1"), ("quad_quat", "k6"), ("quad_quat", "k5")]
+SOLVER_CASES = [(key, k) for key in MODELS for k in ("k2", "k3", "k4")]
+# g++ processes at once: the other test files' workers share the host
+JOBS = 4
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -41,35 +50,45 @@ def _compile(cxx: str, d: str, name: str):
 
 
 @pytest.fixture(scope="module")
-def host_libs(tmp_path_factory):
-    """model key -> (model, host-built library of its float64 sources)."""
+def host_build(tmp_path_factory):
+    """build(key, ee=False) -> (model, host-built library of its float64
+    sources, or with ``ee`` of its effector's): a library is generated and
+    compiled (JOBS g++ at once, then one link) when a test first asks for
+    it, so a selection of the tests builds only the libraries it calls."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler (g++)")
     root = tmp_path_factory.mktemp("codegen")
-    built, jobs = {}, []
-    for key, (asset, kw) in MODELS.items():
-        m = load_asset(asset, device="cpu", dtype=torch.float64, **kw)
-        d = os.path.join(root, key)
+    models, libs = {}, {}
+
+    def build(key: str, ee: bool = False):
+        if (key, ee) in libs:
+            return libs[key, ee]
+        if key not in models:
+            asset, kw = MODELS[key]
+            models[key] = load_asset(asset, device="cpu",
+                                     dtype=torch.float64, **kw)
+        m = models[key]
+        gen = (codegen.generate_ee(m, torch.float64, *fk_lane._single_ee(
+            m, EFFECTORS[key])) if ee
+            else codegen.generate(m, torch.float64, GRAVITY))
+        d = os.path.join(root, key + ("_ee" if ee else ""))
         os.makedirs(d)
-        for name, text in codegen.generate(m, torch.float64,
-                                           GRAVITY).sources.items():
+        for name, text in gen.sources.items():
             with open(os.path.join(d, name), "w") as f:
                 f.write(text)
-            jobs.append((d, name))
-        built[key] = (m, d)
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        runs = list(pool.map(lambda j: _compile(cxx, *j), jobs))
-    failed = [f"{n}: {err}" for n, rc, err in runs if rc]
-    assert not failed, "\n".join(failed)
-    libs = {}
-    for key, (m, d) in built.items():
-        objs = sorted(os.path.join(d, n) for n in os.listdir(d)
-                      if n.endswith(".o"))
+        with concurrent.futures.ThreadPoolExecutor(JOBS) as pool:
+            runs = list(pool.map(lambda n: _compile(cxx, d, n), gen.sources))
+        failed = [f"{n}: {err}" for n, rc, err in runs if rc]
+        assert not failed, "\n".join(failed)
         so = os.path.join(d, "lib.so")
-        subprocess.run([cxx, "-shared", "-o", so, *objs], check=True)
-        libs[key] = (m, _lib.bind_static(so, torch.float64))
-    return libs
+        subprocess.run([cxx, "-shared", "-o", so,
+                        *[os.path.join(d, n[:-3] + ".o") for n in gen.sources]],
+                       check=True)
+        libs[key, ee] = (m, _lib.bind_static(so, torch.float64, ee=ee))
+        return libs[key, ee]
+
+    return build
 
 
 def _inputs(m, seed: int):
@@ -78,10 +97,15 @@ def _inputs(m, seed: int):
     q = T(0.3, B, m.nq)
     if m.root_quat:
         q[:, 3:7] /= q[:, 3:7].norm(dim=1, keepdim=True)
+    X_nom = torch.cat([q, T(0.1, B, m.nv)], 1)[:, None] + T(0.02, B, H, m.nx)
+    if m.root_quat:
+        X_nom[..., 3:7] /= X_nom[..., 3:7].norm(dim=-1, keepdim=True)
     return dict(q=q, qd=T(0.5, B, m.nv), qdd=T(0.5, B, m.nv),
                 u=T(1.0, B, m.nv), F1=T(0.5, m.nb, 6),
                 FB=T(0.5, B, m.nb, 6), U=T(0.2, H, B, m.nv),
-                FH=T(0.5, H, m.nb, 6))
+                FH=T(0.5, H, m.nb, 6), X_nom=X_nom, U_nom=T(1.0, B, H, m.nv),
+                k_ff=T(0.1, B, H, m.nv), K_fb=T(0.1, B, H, m.nv, 2 * m.nv),
+                u_clip=torch.full((m.nv,), 0.6, dtype=torch.float64))
 
 
 def _ptr(t):
@@ -93,13 +117,13 @@ def _close(got, want):
 
 
 @pytest.mark.parametrize("key,kernel", CASES)
-def test_host_kernel_matches_lane_plain(host_libs, key, kernel):
+def test_host_kernel_matches_lane_plain(host_build, key, kernel):
     """The generated kernel, built for the host, equals its plain version
     (the same lane sweep on tensors) at 1e-12 on every variant: K10 bias
     and with qdd; K1 bare, under one (nb, 6) set and one set a state; K6 on
     both routes under each; K5 on both routes with and without (H, nb, 6)
     wrenches."""
-    m, lib = host_libs[key]
+    m, lib = host_build(key)
     inp = _inputs(m, CASES.index((key, kernel)))
     x = torch.cat([inp["q"], inp["qd"]], 1)
     wrenches = ((None, 0), (inp["F1"], 0), (inp["FB"], m.nb * 6))
@@ -141,11 +165,60 @@ def test_host_kernel_matches_lane_plain(host_libs, key, kernel):
                     m, x0, inp["U"], DT, GRAVITY, ("aba", "minv")[minv], fe))
 
 
-def test_other_gravity_gets_its_own_library(host_libs):
+@pytest.mark.parametrize("key,kernel", SOLVER_CASES)
+def test_host_solver_kernel_matches_lane_plain(host_build, key, kernel):
+    """The solver's generated kernels, built for the host, equal their
+    plain lane versions at 1e-12: K2 (``rbd_feedback_rollout_static``)
+    bare, with a clamp and with the clamp under (H, nb, 6) wrenches over H
+    knots; K3 (``rbd_linearize_parts_static``, one column a thread, its
+    M^-1 columns mirrored); K4 (``rbd_ee_gn_static``,
+    ``rbd_ee_err_static``, the effector's own library) on its effector."""
+    inp = _inputs(host_build(key)[0], 20 + SOLVER_CASES.index((key, kernel)))
+    if kernel == "k4":
+        m, lib = host_build(key, ee=True)
+        target = (0.3, 0.1, 0.2)
+        e, g0, H0 = fk_lane.ee_gn_static_plain(
+            m, inp["q"], target, ee_names=EFFECTORS[key])
+        out = [torch.empty_like(t) for t in (e, g0, H0)]
+        assert lib.rbd_ee_gn_static(_ptr(inp["q"]), *target,
+                                    *map(_ptr, out), B, 1, None) == 0
+        for got, want in zip(out, (e, g0, H0)):
+            _close(got, want)
+        err = torch.empty_like(e)
+        assert lib.rbd_ee_err_static(_ptr(inp["q"]), *target, _ptr(err), B,
+                                     1, None) == 0
+        _close(err, e)
+        return
+    m, lib = host_build(key)
+    if kernel == "k3":
+        want = colvec.linearize_parts_static_plain(m, inp["q"], inp["qd"],
+                                                   inp["u"], GRAVITY)
+        out = [torch.empty_like(t) for t in want]
+        assert lib.rbd_linearize_parts_static(
+            _ptr(inp["q"]), _ptr(inp["qd"]), _ptr(inp["u"]),
+            *map(_ptr, out), B, 1, None) == 0
+        for got, w in zip(out, want):
+            _close(got, w)
+        return
+    x0 = torch.cat([inp["q"], 0.2 * inp["qd"]], 1)
+    args = (x0, inp["X_nom"], inp["U_nom"], inp["k_ff"], inp["K_fb"])
+    for uc, fe in ((None, None), (inp["u_clip"], None),
+                   (inp["u_clip"], inp["FH"])):
+        Xo, Uo = torch.empty_like(inp["X_nom"]), torch.empty_like(inp["U_nom"])
+        assert lib.rbd_feedback_rollout_static(
+            *map(_ptr, args), _ptr(fe), _ptr(uc), _ptr(Xo), _ptr(Uo), B, H,
+            1, DT, None) == 0
+        Xw, Uw = fused.feedback_rollout_static_plain(m, *args, DT, GRAVITY,
+                                                     uc, fe)
+        _close(Xo, Xw)
+        _close(Uo, Uw)
+
+
+def test_other_gravity_gets_its_own_library():
     """Gravity is folded into the code: another gravity gives other
     sources and another build directory, which ``model_library`` keys by
     the gravity, with the same operations a state."""
-    m, _ = host_libs["arm7"]
+    m = load_asset("arm7", device="cpu", dtype=torch.float64)
     ga, gb = (codegen.generate(m, torch.float64, g) for g in (GRAVITY, -9.8))
     assert ga.sources != gb.sources
     assert _lib.static_dir(ga) != _lib.static_dir(gb)
@@ -175,7 +248,9 @@ def test_one_inertia_apart_gets_its_own_library():
 @pytest.mark.parametrize("path", ["rbdtpu_torch/kernels/lanescalar.py",
                                   "rbdtpu_torch/kernels/codegen.py",
                                   "rbdtpu_torch/kernels/fused.py",
-                                  "rbdtpu_torch/kernels/_lib.py"])
+                                  "rbdtpu_torch/kernels/_lib.py",
+                                  "rbdtpu_torch/kernels/colvec.py",
+                                  "rbdtpu_torch/kernels/fk_lane.py"])
 def test_module_imports_no_jax(path):
     """The specialised kernels' modules import neither jax nor rbdtpu."""
     with open(os.path.join(_ROOT, path)) as f:

@@ -1790,3 +1790,118 @@ def test_static_refuses_another_dtype(static_models):
     x = torch.zeros(4, m.nx, dtype=torch.float16, device=m.device)
     with pytest.raises(ValueError):
         fd_step_fused(m, x, x[:, :m.nv].contiguous(), DT, specialize=True)
+
+
+# ---- the solver's kernels specialised (K2·K0, K3·K0, K4·K0) ----
+STATIC_EE = {"arm7": None, "quad_rpy": ("FL_knee",)}
+
+
+@pytest.fixture(scope="module")
+def static_solver_models(static_models):
+    """static_models with every effector library built too, in one
+    parallel build."""
+    _lib.prepare_static([], ees=[
+        (m, dt, *fk_lane._single_ee(m, STATIC_EE[n]))
+        for (n, dt), m in static_models.items()])
+    return static_models
+
+
+@pytest.mark.parametrize("variant", ["free", "clip", "clip_fext"])
+@pytest.mark.parametrize("B", TEAM_BATCHES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+@pytest.mark.parametrize("name", list(STATIC_MODELS))
+def test_static_feedback_rollout(static_solver_models, name, dtype, B,
+                                 variant):
+    """``feedback_rollout_static`` (K2·K0) over 8 knots of
+    ``_closed_loop``'s line search against its plain lane version and the
+    table K2, bare, with a clamp at 0.8 of each joint's largest unclamped
+    control (1 N m at least), and with that clamp under (H, nb, 6)
+    wrenches of 0.5 N(0,1)."""
+    m, H = static_solver_models[name, dtype], 8
+    args = _closed_loop(m, B, H)
+    kw = {}
+    if variant != "free":
+        applied = feedback_rollout_fused(m, *args, DT)[1]
+        kw["u_clip"] = (0.8 * applied.abs().amax((0, 1))).clamp(min=1.0)
+    if variant == "clip_fext":
+        (kw["f_ext"],) = _inputs(m, (H, m.nb, 6))
+    out = _static_launched("feedback_rollout_static",
+                           lambda: feedback_rollout_fused(
+                               m, *args, DT, specialize=True, **kw))
+    tol = _static_tol(dtype, H)
+    for want in (fused.feedback_rollout_static_plain(m, *args, DT, **kw),
+                 feedback_rollout_fused(m, *args, DT, **kw)):
+        for a, b in zip(out, want):
+            _close(a, b, tol)
+
+
+@pytest.mark.parametrize("B", TEAM_BATCHES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+@pytest.mark.parametrize("name", list(STATIC_MODELS))
+def test_static_linearize(static_solver_models, name, dtype, B):
+    """``linearize_parts_static`` (K3·K0, one thread a derivative column)
+    against its plain lane version and the table K3: M^-1 symmetrised,
+    dc/dq, dc/dqd and qdd."""
+    m, tol = static_solver_models[name, dtype], _static_tol(dtype)
+    q, qd, u = _inputs(m, (B, m.nq), (B, m.nv), (B, m.nv))
+    if m.floating_base:
+        q = _root_start(m, B)[:, :m.nq].contiguous()
+    out = _static_launched("linearize_parts_static", lambda:
+                           linearize_parts_fused(m, q, qd, u,
+                                                 specialize=True))
+    for want in (colvec.linearize_parts_static_plain(m, q, qd, u),
+                 linearize_parts_fused(m, q, qd, u)):
+        for a, b in zip(out, want):
+            _close(a, b, tol)
+
+
+@pytest.mark.parametrize("B", TEAM_BATCHES)
+@pytest.mark.parametrize("gn", [True, False], ids=["gn", "err"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+@pytest.mark.parametrize("name", list(STATIC_MODELS))
+def test_static_ee(static_solver_models, name, dtype, gn, B):
+    """``ee_gn_static`` / ``ee_err_static`` (K4·K0, the effector's own
+    library) against their plain lane version and the table K4."""
+    m, tol = static_solver_models[name, dtype], _static_tol(dtype)
+    (q,) = _inputs(m, (B, m.nq))
+    ee = STATIC_EE[name]
+    out = _static_launched("ee_gn_static" if gn else "ee_err_static",
+                           lambda: ee_gn_fused(m, q, TARGET, ee_names=ee,
+                                               gn=gn, specialize=True))
+    for want in (fk_lane.ee_gn_static_plain(m, q, TARGET, ee_names=ee,
+                                            gn=gn),
+                 ee_gn_fused(m, q, TARGET, ee_names=ee, gn=gn)):
+        for a, b in zip(out, want):
+            if b is None:
+                assert a is None
+            else:
+                _close(a, b, tol)
+
+
+def test_static_solve_launches_only_k0(static_solver_models):
+    """configs[2]'s solve cut to 4 problems, H=8, 2 iterations, float32,
+    with ``DDPConfig(fused=True, specialize=True)`` and
+    ``ee_reaching_cost(specialize=True)``: K1·K0-K4·K0 launched, no table
+    kernel of K1-K4, and the controls within 1e-3 (relative) of the table
+    route's."""
+    from rbdtpu_torch.dynamics import rnea
+    from rbdtpu_torch.solver import DDPConfig, ddp_solve, ee_reaching_cost
+
+    m = static_solver_models["arm7", torch.float32]
+    (q0,) = _inputs(m, (4, m.nq), scale=0.3)
+    z = torch.zeros_like(q0)
+    x0 = torch.cat([q0, z], -1)
+    U0 = rnea(m, q0, z, z)[0][:, None].expand(4, 8, m.nv).contiguous()
+    runs = {}
+    for spec in (True, False):
+        cost = ee_reaching_cost(m, TARGET, specialize=spec)
+        _lib.reset_launches()
+        runs[spec] = ddp_solve(m, cost, x0, U0, DDPConfig(
+            iters=2, fused=True, specialize=spec))[0]
+        torch.cuda.synchronize()
+        if spec:
+            moved = {k for k, v in _lib.launches.items() if v}
+            assert moved == {"fd_step_static", "feedback_rollout_static",
+                             "linearize_parts_static", "ee_gn_static",
+                             "ee_err_static"}, moved
+    _close(runs[True].U, runs[False].U, 1e-3)

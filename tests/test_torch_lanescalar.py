@@ -5,9 +5,16 @@ lane sweeps at 1e-9 on arm7, the rpy and the quaternion quadruped and the
 rpy humanoid, the operations the port's generator emits a state equal to
 those rbdtpu traces, and the four entry points with ``specialize=True``
 on CPU tensors (the lane sweeps on (B,) tensors) against rbdtpu's Pallas
-kernels in interpret mode at 1e-9.  rbdtpu's results are recorded in
-tests/data/lane_refs.npz by tests/make_lane_fixture.py, so this file runs
-no JAX computation."""
+kernels in interpret mode at 1e-9.  The solver's kernels likewise on
+arm7 and both quadruped roots: the lane sweeps of K2, K3 and K4
+(``_dx_rows``, ``minv_colvec``, ``grad_pass_colvec``, ``ee_chain_lane``),
+``specialize=True`` on ``feedback_rollout_fused``,
+``linearize_parts_fused`` and ``ee_gn_fused``, their bodies' operation
+counts, and configs[2]'s specialised ``ddp_solve`` (controls < 1e-6).
+rbdtpu's results are recorded in tests/data/lane_refs.npz and
+tests/data/k0_solver_refs.npz by tests/make_lane_fixture.py and
+tests/make_k0_solver_fixture.py, so this file runs no JAX
+computation."""
 import os
 
 import numpy as np
@@ -201,3 +208,191 @@ def test_dispatch_on_the_scalar_type():
     ls.where(s < 0.0, ls.sin(s), ls.clip(ls.rsqrt(s), -1.0, 1.0))
     assert em.count == 5
     assert "sin(a)" in em.lines[1] and "t0 ? t1 : t3" in em.lines[-1]
+
+
+# ---- K0 of the solver's kernels (K2, K3, K4): tests/data/k0_solver_refs.npz
+# (tests/make_k0_solver_fixture.py) ----
+SOLVER_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "data", "k0_solver_refs.npz")
+SOLVER_MODELS = {"arm7": ("arm7", False, False, None, (0.3, 0.2, 0.8)),
+                 "quad_rpy": ("quadruped12", True, False, ("FL_knee",),
+                              (0.3, 0.1, 0.1)),
+                 "quad_quat": ("quadruped12", True, True, ("FL_knee",),
+                               (0.3, 0.1, 0.1))}
+U_CLIP = 0.8
+WEIGHTS = dict(w_ee=10.0, w_ee_f=2000.0, w_u=1e-6, w_qd=1e-3, w_qd_f=0.1)
+
+
+@pytest.fixture(scope="module")
+def sref():
+    with np.load(SOLVER_PATH) as f:
+        return {k: f[k] for k in f.files}
+
+
+@pytest.fixture(scope="module")
+def smodels():
+    return {k: load_asset(a, device="cpu", dtype=torch.float64,
+                          floating_base=fb, root_quat=qt)
+            for k, (a, fb, qt, _, _) in SOLVER_MODELS.items()}
+
+
+def colscalars(vals, B, C):
+    """Colscalars (B, C) tensors, (B, 1) lanes or statics -> (n, C, B), the
+    layout rbdtpu's (C, B) colscalars are recorded in."""
+    return np.stack([np.broadcast_to(np.asarray(v), (B, C)).T for v in vals])
+
+
+@pytest.mark.parametrize("sweep", ["dx_rows", "minv_colvec", "grad_pass",
+                                   "ee_chain"])
+@pytest.mark.parametrize("key", list(SOLVER_MODELS))
+def test_solver_lane_sweeps_match_rbdtpu(sref, smodels, key, sweep):
+    """The solver kernels' lane sweeps against rbdtpu's on the same inputs,
+    at 1e-9: ``_dx_rows`` (the quaternion root's manifold difference
+    included), ``minv_colvec`` and both ``grad_pass_colvec`` sweeps on
+    (B, 1) lanes with (C,) one-hot masks (every root's seeds: the rpy
+    Euler columns, the quaternion's tangent rotations, the root's dqd
+    identity), and ``ee_chain_lane`` (the effector's position and each
+    Jacobian column with its velocity index)."""
+    from rbdtpu_torch.kernels import colvec, fk_lane
+
+    m = smodels[key]
+    ms = fused.get_static(m)
+    g = lambda k: sref[f"{key}/in/{k}"]
+    B = g("q").shape[0]
+    if sweep == "dx_rows":
+        got = fused._dx_rows(ms, lanes(g("x0")), lanes(g("X_nom")[:, 0]))
+        close(stack(got, B), sref[f"{key}/dx_rows"])
+    elif sweep == "ee_chain":
+        jid, fid = fk_lane._single_ee(m, SOLVER_MODELS[key][3])
+        p_ee, cols = fk_lane.ee_chain_lane(ms, lanes(g("q")), jid, fid,
+                                           (0.0, 0.0, 0.0))
+        close(stack(p_ee, B), sref[f"{key}/ee_p"])
+        assert [vi for vi, _ in cols] == sref[f"{key}/ee_vi"].tolist()
+        close(np.stack([stack(col, B) for _, col in cols]),
+              sref[f"{key}/ee_cols"])
+    else:
+        C = colvec._pad8(ms.nv)
+        col = lambda a: [T(a[:, i])[:, None] for i in range(a.shape[1])]
+        q, qd, u = col(g("q")), col(g("qd")), col(g("u"))
+        X = [fused._body_xc(ms, i, q) for i in range(ms.nb)]
+        qdd = fused.aba_lane(ms, q, qd, u, GRAVITY, X=X)
+        v, a, f, _ = fused._rnea_sweeps_lane(ms, X, qd, qdd, GRAVITY)
+        oh = colvec._make_oh(C, T(g("q")))
+        if sweep == "minv_colvec":
+            close(colscalars(colvec.minv_colvec(ms, X, oh), B, C),
+                  sref[f"{key}/minv_colvec"])
+        else:
+            for wrt in ("q", "qd"):
+                close(colscalars(colvec.grad_pass_colvec(
+                    ms, X, q, qd, v, a, f, oh, wrt, GRAVITY), B, C),
+                    sref[f"{key}/grad_{wrt}"])
+
+
+@pytest.mark.parametrize("kernel", ["k2", "k3", "k4"])
+@pytest.mark.parametrize("key", list(SOLVER_MODELS))
+def test_specialized_solver_kernels_match_rbdtpu(sref, smodels, key, kernel):
+    """``feedback_rollout_fused``, ``linearize_parts_fused`` and
+    ``ee_gn_fused`` with ``specialize=True`` on CPU tensors (the plain
+    versions of ``feedback_rollout_static``, ``linearize_parts_static``,
+    ``ee_gn_static`` and ``ee_err_static``) against rbdtpu's Pallas kernels
+    in interpret mode, at 1e-9: K2 with a clamp, and with it under
+    (H, nb, 6) wrenches; K3's symmetrised M^-1, dc/dq, dc/dqd and qdd; K4
+    with gn True and False."""
+    from rbdtpu_torch.kernels import colvec, fk_lane
+
+    m = smodels[key]
+    g = lambda k: T(sref[f"{key}/in/{k}"])
+    r = lambda k: sref[f"{key}/{k}"]
+    if kernel == "k2":
+        clip = torch.full((m.nv,), U_CLIP, dtype=torch.float64)
+        for tag, F in (("clip", None), ("clip_fext", g("FH"))):
+            X, U = fused.feedback_rollout_fused(
+                m, g("x0"), g("X_nom"), g("U_nom"), g("k_ff"), g("K_fb"), DT,
+                GRAVITY, u_clip=clip, f_ext=F, specialize=True)
+            close(X, r(f"k2_{tag}_X"))
+            close(U, r(f"k2_{tag}_U"))
+    elif kernel == "k3":
+        Mi, dcq, dcd, qdd = colvec.linearize_parts_fused(
+            m, g("q"), g("qd"), g("u"), GRAVITY, specialize=True)
+        close(torch.stack([Mi, dcq, dcd]), r("k3"))
+        close(qdd, r("k3_qdd"))
+    else:
+        _, _, _, ee, target = SOLVER_MODELS[key]
+        for gn, tag in ((True, "gn"), (False, "err")):
+            out = fk_lane.ee_gn_fused(m, g("q"), target, ee_names=ee, gn=gn,
+                                      specialize=True)
+            for name, got in zip(("e", "g0", "H0"), out):
+                if gn or name == "e":
+                    close(got, r(f"k4_{tag}_{name}"))
+                else:
+                    assert got is None
+
+
+@pytest.mark.parametrize("key", list(SOLVER_MODELS))
+def test_generator_emits_rbdtpus_solver_operations(sref, smodels, key):
+    """K2's knot body (without and with wrenches), K3's column body and
+    K4's effector error hold exactly as many operations a state as rbdtpu's
+    jaxpr of the same body has equations (less its dtype conversions)."""
+    from rbdtpu_torch.kernels import fk_lane
+
+    m = smodels[key]
+    ops = codegen.generate(m, torch.float64, GRAVITY).ops
+    for body in ("feedback", "feedback_fext", "linearize"):
+        assert ops[body] == int(sref[f"{key}/ops/{body}"]), body
+    jid, fid = fk_lane._single_ee(m, SOLVER_MODELS[key][3])
+    ee_ops = codegen.generate_ee(m, torch.float64, jid, fid).ops
+    assert ee_ops["ee_err"] == int(sref[f"{key}/ops/ee_err"])
+    # ee_gn adds J^T e and the upper triangle of J^T J, which rbdtpu forms
+    # on its colscalars (no lane body to count)
+    assert ee_ops["ee_gn"] > ee_ops["ee_err"]
+
+
+def test_specialized_solve_matches_rbdtpu(sref, smodels):
+    """configs[2]'s ``ddp_solve`` with ``DDPConfig(fused=True,
+    specialize=True)`` and ``ee_reaching_cost(specialize=True)`` on CPU
+    tensors (every kernel's plain lane version) against rbdtpu's solve with
+    every kernel of the path in interpret mode: controls < 1e-6, J 1e-9
+    relative."""
+    from rbdtpu_torch.solver import DDPConfig, ddp_solve, ee_reaching_cost
+
+    m = smodels["arm7"]
+    U_ref = sref["solve/U"]
+    cost = ee_reaching_cost(m, SOLVER_MODELS["arm7"][4], specialize=True,
+                            **WEIGHTS)
+    cfg = DDPConfig(iters=3, dt=DT, gravity=GRAVITY, n_alphas=8, fused=True,
+                    specialize=True)
+    st, hist = ddp_solve(m, cost, T(sref["solve/x0"]), T(sref["solve/U0"]),
+                         cfg)
+    close(st.U, U_ref, 1e-6)
+    np.testing.assert_allclose(hist.numpy(), sref["solve/J_hist"],
+                               rtol=1e-9, atol=0)
+
+
+def test_specialized_solve_refuses_routes_without_k0(smodels):
+    """``specialize=True`` raises ValueError, and never falls back to a
+    table kernel, where no model-specialised kernel exists: the line
+    search's K9 tier (the rpy humanoid at 256 x 4 trajectories with
+    ``fused_feedback=True``, rbdtpu's rule picks K9), a solve that is not
+    fused, and the EE cost's plain route."""
+    from rbdtpu_torch.solver import (DDPConfig, ddp_solve, ee_reaching_cost,
+                                     quadratic_tracking_cost)
+    from rbdtpu_torch.solver.ddp import _feedback_route
+
+    h = load_asset("humanoid30", device="cpu", dtype=torch.float64,
+                   floating_base=True)
+    cfg = DDPConfig(iters=1, n_alphas=4, fused=True, fused_feedback=True,
+                    specialize=True)
+    assert _feedback_route(h, cfg, 256 * 4)[0] == "chunked"
+    x0 = torch.zeros(256, h.nx, dtype=torch.float64)
+    U0 = torch.zeros(256, 2, h.nv, dtype=torch.float64)
+    cost = quadratic_tracking_cost(h, np.zeros(h.nx))
+    with pytest.raises(ValueError, match="chunked"):
+        ddp_solve(h, cost, x0, U0, cfg)
+    m = smodels["arm7"]
+    with pytest.raises(ValueError, match="fused=True"):
+        ddp_solve(m, quadratic_tracking_cost(m, np.zeros(m.nx)),
+                  torch.zeros(1, m.nx, dtype=torch.float64),
+                  torch.zeros(1, 2, m.nv, dtype=torch.float64),
+                  DDPConfig(iters=1, specialize=True))
+    with pytest.raises(ValueError, match="specialize"):
+        ee_reaching_cost(m, (0.3, 0.2, 0.8), fused=False, specialize=True)
